@@ -2,11 +2,13 @@
 ``medical_tri_modal_pilot_tpu`` for NVIDIA Hopper (H100).
 
 Module paths mirror the JAX package, so each counterpart is found by name.
-The port imports torch and never jax; it shares the JAX package's
-numpy-only modules (``config``, ``constants``, ``train.metrics``) as they
-are. Hand-written kernels live in ``kernels/`` (Triton) and ``csrc/``
-(CUDA C++), each beside a plain PyTorch version of the same function;
-``ops`` picks one by device.
+The port imports torch, never jax and nothing of the JAX package: it keeps
+its own copies of the numpy-only host modules (``config``, ``constants``,
+``train.metrics``). Hand-written kernels live in ``kernels/`` (Triton) and
+``csrc/`` (CUDA C++), each beside a plain PyTorch version of the same
+function; ``ops`` picks one by device.
 
-Slice 1 covers the eval step of ``tri_mbt_vsltcls`` on vslt+txt inputs.
+The port covers the eval step of ``tri_mbt_vsltcls`` on vslt+txt inputs
+and on vslt+img+txt inputs with the frozen Swin-T trunk, one or up to
+three images per sample.
 """

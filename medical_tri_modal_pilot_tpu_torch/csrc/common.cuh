@@ -10,6 +10,10 @@
 // Arithmetic runs in fp32. Values are rounded to the storage type T at the
 // points where the JAX kernels cast to their compute dtype, so bf16 results
 // follow the same rounding chain as the oracle.
+//
+// Besides the tile helpers, two whole kernels live here because more than
+// one source launches them: gemm_kernel (a row-major product with a fused
+// epilogue) and layer_norm_kernel (torch's LayerNorm, one warp per row).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -100,6 +104,26 @@ static __device__ __forceinline__ void ln_tile(
   __syncthreads();
 }
 
+// torch's LayerNorm of one row held in fp32 at row[0, C) (shared memory),
+// by one warp: biased variance, eps inside the square root, rounded to T
+// in place. Lane l reads and writes only columns l, l + 32, ...
+template <typename T>
+static __device__ __forceinline__ void layer_norm_row(
+    float* row, int C, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float eps, int lane) {
+  float s = 0.0f;
+  for (int c = lane; c < C; c += 32) s += row[c];
+  const float mu = warp_sum(s) / (float)C;
+  float v = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = row[c] - mu;
+    v += d * d;
+  }
+  const float inv = 1.0f / sqrtf(warp_sum(v) / (float)C + eps);
+  for (int c = lane; c < C; c += 32)
+    row[c] = rnd<T>((row[c] - mu) * inv * gamma[c] + beta[c]);
+}
+
 // acc[i][j] += sum_k A[ty + 16i][k] * W[k][n0 + tx + 16j] for k < K.
 // A: kTile x K fp32 in shared memory (leading dimension lda).
 // W: row-major with leading dimension ldw in device memory, staged
@@ -148,6 +172,98 @@ static __device__ __forceinline__ void copy_rows(
     int C, int tid) {
   const size_t base = (size_t)row0 * C;
   for (int e = tid; e < rows * C; e += kThreads) dst[base + e] = src[base + e];
+}
+
+static __device__ __forceinline__ float gelu_exact(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+// Epilogues of gemm_kernel (bias of T for kEpiBiasT, else fp32):
+constexpr int kEpiBiasT = 0;         // out = T(T(acc) + bias[n])
+constexpr int kEpiBiasGelu = 1;      // out = T(gelu(acc + bias[n]))
+constexpr int kEpiBiasResidual = 2;  // out = T(res[r, n] + (acc + bias[n]))
+
+// out[r, n] = epilogue(sum_k a[r, k] w[k, n]); a [R, K], w [K, N], res and
+// out [R, N] row-major in T; K % kKChunk == 0. 64 x 64 output tiles, a and
+// w staged kKChunk deep in shared memory, 4 x 4 register tiles per thread.
+// grid (ceil(R/64), ceil(N/64)).
+template <typename T, int EPI>
+__global__ void __launch_bounds__(kThreads) gemm_kernel(
+    const T* __restrict__ a, const T* __restrict__ w,
+    const void* __restrict__ bias, const T* __restrict__ res,
+    T* __restrict__ out, int R, int K, int N) {
+  __shared__ float As[kTile][kKChunk + 1];
+  __shared__ float Bs[kKChunk][kTile];
+  const int r0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float acc[4][4];
+  zero(acc);
+  for (int k0 = 0; k0 < K; k0 += kKChunk) {
+    for (int e = tid; e < kTile * kKChunk; e += kThreads) {
+      const int r = e / kKChunk, k = e - r * kKChunk;
+      As[r][k] = (r0 + r < R)
+          ? Num<T>::load(a[(size_t)(r0 + r) * K + k0 + k]) : 0.0f;
+    }
+    for (int e = tid; e < kKChunk * kTile; e += kThreads) {
+      const int kk = e / kTile, n = e - kk * kTile;
+      Bs[kk][n] = (n0 + n < N)
+          ? Num<T>::load(w[(size_t)(k0 + kk) * N + n0 + n]) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kKChunk; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[ty + 16 * i][kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + ty + 16 * i;
+    if (row >= R) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (col >= N) continue;
+      const size_t off = (size_t)row * N + col;
+      float v;
+      if (EPI == kEpiBiasT) {
+        v = rnd<T>(acc[i][j]) + Num<T>::load(((const T*)bias)[col]);
+      } else if (EPI == kEpiBiasGelu) {
+        v = gelu_exact(acc[i][j] + ((const float*)bias)[col]);
+      } else {
+        v = Num<T>::load(res[off]) + (acc[i][j] + ((const float*)bias)[col]);
+      }
+      out[off] = Num<T>::store(v);
+    }
+  }
+}
+
+// out = LayerNorm(x) rounded to T, one warp per row of [R, C], through
+// layer_norm_row on the row staged in shared memory (8 * C floats of
+// dynamic shared memory per block). grid (ceil(R/8)).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) layer_norm_kernel(
+    const T* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float eps, T* __restrict__ out, int R,
+    int C) {
+  extern __shared__ float rows[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (kThreads / 32) + warp;
+  if (r >= R) return;
+  float* row = rows + warp * C;
+  const size_t base = (size_t)r * C;
+  // each lane touches only its own columns, so the warp needs no barrier
+  for (int c = lane; c < C; c += 32) row[c] = Num<T>::load(x[base + c]);
+  layer_norm_row<T>(row, C, gamma, beta, eps, lane);
+  for (int c = lane; c < C; c += 32) out[base + c] = Num<T>::store(row[c]);
 }
 
 }  // namespace mtp

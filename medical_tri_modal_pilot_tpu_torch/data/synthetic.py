@@ -1,7 +1,6 @@
 """Seeded synthetic eval batches in the batch contract
 (medical_tri_modal_pilot_tpu/data/dataset.py:354-370), restricted to the
-keys the vslt+txt eval step reads. Counterpart of
-``__graft_entry__._synthetic_batch``.
+keys the eval step reads. Counterpart of ``__graft_entry__._synthetic_batch``.
 
 The real loader cannot run where the port runs yet: ``data/dataset.py``
 imports ``data/images.py``, which imports PIL at module level.
@@ -12,15 +11,35 @@ from typing import Dict
 
 import numpy as np
 
-from medical_tri_modal_pilot_tpu.config import Config
-from medical_tri_modal_pilot_tpu.constants import N_FEATURES
+from ..config import Config
+from ..constants import N_FEATURES
 
 
-def synthetic_batch(cfg: Config, batch_size: int,
-                    seed: int = 0) -> Dict[str, np.ndarray]:
+def _images(cfg: Config, rng, present: np.ndarray):
+    """CXRs as the loader emits them: fp32 [B, 1, S, S] with values k/255,
+    a missing image as zeros with time -1 (data/dataset.py:148-153). With
+    ``--multiimages 1``: [B, 3, 1, S, S] holding 1-3 images of a present
+    sample, absent slots zeros with time 10."""
+    B, S = len(present), cfg.image_size
+    slots = 3 if cfg.multiimages == 1 else 1
+    img = np.zeros((B, slots, 1, S, S), np.float32)
+    times = np.full((B, slots), 10.0 if slots == 3 else -1.0, np.float32)
+    for i in np.flatnonzero(present):
+        n = rng.integers(1, 4) if slots == 3 else 1
+        img[i, :n] = rng.integers(0, 256, (n, 1, S, S)) / np.float32(255)
+        times[i, :n] = rng.uniform(-24, 0, n)
+    if slots == 1:
+        return img[:, 0], times[:, 0]
+    return img, times
+
+
+def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
+                    present_frac: float = 0.5) -> Dict[str, np.ndarray]:
     """TIE streams of random valid lengths (time-sorted, padding at the
     end), BioBERT note embeddings [txt_token_size, 768] with a missing note
-    as zeros of length 0, and random targets."""
+    as zeros of length 0, random targets and, when ``--input-types`` has
+    img, images for round(present_frac * batch_size) samples at random
+    positions (so a caller can force the packed trunk or its overflow)."""
     rng = np.random.default_rng(seed)
     B, L = batch_size, cfg.tie_len
     tie = np.zeros((B, L, 3), np.float32)
@@ -40,7 +59,7 @@ def synthetic_batch(cfg: Config, batch_size: int,
             txt_length[i] = 0
         else:
             txt[i, txt_length[i]:] = 0.0
-    return {
+    batch = {
         "vslt": tie,
         "static": rng.uniform(0, 1, (B, 2)).astype(np.float32),
         "input_length": lengths,
@@ -51,3 +70,9 @@ def synthetic_batch(cfg: Config, batch_size: int,
         "target": rng.integers(0, 2, B).astype(np.float32),
         "target_aux": rng.uniform(0, 12, B).astype(np.float32),
     }
+    if "img" in cfg.input_types.split("_"):
+        present = np.zeros(B, bool)
+        present[rng.permutation(B)[:int(round(present_frac * B))]] = True
+        missing[:, 1] = ~present
+        batch["img"], batch["img_time"] = _images(cfg, rng, present)
+    return batch

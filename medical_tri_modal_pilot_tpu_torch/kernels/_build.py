@@ -1,6 +1,7 @@
 """Build and bind the CUDA C++ kernels of ``csrc/``.
 
-At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``, one
+process per source, all started together, and the objects are linked into
 one shared library with a plain C interface, which is loaded with ctypes.
 The library's file name carries a hash of the sources and flags, so an edit
 rebuilds it and a stale build is never loaded. The build directory is
@@ -21,17 +22,25 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> (argtypes); each returns cudaGetLastError()
+# C entry points: name -> (argtypes); each returns an int: the *_fwd
+# launchers cudaGetLastError(), swin_mlp_fuses a flag
 _SIGNATURES = {
     # x, gamma, beta, w, bias, mask, kend, kv, out, B, L, C, H, mult,
     # dtype, stream
     "attn_block_fwd": [_P] * 9 + [_I] * 4 + [ctypes.c_float, _I, _P],
     # x, gamma, beta, w1, b1, w2, b2, valid, y, R, C, F, dtype, stream
     "ffn_fwd": [_P] * 9 + [_I] * 4 + [_P],
+    # xw, wqkv, bqkv, wproj, bproj, bias, smask, qkv, heads, out, I, C, M,
+    # scale, dtype, stream
+    "swin_attention_fwd": [_P] * 10 + [_I] * 3 + [ctypes.c_float, _I, _P],
+    # x, scale, bias, w1, b1, w2, b2, ln, hidden, y, R, C, F, dtype, stream
+    "swin_mlp_fwd": [_P] * 10 + [_I] * 4 + [_P],
+    # C -> 1 where swin_mlp_fwd runs it fused
+    "swin_mlp_fuses": [_I],
 }
 
 
@@ -60,23 +69,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmtp_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the errors of any that
+    fail."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{err}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def _compile(out: Path) -> None:
     sources, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent reader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # build under a private directory, then rename: a concurrent reader
+    # never sees a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+        _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(sources, objs)])
+        lib = Path(tmp) / out.name
+        _run_all([[nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib), *objs]])
+        os.replace(lib, out)
 
 
 @functools.cache

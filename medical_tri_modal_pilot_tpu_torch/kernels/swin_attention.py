@@ -1,0 +1,106 @@
+"""Window attention of the Swin blocks, per 7x7 window: qkv projection,
+per-head scores + relative-position bias + shifted-window mask, softmax,
+@v, output projection. The plain PyTorch version and the CUDA kernel
+(``csrc/swin_attention.cu``). Forward only: the trunk is frozen.
+
+Counterpart of medical_tri_modal_pilot_tpu/kernels/swin_attention.py
+(``xla_window_attention`` and ``pallas_window_attention``), with its
+public layout: xw [I, N, C] pre-windowed tokens (image-major, so window i
+of an image with M windows uses shift mask i % M), wqkv [C, 3C],
+bqkv [3C], wproj [C, C], bproj [C], bias [nh, N, N] fp32, smask [M, N, N]
+bool (True = masked) or None.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..constants import MASK_FILL_VALUE
+from . import _build
+from ._util import forward_only
+
+# the kernel's geometry: 7x7 windows, 32-wide heads
+WINDOW_TOKENS = 49
+HEAD_DIM = 32
+
+
+def torch_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
+                           smask: Optional[torch.Tensor],
+                           num_heads: int) -> torch.Tensor:
+    """Rounds where xla_window_attention rounds: qkv and its bias in the
+    compute dtype; scores in fp32, divided by sqrt(d_head), plus the bias;
+    shift-masked scores set to -65504; softmax probabilities cast to the
+    value dtype; @v and the output projection in the compute dtype."""
+    I, N, C = xw.shape
+    dh = C // num_heads
+    dt = xw.dtype
+    qkv = xw @ wqkv.to(dt) + bqkv.to(dt)
+    q, k, v = (t.reshape(I, N, num_heads, dh).transpose(1, 2)
+               for t in qkv.split(C, dim=-1))
+    s = q.float() @ k.float().transpose(-1, -2)
+    s = s / math.sqrt(dh) + bias[None].float()
+    if smask is not None:
+        sm = smask.repeat(I // smask.shape[0], 1, 1)
+        s = s.masked_fill(sm[:, None], MASK_FILL_VALUE)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = (p @ v).transpose(1, 2).reshape(I, N, C)
+    return o @ wproj.to(dt) + bproj.to(dt)
+
+
+def cuda_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
+                          smask: Optional[torch.Tensor],
+                          num_heads: int) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors (fp32 or bf16 xw)."""
+    forward_only("swin_attention", xw, wqkv, bqkv, wproj, bproj, bias)
+    if xw.device.type != "cuda":
+        raise ValueError(f"cuda_window_attention needs CUDA tensors, got "
+                         f"{xw.device}")
+    if xw.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"swin_attention takes fp32 or bf16, got {xw.dtype}")
+    if xw.dim() != 3 or not xw.is_contiguous():
+        raise ValueError("swin_attention needs a contiguous [I, N, C] xw")
+    I, N, C = xw.shape
+    if N != WINDOW_TOKENS or C != num_heads * HEAD_DIM:
+        raise ValueError(f"swin_attention takes {WINDOW_TOKENS} tokens per "
+                         f"window and {HEAD_DIM}-wide heads; got N={N}, "
+                         f"C={C}, heads={num_heads}")
+    shapes = {"wqkv": (wqkv, (C, 3 * C)), "bqkv": (bqkv, (3 * C,)),
+              "wproj": (wproj, (C, C)), "bproj": (bproj, (C,)),
+              "bias": (bias, (num_heads, N, N))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{list(t.shape)}")
+    M = 0
+    mask = None
+    if smask is not None:
+        M = smask.shape[0]
+        if tuple(smask.shape) != (M, N, N) or I % M != 0:
+            raise ValueError(f"smask must be [M, {N}, {N}] with M dividing "
+                             f"{I}, got {list(smask.shape)}")
+        mask = smask.to(device=xw.device, dtype=torch.int8).contiguous()
+    dt = xw.dtype
+    wqkv, bqkv, wproj, bproj = (t.to(dt).contiguous()
+                                for t in (wqkv, bqkv, wproj, bproj))
+    bias = bias.to(torch.float32).contiguous()
+    for t in (wqkv, bqkv, wproj, bproj, bias):
+        if t.device != xw.device:
+            raise ValueError(f"swin_attention operands on {t.device}, xw on "
+                             f"{xw.device}")
+    out = torch.empty_like(xw)
+    if I == 0:
+        return out
+    # scratch: q|k|v of every token, then the heads' outputs
+    qkv = torch.empty(I, N, 3 * C, dtype=dt, device=xw.device)
+    heads = torch.empty_like(xw)
+    rc = _build.library().swin_attention_fwd(
+        xw.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
+        bproj.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), qkv.data_ptr(),
+        heads.data_ptr(), out.data_ptr(), I, C, M, float(math.sqrt(HEAD_DIM)),
+        0 if dt == torch.float32 else 1,
+        torch.cuda.current_stream(xw.device).cuda_stream)
+    _build.check(rc, "swin_attention")
+    return out

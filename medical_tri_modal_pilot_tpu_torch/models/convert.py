@@ -10,7 +10,10 @@ does not use.
 Layout rules (the inverse of convert_ref's): flax kernel [in, out] ->
 torch Linear weight [out, in]; FFN kernels -> Conv1d weights [out, in, 1];
 LayerNorm scale/bias -> weight/bias; BatchNorm running stats from
-batch_stats.
+batch_stats. The Swin trunk goes under torchvision's ``swin_t`` names
+(the inverse of the JAX package's ``models/convert.py::convert_swin_t``):
+conv kernels [kh, kw, in, out] -> [out, in, kh, kw], and the patch
+merges' 4C axis back from the JAX group order to torchvision's.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from medical_tri_modal_pilot_tpu.config import Config
+from ..config import Config
 
 
 def _t(a) -> torch.Tensor:
@@ -55,6 +58,55 @@ def _encoder_layer(sd, base: str, p: Mapping) -> None:
         sd[f"{base}.feed_forward.{w}.bias"] = _t(p["feed_forward"][w]["bias"])
 
 
+# the JAX PatchMerging's neighbour groups against torchvision's
+# (medical_tri_modal_pilot_tpu/models/convert.py:60); a swap, so its own
+# inverse
+_MERGE_PERM = (0, 2, 1, 3)
+
+
+def _merge_permute(a: np.ndarray, C: int) -> np.ndarray:
+    groups = np.asarray(a).reshape(4, C, *np.shape(a)[1:])
+    return groups[list(_MERGE_PERM)].reshape(np.shape(a))
+
+
+def swin_state_dict(p: Mapping, pre: str = "") -> Dict[str, torch.Tensor]:
+    """Flax ``SwinTransformer`` params -> the port's trunk state_dict, keys
+    prefixed with ``pre``. Stages and depths are read from the tree."""
+    sd: Dict[str, torch.Tensor] = {}
+    kern = np.asarray(p["patch_embed"]["kernel"])             # [kh, kw, I, O]
+    sd[f"{pre}features.0.0.weight"] = _t(kern.transpose(3, 2, 0, 1))
+    sd[f"{pre}features.0.0.bias"] = _t(p["patch_embed"]["bias"])
+    _ln(sd, f"{pre}features.0.2", p["patch_norm"])
+    dim = kern.shape[-1]
+    si = 0
+    while f"stage{si}_block0" in p:
+        f = 2 * si + 1
+        bi = 0
+        while f"stage{si}_block{bi}" in p:
+            blk, base = p[f"stage{si}_block{bi}"], f"{pre}features.{f}.{bi}"
+            _ln(sd, f"{base}.norm1", blk["norm1"])
+            _ln(sd, f"{base}.norm2", blk["norm2"])
+            _lin(sd, f"{base}.attn.qkv", blk["attn"]["qkv"])
+            _lin(sd, f"{base}.attn.proj", blk["attn"]["proj"])
+            sd[f"{base}.attn.relative_position_bias_table"] = _t(
+                blk["attn"]["relative_position_bias_table"])
+            _lin(sd, f"{base}.mlp.0", blk["mlp_fc1"])
+            _lin(sd, f"{base}.mlp.3", blk["mlp_fc2"])
+            bi += 1
+        if f"merge{si}" in p:
+            m, base = p[f"merge{si}"], f"{pre}features.{f + 1}"
+            sd[f"{base}.norm.weight"] = _t(
+                _merge_permute(m["norm"]["scale"], dim))
+            sd[f"{base}.norm.bias"] = _t(_merge_permute(m["norm"]["bias"],
+                                                        dim))
+            sd[f"{base}.reduction.weight"] = _t(
+                _merge_permute(m["reduction"]["kernel"], dim).T)
+            dim *= 2
+        si += 1
+    _ln(sd, f"{pre}norm", p["norm"])
+    return sd
+
+
 def _fusion(sd, pre: str, p: Mapping, n_mod: int) -> None:
     """MBTFusion tree -> ``{pre}.bottlenecks``, ``.cls_token_per_modality``,
     ``.layer_norms_in``, ``.layer_stacks.{layer}.{modality}``."""
@@ -83,6 +135,10 @@ def from_jax_variables(cfg: Config, variables: Mapping
         _stem(sd, name, umse[name])
     sd["ie_feat.weight"] = _t(umse["ie_feat"]["embedding"])
     _lin(sd, "txt_embedding", umse["txt_embedding"])
+    if "img" in cfg.input_types.split("_"):
+        img = params["backbone"]["img_enc"]
+        sd.update(swin_state_dict(img["img_encoder"], "img_encoder."))
+        _lin(sd, "linear", img["linear"])
 
     _fusion(sd, "fusion_transformer",
             params["backbone"]["fusion_transformer"],

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from medical_tri_modal_pilot_tpu.constants import MASK_FILL_VALUE
+from ..constants import MASK_FILL_VALUE
 
 from .. import ops
 from ..kernels.ffn import BLOCK_R as FFN_BLOCK_R

@@ -8,10 +8,11 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from medical_tri_modal_pilot_tpu.config import Config
+from ..config import Config
 
 from . import models as M
 from .modules import ProjLinear, StdLayerNorm
+from .swin import WindowAttention
 
 _REGISTRY: Dict[str, Callable] = {
     "tri_mbt_vsltcls": M.TRI_MBT_VSLTCLS,
@@ -22,7 +23,9 @@ _REGISTRY: Dict[str, Callable] = {
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Initialise every parameter from ``generator`` with the JAX package's
     initialisers: xavier-uniform q/k/v projections, fan-in normal for the
-    other dense and conv1x1 weights, zero biases, unit normals for the
+    other dense and convolution weights (the Swin trunk's included), zero
+    biases, truncated normals of std 0.02 for the Swin relative-position
+    bias tables (flax's ``truncated_normal(0.02)``), unit normals for the
     embedding table, cls tokens and bottlenecks, identity norms."""
     def fill(p, values):
         p.copy_(values.to(p.dtype))
@@ -41,12 +44,20 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                  * bound)
             lin.bias.zero_()
             projections.add(lin)
-        elif isinstance(mod, (nn.Linear, nn.Conv1d)):
+        elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             if mod in projections:
                 continue
             fan_in = mod.weight[0].numel()
             fill(mod.weight, randn(mod.weight) / math.sqrt(fan_in))
-            mod.bias.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, WindowAttention):
+            # flax scales its [-2, 2]-truncated unit normal by the std of
+            # that truncation (0.8796), so the draws have std 0.02
+            table = mod.relative_position_bias_table
+            fill(table, nn.init.trunc_normal_(
+                torch.empty(table.shape), generator=generator)
+                * (0.02 / 0.87962566103423978))
         elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
             mod.reset_parameters()
         elif isinstance(mod, StdLayerNorm):

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from medical_tri_modal_pilot_tpu.constants import N_FEATURE_IDS
+from ..constants import N_FEATURE_IDS
 
 from .. import ops
 from ..kernels.umse import stem as stem_formula

@@ -1,5 +1,6 @@
 """Kernel dispatch for one device (counterpart of
-medical_tri_modal_pilot_tpu/ops/__init__.py:261-325).
+medical_tri_modal_pilot_tpu/ops/__init__.py:261-325): the five kernels of the
+flagship's eval step.
 
 Each wrapper picks its implementation by the device of its input: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
@@ -18,9 +19,11 @@ import torch
 
 from ..kernels import attn_block as _attn_block
 from ..kernels import ffn as _ffn
+from ..kernels import swin_attention as _swin_attention
+from ..kernels import swin_mlp as _swin_mlp
 from ..kernels import umse as _umse
 
-KERNELS = ("umse", "attn_block", "ffn")
+KERNELS = ("umse", "attn_block", "ffn", "swin_attention", "swin_mlp")
 launches = {name: 0 for name in KERNELS}
 
 _reference = False
@@ -80,4 +83,25 @@ def ffn(x, gamma, beta, w1, b1, w2, b2,
         return _ffn.torch_ffn(x, gamma, beta, w1, b1, w2, b2, block_valid)
     out = _ffn.cuda_ffn(x, gamma, beta, w1, b1, w2, b2, block_valid)
     launches["ffn"] += 1
+    return out
+
+
+def swin_attention(xw, wqkv, bqkv, wproj, bproj, bias,
+                   smask: Optional[torch.Tensor], num_heads: int):
+    """Swin window attention over [I, 49, C] windows, output [I, 49, C]."""
+    if not _launches_kernel(xw):
+        return _swin_attention.torch_window_attention(
+            xw, wqkv, bqkv, wproj, bproj, bias, smask, num_heads)
+    out = _swin_attention.cuda_window_attention(
+        xw, wqkv, bqkv, wproj, bproj, bias, smask, num_heads)
+    launches["swin_attention"] += 1
+    return out
+
+
+def swin_mlp(x, scale, bias, w1, b1, w2, b2):
+    """x + fc2(gelu(fc1(LN(x)))) over [R, C] rows."""
+    if not _launches_kernel(x):
+        return _swin_mlp.torch_swin_mlp(x, scale, bias, w1, b1, w2, b2)
+    out = _swin_mlp.cuda_swin_mlp(x, scale, bias, w1, b1, w2, b2)
+    launches["swin_mlp"] += 1
     return out

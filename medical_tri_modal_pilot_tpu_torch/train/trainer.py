@@ -3,8 +3,9 @@ medical_tri_modal_pilot_tpu/train/trainer.py): missing-modality codes, the
 detection loss, eval output selection, and a ``Trainer`` whose
 ``eval_step`` returns ``(probs, loss, rmse)`` like the JAX one.
 
-Dense ``txt`` batches only: the ``txt_id``/uint8 wire format and TIE
-length bucketing are ROADMAP Queue 1 item 4; training is item 2.
+Dense ``txt`` and fp32 ``img`` batches only: the ``txt_id``/uint8/packed
+image wire format and TIE length bucketing are ROADMAP Queue 1 item 4;
+training is item 2.
 """
 from __future__ import annotations
 
@@ -14,11 +15,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from medical_tri_modal_pilot_tpu.config import Config
+from ..config import Config
 
-# the batch keys the vslt+txt eval step reads
-BATCH_KEYS = ("vslt", "static", "input_length", "txt", "txt_length",
-              "txt_time", "missing", "target", "target_aux")
+# the batch keys the eval step reads
+BATCH_KEYS = ("vslt", "static", "input_length", "img", "img_time", "txt",
+              "txt_length", "txt_time", "missing", "target", "target_aux")
 
 
 def compute_missing_num(cfg: Config, missing: torch.Tensor) -> torch.Tensor:
@@ -85,9 +86,12 @@ class Trainer:
 
     def device_batch(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, torch.Tensor]:
-        if "txt_id" in batch or "img_pack" in batch:
+        wire = ("txt_id" in batch or "img_pack" in batch
+                or np.asarray(batch.get("img", np.zeros(0))).dtype == np.uint8)
+        if wire:
             raise NotImplementedError(
-                "the txt_id/uint8 wire format is ROADMAP Queue 1 item 4")
+                "the txt_id / uint8-image / packed-image wire format is "
+                "ROADMAP Queue 1 item 4")
         return {k: torch.as_tensor(np.asarray(batch[k])).to(self.device)
                 for k in BATCH_KEYS if k in batch}
 

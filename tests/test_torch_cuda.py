@@ -1,6 +1,8 @@
 """The port's CUDA and Triton kernels against their plain PyTorch versions
 on the card, at the small widths of the CPU tests (d_head 32, C 64) and at
-the flagship's (d_head 64, C 256), and the small slice on both paths.
+the flagship's (d_head 64, C 256; Swin-T's C 96-768), and the small
+eval steps (vslt+txt, and vslt+img+txt with the full Swin-T) on both
+paths.
 Marked ``cuda``: skipped without a GPU. This file imports no jax, so it
 also runs where the port runs:
 
@@ -11,10 +13,14 @@ import pytest
 import torch
 
 from medical_tri_modal_pilot_tpu_torch import ops
+from medical_tri_modal_pilot_tpu_torch.config import parse_config
 from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
     cuda_attn_block, key_ends)
+from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import (
+    cuda_swin_mlp, torch_swin_mlp)
 from medical_tri_modal_pilot_tpu_torch.models.modules import (
     ffn_row_blocks, length_key_mask)
+from medical_tri_modal_pilot_tpu_torch.models.swin import _shift_attn_mask
 
 pytestmark = pytest.mark.cuda
 PRECS = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -113,25 +119,105 @@ def test_kernels_refuse_block_masks_and_grads(dev):
         cuda_attn_block(x.requires_grad_(True), *args, None, 4.0, 2)
 
 
+@pytest.mark.parametrize("C,hw,images", [(32, 14, 2), (64, 14, 1),
+                                          (96, 21, 2), (768, 7, 3)])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_swin_attention_kernel(dev, C, hw, images, shifted, prec):
+    """[images * M, 49, C] windows, 32-wide heads, the shift mask of an
+    hw x hw map (window i takes mask i % M)."""
+    g = torch.Generator().manual_seed(3)
+    dt = PRECS[prec]
+    nh, M = C // 32, (hw // 7) ** 2
+    xw = _rand(g, dev, images * M, 49, C).to(dt)
+    ws = (_rand(g, dev, C, 3 * C, std=C ** -.5), _rand(g, dev, 3 * C, std=.1),
+          _rand(g, dev, C, C, std=C ** -.5), _rand(g, dev, C, std=.1))
+    bias = _rand(g, dev, nh, 49, 49, std=.5)
+    smask = (torch.from_numpy(_shift_attn_mask(hw, hw, 7, 3)).to(dev)
+             if shifted else None)
+    out, ref = _both(lambda: ops.swin_attention(xw, *ws, bias, smask, nh))
+    torch.testing.assert_close(out, ref, **TOL[prec])
+
+
+@pytest.mark.parametrize("R,C", [(70, 32), (200, 96), (130, 192),
+                                 (100, 384), (49, 768)])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_swin_mlp_kernel(dev, R, C, prec):
+    """Ragged row counts, on the fused width (C 96) and on the
+    three-launch path (C 32, 192, 384, 768)."""
+    g = torch.Generator().manual_seed(4)
+    dt = PRECS[prec]
+    x = _rand(g, dev, R, C).to(dt)
+    ws = (_rand(g, dev, C, std=.1, mean=1.), _rand(g, dev, C, std=.1),
+          _rand(g, dev, C, 4 * C, std=C ** -.5), _rand(g, dev, 4 * C, std=.1),
+          _rand(g, dev, 4 * C, C, std=(4 * C) ** -.5),
+          _rand(g, dev, C, std=.1))
+    out, ref = _both(lambda: ops.swin_mlp(x, *ws))
+    torch.testing.assert_close(out, ref, **TOL[prec])
+
+
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_swin_mlp_split_form_at_fused_width(dev, prec):
+    """The three-launch form, forced at the width the fused kernel takes,
+    agrees with the plain version as the fused kernel does."""
+    g = torch.Generator().manual_seed(5)
+    dt, C = PRECS[prec], 96
+    x = _rand(g, dev, 150, C).to(dt)
+    ws = (_rand(g, dev, C, std=.1, mean=1.), _rand(g, dev, C, std=.1),
+          _rand(g, dev, C, 4 * C, std=C ** -.5), _rand(g, dev, 4 * C, std=.1),
+          _rand(g, dev, 4 * C, C, std=(4 * C) ** -.5),
+          _rand(g, dev, C, std=.1))
+    with torch.inference_mode():
+        out = cuda_swin_mlp(x, *ws, split=True).float()
+    ref = torch_swin_mlp(x, *ws).float()
+    torch.testing.assert_close(out, ref, **TOL[prec])
+
+
+def _small_argv(types):
+    return ["--model", "tri_mbt_vsltcls", "--input-types", types,
+            "--imgtxt-time", "1", "--output-type", "intubation",
+            "--modality-inclusion", "train-missing_test-missing",
+            "--batch-size", "4", "--TIE-len", "300",
+            "--transformer-num-layers", "2", "--transformer-dim", "64",
+            "--transformer-num-head", "2", "--precision", "fp32"]
+
+
 def test_small_slice_on_both_paths(dev):
-    from medical_tri_modal_pilot_tpu.config import parse_config
     from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
         synthetic_batch
     from medical_tri_modal_pilot_tpu_torch.models import get_model
     from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
-    cfg = parse_config([
-        "--model", "tri_mbt_vsltcls", "--input-types", "vslt_txt",
-        "--imgtxt-time", "1", "--output-type", "intubation",
-        "--modality-inclusion", "train-missing_test-missing",
-        "--batch-size", "4", "--TIE-len", "300",
-        "--transformer-num-layers", "2", "--transformer-dim", "64",
-        "--transformer-num-head", "2", "--precision", "fp32"])
+    cfg = parse_config(_small_argv("vslt_txt"))
     tr = Trainer(cfg, get_model(cfg), dev)
     batch = synthetic_batch(cfg, 4, seed=1)
     ops.reset_launches()
     probs, loss, _ = tr.eval_step(batch)
-    assert ops.launches == {"umse": 1, "attn_block": 4, "ffn": 4}
+    assert ops.launches == {"umse": 1, "attn_block": 4, "ffn": 4,
+                            "swin_attention": 0, "swin_mlp": 0}
     with ops.reference_path():
         ref, ref_loss, _ = tr.eval_step(batch)
     np.testing.assert_allclose(probs, ref, atol=1e-5)
     assert loss == pytest.approx(ref_loss, abs=1e-5)
+
+
+@pytest.mark.parametrize("present_frac", [0.5, 0.75])
+def test_small_trimodal_slice_on_both_paths(dev, present_frac):
+    """Config 4's flags at a small MBT width with the full Swin-T: the
+    packed trunk (2 of 4 images) and its overflow (3 of 4)."""
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    cfg = parse_config(_small_argv("vslt_img_txt"))
+    model = get_model(cfg)
+    tr = Trainer(cfg, model, dev)
+    batch = synthetic_batch(cfg, 4, seed=2, present_frac=present_frac)
+    ops.reset_launches()
+    probs, loss, _ = tr.eval_step(batch)
+    assert ops.launches == {"umse": 1, "attn_block": 6, "ffn": 6,
+                            "swin_attention": 12, "swin_mlp": 12}
+    assert model.trunk_rows == (3 if present_frac == 0.5 else 4)
+    with ops.reference_path():
+        ref, ref_loss, _ = tr.eval_step(batch)
+    np.testing.assert_allclose(probs, ref, atol=1e-4)
+    assert loss == pytest.approx(ref_loss, abs=1e-4)

@@ -178,7 +178,8 @@ def test_cpu_tensors_take_the_plain_versions():
                        torch_attn_block(x, gamma, beta, w, b, mask, 4.0, 4))
     fargs = [torch.from_numpy(a) for a in _ffn_args(R=8)]
     assert torch.equal(ops.ffn(*fargs), torch_ffn(*fargs))
-    assert ops.launches == {"umse": 0, "attn_block": 0, "ffn": 0}
+    assert ops.launches == {"umse": 0, "attn_block": 0, "ffn": 0,
+                            "swin_attention": 0, "swin_mlp": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

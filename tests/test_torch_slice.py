@@ -1,7 +1,8 @@
-"""The port's slice as a whole: the tri_mbt_vsltcls eval step on vslt+txt
-inputs (BASELINE config 2's flags at a small width) against the JAX
-package's eval step, the weight bridge in both directions, and the
-guarantees about what the port imports and refuses."""
+"""The port's vslt+txt path as a whole: the tri_mbt_vsltcls eval step on
+vslt+txt inputs (BASELINE config 2's flags at a small width) against the
+JAX package's eval step, the weight bridge in both directions, and the
+guarantees about what the port imports and refuses (the tri-modal path
+is tests/test_torch_trimodal.py)."""
 import os
 import re
 import subprocess
@@ -153,10 +154,16 @@ def test_missing_num_and_losses_match_jax():
 
 
 def test_unported_paths_raise():
+    """What the port does not run yet raises, naming its ROADMAP item:
+    other models, other image encoders, loading pretrained trunk weights,
+    training, and the txt_id / uint8 / packed-image wire format."""
     with pytest.raises(KeyError, match="tri_mbt_vsltcls"):
         get_model(_cfg("--model", "tri_mbt_v1"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        get_model(_cfg("--input-types", "vslt_img_txt"))
+    tri = ("--input-types", "vslt_img_txt")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        get_model(_cfg(*tri, "--img-model-type", "vit"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        get_model(_cfg(*tri, "--img-pretrain-path", "swin_t.pth"))
     cfg = _cfg()
     model = get_model(cfg)
     with pytest.raises(NotImplementedError, match="item 2"):
@@ -165,33 +172,57 @@ def test_unported_paths_raise():
     batch["txt_id"] = np.arange(B, dtype=np.int32)
     with pytest.raises(NotImplementedError, match="item 4"):
         trainer.Trainer(cfg, model, "cpu").eval_step(batch)
+    cfg = _cfg(*tri)
+    tr = trainer.Trainer(cfg, get_model(cfg), "cpu")
+    for wire in ({"img": np.zeros((B, 1, 224, 224), np.uint8)},
+                 {"img_pack": np.zeros((3, 1, 224, 224), np.uint8)}):
+        batch = dict(synthetic_batch(cfg, B), **wire)
+        with pytest.raises(NotImplementedError, match="item 4"):
+            tr.eval_step(batch)
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, imports jax or flax."""
-    pattern = re.compile(r"^\s*(import|from) (jax|flax)\b", re.M)
+    """No module of the port, nor chip_smoke.py, imports jax, flax or the
+    JAX package (the port keeps its own copies of config, constants and
+    metrics)."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|medical_tri_modal_pilot_tpu)\b"
+        r"(?!_torch)", re.M)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f
+    assert pattern.search("from medical_tri_modal_pilot_tpu.config import x")
+    assert pattern.search("import medical_tri_modal_pilot_tpu")
+    assert not pattern.search(
+        "from medical_tri_modal_pilot_tpu_torch import x")
 
 
 def test_port_runs_without_jax_flax_pil_h5py():
-    """The card's machine has none of these: block them and run one CPU
-    eval step through the port in a fresh interpreter."""
+    """The card's machine has none of these: block them, and the JAX
+    package itself, and run one config-4 CPU eval step (packed trunk)
+    through the port in a fresh interpreter."""
+    argv = SMALL + ["--input-types", "vslt_img_txt"]
     code = textwrap.dedent(f"""
         import sys
-        for name in ("jax", "jaxlib", "flax", "optax", "PIL", "h5py"):
+        for name in ("jax", "jaxlib", "flax", "optax", "PIL", "h5py",
+                     "medical_tri_modal_pilot_tpu"):
             sys.modules[name] = None
-        from medical_tri_modal_pilot_tpu.config import parse_config
+        from medical_tri_modal_pilot_tpu_torch.config import parse_config
         from medical_tri_modal_pilot_tpu_torch.data.synthetic import (
             synthetic_batch)
         from medical_tri_modal_pilot_tpu_torch.models import get_model
+        from medical_tri_modal_pilot_tpu_torch.train.metrics import Evaluator
         from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
-        cfg = parse_config({SMALL!r})
-        probs, loss, _ = Trainer(cfg, get_model(cfg), "cpu").eval_step(
-            synthetic_batch(cfg, {B}))
+        cfg = parse_config({argv!r})
+        model = get_model(cfg)
+        batch = synthetic_batch(cfg, {B})
+        probs, loss, _ = Trainer(cfg, model, "cpu").eval_step(batch)
         assert probs.shape == ({B},) and loss == loss
+        assert model.trunk_rows == {B} // 2 + 1
+        ev = Evaluator()
+        ev.add_batch(batch["target"], probs)
+        ev.performance_metric()
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))
