@@ -26,10 +26,30 @@ Phases, each raising on failure (nothing is caught):
      then a torch.profiler split of one step.
   5. config 5: one eval step of config 4 with --multiimages 1, the same
      checks, no timing.
+  6. training kernels: the training forward of attn_block and its backward,
+     ffn with dropout and its backward, at each fusion stream's length in
+     fp32 and bf16, against autograd of the plain versions on the same
+     inputs (the cotangent zero on rows no later layer reads), forward on
+     live rows and every gradient; dropout_masks bit for bit against its
+     plain version, and its keep rate within binomial bounds. Median
+     kernel and plain ms of forward and backward, the bound, the library
+     column.
+  7. config 4 train: Trainer.train_step at full width (bf16, batch 64,
+     --dropout 0.1, adamw) over seeded batches through the packed trunk
+     and its overflow: launch counts per step, peak device memory; one
+     step from identical weights on the kernel and the plain path, fp32
+     and bf16 at dropout 0 and 0.1 (the plain path draws the same Philox
+     masks): loss, every trainable parameter's gradient (bf16 held
+     against the fp32 step) and the updated parameters; train ms/step on
+     both paths in turns; a torch.profiler split of one kernel-path step;
+     20 steps on one batch, the loss finite and falling.
+  8. config 2 train: a few steps, launch counts, one step on both paths
+     (fp32 and bf16, dropout 0.1); not timed.
 Then one JSON line per the kernels and, last, {"ok": true, "device": ...}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -65,6 +85,21 @@ LAUNCHES_PER_STEP = {
                 "swin_attention": 12, "swin_mlp": 12},
 }
 LAUNCHES_PER_STEP["config5"] = LAUNCHES_PER_STEP["config4"]
+# per train step: the forward's launches; a backward per fusion layer and
+# stream whose output the loss reaches (the last layer's non-vslt streams
+# feed only the bottleneck mix, which nothing reads after the last layer,
+# so autograd runs no backward for them: 16 of 18, 11 of 12); one
+# dropout_masks per stream for the input dropout at --dropout 0.1 (the
+# FFN's masks are drawn inside its kernels)
+TRAIN_LAUNCHES_PER_STEP = {
+    "config2": {"umse": 1, "attn_block": 12, "attn_block_bwd": 11,
+                "ffn": 12, "ffn_bwd": 11, "dropout_masks": 2},
+    "config4": {"umse": 1, "attn_block": 18, "attn_block_bwd": 16,
+                "ffn": 18, "ffn_bwd": 16, "dropout_masks": 3,
+                "swin_attention": 12, "swin_mlp": 12},
+}
+TRAIN_BATCHES = {"config2": [0.5, 0.5], "config4": [0.5, 0.25, 0.75]}
+DROPOUT_SEED = 20231016
 
 # tolerances |kernel - plain| <= atol + rtol * |plain|, on live rows.
 # fp32: both sides accumulate in fp32 in another order (C up to 768 and
@@ -79,6 +114,29 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (6e-2, 2e-2)}
 # the drift of bf16 rounding flips through the trunk, six layers and the
 # head.
 PROB_TOL = {"fp32": 1e-4, "bf16": 5e-2}
+# gradients: |kernel - plain|_F / |plain|_F per tensor (the largest
+# element difference over the largest plain entry is printed beside it).
+# A ReLU pre-activation within rounding of 0 takes the other branch on one
+# side (about 50 of the 67M hidden units of the vslt FFN in fp32, measured
+# as a 2e-2 max-element gap in dx and 7e-3 in dW1, with dW2 within 1e-6):
+# each such unit moves one row of dx and one column of dW1 by a few
+# percent, which the Frobenius ratio weighs by their share. fp32: the same
+# math summed in another order, plus those flips. bf16: the plain version
+# is autograd of a bf16 graph, which rounds every intermediate gradient to
+# bf16 (2**-9 relative) where the kernels keep fp32 and round where the
+# TPU kernels do.
+GRAD_TOL = {torch.float32: 5e-3, torch.bfloat16: 5e-2}
+# a whole train step from the same weights, kernel vs plain path, per
+# trainable tensor with a nonzero true gradient, as GRAD_TOL: fp32 within
+# 1e-2 (six layers of such flips, the head's BatchNorm over 64 samples).
+# bf16 gradients of this model lie 0.1-0.2 from the fp32 ones on either
+# path, so each bf16 path is held against the fp32 plain step at the same
+# dropout: the kernel path's median and largest errors must stay within
+# STEP_BF16_RATIO of the plain path's (plus 1e-2). The loss within 1e-4
+# (fp32) and 2e-2 (bf16) absolute.
+STEP_FP32_TOL = 1e-2
+STEP_BF16_RATIO = 1.5
+STEP_LOSS_TOL = {"fp32": 1e-4, "bf16": 2e-2}
 
 KERNEL_SOURCES = {
     "umse": ("triton", "medical_tri_modal_pilot_tpu_torch/kernels/umse_triton.py",
@@ -92,6 +150,15 @@ KERNEL_SOURCES = {
         "medical_tri_modal_pilot_tpu/kernels/swin_attention.py:162"),
     "swin_mlp": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/swin_mlp.cu",
                  "medical_tri_modal_pilot_tpu/kernels/swin_mlp.py:101"),
+    # the weight-gradient sums of both backward kernels run in
+    # csrc/wgrad.cu
+    "attn_block_bwd": (
+        "cuda", "medical_tri_modal_pilot_tpu_torch/csrc/attn_block_bwd.cu",
+        "medical_tri_modal_pilot_tpu/kernels/attn_block.py:577"),
+    "ffn_bwd": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/ffn.cu",
+                "medical_tri_modal_pilot_tpu/kernels/ffn.py:298"),
+    "dropout_masks": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/ffn.cu",
+                      "medical_tri_modal_pilot_tpu/kernels/ffn.py:230"),
 }
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them,
@@ -373,6 +440,187 @@ def compare_kernels() -> dict:
     return results
 
 
+def _grad_errors(grads, ref_grads):
+    """Per tensor: |g - r|_F / |r|_F."""
+    return [float((g - r).norm()) / max(float(r.norm()), 1e-30)
+            for g, r in zip(grads, ref_grads)]
+
+
+def _max_errors(grads, ref_grads):
+    """Per tensor: the largest difference over the largest plain entry."""
+    return [float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+            for g, r in zip(grads, ref_grads)]
+
+
+def _compare_train(name, dt, fwd, inputs, cot, live, work_fwd, work_bwd):
+    """The training forward and the backward of ``fwd`` on the kernel path
+    against the plain path: the output on live rows (TOL), every gradient
+    (GRAD_TOL); median ms of forward and backward on both paths."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    runs = []
+    for plain in (False, True):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        ctx = ops.reference_path() if plain else contextlib.nullcontext()
+        with ctx:
+            out = fwd(*leaves)
+            grads = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+            f_ms = _median_ms(lambda: fwd(*leaves), reps=10)
+            b_ms = _median_ms(lambda: torch.autograd.grad(
+                out, leaves, cot, retain_graph=True), reps=10)
+        runs.append((out.detach().float(), [g.float() for g in grads],
+                     f_ms, b_ms))
+        del out, grads, leaves
+    (out, grads, f_ms, b_ms), (ref, ref_grads, pf_ms, pb_ms) = runs
+    torch.cuda.synchronize()
+    if live is not None:
+        out, ref = out[live], ref[live]
+    err = (out - ref).abs()
+    atol, rtol = TOL[dt]
+    bad = int((err > atol + rtol * ref.abs()).sum())
+    g_err = _grad_errors(grads, ref_grads)
+    tag = "bf16" if dt == torch.bfloat16 else "fp32"
+    fwd_res = {"max_abs_err": float(err.max()), "ms": f_ms,
+               "plain_ms": pf_ms, **_bound(*work_fwd, dt),
+               "library_ms": None}
+    bwd_res = {"max_abs_err": max(float((g - r).abs().max())
+                                  for g, r in zip(grads, ref_grads)),
+               "grad_err_f": max(g_err), "ms": b_ms, "plain_ms": pb_ms,
+               **_bound(*work_bwd, dt), "library_ms": None}
+    print(f"kernel {name} train fwd {tag}: max_abs_err="
+          f"{fwd_res['max_abs_err']:.3e} ({bad} outside) ms={f_ms:.3f} "
+          f"plain_ms={pf_ms:.3f} bound_ms={fwd_res['bound_ms']:.4f} "
+          f"({fwd_res['bound_by']})")
+    m_err = _max_errors(grads, ref_grads)
+    print(f"kernel {name} bwd {tag}: grad |err|_F/|plain|_F "
+          f"{' '.join(f'{e:.2e}' for e in g_err)} (tol {GRAD_TOL[dt]:g}); "
+          f"max |err| / max |plain| {' '.join(f'{e:.2e}' for e in m_err)} "
+          f"ms={b_ms:.3f} plain_ms={pb_ms:.3f} "
+          f"bound_ms={bwd_res['bound_ms']:.4f} ({bwd_res['bound_by']})")
+    if bad or not np.isfinite(fwd_res["max_abs_err"]):
+        raise AssertionError(f"{name} {tag}: training forward disagrees")
+    if not all(np.isfinite(e) and e <= GRAD_TOL[dt] for e in g_err):
+        raise AssertionError(f"{name} {tag}: gradients disagree")
+    return fwd_res, bwd_res
+
+
+def compare_training_kernels() -> dict:
+    """The training kernels against autograd of their plain versions at each
+    fusion stream's length, and the dropout masks. Returns the bf16 results
+    at the main-path shapes (vslt: [64, 1024, 256], R = 65536)."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import key_ends
+    from medical_tri_modal_pilot_tpu_torch.kernels.ffn import (
+        keep_threshold, plain_dropout_masks)
+    from medical_tri_modal_pilot_tpu_torch.models.modules import (
+        ffn_row_blocks, length_key_mask)
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(1)
+    bf16 = torch.bfloat16
+    D, H, F, P = 256, 4, 1024, 0.1
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).to(dev)
+
+    results = {}
+    for L in STREAM_LENGTHS:
+        if L == 54:
+            mask, ends = None, torch.full((BATCH,), L, device=dev)
+        else:
+            lengths = torch.randint(1, L + 1, (BATCH,), generator=g)
+            lengths[3] = 0
+            mask = length_key_mask(lengths.to(dev), L)
+            ends = key_ends(mask).long()
+        live = torch.arange(L, device=dev)[None, :] < ends[:, None]
+        n = ends.double()
+        gamma, beta = rnd(D, std=.1, mean=1.), rnd(D, std=.1)
+        w, b = rnd(D, 3 * D, std=D ** -.5), rnd(3 * D, std=.1)
+        for dt in (torch.float32, bf16):
+            es = 2 if dt == bf16 else 4
+            xa = rnd(BATCH, L, D).to(dt)
+            cot = rnd(BATCH, L, D).to(dt) * live[:, :, None]
+            stream_bytes = BATCH * L * D * es
+            # forward: the lean form's work plus O and the (m, l) stats;
+            # backward: s, dp, dv, dk and dq over the live pairs (10 n^2 C)
+            # and the q|k|v recompute, dln and dW products (18 n C^2)
+            work_f = (3 * stream_bytes + 8 * BATCH * H * L
+                      + (3 * D * D + 3 * D) * es,
+                      float((6 * n * D * D + 4 * n * n * D).sum()))
+            work_b = (4 * stream_bytes + 8 * BATCH * H * L
+                      + (3 * D * D + 3 * D) * (es + 4),
+                      float((10 * n * n * D + 18 * n * D * D).sum()))
+            fr, br = _compare_train(
+                f"attn_block[64,{L},256]", dt,
+                lambda *a: ops.attn_block(*a, mask, (D // H) ** .5, H),
+                (xa, gamma, beta, w.to(dt), b.to(dt)), cot, live, work_f,
+                work_b)
+            if L == 1024 and dt == bf16:
+                results["attn_block_train"] = dict(fr, shape="[64,1024,256]")
+                results["attn_block_bwd"] = dict(br, shape="[64,1024,256]")
+
+        g1, be1 = rnd(D, std=.1, mean=1.), rnd(D, std=.1)
+        w1, b1 = rnd(D, F, std=D ** -.5), rnd(F, std=.1)
+        w2, b2 = rnd(F, D, std=F ** -.5), rnd(D, std=.1)
+        for dt in (torch.float32, bf16):
+            es = 2 if dt == bf16 else 4
+            xf = rnd(BATCH, L, D).to(dt)
+            flags = ffn_row_blocks(xf, mask)
+            rows = (None if flags is None else
+                    flags.repeat_interleave(L // flags.shape[1], dim=1))
+            n_live = BATCH * L if rows is None else float(rows.sum())
+            cot = rnd(BATCH, L, D).to(dt)
+            if rows is not None:
+                cot = cot * rows[:, :, None]
+            wbytes = (2 * D * F + F + D) * 4
+            work_f = (2 * BATCH * L * D * es + wbytes, 4.0 * n_live * D * F)
+            # h recompute, dh, dln, dW1 and dW2: five products
+            work_b = (3 * BATCH * L * D * es + 2 * wbytes,
+                      10.0 * n_live * D * F)
+            fr, br = _compare_train(
+                f"ffn[{BATCH * L},256] dropout {P}", dt,
+                lambda *a: ops.ffn(*a, flags, p=P, training=True,
+                                   seed=DROPOUT_SEED),
+                (xf, g1, be1, w1, b1, w2, b2), cot, rows, work_f, work_b)
+            if L == 1024 and dt == bf16:
+                results["ffn_train"] = dict(fr, shape="[65536,256]")
+                results["ffn_bwd"] = dict(br, shape="[65536,256]")
+
+    # dropout masks at the vslt stream's FFN shapes: bit for bit, keep rate
+    R = BATCH * 1024
+    with torch.inference_mode():
+        got = ops.dropout_masks(R, F, D, DROPOUT_SEED, P, dev)
+        with ops.reference_path():
+            want = ops.dropout_masks(R, F, D, DROPOUT_SEED, P, dev)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, e) for a, e in zip(got, want))
+        keep = [float(k.float().mean()) for k in got]
+        sds = [((1 - P) * P / k.numel()) ** .5 for k in got]
+        ms = _median_ms(lambda: ops.dropout_masks(R, F, D, DROPOUT_SEED, P,
+                                                  dev))
+        with ops.reference_path():
+            plain_ms = _median_ms(lambda: plain_dropout_masks(
+                R, F, D, DROPOUT_SEED, P, dev), reps=5)
+    # the int8 masks written once; Philox4x32-10 is ~25 integer operations
+    # per mask element (10 rounds of 2 multiplies, 2 high words, 3 xors and
+    # 2 key additions per 4 words), held to the card's non-tensor rate
+    work = (R * (F + D), 25.0 * R * (F + D))
+    res = {"max_abs_err": 0.0 if same else 1.0, "ms": ms,
+           "plain_ms": plain_ms, **_bound(*work, torch.float32),
+           "library_ms": None, "shape": f"[{R},{F}]+[{R},{D}]",
+           "keep_rate": keep, "threshold": keep_threshold(P)}
+    print(f"kernel dropout_masks [{R},{F}]+[{R},{D}] p={P}: bit-identical "
+          f"{same}; keep rate {keep[0]:.6f} / {keep[1]:.6f} (q {1 - P}, "
+          f"sd {sds[0]:.2e} / {sds[1]:.2e}) ms={ms:.3f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={res['bound_ms']:.4f} "
+          f"({res['bound_by']})")
+    if not same:
+        raise AssertionError("dropout_masks differs from its plain version")
+    if any(abs(k - (1 - P)) > 5 * sd for k, sd in zip(keep, sds)):
+        raise AssertionError(f"dropout keep rate {keep} outside 5 sd of "
+                             f"{1 - P}")
+    results["dropout_masks"] = res
+    return results
+
+
 def _mha_library_call(xw, ws, bias, smask, nh):
     """torch's multi_head_attention_forward on the same windows: the q|k|v
     projection, scores + an additive mask holding the bias and -65504 at
@@ -417,17 +665,18 @@ def _timed_ms(trainer, batches, reference: bool) -> float:
     return (time.perf_counter() - t0) * 1e3 / len(batches)
 
 
-def _profile_step(trainer, batch, power: str) -> None:
+def _profile_step(trainer, batch, power: str, train: bool = False) -> None:
     """torch.profiler over one step (after warm-up): device time by kernel,
     the step's device total against its host wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    trainer.eval_step(batch)
+    step = trainer.train_step if train else trainer.eval_step
+    step(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.eval_step(batch)
+        step(batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
@@ -441,10 +690,11 @@ def _profile_step(trainer, batch, power: str) -> None:
                     if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                    reverse=True)
     total = sum(t for t, _, _ in items) / 1e3
-    print(f"profile config4 bf16 step ({power}): device busy {total:.2f} ms "
-          f"of {wall:.2f} ms host wall, device idle share "
+    kind = "train" if train else "eval"
+    print(f"profile config4 bf16 {kind} step ({power}): device busy "
+          f"{total:.2f} ms of {wall:.2f} ms host wall, device idle share "
           f"{max(0.0, 1 - total / wall):.3f}")
-    for t, count, key in items[:16]:
+    for t, count, key in items[:24 if train else 16]:
         print(f"  {t / 1e3:8.3f} ms {100 * t / 1e3 / total:5.1f} % "
               f"x{count:<4d} {key[:90]}")
 
@@ -549,18 +799,216 @@ def run_config(name: str, argv, power: str, timed: bool) -> dict:
     return counts
 
 
+def _train_run(cfg, state, batch, plain: bool):
+    """One train step from ``state`` on one path: (loss, gradients and
+    updated values of the trainable parameters, the step's learning
+    rate)."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    model = get_model(cfg, torch.Generator().manual_seed(0))
+    model.load_state_dict(state)
+    tr = Trainer(cfg, model, torch.device("cuda"), eval_only=False, seed=0)
+    lr = tr.current_lr()
+    with ops.reference_path() if plain else contextlib.nullcontext():
+        loss = tr.train_step(batch)
+    torch.cuda.synchronize()
+    params = tr.optimizer.params
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = {names[id(p)]: (p.grad.float().clone(), p.detach().float().clone())
+           for p in params}
+    del tr, model
+    torch.cuda.empty_cache()
+    return loss, out, lr
+
+
+# tensors whose true gradient is 0, so that both paths hold rounding noise
+# there: a key-projection bias (softmax is shift invariant per query), and
+# the two biases the head's BatchNorm cancels (fc_list.0 and the LayerNorm
+# before it add the same vector to every sample)
+ZERO_GRAD = ("key_proj.linear.bias", "fc_list.0.bias",
+             "layer_norms_after_concat.bias")
+
+
+def _step_errors(a, b):
+    """|a - b|_F / |b|_F per trainable tensor with a nonzero true
+    gradient."""
+    return {n: _grad_errors([a[n][0]], [b[n][0]])[0] for n in b
+            if not n.endswith(ZERO_GRAD)}
+
+
+def _summary(errs) -> str:
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:2]
+    return (f"median {statistics.median(errs.values()):.3e}, max "
+            f"{max(errs.values()):.3e} {[(n, round(e, 4)) for n, e in worst]}")
+
+
+def _check_step_parity(name, cfg, state, batch, precs) -> None:
+    """One step from the same weights on the kernel and the plain path,
+    for each (precision, dropout) in ``precs``; every bf16 entry needs an
+    fp32 one at its dropout, the step its gradients are held against."""
+    runs, failures = {}, []
+    for prec, p in precs:
+        c = cfg.replace(precision=prec, dropout=p)
+        for plain in (False, True):
+            runs[prec, p, plain] = _train_run(c, state, batch, plain)
+    for (prec, p, plain), (loss, got, lr) in runs.items():
+        if plain:
+            continue
+        ref_loss, want, _ = runs[prec, p, True]
+        errs = _step_errors(got, want)
+        # each side's Adam step is at most lr per element, plus the
+        # parameter's fp32 rounding
+        p_err = max(float((got[n][1] - want[n][1]).abs().max())
+                    for n in want)
+        moved = max(float((got[n][1] - state[n].float().cuda()).abs().max())
+                    for n in want)
+        print(f"{name} train step {prec} dropout {p}: loss {loss:.6f} vs "
+              f"plain {ref_loss:.6f}; grads |kernel - plain|_F/|plain|_F "
+              f"over {len(errs)} tensors: {_summary(errs)}; updated params "
+              f"max |diff| {p_err:.3e} (bound {2.01 * lr:.3e} = 2.01 lr; "
+              f"moved up to {moved:.3e})")
+        if not np.isfinite(loss) or abs(loss - ref_loss) > STEP_LOSS_TOL[prec]:
+            failures.append(f"{prec} {p}: loss")
+        if p_err > 2.01 * lr + 1e-7 or moved == 0.0:
+            failures.append(f"{prec} {p}: updated parameters")
+        if prec == "fp32":
+            if max(errs.values()) > STEP_FP32_TOL:
+                failures.append(f"fp32 {p}: gradients")
+            continue
+        fp32 = runs["fp32", p, True][1]
+        k_err, p_err32 = _step_errors(got, fp32), _step_errors(want, fp32)
+        print(f"{name} train step dropout {p}, bf16 against the fp32 plain "
+              f"step: kernel path {_summary(k_err)}; plain path "
+              f"{_summary(p_err32)}")
+        for stat in (statistics.median, max):
+            if stat(k_err.values()) > STEP_BF16_RATIO * stat(
+                    p_err32.values()) + 1e-2:
+                failures.append(f"bf16 {p}: {stat.__name__} against fp32")
+    if failures:
+        raise AssertionError(f"{name} train step parity: {failures}")
+
+
+def _timed_train_ms(trainer, batches, reference: bool) -> float:
+    from medical_tri_modal_pilot_tpu_torch import ops
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ops.reference_path() if reference else contextlib.nullcontext():
+        for batch in batches:
+            trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def run_train(name: str, argv, power: str, timed: bool) -> dict:
+    """Drive one BASELINE configuration's train step at full width: the
+    launch counts of its run (reset just before, read just after), peak
+    memory, kernel vs plain path on one step, and (``timed``) 20 steps on
+    one batch, ms/step on both paths in turns and a profiler split."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.models.models import pack_capacity
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    cfg = parse_config(argv)
+    widths = (cfg.transformer_dim, cfg.transformer_num_layers,
+              cfg.transformer_num_head, cfg.tie_len, cfg.precision,
+              cfg.dropout, cfg.optim)
+    if widths != (256, 6, 4, TIE_LEN, "bf16", 0.1, "adamw"):
+        raise AssertionError(f"{name} defaults changed: {widths}")
+    batches = [synthetic_batch(cfg, BATCH, seed=10 + s, present_frac=f)
+               for s, f in enumerate(TRAIN_BATCHES[name])]
+    model = get_model(cfg, torch.Generator().manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(cfg, model, dev, eval_only=False, seed=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: every kernel launch of these steps is counted
+    ops.reset_launches()
+    losses, rows = [], []
+    for batch in batches:
+        losses.append(trainer.train_step(batch))
+        rows.append(getattr(model, "trunk_rows", 0))
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n = len(batches)
+    print(f"{name}: launches over {n} train steps: {counts}; trunk rows per "
+          f"step {rows}; losses {losses}")
+    print(f"{name} train peak device memory: {peak / 2 ** 30:.3f} GiB "
+          f"(parameters, optimizer state and batch before the steps "
+          f"{base / 2 ** 30:.3f} GiB)")
+    for kernel in ops.KERNELS:
+        want = TRAIN_LAUNCHES_PER_STEP[name].get(kernel, 0) * n
+        if counts[kernel] != want:
+            raise AssertionError(f"{name} train {kernel}: {counts[kernel]} "
+                                 f"launches, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite train loss {losses}")
+    if name == "config4":
+        cap = pack_capacity(cfg, BATCH)
+        if cap + 1 not in rows or BATCH not in rows:
+            raise AssertionError(f"{name}: trunk rows {rows} miss the packed "
+                                 f"({cap + 1}) or the overflow ({BATCH}) "
+                                 "branch")
+
+    if timed:
+        # in turns: plain, kernel, kernel, plain
+        ms = {True: [], False: []}
+        for reference in (True, False, False, True):
+            ms[reference].append(_timed_train_ms(trainer, batches,
+                                                 reference))
+        kernel_ms, plain_ms = np.mean(ms[False]), np.mean(ms[True])
+        print(f"{name} train step ({power}): kernels {kernel_ms:.2f} ms/step "
+              f"({BATCH * 1e3 / kernel_ms:.1f} samples/s), plain "
+              f"{plain_ms:.2f} ms/step ({BATCH * 1e3 / plain_ms:.1f} "
+              f"samples/s); rounds {ms[False]} / {ms[True]}")
+        _profile_step(trainer, batches[0], power, train=True)
+
+        # 20 steps on one batch from the starting weights: the loss falls
+        model.load_state_dict(state)
+        fit = Trainer(cfg, model, dev, eval_only=False, seed=0)
+        curve = [fit.train_step(batches[0]) for _ in range(20)]
+        print(f"{name} 20 steps on one batch: losses "
+              f"{[round(x, 5) for x in curve]}")
+        if not all(np.isfinite(curve)) or not (
+                np.mean(curve[-5:]) < np.mean(curve[:5])):
+            raise AssertionError(f"{name}: the loss does not fall on one "
+                                 f"batch: {curve}")
+        del fit
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # one step from the same weights on both paths; the plain path draws
+    # the same Philox masks
+    parity = ([("fp32", 0.0), ("bf16", 0.0), ("fp32", 0.1), ("bf16", 0.1)]
+              if timed else [("fp32", 0.1), ("bf16", 0.1)])
+    _check_step_parity(name, cfg, state, batches[0], parity)
+    return counts
+
+
 def main() -> None:
     power = check_device()
     build_kernels()
     results = compare_kernels()
+    results.update(compare_training_kernels())
     run_config("config2", CONFIG2, power, timed=True)
-    counts = run_config("config4", CONFIG4, power, timed=True)
+    run_config("config4", CONFIG4, power, timed=True)
     run_config("config5", CONFIG5, power, timed=False)
+    counts = run_train("config4", CONFIG4, power, timed=True)
+    run_train("config2", CONFIG2, power, timed=False)
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": counts[name],
-                        "steps": len(BATCHES["config4"]), **results[name]})
+                        "steps": len(TRAIN_BATCHES["config4"]),
+                        **results[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ its own copies of the numpy-only host modules (``config``, ``constants``,
 ``csrc/`` (CUDA C++), each beside a plain PyTorch version of the same
 function; ``ops`` picks one by device.
 
-The port covers the eval step of ``tri_mbt_vsltcls`` on vslt+txt inputs
-and on vslt+img+txt inputs with the frozen Swin-T trunk, one or up to
-three images per sample.
+The port covers the eval and train steps of ``tri_mbt_vsltcls`` on
+vslt+txt inputs and on vslt+img+txt inputs with the frozen Swin-T trunk
+(eval with one or up to three images per sample), the optimizers, LR
+schedules and checkpoints.
 """

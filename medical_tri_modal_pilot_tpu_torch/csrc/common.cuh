@@ -70,15 +70,51 @@ static __device__ __forceinline__ float half_warp_max(float v) {
   return v;
 }
 
+// Philox4x32-10 (Salmon et al., SC'11), the counter-based generator of the
+// port's dropout: one call maps a 128-bit counter and a 64-bit key to four
+// 32-bit words.
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u, kPhiloxW1 = 0xBB67AE85u;
+
+static __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x), lo0 = kPhiloxM0 * c.x;
+    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z), lo1 = kPhiloxM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += kPhiloxW0;
+    k.y += kPhiloxW1;
+  }
+  return c;
+}
+
+// The keep bit of element (row, col) of dropout mask m (0: the FFN's hidden
+// [R, F], 1: its output [R, C]): word col % 4 of Philox at counter
+// (col / 4, row, m, 0), kept when below thr = floor(q * 2^32). Keyed by the
+// element's place in the whole array, so it does not depend on the tiling
+// and a backward regenerates it exactly. kernels/ffn.py plain_dropout_masks
+// is the same function on int64 tensors.
+static __device__ __forceinline__ bool dropout_keep(uint2 key, uint32_t thr,
+                                                    int m, int row, int col) {
+  const uint4 r = philox4x32_10(
+      make_uint4((uint32_t)col >> 2, (uint32_t)row, (uint32_t)m, 0u), key);
+  const int w = col & 3;
+  const uint32_t u = w == 0 ? r.x : (w == 1 ? r.y : (w == 2 ? r.z : r.w));
+  return u < thr;
+}
+
 // Rows [row0, row0 + kTile) of a row-major [nrows, C] matrix through the
 // reference's StdLayerNorm (Bessel std, eps added to the std, variance
 // floor), rounded to T, into dst[kTile][lda] fp32. Rows past nrows are
-// zero-filled (their results are never stored). Ends with __syncthreads.
+// zero-filled (their results are never stored). With ``stats`` non-null,
+// row r's mean, 1 / (std + eps), std and variance go to stats[r],
+// stats[kTile + r], stats[2 kTile + r], stats[3 kTile + r] (the LN
+// backward reads them). Ends with __syncthreads.
 template <typename T>
 static __device__ __forceinline__ void ln_tile(
     const T* __restrict__ x, int row0, int nrows, int C,
     const float* __restrict__ gamma, const float* __restrict__ beta,
-    float* dst, int lda, int tid) {
+    float* dst, int lda, int tid, float* stats = nullptr) {
   for (int e = tid; e < kTile * C; e += kThreads) {
     const int r = e / C, c = e - r * C;
     dst[r * lda + c] = (row0 + r < nrows)
@@ -97,9 +133,16 @@ static __device__ __forceinline__ void ln_tile(
       v += d * d;
     }
     const float var = warp_sum(v) / (float)(C - 1);
-    const float inv = 1.0f / (sqrtf(fmaxf(var, kVarFloor)) + kStdLnEps);
+    const float sd = sqrtf(fmaxf(var, kVarFloor));
+    const float inv = 1.0f / (sd + kStdLnEps);
     for (int c = lane; c < C; c += 32)
       row[c] = rnd<T>(((row[c] - mu) * inv) * gamma[c] + beta[c]);
+    if (stats != nullptr && lane == 0) {
+      stats[r] = mu;
+      stats[kTile + r] = inv;
+      stats[2 * kTile + r] = sd;
+      stats[3 * kTile + r] = var;
+    }
   }
   __syncthreads();
 }
@@ -154,6 +197,125 @@ static __device__ __forceinline__ void gemm_tile(
     }
     __syncthreads();
   }
+}
+
+// acc[i][j] += sum_k A[ty + 16i][k] * W[n0 + tx + 16j][k] for k < K: the
+// product with the transpose of a row-major W [N, K] (leading dimension
+// ldw), staged kKChunk columns at a time into Bs (kKChunk x 16*NJ floats).
+// K must be a multiple of kKChunk. Ends with __syncthreads.
+template <typename T, int NJ>
+static __device__ __forceinline__ void gemm_tile_t(
+    const float* As, int lda, int K, const T* __restrict__ W, int ldw,
+    int n0, float* Bs, float (&acc)[4][NJ], int tx, int ty, int tid) {
+  constexpr int BN = 16 * NJ;
+  for (int k0 = 0; k0 < K; k0 += kKChunk) {
+    for (int e = tid; e < kKChunk * BN; e += kThreads) {
+      const int nn = e / kKChunk, kk = e - nn * kKChunk;
+      Bs[kk * BN + nn] = Num<T>::load(W[(size_t)(n0 + nn) * ldw + k0 + kk]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kKChunk; ++kk) {
+      float a[4], b[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * lda + k0 + kk];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) b[j] = Bs[kk * BN + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// StdLayerNorm backward of one 64-row tile (kernels/ffn.py:203-214 and
+// attn_block.py:481-499 of the JAX package). dln[i][j] is dL/d(LN out) at
+// row ty + 16i, column tx + 16j (C = 16 * NJC) of rows [r0, r0 + rows) of
+// x [*, C]; stats as ln_tile writes them. Writes
+//   dx = c (dxhat - mean(dxhat)) - c^2 A xmu [var > floor] / ((C-1) sd)
+// plus the residual cotangent dy: as (dy + dx) rounded once
+// (ROUND_TWICE false, the FFN) or as round(round(dx) + dy) (true, the
+// attention block). The tile's column sums of dln * xhat and dln go to
+// gpart[0, C) and gpart[C, 2C) through red (16 * C floats of shared
+// memory). Starts and ends with __syncthreads.
+template <typename T, int NJC, bool ROUND_TWICE>
+static __device__ __forceinline__ void stdln_backward_tile(
+    const float (&dln)[4][NJC], const T* __restrict__ x,
+    const T* __restrict__ dy, T* __restrict__ dx, int r0, int rows,
+    const float* __restrict__ gamma, const float* stats, float* red,
+    float* __restrict__ gpart, int tx, int ty, int tid) {
+  constexpr int C = 16 * NJC;
+  float gsum[NJC], bsum[NJC];
+#pragma unroll
+  for (int j = 0; j < NJC; ++j) gsum[j] = bsum[j] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const bool live = r < rows;
+    const float mu = stats[r], c = stats[kTile + r];
+    const float sd = stats[2 * kTile + r], var = stats[3 * kTile + r];
+    float xhat[NJC];
+    float A = 0.0f, S = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJC; ++j) {
+      const int col = tx + 16 * j;
+      const float xf = live ? Num<T>::load(x[(size_t)(r0 + r) * C + col])
+                            : 0.0f;
+      xhat[j] = (xf - mu) * c;
+      gsum[j] += dln[i][j] * xhat[j];
+      bsum[j] += dln[i][j];
+      const float dxhat = dln[i][j] * gamma[col];
+      A += dxhat * (xhat[j] / c);
+      S += dxhat;
+    }
+    A = half_warp_sum(A);
+    S = half_warp_sum(S);
+    if (!live) continue;
+    const float mean = S / (float)C;
+    const float flag = var > kVarFloor ? 1.0f : 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJC; ++j) {
+      const int col = tx + 16 * j;
+      const size_t off = (size_t)(r0 + r) * C + col;
+      const float dxhat = dln[i][j] * gamma[col];
+      const float xmu = xhat[j] / c;
+      const float d = c * (dxhat - mean) -
+                      (c * c) * A * xmu * flag / ((float)(C - 1) * sd);
+      const float g = Num<T>::load(dy[off]);
+      dx[off] = Num<T>::store(ROUND_TWICE ? rnd<T>(d) + g : g + d);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NJC; ++j) red[ty * C + tx + 16 * j] = gsum[j];
+  __syncthreads();
+  for (int col = tid; col < C; col += kThreads) {
+    float s = 0.0f;
+    for (int t = 0; t < 16; ++t) s += red[t * C + col];
+    gpart[col] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NJC; ++j) red[ty * C + tx + 16 * j] = bsum[j];
+  __syncthreads();
+  for (int col = tid; col < C; col += kThreads) {
+    float s = 0.0f;
+    for (int t = 0; t < 16; ++t) s += red[t * C + col];
+    gpart[C + col] = s;
+  }
+  __syncthreads();
+}
+
+// rows [row0, row0 + rows) of a row-major [*, C] matrix set to zero
+template <typename T>
+static __device__ __forceinline__ void zero_rows(T* __restrict__ dst,
+                                                 int row0, int rows, int C,
+                                                 int tid) {
+  const size_t base = (size_t)row0 * C;
+  for (int e = tid; e < rows * C; e += kThreads)
+    dst[base + e] = Num<T>::store(0.0f);
 }
 
 template <int NI, int NJ>

@@ -1,6 +1,7 @@
-"""Seeded synthetic eval batches in the batch contract
+"""Seeded synthetic batches in the batch contract
 (medical_tri_modal_pilot_tpu/data/dataset.py:354-370), restricted to the
-keys the eval step reads. Counterpart of ``__graft_entry__._synthetic_batch``.
+keys the train and eval steps read. Counterpart of
+``__graft_entry__._synthetic_batch``.
 
 The real loader cannot run where the port runs yet: ``data/dataset.py``
 imports ``data/images.py``, which imports PIL at module level.

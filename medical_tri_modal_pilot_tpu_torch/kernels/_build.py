@@ -26,14 +26,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> (argtypes); each returns an int: the *_fwd
-# launchers cudaGetLastError(), swin_mlp_fuses a flag
+_F = ctypes.c_float
+_U64 = ctypes.c_uint64
+_U32 = ctypes.c_uint32
+# C entry points: name -> (argtypes); each returns an int: the launchers
+# cudaGetLastError(), swin_mlp_fuses a flag
 _SIGNATURES = {
-    # x, gamma, beta, w, bias, mask, kend, kv, out, B, L, C, H, mult,
-    # dtype, stream
-    "attn_block_fwd": [_P] * 9 + [_I] * 4 + [ctypes.c_float, _I, _P],
-    # x, gamma, beta, w1, b1, w2, b2, valid, y, R, C, F, dtype, stream
-    "ffn_fwd": [_P] * 9 + [_I] * 4 + [_P],
+    # x, gamma, beta, w, bias, mask, kend, kv, out, attn, stats, B, L, C,
+    # H, mult, dtype, stream
+    "attn_block_fwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
+    # x, gamma, beta, w, bias, kend, qkv, B, L, C, dtype, stream
+    "attn_block_qkv": [_P] * 7 + [_I] * 4 + [_P],
+    # x, gamma, beta, w, mask, kend, attn, stats, dy, qkv, dqkv, ln_o, dx,
+    # gpart, B, L, C, H, mult, dtype, stream
+    "attn_block_bwd": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
+    # x, gamma, beta, w1, b1, w2, b2, valid, y, R, C, F, seed, thr, q_t,
+    # drop, dtype, stream
+    "ffn_fwd": [_P] * 9 + [_I] * 3 + [_U64, _U32, _F, _I, _I, _P],
+    # x, gamma, beta, w1, b1, w2, valid, dy, dx, ln_o, dz_o, hd_o, dh_o,
+    # gpart, R, C, F, seed, thr, q_t, q_f, drop, dtype, stream
+    "ffn_bwd": [_P] * 14 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
+    # k1, k2, R, F, C, seed, thr, stream
+    "ffn_dropout_masks": [_P] * 2 + [_I] * 3 + [_U64, _U32, _P],
+    # A, B, R, Ka, Nb, rows_per_slice, S, part, colpart, dtype, stream
+    "wgrad_partials": [_P] * 2 + [_I] * 5 + [_P] * 2 + [_I, _P],
+    # part, S, N, out, stream
+    "col_sum": [_P, _I, _I, _P, _P],
     # xw, wqkv, bqkv, wproj, bproj, bias, smask, qkv, heads, out, I, C, M,
     # scale, dtype, stream
     "swin_attention_fwd": [_P] * 10 + [_I] * 3 + [ctypes.c_float, _I, _P],

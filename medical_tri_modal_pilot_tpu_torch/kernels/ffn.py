@@ -1,23 +1,34 @@
-"""Fused pre-norm FFN block, ``x + W2 relu(W1 StdLN(x) + b1) + b2``: the
-plain PyTorch version and the CUDA kernel (``csrc/ffn.cu``). Forward only
-and deterministic; in-kernel dropout comes with the training path.
+"""Fused pre-norm FFN block, ``x + drop(W2 drop(relu(W1 StdLN(x) + b1)) +
+b2)``: the plain PyTorch version and the CUDA kernels (``csrc/ffn.cu``):
+the forward with in-kernel dropout, its backward, and the dropout masks.
 
-Counterpart of medical_tri_modal_pilot_tpu/kernels/ffn.py (``xla_ffn`` and
-``pallas_ffn``). Weights are in the JAX layout: w1 [C, F], w2 [F, C].
+Counterpart of medical_tri_modal_pilot_tpu/kernels/ffn.py (``xla_ffn``,
+``pallas_ffn`` and ``dropout_masks``). Weights are in the JAX layout: w1
+[C, F], w2 [F, C].
+
+Dropout keeps an element with the Philox4x32-10 draw keyed by the seed and
+the element's (row, column) in the flattened [R, F] hidden and [R, C]
+output (``plain_dropout_masks``, the kernels' ``dropout_keep``). The TPU
+kernel's masks come from the TPU's own generator and cannot be matched.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from ._util import forward_only
+from ._util import count, dtype_code, needs_grad, stream
+from .wgrad import col_sum, wgrad
 
 LN_EPS = 1e-6
 VAR_FLOOR = 1e-24
 # rows per kernel tile, and so the granularity of ``block_valid``
 BLOCK_R = 64
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
 def ln_f32(xf, gamma, beta):
@@ -30,24 +41,78 @@ def ln_f32(xf, gamma, beta):
     return (xf - mu) * c * gamma + beta
 
 
+def keep_threshold(p: float) -> int:
+    """Keep when the 32-bit draw is below floor(q * 2^32), q = 1 - p (the
+    TPU kernel's rule, kernels/ffn.py _keep_mask)."""
+    return min(int((1.0 - p) * 4294967296.0), 4294967295)
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit words of a * m for int64 tensors a < 2^32 and a
+    32-bit constant m, without leaving int64."""
+    t = a * (m & 0xFFFF)
+    u = a * (m >> 16)
+    s = (u & 0xFFFF) * 65536 + t
+    return (u >> 16) + (s >> 32), s & _MASK32
+
+
+def philox4x32_10(c0, c1, c2, seed: int):
+    """The four words of Philox4x32-10 at counters (c0, c1, c2, 0) (int64
+    tensors holding 32-bit values) under the key (seed low, seed high)."""
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    c = [c0, c1, c2, torch.zeros_like(c0)]
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c[0], _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c[2], _PHILOX_M[1])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c
+
+
+def _keep(R: int, N: int, m: int, seed: int, thr: int, device):
+    n4 = -(-N // 4)
+    c0 = torch.arange(n4, dtype=torch.int64, device=device)[None, :]
+    c1 = torch.arange(R, dtype=torch.int64, device=device)[:, None]
+    c0, c1 = torch.broadcast_tensors(c0, c1)
+    words = philox4x32_10(c0, c1, torch.full_like(c0, m), seed)
+    bits = torch.stack(words, dim=-1).reshape(R, 4 * n4)[:, :N]
+    return bits < thr
+
+
+def plain_dropout_masks(R: int, F: int, C: int, seed: int, p: float,
+                        device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The keep masks (bool [R, F] hidden, [R, C] output) that the kernels
+    draw for ``seed``: element (r, c) of mask m is word c % 4 of Philox at
+    counter (c // 4, r, m, 0), kept below ``keep_threshold(p)``."""
+    thr = keep_threshold(p)
+    return (_keep(R, F, 0, seed, thr, device),
+            _keep(R, C, 1, seed, thr, device))
+
+
 def torch_ffn(x, gamma, beta, w1, b1, w2, b2,
-              block_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+              block_valid: Optional[torch.Tensor] = None,
+              keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              p: float = 0.0) -> torch.Tensor:
     """Every row computed (``block_valid`` is accepted and ignored, as in
     xla_ffn); products accumulate in fp32 and round to ``x.dtype`` where
-    the TPU kernel rounds."""
+    the TPU kernel rounds. ``keep``: the two keep masks ([R, F], [R, C],
+    R = rows of x) for dropout at rate ``p``; kept values are divided by
+    q = 1 - p in ``x.dtype``."""
     del block_valid
     dt = x.dtype
     ln = ln_f32(x.float(), gamma.float(), beta.float()).to(dt)
     h = torch.relu(ln @ w1.to(dt) + b1.to(dt))
-    return x + (h @ w2.to(dt) + b2.to(dt))
+    if keep is not None:
+        q = torch.tensor(1.0 - p, dtype=dt, device=x.device)
+        h = torch.where(keep[0].reshape(h.shape), h / q, 0.0)
+    z = h @ w2.to(dt) + b2.to(dt)
+    if keep is not None:
+        z = torch.where(keep[1].reshape(z.shape), z / q, 0.0)
+    return x + z
 
 
-def cuda_ffn(x, gamma, beta, w1, b1, w2, b2,
-             block_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors. ``block_valid``: optional flags,
-    one per BLOCK_R consecutive rows of x flattened to [R, C] (any leading
-    shape, row order); a 0 tile passes x through unchanged."""
-    forward_only("ffn", x, gamma, beta, w1, b1, w2, b2)
+def _check(x, w1, w2, block_valid):
     if x.device.type != "cuda":
         raise ValueError(f"cuda_ffn needs CUDA tensors, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -71,19 +136,127 @@ def cuda_ffn(x, gamma, beta, w1, b1, w2, b2,
                              f"for {n_tiles} tiles of {BLOCK_R} rows")
         valid = block_valid.reshape(-1).to(device=x.device,
                                            dtype=torch.int8).contiguous()
+    return R, C, F, valid
+
+
+def _operands(x, gamma, beta, *ws):
     dt = x.dtype
-    w1, b1, w2, b2 = (t.to(dt).contiguous() for t in (w1, b1, w2, b2))
+    ws = [t.to(dt).contiguous() for t in ws]
     gamma = gamma.to(torch.float32).contiguous()
     beta = beta.to(torch.float32).contiguous()
-    for t in (w1, b1, w2, b2, gamma, beta):
+    for t in (*ws, gamma, beta):
         if t.device != x.device:
             raise ValueError(f"ffn operands on {t.device}, x on {x.device}")
+    return gamma, beta, ws
+
+
+def _dropout_args(p: float, seed: Optional[int], dt):
+    """(seed, thr, q in dt, q in fp32, on) for the C entry points."""
+    if p <= 0.0:
+        return 0, 0, 1.0, 1.0, 0
+    if seed is None:
+        raise ValueError("ffn dropout needs a seed")
+    q = 1.0 - p
+    q_t = float(torch.tensor(q, dtype=dt).float())
+    q_f = float(torch.tensor(q, dtype=torch.float32))
+    return int(seed) & (2 ** 64 - 1), keep_threshold(p), q_t, q_f, 1
+
+
+def _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed):
+    R, C, F, valid = _check(x, w1, w2, block_valid)
+    gamma, beta, (w1, b1, w2, b2) = _operands(x, gamma, beta, w1, b1, w2, b2)
+    s, thr, q_t, _, on = _dropout_args(p, seed, x.dtype)
     y = torch.empty_like(x)
     rc = _build.library().ffn_fwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         None if valid is None else valid.data_ptr(), y.data_ptr(),
-        R, C, F, 0 if dt == torch.float32 else 1,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        R, C, F, s, thr, q_t, on, dtype_code(x.dtype), stream(x))
     _build.check(rc, "ffn")
+    count("ffn")
     return y
+
+
+def cuda_ffn_bwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed, dy):
+    """The backward kernel: (dx, dgamma, dbeta, dw1, db1, dw2, db2), each
+    parameter gradient in its parameter's dtype, summed in fp32 over all
+    rows. Recomputes StdLN and the hidden layer and regenerates the masks;
+    a skipped tile gives dx = dy and adds nothing."""
+    R, C, F, valid = _check(x, w1, w2, block_valid)
+    dt = x.dtype
+    gamma_, beta_, (w1_, b1_, w2_) = _operands(x, gamma, beta, w1, b1, w2)
+    s, thr, q_t, q_f, on = _dropout_args(p, seed, dt)
+    dy = dy.to(dt).contiguous()
+    dev = x.device
+    dx = torch.empty_like(x)
+    ln, dz = (torch.empty(R, C, dtype=dt, device=dev) for _ in range(2))
+    hd, dh = (torch.empty(R, F, dtype=dt, device=dev) for _ in range(2))
+    gpart = torch.empty(-(-R // BLOCK_R), 2 * C, dtype=torch.float32,
+                        device=dev)
+    rc = _build.library().ffn_bwd(
+        x.data_ptr(), gamma_.data_ptr(), beta_.data_ptr(), w1_.data_ptr(),
+        b1_.data_ptr(), w2_.data_ptr(),
+        None if valid is None else valid.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), ln.data_ptr(), dz.data_ptr(), hd.data_ptr(),
+        dh.data_ptr(), gpart.data_ptr(), R, C, F, s, thr, q_t, q_f, on,
+        dtype_code(dt), stream(x))
+    _build.check(rc, "ffn_bwd")
+    dw1, db1 = wgrad(ln, dh)
+    dw2, db2 = wgrad(hd, dz)
+    g = col_sum(gpart)
+    count("ffn_bwd")
+    return (dx, g[:C].to(gamma.dtype), g[C:].to(beta.dtype),
+            dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+            db2.to(b2.dtype))
+
+
+class _FFN(torch.autograd.Function):
+    """Forward kernel; the backward kernel as its gradient. Saves x and the
+    seed, not the hidden layer."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed):
+        ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
+        ctx.block_valid, ctx.p, ctx.seed = block_valid, p, seed
+        return _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p,
+                           seed)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = cuda_ffn_bwd(*ctx.saved_tensors, ctx.block_valid, ctx.p,
+                             ctx.seed, dy)
+        return (*grads, None, None, None)
+
+
+def cuda_ffn(x, gamma, beta, w1, b1, w2, b2,
+             block_valid: Optional[torch.Tensor] = None, p: float = 0.0,
+             seed: Optional[int] = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors, through the autograd Function
+    when a gradient is needed. ``block_valid``: optional flags, one per
+    BLOCK_R consecutive rows of x flattened to [R, C] (any leading shape,
+    row order); a 0 tile passes x through unchanged. ``p`` > 0: dropout on
+    both masks drawn for ``seed``."""
+    if needs_grad(x, gamma, beta, w1, b1, w2, b2):
+        return _FFN.apply(x, gamma, beta, w1, b1, w2, b2, block_valid, p,
+                          seed)
+    return _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed)
+
+
+def cuda_dropout_masks(R: int, F: int, C: int, seed: int, p: float,
+                       device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' keep masks for ``seed``, drawn on the card (bool [R, F],
+    [R, C])."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"cuda_dropout_masks needs a CUDA device, got "
+                         f"{device}")
+    k1 = torch.empty(R, F, dtype=torch.int8, device=device)
+    k2 = torch.empty(R, C, dtype=torch.int8, device=device)
+    if R * (F + C) == 0:
+        return k1.bool(), k2.bool()
+    rc = _build.library().ffn_dropout_masks(
+        k1.data_ptr(), k2.data_ptr(), R, F, C, int(seed) & (2 ** 64 - 1),
+        keep_threshold(p), stream(k1))
+    _build.check(rc, "dropout_masks")
+    count("dropout_masks")
+    return k1.bool(), k2.bool()

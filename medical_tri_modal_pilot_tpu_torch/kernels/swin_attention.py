@@ -19,7 +19,7 @@ import torch
 
 from ..constants import MASK_FILL_VALUE
 from . import _build
-from ._util import forward_only
+from ._util import count, forward_only
 
 # the kernel's geometry: 7x7 windows, 32-wide heads
 WINDOW_TOKENS = 49
@@ -103,4 +103,5 @@ def cuda_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
         0 if dt == torch.float32 else 1,
         torch.cuda.current_stream(xw.device).cuda_stream)
     _build.check(rc, "swin_attention")
+    count("swin_attention")
     return out

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._util import forward_only
+from ._util import count, forward_only
 
 LN_EPS = 1e-5
 
@@ -83,4 +83,5 @@ def cuda_swin_mlp(x, scale, bias, w1, b1, w2, b2,
         Fh, 0 if dt == torch.float32 else 1,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "swin_mlp")
+    count("swin_mlp")
     return y

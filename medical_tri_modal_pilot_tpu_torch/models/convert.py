@@ -156,3 +156,53 @@ def from_jax_variables(cfg: Config, variables: Mapping
     if "rmse_layer" in params:
         _lin(sd, "rmse_layer", params["rmse_layer"])
     return sd
+
+
+def params_from_jax(cfg: Config, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the JAX model's params (the params, or an
+    optimizer's moments of them) -> the port's parameter names, with the
+    same layout rules (buffers left out)."""
+    stub = {"fc_list": {"bn": {"mean": np.zeros(1), "var": np.zeros(1)}}}
+    sd = from_jax_variables(cfg, {"params": tree, "batch_stats": stub})
+    return {k: v for k, v in sd.items()
+            if not (k.startswith("fc_list.1.running")
+                    or k.endswith("num_batches_tracked"))}
+
+
+def _fill_masked(tree, params):
+    """optax.masked leaves (MaskedNode, an empty NamedTuple) -> zeros of
+    the parameter's shape."""
+    if isinstance(tree, Mapping):
+        return {k: _fill_masked(tree[k], params[k]) for k in tree}
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == ():
+        return np.zeros(np.shape(params), np.float32)
+    return tree
+
+
+def _find_state(state, fields):
+    if all(f in getattr(state, "_fields", ()) for f in fields):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_state(s, fields)
+            if found is not None:
+                return found
+    return None
+
+
+def optimizer_state_from_jax(cfg: Config, opt_state, params: Mapping
+                             ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The moments of an optax adam/adamw (``mu``, ``nu``) or sgd
+    (``trace``) state, masked leaves as zeros, under torch.optim's state
+    names: {"exp_avg": {name: tensor}, "exp_avg_sq": ...} or
+    {"momentum_buffer": ...}."""
+    adam = _find_state(opt_state, ("count", "mu", "nu"))
+    if adam is not None:
+        return {"exp_avg": params_from_jax(cfg, _fill_masked(adam.mu, params)),
+                "exp_avg_sq": params_from_jax(
+                    cfg, _fill_masked(adam.nu, params))}
+    trace = _find_state(opt_state, ("trace",))
+    if trace is not None:
+        return {"momentum_buffer": params_from_jax(
+            cfg, _fill_masked(trace.trace, params))}
+    raise ValueError("no adam or sgd state in the optimizer state")

@@ -16,15 +16,16 @@ keys, so the logits do not depend on it.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .modules import (LayerNorm, TransformerEncoderLayer, length_key_mask,
-                      positional_encoding)
+from .modules import (DropoutSeeds, LayerNorm, TransformerEncoderLayer,
+                      length_key_mask, positional_encoding)
+from .modules import dropout as apply_dropout
 
 
 def missing_candidate_weights(n_modality: int) -> np.ndarray:
@@ -50,7 +51,8 @@ class MBTFusion(nn.Module):
     def __init__(self, n_modality: int, bottlenecks_n: int = 4,
                  fusion_startidx: int = 0, n_layers: int = 6,
                  n_head: int = 4, d_model: int = 256, d_ff: int = 1024,
-                 pe_maxlen: int = 2500, txt_idx: int = 2, vsltonly: int = 0,
+                 dropout: float = 0.1, pe_maxlen: int = 2500,
+                 txt_idx: int = 2, vsltonly: int = 0,
                  resbottle: bool = False,
                  use_pe: Tuple[bool, ...] = (False, False, True),
                  mask: Tuple[bool, ...] = (True, False, True),
@@ -62,6 +64,7 @@ class MBTFusion(nn.Module):
         self.fusion_startidx = fusion_startidx
         self.n_layers = n_layers
         self.d_model = d_model
+        self.dropout = dropout
         self.txt_idx = txt_idx
         self.vsltonly = vsltonly
         self.resbottle = resbottle
@@ -78,7 +81,8 @@ class MBTFusion(nn.Module):
         for layer in range(n_layers):
             mods = 1 if (vsltonly == 1 and layer == n_layers - 1) else M
             self.layer_stacks.append(nn.ModuleList(
-                [TransformerEncoderLayer(d_model, n_head, d_ff, dtype)
+                [TransformerEncoderLayer(d_model, n_head, d_ff, dropout,
+                                         dtype)
                  for _ in range(mods)]))
         self.register_buffer("pe", positional_encoding(pe_maxlen, d_model),
                              persistent=False)
@@ -88,9 +92,11 @@ class MBTFusion(nn.Module):
 
     def forward(self, enc_inputs: Sequence[torch.Tensor],
                 varying_lengths: Sequence[torch.Tensor],
-                missing_num: torch.Tensor) -> List[torch.Tensor]:
+                missing_num: torch.Tensor,
+                seeds: Optional[DropoutSeeds] = None) -> List[torch.Tensor]:
         """enc_inputs[m]: [B, L_m, D] (no cls yet); varying_lengths[m]: [B]
-        int; missing_num: [B] int in [0, n_candidates). Returns per-modality
+        int; missing_num: [B] int in [0, n_candidates); seeds: the step's
+        dropout seeds (training mode). Returns per-modality
         [B, 1+L_m(+pad), D] with cls at position 0."""
         M = self.n_modality
         n = self.bottlenecks_n
@@ -118,33 +124,34 @@ class MBTFusion(nn.Module):
             h = self.layer_norms_in[m](x)
             if self.use_pe[m]:
                 h = h + self.pe[:, :L].to(dt)
-            xs.append(h)
+            xs.append(apply_dropout(h, self.dropout, self.training, seeds))
 
         onehot = F.one_hot(missing_num.long(), self.candidates.shape[0])
         mix = onehot.float() @ self.candidates                   # [B, M]
         bottlenecks = self.bottlenecks.expand(B, n, D).to(dt)
 
-        # the bottleneck rows stay in front of each stream from the first
-        # fusion layer on; later layers overwrite them in place
+        # from the first fusion layer on, each stream carries the
+        # bottleneck rows in front; later layers replace them out of place
+        # (the stream is a saved input of the previous layer's backward)
         in_fusion = False
         for layer in range(self.n_layers):
             stack = self.layer_stacks[layer]
             if layer < self.fusion_startidx:
-                xs = [stack[m](xs[m], key_masks[m]) for m in range(M)]
+                xs = [stack[m](xs[m], key_masks[m], seeds) for m in range(M)]
                 continue
             if not in_fusion:
                 xs = [torch.cat([bottlenecks, x], dim=1) for x in xs]
                 in_fusion = True
             else:
-                for x in xs:
-                    x[:, :n] = bottlenecks
+                xs = [torch.cat([bottlenecks.to(x.dtype), x[:, n:]], dim=1)
+                      for x in xs]
             last_layer = layer == self.n_layers - 1
             new_xs, bn_outs = [], []
             for m in range(M):
                 if self.vsltonly == 1 and last_layer and m > 0:
                     new_xs.append(xs[m])
                     continue
-                out = stack[m](xs[m], b_key_masks[m])
+                out = stack[m](xs[m], b_key_masks[m], seeds)
                 bn_outs.append(out[:, :n])
                 new_xs.append(out)
             xs = new_xs

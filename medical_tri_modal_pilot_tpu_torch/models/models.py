@@ -19,7 +19,7 @@ from ..config import Config
 from ..constants import IMG_FEATURE_ID, TXT_FEATURE_ID
 from .heads import ClsHead
 from .mbt import MBTFusion
-from .modules import LayerNorm
+from .modules import DropoutSeeds, LayerNorm
 from .swin import SwinTransformer
 from .umse import UMSE
 
@@ -41,8 +41,11 @@ class ImageEncoder(UMSE):
     """UMSE plus, when ``--input-types`` has img, the Swin-T trunk
     (``img_encoder``) and its 768 -> d projection (``linear``)
     (tri_mbt_vsltcls.py:83-118, :202-214). The trunk is frozen when
-    ``--img-pretrain Yes``; the weights are seeded or carried across, since
-    loading ``--img-pretrain-path`` is not ported yet."""
+    ``--img-pretrain Yes``: its parameters take no gradient, it stays in
+    eval mode under ``model.train()`` and runs under ``torch.no_grad()``
+    (JAX: stop_gradient, models.py:125-141, and the optimizer mask). Only
+    ``linear`` trains on the image side. The weights are seeded or carried
+    across, since loading ``--img-pretrain-path`` is not ported yet."""
 
     def __init__(self, cfg: Config):
         dt = model_dtype(cfg)
@@ -64,11 +67,27 @@ class ImageEncoder(UMSE):
         self.linear = nn.Linear(self.img_encoder.num_features,
                                 cfg.transformer_dim)
         frozen = cfg.img_pretrain == "Yes"
+        self.img_encoder.requires_grad_(not frozen)
         self.img_pack = frozen and (
             cfg.img_pack == 1
             or (cfg.img_pack == -1 and "missing" in cfg.modality_inclusion))
         # rows the trunk ran on in the last call (cap + 1 when packed)
         self.trunk_rows = 0
+
+    def train(self, mode: bool = True):
+        """Training mode for everything but a frozen trunk, which stays in
+        eval mode. A trainable trunk (``--img-pretrain No``) is not ported
+        and raises."""
+        super().train(mode)
+        trunk = getattr(self, "img_encoder", None)
+        if trunk is not None:
+            if mode and self.cfg.img_pretrain != "Yes":
+                raise NotImplementedError(
+                    "--img-pretrain No: training the Swin trunk (its "
+                    "backward and stochastic depth) is ROADMAP Queue 1 "
+                    "item 11")
+            trunk.eval()
+        return self
 
     def _trunk(self, img, present: torch.Tensor) -> torch.Tensor:
         """The frozen trunk over [rows, 1, H, W] images (models.py:65-107).
@@ -97,7 +116,8 @@ class ImageEncoder(UMSE):
         compute dtype."""
         cfg = self.cfg
         img = img.reshape(-1, 1, cfg.image_size, cfg.image_size)
-        feats = self._trunk(img, present.reshape(-1))
+        with torch.no_grad():
+            feats = self._trunk(img, present.reshape(-1))
         feats = feats.reshape(feats.shape[0], -1, feats.shape[-1])
         dt = self.compute_dtype
         return F.linear(feats.to(dt), self.linear.weight.to(dt),
@@ -129,6 +149,7 @@ class MBTBackbone(ImageEncoder):
             n_head=cfg.transformer_num_head,
             d_model=cfg.transformer_dim,
             d_ff=cfg.transformer_dim * 4,
+            dropout=cfg.dropout,
             txt_idx=mods.index("txt") if "txt" in mods else -1,
             vsltonly=cfg.mbt_only_vslt,
             resbottle=cfg.residual_bottlenecks == 1,
@@ -160,7 +181,8 @@ class MBTBackbone(ImageEncoder):
         return tokens.reshape(B, -1, tokens.shape[-1]), n_real * per_image
 
     def backbone(self, batch: Dict[str, torch.Tensor],
-                 missing_num: torch.Tensor
+                 missing_num: torch.Tensor,
+                 seeds: Optional[DropoutSeeds] = None
                  ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         cfg = self.cfg
         mods = cfg.input_types.split("_")
@@ -181,7 +203,8 @@ class MBTBackbone(ImageEncoder):
                     txt_tokens, batch["txt_time"], TXT_FEATURE_ID)
             enc_inputs.append(txt_tokens)
             varying.append(batch["txt_length"].long() + 2)
-        outputs = self.fusion_transformer(enc_inputs, varying, missing_num)
+        outputs = self.fusion_transformer(enc_inputs, varying, missing_num,
+                                          seeds)
         return outputs, demo
 
 
@@ -206,9 +229,11 @@ class TRI_MBT_VSLTCLS(MBTBackbone):
         return h
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                missing_num: torch.Tensor) -> ModelOutput:
+                missing_num: torch.Tensor,
+                seeds: Optional[DropoutSeeds] = None) -> ModelOutput:
+        """``seeds``: the step's dropout seeds, needed in training mode."""
         cfg = self.cfg
-        outputs, demo = self.backbone(batch, missing_num)
+        outputs, demo = self.backbone(batch, missing_num, seeds)
         x = self._class_input(outputs[0][:, 0, :], demo)
         rmse = None
         if "rmse" in cfg.auxiliary_loss_type:

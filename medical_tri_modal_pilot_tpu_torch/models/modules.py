@@ -13,7 +13,14 @@ Parameters keep the reference's torch ``state_dict`` names, so
 ``medical_tri_modal_pilot_tpu/models/convert_ref.py`` maps them onto the
 flax tree. Parameters are fp32; each module computes in its ``dtype``
 (bf16 under ``--precision bf16``), casting weights at use as the JAX
-modules do. Forward only: the modules refuse training mode.
+modules do.
+
+Dropout (training mode, p > 0) draws one seed per call from the
+``DropoutSeeds`` of the running step, which the trainer passes down the
+forward: the n-th dropout call of step k draws a seed mixed from (run
+seed, k, n), so a resumed run draws the masks it would have drawn.
+Every mask is Philox keyed by that seed (kernels/ffn.py), so the CPU and
+the card draw the same ones.
 """
 from __future__ import annotations
 
@@ -33,11 +40,64 @@ from ..kernels.ffn import BLOCK_R as FFN_BLOCK_R
 
 
 def check_eval(module: nn.Module) -> None:
+    """The Swin trunk runs frozen, in eval mode; a trainable trunk
+    (``--img-pretrain No``) is not ported."""
     if module.training:
         raise NotImplementedError(
-            f"{type(module).__name__}: the port runs eval only so far; the "
-            "training path (dropout, backward kernels) is ROADMAP Queue 1 "
-            "item 2")
+            f"{type(module).__name__}: the Swin trunk runs frozen in eval "
+            "mode; a trainable trunk is ROADMAP Queue 1 item 11")
+
+
+_MASK64 = 2 ** 64 - 1
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+class DropoutSeeds:
+    """The dropout seeds of one step: call n draws a 63-bit seed mixed
+    from (run seed, step, n)."""
+
+    def __init__(self, run_seed: int, step: int):
+        self.run_seed = int(run_seed)
+        self.step = int(step)
+        self.calls = 0
+
+    def next(self) -> int:
+        h = 0
+        for word in (self.run_seed, self.step, self.calls):
+            h = _splitmix64(h ^ (word & _MASK64))
+        self.calls += 1
+        return h >> 1
+
+
+def draw_seed(seeds: Optional[DropoutSeeds]) -> int:
+    """The next dropout seed of a training forward."""
+    if seeds is None:
+        raise RuntimeError(
+            "dropout in training mode needs the step's DropoutSeeds: pass "
+            "seeds to the forward (Trainer.train_step does)")
+    return seeds.next()
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+    """nn.Dropout's semantics as the JAX package writes them: keep with
+    q = 1 - p, kept values divided by q in x's dtype. The mask is the FFN
+    kernels' Philox output mask for the next seed over x's rows
+    (``ops.dropout_masks``: the kernel on the card, its plain version on
+    the CPU, the same bits on both)."""
+    if not training or p == 0.0:
+        return x
+    C = x.shape[-1]
+    _, keep = ops.dropout_masks(x.numel() // C, 0, C, draw_seed(seeds), p,
+                                x.device)
+    q = torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
+    return torch.where(keep.reshape(x.shape), x / q, 0.0)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -184,14 +244,15 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """relu(W1 x) -> W2, the reference's conv1x1 FFN (module.py:74-80),
-    kept as ``Conv1d`` parameters [out, in, 1]."""
+    """relu(W1 x) -> drop -> W2 -> drop, the reference's conv1x1 FFN
+    (module.py:74-80), kept as ``Conv1d`` parameters [out, in, 1]."""
 
-    def __init__(self, d_model: int, d_ff: int,
+    def __init__(self, d_model: int, d_ff: int, dropout_p: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.w_1 = nn.Conv1d(d_model, d_ff, 1)
         self.w_2 = nn.Conv1d(d_ff, d_model, 1)
+        self.dropout_p = dropout_p
         self.compute_dtype = dtype
 
     def weights(self):
@@ -199,11 +260,17 @@ class FeedForward(nn.Module):
         return (self.w_1.weight[:, :, 0].t(), self.w_1.bias,
                 self.w_2.weight[:, :, 0].t(), self.w_2.bias)
 
-    def forward(self, x):
+    def forward(self, x, seeds: Optional[DropoutSeeds] = None):
+        """The unfused composition (the encoder layer runs the fused op
+        instead); dropout when given ``seeds``, as the flax module's call
+        with ``deterministic=False``."""
         w1, b1, w2, b2 = self.weights()
         dt = self.compute_dtype
+        drop = seeds is not None
         h = torch.relu(x.to(dt) @ w1.to(dt) + b1.to(dt))
-        return h @ w2.to(dt) + b2.to(dt)
+        h = dropout(h, self.dropout_p, drop, seeds)
+        return dropout(h @ w2.to(dt) + b2.to(dt), self.dropout_p, drop,
+                       seeds)
 
 
 def ffn_row_blocks(x, key_mask) -> Optional[torch.Tensor]:
@@ -226,30 +293,40 @@ def ffn_row_blocks(x, key_mask) -> Optional[torch.Tensor]:
 
 class TransformerEncoderLayer(nn.Module):
     """Pre-norm block: StdLN -> MHA -> +res; StdLN -> FFN -> +res
-    (encoder.py:8-34). Both halves go through the fused ops."""
+    (encoder.py:8-34). Both halves go through the fused ops; dropout only
+    in the FFN half, as in the JAX package."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
-                 dtype: torch.dtype = torch.float32):
+                 dropout_p: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.attention_prenorm = StdLayerNorm(d_model, dtype=dtype)
         self.self_attention = MultiHeadAttention(d_model, num_heads, dtype)
         self.feed_forward_prenorm = StdLayerNorm(d_model, dtype=dtype)
-        self.feed_forward = FeedForward(d_model, d_ff, dtype)
+        self.feed_forward = FeedForward(d_model, d_ff, dropout_p, dtype)
 
-    def forward(self, x, key_mask: Optional[torch.Tensor] = None):
-        check_eval(self)
+    def forward(self, x, key_mask: Optional[torch.Tensor] = None,
+                seeds: Optional[DropoutSeeds] = None):
+        """``seeds``: the step's dropout seeds (training mode)."""
         x = self.self_attention(x, x, x, key_mask,
                                 prenorm=self.attention_prenorm.scales(),
                                 residual=x)
-        return ffn_block(self, x, key_mask)
+        return ffn_block(self, x, key_mask, seeds)
 
 
-def ffn_block(layer: TransformerEncoderLayer, x, key_mask=None):
-    """x + FFN(StdLN(x)) through the fused op, with row-tile skipping."""
+def ffn_block(layer: TransformerEncoderLayer, x, key_mask=None,
+              seeds: Optional[DropoutSeeds] = None):
+    """x + FFN(StdLN(x)) through the fused op, with row-tile skipping and,
+    in training mode, in-kernel dropout on a seed of its own (JAX
+    modules.py:408-434). The fp32 weights reach the op as they are, so
+    their gradients come back in fp32."""
     gamma, beta = layer.feed_forward_prenorm.scales()
-    w1, b1, w2, b2 = layer.feed_forward.weights()
+    ff = layer.feed_forward
+    w1, b1, w2, b2 = ff.weights()
+    training = layer.training and ff.dropout_p > 0.0
     return ops.ffn(x, gamma, beta, w1, b1, w2, b2,
-                   block_valid=ffn_row_blocks(x, key_mask))
+                   block_valid=ffn_row_blocks(x, key_mask), p=ff.dropout_p,
+                   training=training,
+                   seed=draw_seed(seeds) if training else None)
 
 
 class MLPStem(nn.Sequential):

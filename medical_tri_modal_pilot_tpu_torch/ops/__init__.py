@@ -1,14 +1,20 @@
 """Kernel dispatch for one device (counterpart of
-medical_tri_modal_pilot_tpu/ops/__init__.py:261-325): the five kernels of the
-flagship's eval step.
+medical_tri_modal_pilot_tpu/ops/__init__.py:261-325): the kernels of the
+flagship's train and eval steps.
 
 Each wrapper picks its implementation by the device of its input: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
 hand-written kernel (or the launch raises; nothing falls back). Inside
 ``reference_path()`` CUDA tensors take the plain versions too, which is how
-the tests and ``chip_smoke.py`` build their oracle on the card.
+the tests and ``chip_smoke.py`` build their oracle on the card. On the
+plain path the gradients are autograd of the plain versions; on the kernel
+path ``umse``, ``attn_block`` and ``ffn`` are autograd Functions whose
+backward launches the backward kernels (``umse``'s differentiates its
+plain version, as in the JAX package).
 
-``launches`` counts, per kernel, the wrapper calls that launched it.
+``launches`` counts, per kernel, the wrapper calls that launched it
+(kernels/_util.py); the backward kernels count as ``attn_block_bwd`` and
+``ffn_bwd``.
 """
 from __future__ import annotations
 
@@ -22,9 +28,11 @@ from ..kernels import ffn as _ffn
 from ..kernels import swin_attention as _swin_attention
 from ..kernels import swin_mlp as _swin_mlp
 from ..kernels import umse as _umse
+from ..kernels._util import KERNELS, launches
 
-KERNELS = ("umse", "attn_block", "ffn", "swin_attention", "swin_mlp")
-launches = {name: 0 for name in KERNELS}
+__all__ = ["KERNELS", "launches", "reset_launches", "reference_path",
+           "umse", "attn_block", "ffn", "dropout_masks", "swin_attention",
+           "swin_mlp"]
 
 _reference = False
 
@@ -45,63 +53,71 @@ def reference_path() -> Iterator[None]:
         _reference = prev
 
 
-def _launches_kernel(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
+def _launches_kernel(device: torch.device) -> bool:
+    if device.type == "cpu":
         return False
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel or plain version for device {x.device}")
+    if device.type != "cuda":
+        raise ValueError(f"no kernel or plain version for device {device}")
     return not _reference
 
 
 def umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table, dtype):
     """TIE-token embedding, [B, L, 3] -> [B, L, D] in ``dtype``."""
-    if not _launches_kernel(x):
+    if not _launches_kernel(x.device):
         return _umse.torch_umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table,
                                 dtype)
-    out = _umse.triton_umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table,
-                            dtype)
-    launches["umse"] += 1
-    return out
+    return _umse.triton_umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table,
+                             dtype)
 
 
 def attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
                scale: float, num_heads: int):
     """x + MHA(StdLN(x)) with q|k|v weights [C, 3C] / [3C]."""
-    if not _launches_kernel(x):
+    if not _launches_kernel(x.device):
         return _attn_block.torch_attn_block(x, gamma, beta, w, b, key_mask,
                                             scale, num_heads)
-    out = _attn_block.cuda_attn_block(x, gamma, beta, w, b, key_mask, scale,
-                                      num_heads)
-    launches["attn_block"] += 1
-    return out
+    return _attn_block.cuda_attn_block(x, gamma, beta, w, b, key_mask, scale,
+                                       num_heads)
+
+
+def dropout_masks(R: int, F: int, C: int, seed: int, p: float, device):
+    """The FFN kernels' keep masks for ``seed`` (bool [R, F], [R, C])."""
+    device = torch.device(device)
+    if not _launches_kernel(device):
+        return _ffn.plain_dropout_masks(R, F, C, seed, p, device)
+    return _ffn.cuda_dropout_masks(R, F, C, seed, p, device)
 
 
 def ffn(x, gamma, beta, w1, b1, w2, b2,
-        block_valid: Optional[torch.Tensor] = None):
-    """x + W2 relu(W1 StdLN(x) + b1) + b2, forward and deterministic."""
-    if not _launches_kernel(x):
-        return _ffn.torch_ffn(x, gamma, beta, w1, b1, w2, b2, block_valid)
-    out = _ffn.cuda_ffn(x, gamma, beta, w1, b1, w2, b2, block_valid)
-    launches["ffn"] += 1
-    return out
+        block_valid: Optional[torch.Tensor] = None, p: float = 0.0,
+        training: bool = False, seed: Optional[int] = None):
+    """x + drop(W2 drop(relu(W1 StdLN(x) + b1)) + b2); dropout at rate
+    ``p`` when ``training``, its masks drawn for ``seed``."""
+    p = p if training else 0.0
+    if not _launches_kernel(x.device):
+        keep = None
+        if p > 0.0:
+            C, F = x.shape[-1], w1.shape[-1]
+            keep = _ffn.plain_dropout_masks(x.numel() // C, F, C, seed, p,
+                                            x.device)
+        return _ffn.torch_ffn(x, gamma, beta, w1, b1, w2, b2, block_valid,
+                              keep, p)
+    return _ffn.cuda_ffn(x, gamma, beta, w1, b1, w2, b2, block_valid, p,
+                         seed)
 
 
 def swin_attention(xw, wqkv, bqkv, wproj, bproj, bias,
                    smask: Optional[torch.Tensor], num_heads: int):
     """Swin window attention over [I, 49, C] windows, output [I, 49, C]."""
-    if not _launches_kernel(xw):
+    if not _launches_kernel(xw.device):
         return _swin_attention.torch_window_attention(
             xw, wqkv, bqkv, wproj, bproj, bias, smask, num_heads)
-    out = _swin_attention.cuda_window_attention(
+    return _swin_attention.cuda_window_attention(
         xw, wqkv, bqkv, wproj, bproj, bias, smask, num_heads)
-    launches["swin_attention"] += 1
-    return out
 
 
 def swin_mlp(x, scale, bias, w1, b1, w2, b2):
     """x + fc2(gelu(fc1(LN(x)))) over [R, C] rows."""
-    if not _launches_kernel(x):
+    if not _launches_kernel(x.device):
         return _swin_mlp.torch_swin_mlp(x, scale, bias, w1, b1, w2, b2)
-    out = _swin_mlp.cuda_swin_mlp(x, scale, bias, w1, b1, w2, b2)
-    launches["swin_mlp"] += 1
-    return out
+    return _swin_mlp.cuda_swin_mlp(x, scale, bias, w1, b1, w2, b2)

@@ -1,1 +1,1 @@
-"""Eval step of the port."""
+"""Train and eval steps, schedules, checkpoints and metrics of the port."""

@@ -1,8 +1,9 @@
 """The port's CUDA and Triton kernels against their plain PyTorch versions
 on the card, at the small widths of the CPU tests (d_head 32, C 64) and at
-the flagship's (d_head 64, C 256; Swin-T's C 96-768), and the small
-eval steps (vslt+txt, and vslt+img+txt with the full Swin-T) on both
-paths.
+the flagship's (d_head 64, C 256; Swin-T's C 96-768): forwards, the
+backward kernels against autograd of the plain versions, the dropout
+masks bit for bit; and the small eval and train steps (vslt+txt, and
+vslt+img+txt with the full Swin-T) on both paths.
 Marked ``cuda``: skipped without a GPU. This file imports no jax, so it
 also runs where the port runs:
 
@@ -16,6 +17,8 @@ from medical_tri_modal_pilot_tpu_torch import ops
 from medical_tri_modal_pilot_tpu_torch.config import parse_config
 from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
     cuda_attn_block, key_ends)
+from medical_tri_modal_pilot_tpu_torch.kernels.ffn import plain_dropout_masks
+from medical_tri_modal_pilot_tpu_torch.kernels.wgrad import wgrad
 from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import (
     cuda_swin_mlp, torch_swin_mlp)
 from medical_tri_modal_pilot_tpu_torch.models.modules import (
@@ -27,6 +30,11 @@ PRECS = {"fp32": torch.float32, "bf16": torch.bfloat16}
 # as in chip_smoke.py: fp32 sums in another order; bf16 rounds at the same
 # points, one rounding flip and the fp32 probabilities of the kernel
 TOL = {"fp32": dict(atol=1e-4, rtol=1e-4), "bf16": dict(atol=6e-2, rtol=2e-2)}
+# gradients, as chip_smoke.py's GRAD_TOL: |kernel - plain|_F / |plain|_F
+# per tensor (fp32: summation order and the odd ReLU unit on the other
+# side of 0; bf16: the plain autograd rounds every intermediate gradient
+# to bf16)
+GRAD_TOL = {"fp32": 5e-3, "bf16": 5e-2}
 
 
 @pytest.fixture
@@ -108,6 +116,106 @@ def test_ffn_kernel(dev, C, prec):
     assert torch.equal(out[~live], x[~live].float())
 
 
+def _grads(fn, inputs, cot):
+    """fn's output and the gradients of sum(out * cot), on the kernel path
+    and on the plain path."""
+    res = []
+    for plain in (False, True):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        if plain:
+            with ops.reference_path():
+                out = fn(*leaves)
+        else:
+            out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, cot)
+        res.append((out.detach().float(), [g.float() for g in grads]))
+    return res
+
+
+def _assert_grads_close(got, want, prec, names):
+    for g, w, name in zip(got, want, names):
+        err = float((g - w).norm())
+        bound = GRAD_TOL[prec] * float(w.norm()) + 1e-6
+        assert err <= bound, f"{name}: {err:.3e} > {bound:.3e}"
+
+
+@pytest.mark.parametrize("L,C,H", [(54, 64, 2), (130, 64, 2),
+                                   (300, 256, 4)])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_attn_block_training_kernels(dev, L, C, H, prec):
+    """The training forward and the backward kernels against autograd of
+    the plain version: random lengths with one fully masked sample, the
+    cotangent zero on rows at or past each sample's last valid key."""
+    g = torch.Generator().manual_seed(6)
+    B, dt = 4, PRECS[prec]
+    x = _rand(g, dev, B, L, C).to(dt)
+    gamma, beta = _rand(g, dev, C, std=.1, mean=1.), _rand(g, dev, C, std=.1)
+    w = _rand(g, dev, C, 3 * C, std=C ** -.5).to(dt)
+    b = _rand(g, dev, 3 * C, std=.1).to(dt)
+    mask = length_key_mask(torch.tensor([0, 1, L // 2, L], device=dev), L)
+    live = torch.arange(L, device=dev)[None] < key_ends(mask)[:, None].long()
+    cot = _rand(g, dev, B, L, C).to(dt) * live[:, :, None]
+    ops.reset_launches()
+    (out, grads), (ref, ref_grads) = _grads(
+        lambda *a: ops.attn_block(*a, mask, (C // H) ** .5, H),
+        (x, gamma, beta, w, b), cot)
+    assert ops.launches["attn_block"] == 1
+    assert ops.launches["attn_block_bwd"] == 1
+    torch.testing.assert_close(out[live], ref[live], **TOL[prec])
+    _assert_grads_close(grads, ref_grads, prec,
+                        ["dx", "dgamma", "dbeta", "dw", "db"])
+
+
+@pytest.mark.parametrize("C", [64, 256])
+@pytest.mark.parametrize("p", [0.0, 0.25])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_ffn_training_kernels(dev, C, p, prec):
+    """The forward with in-kernel dropout and the backward kernel against
+    autograd of the plain version on the same Philox masks; skipped tiles
+    carry a zero cotangent, as in the model."""
+    g = torch.Generator().manual_seed(7)
+    B, L, F, dt = 4, 256, 4 * C, PRECS[prec]
+    x = _rand(g, dev, B, L, C).to(dt)
+    ws = (_rand(g, dev, C, std=.1, mean=1.), _rand(g, dev, C, std=.1),
+          _rand(g, dev, C, F, std=C ** -.5), _rand(g, dev, F, std=.1),
+          _rand(g, dev, F, C, std=F ** -.5), _rand(g, dev, C, std=.1))
+    mask = length_key_mask(torch.tensor([0, 10, 100, 256], device=dev), L)
+    flags = ffn_row_blocks(x, mask)
+    live = flags.repeat_interleave(L // flags.shape[1], dim=1)
+    cot = _rand(g, dev, B, L, C).to(dt) * live[:, :, None]
+    ops.reset_launches()
+    (out, grads), (ref, ref_grads) = _grads(
+        lambda *a: ops.ffn(*a, flags, p=p, training=True, seed=1234),
+        (x, *ws), cot)
+    assert ops.launches["ffn"] == ops.launches["ffn_bwd"] == 1
+    torch.testing.assert_close(out[live], ref[live], **TOL[prec])
+    _assert_grads_close(grads, ref_grads, prec,
+                        ["dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"])
+
+
+@pytest.mark.parametrize("R,F,C", [(300, 256, 64), (1000, 0, 256),
+                                   (65, 1024, 256)])
+def test_dropout_masks_kernel_is_bit_identical(dev, R, F, C):
+    for seed, p in ((5, 0.1), (2 ** 63 - 1, 0.5)):
+        got = ops.dropout_masks(R, F, C, seed, p, dev)
+        want = plain_dropout_masks(R, F, C, seed, p, dev)
+        for a, e in zip(got, want):
+            assert torch.equal(a, e)
+
+
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_wgrad_matches_a_product(dev, prec):
+    """A^T B and the column sums of B over ragged slices of rows."""
+    g = torch.Generator().manual_seed(8)
+    a = _rand(g, dev, 1000, 64).to(PRECS[prec])
+    b = _rand(g, dev, 1000, 192).to(PRECS[prec])
+    dw, db = wgrad(a, b)
+    torch.testing.assert_close(dw, a.double().t() @ b.double(),
+                               atol=1e-3, rtol=1e-4, check_dtype=False)
+    torch.testing.assert_close(db, b.double().sum(0), atol=1e-3, rtol=1e-4,
+                               check_dtype=False)
+
+
 def test_kernels_refuse_block_masks_and_grads(dev):
     x = torch.zeros(2, 8, 64, device=dev)
     args = (torch.ones(64, device=dev), torch.zeros(64, device=dev),
@@ -115,8 +223,6 @@ def test_kernels_refuse_block_masks_and_grads(dev):
     with pytest.raises(NotImplementedError, match="3-D"):
         cuda_attn_block(x, *args, torch.zeros(2, 8, 8, dtype=torch.bool,
                                               device=dev), 4.0, 2)
-    with pytest.raises(RuntimeError, match="forward only"):
-        cuda_attn_block(x.requires_grad_(True), *args, None, 4.0, 2)
 
 
 @pytest.mark.parametrize("C,hw,images", [(32, 14, 2), (64, 14, 1),
@@ -192,8 +298,8 @@ def test_small_slice_on_both_paths(dev):
     batch = synthetic_batch(cfg, 4, seed=1)
     ops.reset_launches()
     probs, loss, _ = tr.eval_step(batch)
-    assert ops.launches == {"umse": 1, "attn_block": 4, "ffn": 4,
-                            "swin_attention": 0, "swin_mlp": 0}
+    assert ops.launches == dict.fromkeys(ops.KERNELS, 0) | {
+        "umse": 1, "attn_block": 4, "ffn": 4}
     with ops.reference_path():
         ref, ref_loss, _ = tr.eval_step(batch)
     np.testing.assert_allclose(probs, ref, atol=1e-5)
@@ -214,10 +320,51 @@ def test_small_trimodal_slice_on_both_paths(dev, present_frac):
     batch = synthetic_batch(cfg, 4, seed=2, present_frac=present_frac)
     ops.reset_launches()
     probs, loss, _ = tr.eval_step(batch)
-    assert ops.launches == {"umse": 1, "attn_block": 6, "ffn": 6,
-                            "swin_attention": 12, "swin_mlp": 12}
+    assert ops.launches == dict.fromkeys(ops.KERNELS, 0) | {
+        "umse": 1, "attn_block": 6, "ffn": 6, "swin_attention": 12,
+        "swin_mlp": 12}
     assert model.trunk_rows == (3 if present_frac == 0.5 else 4)
     with ops.reference_path():
         ref, ref_loss, _ = tr.eval_step(batch)
     np.testing.assert_allclose(probs, ref, atol=1e-4)
     assert loss == pytest.approx(ref_loss, abs=1e-4)
+
+
+@pytest.mark.parametrize("dropout", ["0", "0.1"])
+def test_small_train_step_on_both_paths(dev, dropout):
+    """One train step of config 2's flags (small width, fp32) on each path
+    from the same weights: the launch counts, the loss and every
+    gradient. The last layer's txt stream feeds only the bottleneck mix,
+    which nothing reads after the last layer, so autograd runs no backward
+    for it: 4 forward launches, 3 backward."""
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    cfg = parse_config(_small_argv("vslt_txt") + ["--dropout", dropout])
+    batch = synthetic_batch(cfg, 4, seed=1)
+    runs = []
+    for plain in (False, True):
+        tr = Trainer(cfg, get_model(cfg), dev, eval_only=False)
+        ops.reset_launches()
+        if plain:
+            with ops.reference_path():
+                loss = tr.train_step(batch)
+        else:
+            loss = tr.train_step(batch)
+            masks = 2 if dropout != "0" else 0
+            assert ops.launches == dict.fromkeys(ops.KERNELS, 0) | {
+                "umse": 1, "attn_block": 4, "attn_block_bwd": 3, "ffn": 4,
+                "ffn_bwd": 3, "dropout_masks": masks}
+        runs.append((loss, {n: p.grad.float() for n, p in
+                            tr.model.named_parameters()}))
+    (loss, grads), (ref_loss, ref_grads) = runs
+    assert loss == pytest.approx(ref_loss, abs=1e-4)
+    # true gradient 0, rounding noise on both paths: a key-projection bias
+    # (softmax is shift invariant) and the biases the head's BatchNorm
+    # cancels
+    zero = ("key_proj.linear.bias", "fc_list.0.bias",
+            "layer_norms_after_concat.bias")
+    names = [n for n in grads if not n.endswith(zero)]
+    _assert_grads_close([grads[n] for n in names],
+                        [ref_grads[n] for n in names], "fp32", names)

@@ -178,8 +178,8 @@ def test_cpu_tensors_take_the_plain_versions():
                        torch_attn_block(x, gamma, beta, w, b, mask, 4.0, 4))
     fargs = [torch.from_numpy(a) for a in _ffn_args(R=8)]
     assert torch.equal(ops.ffn(*fargs), torch_ffn(*fargs))
-    assert ops.launches == {"umse": 0, "attn_block": 0, "ffn": 0,
-                            "swin_attention": 0, "swin_mlp": 0}
+    assert tuple(ops.launches) == ops.KERNELS
+    assert not any(ops.launches.values())
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -195,12 +195,22 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_kernel_wrappers_are_forward_only():
+    """Only the frozen trunk's kernels are forward only now: the fusion
+    wrappers take inputs that need a gradient (through their autograd
+    Functions) and still refuse CPU tensors; swin_mlp refuses them."""
     x, gamma, beta, w, b, mask, _ = map(torch.as_tensor, _attn_args(2, 20, 64))
     x.requires_grad_(True)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_attn_block(x, gamma, beta, w, b, mask, 4.0, 4)
+    fargs = [torch.from_numpy(a) for a in _ffn_args(R=8)]
+    fargs[0].requires_grad_(True)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_ffn(*fargs)
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import \
+        cuda_swin_mlp
     with pytest.raises(RuntimeError, match="forward only"):
-        cuda_attn_block(x, gamma, beta, w, b, mask, 4.0, 4)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
-        cuda_attn_block(x, gamma, beta, w, b, mask, 4.0, 4)
+        cuda_swin_mlp(x.reshape(-1, 64), gamma, beta, w[:, :256], b[:256],
+                      w[:, :256].t(), gamma)
 
 
 def test_unknown_device_raises():

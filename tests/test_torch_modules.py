@@ -183,9 +183,29 @@ def test_encoder_layer():
 
 
 def test_encoder_layer_refuses_training_mode():
-    layer = tm.TransformerEncoderLayer(32, 4, 128).train()
-    with pytest.raises(NotImplementedError, match="eval only"):
-        layer(torch.zeros(1, 4, 32))
+    """The refusal went with the training path: an encoder layer in
+    training mode matches the flax layer's training forward
+    (deterministic=False) at dropout 0, value and input gradient."""
+    x, mask = _layer_and_mask(seed=2)
+    layer = jm.TransformerEncoderLayer(32, 4, 128, dropout_p=0.0)
+    p = _perturb(layer.init(KEY, x, jnp.asarray(mask)))["params"]
+    cot = _x(*x.shape, seed=3)
+
+    def loss(xx):
+        y = layer.apply({"params": p}, xx, jnp.asarray(mask),
+                        deterministic=False)
+        return jnp.sum(y * cot), y
+
+    (_, want), dx = jax.value_and_grad(loss, has_aux=True)(x)
+    sd = {}
+    convert._encoder_layer(sd, "l", p)
+    mod = _load(tm.TransformerEncoderLayer(32, 4, 128, dropout_p=0.0),
+                sd).train()
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = mod(xt, torch.from_numpy(mask))
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(_np(got), _np(want), **ATOL)
+    np.testing.assert_allclose(_np(xt.grad), _np(dx), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("L", [64, 192])

@@ -156,7 +156,8 @@ def test_missing_num_and_losses_match_jax():
 def test_unported_paths_raise():
     """What the port does not run yet raises, naming its ROADMAP item:
     other models, other image encoders, loading pretrained trunk weights,
-    training, and the txt_id / uint8 / packed-image wire format."""
+    training a trainable trunk (--img-pretrain No), and the txt_id /
+    uint8 / packed-image wire format."""
     with pytest.raises(KeyError, match="tri_mbt_vsltcls"):
         get_model(_cfg("--model", "tri_mbt_v1"))
     tri = ("--input-types", "vslt_img_txt")
@@ -164,10 +165,13 @@ def test_unported_paths_raise():
         get_model(_cfg(*tri, "--img-model-type", "vit"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         get_model(_cfg(*tri, "--img-pretrain-path", "swin_t.pth"))
+    trainable = _cfg(*tri, "--img-pretrain", "No")
+    tr = trainer.Trainer(trainable, get_model(trainable), "cpu",
+                         eval_only=False)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tr.train_step(synthetic_batch(trainable, B))
     cfg = _cfg()
     model = get_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        trainer.Trainer(cfg, model, "cpu", eval_only=False)
     batch = _batch(cfg)
     batch["txt_id"] = np.arange(B, dtype=np.int32)
     with pytest.raises(NotImplementedError, match="item 4"):

@@ -2,8 +2,9 @@
 vslt+img+txt inputs (BASELINE config 4's flags, and config 5's with
 --multiimages 1) at a small MBT width with the full Swin-T trunk, against
 the JAX package's eval step, through the packed trunk, its overflow to the
-full batch and a batch with no image; and the weight bridge of the img_enc
-subtree in both directions."""
+full batch and a batch with no image; one train step against the JAX
+Trainer's; and the weight bridge of the img_enc subtree in both
+directions."""
 import flax
 import jax
 import numpy as np
@@ -22,6 +23,7 @@ from medical_tri_modal_pilot_tpu_torch.models import get_model
 from medical_tri_modal_pilot_tpu_torch.models.convert import \
     from_jax_variables
 from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+from test_torch_train import compare_train_state
 
 B = 4
 # BASELINE config 4 at a small MBT width; Swin-T stays full (--image-size
@@ -150,3 +152,41 @@ def test_img_enc_bridge_round_trip(trimodal):
     for k in seeded:
         if not k.endswith("num_batches_tracked"):
             assert torch.equal(back[k], seeded[k]), k
+
+
+@pytest.mark.parametrize("trimodal", ["single"], indirect=True)
+def test_trimodal_train_step_matches_jax(trimodal):
+    """Config 4 (one image per sample; compiling the JAX train step around
+    the full Swin-T takes most of this test's ~40 s, so config 5 is left
+    to the eval cases): one optimizer step (--dropout 0, adamw) from the
+    same weights on the packed batch: the loss within 1e-5, the parameters, Adam moments and
+    BatchNorm statistics as in tests/test_torch_train.py; the frozen trunk
+    unchanged on both sides and out of the port's optimizer. The module's
+    JAX Trainer is switched to a dropout-0 model and an optimizer for the
+    step, and restored after."""
+    cfg, batches, jt, variables, _ = trimodal
+    cfg0, jcfg0 = cfg.replace(dropout=0.0), jt.cfg.replace(dropout=0.0)
+    saved = (jt.cfg, jt.model, jt.tx, jt.state, jt._train_step)
+    try:
+        jt.cfg, jt.model = jcfg0, jax_get_model(jcfg0)
+        jt.tx = jax_trainer.build_optimizer(jcfg0, jt.schedule,
+                                            mask_frozen_img=True)
+        jt.state = jt.state.replace(opt_state=jt.tx.init(jt.state.params))
+        jt._train_step = jax.jit(jt._train_step_impl)
+        model = get_model(cfg0)
+        model.load_state_dict(from_jax_variables(cfg0, variables),
+                              strict=True)
+        tr = Trainer(cfg0, model, "cpu", eval_only=False)
+        trunk = {n: p.detach().clone()
+                 for n, p in model.img_encoder.named_parameters()}
+        in_opt = {id(p) for p in tr.optimizer.params}
+        assert not in_opt & {id(p) for p in model.img_encoder.parameters()}
+        lr = tr.current_lr()
+        loss = tr.train_step(batches["packed"])
+        assert loss == pytest.approx(float(jt.train_step(batches["packed"])),
+                                     abs=1e-5)
+        for n, p in model.img_encoder.named_parameters():
+            assert torch.equal(p, trunk[n]), n
+        compare_train_state(cfg0, jt, tr, lr)
+    finally:
+        jt.cfg, jt.model, jt.tx, jt.state, jt._train_step = saved
