@@ -45,7 +45,28 @@ Phases, each raising on failure (nothing is caught):
      20 steps on one batch, the loss finite and falling.
   8. config 2 train: a few steps, launch counts, one step on both paths
      (fp32 and bf16, dropout 0.1); not timed.
-Then one JSON line per the kernels and, last, {"ok": true, "device": ...}.
+  9. attention: the masked attention of the cross-modal layers, its lean
+     form, its training form and its backward, against autograd of the
+     plain version in fp32 and bf16: at both cross shapes ([64, 24] queries
+     against [64, 128] keys with the txt key mask, and back with the vslt
+     key mask) and at small shapes with no mask, a key mask with padding
+     mid-sequence, an all-masked sample, a block mask and a
+     self-attention with dead q tiles (compared on live rows). Median
+     kernel and plain ms, the bound, and the library column at the cross
+     shapes: one scaled_dot_product_attention call on the same inputs,
+     and its backward (autograd.grad of that call).
+  10. cross transformer eval: cross_transformer_txt_vslt (carryforward
+     vslt + BioBERT notes, full width, bf16) as phase 4: launch counts,
+     probabilities against the plain path in bf16 and fp32, ms/step in
+     turns.
+  11. cross transformer train: as phase 7 for that model (no image trunk):
+     launch counts, peak memory, ms/step in turns, a profiler split, 20
+     steps on one batch, one step on both paths in fp32 and bf16 at
+     dropout 0 and 0.1.
+The kernel phases (3, 6, 9) run first, then 4-5, 7-8 and 10-11.
+Then one JSON line per the kernels (each with the path that launches it
+and its launches over that path's steps) and, last, {"ok": true,
+"device": ...}.
 """
 from __future__ import annotations
 
@@ -70,12 +91,21 @@ CONFIG2 = [
 ]
 CONFIG4 = [a if a != "vslt_txt" else "vslt_img_txt" for a in CONFIG2]
 CONFIG5 = CONFIG4 + ["--multiimages", "1"]
+# the cross-modal transformer over carryforward vital signs (window 24, 16
+# channels plus age and gender) and BioBERT notes (128 x 768): 3 self
+# layers per stream, then 3 bidirectional cross layers
+CROSS = [
+    "--model", "cross_transformer_txt_vslt", "--input-types", "vslt_txt",
+    "--vslt-type", "carryforward", "--output-type", "intubation",
+    "--modality-inclusion", "train-missing_test-missing",
+    "--batch-size", str(BATCH),
+]
 # present-image fractions of the batches: config 2 has no images; config 4
 # packs 32 and 16 of 64 images (capacity 32, so 33 trunk rows) and
 # overflows with 48 (64 rows); config 5 holds 1-3 images in 32 samples
 # (at most 96 slots, the capacity of its 192 rows)
 BATCHES = {"config2": [0.5] * 3, "config4": [0.5, 0.25, 0.75],
-           "config5": [0.5]}
+           "config5": [0.5], "cross": [0.5] * 3}
 # per eval step: one TIE embedding; one attention and one FFN half per
 # layer per stream (6 layers x {vslt, txt} or {vslt, img, txt}); one
 # window attention and one MLP per Swin block (2 + 2 + 6 + 2)
@@ -85,6 +115,10 @@ LAUNCHES_PER_STEP = {
                 "swin_attention": 12, "swin_mlp": 12},
 }
 LAUNCHES_PER_STEP["config5"] = LAUNCHES_PER_STEP["config4"]
+# the cross transformer: an attention and an FFN half per self layer and
+# stream (3 x 2), an attention and an FFN per cross layer and direction
+# (3 x 2)
+LAUNCHES_PER_STEP["cross"] = {"attn_block": 6, "ffn": 12, "attention": 6}
 # per train step: the forward's launches; a backward per fusion layer and
 # stream whose output the loss reaches (the last layer's non-vslt streams
 # feed only the bottleneck mix, which nothing reads after the last layer,
@@ -98,7 +132,13 @@ TRAIN_LAUNCHES_PER_STEP = {
                 "ffn": 18, "ffn_bwd": 16, "dropout_masks": 3,
                 "swin_attention": 12, "swin_mlp": 12},
 }
-TRAIN_BATCHES = {"config2": [0.5, 0.5], "config4": [0.5, 0.25, 0.75]}
+# the cross transformer's both streams reach the head through their
+# pooled features, so every layer gets its backward
+TRAIN_LAUNCHES_PER_STEP["cross"] = {
+    "attn_block": 6, "attn_block_bwd": 6, "ffn": 12, "ffn_bwd": 12,
+    "attention": 6, "attention_bwd": 6}
+TRAIN_BATCHES = {"config2": [0.5, 0.5], "config4": [0.5, 0.25, 0.75],
+                 "cross": [0.5] * 3}
 DROPOUT_SEED = 20231016
 
 # tolerances |kernel - plain| <= atol + rtol * |plain|, on live rows.
@@ -159,7 +199,17 @@ KERNEL_SOURCES = {
                 "medical_tri_modal_pilot_tpu/kernels/ffn.py:298"),
     "dropout_masks": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/ffn.cu",
                       "medical_tri_modal_pilot_tpu/kernels/ffn.py:230"),
+    "attention": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/attention.cu",
+                  "medical_tri_modal_pilot_tpu/kernels/attention.py:257"),
+    "attention_bwd": (
+        "cuda", "medical_tri_modal_pilot_tpu_torch/csrc/attention.cu",
+        "medical_tri_modal_pilot_tpu/kernels/attention.py:431"),
 }
+# the path whose train steps give each kernel's launches in the kernels
+# line: the masked attention runs in the cross transformer, every other
+# kernel in config 4
+KERNEL_PATHS = {name: "cross" if name.startswith("attention") else "config4"
+                for name in KERNEL_SOURCES}
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them,
 # HBM3 bandwidth
@@ -452,10 +502,13 @@ def _max_errors(grads, ref_grads):
             for g, r in zip(grads, ref_grads)]
 
 
-def _compare_train(name, dt, fwd, inputs, cot, live, work_fwd, work_bwd):
+def _compare_train(name, dt, fwd, inputs, cot, live, work_fwd, work_bwd,
+                   library=None):
     """The training forward and the backward of ``fwd`` on the kernel path
     against the plain path: the output on live rows (TOL), every gradient
-    (GRAD_TOL); median ms of forward and backward on both paths."""
+    (GRAD_TOL); median ms of forward and backward on both paths, and of
+    ``library`` (a forward and a backward call of PyTorch's own, where
+    there are such)."""
     from medical_tri_modal_pilot_tpu_torch import ops
     runs = []
     for plain in (False, True):
@@ -479,17 +532,21 @@ def _compare_train(name, dt, fwd, inputs, cot, live, work_fwd, work_bwd):
     bad = int((err > atol + rtol * ref.abs()).sum())
     g_err = _grad_errors(grads, ref_grads)
     tag = "bf16" if dt == torch.bfloat16 else "fp32"
+    lib_f, lib_b = ((None, None) if library is None
+                    else (_median_ms(library[0]), _median_ms(library[1])))
     fwd_res = {"max_abs_err": float(err.max()), "ms": f_ms,
                "plain_ms": pf_ms, **_bound(*work_fwd, dt),
-               "library_ms": None}
+               "library_ms": lib_f}
     bwd_res = {"max_abs_err": max(float((g - r).abs().max())
                                   for g, r in zip(grads, ref_grads)),
                "grad_err_f": max(g_err), "ms": b_ms, "plain_ms": pb_ms,
-               **_bound(*work_bwd, dt), "library_ms": None}
+               **_bound(*work_bwd, dt), "library_ms": lib_b}
+    lib = ("" if library is None else
+           f" library_ms={lib_f:.3f} / {lib_b:.3f} (forward / backward)")
     print(f"kernel {name} train fwd {tag}: max_abs_err="
           f"{fwd_res['max_abs_err']:.3e} ({bad} outside) ms={f_ms:.3f} "
           f"plain_ms={pf_ms:.3f} bound_ms={fwd_res['bound_ms']:.4f} "
-          f"({fwd_res['bound_by']})")
+          f"({fwd_res['bound_by']}){lib}")
     m_err = _max_errors(grads, ref_grads)
     print(f"kernel {name} bwd {tag}: grad |err|_F/|plain|_F "
           f"{' '.join(f'{e:.2e}' for e in g_err)} (tol {GRAD_TOL[dt]:g}); "
@@ -621,6 +678,129 @@ def compare_training_kernels() -> dict:
     return results
 
 
+# the cross-modal layers' attention, 4 heads of 64 over batch 64: (name,
+# Lq, Lk, key mask) with the mask of the kv stream: cross_v's vslt queries
+# against the txt stream (clip(txt_length + 2, 1, 128) valid keys),
+# cross_o's txt queries against the vslt stream (input_length in [1, 24])
+CROSS_SHAPES = (("cross_v", 24, 128, "txt"), ("cross_o", 128, 24, "vslt"))
+# small shapes: (B, H, Lq, Lk, d_head, mask form)
+ATTN_SMALL = ((3, 2, 54, 54, 32, "none"), (3, 2, 130, 130, 32, "noncontig"),
+              (3, 2, 40, 100, 32, "all_masked"),
+              (2, 2, 130, 70, 32, "block"), (3, 2, 300, 300, 64, "self"))
+
+
+def _attention_case(g, dev, B, H, Lq, Lk, D, kind):
+    """fp32 q, k, v, the mask, is_self and the live rows [B, Lq] (under
+    is_self, the rows before each sample's last valid key)."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import key_ends
+    from medical_tri_modal_pilot_tpu_torch.models.modules import \
+        length_key_mask
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    q, k, v = rnd(B, Lq, H, D), rnd(B, Lk, H, D), rnd(B, Lk, H, D)
+    lengths = {
+        "txt": (torch.randint(0, 129, (B,), generator=g) + 2).clamp(1, Lk),
+        "vslt": torch.randint(1, Lk + 1, (B,), generator=g),
+        "self": torch.tensor([10, 150, Lk]),
+        "all_masked": torch.linspace(0, Lk, B).long()}.get(kind)
+    mask = None
+    if lengths is not None:
+        mask = length_key_mask(lengths.to(dev), Lk)
+    elif kind == "noncontig":
+        mask = torch.rand(B, Lk, generator=g).to(dev) < 0.5
+    elif kind == "block":
+        mask = torch.rand(B, Lq, Lk, generator=g).to(dev) < 0.5
+        mask[:, :, 0] = False
+        mask[0, 3] = True   # a query whose every key is masked
+    live = torch.ones(B, Lq, dtype=torch.bool, device=dev)
+    if kind == "self":
+        live = torch.arange(Lq, device=dev)[None] < key_ends(mask)[:, None]
+    return q, k, v, mask, kind == "self", live
+
+
+def _attention_work(q, k, mask, is_self, backward=False):
+    """(bytes, operations) of the attention on these inputs: q, k, v, the
+    mask and the output once (the backward: q, k, v, out, dout, the stats
+    and the mask read, dq, dk, dv written); the products over the (query,
+    key) pairs the data needs: with a key mask, the keys up to each
+    sample's last valid one and, under is_self, the queries before it. Two
+    products forward (s and p v), five backward (s, dp, dv, dk, dq)."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import key_ends
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    nq = torch.full((B,), float(Lq), dtype=torch.float64)
+    nk = torch.full((B,), float(Lk), dtype=torch.float64)
+    if mask is not None and mask.dim() == 2:
+        nk = key_ends(mask).double().cpu()
+        if is_self:
+            nq = nk
+    pairs = float((nq * nk).sum())
+    stats = B * H * Lq * 8
+    if backward:
+        nbytes = 4 * _nbytes(q) + 4 * _nbytes(k) + stats + _nbytes(mask)
+        return nbytes, 10.0 * H * D * pairs
+    return 2 * _nbytes(q) + 2 * _nbytes(k) + _nbytes(mask), 4.0 * H * D * pairs
+
+
+def compare_attention_kernels() -> dict:
+    """The masked attention against its plain version: the lean form, the
+    training form and the backward, fp32 and bf16, at the cross-modal
+    layers' shapes (with scaled_dot_product_attention on the same inputs as
+    the library column) and at the small shapes of every mask form.
+    Returns the bf16 results at cross_v's shape."""
+    import torch.nn.functional as F
+    from medical_tri_modal_pilot_tpu_torch import ops
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(2)
+    cases = [(name, BATCH, 4, Lq, Lk, 64, kind)
+             for name, Lq, Lk, kind in CROSS_SHAPES]
+    cases += [(c[5], *c) for c in ATTN_SMALL]
+    results = {}
+    for name, B, H, Lq, Lk, D, kind in cases:
+        q, k, v, mask, is_self, live = _attention_case(g, dev, B, H, Lq, Lk,
+                                                       D, kind)
+        tag = f"attention {name} q[{B},{Lq},{H},{D}] kv[{B},{Lk},{H},{D}]"
+        for dt in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (t.to(dt) for t in (q, k, v))
+            cot = torch.randn(B, Lq, H, D, generator=g).to(dev).to(dt)
+            cot = cot * live[:, :, None, None]
+            library = None
+            if name.startswith("cross"):
+                # [B, H, L, Dh] copies made before the timing; True = attend
+                qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                              for t in (qd, kd, vd))
+                keep = ~mask[:, None, None, :]
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          attn_mask=keep)
+                out_t, cot_t = sdpa(), cot.transpose(1, 2).contiguous()
+
+                def sdpa_bwd():
+                    return torch.autograd.grad(out_t, (qt, kt, vt), cot_t,
+                                               retain_graph=True)
+                library = (sdpa, sdpa_bwd)
+            with torch.inference_mode():
+                r = _compare(tag, dt, lambda: ops.attention(
+                    qd, kd, vd, mask, D ** .5, is_self),
+                    _attention_work(qd, kd, mask, is_self), live,
+                    library=library and library[0])
+            fr, br = _compare_train(
+                tag, dt, lambda *a: ops.attention(*a, mask, D ** .5, is_self),
+                (qd, kd, vd), cot, live,
+                _attention_work(qd, kd, mask, is_self),
+                _attention_work(qd, kd, mask, is_self, backward=True),
+                library=library)
+            if name == "cross_v" and dt == torch.bfloat16:
+                shape = f"q[{B},{Lq},{H},{D}] kv[{B},{Lk},{H},{D}]"
+                results["attention"] = dict(r, shape=shape)
+                results["attention_train"] = dict(fr, shape=shape)
+                results["attention_bwd"] = dict(br, shape=shape)
+    return results
+
+
 def _mha_library_call(xw, ws, bias, smask, nh):
     """torch's multi_head_attention_forward on the same windows: the q|k|v
     projection, scores + an additive mask holding the bias and -65504 at
@@ -665,7 +845,8 @@ def _timed_ms(trainer, batches, reference: bool) -> float:
     return (time.perf_counter() - t0) * 1e3 / len(batches)
 
 
-def _profile_step(trainer, batch, power: str, train: bool = False) -> None:
+def _profile_step(name, trainer, batch, power: str,
+                  train: bool = False) -> None:
     """torch.profiler over one step (after warm-up): device time by kernel,
     the step's device total against its host wall time."""
     from torch.autograd import DeviceType
@@ -691,7 +872,7 @@ def _profile_step(trainer, batch, power: str, train: bool = False) -> None:
                    reverse=True)
     total = sum(t for t, _, _ in items) / 1e3
     kind = "train" if train else "eval"
-    print(f"profile config4 bf16 {kind} step ({power}): device busy "
+    print(f"profile {name} bf16 {kind} step ({power}): device busy "
           f"{total:.2f} ms of {wall:.2f} ms host wall, device idle share "
           f"{max(0.0, 1 - total / wall):.3f}")
     for t, count, key in items[:24 if train else 16]:
@@ -776,7 +957,7 @@ def run_config(name: str, argv, power: str, timed: bool) -> dict:
               f"{plain_ms:.2f} ms/step ({BATCH * 1e3 / plain_ms:.1f} "
               f"samples/s); rounds {ms[False]} / {ms[True]}")
         if name == "config4":
-            _profile_step(trainer, batches[0], power)
+            _profile_step(name, trainer, batches[0], power)
 
     # the same weights in fp32: a tight check of the kernel path (for
     # config 4 on a packed and on the overflowing batch)
@@ -824,10 +1005,11 @@ def _train_run(cfg, state, batch, plain: bool):
 
 # tensors whose true gradient is 0, so that both paths hold rounding noise
 # there: a key-projection bias (softmax is shift invariant per query), and
-# the two biases the head's BatchNorm cancels (fc_list.0 and the LayerNorm
-# before it add the same vector to every sample)
+# the biases the head's BatchNorm cancels (fc_list.0 and the LayerNorm
+# before it add the same vector to every sample: layer_norms_after_concat
+# in tri_mbt_vsltcls, final_ln in the cross transformer)
 ZERO_GRAD = ("key_proj.linear.bias", "fc_list.0.bias",
-             "layer_norms_after_concat.bias")
+             "layer_norms_after_concat.bias", "final_ln.bias")
 
 
 def _step_errors(a, b):
@@ -969,7 +1151,7 @@ def run_train(name: str, argv, power: str, timed: bool) -> dict:
               f"({BATCH * 1e3 / kernel_ms:.1f} samples/s), plain "
               f"{plain_ms:.2f} ms/step ({BATCH * 1e3 / plain_ms:.1f} "
               f"samples/s); rounds {ms[False]} / {ms[True]}")
-        _profile_step(trainer, batches[0], power, train=True)
+        _profile_step(name, trainer, batches[0], power, train=True)
 
         # 20 steps on one batch from the starting weights: the loss falls
         model.load_state_dict(state)
@@ -993,22 +1175,30 @@ def run_train(name: str, argv, power: str, timed: bool) -> dict:
     return counts
 
 
+PATH_NAMES = {"config4": "tri_mbt_vsltcls config 4 train",
+              "cross": "cross_transformer_txt_vslt train"}
+
+
 def main() -> None:
     power = check_device()
     build_kernels()
     results = compare_kernels()
     results.update(compare_training_kernels())
+    results.update(compare_attention_kernels())
     run_config("config2", CONFIG2, power, timed=True)
     run_config("config4", CONFIG4, power, timed=True)
     run_config("config5", CONFIG5, power, timed=False)
-    counts = run_train("config4", CONFIG4, power, timed=True)
+    counts = {"config4": run_train("config4", CONFIG4, power, timed=True)}
     run_train("config2", CONFIG2, power, timed=False)
+    run_config("cross", CROSS, power, timed=True)
+    counts["cross"] = run_train("cross", CROSS, power, timed=True)
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
+        path = KERNEL_PATHS[name]
         kernels.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, "launches": counts[name],
-                        "steps": len(TRAIN_BATCHES["config4"]),
-                        **results[name]})
+                        "replaces": replaces, "path": PATH_NAMES[path],
+                        "launches": counts[path][name],
+                        "steps": len(TRAIN_BATCHES[path]), **results[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

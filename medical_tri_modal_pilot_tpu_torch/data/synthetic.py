@@ -34,21 +34,48 @@ def _images(cfg: Config, rng, present: np.ndarray):
     return img, times
 
 
-def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
-                    present_frac: float = 0.5) -> Dict[str, np.ndarray]:
-    """TIE streams of random valid lengths (time-sorted, padding at the
-    end), BioBERT note embeddings [txt_token_size, 768] with a missing note
-    as zeros of length 0, random targets and, when ``--input-types`` has
-    img, images for round(present_frac * batch_size) samples at random
-    positions (so a caller can force the packed trunk or its overflow)."""
-    rng = np.random.default_rng(seed)
-    B, L = batch_size, cfg.tie_len
+def _tie(cfg: Config, rng, B: int):
+    """TIE streams [B, TIE-len, 3] (time, value, feature id) of random
+    valid lengths in [5, TIE-len], time-sorted, padding at the end."""
+    L = cfg.tie_len
     tie = np.zeros((B, L, 3), np.float32)
     lengths = rng.integers(5, L + 1, B).astype(np.int32)
     for i, n in enumerate(lengths):
         tie[i, :n, 0] = np.sort(rng.uniform(-24, 0, n))
         tie[i, :n, 1] = rng.uniform(0, 1, n)
         tie[i, :n, 2] = rng.integers(0, N_FEATURES, n)
+    return tie, lengths
+
+
+def _carryforward(cfg: Config, rng, B: int):
+    """Carryforward grids [B, 3, window, vslt_len] as data/dataset.py:264-270
+    builds them: normalised values, observation mask and hours since the
+    last observation over the first input_length steps (input_length in
+    [1, window]), zeros past them."""
+    T, F = cfg.window_size, cfg.vslt_len
+    vslt = np.zeros((B, 3, T, F), np.float32)
+    lengths = rng.integers(1, T + 1, B).astype(np.int32)
+    for i, n in enumerate(lengths):
+        vslt[i, 0, :n] = rng.normal(0, 1, (n, F))
+        vslt[i, 1, :n] = rng.integers(0, 2, (n, F))
+        vslt[i, 2, :n] = rng.uniform(0, 24, (n, F))
+    return vslt, lengths
+
+
+def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
+                    present_frac: float = 0.5) -> Dict[str, np.ndarray]:
+    """Vital signs as TIE streams (``--vslt-type TIE``) or carryforward
+    grids (``carryforward``), BioBERT note embeddings [txt_token_size, 768]
+    with a missing note as zeros of length 0, random targets and, when
+    ``--input-types`` has img, images for round(present_frac * batch_size)
+    samples at random positions (so a caller can force the packed trunk or
+    its overflow)."""
+    rng = np.random.default_rng(seed)
+    B = batch_size
+    if cfg.vslt_type == "carryforward":
+        vslt, lengths = _carryforward(cfg, rng, B)
+    else:
+        vslt, lengths = _tie(cfg, rng, B)
     missing = np.zeros((B, 3), np.float32)
     missing[:, 2] = rng.integers(0, 2, B)
     T, E = cfg.txt_token_size, cfg.token_max_length
@@ -61,7 +88,7 @@ def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
         else:
             txt[i, txt_length[i]:] = 0.0
     batch = {
-        "vslt": tie,
+        "vslt": vslt,
         "static": rng.uniform(0, 1, (B, 2)).astype(np.float32),
         "input_length": lengths,
         "txt": txt,

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 KERNELS = ("umse", "attn_block", "attn_block_bwd", "ffn", "ffn_bwd",
-           "dropout_masks", "swin_attention", "swin_mlp")
+           "dropout_masks", "swin_attention", "swin_mlp", "attention",
+           "attention_bwd")
 launches = {name: 0 for name in KERNELS}
 
 

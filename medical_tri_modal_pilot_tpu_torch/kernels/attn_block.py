@@ -21,17 +21,18 @@ from .wgrad import col_sum, wgrad
 def torch_attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
                      scale: float, num_heads: int) -> torch.Tensor:
     """The unfused composition (stdln_apply + projections +
-    masked_softmax_attention + residual), rounding where xla_attn_block
+    torch_masked_attention + residual), rounding where xla_attn_block
     rounds: LN and the projections in ``x.dtype``, scores and softmax in
     fp32, probabilities cast to the value dtype."""
-    from ..models.modules import masked_softmax_attention, stdln_apply
+    from ..models.modules import stdln_apply
+    from .attention import torch_masked_attention
     B, L, C = x.shape
     H = num_heads
     dt = x.dtype
     ln = stdln_apply(x, gamma, beta, dt)
     y = ln @ w.to(dt) + b.to(dt)
     q, k, v = torch.split(y, C, dim=-1)
-    ctx = masked_softmax_attention(
+    ctx = torch_masked_attention(
         q.reshape(B, L, H, C // H), k.reshape(B, L, H, C // H),
         v.reshape(B, L, H, C // H), key_mask, scale)
     return x + ctx.reshape(B, L, C)

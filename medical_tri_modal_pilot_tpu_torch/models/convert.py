@@ -5,7 +5,9 @@
 the reference's torch state_dict keys, so the JAX package's own
 ``models/convert_ref.py::convert_reference_state_dict`` is the inverse: it
 maps a port state_dict back onto the flax tree and raises on any key it
-does not use.
+does not use. The legacy cross transformer has no reference state_dict
+names in the JAX package's bridge; its port modules are named after the
+flax tree instead (``models/legacy.py``).
 
 Layout rules (the inverse of convert_ref's): flax kernel [in, out] ->
 torch Linear weight [out, in]; FFN kernels -> Conv1d weights [out, in, 1];
@@ -45,8 +47,10 @@ def _stem(sd, key: str, p: Mapping) -> None:
     _ln(sd, f"{key}.1", p["LayerNorm_0"])
 
 
-def _encoder_layer(sd, base: str, p: Mapping) -> None:
-    for name in ("attention_prenorm", "feed_forward_prenorm"):
+def _encoder_layer(sd, base: str, p: Mapping,
+                   prenorms=("attention_prenorm", "feed_forward_prenorm")
+                   ) -> None:
+    for name in prenorms:
         sd[f"{base}.{name}.gamma"] = _t(p[name]["gamma"])
         sd[f"{base}.{name}.beta"] = _t(p[name]["beta"])
     for name in ("query_proj", "key_proj", "value_proj"):
@@ -56,6 +60,14 @@ def _encoder_layer(sd, base: str, p: Mapping) -> None:
         kern = np.asarray(p["feed_forward"][w]["kernel"])   # [in, out]
         sd[f"{base}.feed_forward.{w}.weight"] = _t(kern.T[:, :, None])
         sd[f"{base}.feed_forward.{w}.bias"] = _t(p["feed_forward"][w]["bias"])
+
+
+def _cross_layer(sd, base: str, p: Mapping) -> None:
+    """CrossmodalTransformerEncoderLayer: the encoder layer's tree with the
+    q and kv pre-norms in place of the attention pre-norm."""
+    _encoder_layer(sd, base, p, ("attention_prenorm_q",
+                                 "attention_prenorm_kv",
+                                 "feed_forward_prenorm"))
 
 
 # the JAX PatchMerging's neighbour groups against torchvision's
@@ -120,15 +132,53 @@ def _fusion(sd, pre: str, p: Mapping, n_mod: int) -> None:
             _encoder_layer(sd, f"{pre}.layer_stacks.{li}.{m}", layer)
 
 
+def _cls_head(sd, params: Mapping, stats: Mapping) -> None:
+    """ClsHead ``fc_list`` (fc1, bn, fc2) -> Linear, BatchNorm1d, Linear."""
+    head = params["fc_list"]
+    _lin(sd, "fc_list.0", head["fc1"])
+    sd["fc_list.1.weight"] = _t(head["bn"]["scale"])
+    sd["fc_list.1.bias"] = _t(head["bn"]["bias"])
+    bn = stats["fc_list"]["bn"]
+    sd["fc_list.1.running_mean"] = _t(bn["mean"])
+    sd["fc_list.1.running_var"] = _t(bn["var"])
+    sd["fc_list.1.num_batches_tracked"] = torch.tensor(0)
+    _lin(sd, "fc_list.3", head["fc2"])
+
+
+_CROSS_TRANSFORMERS = ("cross_transformer_txt_vslt",
+                       "bi_cross_transformer_txt_vslt")
+
+
+def _cross_transformer(params: Mapping, stats: Mapping
+                       ) -> Dict[str, torch.Tensor]:
+    """The legacy CROSS_TRANSFORMER tree: the port's names are the flax
+    module names."""
+    sd: Dict[str, torch.Tensor] = {}
+    _lin(sd, "vslt_tokens.init_fc", params["vslt_tokens"]["init_fc"])
+    _lin(sd, "txt_tokens.txt_embedding",
+         params["txt_tokens"]["txt_embedding"])
+    for key, layer in params.items():
+        if key.startswith("self_"):
+            _encoder_layer(sd, key, layer)
+        elif key.startswith("cross_"):
+            _cross_layer(sd, key, layer)
+    _lin(sd, "merge", params["merge"])
+    _ln(sd, "final_ln", params["final_ln"])
+    _cls_head(sd, params, stats)
+    return sd
+
+
 def from_jax_variables(cfg: Config, variables: Mapping
                        ) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` of ``cfg.model`` -> port
     state_dict (fp32 tensors)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    if cfg.model in _CROSS_TRANSFORMERS:
+        return _cross_transformer(params, stats)
     if cfg.model != "tri_mbt_vsltcls":
         raise NotImplementedError(
             f"no weight bridge for model '{cfg.model}' yet")
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
     umse = params["backbone"]["umse"]
     for name in ("ie_vslt", "ie_time", "ie_demo"):
@@ -144,15 +194,7 @@ def from_jax_variables(cfg: Config, variables: Mapping
             params["backbone"]["fusion_transformer"],
             len(cfg.input_types.split("_")))
     _ln(sd, "layer_norms_after_concat", params["after_concat_ln"])
-    head = params["fc_list"]
-    _lin(sd, "fc_list.0", head["fc1"])
-    sd["fc_list.1.weight"] = _t(head["bn"]["scale"])
-    sd["fc_list.1.bias"] = _t(head["bn"]["bias"])
-    bn = stats["fc_list"]["bn"]
-    sd["fc_list.1.running_mean"] = _t(bn["mean"])
-    sd["fc_list.1.running_var"] = _t(bn["var"])
-    sd["fc_list.1.num_batches_tracked"] = torch.tensor(0)
-    _lin(sd, "fc_list.3", head["fc2"])
+    _cls_head(sd, params, stats)
     if "rmse_layer" in params:
         _lin(sd, "rmse_layer", params["rmse_layer"])
     return sd

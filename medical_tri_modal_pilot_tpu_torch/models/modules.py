@@ -170,20 +170,6 @@ def length_key_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return iota >= lengths[:, None]
 
 
-def masked_softmax_attention(q, k, v, key_mask: Optional[torch.Tensor],
-                             scale: float) -> torch.Tensor:
-    """[B, Lq, H, Dh] x [B, Lk, H, Dh] with an optional bool mask, a key
-    mask [B, Lk] or a block mask [B, Lq, Lk]. Scores and softmax in fp32,
-    probabilities cast to the value dtype."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / scale
-    if key_mask is not None:
-        m = (key_mask[:, None, None, :] if key_mask.dim() == 2
-             else key_mask[:, None, :, :])
-        scores = scores.masked_fill(m, MASK_FILL_VALUE)
-    attn = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", attn, v)
-
-
 class ProjLinear(nn.Module):
     """The reference's ``Linear`` wrapper (state_dict key ``.linear``)."""
 
@@ -214,7 +200,12 @@ class MultiHeadAttention(nn.Module):
         """``prenorm``: optional (gamma, beta) StdLayerNorm scales applied
         here to the raw stream (query, key and value must then be one
         tensor). With ``residual is query`` as well, the whole block goes
-        to the fused ``attn_block`` (kernel on CUDA)."""
+        to the fused ``attn_block`` (kernel on CUDA). Otherwise the
+        projections are plain products and the attention goes to
+        ``ops.attention`` (kernel on CUDA), ``is_self`` when query is key.
+        A pre-norm call without the residual keeps plain projections here:
+        the JAX package sends it to its row-skipping LN projection kernel
+        (kernels/rowmm.py) only on a mesh with --mp-size > 1."""
         H = self.num_heads
         d_head = self.dim // H
         B, Lq, _ = query.shape
@@ -236,9 +227,10 @@ class MultiHeadAttention(nn.Module):
         q = query.to(dt) @ wq.to(dt) + bq.to(dt)
         k = key.to(dt) @ wk.to(dt) + bk.to(dt)
         v = value.to(dt) @ wv.to(dt) + bv.to(dt)
-        ctx = masked_softmax_attention(
+        ctx = ops.attention(
             q.reshape(B, Lq, H, d_head), k.reshape(B, Lk, H, d_head),
-            v.reshape(B, Lk, H, d_head), key_mask, math.sqrt(d_head))
+            v.reshape(B, Lk, H, d_head), key_mask, math.sqrt(d_head),
+            is_self=query is key)
         out = ctx.reshape(B, Lq, self.dim)
         return out if residual is None else out + residual
 
@@ -313,7 +305,7 @@ class TransformerEncoderLayer(nn.Module):
         return ffn_block(self, x, key_mask, seeds)
 
 
-def ffn_block(layer: TransformerEncoderLayer, x, key_mask=None,
+def ffn_block(layer: nn.Module, x, key_mask=None,
               seeds: Optional[DropoutSeeds] = None):
     """x + FFN(StdLN(x)) through the fused op, with row-tile skipping and,
     in training mode, in-kernel dropout on a seed of its own (JAX
@@ -327,6 +319,30 @@ def ffn_block(layer: TransformerEncoderLayer, x, key_mask=None,
                    block_valid=ffn_row_blocks(x, key_mask), p=ff.dropout_p,
                    training=training,
                    seed=draw_seed(seeds) if training else None)
+
+
+class CrossmodalTransformerEncoderLayer(nn.Module):
+    """q/kv pre-norm cross-attention block (JAX modules.py:462-478,
+    reference encoder.py:251-278): x = q_in + MHA(StdLN_q(q_in),
+    StdLN_kv(kv_in)) with the key mask of the kv stream, then the FFN half
+    over every row (no row skipping)."""
+
+    def __init__(self, d_model: int, num_heads: int, d_ff: int,
+                 dropout_p: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attention_prenorm_q = StdLayerNorm(d_model, dtype=dtype)
+        self.attention_prenorm_kv = StdLayerNorm(d_model, dtype=dtype)
+        self.self_attention = MultiHeadAttention(d_model, num_heads, dtype)
+        self.feed_forward_prenorm = StdLayerNorm(d_model, dtype=dtype)
+        self.feed_forward = FeedForward(d_model, d_ff, dropout_p, dtype)
+
+    def forward(self, q_in, kv_in, key_mask: Optional[torch.Tensor] = None,
+                seeds: Optional[DropoutSeeds] = None):
+        """``seeds``: the step's dropout seeds (training mode)."""
+        q = self.attention_prenorm_q(q_in)
+        kv = self.attention_prenorm_kv(kv_in)
+        x = q_in + self.self_attention(q, kv, kv, key_mask)
+        return ffn_block(self, x, None, seeds)
 
 
 class MLPStem(nn.Sequential):

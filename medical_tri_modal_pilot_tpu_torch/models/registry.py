@@ -10,12 +10,15 @@ from torch import nn
 
 from ..config import Config
 
+from . import legacy as LG
 from . import models as M
 from .modules import ProjLinear, StdLayerNorm
 from .swin import WindowAttention
 
 _REGISTRY: Dict[str, Callable] = {
     "tri_mbt_vsltcls": M.TRI_MBT_VSLTCLS,
+    "cross_transformer_txt_vslt": LG.CROSS_TRANSFORMER,
+    "bi_cross_transformer_txt_vslt": LG.CROSS_TRANSFORMER,
 }
 
 

@@ -1,6 +1,7 @@
 """Kernel dispatch for one device (counterpart of
 medical_tri_modal_pilot_tpu/ops/__init__.py:261-325): the kernels of the
-flagship's train and eval steps.
+flagship's train and eval steps, and the masked attention of the
+cross-modal layers.
 
 Each wrapper picks its implementation by the device of its input: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
@@ -8,13 +9,13 @@ hand-written kernel (or the launch raises; nothing falls back). Inside
 ``reference_path()`` CUDA tensors take the plain versions too, which is how
 the tests and ``chip_smoke.py`` build their oracle on the card. On the
 plain path the gradients are autograd of the plain versions; on the kernel
-path ``umse``, ``attn_block`` and ``ffn`` are autograd Functions whose
-backward launches the backward kernels (``umse``'s differentiates its
-plain version, as in the JAX package).
+path ``umse``, ``attn_block``, ``ffn`` and ``attention`` are autograd
+Functions whose backward launches the backward kernels (``umse``'s
+differentiates its plain version, as in the JAX package).
 
 ``launches`` counts, per kernel, the wrapper calls that launched it
-(kernels/_util.py); the backward kernels count as ``attn_block_bwd`` and
-``ffn_bwd``.
+(kernels/_util.py); the backward kernels count as ``attn_block_bwd``,
+``ffn_bwd`` and ``attention_bwd``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Iterator, Optional
 
 import torch
 
+from ..kernels import attention as _attention
 from ..kernels import attn_block as _attn_block
 from ..kernels import ffn as _ffn
 from ..kernels import swin_attention as _swin_attention
@@ -32,7 +34,7 @@ from ..kernels._util import KERNELS, launches
 
 __all__ = ["KERNELS", "launches", "reset_launches", "reference_path",
            "umse", "attn_block", "ffn", "dropout_masks", "swin_attention",
-           "swin_mlp"]
+           "swin_mlp", "attention"]
 
 _reference = False
 
@@ -78,6 +80,17 @@ def attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
                                             scale, num_heads)
     return _attn_block.cuda_attn_block(x, gamma, beta, w, b, key_mask, scale,
                                        num_heads)
+
+
+def attention(q, k, v, key_mask: Optional[torch.Tensor], scale: float,
+              is_self: bool = False):
+    """softmax(mask(q k^T / scale)) v over [B, L, H, Dh] operands; the mask
+    None, [B, Lk] or [B, Lq, Lk]. ``is_self``: q and k are one stream."""
+    if not _launches_kernel(q.device):
+        return _attention.torch_masked_attention(q, k, v, key_mask, scale,
+                                                 is_self)
+    return _attention.cuda_masked_attention(q, k, v, key_mask, scale,
+                                            is_self)
 
 
 def dropout_masks(R: int, F: int, C: int, seed: int, p: float, device):

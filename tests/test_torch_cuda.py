@@ -2,8 +2,9 @@
 on the card, at the small widths of the CPU tests (d_head 32, C 64) and at
 the flagship's (d_head 64, C 256; Swin-T's C 96-768): forwards, the
 backward kernels against autograd of the plain versions, the dropout
-masks bit for bit; and the small eval and train steps (vslt+txt, and
-vslt+img+txt with the full Swin-T) on both paths.
+masks bit for bit; the masked attention of the cross-modal layers at
+every mask form; and the small eval and train steps (vslt+txt, and
+vslt+img+txt with the full Swin-T; the cross transformer) on both paths.
 Marked ``cuda``: skipped without a GPU. This file imports no jax, so it
 also runs where the port runs:
 
@@ -15,6 +16,8 @@ import torch
 
 from medical_tri_modal_pilot_tpu_torch import ops
 from medical_tri_modal_pilot_tpu_torch.config import parse_config
+from medical_tri_modal_pilot_tpu_torch.kernels.attention import \
+    cuda_masked_attention
 from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
     cuda_attn_block, key_ends)
 from medical_tri_modal_pilot_tpu_torch.kernels.ffn import plain_dropout_masks
@@ -225,6 +228,94 @@ def test_kernels_refuse_block_masks_and_grads(dev):
                                               device=dev), 4.0, 2)
 
 
+# masked attention: (B, H, Lq, Lk, d_head, mask): the cross-modal layers'
+# [24] x [128] keys and back, no mask, a key mask with padding mid-sequence,
+# a sample whose keys are all masked, a block mask, a self-attention whose
+# later q tiles are dead
+ATTN_CASES = [(4, 4, 24, 128, 64, "keys"), (4, 4, 128, 24, 64, "keys"),
+              (3, 2, 54, 54, 32, "none"), (3, 2, 130, 130, 32, "noncontig"),
+              (3, 2, 40, 100, 32, "all_masked"),
+              (2, 2, 130, 70, 32, "block"), (3, 2, 300, 300, 64, "self")]
+
+
+def _attn_case(dev, B, H, Lq, Lk, D, kind, dt, seed):
+    """q, k, v, the mask, is_self and the live rows [B, Lq] (under
+    is_self, the rows before each sample's last valid key)."""
+    g = torch.Generator().manual_seed(seed)
+    q = _rand(g, dev, B, Lq, H, D).to(dt)
+    k = _rand(g, dev, B, Lk, H, D).to(dt)
+    v = _rand(g, dev, B, Lk, H, D).to(dt)
+    live = torch.ones(B, Lq, dtype=torch.bool, device=dev)
+    mask = None
+    if kind in ("keys", "self", "all_masked"):
+        lengths = torch.linspace(1, Lk, B).long()
+        if kind == "self":
+            lengths = torch.tensor([10, 150, Lk])
+        if kind == "all_masked":
+            lengths[0] = 0
+        mask = length_key_mask(lengths.to(dev), Lk)
+    elif kind == "noncontig":
+        mask = torch.rand(B, Lk, generator=g).to(dev) < 0.5
+    elif kind == "block":
+        mask = torch.rand(B, Lq, Lk, generator=g).to(dev) < 0.5
+        mask[:, :, 0] = False
+        mask[0, 3] = True
+    if kind == "self":
+        live = torch.arange(Lq, device=dev)[None] < key_ends(mask)[:, None]
+    return q, k, v, mask, kind == "self", live
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D,kind", ATTN_CASES)
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_attention_kernel(dev, B, H, Lq, Lk, D, kind, prec):
+    """The lean forward against the plain version, on live rows."""
+    q, k, v, mask, is_self, live = _attn_case(dev, B, H, Lq, Lk, D, kind,
+                                              PRECS[prec], seed=9)
+    ops.reset_launches()
+    out, ref = _both(lambda: ops.attention(q, k, v, mask, D ** .5, is_self))
+    assert ops.launches["attention"] == 1
+    torch.testing.assert_close(out[live], ref[live], **TOL[prec])
+    if is_self:
+        dead = torch.arange(Lq, device=dev)[None] >= (
+            (key_ends(mask)[:, None] + 63) // 64 * 64)
+        assert not out[dead].any()
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D,kind", ATTN_CASES)
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_attention_training_kernels(dev, B, H, Lq, Lk, D, kind, prec):
+    """The training forward and the backward kernels against autograd of
+    the plain version: dq, dk and dv, the cotangent zero on dead rows."""
+    dt = PRECS[prec]
+    q, k, v, mask, is_self, live = _attn_case(dev, B, H, Lq, Lk, D, kind,
+                                              dt, seed=10)
+    g = torch.Generator().manual_seed(11)
+    cot = _rand(g, dev, B, Lq, H, D).to(dt) * live[:, :, None, None]
+    ops.reset_launches()
+    (out, grads), (ref, ref_grads) = _grads(
+        lambda *a: ops.attention(*a, mask, D ** .5, is_self), (q, k, v), cot)
+    assert ops.launches["attention"] == ops.launches["attention_bwd"] == 1
+    torch.testing.assert_close(out[live], ref[live], **TOL[prec])
+    _assert_grads_close(grads, ref_grads, prec, ["dq", "dk", "dv"])
+
+
+def test_attention_refuses_what_it_does_not_take(dev):
+    q = torch.zeros(2, 8, 2, 32, device=dev)
+    k = torch.zeros(2, 12, 2, 32, device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        cuda_masked_attention(q[..., :16].contiguous(),
+                              k[..., :16].contiguous(),
+                              k[..., :16].contiguous(), None, 4.0)
+    strided = torch.zeros(2, 2, 8, 32, device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_masked_attention(strided, k, k, None, 4.0)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_masked_attention(q, k.bfloat16(), k, None, 4.0)
+    with pytest.raises(ValueError, match="mask"):
+        cuda_masked_attention(q, k, k, torch.zeros(2, 8, dtype=torch.bool,
+                                                   device=dev), 4.0)
+
+
 @pytest.mark.parametrize("C,hw,images", [(32, 14, 2), (64, 14, 1),
                                           (96, 21, 2), (768, 7, 3)])
 @pytest.mark.parametrize("shifted", [False, True])
@@ -365,6 +456,61 @@ def test_small_train_step_on_both_paths(dev, dropout):
     # cancels
     zero = ("key_proj.linear.bias", "fc_list.0.bias",
             "layer_norms_after_concat.bias")
+    names = [n for n in grads if not n.endswith(zero)]
+    _assert_grads_close([grads[n] for n in names],
+                        [ref_grads[n] for n in names], "fp32", names)
+
+
+def _cross_argv(dropout="0"):
+    return ["--model", "cross_transformer_txt_vslt", "--input-types",
+            "vslt_txt", "--vslt-type", "carryforward",
+            "--output-type", "intubation",
+            "--modality-inclusion", "train-missing_test-missing",
+            "--batch-size", "4", "--transformer-num-layers", "2",
+            "--transformer-dim", "64", "--transformer-num-head", "2",
+            "--precision", "fp32", "--dropout", dropout]
+
+
+@pytest.mark.parametrize("dropout", ["0", "0.1"])
+def test_small_cross_transformer_on_both_paths(dev, dropout):
+    """The cross transformer at a small width (1 self + 1 cross layer per
+    stream), fp32: one eval step and one train step on each path from the
+    same weights; the launch counts, probabilities, loss and every
+    gradient."""
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    cfg = parse_config(_cross_argv(dropout))
+    batch = synthetic_batch(cfg, 4, seed=1)
+    tr = Trainer(cfg, get_model(cfg), dev)
+    ops.reset_launches()
+    probs, loss, _ = tr.eval_step(batch)
+    assert ops.launches == dict.fromkeys(ops.KERNELS, 0) | {
+        "attn_block": 2, "ffn": 4, "attention": 2}
+    with ops.reference_path():
+        ref, ref_loss, _ = tr.eval_step(batch)
+    np.testing.assert_allclose(probs, ref, atol=1e-4)
+    runs = []
+    for plain in (False, True):
+        tr = Trainer(cfg, get_model(cfg), dev, eval_only=False)
+        ops.reset_launches()
+        if plain:
+            with ops.reference_path():
+                loss = tr.train_step(batch)
+        else:
+            loss = tr.train_step(batch)
+            assert ops.launches == dict.fromkeys(ops.KERNELS, 0) | {
+                "attn_block": 2, "attn_block_bwd": 2, "ffn": 4,
+                "ffn_bwd": 4, "attention": 2, "attention_bwd": 2}
+        runs.append((loss, {n: p.grad.float() for n, p in
+                            tr.model.named_parameters()}))
+    (loss, grads), (ref_loss, ref_grads) = runs
+    assert loss == pytest.approx(ref_loss, abs=1e-4)
+    # true gradient 0 (softmax is shift invariant per query; the head's
+    # BatchNorm cancels the biases of fc_list.0 and of the LayerNorm
+    # before it): rounding noise on both paths
+    zero = ("key_proj.linear.bias", "fc_list.0.bias", "final_ln.bias")
     names = [n for n in grads if not n.endswith(zero)]
     _assert_grads_close([grads[n] for n in names],
                         [ref_grads[n] for n in names], "fp32", names)

@@ -15,6 +15,8 @@ from medical_tri_modal_pilot_tpu.models import heads as jheads
 from medical_tri_modal_pilot_tpu.models import mbt as jmbt
 from medical_tri_modal_pilot_tpu.models import modules as jm
 from medical_tri_modal_pilot_tpu.models import umse as jumse
+from medical_tri_modal_pilot_tpu_torch.kernels.attention import \
+    torch_masked_attention
 from medical_tri_modal_pilot_tpu_torch.models import convert, heads, mbt
 from medical_tri_modal_pilot_tpu_torch.models import modules as tm
 from medical_tri_modal_pilot_tpu_torch.models import umse
@@ -102,8 +104,8 @@ def test_masked_softmax_attention(mask_dims):
         mask = rng.uniform(size=(2, 6, 6)) < .5
         mask[0, 1] = True
     want = jm.masked_softmax_attention(q, k, v, jnp.asarray(mask), 2.8)
-    got = tm.masked_softmax_attention(*map(torch.from_numpy, (q, k, v)),
-                                      torch.from_numpy(mask), 2.8)
+    got = torch_masked_attention(*map(torch.from_numpy, (q, k, v)),
+                                 torch.from_numpy(mask), 2.8)
     np.testing.assert_allclose(_np(got), _np(want), **ATOL)
 
 
