@@ -63,7 +63,23 @@ Phases, each raising on failure (nothing is caught):
      launch counts, peak memory, ms/step in turns, a profiler split, 20
      steps on one batch, one step on both paths in fp32 and bf16 at
      dropout 0 and 0.1.
-The kernel phases (3, 6, 9) run first, then 4-5, 7-8 and 10-11.
+  12. rowmm: the row-skipping projections of tensor parallelism, forward
+     and backward against autograd of their plain versions in fp32 and
+     bf16: the LN-fused form at one rank's q|k|v width under --mp-size 2
+     (x [65536, 256], W [256, 384]) and at the single-device width (W
+     [256, 768]), the plain form at [65536, 256] x [256, 768] beside
+     torch.addmm; block flags from TIE lengths. Phase 9 also runs the
+     attention at the tensor-parallel self shape ([64, 1024, 2, 64] with
+     the TIE key mask) beside scaled_dot_product_attention.
+  13. tensor parallelism: config 4 under --mp-size 2 --dp-size 1 in two
+     ranks (parallel.launch) that share the one card over gloo, weights
+     seeded as the single-process run: eval probabilities against the
+     single-process kernel path (bf16 and fp32), one fp32 train step at
+     dropout 0.1 (every gradient, gathered, against the single process's),
+     launch counts per rank, ms/step and peak memory per rank (two ranks on
+     one card: not a speed figure of tensor parallelism), a profiler split
+     with gloo's share, a few steps on one batch with the loss falling.
+The kernel phases (3, 6, 9, 12) run first, then 4-5, 7-8, 10-11 and 13.
 Then one JSON line per the kernels (each with the path that launches it
 and its launches over that path's steps) and, last, {"ok": true,
 "device": ...}.
@@ -72,6 +88,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -204,12 +222,24 @@ KERNEL_SOURCES = {
     "attention_bwd": (
         "cuda", "medical_tri_modal_pilot_tpu_torch/csrc/attention.cu",
         "medical_tri_modal_pilot_tpu/kernels/attention.py:431"),
+    # the backward kernels' weight sums run in csrc/wgrad.cu
+    "rowmm_ln": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/rowmm.cu",
+                 "medical_tri_modal_pilot_tpu/kernels/rowmm.py:240"),
+    "rowmm_ln_bwd": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/rowmm.cu",
+                     "medical_tri_modal_pilot_tpu/kernels/rowmm.py:269"),
+    "rowmm": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/rowmm.cu",
+              "medical_tri_modal_pilot_tpu/kernels/rowmm.py:182"),
+    "rowmm_bwd": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/rowmm.cu",
+                  "medical_tri_modal_pilot_tpu/kernels/rowmm.py:208"),
 }
 # the path whose train steps give each kernel's launches in the kernels
-# line: the masked attention runs in the cross transformer, every other
-# kernel in config 4
+# line: the masked attention runs in the cross transformer, the LN-fused
+# projection under tensor parallelism, the plain projection on no path
+# (the JAX package dispatches it nowhere), every other kernel in config 4
 KERNEL_PATHS = {name: "cross" if name.startswith("attention") else "config4"
                 for name in KERNEL_SOURCES}
+KERNEL_PATHS.update(rowmm_ln="tp", rowmm_ln_bwd="tp", rowmm=None,
+                    rowmm_bwd=None)
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them,
 # HBM3 bandwidth
@@ -683,6 +713,13 @@ def compare_training_kernels() -> dict:
 # against the txt stream (clip(txt_length + 2, 1, 128) valid keys),
 # cross_o's txt queries against the vslt stream (input_length in [1, 24])
 CROSS_SHAPES = (("cross_v", 24, 128, "txt"), ("cross_o", 128, 24, "vslt"))
+# the tensor-parallel self-attention of config 4, one rank's 2 of 4 heads
+# over each fusion stream: (name, L, mask) for the TIE stream's 1024 rows
+# (key mask at input_length + 1 cls + 4 bottlenecks), the notes' 133 (key
+# mask at the note length + 1 cls + 4 bottlenecks) and the image's 54 (no
+# mask)
+TP_SELF = (("tp_self", 1024, "tie"), ("tp_txt", 133, "txt_self"),
+           ("tp_img", 54, "img_self"))
 # small shapes: (B, H, Lq, Lk, d_head, mask form)
 ATTN_SMALL = ((3, 2, 54, 54, 32, "none"), (3, 2, 130, 130, 32, "noncontig"),
               (3, 2, 40, 100, 32, "all_masked"),
@@ -703,8 +740,14 @@ def _attention_case(g, dev, B, H, Lq, Lk, D, kind):
     lengths = {
         "txt": (torch.randint(0, 129, (B,), generator=g) + 2).clamp(1, Lk),
         "vslt": torch.randint(1, Lk + 1, (B,), generator=g),
+        "tie": torch.randint(5, TIE_LEN + 1, (B,), generator=g) + 5,
         "self": torch.tensor([10, 150, Lk]),
         "all_masked": torch.linspace(0, Lk, B).long()}.get(kind)
+    if kind == "txt_self":
+        # 4 bottleneck keys, then cls and the notes; samples 0 and 3
+        # without notes: the bottleneck keys alone
+        lengths = torch.randint(5, Lk + 1, (B,), generator=g)
+        lengths[:4] = torch.tensor([4, 40, Lk, 4])
     mask = None
     if lengths is not None:
         mask = length_key_mask(lengths.to(dev), Lk)
@@ -715,9 +758,10 @@ def _attention_case(g, dev, B, H, Lq, Lk, D, kind):
         mask[:, :, 0] = False
         mask[0, 3] = True   # a query whose every key is masked
     live = torch.ones(B, Lq, dtype=torch.bool, device=dev)
-    if kind == "self":
+    is_self = kind in ("self", "tie", "txt_self", "img_self")
+    if is_self and mask is not None:
         live = torch.arange(Lq, device=dev)[None] < key_ends(mask)[:, None]
-    return q, k, v, mask, kind == "self", live
+    return q, k, v, mask, is_self, live
 
 
 def _attention_work(q, k, mask, is_self, backward=False):
@@ -747,15 +791,18 @@ def _attention_work(q, k, mask, is_self, backward=False):
 def compare_attention_kernels() -> dict:
     """The masked attention against its plain version: the lean form, the
     training form and the backward, fp32 and bf16, at the cross-modal
-    layers' shapes (with scaled_dot_product_attention on the same inputs as
-    the library column) and at the small shapes of every mask form.
-    Returns the bf16 results at cross_v's shape."""
+    layers' shapes and at the tensor-parallel self shapes of the three
+    streams (with scaled_dot_product_attention on the same inputs as the
+    library column) and at the small shapes of every mask form. Returns the
+    bf16 results at cross_v's shape and (``attention_tp*``) at the TIE
+    stream's TP shape."""
     import torch.nn.functional as F
     from medical_tri_modal_pilot_tpu_torch import ops
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(2)
     cases = [(name, BATCH, 4, Lq, Lk, 64, kind)
              for name, Lq, Lk, kind in CROSS_SHAPES]
+    cases += [(name, BATCH, 2, L, L, 64, kind) for name, L, kind in TP_SELF]
     cases += [(c[5], *c) for c in ATTN_SMALL]
     results = {}
     for name, B, H, Lq, Lk, D, kind in cases:
@@ -767,11 +814,11 @@ def compare_attention_kernels() -> dict:
             cot = torch.randn(B, Lq, H, D, generator=g).to(dev).to(dt)
             cot = cot * live[:, :, None, None]
             library = None
-            if name.startswith("cross"):
+            if name.startswith(("cross", "tp_")):
                 # [B, H, L, Dh] copies made before the timing; True = attend
                 qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                               for t in (qd, kd, vd))
-                keep = ~mask[:, None, None, :]
+                keep = None if mask is None else ~mask[:, None, None, :]
 
                 def sdpa():
                     return F.scaled_dot_product_attention(qt, kt, vt,
@@ -793,11 +840,94 @@ def compare_attention_kernels() -> dict:
                 _attention_work(qd, kd, mask, is_self),
                 _attention_work(qd, kd, mask, is_self, backward=True),
                 library=library)
-            if name == "cross_v" and dt == torch.bfloat16:
-                shape = f"q[{B},{Lq},{H},{D}] kv[{B},{Lk},{H},{D}]"
-                results["attention"] = dict(r, shape=shape)
-                results["attention_train"] = dict(fr, shape=shape)
-                results["attention_bwd"] = dict(br, shape=shape)
+            shape = f"q[{B},{Lq},{H},{D}] kv[{B},{Lk},{H},{D}]"
+            key = {"cross_v": "attention", "tp_self": "attention_tp"}.get(
+                name)
+            if key and dt == torch.bfloat16:
+                results[key] = dict(r, shape=shape)
+                results[f"{key}_train"] = dict(fr, shape=shape)
+                results[key.replace("attention", "attention_bwd")] = dict(
+                    br, shape=shape)
+    return results
+
+
+# the row-skipping projections: (result key, output width, LN-fused): one
+# rank's q|k|v under --mp-size 2, the single-device q|k|v, and the plain
+# form at the single-device width (no path reaches it)
+ROWMM_SHAPES = (("rowmm_ln", 384, True), ("rowmm_ln_768", 768, True),
+                ("rowmm", 768, False))
+
+
+def compare_rowmm_kernels() -> dict:
+    """rowmm_ln and rowmm, forward and backward, against autograd of their
+    plain versions in fp32 and bf16 over x [64 * 1024, 256], the 256-row
+    block flags of TIE lengths uniform in [5, 1000] (the fusion stream's
+    key mask), the cotangent zero on dead blocks. torch.addmm (and its
+    autograd.grad) is the library column of the plain form; no PyTorch call
+    computes the LN form. Returns the bf16 results by kernel name."""
+    import torch.nn.functional as F
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import BLOCK_R
+    from medical_tri_modal_pilot_tpu_torch.models.modules import (
+        ffn_row_blocks, length_key_mask)
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(3)
+    L, D = 1024, 256
+    lengths = torch.randint(5, TIE_LEN + 1, (BATCH,), generator=g) + 5
+    mask = length_key_mask(lengths.to(dev), L)
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).to(dev)
+
+    flags = ffn_row_blocks(mask[:, :, None], mask, BLOCK_R)
+    live = flags.repeat_interleave(BLOCK_R, dim=1)
+    n_live = float(live.sum())
+    R = BATCH * L
+    print(f"rowmm: {int(flags.sum())} of {flags.numel()} row blocks live "
+          f"({n_live / R:.3f} of the rows)")
+    results = {}
+    for key, cout, ln in ROWMM_SHAPES:
+        name = "rowmm_ln" if ln else "rowmm"
+        for dt in (torch.float32, torch.bfloat16):
+            es = 2 if dt == torch.bfloat16 else 4
+            x = rnd(BATCH, L, D).to(dt)
+            w, b = rnd(D, cout, std=D ** -.5).to(dt), rnd(cout, std=.1).to(dt)
+            cot = rnd(BATCH, L, cout).to(dt) * live[:, :, None]
+            if ln:
+                inputs = (x, rnd(D, std=.1, mean=1.), rnd(D, std=.1), w, b)
+                fwd = lambda *a: torch.cat(ops.rowskip_ln_affine(*a, flags),
+                                           -1)
+            else:
+                inputs = (x, w, b)
+                fwd = lambda *a: ops.rowskip_affine(*a, flags)
+            # x read on the live rows, every output row written once (dead
+            # blocks as zeros); backward: x and dy read on the live rows, dx
+            # written on every row, dW and db (and dgamma, dbeta) in fp32;
+            # the products over the live rows (dx and dW backward)
+            wbytes = (D * cout + cout) * es + (8 * D if ln else 0)
+            work_f = ((n_live * D + R * cout) * es + wbytes,
+                      2.0 * n_live * D * cout)
+            work_b = ((n_live * (D + cout) + R * D) * es + wbytes
+                      + (D * cout + cout + (2 * D if ln else 0)) * 4,
+                      4.0 * n_live * D * cout)
+            library = None
+            if not ln:
+                xl, wl, bl = (t.detach().clone().requires_grad_()
+                              for t in (x.reshape(R, D), w, b))
+                out_t = torch.addmm(bl, xl, wl)
+                cot_t = cot.reshape(R, cout)
+                library = (lambda: torch.addmm(b, x.reshape(R, D), w),
+                           lambda: torch.autograd.grad(
+                               out_t, (xl, wl, bl), cot_t, retain_graph=True))
+            tag = f"{name}[{R},{D}]x[{D},{cout}]"
+            fr, br = _compare_train(tag, dt, fwd, inputs, cot, live, work_f,
+                                    work_b, library)
+            del library
+            if dt == torch.bfloat16:
+                shape = f"[{R},{D}]x[{D},{cout}]"
+                results[key] = dict(fr, shape=shape)
+                results[key.replace(name, f"{name}_bwd")] = dict(br,
+                                                                 shape=shape)
     return results
 
 
@@ -1175,8 +1305,264 @@ def run_train(name: str, argv, power: str, timed: bool) -> dict:
     return counts
 
 
+# tensor parallelism: config 4 under --mp-size 2 in two ranks on the one
+# card; the batches (images for 32, 16 and 48 of 64 samples: the packed
+# trunk and its overflow) and, per step and rank, the launches: the
+# forward's as config 4's with attn_block and ffn off, the vslt stream's
+# attention through rowmm_ln (6 layers), every stream's through attention
+# (18); the backward as config 4's (the last layer's img and txt streams
+# get none); one dropout_masks per FFN (18) and per stream's input
+# dropout (3)
+TP_ARGV = CONFIG4 + ["--mp-size", "2", "--dp-size", "1"]
+TP_BATCHES = [0.5, 0.25, 0.75]
+TP_EVAL_LAUNCHES = {"umse": 1, "attention": 18, "rowmm_ln": 6,
+                    "swin_attention": 12, "swin_mlp": 12}
+TP_TRAIN_LAUNCHES = dict(TP_EVAL_LAUNCHES, attention_bwd=16, rowmm_ln_bwd=6,
+                         dropout_masks=21)
+TP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "tp_smoke")
+TP_LABEL = "2 ranks share one H100 over gloo: not a TP speed figure"
+
+
+def _tp_batches(cfg):
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    return [synthetic_batch(cfg, BATCH, seed=30 + s, present_frac=f)
+            for s, f in enumerate(TP_BATCHES)]
+
+
+def _check_counts(what, counts, per_step, steps):
+    from medical_tri_modal_pilot_tpu_torch import ops
+    for kernel in ops.KERNELS:
+        want = per_step.get(kernel, 0) * steps
+        if counts[kernel] != want:
+            raise AssertionError(f"{what} {kernel}: {counts[kernel]} "
+                                 f"launches, expected {want}")
+
+
+def tp_rank(out_dir: str) -> None:
+    """One rank of the tensor-parallel phase (started by parallel.launch):
+    the same steps on every rank, rank 0 prints; each rank writes its
+    numbers to ``out_dir``/rank{r}.pt, rank 0 also the probabilities and
+    the gathered fp32 gradients."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.models.modules import DropoutSeeds
+    from medical_tri_modal_pilot_tpu_torch.parallel.distributed import \
+        maybe_init_distributed
+    from medical_tri_modal_pilot_tpu_torch.parallel.mesh import (
+        gather_state_dict, make_mesh)
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    rank, world = maybe_init_distributed(None, "gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say = (lambda *a: print(*a, flush=True)) if rank == 0 else \
+        (lambda *a: None)
+    dev = torch.device("cuda")
+    cfg = parse_config(TP_ARGV)
+    mesh = make_mesh(cfg.dp_size, cfg.batch_size, cfg.mp_size)
+    batches = _tp_batches(cfg)
+    n = len(batches)
+    res = {}
+
+    def trainer(c, eval_only=True):
+        model = get_model(c, torch.Generator().manual_seed(0))
+        return Trainer(c, model, dev, eval_only=eval_only, seed=0, mesh=mesh)
+
+    # eval, bf16: the main path's launches, then ms/step
+    tr = trainer(cfg)
+    ops.reset_launches()
+    probs, _, _ = _eval_steps(tr, batches)
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    say(f"tp rank {rank}/{world}: launches over {n} eval steps: {counts}")
+    _check_counts(f"tp rank {rank} eval", counts, TP_EVAL_LAUNCHES, n)
+    res["eval_ms"] = _timed_ms(tr, batches, reference=False)
+    res["probs"] = probs
+    del tr
+    tr32 = trainer(cfg.replace(precision="fp32"))
+    res["probs32"], _, _ = _eval_steps(tr32, batches[:1])
+    del tr32
+
+    # one fp32 train step at dropout 0.1 from the seeded weights: the
+    # gradients, gathered into whole tensors
+    c32 = cfg.replace(precision="fp32", dropout=0.1)
+    tr32 = trainer(c32, eval_only=False)
+    res["loss32"] = tr32.train_step(batches[0])
+    names = {id(p): nm for nm, p in tr32.model.named_parameters()}
+    grads = {names[id(p)]: p.grad.detach().float()
+             for p in tr32.optimizer.params}
+    grads = gather_state_dict(grads, tr32.split, mesh)
+    res["grads"] = {k: v.cpu() for k, v in grads.items()} if rank == 0 \
+        else None
+    res["replicated_grads"] = {k: v.cpu() for k, v in grads.items()
+                               if k not in tr32.split}
+    del tr32, grads
+    torch.cuda.empty_cache()
+
+    # train, bf16: launches, peak memory, ms/step, a profiler split, the
+    # loss over steps on one batch
+    tr = trainer(cfg, eval_only=False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses = [tr.train_step(b) for b in batches]
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    res["peak"], res["base"] = torch.cuda.max_memory_allocated(), base
+    res["train_counts"] = counts
+    say(f"tp rank {rank}: launches over {n} train steps: {counts}; losses "
+        f"{losses}")
+    _check_counts(f"tp rank {rank} train", counts, TP_TRAIN_LAUNCHES, n)
+    res["train_ms"] = _timed_train_ms(tr, batches, reference=False)
+    res["profile"] = _profile_tp_step(tr, batches[0], rank)
+    curve = [tr.train_step(batches[0]) for _ in range(8)]
+    res["curve"] = curve
+    say(f"tp 8 steps on one batch (after {2 * n + 2} others): losses "
+        f"{[round(x, 5) for x in curve]}")
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _profile_tp_step(trainer, batch, rank: int) -> dict:
+    """torch.profiler over one train step: the device's busy time and the
+    host wall; and the host's time blocked in the collective calls (a
+    clock around each all_reduce and all_gather, which return once gloo
+    has staged the tensor through the host, exchanged it and copied it
+    back, so the time includes the device work queued before it)."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    blocked = {"s": 0.0, "calls": 0}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                blocked["s"] += time.perf_counter() - t
+                blocked["calls"] += 1
+        return call
+    plain = dist.all_reduce, dist.all_gather
+    dist.all_reduce, dist.all_gather = map(timed, plain)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.all_reduce, dist.all_gather = plain
+    events = prof.key_averages()
+
+    def dev_us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
+
+    busy = sum(dev_us(e) for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    copies = sum(dev_us(e) for e in events if e.device_type ==
+                 DeviceType.CUDA and "Memcpy" in e.key) / 1e3
+    return {"wall_ms": wall, "busy_ms": busy,
+            "blocked_ms": blocked["s"] * 1e3, "blocked_calls":
+            blocked["calls"], "copy_ms": copies,
+            "top": sorted(((dev_us(e) / 1e3, e.count, e.key) for e in events
+                           if e.device_type == DeviceType.CUDA
+                           and dev_us(e) > 0), reverse=True)[:12]}
+
+
+def run_tp(power: str) -> dict:
+    """The tensor-parallel phase: single-process references on the card,
+    then two ranks of tp_rank, then the comparisons. Returns rank 0's train
+    launch counts."""
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.parallel.launch import launch
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    dev = torch.device("cuda")
+    single = parse_config(TP_ARGV).replace(mp_size=0, dp_size=0)
+    batches = _tp_batches(single)
+
+    def trainer(c):
+        return Trainer(c, get_model(c, torch.Generator().manual_seed(0)),
+                       dev, eval_only=True)
+
+    probs, _, _ = _eval_steps(trainer(single), batches)
+    c32 = single.replace(precision="fp32")
+    probs32, _, _ = _eval_steps(trainer(c32), batches[:1])
+    state = get_model(c32, torch.Generator().manual_seed(0)).state_dict()
+    loss32, ref, _ = _train_run(c32.replace(dropout=0.1), state, batches[0],
+                                plain=False)
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    t0 = time.perf_counter()
+    launch("chip_smoke:tp_rank", 2, f"file://{TP_DIR}/rendezvous", [TP_DIR],
+           timeout=900)
+    print(f"tp: two ranks done in {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(os.path.join(TP_DIR, f"rank{r}.pt"),
+                        weights_only=False) for r in (0, 1)]
+    r0 = ranks[0]
+    d_bf16 = float(np.max(np.abs(r0["probs"] - probs)))
+    d32 = float(np.max(np.abs(r0["probs32"] - probs32)))
+    same = float(np.max(np.abs(r0["probs"] - ranks[1]["probs"])))
+    print(f"tp config 4 eval, against the single-process kernel path: max "
+          f"|prob diff| bf16 {d_bf16:.3e} (tol {PROB_TOL['bf16']}), fp32 "
+          f"{d32:.3e} (tol {PROB_TOL['fp32']}); the two ranks' "
+          f"probabilities differ by {same:.3e}")
+    errs = _step_errors({k: (v.to(dev), None) for k, v in r0["grads"].items()},
+                        ref)
+    print(f"tp fp32 train step dropout 0.1: loss {r0['loss32']:.6f} vs single "
+          f"{loss32:.6f}; grads |tp - single|_F/|single|_F over {len(errs)} "
+          f"tensors: {_summary(errs)} (tol {STEP_FP32_TOL})")
+    rep = [k for k in ranks[0]["replicated_grads"]
+           if not torch.equal(ranks[0]["replicated_grads"][k],
+                              ranks[1]["replicated_grads"][k])]
+    print(f"tp: replicated gradients equal on both ranks: {not rep} "
+          f"({len(ranks[0]['replicated_grads'])} tensors)")
+    for r, res in enumerate(ranks):
+        prof = res["profile"]
+        print(f"tp rank {r} ({power}; {TP_LABEL}): eval {res['eval_ms']:.1f} "
+              f"ms/step, train {res['train_ms']:.1f} ms/step, peak device "
+              f"memory {res['peak'] / 2 ** 30:.3f} GiB (before the steps "
+              f"{res['base'] / 2 ** 30:.3f} GiB); profiled train step: wall "
+              f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} "
+              f"ms (idle share {1 - prof['busy_ms'] / prof['wall_ms']:.3f}),"
+              f" host blocked in {prof['blocked_calls']} collective calls "
+              f"{prof['blocked_ms']:.1f} ms "
+              f"({prof['blocked_ms'] / prof['wall_ms']:.3f} of the wall), "
+              f"device copies {prof['copy_ms']:.1f} ms")
+    for t, count, key in r0["profile"]["top"]:
+        print(f"  device {t:8.3f} ms x{count:<4d} {key[:90]}")
+    curve = r0["curve"]
+    failures = []
+    if d_bf16 > PROB_TOL["bf16"] or d32 > PROB_TOL["fp32"] or same != 0.0:
+        failures.append("eval probabilities")
+    if abs(r0["loss32"] - loss32) > STEP_LOSS_TOL["fp32"] or \
+            max(errs.values()) > STEP_FP32_TOL:
+        failures.append("fp32 train step")
+    if rep:
+        failures.append(f"replicated gradients differ: {rep[:3]}")
+    if not all(np.isfinite(curve)) or not np.mean(curve[-3:]) < np.mean(
+            curve[:3]):
+        failures.append(f"the loss does not fall: {curve}")
+    if failures:
+        raise AssertionError(f"tensor parallelism: {failures}")
+    return r0["train_counts"]
+
+
 PATH_NAMES = {"config4": "tri_mbt_vsltcls config 4 train",
-              "cross": "cross_transformer_txt_vslt train"}
+              "cross": "cross_transformer_txt_vslt train",
+              "tp": "tri_mbt_vsltcls config 4 train, --mp-size 2 (rank 0)",
+              None: "none: no path of the JAX package dispatches it"}
+PATH_STEPS = dict({k: len(v) for k, v in TRAIN_BATCHES.items()},
+                  tp=len(TP_BATCHES))
 
 
 def main() -> None:
@@ -1185,6 +1571,7 @@ def main() -> None:
     results = compare_kernels()
     results.update(compare_training_kernels())
     results.update(compare_attention_kernels())
+    results.update(compare_rowmm_kernels())
     run_config("config2", CONFIG2, power, timed=True)
     run_config("config4", CONFIG4, power, timed=True)
     run_config("config5", CONFIG5, power, timed=False)
@@ -1192,13 +1579,15 @@ def main() -> None:
     run_train("config2", CONFIG2, power, timed=False)
     run_config("cross", CROSS, power, timed=True)
     counts["cross"] = run_train("cross", CROSS, power, timed=True)
+    counts["tp"] = run_tp(power)
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         path = KERNEL_PATHS[name]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "path": PATH_NAMES[path],
-                        "launches": counts[path][name],
-                        "steps": len(TRAIN_BATCHES[path]), **results[name]})
+                        "launches": counts[path][name] if path else 0,
+                        "steps": PATH_STEPS[path] if path else 0,
+                        **results[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ function; ``ops`` picks one by device.
 
 The port covers the eval and train steps of ``tri_mbt_vsltcls`` on
 vslt+txt inputs and on vslt+img+txt inputs with the frozen Swin-T trunk
-(eval with one or up to three images per sample), the optimizers, LR
-schedules and checkpoints.
+(eval with one or up to three images per sample), also under tensor
+parallelism (``parallel/``), the legacy cross-modal transformer, the
+optimizers, LR schedules and checkpoints.
 """

@@ -25,6 +25,8 @@ namespace mtp {
 
 constexpr int kThreads = 256;  // 16 x 16 threads per block
 constexpr int kTile = 64;      // rows per tile
+constexpr int kBlockR = 256;   // rows per row-skip flag (rowmm, wgrad)
+static_assert(kBlockR % kTile == 0, "a skip flag covers whole tiles");
 constexpr int kKChunk = 32;    // weight rows staged in shared memory per step
 constexpr float kMaskFill = -65504.0f;  // valid-but-masked key score
 constexpr float kStdLnEps = 1e-6f;       // StdLayerNorm: std + eps
@@ -237,7 +239,8 @@ static __device__ __forceinline__ void gemm_tile_t(
 //   dx = c (dxhat - mean(dxhat)) - c^2 A xmu [var > floor] / ((C-1) sd)
 // plus the residual cotangent dy: as (dy + dx) rounded once
 // (ROUND_TWICE false, the FFN) or as round(round(dx) + dy) (true, the
-// attention block). The tile's column sums of dln * xhat and dln go to
+// attention block); dy NULL: no residual, dx rounded once (the LN-fused
+// projection). The tile's column sums of dln * xhat and dln go to
 // gpart[0, C) and gpart[C, 2C) through red (16 * C floats of shared
 // memory). Starts and ends with __syncthreads.
 template <typename T, int NJC, bool ROUND_TWICE>
@@ -283,7 +286,7 @@ static __device__ __forceinline__ void stdln_backward_tile(
       const float xmu = xhat[j] / c;
       const float d = c * (dxhat - mean) -
                       (c * c) * A * xmu * flag / ((float)(C - 1) * sd);
-      const float g = Num<T>::load(dy[off]);
+      const float g = dy != nullptr ? Num<T>::load(dy[off]) : 0.0f;
       dx[off] = Num<T>::store(ROUND_TWICE ? rnd<T>(d) + g : g + d);
     }
   }

@@ -201,15 +201,17 @@ __global__ void __launch_bounds__(kThreads) ffn_bwd_kernel(
                                      Bs, gp, tx, ty, tid);
 }
 
-// keep masks as int8: k1 [R, F] (hidden) and k2 [R, C] (output)
+// keep masks as int8: k1 [R, F] (hidden columns col0 .. col0 + F of the
+// whole [R, *] mask: one rank's share of d_ff under tensor parallelism)
+// and k2 [R, C] (output)
 __global__ void __launch_bounds__(kThreads) dropout_masks_kernel(
     int8_t* __restrict__ k1, int8_t* __restrict__ k2, int R, int F, int C,
-    uint2 key, uint32_t thr) {
+    int col0, uint2 key, uint32_t thr) {
   const size_t n1 = (size_t)R * F, n = n1 + (size_t)R * C;
   for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < n;
        e += (size_t)gridDim.x * kThreads) {
     if (e < n1) {
-      k1[e] = dropout_keep(key, thr, 0, (int)(e / F), (int)(e % F));
+      k1[e] = dropout_keep(key, thr, 0, (int)(e / F), col0 + (int)(e % F));
     } else {
       const size_t e2 = e - n1;
       k2[e2] = dropout_keep(key, thr, 1, (int)(e2 / C), (int)(e2 % C));
@@ -333,10 +335,11 @@ extern "C" int ffn_bwd(const void* x, const void* gamma, const void* beta,
 }
 
 // The keep masks the two kernels above draw for (seed, thr): int8 k1
-// [R, F] and k2 [R, C], 1 = kept.
+// [R, F] and k2 [R, C], 1 = kept; k1 holds hidden columns col0 .. col0 + F
+// (col0 = 0: the kernels' own mask).
 extern "C" int ffn_dropout_masks(void* k1, void* k2, int R, int F, int C,
-                                 unsigned long long seed, unsigned int thr,
-                                 void* stream) {
+                                 int col0, unsigned long long seed,
+                                 unsigned int thr, void* stream) {
   using namespace mtp;
   const Dropout d = make_dropout(seed, thr, 1.0f, 1.0f, 1);
   const size_t n = (size_t)R * (F + C);
@@ -344,6 +347,6 @@ extern "C" int ffn_dropout_masks(void* k1, void* k2, int R, int F, int C,
                                ? (n + kThreads - 1) / kThreads : 4096);
   if (blocks <= 0) return 0;
   dropout_masks_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (int8_t*)k1, (int8_t*)k2, R, F, C, d.key, d.thr);
+      (int8_t*)k1, (int8_t*)k2, R, F, C, col0, d.key, d.thr);
   return (int)cudaGetLastError();
 }

@@ -18,13 +18,14 @@
 namespace mtp {
 
 // part[s, k, n] = sum_{r in slice s} A[r, k] B[r, n]; colpart[s, n] =
-// sum_{r in slice s} B[r, n] (blocks with blockIdx.x == 0).
-// grid (Ka/64, Nb/64, S).
+// sum_{r in slice s} B[r, n] (blocks with blockIdx.x == 0); rows whose
+// flag valid[r / kBlockR] is 0 count as zeros and are not read (valid
+// NULL: every row counts). grid (Ka/64, Nb/64, S).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) wgrad_kernel(
     const T* __restrict__ A, const T* __restrict__ Bm, int R, int Ka, int Nb,
     int rows_per_slice, float* __restrict__ part,
-    float* __restrict__ colpart) {
+    float* __restrict__ colpart, const int8_t* __restrict__ valid) {
   __shared__ float As[kKChunk][kTile];
   __shared__ float Bs[kKChunk][kTile];
   const int k0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
@@ -37,7 +38,8 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(
   for (int r0 = rs; r0 < re; r0 += kKChunk) {
     for (int e = tid; e < kKChunk * kTile; e += kThreads) {
       const int kk = e / kTile, c = e - kk * kTile;
-      const bool in = r0 + kk < re;
+      const bool in = r0 + kk < re &&
+                      (valid == nullptr || valid[(r0 + kk) / kBlockR]);
       As[kk][c] = in ? Num<T>::load(A[(size_t)(r0 + kk) * Ka + k0 + c]) : 0.0f;
       Bs[kk][c] = in ? Num<T>::load(Bm[(size_t)(r0 + kk) * Nb + n0 + c])
                      : 0.0f;
@@ -86,24 +88,28 @@ __global__ void __launch_bounds__(kThreads) col_sum_kernel(
 
 // A [R, Ka] and B [R, Nb] row-major in the dtype (0 = fp32, 1 = bf16);
 // Ka % 64 == Nb % 64 == 0; slices of rows_per_slice rows (the last may be
-// shorter), S = ceil(R / rows_per_slice). Writes part fp32 [S, Ka, Nb] and
-// colpart fp32 [S, Nb]. Returns cudaGetLastError().
+// shorter), S = ceil(R / rows_per_slice). valid: int8 flags, one per
+// kBlockR (256) consecutive rows, 0 leaving those rows out of both sums (the
+// row-block skip of the LN-fused projection), or NULL. Writes part fp32
+// [S, Ka, Nb] and colpart fp32 [S, Nb]. Returns cudaGetLastError().
 extern "C" int wgrad_partials(const void* A, const void* B, int R, int Ka,
                               int Nb, int rows_per_slice, int S, void* part,
-                              void* colpart, int dtype, void* stream) {
+                              void* colpart, const void* valid, int dtype,
+                              void* stream) {
   using namespace mtp;
   if (Ka % kTile != 0 || Nb % kTile != 0 || rows_per_slice <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
+  const int8_t* v = (const int8_t*)valid;
   const dim3 grid(Ka / kTile, Nb / kTile, S);
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     wgrad_kernel<float><<<grid, kThreads, 0, s>>>(
         (const float*)A, (const float*)B, R, Ka, Nb, rows_per_slice,
-        (float*)part, (float*)colpart);
+        (float*)part, (float*)colpart, v);
   else if (dtype == 1)
     wgrad_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
         (const __nv_bfloat16*)A, (const __nv_bfloat16*)B, R, Ka, Nb,
-        rows_per_slice, (float*)part, (float*)colpart);
+        rows_per_slice, (float*)part, (float*)colpart, v);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

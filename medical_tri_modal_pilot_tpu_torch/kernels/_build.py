@@ -46,10 +46,11 @@ _SIGNATURES = {
     # x, gamma, beta, w1, b1, w2, valid, dy, dx, ln_o, dz_o, hd_o, dh_o,
     # gpart, R, C, F, seed, thr, q_t, q_f, drop, dtype, stream
     "ffn_bwd": [_P] * 14 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
-    # k1, k2, R, F, C, seed, thr, stream
-    "ffn_dropout_masks": [_P] * 2 + [_I] * 3 + [_U64, _U32, _P],
-    # A, B, R, Ka, Nb, rows_per_slice, S, part, colpart, dtype, stream
-    "wgrad_partials": [_P] * 2 + [_I] * 5 + [_P] * 2 + [_I, _P],
+    # k1, k2, R, F, C, col0, seed, thr, stream
+    "ffn_dropout_masks": [_P] * 2 + [_I] * 4 + [_U64, _U32, _P],
+    # A, B, R, Ka, Nb, rows_per_slice, S, part, colpart, valid, dtype,
+    # stream
+    "wgrad_partials": [_P] * 2 + [_I] * 5 + [_P] * 3 + [_I, _P],
     # part, S, N, out, stream
     "col_sum": [_P, _I, _I, _P, _P],
     # xw, wqkv, bqkv, wproj, bproj, bias, smask, qkv, heads, out, I, C, M,
@@ -65,6 +66,12 @@ _SIGNATURES = {
     # q, k, v, out, stats, dout, mask, kend, dq, dk, dv, B, Lq, Lk, H, dh,
     # mode, is_self, mult, dtype, stream
     "attention_bwd": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    # x, gamma, beta, w, b, valid, out0, out1, out2, R, Cin, Cout, Cs, ln,
+    # dtype, stream
+    "rowmm_fwd": [_P] * 9 + [_I] * 6 + [_P],
+    # x, gamma, beta, w, valid, dy0, dy1, dy2, dx, ln_o, gpart, R, Cin, Cout,
+    # Cs, ln, dtype, stream
+    "rowmm_bwd": [_P] * 11 + [_I] * 6 + [_P],
 }
 
 

@@ -70,23 +70,27 @@ def philox4x32_10(c0, c1, c2, seed: int):
     return c
 
 
-def _keep(R: int, N: int, m: int, seed: int, thr: int, device):
-    n4 = -(-N // 4)
-    c0 = torch.arange(n4, dtype=torch.int64, device=device)[None, :]
+def _keep(R: int, N: int, m: int, seed: int, thr: int, device,
+          col0: int = 0):
+    lo, hi = col0 // 4, -(-(col0 + N) // 4)
+    c0 = torch.arange(lo, hi, dtype=torch.int64, device=device)[None, :]
     c1 = torch.arange(R, dtype=torch.int64, device=device)[:, None]
     c0, c1 = torch.broadcast_tensors(c0, c1)
     words = philox4x32_10(c0, c1, torch.full_like(c0, m), seed)
-    bits = torch.stack(words, dim=-1).reshape(R, 4 * n4)[:, :N]
-    return bits < thr
+    bits = torch.stack(words, dim=-1).reshape(R, 4 * (hi - lo))
+    return bits[:, col0 - 4 * lo:col0 - 4 * lo + N] < thr
 
 
 def plain_dropout_masks(R: int, F: int, C: int, seed: int, p: float,
-                        device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                        device=None, col0: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The keep masks (bool [R, F] hidden, [R, C] output) that the kernels
     draw for ``seed``: element (r, c) of mask m is word c % 4 of Philox at
-    counter (c // 4, r, m, 0), kept below ``keep_threshold(p)``."""
+    counter (c // 4, r, m, 0), kept below ``keep_threshold(p)``. ``col0``:
+    the hidden mask holds columns col0 .. col0 + F of the whole one (a
+    rank's share of d_ff under tensor parallelism; 0 for the kernels')."""
     thr = keep_threshold(p)
-    return (_keep(R, F, 0, seed, thr, device),
+    return (_keep(R, F, 0, seed, thr, device, col0),
             _keep(R, C, 1, seed, thr, device))
 
 
@@ -243,9 +247,11 @@ def cuda_ffn(x, gamma, beta, w1, b1, w2, b2,
 
 
 def cuda_dropout_masks(R: int, F: int, C: int, seed: int, p: float,
-                       device) -> Tuple[torch.Tensor, torch.Tensor]:
+                       device, col0: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernels' keep masks for ``seed``, drawn on the card (bool [R, F],
-    [R, C])."""
+    [R, C]); the hidden one from column ``col0`` on, as
+    plain_dropout_masks."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"cuda_dropout_masks needs a CUDA device, got "
@@ -255,8 +261,8 @@ def cuda_dropout_masks(R: int, F: int, C: int, seed: int, p: float,
     if R * (F + C) == 0:
         return k1.bool(), k2.bool()
     rc = _build.library().ffn_dropout_masks(
-        k1.data_ptr(), k2.data_ptr(), R, F, C, int(seed) & (2 ** 64 - 1),
-        keep_threshold(p), stream(k1))
+        k1.data_ptr(), k2.data_ptr(), R, F, C, int(col0),
+        int(seed) & (2 ** 64 - 1), keep_threshold(p), stream(k1))
     _build.check(rc, "dropout_masks")
     count("dropout_masks")
     return k1.bool(), k2.bool()

@@ -5,7 +5,7 @@ the fixed-order sum of per-tile partials. CUDA tensors only: on the CPU
 the backward is autograd of the plain versions."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,10 +26,14 @@ def col_sum(part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def wgrad(a: torch.Tensor, b: torch.Tensor
+def wgrad(a: torch.Tensor, b: torch.Tensor,
+          valid: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """a [R, Ka], b [R, Nb], contiguous, one dtype -> (a^T b fp32 [Ka, Nb],
-    b.sum(0) fp32 [Nb])."""
+    b.sum(0) fp32 [Nb]). ``valid``: optional int8 flags on a's device, one
+    per 256 consecutive rows (``kBlockR`` of csrc/common.cuh, rowmm's
+    BLOCK_R); rows under a 0 flag are left out of both sums (and not
+    read)."""
     R, Ka = a.shape
     Nb = b.shape[1]
     if b.shape[0] != R or a.dtype != b.dtype:
@@ -47,6 +51,8 @@ def wgrad(a: torch.Tensor, b: torch.Tensor
     colpart = torch.empty(slices, Nb, dtype=torch.float32, device=a.device)
     rc = _build.library().wgrad_partials(
         a.data_ptr(), b.data_ptr(), R, Ka, Nb, rows, slices,
-        part.data_ptr(), colpart.data_ptr(), dtype_code(a.dtype), stream(a))
+        part.data_ptr(), colpart.data_ptr(),
+        None if valid is None else valid.data_ptr(), dtype_code(a.dtype),
+        stream(a))
     _build.check(rc, "wgrad")
     return col_sum(part).reshape(Ka, Nb), col_sum(colpart)

@@ -21,6 +21,12 @@ forward: the n-th dropout call of step k draws a seed mixed from (run
 seed, k, n), so a resumed run draws the masks it would have drawn.
 Every mask is Philox keyed by that seed (kernels/ffn.py), so the CPU and
 the card draw the same ones.
+
+Tensor parallelism (``--mp-size``): ``parallel.mesh.shard_model`` cuts the
+q|k|v and FFN weights to a rank's columns and sets ``tp`` on the
+attention and FFN modules, which then compute their share between the
+mesh's collectives (the JAX package's layout under ``--mp-size > 1``,
+where its fused attention block and FFN kernels are off).
 """
 from __future__ import annotations
 
@@ -37,6 +43,9 @@ from ..constants import MASK_FILL_VALUE
 
 from .. import ops
 from ..kernels.ffn import BLOCK_R as FFN_BLOCK_R
+from ..kernels.rowmm import BLOCK_R as ROWMM_BLOCK_R
+from ..parallel.mesh import (copy_to_model, gather_from_model,
+                             reduce_from_model)
 
 
 def check_eval(module: nn.Module) -> None:
@@ -192,6 +201,8 @@ class MultiHeadAttention(nn.Module):
         self.query_proj = ProjLinear(dim, dim)
         self.key_proj = ProjLinear(dim, dim)
         self.value_proj = ProjLinear(dim, dim)
+        # the mesh, when shard_model cut q|k|v to this rank's heads
+        self.tp = None
 
     def forward(self, query, key, value,
                 key_mask: Optional[torch.Tensor] = None,
@@ -203,9 +214,12 @@ class MultiHeadAttention(nn.Module):
         to the fused ``attn_block`` (kernel on CUDA). Otherwise the
         projections are plain products and the attention goes to
         ``ops.attention`` (kernel on CUDA), ``is_self`` when query is key.
-        A pre-norm call without the residual keeps plain projections here:
-        the JAX package sends it to its row-skipping LN projection kernel
-        (kernels/rowmm.py) only on a mesh with --mp-size > 1."""
+        Under tensor parallelism (``tp`` set) a pre-norm call takes this
+        rank's heads instead (``_tp_self_attention``): the JAX package's
+        path on a mesh with --mp-size > 1, through the row-skipping
+        LN-fused projection (kernels/rowmm.py) where the stream has row
+        blocks. The pre-norm call without a residual has no caller on one
+        device; there it keeps plain projections."""
         H = self.num_heads
         d_head = self.dim // H
         B, Lq, _ = query.shape
@@ -218,6 +232,9 @@ class MultiHeadAttention(nn.Module):
             if not (query is key and key is value):
                 raise ValueError("prenorm requires query is key is value")
             gamma, beta = prenorm
+            if self.tp is not None:
+                return self._tp_self_attention(query, key_mask, gamma, beta,
+                                               residual)
             if residual is query:
                 wcat = torch.cat([wq, wk, wv], dim=1).to(dt)
                 bcat = torch.cat([bq, bk, bv]).to(dt)
@@ -234,6 +251,42 @@ class MultiHeadAttention(nn.Module):
         out = ctx.reshape(B, Lq, self.dim)
         return out if residual is None else out + residual
 
+    def _tp_self_attention(self, x, key_mask, gamma, beta, residual):
+        """x + MHA(StdLN(x)) over this rank's heads (JAX modules.py:
+        263-274 with the heads split over 'model'): the q|k|v of its
+        columns, through ``ops.rowskip_ln_affine`` on a stream with
+        256-row blocks (StdLN fused, dead blocks skipped) or StdLN and
+        plain products otherwise; ``ops.attention`` on its heads; the
+        heads gathered from the model group."""
+        mesh = self.tp
+        H = self.num_heads // mesh.mp
+        d_head = self.dim // self.num_heads
+        B, L, _ = x.shape
+        dt = self.compute_dtype
+        (wq, bq), (wk, bk), (wv, bv) = (self.query_proj.weights(),
+                                        self.key_proj.weights(),
+                                        self.value_proj.weights())
+        blocks = ffn_row_blocks(x, key_mask, ROWMM_BLOCK_R)
+        if blocks is not None:
+            # StdLN runs inside the rank's projection, so its scales
+            # enter the model group with x
+            xr, gamma, beta = copy_to_model(mesh, x.to(dt), gamma, beta)
+            wcat = torch.cat([wq, wk, wv], dim=1).to(dt)
+            bcat = torch.cat([bq, bk, bv]).to(dt)
+            q, k, v = ops.rowskip_ln_affine(xr, gamma, beta, wcat, bcat,
+                                            blocks)
+        else:
+            ln, = copy_to_model(mesh, stdln_apply(x, gamma, beta, dt))
+            q = ln @ wq.to(dt) + bq.to(dt)
+            k = ln @ wk.to(dt) + bk.to(dt)
+            v = ln @ wv.to(dt) + bv.to(dt)
+        ctx = ops.attention(
+            q.reshape(B, L, H, d_head), k.reshape(B, L, H, d_head),
+            v.reshape(B, L, H, d_head), key_mask, math.sqrt(d_head),
+            is_self=True)
+        out = gather_from_model(mesh, ctx.reshape(B, L, H * d_head))
+        return out if residual is None else out + residual
+
 
 class FeedForward(nn.Module):
     """relu(W1 x) -> drop -> W2 -> drop, the reference's conv1x1 FFN
@@ -246,6 +299,8 @@ class FeedForward(nn.Module):
         self.w_2 = nn.Conv1d(d_ff, d_model, 1)
         self.dropout_p = dropout_p
         self.compute_dtype = dtype
+        # the mesh, when shard_model cut d_ff to this rank's columns
+        self.tp = None
 
     def weights(self):
         """(w1 [C, F], b1, w2 [F, C], b2) in the JAX layout."""
@@ -265,20 +320,21 @@ class FeedForward(nn.Module):
                        seeds)
 
 
-def ffn_row_blocks(x, key_mask) -> Optional[torch.Tensor]:
-    """Per-tile validity flags for the fused FFN: a tile of FFN_BLOCK_R
-    consecutive rows (sample-major) is skippable when every row in it is a
-    masked key. A sample whose keys are all masked attends uniformly over
-    every real key, so its rows are read downstream and all its tiles stay
-    live. None when the layout does not align to whole tiles or the mask
-    is a block mask."""
+def ffn_row_blocks(x, key_mask, block: int = FFN_BLOCK_R
+                   ) -> Optional[torch.Tensor]:
+    """Per-tile validity flags for the fused FFN (and, with ``block`` =
+    256, for the row-skipping projection): a tile of ``block`` consecutive
+    rows (sample-major) is skippable when every row in it is a masked key.
+    A sample whose keys are all masked attends uniformly over every real
+    key, so its rows are read downstream and all its tiles stay live. None
+    when the layout does not align to whole tiles or the mask is a block
+    mask."""
     if key_mask is None or key_mask.dim() != 2 or x.dim() != 3:
         return None
     B, L, _ = x.shape
-    if L % FFN_BLOCK_R != 0 or tuple(key_mask.shape) != (B, L):
+    if L % block != 0 or tuple(key_mask.shape) != (B, L):
         return None
-    alive = torch.logical_not(key_mask).reshape(B, L // FFN_BLOCK_R,
-                                                FFN_BLOCK_R)
+    alive = torch.logical_not(key_mask).reshape(B, L // block, block)
     flags = alive.any(dim=-1)
     return flags | torch.logical_not(flags.any(dim=-1, keepdim=True))
 
@@ -315,10 +371,43 @@ def ffn_block(layer: nn.Module, x, key_mask=None,
     ff = layer.feed_forward
     w1, b1, w2, b2 = ff.weights()
     training = layer.training and ff.dropout_p > 0.0
+    if ff.tp is not None:
+        return _tp_ffn(ff, x, gamma, beta, training, seeds)
     return ops.ffn(x, gamma, beta, w1, b1, w2, b2,
                    block_valid=ffn_row_blocks(x, key_mask), p=ff.dropout_p,
                    training=training,
                    seed=draw_seed(seeds) if training else None)
+
+
+def _tp_ffn(ff: FeedForward, x, gamma, beta, training: bool,
+            seeds: Optional[DropoutSeeds]):
+    """x + drop(W2 drop(relu(W1 StdLN(x) + b1)) + b2) over this rank's
+    d_ff columns: StdLN on the whole stream, then a column-parallel W1 and
+    a row-parallel W2 between copy_to_model and reduce_from_model (the JAX
+    package's plain FFN under SPMD, --mp-size > 1). The partial W2 product
+    stays fp32 through the sum and b2 is added once after it, so the
+    rounding is the single device's. Dropout draws the step's next seed on
+    every rank alike: the hidden mask is this rank's columns of the whole
+    one (``col0``), the output mask the whole one, so the masks are the
+    single-device FFN's."""
+    mesh = ff.tp
+    w1, b1, w2, b2 = ff.weights()
+    dt = ff.compute_dtype
+    ln, = copy_to_model(mesh, stdln_apply(x, gamma, beta, dt))
+    h = torch.relu(ln @ w1.to(dt) + b1.to(dt))
+    if training:
+        p = ff.dropout_p
+        F_loc, C = h.shape[-1], x.shape[-1]
+        keep_h, keep_z = ops.dropout_masks(
+            h.numel() // F_loc, F_loc, C, draw_seed(seeds), p, x.device,
+            col0=mesh.model_index * F_loc)
+        q = torch.tensor(1.0 - p, dtype=dt, device=x.device)
+        h = torch.where(keep_h.reshape(h.shape), h / q, 0.0)
+    z = reduce_from_model(mesh, h.float() @ w2.to(dt).float())
+    z = z.to(dt) + b2.to(dt)
+    if training:
+        z = torch.where(keep_z.reshape(z.shape), z / q, 0.0)
+    return x + z
 
 
 class CrossmodalTransformerEncoderLayer(nn.Module):

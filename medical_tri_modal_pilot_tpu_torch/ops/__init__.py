@@ -1,7 +1,7 @@
 """Kernel dispatch for one device (counterpart of
 medical_tri_modal_pilot_tpu/ops/__init__.py:261-325): the kernels of the
-flagship's train and eval steps, and the masked attention of the
-cross-modal layers.
+flagship's train and eval steps, the masked attention of the cross-modal
+layers, and the row-skipping q|k|v projections of tensor parallelism.
 
 Each wrapper picks its implementation by the device of its input: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
@@ -9,13 +9,14 @@ hand-written kernel (or the launch raises; nothing falls back). Inside
 ``reference_path()`` CUDA tensors take the plain versions too, which is how
 the tests and ``chip_smoke.py`` build their oracle on the card. On the
 plain path the gradients are autograd of the plain versions; on the kernel
-path ``umse``, ``attn_block``, ``ffn`` and ``attention`` are autograd
-Functions whose backward launches the backward kernels (``umse``'s
-differentiates its plain version, as in the JAX package).
+path ``umse``, ``attn_block``, ``ffn``, ``attention`` and the two
+``rowskip`` projections are autograd Functions whose backward launches the
+backward kernels (``umse``'s differentiates its plain version, as in the
+JAX package).
 
 ``launches`` counts, per kernel, the wrapper calls that launched it
 (kernels/_util.py); the backward kernels count as ``attn_block_bwd``,
-``ffn_bwd`` and ``attention_bwd``.
+``ffn_bwd``, ``attention_bwd``, ``rowmm_ln_bwd`` and ``rowmm_bwd``.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 from ..kernels import attention as _attention
 from ..kernels import attn_block as _attn_block
 from ..kernels import ffn as _ffn
+from ..kernels import rowmm as _rowmm
 from ..kernels import swin_attention as _swin_attention
 from ..kernels import swin_mlp as _swin_mlp
 from ..kernels import umse as _umse
@@ -34,7 +36,7 @@ from ..kernels._util import KERNELS, launches
 
 __all__ = ["KERNELS", "launches", "reset_launches", "reference_path",
            "umse", "attn_block", "ffn", "dropout_masks", "swin_attention",
-           "swin_mlp", "attention"]
+           "swin_mlp", "attention", "rowskip_ln_affine", "rowskip_affine"]
 
 _reference = False
 
@@ -93,12 +95,14 @@ def attention(q, k, v, key_mask: Optional[torch.Tensor], scale: float,
                                             is_self)
 
 
-def dropout_masks(R: int, F: int, C: int, seed: int, p: float, device):
-    """The FFN kernels' keep masks for ``seed`` (bool [R, F], [R, C])."""
+def dropout_masks(R: int, F: int, C: int, seed: int, p: float, device,
+                  col0: int = 0):
+    """The FFN kernels' keep masks for ``seed`` (bool [R, F], [R, C]), the
+    hidden one holding columns ``col0`` .. col0 + F of the whole mask."""
     device = torch.device(device)
     if not _launches_kernel(device):
-        return _ffn.plain_dropout_masks(R, F, C, seed, p, device)
-    return _ffn.cuda_dropout_masks(R, F, C, seed, p, device)
+        return _ffn.plain_dropout_masks(R, F, C, seed, p, device, col0)
+    return _ffn.cuda_dropout_masks(R, F, C, seed, p, device, col0)
 
 
 def ffn(x, gamma, beta, w1, b1, w2, b2,
@@ -134,3 +138,20 @@ def swin_mlp(x, scale, bias, w1, b1, w2, b2):
     if not _launches_kernel(x.device):
         return _swin_mlp.torch_swin_mlp(x, scale, bias, w1, b1, w2, b2)
     return _swin_mlp.cuda_swin_mlp(x, scale, bias, w1, b1, w2, b2)
+
+
+def rowskip_ln_affine(x, gamma, beta, w, b,
+                      block_valid: Optional[torch.Tensor] = None):
+    """(q, k, v) = thirds of StdLN(x) @ w + b, skipping the 256-row blocks
+    whose flag is 0 (zeros there on the kernel path)."""
+    if not _launches_kernel(x.device):
+        return _rowmm.torch_rowskip_ln_affine(x, gamma, beta, w, b,
+                                              block_valid)
+    return _rowmm.cuda_rowskip_ln_affine(x, gamma, beta, w, b, block_valid)
+
+
+def rowskip_affine(x, w, b, block_valid: Optional[torch.Tensor] = None):
+    """x @ w + b, skipping the 256-row blocks whose flag is 0."""
+    if not _launches_kernel(x.device):
+        return _rowmm.torch_rowskip_affine(x, w, b, block_valid)
+    return _rowmm.cuda_rowskip_affine(x, w, b, block_valid)

@@ -7,6 +7,11 @@ checkpoints.py): single-file checkpoints named
 (the reference's names) and whose optimizer entry is the Trainer's
 optimizer state_dict. The asynchronous saver comes with the port's
 ``2_train.py`` counterpart.
+
+Under tensor parallelism every rank takes part in the save (the state is
+gathered from the model group) and rank 0 writes the same whole-model file
+a single process writes, Adam moments included; a restore cuts it to each
+rank's shard. So a run resumes across the two.
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ import os
 from typing import Any, Dict
 
 import torch
+
+from ..parallel.distributed import barrier, is_primary
 
 
 def ckpt_path(dir_result: str, project: str, kind: str, fold, seed) -> str:
@@ -24,11 +31,16 @@ def ckpt_path(dir_result: str, project: str, kind: str, fold, seed) -> str:
 def save_checkpoint(path: str, trainer, score: float, epoch: int,
                     best_step: int = 0, last_step: int = 0) -> None:
     """Write the trainer's model, optimizer and step atomically (a
-    temporary file renamed over ``path``)."""
+    temporary file renamed over ``path``): on process 0 only, after every
+    process has given its shards; every process returns once the file is
+    in place."""
+    model_sd, opt_sd = trainer.state_dicts()
+    if not is_primary():
+        barrier()
+        return
     payload = {
-        "model": trainer.model.state_dict(),
-        "optimizer": (None if trainer.optimizer is None
-                      else trainer.optimizer.state_dict()),
+        "model": model_sd,
+        "optimizer": opt_sd,
         "best_step": int(best_step),
         "last_step": int(last_step),
         "score": float(score),
@@ -39,6 +51,7 @@ def save_checkpoint(path: str, trainer, score: float, epoch: int,
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+    barrier()
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
@@ -51,8 +64,7 @@ def restore(trainer, payload: Dict[str, Any],
     """Bring a checkpoint's model, optimizer and step back into
     ``trainer``, so that its next step goes on from the point of the save
     (the dropout seeds follow the step)."""
-    trainer.model.load_state_dict(payload["model"], strict=True)
-    if (with_optimizer and trainer.optimizer is not None
-            and payload.get("optimizer") is not None):
-        trainer.optimizer.load_state_dict(payload["optimizer"])
+    trainer.load_state_dicts(payload["model"],
+                             payload.get("optimizer") if with_optimizer
+                             else None)
     trainer.step = int(payload.get("step", 0))

@@ -6,6 +6,12 @@ and a ``Trainer`` whose ``train_step`` returns the loss and whose
 
 Dense ``txt`` and fp32 ``img`` batches only: the ``txt_id``/uint8/packed
 image wire format and TIE length bucketing are ROADMAP Queue 1 item 4.
+
+Tensor parallelism: ``Trainer(..., mesh=make_mesh(...))`` with mp > 1
+shards the model (``parallel.mesh.shard_model``) and builds the optimizer
+over this rank's shards; every rank runs the same batch and returns the
+same loss and probabilities. ``state_dicts`` and ``load_state_dicts`` move
+whole, reference-layout state in and out.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..models.modules import DropoutSeeds
+from ..parallel.mesh import (Mesh, gather_state_dict, shard_model,
+                             shard_state_dict)
 from .schedule import cosine_annealing_warmup_restarts, cosine_warmup_single
 
 # the batch keys the train and eval steps read
@@ -94,10 +102,16 @@ class Optimizer:
     p (1 - lr wd) equals optax's -lr (adam + wd p); SGD's first momentum
     buffer is the gradient, as optax's trace of zeros plus it."""
 
-    def __init__(self, cfg: Config, params: List[torch.nn.Parameter]):
+    def __init__(self, cfg: Config, params: List[torch.nn.Parameter],
+                 split: Optional[List[bool]] = None,
+                 mesh: Optional[Mesh] = None):
+        """``split``: per parameter, whether it is a tensor-parallel shard
+        (LARS then takes its norms over the model group of ``mesh``)."""
         kind = cfg.optim.replace("_lars", "")
         self.lars = cfg.optim.endswith("_lars")
         self.params = list(params)
+        self.split = split if split is not None and any(split) else None
+        self.mesh = mesh
         if kind == "adamw":
             self.opt = torch.optim.AdamW(self.params, lr=0.0,
                                          weight_decay=cfg.weight_decay,
@@ -113,11 +127,19 @@ class Optimizer:
     @torch.no_grad()
     def _trust_ratio(self) -> None:
         """optax.scale_by_trust_ratio(): g *= |p| / |g| per tensor, 1 where
-        either norm is 0."""
-        for p in self.params:
-            if p.grad is None:
-                continue
-            pn, gn = p.norm(), p.grad.norm()
+        either norm is 0. A tensor-parallel shard takes the norms of the
+        whole tensor: its squares summed over the model group."""
+        sq = torch.stack([torch.stack([p.square().sum(),
+                                       p.grad.square().sum()])
+                          for p in self.params])
+        if self.split is not None:
+            mask = torch.tensor(self.split, device=sq.device)[:, None]
+            whole = torch.where(mask, sq, 0.0)
+            torch.distributed.all_reduce(whole,
+                                         group=self.mesh.model_group)
+            sq = torch.where(mask, whole, sq)
+        norms = sq.sqrt()
+        for p, (pn, gn) in zip(self.params, norms):
             ratio = torch.where((pn == 0) | (gn == 0), 1.0, pn / gn)
             p.grad.mul_(ratio)
 
@@ -144,12 +166,24 @@ class Optimizer:
         self.opt.load_state_dict(state)
 
 
-def build_optimizer(cfg: Config, model: torch.nn.Module) -> Optimizer:
+def build_optimizer(cfg: Config, model: torch.nn.Module,
+                    split: Optional[Dict[str, int]] = None,
+                    mesh: Optional[Mesh] = None) -> Optimizer:
     """``--optim`` over the parameters that take a gradient (JAX
     trainer.py:140-154 with its _trainable_mask: a frozen trunk, whose
     parameters the model builds with requires_grad False, takes no update,
-    decay or moment state)."""
-    return Optimizer(cfg, [p for p in model.parameters() if p.requires_grad])
+    decay or moment state). ``split``: the tensor-parallel shards by name
+    (shard_model), over the model group of ``mesh``."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    split = split or {}
+    return Optimizer(cfg, [p for _, p in named],
+                     [n in split for n, _ in named], mesh)
+
+
+def _moment(v) -> bool:
+    """An optimizer state entry shaped like its parameter (a moment, not
+    the step count)."""
+    return torch.is_tensor(v) and v.dim() > 0
 
 
 class Trainer:
@@ -163,18 +197,83 @@ class Trainer:
 
     def __init__(self, cfg: Config, model: torch.nn.Module,
                  device: torch.device, eval_only: bool = True,
-                 iters_per_epoch: int = 1, seed: int = 0):
+                 iters_per_epoch: int = 1, seed: int = 0,
+                 mesh: Optional[Mesh] = None):
+        """``mesh``: the process mesh (parallel.mesh.make_mesh); with mp > 1
+        the model is cut to this rank's tensor-parallel shard here."""
         if cfg.model_types != "detection":
             raise NotImplementedError(
                 f"--model-types {cfg.model_types}: only detection is ported")
+        mp = 1 if mesh is None else mesh.mp
+        if max(cfg.mp_size, 1) != mp:
+            raise ValueError(f"--mp-size {cfg.mp_size} against a mesh of "
+                             f"{mp} model ranks: build the mesh with "
+                             "parallel.mesh.make_mesh after "
+                             "parallel.distributed.maybe_init_distributed")
+        if mp > 1 and cfg.model != "tri_mbt_vsltcls":
+            raise NotImplementedError(
+                f"--model {cfg.model} under --mp-size {mp}: tensor "
+                "parallelism covers tri_mbt_vsltcls; the other models are "
+                "ROADMAP Queue 1 item 8")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.split = {} if mesh is None else shard_model(model, mesh)
         self.model = model.to(self.device).eval()
         self.seed = int(seed)
         self.step = 0
         self.schedule = build_schedule(cfg, max(iters_per_epoch, 1))
-        self.optimizer = None if eval_only else build_optimizer(cfg,
-                                                                 self.model)
+        self.optimizer = None if eval_only else build_optimizer(
+            cfg, self.model, self.split, mesh)
+
+    def _param_names(self) -> List[str]:
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        return [names[id(p)] for p in self.optimizer.params]
+
+    def state_dicts(self) -> Tuple[Dict[str, torch.Tensor], Optional[dict]]:
+        """(model state_dict, optimizer state_dict) of the whole model in
+        the single-process layout, on the CPU; under tensor parallelism
+        gathered from the model group (a collective: every rank calls
+        it)."""
+        model_sd = self.model.state_dict()
+        opt_sd = None if self.optimizer is None else \
+            self.optimizer.state_dict()
+        if self.split:
+            model_sd = gather_state_dict(model_sd, self.split, self.mesh)
+            if opt_sd is not None:
+                names = self._param_names()
+                state = {}
+                for i, st in opt_sd["state"].items():
+                    dim = self.split.get(names[i])
+                    state[i] = st if dim is None else gather_state_dict(
+                        st, {k: dim for k, v in st.items() if _moment(v)},
+                        self.mesh)
+                opt_sd = dict(opt_sd, state=state)
+        cpu = lambda t: t.detach().cpu() if torch.is_tensor(t) else t
+        model_sd = {k: cpu(v) for k, v in model_sd.items()}
+        if opt_sd is not None:
+            opt_sd = dict(opt_sd, state={
+                i: {k: cpu(v) for k, v in st.items()}
+                for i, st in opt_sd["state"].items()})
+        return model_sd, opt_sd
+
+    def load_state_dicts(self, model_sd: Dict[str, torch.Tensor],
+                         opt_sd: Optional[dict] = None) -> None:
+        """Load whole, single-process-layout state (``state_dicts``' or a
+        checkpoint's); under tensor parallelism this rank's shard of it."""
+        if self.split:
+            mp, index = self.mesh.mp, self.mesh.model_index
+            model_sd = shard_state_dict(model_sd, mp, index)
+            if opt_sd is not None:
+                names = self._param_names()
+                opt_sd = dict(opt_sd, state={
+                    i: {k: v.chunk(mp, self.split[names[i]])[index].clone()
+                        if _moment(v) and names[i] in self.split else v
+                        for k, v in st.items()}
+                    for i, st in opt_sd["state"].items()})
+        self.model.load_state_dict(model_sd, strict=True)
+        if self.optimizer is not None and opt_sd is not None:
+            self.optimizer.load_state_dict(opt_sd)
 
     def device_batch(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, torch.Tensor]:

@@ -4,7 +4,9 @@ the flagship's (d_head 64, C 256; Swin-T's C 96-768): forwards, the
 backward kernels against autograd of the plain versions, the dropout
 masks bit for bit; the masked attention of the cross-modal layers at
 every mask form; and the small eval and train steps (vslt+txt, and
-vslt+img+txt with the full Swin-T; the cross transformer) on both paths.
+vslt+img+txt with the full Swin-T; the cross transformer) on both paths;
+the row-skipping projections of tensor parallelism and the dropout masks'
+column offset.
 Marked ``cuda``: skipped without a GPU. This file imports no jax, so it
 also runs where the port runs:
 
@@ -204,6 +206,82 @@ def test_dropout_masks_kernel_is_bit_identical(dev, R, F, C):
         want = plain_dropout_masks(R, F, C, seed, p, dev)
         for a, e in zip(got, want):
             assert torch.equal(a, e)
+
+
+@pytest.mark.parametrize("col0,F", [(0, 64), (1, 7), (5, 64), (512, 512)])
+def test_dropout_masks_kernel_takes_the_column_offset(dev, col0, F):
+    """A rank's hidden mask (F columns from col0) is bit for bit the
+    plain version's and those columns of the kernel's whole mask; offset 0
+    is the kernels' own mask."""
+    R, C, p, seed = 300, 64, 0.1, 2 ** 40 + 5
+    part = ops.dropout_masks(R, F, C, seed, p, dev, col0=col0)
+    whole = ops.dropout_masks(R, col0 + F, C, seed, p, dev)
+    want = plain_dropout_masks(R, F, C, seed, p, dev, col0=col0)
+    assert torch.equal(part[0], want[0]) and torch.equal(part[1], want[1])
+    assert torch.equal(part[0], whole[0][:, col0:])
+    assert torch.equal(part[1], whole[1])
+
+
+# rowmm: (B, L, Cin, Cout, lengths): small widths with a dead 256-row block
+# and a ragged row count, and the tensor-parallel rank's widths (Cin 256,
+# one rank's q|k|v of 384) with an all-dead sample
+ROWMM_CASES = [(2, 512, 64, 192, (200, 512)), (1, 130, 64, 192, None),
+               (3, 512, 256, 384, (0, 100, 512))]
+
+
+@pytest.mark.parametrize("case", ROWMM_CASES)
+@pytest.mark.parametrize("ln", [True, False])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_rowmm_kernels(dev, case, ln, prec):
+    """The row-skipping projection (LN-fused and plain) and its backward
+    against autograd of the plain version: outputs on live rows, zeros in
+    dead blocks, every gradient with the cotangent zero on dead rows; one
+    launch of each kernel."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import BLOCK_R
+    B, L, Cin, Cout, lengths = case
+    g = torch.Generator().manual_seed(11)
+    dt = PRECS[prec]
+    x = _rand(g, dev, B, L, Cin).to(dt)
+    w = _rand(g, dev, Cin, Cout, std=Cin ** -.5).to(dt)
+    b = _rand(g, dev, Cout, std=.1).to(dt)
+    live = torch.ones(B, L, dtype=torch.bool, device=dev)
+    flags = None
+    if lengths is not None:
+        live = length_key_mask(torch.tensor(lengths, device=dev), L).logical_not()
+        flags = ffn_row_blocks(x, ~live, BLOCK_R)
+        live = flags.repeat_interleave(BLOCK_R, dim=1)
+    cot = _rand(g, dev, B, L, Cout).to(dt) * live[:, :, None]
+    if ln:
+        inputs = (x, _rand(g, dev, Cin, std=.1, mean=1.),
+                  _rand(g, dev, Cin, std=.1), w, b)
+        fn = lambda *a: torch.cat(ops.rowskip_ln_affine(*a, flags), -1)
+        names, name = ["dx", "dgamma", "dbeta", "dw", "db"], "rowmm_ln"
+    else:
+        inputs, names, name = (x, w, b), ["dx", "dw", "db"], "rowmm"
+        fn = lambda *a: ops.rowskip_affine(*a, flags)
+    ops.reset_launches()
+    (out, grads), (ref, ref_grads) = _grads(fn, inputs, cot)
+    assert ops.launches[name] == ops.launches[f"{name}_bwd"] == 1
+    torch.testing.assert_close(out[live], ref[live], **TOL[prec])
+    assert torch.all(out[~live] == 0)
+    _assert_grads_close(grads, ref_grads, prec, names)
+
+
+def test_rowmm_refuses_what_it_does_not_take(dev):
+    from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import (
+        cuda_rowskip_affine, cuda_rowskip_ln_affine)
+    x = torch.zeros(2, 8, 64, device=dev)
+    vec = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        cuda_rowskip_ln_affine(x, vec, vec, torch.zeros(64, 96, device=dev),
+                               torch.zeros(96, device=dev))
+    with pytest.raises(ValueError, match="Cin"):
+        cuda_rowskip_affine(torch.zeros(2, 8, 96, device=dev),
+                            torch.zeros(96, 64, device=dev),
+                            torch.zeros(64, device=dev))
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        cuda_rowskip_affine(x.half(), torch.zeros(64, 64, device=dev),
+                            torch.zeros(64, device=dev))
 
 
 @pytest.mark.parametrize("prec", list(PRECS))

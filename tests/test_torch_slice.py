@@ -186,13 +186,16 @@ def test_unported_paths_raise():
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, imports jax, flax or the
-    JAX package (the port keeps its own copies of config, constants and
-    metrics)."""
+    """No module of the port (parallel/ and its launcher included), nor
+    chip_smoke.py, nor the rank bodies the launcher starts in the tests
+    (tests/tp_worker.py), imports jax, flax or the JAX package (the port
+    keeps its own copies of config, constants and metrics)."""
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flax|medical_tri_modal_pilot_tpu)\b"
         r"(?!_torch)", re.M)
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "tests" / "tp_worker.py"]
+    assert PORT / "parallel" / "launch.py" in files
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f
