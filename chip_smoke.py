@@ -6,7 +6,9 @@ Phases, each raising on failure (nothing is caught):
   1. device: needs CUDA; prints the card's name and power limit.
   2. build: compiles the CUDA C++ kernels (csrc/*.cu, one nvcc for sm_90a
      per source, all started together) and the Triton kernel from the
-     checkout, and prints the build seconds.
+     checkout, and prints the build seconds; cuobjdump -sass of the library
+     must show tensor-core instructions (HMMA) in each bf16 tensor-core
+     kernel (TENSOR_CORE_KERNELS).
   3. kernels: each kernel against its plain PyTorch version at every shape
      the eval steps give it (each fusion stream's length; the Swin stages
      over 33, 64 and 97 trunk rows), in fp32 and bf16, on live rows, with
@@ -14,6 +16,11 @@ Phases, each raising on failure (nothing is caught):
      beside the least time the card could take (bound) and, where one
      PyTorch call computes the same function, that call's time. swin_mlp's
      three-launch form is also timed at the widths it runs fused.
+     swin_attention at the main path's 33 trunk rows: at each stage and
+     mask, bf16, the tensor-core route beside
+     F.multi_head_attention_forward, and their totals weighted by the
+     launches of a step (2/2/6/2 over the stages); stage 1 also through the
+     three-launch tensor-core route.
   4. config 2: BASELINE config 2 (tri_mbt_vsltcls, vslt+txt, TIE, full
      width, bf16) built by get_model with seeded random weights;
      Trainer.eval_step on seeded synthetic batches. Asserts the launch
@@ -33,7 +40,9 @@ Phases, each raising on failure (nothing is caught):
      live rows and every gradient; dropout_masks bit for bit against its
      plain version, and its keep rate within binomial bounds. Median
      kernel and plain ms of forward and backward, the bound, the library
-     column.
+     column. The ffn backward at [65536, 256]: its tile pass and its weight
+     sums timed apart, the live-row share, the weight sums bit for bit the
+     same over two runs, beside the FMA form of the sums.
   7. config 4 train: Trainer.train_step at full width (bf16, batch 64,
      --dropout 0.1, adamw) over seeded batches through the packed trunk
      and its overflow: launch counts per step, peak device memory; one
@@ -76,6 +85,8 @@ Phases, each raising on failure (nothing is caught):
      seeded as the single-process run: eval probabilities against the
      single-process kernel path (bf16 and fp32), one fp32 train step at
      dropout 0.1 (every gradient, gathered, against the single process's),
+     the same step in bf16 held against the fp32 plain step as the single
+     process's bf16 step is (within STEP_BF16_RATIO of its errors),
      launch counts per rank, ms/step and peak memory per rank (two ranks on
      one card: not a speed figure of tensor parallelism), a profiler split
      with gloo's share, a few steps on one batch with the loss falling.
@@ -241,6 +252,16 @@ KERNEL_PATHS = {name: "cross" if name.startswith("attention") else "config4"
 KERNEL_PATHS.update(rowmm_ln="tp", rowmm_ln_bwd="tp", rowmm=None,
                     rowmm_bwd=None)
 
+# the bf16 kernels on the tensor cores: each must compile to HMMA
+TENSOR_CORE_KERNELS = ("swin_fused_kernel", "window_attn_tc_kernel",
+                       "gemm_bf16_kernel", "ffn_bwd_tc_kernel",
+                       "wgrad_tc_kernel")
+# swin_attention launches per config-4 step at each stage, with and without
+# the shift mask (Swin-T's depths 2/2/6/2 alternate unshifted and shifted
+# blocks; stage 4, one window per image, has no shift)
+SWIN_STAGE_LAUNCHES = [{"mask": 1, "none": 1}, {"mask": 1, "none": 1},
+                       {"mask": 3, "none": 3}, {"none": 2}]
+
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them,
 # HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -291,6 +312,15 @@ def build_kernels() -> None:
     t2 = time.perf_counter()
     print(f"build: nvcc {t1 - t0:.1f} s ({_build.library_path().name}), "
           f"triton {t2 - t1:.1f} s")
+    code = _build.sass()
+    for kernel in TENSOR_CORE_KERNELS:
+        found = {n: c.count("HMMA") + c.count("HGMMA")
+                 for n, c in code.items() if kernel in n}
+        print(f"sass {kernel}: tensor-core instructions per instantiation "
+              f"{sorted(found.values())}")
+        if not found or not all(found.values()):
+            raise AssertionError(f"{kernel}: no tensor-core instructions in "
+                                 "its SASS")
 
 
 def _median_ms(fn, reps: int = 20) -> float:
@@ -364,6 +394,8 @@ def compare_kernels() -> dict:
     from medical_tri_modal_pilot_tpu_torch import ops
     from medical_tri_modal_pilot_tpu_torch.kernels import _build
     from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import key_ends
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_attention import (
+        cuda_window_attention, swin_attention_route)
     from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import \
         cuda_swin_mlp
     from medical_tri_modal_pilot_tpu_torch.models.modules import (
@@ -464,8 +496,11 @@ def compare_kernels() -> dict:
 
         # swin_attention and swin_mlp at Swin-T's four stages over the trunk
         # rows of each branch; window attention with and without the shift
-        # mask where the stage has shifted blocks
-        for side, C, M, has_shift in SWIN_STAGES:
+        # mask where the stage has shifted blocks. At the main path's rows,
+        # bf16: the library call beside the kernel at every stage and mask
+        # (stage 1 also through the three-launch tensor-core route)
+        trunk = []
+        for stage, (side, C, M, has_shift) in enumerate(SWIN_STAGES):
             nh = C // 32
             wqkv, bqkv = rnd(C, 3 * C, std=C ** -.5), rnd(3 * C, std=.1)
             wproj, bproj = rnd(C, C, std=C ** -.5), rnd(C, std=.1)
@@ -488,15 +523,29 @@ def compare_kernels() -> dict:
                                                           smask, nh)
                         work = (2 * _nbytes(xw) + _nbytes(*ws, bias, smask),
                                 8.0 * T * C * C + 4.0 * T * 49 * C)
-                        main = (rows == TRUNK_ROWS[0] and side == 56
-                                and smask is not None and dt == bf16)
+                        timed = rows == TRUNK_ROWS[0] and dt == bf16
                         library = (_mha_library_call(xw, ws, bias, smask, nh)
-                                   if main else None)
+                                   if timed else None)
                         tag = (f"[{I},49,{C}]"
                                f"{'+mask' if smask is not None else ''}")
                         r = _compare(f"swin_attention{tag}", dt, call, work,
                                      library=library)
-                        if main:
+                        if not timed:
+                            continue
+                        route = swin_attention_route(dt, C)
+                        kind = "none" if smask is None else "mask"
+                        entry = dict(r, shape=tag, route=route,
+                                     launches_per_step=SWIN_STAGE_LAUNCHES[
+                                         stage][kind])
+                        if route == "fused":
+                            split = _compare(
+                                f"swin_attention{tag} split route", dt,
+                                lambda: cuda_window_attention(
+                                    xw, *ws, bias, smask, nh, route="split"),
+                                work, plain=call)
+                            entry["split_ms"] = split["ms"]
+                        trunk.append(entry)
+                        if side == 56 and smask is not None:
                             results["swin_attention"] = dict(r, shape=tag)
                 R = rows * side * side
                 for dt in (torch.float32, bf16):
@@ -517,6 +566,13 @@ def compare_kernels() -> dict:
                                                       split=True)
                         _compare(f"swin_mlp[{R},{C}] split", dt, split, work,
                                  plain=call)
+    totals = {k: sum(e["launches_per_step"] * e[k] for e in trunk)
+              for k in ("ms", "library_ms", "bound_ms")}
+    print(f"swin_attention bf16 over a config-4 step's trunk ({TRUNK_ROWS[0]}"
+          f" rows; launches per stage 2/2/6/2): kernel {totals['ms']:.3f} ms, "
+          f"F.multi_head_attention_forward {totals['library_ms']:.3f} ms, "
+          f"bound {totals['bound_ms']:.4f} ms")
+    results["swin_attention"].update(stages=trunk, trunk_totals=totals)
     return results
 
 
@@ -588,6 +644,29 @@ def _compare_train(name, dt, fwd, inputs, cot, live, work_fwd, work_bwd,
     if not all(np.isfinite(e) and e <= GRAD_TOL[dt] for e in g_err):
         raise AssertionError(f"{name} {tag}: gradients disagree")
     return fwd_res, bwd_res
+
+
+def _ffn_bwd_parts(x, ws, flags, cot, n_live) -> dict:
+    """The ffn backward's two parts timed apart (CUDA events): the tile
+    pass and the weight sums; the sums must repeat bit for bit."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.ffn import (
+        ffn_bwd_tiles, ffn_weight_sums)
+    P = 0.1
+    tiles = lambda: ffn_bwd_tiles(x, *ws, flags, P, DROPOUT_SEED, cot)
+    _, ln, dz, hd, dh, _, valid = tiles()
+    sums = lambda: ffn_weight_sums(ln, dz, hd, dh, valid)
+    first, again = sums(), sums()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    res = {"tiles_ms": _median_ms(tiles), "sums_ms": _median_ms(sums),
+           "live_rows": n_live / x[..., 0].numel(),
+           "sums_bit_identical": same}
+    print(f"ffn_bwd bf16 [{x[..., 0].numel()},{x.shape[-1]}] p {P}: live "
+          f"rows {res['live_rows']:.4f}; tile pass {res['tiles_ms']:.3f} ms, "
+          f"weight sums {res['sums_ms']:.3f} ms; weight sums bit-identical "
+          f"over two runs: {same}")
+    if not same:
+        raise AssertionError("ffn_bwd: the weight sums differ between runs")
+    return res
 
 
 def compare_training_kernels() -> dict:
@@ -669,7 +748,10 @@ def compare_training_kernels() -> dict:
                 (xf, g1, be1, w1, b1, w2, b2), cot, rows, work_f, work_b)
             if L == 1024 and dt == bf16:
                 results["ffn_train"] = dict(fr, shape="[65536,256]")
-                results["ffn_bwd"] = dict(br, shape="[65536,256]")
+                results["ffn_bwd"] = dict(
+                    br, shape="[65536,256]",
+                    **_ffn_bwd_parts(xf, (g1, be1, w1, b1, w2), flags, cot,
+                                     n_live))
 
     # dropout masks at the vslt stream's FFN shapes: bit for bit, keep rate
     R = BATCH * 1024
@@ -934,14 +1016,16 @@ def compare_rowmm_kernels() -> dict:
 def _mha_library_call(xw, ws, bias, smask, nh):
     """torch's multi_head_attention_forward on the same windows: the q|k|v
     projection, scores + an additive mask holding the bias and -65504 at
-    shift-masked keys, softmax, @v, the output projection. A yardstick
-    only; the port never calls it."""
+    shift-masked keys (``smask`` None: the bias alone), softmax, @v, the
+    output projection. A yardstick only; the port never calls it."""
     import torch.nn.functional as F
     I, N, C = xw.shape
     wqkv, bqkv, wproj, bproj = ws
-    sm = smask.repeat(I // smask.shape[0], 1, 1)[:, None]
-    add = (bias[None] + torch.where(sm, -65504.0, 0.0)).to(xw.dtype)
-    add = add.reshape(I * nh, N, N).contiguous()
+    add = bias[None].expand(I, nh, N, N)
+    if smask is not None:
+        sm = smask.repeat(I // smask.shape[0], 1, 1)[:, None]
+        add = add + torch.where(sm, -65504.0, 0.0)
+    add = add.to(xw.dtype).reshape(I * nh, N, N).contiguous()
     q = xw.transpose(0, 1).contiguous()
     w_in, w_out = wqkv.t().contiguous(), wproj.t().contiguous()
 
@@ -1399,6 +1483,16 @@ def tp_rank(out_dir: str) -> None:
     res["replicated_grads"] = {k: v.cpu() for k, v in grads.items()
                                if k not in tr32.split}
     del tr32, grads
+    # the same step in bf16, gathered
+    tr16 = trainer(cfg.replace(dropout=0.1), eval_only=False)
+    res["loss16"] = tr16.train_step(batches[0])
+    names = {id(p): nm for nm, p in tr16.model.named_parameters()}
+    grads = gather_state_dict({names[id(p)]: p.grad.detach().float()
+                               for p in tr16.optimizer.params}, tr16.split,
+                              mesh)
+    res["grads16"] = {k: v.cpu() for k, v in grads.items()} if rank == 0 \
+        else None
+    del tr16, grads
     torch.cuda.empty_cache()
 
     # train, bf16: launches, peak memory, ms/step, a profiler split, the
@@ -1498,6 +1592,12 @@ def run_tp(power: str) -> dict:
     state = get_model(c32, torch.Generator().manual_seed(0)).state_dict()
     loss32, ref, _ = _train_run(c32.replace(dropout=0.1), state, batches[0],
                                 plain=False)
+    # the bf16 step's yardsticks: the fp32 plain step, and the single
+    # process's bf16 kernel-path step held against it
+    _, ref32, _ = _train_run(c32.replace(dropout=0.1), state, batches[0],
+                             plain=True)
+    loss16, ref16, _ = _train_run(single.replace(dropout=0.1), state,
+                                  batches[0], plain=False)
     torch.cuda.empty_cache()
 
     shutil.rmtree(TP_DIR, ignore_errors=True)
@@ -1521,6 +1621,13 @@ def run_tp(power: str) -> dict:
     print(f"tp fp32 train step dropout 0.1: loss {r0['loss32']:.6f} vs single "
           f"{loss32:.6f}; grads |tp - single|_F/|single|_F over {len(errs)} "
           f"tensors: {_summary(errs)} (tol {STEP_FP32_TOL})")
+    tp16 = {k: (v.to(dev), None) for k, v in r0["grads16"].items()}
+    e_tp, e_single = _step_errors(tp16, ref32), _step_errors(ref16, ref32)
+    print(f"tp bf16 train step dropout 0.1: loss {r0['loss16']:.6f} vs single "
+          f"{loss16:.6f}; against the fp32 plain step: tp {_summary(e_tp)}; "
+          f"single process {_summary(e_single)}")
+    bf16_ok = all(stat(e_tp.values()) <= STEP_BF16_RATIO * stat(
+        e_single.values()) + 1e-2 for stat in (statistics.median, max))
     rep = [k for k in ranks[0]["replicated_grads"]
            if not torch.equal(ranks[0]["replicated_grads"][k],
                               ranks[1]["replicated_grads"][k])]
@@ -1547,6 +1654,8 @@ def run_tp(power: str) -> dict:
     if abs(r0["loss32"] - loss32) > STEP_LOSS_TOL["fp32"] or \
             max(errs.values()) > STEP_FP32_TOL:
         failures.append("fp32 train step")
+    if abs(r0["loss16"] - loss16) > STEP_LOSS_TOL["bf16"] or not bf16_ok:
+        failures.append("bf16 train step against the fp32 step")
     if rep:
         failures.append(f"replicated gradients differ: {rep[:3]}")
     if not all(np.isfinite(curve)) or not np.mean(curve[-3:]) < np.mean(

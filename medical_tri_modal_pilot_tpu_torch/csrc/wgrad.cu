@@ -7,25 +7,32 @@
 // attn_block.py::_bwd_fused_kernel (:484-492): the TPU adds each row
 // block's A^T B into one output as its sequential grid walks the rows. On
 // Hopper the row blocks run in parallel, so the sum over R = 64 * 1024
-// rows is split: wgrad_kernel computes one 64 x 64 tile of A^T B over one
-// slice of the rows per block (split-K, S slices, fp32 partials of S * Ka
-// * Nb floats), and col_sum_kernel adds the S partials in slice order.
-// Deterministic, no atomics. fp32 FMAs from shared memory; tensor cores
-// are later work. Bound on an H100: operations, 2 R Ka Nb (34 GFLOP for
-// the FFN's dW1 at R = 65536).
+// rows is split: each block computes one 64 x 64 tile of A^T B over one
+// slice of the rows (split-K, S slices, fp32 partials of S * Ka * Nb
+// floats), and col_sum_kernel adds the S partials in slice order.
+// Deterministic, no atomics. Two forms, picked by dtype: wgrad_kernel,
+// fp32 FMAs from shared memory (fp32, the checking dtype); and
+// wgrad_tc_kernel, bf16 on
+// the tensor cores (mma.sync m16n8k16, fp32 accumulation; A^T through
+// ldmatrix.trans), which stages 64-row chunks by cp.async in a two-stage
+// ring and skips a chunk under a 0 row flag without reading it. Bound on
+// an H100: operations, 2 R Ka Nb (34 GFLOP for the FFN's dW1 at R =
+// 65536, counting every row).
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace mtp {
 
 // part[s, k, n] = sum_{r in slice s} A[r, k] B[r, n]; colpart[s, n] =
 // sum_{r in slice s} B[r, n] (blocks with blockIdx.x == 0); rows whose
-// flag valid[r / kBlockR] is 0 count as zeros and are not read (valid
-// NULL: every row counts). grid (Ka/64, Nb/64, S).
-template <typename T>
+// flag valid[r / flag_rows] is 0 count as zeros and are not read (valid
+// NULL: every row counts). fp32 A and B. grid (Ka/64, Nb/64, S).
 __global__ void __launch_bounds__(kThreads) wgrad_kernel(
-    const T* __restrict__ A, const T* __restrict__ Bm, int R, int Ka, int Nb,
+    const float* __restrict__ A, const float* __restrict__ Bm, int R, int Ka,
+    int Nb,
     int rows_per_slice, float* __restrict__ part,
-    float* __restrict__ colpart, const int8_t* __restrict__ valid) {
+    float* __restrict__ colpart, const int8_t* __restrict__ valid,
+    int flag_rows) {
   __shared__ float As[kKChunk][kTile];
   __shared__ float Bs[kKChunk][kTile];
   const int k0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
@@ -39,10 +46,9 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(
     for (int e = tid; e < kKChunk * kTile; e += kThreads) {
       const int kk = e / kTile, c = e - kk * kTile;
       const bool in = r0 + kk < re &&
-                      (valid == nullptr || valid[(r0 + kk) / kBlockR]);
-      As[kk][c] = in ? Num<T>::load(A[(size_t)(r0 + kk) * Ka + k0 + c]) : 0.0f;
-      Bs[kk][c] = in ? Num<T>::load(Bm[(size_t)(r0 + kk) * Nb + n0 + c])
-                     : 0.0f;
+                      (valid == nullptr || valid[(r0 + kk) / flag_rows]);
+      As[kk][c] = in ? A[(size_t)(r0 + kk) * Ka + k0 + c] : 0.0f;
+      Bs[kk][c] = in ? Bm[(size_t)(r0 + kk) * Nb + n0 + c] : 0.0f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -74,6 +80,106 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(
       colpart[(size_t)s * Nb + n0 + tx + 16 * j] = csum[j];
 }
 
+// The same sums in bf16 on the tensor cores: warp w computes rows
+// 32 (w & 1) .. + 32 of the 64-row Ka tile and columns 32 (w >> 1) .. + 32
+// of the Nb tile; the rows of the slice are the product's depth, in
+// chunks of kWgRows that start on multiples of kWgRows. rows_per_slice and
+// flag_rows are multiples of kWgRows, so a chunk lies under one flag and
+// is either read whole or skipped whole. colpart by threads 0..63 of the
+// blockIdx.x == 0 blocks, each summing one column of each chunk in row
+// order. grid (Ka/64, Nb/64, S), 128 threads.
+constexpr int kWgRows = 64;
+constexpr int kWgThreads = 128;
+
+__global__ void __launch_bounds__(kWgThreads) wgrad_tc_kernel(
+    const bf16* __restrict__ A, const bf16* __restrict__ Bm, int R, int Ka,
+    int Nb, int rows_per_slice, float* __restrict__ part,
+    float* __restrict__ colpart, const int8_t* __restrict__ valid,
+    int flag_rows) {
+  constexpr int LD = pitch(kTile);
+  __shared__ __align__(16) bf16 As[2][kWgRows * LD];
+  __shared__ __align__(16) bf16 Bs[2][kWgRows * LD];
+  const int k0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  const int s = blockIdx.z;
+  const int rs = s * rows_per_slice, re = min(R, rs + rows_per_slice);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+  const bool sums = blockIdx.x == 0 && tid < kTile;
+  // the first chunk start at or after r under a live flag (re if none)
+  auto live_from = [&](int r) {
+    if (valid != nullptr)
+      while (r < re && valid[r / flag_rows] == 0)
+        r = (r / flag_rows + 1) * flag_rows;
+    return min(r, re);
+  };
+  auto load = [&](int r, int st) {
+    const int n = min(kWgRows, re - r);
+    stage_rows<kTile, kWgThreads>(As[st], LD, A + (size_t)r * Ka + k0, Ka,
+                                  kWgRows, n, tid);
+    stage_rows<kTile, kWgThreads>(Bs[st], LD, Bm + (size_t)r * Nb + n0, Nb,
+                                  kWgRows, n, tid);
+  };
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  float csum = 0.0f;
+  int cur = live_from(rs), st = 0;
+  if (cur < re) load(cur, 0);
+  cp_async_commit();
+  while (cur < re) {
+    const int nxt = live_from(cur + kWgRows);
+    // the stage refilled here was read for the last chunk, before the
+    // barrier that ended its iteration
+    if (nxt < re) load(nxt, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* as = As[st];
+    const bf16* bs = Bs[st];
+#pragma unroll
+    for (int kk = 0; kk < kWgRows; kk += 16) {
+      uint32_t af[2][4], bfr[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4_t(af[i], frag_a_t(as, LD, kk, wm + 16 * i, lane));
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        ldsm_x4_t(bfr[j], frag_b_kn(bs, LD, kk, wn + 16 * j, lane));
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mma16816(acc[i][2 * j], af[i], bfr[j][0], bfr[j][1]);
+          mma16816(acc[i][2 * j + 1], af[i], bfr[j][2], bfr[j][3]);
+        }
+    }
+    if (sums)
+      for (int r = 0; r < kWgRows; ++r) csum += bf(bs[r * LD + tid]);
+    __syncthreads();
+    cur = nxt;
+    st ^= 1;
+  }
+  cp_async_wait<0>();
+  float* p = part + (size_t)s * Ka * Nb;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = k0 + wm + 16 * i + g + 8 * h;
+        const int col = n0 + wn + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(p + (size_t)row * Nb + col) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+  if (sums) colpart[(size_t)s * Nb + n0 + tid] = csum;
+}
+
 // out[n] = sum_{s < S} part[s, n], in order of s. grid (ceil(N/256)).
 __global__ void __launch_bounds__(kThreads) col_sum_kernel(
     const float* __restrict__ part, int S, int N, float* __restrict__ out) {
@@ -89,29 +195,34 @@ __global__ void __launch_bounds__(kThreads) col_sum_kernel(
 // A [R, Ka] and B [R, Nb] row-major in the dtype (0 = fp32, 1 = bf16);
 // Ka % 64 == Nb % 64 == 0; slices of rows_per_slice rows (the last may be
 // shorter), S = ceil(R / rows_per_slice). valid: int8 flags, one per
-// kBlockR (256) consecutive rows, 0 leaving those rows out of both sums (the
-// row-block skip of the LN-fused projection), or NULL. Writes part fp32
+// flag_rows consecutive rows, 0 leaving those rows out of both sums (and
+// unread), or NULL. fp32 sums by FMAs, bf16 on the tensor cores (then
+// rows_per_slice and flag_rows multiples of 64). Writes part fp32
 // [S, Ka, Nb] and colpart fp32 [S, Nb]. Returns cudaGetLastError().
 extern "C" int wgrad_partials(const void* A, const void* B, int R, int Ka,
                               int Nb, int rows_per_slice, int S, void* part,
-                              void* colpart, const void* valid, int dtype,
-                              void* stream) {
+                              void* colpart, const void* valid, int flag_rows,
+                              int dtype, void* stream) {
   using namespace mtp;
-  if (Ka % kTile != 0 || Nb % kTile != 0 || rows_per_slice <= 0 || S <= 0)
+  if (Ka % kTile != 0 || Nb % kTile != 0 || rows_per_slice <= 0 || S <= 0 ||
+      flag_rows <= 0)
     return (int)cudaErrorInvalidValue;
   const int8_t* v = (const int8_t*)valid;
   const dim3 grid(Ka / kTile, Nb / kTile, S);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    wgrad_kernel<float><<<grid, kThreads, 0, s>>>(
+  if (dtype == 1) {
+    if (rows_per_slice % kWgRows != 0 || flag_rows % kWgRows != 0)
+      return (int)cudaErrorInvalidValue;
+    wgrad_tc_kernel<<<grid, kWgThreads, 0, s>>>(
+        (const bf16*)A, (const bf16*)B, R, Ka, Nb, rows_per_slice,
+        (float*)part, (float*)colpart, v, flag_rows);
+  } else if (dtype == 0) {
+    wgrad_kernel<<<grid, kThreads, 0, s>>>(
         (const float*)A, (const float*)B, R, Ka, Nb, rows_per_slice,
-        (float*)part, (float*)colpart, v);
-  else if (dtype == 1)
-    wgrad_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)A, (const __nv_bfloat16*)B, R, Ka, Nb,
-        rows_per_slice, (float*)part, (float*)colpart, v);
-  else
+        (float*)part, (float*)colpart, v, flag_rows);
+  } else {
     return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -48,14 +49,16 @@ _SIGNATURES = {
     "ffn_bwd": [_P] * 14 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
     # k1, k2, R, F, C, col0, seed, thr, stream
     "ffn_dropout_masks": [_P] * 2 + [_I] * 4 + [_U64, _U32, _P],
-    # A, B, R, Ka, Nb, rows_per_slice, S, part, colpart, valid, dtype,
-    # stream
-    "wgrad_partials": [_P] * 2 + [_I] * 5 + [_P] * 3 + [_I, _P],
+    # A, B, R, Ka, Nb, rows_per_slice, S, part, colpart, valid, flag_rows,
+    # dtype, stream
+    "wgrad_partials": [_P] * 2 + [_I] * 5 + [_P] * 3 + [_I] * 2 + [_P],
     # part, S, N, out, stream
     "col_sum": [_P, _I, _I, _P, _P],
     # xw, wqkv, bqkv, wproj, bproj, bias, smask, qkv, heads, out, I, C, M,
-    # scale, dtype, stream
-    "swin_attention_fwd": [_P] * 10 + [_I] * 3 + [ctypes.c_float, _I, _P],
+    # scale, dtype, route, stream
+    "swin_attention_fwd": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _P],
+    # () -> shared-memory bytes of the fused route
+    "swin_attention_fused_smem": [],
     # x, scale, bias, w1, b1, w2, b2, ln, hidden, y, R, C, F, dtype, stream
     "swin_mlp_fwd": [_P] * 10 + [_I] * 4 + [_P],
     # C -> 1 where swin_mlp_fwd runs it fused
@@ -147,6 +150,16 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def sass() -> dict:
+    """The built library's machine code by kernel: {mangled name: its SASS
+    text}, from the CUDA toolkit's cuobjdump (beside nvcc)."""
+    tool = Path(nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    parts = re.split(r"Function : (\S+)", text)
+    return dict(zip(parts[1::2], parts[2::2]))
 
 
 def check(rc: int, what: str) -> None:

@@ -1,6 +1,8 @@
 """Fused pre-norm FFN block, ``x + drop(W2 drop(relu(W1 StdLN(x) + b1)) +
 b2)``: the plain PyTorch version and the CUDA kernels (``csrc/ffn.cu``):
-the forward with in-kernel dropout, its backward, and the dropout masks.
+the forward with in-kernel dropout, its backward (a tile pass, on the
+tensor cores for bf16, then the weight sums of ``csrc/wgrad.cu`` over the
+live tiles' rows), and the dropout masks.
 
 Counterpart of medical_tri_modal_pilot_tpu/kernels/ffn.py (``xla_ffn``,
 ``pallas_ffn`` and ``dropout_masks``). Weights are in the JAX layout: w1
@@ -181,14 +183,15 @@ def _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed):
     return y
 
 
-def cuda_ffn_bwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed, dy):
-    """The backward kernel: (dx, dgamma, dbeta, dw1, db1, dw2, db2), each
-    parameter gradient in its parameter's dtype, summed in fp32 over all
-    rows. Recomputes StdLN and the hidden layer and regenerates the masks;
-    a skipped tile gives dx = dy and adds nothing."""
+def ffn_bwd_tiles(x, gamma, beta, w1, b1, w2, block_valid, p, seed, dy):
+    """The backward's tile pass (fp32 FMAs, or the tensor cores for bf16):
+    (dx, ln, dz, hd, dh, gpart, valid). ln, dz [R, C] and hd, dh [R, F] are
+    the weight sums' operands, written on the rows of live tiles only;
+    gpart fp32 [tiles, 2C] the tiles' dgamma | dbeta sums; valid the int8
+    tile flags (None: every tile live)."""
     R, C, F, valid = _check(x, w1, w2, block_valid)
     dt = x.dtype
-    gamma_, beta_, (w1_, b1_, w2_) = _operands(x, gamma, beta, w1, b1, w2)
+    gamma, beta, (w1, b1, w2) = _operands(x, gamma, beta, w1, b1, w2)
     s, thr, q_t, q_f, on = _dropout_args(p, seed, dt)
     dy = dy.to(dt).contiguous()
     dev = x.device
@@ -198,15 +201,34 @@ def cuda_ffn_bwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed, dy):
     gpart = torch.empty(-(-R // BLOCK_R), 2 * C, dtype=torch.float32,
                         device=dev)
     rc = _build.library().ffn_bwd(
-        x.data_ptr(), gamma_.data_ptr(), beta_.data_ptr(), w1_.data_ptr(),
-        b1_.data_ptr(), w2_.data_ptr(),
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(),
         None if valid is None else valid.data_ptr(), dy.data_ptr(),
         dx.data_ptr(), ln.data_ptr(), dz.data_ptr(), hd.data_ptr(),
         dh.data_ptr(), gpart.data_ptr(), R, C, F, s, thr, q_t, q_f, on,
         dtype_code(dt), stream(x))
     _build.check(rc, "ffn_bwd")
-    dw1, db1 = wgrad(ln, dh)
-    dw2, db2 = wgrad(hd, dz)
+    return dx, ln, dz, hd, dh, gpart, valid
+
+
+def ffn_weight_sums(ln, dz, hd, dh, valid):
+    """(dw1, db1, dw2, db2) in fp32 from the tile pass's operands, over the
+    rows of live tiles (the tile flags cover BLOCK_R rows each)."""
+    dw1, db1 = wgrad(ln, dh, valid, BLOCK_R)
+    dw2, db2 = wgrad(hd, dz, valid, BLOCK_R)
+    return dw1, db1, dw2, db2
+
+
+def cuda_ffn_bwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed, dy):
+    """The backward kernel: (dx, dgamma, dbeta, dw1, db1, dw2, db2), each
+    parameter gradient in its parameter's dtype, summed in fp32 over the
+    rows of live tiles. Recomputes StdLN and the hidden layer and
+    regenerates the masks; a skipped tile gives dx = dy and adds
+    nothing."""
+    dx, ln, dz, hd, dh, gpart, valid = ffn_bwd_tiles(
+        x, gamma, beta, w1, b1, w2, block_valid, p, seed, dy)
+    dw1, db1, dw2, db2 = ffn_weight_sums(ln, dz, hd, dh, valid)
+    C = x.shape[-1]
     g = col_sum(gpart)
     count("ffn_bwd")
     return (dx, g[:C].to(gamma.dtype), g[C:].to(beta.dtype),

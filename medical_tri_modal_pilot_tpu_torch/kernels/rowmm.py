@@ -152,7 +152,7 @@ def cuda_rowmm_bwd(x2, gamma, beta, w, b, valid, dys):
         int(ln), dtype_code(dt), stream(x2))
     name = "rowmm_ln_bwd" if ln else "rowmm_bwd"
     _build.check(rc, name)
-    sums = [wgrad(ln_o if ln else x2, d, valid) for d in dys]
+    sums = [wgrad(ln_o if ln else x2, d, valid, BLOCK_R) for d in dys]
     dw = torch.cat([s[0] for s in sums], dim=1).to(w.dtype)
     db = torch.cat([s[1] for s in sums]).to(dt).to(b.dtype)
     count(name)

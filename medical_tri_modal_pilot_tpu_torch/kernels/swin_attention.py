@@ -1,7 +1,8 @@
 """Window attention of the Swin blocks, per 7x7 window: qkv projection,
 per-head scores + relative-position bias + shifted-window mask, softmax,
-@v, output projection. The plain PyTorch version and the CUDA kernel
-(``csrc/swin_attention.cu``). Forward only: the trunk is frozen.
+@v, output projection. The plain PyTorch version and the CUDA kernels
+(``csrc/swin_attention.cu``), in three routes (``swin_attention_route``).
+Forward only: the trunk is frozen.
 
 Counterpart of medical_tri_modal_pilot_tpu/kernels/swin_attention.py
 (``xla_window_attention`` and ``pallas_window_attention``), with its
@@ -24,6 +25,33 @@ from ._util import count, forward_only
 # the kernel's geometry: 7x7 windows, 32-wide heads
 WINDOW_TOKENS = 49
 HEAD_DIM = 32
+# the C entry point's routes: fp32 FMA loops in three launches (fp32); one
+# fused tensor-core launch (bf16, Swin-T's stage-1 width); three
+# tensor-core launches (bf16)
+ROUTES = {"fma": 0, "fused": 1, "split": 2}
+# the one width the fused kernel is built for
+FUSED_WIDTH = 96
+
+
+def fused_smem_bytes(C: int = FUSED_WIDTH) -> int:
+    """Shared memory of the fused route (swin_fused_kernel's layout,
+    csrc/swin_attention.cu Fused) at width C: bf16 tiles of pitch width +
+    8, w_qkv [C][3C], w_proj [C][C], x [2 windows][64][C] and q|k|v
+    [2 windows][64][3C], then the bias fp32 [C/32][49][49]."""
+    wide, narrow = 3 * C + 8, C + 8
+    tiles = C * wide + C * narrow + 2 * 64 * narrow + 2 * 64 * wide
+    return 2 * tiles + 4 * (C // HEAD_DIM) * WINDOW_TOKENS ** 2
+
+
+def swin_attention_route(dtype: torch.dtype, C: int) -> str:
+    """The kernel route for xw of this dtype and width: fp32 (the checking
+    dtype) keeps the FMA kernels, whose products stay in full fp32; bf16
+    takes the tensor cores, in one fused launch at Swin-T's stage-1 width
+    (C = 96, where the weights and two windows fit in shared memory), else
+    in three launches."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    return "fused" if C == FUSED_WIDTH else "split"
 
 
 def torch_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
@@ -50,9 +78,11 @@ def torch_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
 
 
 def cuda_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
-                          smask: Optional[torch.Tensor],
-                          num_heads: int) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors (fp32 or bf16 xw)."""
+                          smask: Optional[torch.Tensor], num_heads: int,
+                          route: Optional[str] = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors (fp32 or bf16 xw), by ``route``
+    (default ``swin_attention_route``; "fma" takes fp32, "fused" and
+    "split" bf16, "fused" at FUSED_WIDTH only)."""
     forward_only("swin_attention", xw, wqkv, bqkv, wproj, bproj, bias)
     if xw.device.type != "cuda":
         raise ValueError(f"cuda_window_attention needs CUDA tensors, got "
@@ -82,6 +112,11 @@ def cuda_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
                              f"{I}, got {list(smask.shape)}")
         mask = smask.to(device=xw.device, dtype=torch.int8).contiguous()
     dt = xw.dtype
+    route = route or swin_attention_route(dt, C)
+    if route not in ROUTES or (route == "fma") != (dt == torch.float32) or (
+            route == "fused" and C != FUSED_WIDTH):
+        raise ValueError(f"swin_attention route {route!r} does not take "
+                         f"{dt} at C={C}")
     wqkv, bqkv, wproj, bproj = (t.to(dt).contiguous()
                                 for t in (wqkv, bqkv, wproj, bproj))
     bias = bias.to(torch.float32).contiguous()
@@ -92,16 +127,20 @@ def cuda_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
     out = torch.empty_like(xw)
     if I == 0:
         return out
-    # scratch: q|k|v of every token, then the heads' outputs
-    qkv = torch.empty(I, N, 3 * C, dtype=dt, device=xw.device)
-    heads = torch.empty_like(xw)
+    # the three-launch routes' scratch: q|k|v of every token, then the
+    # heads' outputs
+    qkv = heads = None
+    if route != "fused":
+        qkv = torch.empty(I, N, 3 * C, dtype=dt, device=xw.device)
+        heads = torch.empty_like(xw)
     rc = _build.library().swin_attention_fwd(
         xw.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
         bproj.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), qkv.data_ptr(),
-        heads.data_ptr(), out.data_ptr(), I, C, M, float(math.sqrt(HEAD_DIM)),
-        0 if dt == torch.float32 else 1,
-        torch.cuda.current_stream(xw.device).cuda_stream)
+        None if mask is None else mask.data_ptr(),
+        None if qkv is None else qkv.data_ptr(),
+        None if heads is None else heads.data_ptr(), out.data_ptr(), I, C, M,
+        float(math.sqrt(HEAD_DIM)), 0 if dt == torch.float32 else 1,
+        ROUTES[route], torch.cuda.current_stream(xw.device).cuda_stream)
     _build.check(rc, "swin_attention")
     count("swin_attention")
     return out

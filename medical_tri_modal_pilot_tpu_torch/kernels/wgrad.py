@@ -1,8 +1,10 @@
 """Weight-gradient reduction shared by the fusion layers' backward kernels
 (``csrc/wgrad.cu``): dW = A^T B over all rows with fp32 accumulation and
 db = the column sums of B, in split-K slices summed in a fixed order; and
-the fixed-order sum of per-tile partials. CUDA tensors only: on the CPU
-the backward is autograd of the plain versions."""
+the fixed-order sum of per-tile partials. bf16 operands take the
+tensor-core form; fp32 (the checking dtype) the FMA form, whose products
+stay in full fp32. CUDA tensors only:
+on the CPU the backward is autograd of the plain versions."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -14,6 +16,17 @@ from ._util import dtype_code, stream
 
 # blocks to aim for: four per SM of an H100's 132
 TARGET_BLOCKS = 4 * 132
+# rows per staged chunk of the tensor-core form (kWgRows of csrc/wgrad.cu):
+# slices start, and row flags cover, whole chunks
+CHUNK_ROWS = 64
+def slicing(R: int, Ka: int, Nb: int) -> Tuple[int, int]:
+    """(rows per slice, slices): enough slices that the grid has about
+    TARGET_BLOCKS blocks, each slice a whole number of CHUNK_ROWS rows."""
+    tiles = (Ka // 64) * (Nb // 64)
+    slices = max(1, min(-(-TARGET_BLOCKS // tiles), -(-R // 256)))
+    rows = -(-R // slices)
+    rows = -(-rows // CHUNK_ROWS) * CHUNK_ROWS
+    return rows, max(1, -(-R // rows))
 
 
 def col_sum(part: torch.Tensor) -> torch.Tensor:
@@ -27,13 +40,14 @@ def col_sum(part: torch.Tensor) -> torch.Tensor:
 
 
 def wgrad(a: torch.Tensor, b: torch.Tensor,
-          valid: Optional[torch.Tensor] = None
+          valid: Optional[torch.Tensor] = None,
+          flag_rows: Optional[int] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """a [R, Ka], b [R, Nb], contiguous, one dtype -> (a^T b fp32 [Ka, Nb],
     b.sum(0) fp32 [Nb]). ``valid``: optional int8 flags on a's device, one
-    per 256 consecutive rows (``kBlockR`` of csrc/common.cuh, rowmm's
-    BLOCK_R); rows under a 0 flag are left out of both sums (and not
-    read)."""
+    per ``flag_rows`` consecutive rows (a multiple of CHUNK_ROWS: the FFN's
+    64-row tiles, rowmm's 256-row blocks); rows under a 0 flag are left out
+    of both sums and not read, so they may hold anything."""
     R, Ka = a.shape
     Nb = b.shape[1]
     if b.shape[0] != R or a.dtype != b.dtype:
@@ -42,17 +56,22 @@ def wgrad(a: torch.Tensor, b: torch.Tensor,
     if Ka % 64 or Nb % 64:
         raise ValueError(f"wgrad takes widths that are multiples of 64, got "
                          f"{Ka} and {Nb}")
-    tiles = (Ka // 64) * (Nb // 64)
-    slices = max(1, min(-(-TARGET_BLOCKS // tiles), -(-R // 256)))
-    rows = -(-R // slices)
-    rows = -(-rows // 32) * 32
-    slices = max(1, -(-R // rows))
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"wgrad takes fp32 or bf16, got {a.dtype}")
+    if valid is not None:
+        if flag_rows is None or flag_rows % CHUNK_ROWS:
+            raise ValueError(f"wgrad row flags must cover a multiple of "
+                             f"{CHUNK_ROWS} rows each, got {flag_rows}")
+        if valid.numel() != -(-R // flag_rows):
+            raise ValueError(f"wgrad has {valid.numel()} flags for {R} rows "
+                             f"in blocks of {flag_rows}")
+    rows, slices = slicing(R, Ka, Nb)
     part = torch.empty(slices, Ka * Nb, dtype=torch.float32, device=a.device)
     colpart = torch.empty(slices, Nb, dtype=torch.float32, device=a.device)
     rc = _build.library().wgrad_partials(
         a.data_ptr(), b.data_ptr(), R, Ka, Nb, rows, slices,
         part.data_ptr(), colpart.data_ptr(),
-        None if valid is None else valid.data_ptr(), dtype_code(a.dtype),
-        stream(a))
+        None if valid is None else valid.data_ptr(),
+        flag_rows or CHUNK_ROWS, dtype_code(a.dtype), stream(a))
     _build.check(rc, "wgrad")
     return col_sum(part).reshape(Ka, Nb), col_sum(colpart)

@@ -297,11 +297,14 @@ class Trainer:
         self.model.train()
         b = self.device_batch(batch)
         missing_num = compute_missing_num(cfg, b["missing"])
-        logits, rmse, _ = self.model(b, missing_num,
-                                     DropoutSeeds(self.seed, self.step))
+        logits, rmse, aux = self.model(b, missing_num,
+                                       DropoutSeeds(self.seed, self.step))
         loss = compute_loss(cfg, logits.float(),
                             None if rmse is None else rmse.float(),
                             b["target"].float(), b["target_aux"].float())
+        if aux is not None:
+            # a model-computed auxiliary loss (JAX trainer.py:463-468)
+            loss = loss + cfg.auxiliary_loss_weight * aux.float()
         self.optimizer.zero_grad()
         loss.backward()
         self.optimizer.step(self.current_lr())

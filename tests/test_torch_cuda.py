@@ -592,3 +592,195 @@ def test_small_cross_transformer_on_both_paths(dev, dropout):
     names = [n for n in grads if not n.endswith(zero)]
     _assert_grads_close([grads[n] for n in names],
                         [ref_grads[n] for n in names], "fp32", names)
+
+
+# Swin-T's stages at 224 x 224: (C, map side), windows per image M =
+# (side / 7)^2; three images per case, an odd multiple of M windows
+SWIN_STAGES = [(96, 56), (192, 28), (384, 14), (768, 7)]
+
+
+@pytest.mark.parametrize("C,hw", SWIN_STAGES)
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("route", ["fused", "split"])
+def test_swin_attention_tensor_core_routes(dev, C, hw, shifted, route):
+    """The bf16 tensor-core routes against the plain version at each
+    stage's width over 3 M windows, with and without the shift mask: the
+    fused launch where the width has one (stage 1), the three launches at
+    every width; one launch count per call."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_attention import (
+        cuda_window_attention, swin_attention_route)
+    if route == "fused" and swin_attention_route(torch.bfloat16, C) != "fused":
+        with pytest.raises(ValueError, match="route"):
+            cuda_window_attention(
+                torch.zeros(1, 49, C, dtype=torch.bfloat16, device=dev),
+                torch.zeros(C, 3 * C, device=dev),
+                torch.zeros(3 * C, device=dev), torch.zeros(C, C, device=dev),
+                torch.zeros(C, device=dev),
+                torch.zeros(C // 32, 49, 49, device=dev), None, C // 32,
+                route="fused")
+        return
+    g = torch.Generator().manual_seed(12)
+    nh, M = C // 32, (hw // 7) ** 2
+    xw = _rand(g, dev, 3 * M, 49, C).to(torch.bfloat16)
+    ws = [_rand(g, dev, C, 3 * C, std=C ** -.5), _rand(g, dev, 3 * C, std=.1),
+          _rand(g, dev, C, C, std=C ** -.5), _rand(g, dev, C, std=.1)]
+    ws = [t.to(torch.bfloat16) for t in ws]
+    bias = _rand(g, dev, nh, 49, 49, std=.5)
+    smask = (torch.from_numpy(_shift_attn_mask(hw, hw, 7, 3)).to(dev)
+             if shifted else None)
+    ops.reset_launches()
+    with torch.inference_mode():
+        out = cuda_window_attention(xw, *ws, bias, smask, nh,
+                                    route=route).float()
+    assert ops.launches["swin_attention"] == 1
+    with torch.inference_mode(), ops.reference_path():
+        ref = ops.swin_attention(xw, *ws, bias, smask, nh).float()
+    torch.testing.assert_close(out, ref, **TOL["bf16"])
+
+
+def test_swin_attention_route_table_matches_the_kernel(dev):
+    """The wrapper's shared-memory reckoning of the fused route is the
+    kernel's own and fits the card; each route refuses the dtype it was
+    not built for (the FMA loops take fp32, the tensor cores bf16)."""
+    from medical_tri_modal_pilot_tpu_torch.kernels import _build
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_attention import (
+        cuda_window_attention, fused_smem_bytes)
+    assert _build.library().swin_attention_fused_smem() == fused_smem_bytes()
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert fused_smem_bytes() <= limit
+    ws = (torch.zeros(64, 192, device=dev), torch.zeros(192, device=dev),
+          torch.zeros(64, 64, device=dev), torch.zeros(64, device=dev),
+          torch.zeros(2, 49, 49, device=dev))
+    for dt, route in ((torch.float32, "split"), (torch.bfloat16, "fma")):
+        x = torch.zeros(2, 49, 64, dtype=dt, device=dev)
+        with pytest.raises(ValueError, match="route"):
+            cuda_window_attention(x, *ws, None, 2, route=route)
+
+
+# the FFN backward's tile flags: (B, L, C, flags over the 64-row tiles of
+# the flattened rows, or None): every tile dead; every tile live; a live
+# tile inside an otherwise dead 256-row block (wgrad's old flag span);
+# rows that are not a multiple of the tile, with dead tiles between live
+# ones; and the txt (133 rows) and img (54 rows) streams of the config-4
+# step at its width
+FFN_BWD_CASES = {
+    "all_dead": (2, 256, 256, [0] * 8),
+    "all_live": (2, 256, 256, [1] * 8),
+    "island": (2, 512, 64, [0, 1, 0, 0, 0, 0, 0, 0,
+                            0, 0, 0, 0, 0, 0, 1, 0]),
+    "ragged": (3, 133, 64, [1, 0, 1, 1, 0, 0, 1]),
+    "txt": (5, 133, 256, None),
+    "img": (5, 54, 256, None),
+}
+
+
+@pytest.mark.parametrize("case", list(FFN_BWD_CASES))
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_ffn_backward_tile_flags(dev, case, p, prec):
+    """The backward (the tensor-core tile pass for bf16) against autograd
+    of the plain version, the cotangent zero on the rows of dead tiles as
+    in the model. Then the tile pass alone, with its weight-sum operands
+    (ln, dz, hd, dh) filled with NaN on the rows of dead tiles, which it
+    leaves unwritten: the weight sums must not read them."""
+    B, L, C, flags = FFN_BWD_CASES[case]
+    g = torch.Generator().manual_seed(13)
+    F, dt = 4 * C, PRECS[prec]
+    R = B * L
+    x = _rand(g, dev, B, L, C).to(dt)
+    ws = (_rand(g, dev, C, std=.1, mean=1.), _rand(g, dev, C, std=.1),
+          _rand(g, dev, C, F, std=C ** -.5), _rand(g, dev, F, std=.1),
+          _rand(g, dev, F, C, std=F ** -.5), _rand(g, dev, C, std=.1))
+    live = torch.ones(R, dtype=torch.bool, device=dev)
+    valid = None
+    if flags is not None:
+        valid = torch.tensor(flags, dtype=torch.bool, device=dev)
+        live = valid.repeat_interleave(64)[:R]
+    live = live.reshape(B, L)
+    cot = _rand(g, dev, B, L, C).to(dt) * live[:, :, None]
+    ops.reset_launches()
+    (out, grads), (ref, ref_grads) = _grads(
+        lambda *a: ops.ffn(*a, valid, p=p, training=True, seed=99),
+        (x, *ws), cot)
+    assert ops.launches["ffn"] == ops.launches["ffn_bwd"] == 1
+    torch.testing.assert_close(out[live], ref[live], **TOL[prec])
+    assert all(bool(torch.isfinite(t).all()) for t in grads)
+    _assert_grads_close(grads, ref_grads, prec,
+                        ["dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"])
+    from medical_tri_modal_pilot_tpu_torch.kernels.ffn import (
+        ffn_bwd_tiles, ffn_weight_sums)
+    *_, ln, dz, hd, dh, _, flags8 = ffn_bwd_tiles(
+        x, *ws[:5], valid, p, 99, cot)
+    if flags8 is not None:
+        dead = ~live.reshape(R)
+        for t in (ln, dz, hd, dh):
+            t[dead] = float("nan")
+    sums = ffn_weight_sums(ln, dz, hd, dh, flags8)
+    _assert_grads_close(sums, ref_grads[3:], prec,
+                        ["dw1", "db1", "dw2", "db2"])
+
+
+def test_wgrad_tensor_cores_repeat_bit_for_bit_and_match_the_fma_sums(dev):
+    """The bf16 weight sums on the tensor cores are identical from run to
+    run, and equal the FMA form's sums of the same values in fp32 (bf16
+    widens exactly) within summation-order rounding: both add the same exact products in
+    fp32, in another order, over ~1000 rows of unit-variance data (sums of
+    |value| ~ 30, fp32 ulp ~ 2e-6 per addition)."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.wgrad import CHUNK_ROWS
+    g = torch.Generator().manual_seed(14)
+    R = 5000
+    a = _rand(g, dev, R, 256).to(torch.bfloat16)
+    b = _rand(g, dev, R, 1024).to(torch.bfloat16)
+    flags = torch.rand(-(-R // CHUNK_ROWS), generator=g).to(dev) < 0.6
+    valid = flags.to(torch.int8)
+    first = wgrad(a, b, valid, CHUNK_ROWS)
+    again = wgrad(a, b, valid, CHUNK_ROWS)
+    fma = wgrad(a.float(), b.float(), valid, CHUNK_ROWS)
+    for x, y, z in zip(first, again, fma):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, z, rtol=1e-4, atol=1e-3)
+    keep = flags.repeat_interleave(CHUNK_ROWS)[:R, None]
+    am, bm = a.double() * keep, b.double() * keep
+    torch.testing.assert_close(first[0], am.t() @ bm, rtol=1e-4, atol=1e-3,
+                               check_dtype=False)
+    torch.testing.assert_close(first[1], bm.sum(0), rtol=1e-4, atol=1e-3,
+                               check_dtype=False)
+
+
+def test_wgrad_reads_flags_at_their_own_span(dev):
+    """Flags over 64-row tiles (the FFN's) and over 256-row blocks
+    (rowmm's) each leave out exactly their rows, in both forms (bf16 on
+    the tensor cores, fp32 FMAs): a live 64-row tile inside a dead 256-row
+    block is summed; rows under dead flags may hold NaN."""
+    g = torch.Generator().manual_seed(15)
+    R = 1000
+    for dt in (torch.bfloat16, torch.float32):
+        a = _rand(g, dev, R, 64).to(dt)
+        b = _rand(g, dev, R, 128).to(dt)
+        for span, flags in ((64, [0, 1] + [0] * 13 + [1]),
+                            (256, [0, 1, 0, 1])):
+            keep = torch.tensor(flags, dtype=torch.bool,
+                                device=dev).repeat_interleave(span)[:R]
+            an = torch.where(keep[:, None], a, float("nan"))
+            bn = torch.where(keep[:, None], b, float("nan"))
+            dw, db = wgrad(an, bn, keep.new_tensor(flags).to(torch.int8),
+                           span)
+            am = a.double() * keep[:, None]
+            bm = b.double() * keep[:, None]
+            torch.testing.assert_close(dw, am.t() @ bm, rtol=1e-4,
+                                       atol=1e-3, check_dtype=False)
+            torch.testing.assert_close(db, bm.sum(0), rtol=1e-4, atol=1e-3,
+                                       check_dtype=False)
+
+
+def test_tensor_core_kernels_compile_to_mma(dev):
+    """cuobjdump -sass of the built library: each bf16 tensor-core kernel
+    issues HMMA (or HGMMA) instructions."""
+    from medical_tri_modal_pilot_tpu_torch.kernels import _build
+    code = _build.sass()
+    for kernel in ("swin_fused_kernel", "window_attn_tc_kernel",
+                   "gemm_bf16_kernel", "ffn_bwd_tc_kernel", "wgrad_tc_kernel"):
+        found = {n: c for n, c in code.items() if kernel in n}
+        assert found, f"{kernel} not in the library"
+        for name, text in found.items():
+            assert "HMMA" in text or "HGMMA" in text, name

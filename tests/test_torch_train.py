@@ -419,3 +419,47 @@ def test_dropout_changes_the_step_and_needs_seeds():
     with pytest.raises(RuntimeError, match="DropoutSeeds"):
         b_ = tr.device_batch(batch)
         tr.model(b_, port_trainer.compute_missing_num(cfg, b_["missing"]))
+
+
+class _AuxStub(torch.nn.Module):
+    """A model of the (logits, rmse, aux) contract: logits from a linear
+    map of the static features, and an auxiliary loss of its own weights
+    (None with ``with_aux`` False)."""
+
+    def __init__(self, with_aux):
+        super().__init__()
+        g = torch.Generator().manual_seed(5)
+        self.w = torch.nn.Parameter(torch.randn(2, 1, generator=g))
+        self.v = torch.nn.Parameter(torch.randn(3, generator=g))
+        self.with_aux = with_aux
+
+    def forward(self, b, missing_num, seeds=None):
+        logits = (b["static"].float()[:, :2] @ self.w)[:, 0] + self.v[0]
+        aux = (self.v ** 2).sum() + (self.w * self.v[1:, None]).sum()
+        return logits, None, aux if self.with_aux else None
+
+
+@pytest.mark.parametrize("with_aux", [True, False])
+def test_train_step_adds_the_auxiliary_loss(with_aux):
+    """Trainer.train_step adds auxiliary_loss_weight * aux when the model
+    returns one (JAX trainer.py:463-468) and nothing when it returns None:
+    its loss and gradients equal the loss written out by hand."""
+    cfg = parse_config(SMALL + ["--auxiliary-loss-weight", "0.3"])
+    batch = _batch(cfg)
+    tr = port_trainer.Trainer(cfg, _AuxStub(with_aux), "cpu",
+                              eval_only=False)
+    loss = tr.train_step(batch)
+    got = [p.grad.clone() for p in tr.model.parameters()]
+
+    want_model = _AuxStub(with_aux)
+    b = {k: torch.as_tensor(np.asarray(batch[k]))
+         for k in port_trainer.BATCH_KEYS if k in batch}
+    logits, _, aux = want_model(b, None)
+    want = port_trainer.bce(logits, b["target"].float()).mean()
+    if with_aux:
+        want = want + 0.3 * aux
+    want.backward()
+    want = float(want.detach())
+    assert abs(loss - want) <= 1e-6 * max(1.0, abs(want))
+    for g, p in zip(got, want_model.parameters()):
+        torch.testing.assert_close(g, p.grad, rtol=1e-6, atol=1e-7)
