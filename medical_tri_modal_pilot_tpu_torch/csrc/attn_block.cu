@@ -10,27 +10,41 @@
 // What bounds it on an H100: the two attention products (q.k^T and p.v)
 // are O(L^2) per sample and dominate at L = 1024; the projections and the
 // StdLN are O(L). The TPU kernel keeps a whole sample's k and v in VMEM
-// (_build_kv). At [1024, 256] x 2 that is 2 MB in fp32, far beyond the
-// 227 KB of shared memory an SM offers, so here k and v round-trip through
-// device memory, unlike on the TPU:
-//   launch 1 (proj_kernel): StdLN + the k|v projection of every row up
-//     to the sample's last valid key, into a [B, L, 2C] scratch in T;
-//   launch 2 (attn_kernel): one block per (sample, 64-row q tile): StdLN +
-//     the q projection of the tile, a flash (online-softmax) loop over
-//     64-key tiles up to the sample's last valid key, per head, with the
-//     residual added in the epilogue.
-// The scratch is read from L2 by every q tile of its sample. The products
-// run as fp32 FMAs on 4 x 4 register tiles staged through shared memory:
-// simple and exact to the fp32 oracle; tensor cores (wgmma) are later work.
-// The backward recomputes q|k|v with proj_kernel over all 3C columns
-// (attn_block_qkv).
+// (_build_kv). At [1024, 256] x 2 that is 1 MB in bf16, far beyond the
+// 227 KB of shared memory an SM offers, so here q|k|v round-trip through
+// device memory (read from L2 by every q tile of the sample), in two
+// launches. Two routes, picked by dtype (kernels/attn_block.py route):
+//
+//   tc (bf16): on the tensor cores (mma.sync m16n8k16, fp32 accumulate;
+//     helpers in mma.cuh, attn_block_tc.cuh):
+//     1. block_qkv_tc_kernel: one block per 64-row tile that starts
+//        before the sample's last valid key: x staged by cp.async, StdLN
+//        in fp32 rounded to bf16 in place as the A operand, W streamed in
+//        64 x 128 chunks through a three-stage cp.async ring; q|k|v =
+//        round(round(acc) + bias) into a [B, L, 3C] scratch. The
+//        backward's recompute launches it too.
+//     2. block_attn_tc_kernel: one block per (64-row q tile, head,
+//        sample), warp w owning q rows 16 w .. + 15: q staged once, k
+//        and v tiles in a two-stage cp.async ring up to the last valid
+//        key; S = Q K^T on the tensor cores, the key mask as 64-bit rows
+//        by ballot, the online softmax on the accumulator fragments in
+//        fp32, P rounded to bf16 (as the TPU kernel casts p to v's
+//        dtype) straight from the C fragments into the A fragments of
+//        P V (V through ldmatrix.trans); the epilogue divides by l,
+//        rounds and adds the residual.
+//   fma (fp32, the checking dtype): fp32 FMAs on 4 x 4 register tiles,
+//     exact to the fp32 oracle:
+//     1. proj_kernel: StdLN + the k|v projection into a [B, L, 2C]
+//        scratch (all 3C columns for the backward's recompute);
+//     2. attn_kernel: one block per (64-row q tile, sample): StdLN + the
+//        q projection of the tile, the flash loop per head, the residual.
 //
 // Mask contract (kernels/attn_block.py:27-38, kernels/attention.py:186-196):
 // a valid-but-masked key scores -65504; keys past the array end are left
 // out; a sample whose keys are all masked has kend = L and so attends
 // uniformly over its L keys; q tiles that start past the sample's last
 // valid key emit the pure residual.
-#include "common.cuh"
+#include "attn_block_tc.cuh"
 
 namespace mtp {
 
@@ -257,17 +271,323 @@ static cudaError_t launch(const void* x, const float* gamma,
   return cudaGetLastError();
 }
 
+// ---- the bf16 route on the tensor cores ----
+
+// qkv[b, r, :] = round(round(StdLN(x[b, r]) . w) + bias), [B, L, 3C], for
+// the rows of tiles that start before kend[b] (other rows are left
+// unwritten). grid (ceil(L/64), B), kProjThreads threads: the StdLN once
+// per tile, then 128-column chunks of 3C, warp w computing rows
+// 16 (w & 3) .. + 16 and columns 64 (w >> 2) .. + 64 of each, W streamed
+// 64 rows deep through a three-stage cp.async ring; C % 64 == 0.
+__global__ void __launch_bounds__(kProjThreads, 2) block_qkv_tc_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const bf16* __restrict__ w,
+    const bf16* __restrict__ bias, const int* __restrict__ kend,
+    bf16* __restrict__ qkv, int L, int C) {
+  extern __shared__ __align__(16) unsigned char qkv_smem[];
+  constexpr int LDW = pitch(kProjCols), WSTAGE = kProjDepth * LDW;
+  constexpr int kPerRow = kProjCols / 8;
+  const int LDX = pitch(C);
+  bf16* xs = reinterpret_cast<bf16*>(qkv_smem);  // [64][LDX]: x, then LN
+  bf16* ws = xs + kTile * LDX;                    // [stages][64][LDW]
+  const int b = blockIdx.y, r0 = blockIdx.x * kTile;
+  if (r0 >= kend[b]) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, rs = warp & 3, ch = warp >> 2;
+  const int rows = min(kTile, L - r0), N = 3 * C;
+  const bf16* xb = x + ((size_t)b * L + r0) * C;
+  // the tile's x, a warp per row (rows past L zero-filled)
+  for (int r = warp; r < kTile; r += kProjThreads / 32)
+    for (int c = lane * 8; c < C; c += 256)
+      cp_async16(xs + r * LDX + c, r < rows ? xb + (size_t)r * C + c : xb,
+                 r < rows);
+  const int ksteps = C / kProjDepth;
+  const int total = (N + kProjCols - 1) / kProjCols * ksteps;
+  // stage s of the walk over (128-column chunk, 64-row depth step);
+  // columns past 3C (C = 64: the second chunk's upper half) zero-filled
+  auto load_w = [&](int s) {
+    const int nc = s / ksteps, kc = s - nc * ksteps;
+    bf16* dst = ws + (s % kProjStages) * WSTAGE;
+    const bf16* src = w + (size_t)kc * kProjDepth * N + nc * kProjCols;
+    for (int e = tid; e < kProjDepth * kPerRow; e += kProjThreads) {
+      const int r = e / kPerRow, c = (e % kPerRow) * 8;
+      const bool in = nc * kProjCols + c < N;
+      cp_async16(dst + r * LDW + c, in ? src + (size_t)r * N + c : w, in);
+    }
+  };
+  load_w(0);
+  cp_async_commit();
+  if (total > 1) load_w(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  // StdLN in place, a warp per row
+  for (int r = warp; r < kTile; r += kProjThreads / 32)
+    stdln_row_bf16(xs + r * LDX, xs + r * LDX, C, gamma, beta, lane,
+                   nullptr, r);
+  float acc[8][4];
+  for (int s = 0; s < total; ++s) {
+    const int nc = s / ksteps, kc = s - nc * ksteps;
+    if (kc == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    }
+    cp_async_wait<1>();
+    // stage s has landed (and, at s = 0, every row's StdLN); every warp
+    // is done with stage s - 1, whose buffer is refilled next
+    __syncthreads();
+    if (s + 2 < total) load_w(s + 2);
+    cp_async_commit();
+    const bf16* wsb = ws + (s % kProjStages) * WSTAGE;
+#pragma unroll
+    for (int kk = 0; kk < kProjDepth; kk += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, frag_a(xs, LDX, 16 * rs, kc * kProjDepth + kk, lane));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bq[4];
+        ldsm_x4_t(bq, frag_b_kn(wsb, LDW, kk, 64 * ch + 16 * np, lane));
+        mma16816(acc[2 * np], a, bq[0], bq[1]);
+        mma16816(acc[2 * np + 1], a, bq[2], bq[3]);
+      }
+    }
+    if (kc == ksteps - 1) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = nc * kProjCols + 64 * ch + 8 * j + 2 * t;
+        if (col >= N) continue;
+        const float b0 = bf(bias[col]), b1 = bf(bias[col + 1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * rs + g + 8 * h;
+          if (r < rows)
+            *reinterpret_cast<uint32_t*>(
+                qkv + ((size_t)b * L + r0 + r) * N + col) =
+                pack_bf16(rnd<bf16>(acc[j][2 * h]) + b0,
+                          rnd<bf16>(acc[j][2 * h + 1]) + b1);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// out = x + MHA for head h's columns of one 64-row q tile, from qkv
+// [B, L, 3C]. TRAIN: also attn [B, L, C] (the pre-residual output) and
+// stats [B, H, L, 2] (the row max m of the scaled scores and l of
+// exp(s - m), floored at 1e-30) of the tile's rows. Dead q tiles copy
+// the residual. grid (ceil(L/64), H, B), kTcThreads threads.
+template <int DH, bool TRAIN>
+__global__ void __launch_bounds__(kTcThreads) block_attn_tc_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ qkv,
+    const int8_t* __restrict__ mask, const int* __restrict__ kend,
+    bf16* __restrict__ out, bf16* __restrict__ attn,
+    float* __restrict__ stats, int L, int C, float mult) {
+  constexpr int LD = pitch(DH), TILE = kTile * LD, ND = DH / 8;
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(attn_smem);  // [64][LD]
+  bf16* kvs = qs + TILE;                           // [2][k, v][64][LD]
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ke = kend[b], rows = min(kTile, L - q0), col0 = h * DH;
+  const size_t row0 = (size_t)b * L + q0;
+  if (q0 >= ke) {  // dead q tile: the residual in this head's columns
+    for (int e = tid; e < rows * ND; e += kTcThreads) {
+      const int r = e / ND, c = (e % ND) * 8;
+      const size_t off = (row0 + r) * C + col0 + c;
+      *reinterpret_cast<uint4*>(out + off) =
+          *reinterpret_cast<const uint4*>(x + off);
+    }
+    return;
+  }
+  const int N = 3 * C, nkt = (ke + kTile - 1) / kTile;
+  const bf16* qb = qkv + (size_t)b * L * N;
+  const int8_t* mb = mask + (size_t)b * L;
+  stage_head<DH>(qs, qb, q0, L, N, col0, tid);
+  stage_head<DH>(kvs, qb, 0, L, N, C + col0, tid);
+  stage_head<DH>(kvs + TILE, qb, 0, L, N, 2 * C + col0, tid);
+  cp_async_commit();
+  uint32_t qf[DH / 16][4];
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  // rows g and g + 8 of the warp's 16
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<0>();
+    // tile kt has landed; every warp is done with tile kt - 1
+    __syncthreads();
+    if (kt + 1 < nkt) {
+      bf16* nxt = kvs + ((kt + 1) & 1) * 2 * TILE;
+      stage_head<DH>(nxt, qb, (kt + 1) * kTile, L, N, C + col0, tid);
+      stage_head<DH>(nxt + TILE, qb, (kt + 1) * kTile, L, N, 2 * C + col0,
+                     tid);
+    }
+    cp_async_commit();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        ldsm_x4(qf[kk], frag_a(qs, LD, 16 * warp, 16 * kk, lane));
+    }
+    const bf16* ks = kvs + (kt & 1) * 2 * TILE;
+    const bf16* vs = ks + TILE;
+    uint64_t mbits, pbits;
+    key_bits(mb, kt * kTile, L, lane, mbits, pbits);
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(bk, frag_b_nk(ks, LD, 16 * np, 16 * kk, lane));
+        mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+    // the lane's columns are 8 j + 2 t + (e & 1): shift the mask rows
+    // once so that each score tests a bit at a constant position
+    mbits >>= 2 * t;
+    pbits >>= 2 * t;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int bit = 8 * j + (e & 1);
+        const float v = ((pbits >> bit) & 1) ? -INFINITY
+                        : ((mbits >> bit) & 1) ? kMaskFill
+                                               : s[j][e] * mult;
+        s[j][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    float alpha[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      alpha[hh] = __expf(m[hh] - mx[hh]);  // 0 at the first tile
+      m[hh] = mx[hh];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = __expf(s[j][e] - m[e >> 1]);
+        rs[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
+      l[hh] = l[hh] * alpha[hh] + rs[hh];
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+    // O += P V, P rounded to bf16 from the C fragments
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, frag_b_kn(vs, LD, 16 * kk, 16 * dp, lane));
+        mma16816(o[2 * dp], a, bv[0], bv[1]);
+        mma16816(o[2 * dp + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  const int H = gridDim.y;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * warp + g + 8 * hh;
+    if (r >= rows) continue;
+    const float l_safe = fmaxf(l[hh], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const size_t off = (row0 + r) * C + col0 + 8 * j + 2 * t;
+      const float a0 = rnd<bf16>(o[j][2 * hh] / l_safe);
+      const float a1 = rnd<bf16>(o[j][2 * hh + 1] / l_safe);
+      const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(
+          x + off);
+      *reinterpret_cast<uint32_t*>(out + off) =
+          pack_bf16(bf(xv.x) + a0, bf(xv.y) + a1);
+      if (TRAIN)
+        *reinterpret_cast<uint32_t*>(attn + off) = pack_bf16(a0, a1);
+    }
+    if (TRAIN && t == 0) {
+      float* st = stats + (((size_t)b * H + h) * L + q0 + r) * 2;
+      st[0] = m[hh];
+      st[1] = l_safe;
+    }
+  }
+}
+
+static cudaError_t launch_qkv_tc(const void* x, const float* gamma,
+                                 const float* beta, const void* w,
+                                 const void* bias, const int* kend,
+                                 void* qkv, int B, int L, int C,
+                                 cudaStream_t stream) {
+  const int smem = qkv_tc_smem(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_qkv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + kTile - 1) / kTile, B);
+  block_qkv_tc_kernel<<<grid, kProjThreads, smem, stream>>>(
+      (const bf16*)x, gamma, beta, (const bf16*)w, (const bf16*)bias, kend,
+      (bf16*)qkv, L, C);
+  return cudaGetLastError();
+}
+
+template <int DH, bool TRAIN>
+static cudaError_t launch_tc(const void* x, const float* gamma,
+                             const float* beta, const void* w,
+                             const void* bias, const int8_t* mask,
+                             const int* kend, void* qkv, void* out,
+                             void* attn, float* stats, int B, int L, int C,
+                             float mult, cudaStream_t stream) {
+  cudaError_t err = launch_qkv_tc(x, gamma, beta, w, bias, kend, qkv, B, L,
+                                  C, stream);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = attn_tc_smem(DH);
+  err = cudaFuncSetAttribute(block_attn_tc_kernel<DH, TRAIN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + kTile - 1) / kTile, C / DH, B);
+  block_attn_tc_kernel<DH, TRAIN><<<grid, kTcThreads, smem, stream>>>(
+      (const bf16*)x, (const bf16*)qkv, mask, kend, (bf16*)out, (bf16*)attn,
+      stats, L, C, mult);
+  return cudaGetLastError();
+}
+
 }  // namespace mtp
 
-// dtype: 0 = fp32, 1 = bf16. x, w, bias, kv, out and attn are in that
-// type; gamma and beta fp32; mask int8 [B, L] (1 = masked); kend int32
-// [B]. attn [B, L, C] and stats fp32 [B, H, L, 2] are written when attn is
-// not NULL (the training form). C % 64 == 0 and C / H in {32, 64}.
-// Returns cudaGetLastError().
+// dtype: 0 = fp32 (the FMA kernels), 1 = bf16 (the tensor cores). x, w,
+// bias, qkv, out and attn are in that type; gamma and beta fp32; mask int8
+// [B, L] (1 = masked); kend int32 [B]; qkv a scratch of [B, L, 2C] (fp32:
+// k|v) or [B, L, 3C] (bf16: q|k|v). attn [B, L, C] and stats fp32
+// [B, H, L, 2] are written when attn is not NULL (the training form).
+// C % 64 == 0 and C / H in {32, 64}. Returns cudaGetLastError().
 extern "C" int attn_block_fwd(const void* x, const void* gamma,
                               const void* beta, const void* w,
                               const void* bias, const void* mask,
-                              const void* kend, void* kv, void* out,
+                              const void* kend, void* qkv, void* out,
                               void* attn, void* stats, int B, int L, int C,
                               int H, float mult, int dtype, void* stream) {
   using namespace mtp;
@@ -280,18 +600,23 @@ extern "C" int attn_block_fwd(const void* x, const void* gamma,
   if (H <= 0 || C % 64 != 0 || C % H != 0) return (int)cudaErrorInvalidValue;
   const int dh = C / H;
   const bool train = attn != nullptr;
-#define MTP_ATTN(T, DH, TR) \
-  return (int)launch<T, DH, TR>(x, g, be, w, bias, mk, ke, kv, out, attn, st, B, L, C, mult, s)
-  if (dtype == 0 && dh == 64) { if (train) MTP_ATTN(float, 64, true); MTP_ATTN(float, 64, false); }
-  if (dtype == 0 && dh == 32) { if (train) MTP_ATTN(float, 32, true); MTP_ATTN(float, 32, false); }
-  if (dtype == 1 && dh == 64) { if (train) MTP_ATTN(__nv_bfloat16, 64, true); MTP_ATTN(__nv_bfloat16, 64, false); }
-  if (dtype == 1 && dh == 32) { if (train) MTP_ATTN(__nv_bfloat16, 32, true); MTP_ATTN(__nv_bfloat16, 32, false); }
+#define MTP_ATTN(DH, TR) \
+  return (int)launch<float, DH, TR>(x, g, be, w, bias, mk, ke, qkv, out, attn, st, B, L, C, mult, s)
+#define MTP_ATTN_TC(DH, TR) \
+  return (int)launch_tc<DH, TR>(x, g, be, w, bias, mk, ke, qkv, out, attn, st, B, L, C, mult, s)
+  if (dtype == 0 && dh == 64) { if (train) MTP_ATTN(64, true); MTP_ATTN(64, false); }
+  if (dtype == 0 && dh == 32) { if (train) MTP_ATTN(32, true); MTP_ATTN(32, false); }
+  if (dtype == 1 && dh == 64) { if (train) MTP_ATTN_TC(64, true); MTP_ATTN_TC(64, false); }
+  if (dtype == 1 && dh == 32) { if (train) MTP_ATTN_TC(32, true); MTP_ATTN_TC(32, false); }
 #undef MTP_ATTN
+#undef MTP_ATTN_TC
   return (int)cudaErrorInvalidValue;
 }
 
 // q|k|v of the rows of tiles that start before kend[b], recomputed for the
-// backward: qkv [B, L, 3C] in the dtype (other rows are left unwritten).
+// backward: qkv [B, L, 3C] in the dtype (other rows are left unwritten);
+// bf16 through block_qkv_tc_kernel, so the values are the forward's bit
+// for bit.
 extern "C" int attn_block_qkv(const void* x, const void* gamma,
                               const void* beta, const void* w,
                               const void* bias, const void* kend, void* qkv,
@@ -302,6 +627,22 @@ extern "C" int attn_block_qkv(const void* x, const void* gamma,
   if (dtype == 0)
     return (int)launch_proj<float>(x, (const float*)gamma, (const float*)beta, w, bias, (const int*)kend, qkv, B, L, C, 0, 3 * C, s);
   if (dtype == 1)
-    return (int)launch_proj<__nv_bfloat16>(x, (const float*)gamma, (const float*)beta, w, bias, (const int*)kend, qkv, B, L, C, 0, 3 * C, s);
+    return (int)launch_qkv_tc(x, (const float*)gamma, (const float*)beta, w, bias, (const int*)kend, qkv, B, L, C, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Shared-memory bytes of a kernel of the tensor-core route (0 the
+// projection at width C, 1 the attention forward, 2 dK/dV, 3 dQ at head
+// width dh, 4 the projection backward at width C), as the launchers ask
+// for them: kernels/attn_block.py::tc_smem_bytes mirrors this.
+extern "C" int attn_block_tc_smem(int kernel, int C, int dh) {
+  using namespace mtp;
+  switch (kernel) {
+    case 0: return qkv_tc_smem(C);
+    case 1: return attn_tc_smem(dh);
+    case 2: return dkv_tc_smem(dh);
+    case 3: return dq_tc_smem(dh);
+    case 4: return ln_bwd_tc_smem(C);
+  }
+  return -1;
 }

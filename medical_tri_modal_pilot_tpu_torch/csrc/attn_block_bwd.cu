@@ -11,27 +11,44 @@
 // computed twice). The TPU kernel keeps one sample's q, k, v and three
 // fp32 gradient scratches in VMEM, about 5 MB at [1024, 256]; a Hopper SM
 // has 227 KB of shared memory. So the backward is several launches, as the
-// forward is, with the per-sample state in device memory (read from L2):
-//   attn_block_qkv (attn_block.cu): q|k|v of the live rows into [B, L, 3C];
-//   dkv_kernel: one block per (sample, 64-key tile, head); it walks the
-//     live q tiles and accumulates dk and dv in registers;
-//   dq_kernel: one block per (sample, 64-row q tile, head); it walks the
-//     live key tiles and accumulates dq. Two passes instead of float
-//     atomics on dq keep the result deterministic;
-//   ln_bwd_kernel: one block per (sample, 64-row tile): StdLN recomputed,
-//     dln = [dq|dk|dv] . W^T, the StdLN backward, the residual cotangent
-//     folded into dx, the tile's dgamma | dbeta sums, and the LN rows that
-//     dW = LN^T [dq|dk|dv] needs.
+// forward is, with the per-sample state in device memory (read from L2),
+// after attn_block_qkv (attn_block.cu) has recomputed q|k|v of the live
+// rows into [B, L, 3C]. Two routes, picked by dtype:
+//
+//   tc (bf16), every product on the tensor cores (mma.sync m16n8k16, fp32
+//   accumulate; attn_block_tc.cuh):
+//     block_delta_kernel: delta = rowsum(dO * O) per row and head, once,
+//       into fp32 [B, H, L] (FlashAttention-2's backward preprocess);
+//     block_dkv_tc_kernel: one block per (64-key tile, head, sample),
+//       warp w owning keys 16 w .. + 15, k and v as A fragments in
+//       registers; it walks the live q tiles (q and dO in a two-stage
+//       cp.async ring): S^T = K Q^T and dP^T = V dO^T, P^T and dS^T on
+//       the fragments, rounded to bf16 into the A fragments of
+//       dV += P^T dO and dK += dS^T Q;
+//     block_dq_tc_kernel: one block per (64-row q tile, head, sample): it
+//       walks the live key tiles (k and v in the ring): S, dP, dS and
+//       dQ += dS K. Two passes instead of float atomics on dq keep the
+//       result deterministic;
+//     block_ln_bwd_tc_kernel: one block per (64-row tile, sample), 8
+//       warps: x staged by cp.async, StdLN recomputed (its rows written
+//       for dW), dln = [dq|dk|dv] . W^T over k = 3C with dq|dk|dv and W
+//       chunks in a three-stage ring, dy staged during the last; then
+//       the StdLN backward, the residual fold into dx and the tile's
+//       dgamma | dbeta sums on the fragments, their cross-warp sums
+//       through shared memory (ffn.cu's ffn_bwd_tc_kernel epilogue).
+//   fma (fp32, the checking dtype), fp32 FMAs on 4 x 4 register tiles:
+//     dkv_kernel and dq_kernel (the same two passes, delta recomputed per
+//     q tile from dy and O) and ln_bwd_kernel.
 // The probabilities come from the forward's saved (m, l) per row and head,
-// p = exp(s - m) / l, and delta = rowsum(dO * O) from the saved
-// pre-residual output O, as in the TPU kernel. Roundings follow it: p and
-// ds are rounded to T before their products, dq, dk and dv to T before the
-// projection backward, dx to T before the residual is added.
+// p = exp(s - m) / l, and delta from the saved pre-residual output O, as
+// in the TPU kernel. Roundings follow it: p and ds are rounded to T before
+// their products, dq, dk and dv to T before the projection backward, dx
+// to T before the residual is added.
 //
 // Rows of q tiles that start past a sample's last valid key (kend) carry
 // no cotangent in the model (they are masked keys everywhere downstream
 // and the FFN passes them through): their dx is dy and they add nothing.
-#include "common.cuh"
+#include "attn_block_tc.cuh"
 
 namespace mtp {
 
@@ -478,21 +495,653 @@ static cudaError_t launch_bwd(const void* x, const float* gamma,
   return cudaErrorInvalidValue;
 }
 
+// ---- the bf16 route on the tensor cores ----
+
+// delta[b, h, q] = sum_d dy[b, q, h DH + d] attn[b, q, h DH + d] in fp32,
+// for the rows of q tiles that start before kend[b] (others are left
+// unwritten). grid (ceil(L/64), B), kThreads threads: a warp per row, 8
+// columns (16 bytes) per lane.
+template <int DH>
+__global__ void __launch_bounds__(kThreads) block_delta_kernel(
+    const bf16* __restrict__ dy, const bf16* __restrict__ attn,
+    const int* __restrict__ kend, float* __restrict__ delta, int L, int C,
+    int H) {
+  const int b = blockIdx.y, r0 = blockIdx.x * kTile;
+  if (r0 >= kend[b]) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rows = min(kTile, L - r0);
+  for (int r = warp; r < rows; r += kThreads / 32) {
+    const size_t row = (size_t)b * L + r0 + r;
+    for (int c0 = 0; c0 < C; c0 += 256) {
+      const int c = c0 + lane * 8;
+      float s = 0.0f;
+      if (c < C) {
+        const uint4 a = *reinterpret_cast<const uint4*>(dy + row * C + c);
+        const uint4 o = *reinterpret_cast<const uint4*>(attn + row * C + c);
+        const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&o);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 af = __bfloat1622float2(ap[k]);
+          const float2 of = __bfloat1622float2(op[k]);
+          s += af.x * of.x + af.y * of.y;
+        }
+      }
+      // the DH / 8 lanes of one head
+#pragma unroll
+      for (int off = 1; off < DH / 8; off <<= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (c < C && (lane & (DH / 8 - 1)) == 0)
+        delta[((size_t)b * H + c / DH) * L + r0 + r] = s;
+    }
+  }
+}
+
+// dK and dV of head h for one 64-key tile: dk, dv rounded to bf16 into
+// dqkv[:, :, C:3C] (zeros for tiles that start past kend[b]). grid
+// (ceil(L/64), H, B), kTcThreads threads; warp w owns keys 16 w .. + 15.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 3) block_dkv_tc_kernel(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ dy,
+    const float* __restrict__ stats, const float* __restrict__ delta,
+    const int8_t* __restrict__ mask, const int* __restrict__ kend,
+    bf16* __restrict__ dqkv, int L, int C, float mult) {
+  constexpr int LD = pitch(DH), TILE = kTile * LD, ND = DH / 8;
+  extern __shared__ __align__(16) unsigned char dkv_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(dkv_smem);  // [64][LD]
+  bf16* vs = ks + TILE;
+  bf16* ring = vs + TILE;                         // [2][q, dO][64][LD]
+  float* rowv = reinterpret_cast<float*>(ring + 4 * TILE);  // [2][3][64]
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kTile;
+  const int H = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ke = kend[b], nk = min(kTile, L - k0), col0 = h * DH;
+  const int N = 3 * C;
+  bf16* db = dqkv + (size_t)b * L * N;
+  if (k0 >= ke) {  // keys past the last valid one get no gradient
+    for (int e = tid; e < nk * ND; e += kTcThreads) {
+      const int r = e / ND, c = (e % ND) * 8;
+      const size_t off = (size_t)(k0 + r) * N + col0 + c;
+      *reinterpret_cast<uint4*>(db + off + C) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(db + off + 2 * C) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const bf16* qb = qkv + (size_t)b * L * N;
+  const bf16* dyb = dy + (size_t)b * L * C;
+  const float* stb = stats + ((size_t)b * H + h) * L * 2;
+  const float* dlb = delta + ((size_t)b * H + h) * L;
+  const int nqt = (ke + kTile - 1) / kTile;
+  stage_head<DH>(ks, qb, k0, L, N, C + col0, tid);
+  stage_head<DH>(vs, qb, k0, L, N, 2 * C + col0, tid);
+  stage_head<DH>(ring, qb, 0, L, N, col0, tid);
+  stage_head<DH>(ring + TILE, dyb, 0, L, C, col0, tid);
+  cp_async_commit();
+  // the rows' m, 1 / l and delta of q tile qt (rows past L: p is 0)
+  float rm = 0.0f, ril = 1.0f, rdl = 0.0f;
+  auto row_scalars = [&](int qt) {
+    const int q = qt * kTile + tid;
+    rm = 0.0f, ril = 1.0f, rdl = 0.0f;
+    if (tid < kTile && q < L) {
+      const float2 ml = *reinterpret_cast<const float2*>(stb + (size_t)q * 2);
+      rm = ml.x;
+      ril = 1.0f / ml.y;
+      rdl = dlb[q];
+    }
+  };
+  auto put_scalars = [&](int st) {
+    if (tid < kTile) {
+      rowv[st * 3 * kTile + tid] = rm;
+      rowv[st * 3 * kTile + kTile + tid] = ril;
+      rowv[st * 3 * kTile + 2 * kTile + tid] = rdl;
+    }
+  };
+  row_scalars(0);
+  put_scalars(0);
+  // the flags of the lane's keys 16 w + g and + 8: 0 live, 1 masked, 2
+  // past the array end
+  int fl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + 16 * warp + g + 8 * hh;
+    fl[hh] = key >= L ? 2 : (mask[(size_t)b * L + key] != 0 ? 1 : 0);
+  }
+  uint32_t vf[DH / 16][4];
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.0f;
+  for (int qt = 0; qt < nqt; ++qt) {
+    const int st = qt & 1;
+    cp_async_wait<0>();
+    // q tile qt has landed with its scalars; every warp is done with tile
+    // qt - 1, whose stage is refilled next
+    __syncthreads();
+    if (qt + 1 < nqt) {
+      bf16* nxt = ring + (st ^ 1) * 2 * TILE;
+      stage_head<DH>(nxt, qb, (qt + 1) * kTile, L, N, col0, tid);
+      stage_head<DH>(nxt + TILE, dyb, (qt + 1) * kTile, L, C, col0, tid);
+      row_scalars(qt + 1);
+    }
+    cp_async_commit();
+    if (qt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        ldsm_x4(vf[kk], frag_a(vs, LD, 16 * warp, 16 * kk, lane));
+    }
+    const bf16* qs = ring + st * 2 * TILE;
+    const bf16* dos = qs + TILE;
+    const float* rv = rowv + st * 3 * kTile;
+    const int q0 = qt * kTile;
+    // S^T = K Q^T: 16 keys x 64 q rows per warp
+    float sT[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t kf[4];
+      ldsm_x4(kf, frag_a(ks, LD, 16 * warp, 16 * kk, lane));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bq[4];
+        ldsm_x4(bq, frag_b_nk(qs, LD, 16 * np, 16 * kk, lane));
+        mma16816(sT[2 * np], kf, bq[0], bq[1]);
+        mma16816(sT[2 * np + 1], kf, bq[2], bq[3]);
+      }
+    }
+    // P^T in place (attn_block.py:428-447): key 16 w + g + 8 (e >> 1), q
+    // row 8 j + 2 t + (e & 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1), f = fl[e >> 1];
+        float p = 0.0f;
+        if (f != 2 && q0 + qc < L) {
+          const float sc = f == 1 ? kMaskFill : sT[j][e] * mult;
+          p = __expf(sc - rv[qc]) * rv[kTile + qc];
+        }
+        sT[j][e] = p;
+      }
+    // per block of 16 q rows: dP^T = V dO^T, dS^T, then dV += P^T dO and
+    // dK += dS^T Q with P^T and dS^T rounded to bf16
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      float dpt[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dpt[jj][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        uint32_t bo[4];
+        ldsm_x4(bo, frag_b_nk(dos, LD, 16 * np, 16 * kk, lane));
+        mma16816(dpt[0], vf[kk], bo[0], bo[1]);
+        mma16816(dpt[1], vf[kk], bo[2], bo[3]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * (2 * np + jj) + 2 * t + (e & 1);
+          dpt[jj][e] = fl[e >> 1] == 0
+              ? sT[2 * np + jj][e] * (dpt[jj][e] - rv[2 * kTile + qc]) * mult
+              : 0.0f;
+        }
+      uint32_t pa[4], da[4];
+      pa[0] = pack_bf16(sT[2 * np][0], sT[2 * np][1]);
+      pa[1] = pack_bf16(sT[2 * np][2], sT[2 * np][3]);
+      pa[2] = pack_bf16(sT[2 * np + 1][0], sT[2 * np + 1][1]);
+      pa[3] = pack_bf16(sT[2 * np + 1][2], sT[2 * np + 1][3]);
+      da[0] = pack_bf16(dpt[0][0], dpt[0][1]);
+      da[1] = pack_bf16(dpt[0][2], dpt[0][3]);
+      da[2] = pack_bf16(dpt[1][0], dpt[1][1]);
+      da[3] = pack_bf16(dpt[1][2], dpt[1][3]);
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t bo[4], bq[4];
+        ldsm_x4_t(bo, frag_b_kn(dos, LD, 16 * np, 16 * dp, lane));
+        mma16816(dv[2 * dp], pa, bo[0], bo[1]);
+        mma16816(dv[2 * dp + 1], pa, bo[2], bo[3]);
+        ldsm_x4_t(bq, frag_b_kn(qs, LD, 16 * np, 16 * dp, lane));
+        mma16816(dk[2 * dp], da, bq[0], bq[1]);
+        mma16816(dk[2 * dp + 1], da, bq[2], bq[3]);
+      }
+    }
+    if (qt + 1 < nqt) put_scalars(st ^ 1);
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + 16 * warp + g + 8 * hh;
+    if (key >= L) continue;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const size_t off = (size_t)key * N + col0 + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(db + off + C) =
+          pack_bf16(dk[j][2 * hh], dk[j][2 * hh + 1]);
+      *reinterpret_cast<uint32_t*>(db + off + 2 * C) =
+          pack_bf16(dv[j][2 * hh], dv[j][2 * hh + 1]);
+    }
+  }
+}
+
+// dQ of head h for one 64-row q tile, rounded to bf16 into dqkv[:, :, 0:C]
+// (zeros for tiles that start past kend[b]). grid (ceil(L/64), H, B),
+// kTcThreads threads; warp w owns q rows 16 w .. + 15.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 4) block_dq_tc_kernel(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ dy,
+    const float* __restrict__ stats, const float* __restrict__ delta,
+    const int8_t* __restrict__ mask, const int* __restrict__ kend,
+    bf16* __restrict__ dqkv, int L, int C, float mult) {
+  constexpr int LD = pitch(DH), TILE = kTile * LD, ND = DH / 8;
+  extern __shared__ __align__(16) unsigned char dq_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(dq_smem);  // [64][LD]
+  bf16* dos = qs + TILE;
+  bf16* ring = dos + TILE;                       // [2][k, v][64][LD]
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int H = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ke = kend[b], nq = min(kTile, L - q0), col0 = h * DH;
+  const int N = 3 * C;
+  bf16* db = dqkv + (size_t)b * L * N;
+  if (q0 >= ke) {  // dead q tile: no cotangent reaches q
+    for (int e = tid; e < nq * ND; e += kTcThreads) {
+      const int r = e / ND, c = (e % ND) * 8;
+      *reinterpret_cast<uint4*>(db + (size_t)(q0 + r) * N + col0 + c) =
+          make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const bf16* qb = qkv + (size_t)b * L * N;
+  const int8_t* mb = mask + (size_t)b * L;
+  const int nkt = (ke + kTile - 1) / kTile;
+  stage_head<DH>(qs, qb, q0, L, N, col0, tid);
+  stage_head<DH>(dos, dy + (size_t)b * L * C, q0, L, C, col0, tid);
+  stage_head<DH>(ring, qb, 0, L, N, C + col0, tid);
+  stage_head<DH>(ring + TILE, qb, 0, L, N, 2 * C + col0, tid);
+  cp_async_commit();
+  // m, 1 / l and delta of the lane's rows 16 w + g and + 8
+  float rm[2], ril[2], rdl[2];
+  bool qv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int q = q0 + 16 * warp + g + 8 * hh;
+    qv[hh] = q < L;
+    rm[hh] = 0.0f, ril[hh] = 1.0f, rdl[hh] = 0.0f;
+    if (qv[hh]) {
+      const float2 ml = *reinterpret_cast<const float2*>(
+          stats + (((size_t)b * H + h) * L + q) * 2);
+      rm[hh] = ml.x;
+      ril[hh] = 1.0f / ml.y;
+      rdl[hh] = delta[((size_t)b * H + h) * L + q];
+    }
+  }
+  uint32_t qf[DH / 16][4], of[DH / 16][4];
+  float dq[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.0f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kt + 1 < nkt) {
+      bf16* nxt = ring + ((kt + 1) & 1) * 2 * TILE;
+      stage_head<DH>(nxt, qb, (kt + 1) * kTile, L, N, C + col0, tid);
+      stage_head<DH>(nxt + TILE, qb, (kt + 1) * kTile, L, N, 2 * C + col0,
+                     tid);
+    }
+    cp_async_commit();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        ldsm_x4(qf[kk], frag_a(qs, LD, 16 * warp, 16 * kk, lane));
+        ldsm_x4(of[kk], frag_a(dos, LD, 16 * warp, 16 * kk, lane));
+      }
+    }
+    const bf16* ks = ring + (kt & 1) * 2 * TILE;
+    const bf16* vs = ks + TILE;
+    uint64_t mbits, pbits;
+    key_bits(mb, kt * kTile, L, lane, mbits, pbits);
+    mbits >>= 2 * t;
+    pbits >>= 2 * t;
+    // per block of 16 keys: S = Q K^T and dP = dO V^T (16 q rows x 16
+    // keys per warp), dS, then dQ += dS K with dS rounded to bf16 (K
+    // through ldmatrix.trans)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, frag_b_nk(ks, LD, 16 * np, 16 * kk, lane));
+        mma16816(s[0], qf[kk], bk[0], bk[1]);
+        mma16816(s[1], qf[kk], bk[2], bk[3]);
+        ldsm_x4(bv, frag_b_nk(vs, LD, 16 * np, 16 * kk, lane));
+        mma16816(dp[0], of[kk], bv[0], bv[1]);
+        mma16816(dp[1], of[kk], bv[2], bv[3]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int bit = 8 * (2 * np + jj) + (e & 1), hh = e >> 1;
+          float ds = 0.0f;
+          if (!((pbits >> bit) & 1) && qv[hh] && !((mbits >> bit) & 1)) {
+            const float p = __expf(s[jj][e] * mult - rm[hh]) * ril[hh];
+            ds = p * (dp[jj][e] - rdl[hh]) * mult;
+          }
+          s[jj][e] = ds;
+        }
+      uint32_t da[4];
+      da[0] = pack_bf16(s[0][0], s[0][1]);
+      da[1] = pack_bf16(s[0][2], s[0][3]);
+      da[2] = pack_bf16(s[1][0], s[1][1]);
+      da[3] = pack_bf16(s[1][2], s[1][3]);
+#pragma unroll
+      for (int dd = 0; dd < DH / 16; ++dd) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, frag_b_kn(ks, LD, 16 * np, 16 * dd, lane));
+        mma16816(dq[2 * dd], da, bk[0], bk[1]);
+        mma16816(dq[2 * dd + 1], da, bk[2], bk[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (!qv[hh]) continue;
+    const int q = q0 + 16 * warp + g + 8 * hh;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(db + (size_t)q * N + col0 + 8 * j + 2 * t) =
+          pack_bf16(dq[j][2 * hh], dq[j][2 * hh + 1]);
+  }
+}
+
+// The projection backward of one 64-row tile on the tensor cores: StdLN
+// recomputed (rows to ln_o for dW), dln = [dq|dk|dv] . W^T, the StdLN
+// backward with the residual cotangent, dx = round(round(dx_ln) + dy),
+// and the tile's dgamma | dbeta sums to gpart. Shared memory (bf16 tiles
+// of pitch width + 8): xs [64][C], a three-stage ring of a dq|dk|dv chunk
+// [64][32] and a W chunk [C][32] (W^T's rows), then the StdLN stats fp32
+// [4][64]. During the last chunk the tile's dy is staged into the ring's
+// first two stages, free by then; after the loop the third holds the
+// epilogue's cross-warp sums. 256 threads, two blocks an SM: warp w
+// computes rows 16 (w & 3) .. + 16 and dln columns (C / 2)(w >> 2) ..
+// + C / 2. Dead tiles write dx = dy, zero ln_o rows and zero partials.
+// grid (ceil(L/64), B); C = 16 * NJC.
+template <int NJC>
+__global__ void __launch_bounds__(kThreads, 2) block_ln_bwd_tc_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const bf16* __restrict__ w,
+    const int* __restrict__ kend, const bf16* __restrict__ dqkv,
+    const bf16* __restrict__ dy, bf16* __restrict__ dx,
+    bf16* __restrict__ ln_o, float* __restrict__ gpart, int L) {
+  constexpr int C = 16 * NJC, N = 3 * C, KC = kLnBwdDepth;
+  constexpr int LDC = pitch(C), LDK = pitch(KC);
+  constexpr int AT = kTile * LDK, STAGE = ln_bwd_tc_stage(C);
+  constexpr int nch = N / KC;
+  static_assert(nch % kLnBwdStages == 0,
+                "the last chunk runs in the ring's last stage");
+  static_assert(kTile * LDC <= 2 * STAGE, "dy fits in two stages");
+  static_assert((4 * kTile + 8 * C) * sizeof(float) <=
+                    STAGE * sizeof(bf16),
+                "the epilogue's sums fit in a stage of the ring");
+  extern __shared__ __align__(16) unsigned char lnb_smem[];
+  bf16* xs = reinterpret_cast<bf16*>(lnb_smem);
+  bf16* ring = xs + kTile * LDC;  // [stage][dq|dk|dv chunk | W chunk]
+  float* stats = reinterpret_cast<float*>(ring + kLnBwdStages * STAGE);
+  const int b = blockIdx.y, tile = blockIdx.x, r0 = tile * kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = min(kTile, L - r0);
+  const size_t base = (size_t)b * L;
+  float* gp = gpart + ((size_t)b * gridDim.x + tile) * 2 * C;
+  if (r0 >= kend[b]) {
+    copy_rows<bf16>(dy + base * C, dx + base * C, r0, rows, C, tid);
+    zero_rows<bf16>(ln_o + base * C, r0, rows, C, tid);
+    for (int c = tid; c < 2 * C; c += kThreads) gp[c] = 0.0f;
+    return;
+  }
+  auto load = [&](int it) {
+    bf16* a = ring + (it % kLnBwdStages) * STAGE;
+    stage_rows<KC, kThreads>(a, LDK, dqkv + (base + r0) * N + it * KC, N,
+                             kTile, rows, tid);
+    stage_rows<KC, kThreads>(a + AT, LDK, w + it * KC, N, C, C, tid);
+  };
+  stage_rows<C, kThreads>(xs, LDC, x + (base + r0) * C, C, kTile, rows, tid);
+  load(0);
+  cp_async_commit();
+  load(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  // StdLN of the tile, one warp per row: its stats, and its live rows
+  // to ln_o for dW (the forward's values bit for bit)
+  for (int r = warp; r < kTile; r += kThreads / 32) {
+    bf16* dst = r < rows ? ln_o + (base + r0 + r) * C : nullptr;
+    stdln_row_bf16(xs + r * LDC, dst, C, gamma, beta, lane, stats, r);
+  }
+  const int rs = warp & 3, ch = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  float dln[NJC][4];
+#pragma unroll
+  for (int j = 0; j < NJC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dln[j][e] = 0.0f;
+  for (int it = 0; it < nch; ++it) {
+    cp_async_wait<1>();
+    // chunk it has landed; every warp is done with chunk it - 1, whose
+    // stage is refilled next
+    __syncthreads();
+    if (it + 2 < nch)
+      load(it + 2);
+    else if (it == nch - 1)
+      stage_rows<C, kThreads>(ring, LDC, dy + (base + r0) * C, C, kTile,
+                              rows, tid);
+    cp_async_commit();
+    const bf16* as = ring + (it % kLnBwdStages) * STAGE;
+    const bf16* ws = as + AT;
+    // dln += chunk . W[:, chunk]^T (W's rows are the B operand stored
+    // [n][k])
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, frag_a(as, LDK, 16 * rs, kk, lane));
+#pragma unroll
+      for (int np = 0; np < NJC / 2; ++np) {
+        uint32_t bw[4];
+        ldsm_x4(bw, frag_b_nk(ws, LDK, (C / 2) * ch + 16 * np, kk, lane));
+        mma16816(dln[2 * np], a, bw[0], bw[1]);
+        mma16816(dln[2 * np + 1], a, bw[2], bw[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // The StdLN backward on the fragments (stdln_backward_tile's
+  // arithmetic, ROUND_TWICE true, its sums in another order); the
+  // cross-warp sums through the ring's last stage
+  const bf16* dys = ring;
+  float* rrow = reinterpret_cast<float*>(ring + 2 * STAGE);  // [2][64][2]
+  float* rcol = rrow + 2 * 2 * kTile;                         // [4][2C]
+  float A[2] = {0.0f, 0.0f}, S[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < NJC; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = (C / 2) * ch + 8 * j + 2 * t + e;
+      const float gam = gamma[col];
+      float gs = 0.0f, bs = 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * rs + g + 8 * h;
+        const float c = stats[kTile + r];
+        const float xhat = (bf(xs[r * LDC + col]) - stats[r]) * c;
+        const float d = dln[j][2 * h + e];
+        gs += d * xhat;
+        bs += d;
+        const float dxhat = d * gam;
+        A[h] += dxhat * (xhat / c);
+        S[h] += dxhat;
+      }
+      // column sums over the warp's 16 rows: the 8 lanes that share t
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        gs += __shfl_xor_sync(0xffffffffu, gs, off);
+        bs += __shfl_xor_sync(0xffffffffu, bs, off);
+      }
+      if (g == 0) {
+        rcol[rs * 2 * C + col] = gs;
+        rcol[rs * 2 * C + C + col] = bs;
+      }
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      A[h] += __shfl_xor_sync(0xffffffffu, A[h], off);
+      S[h] += __shfl_xor_sync(0xffffffffu, S[h], off);
+    }
+    if (t == 0) {
+      const int r = 16 * rs + g + 8 * h;
+      rrow[(ch * kTile + r) * 2] = A[h];
+      rrow[(ch * kTile + r) * 2 + 1] = S[h];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * rs + g + 8 * h;
+    if (r >= rows) continue;
+    const float a = rrow[r * 2] + rrow[(kTile + r) * 2];
+    const float mean = (rrow[r * 2 + 1] + rrow[(kTile + r) * 2 + 1]) /
+                       (float)C;
+    const float mu = stats[r], c = stats[kTile + r];
+    const float sd = stats[2 * kTile + r], var = stats[3 * kTile + r];
+    const float k2 = (c * c) * a * (var > kVarFloor ? 1.0f : 0.0f) /
+                     ((float)(C - 1) * sd);
+#pragma unroll
+    for (int j = 0; j < NJC; ++j) {
+      const int col = (C / 2) * ch + 8 * j + 2 * t;
+      float o[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xhat = (bf(xs[r * LDC + col + e]) - mu) * c;
+        const float dxhat = dln[j][2 * h + e] * gamma[col + e];
+        o[e] = bf(dys[r * LDC + col + e]) +
+               rnd<bf16>(c * (dxhat - mean) - k2 * (xhat / c));
+      }
+      *reinterpret_cast<uint32_t*>(dx + (base + r0 + r) * C + col) =
+          pack_bf16(o[0], o[1]);
+    }
+  }
+  for (int col = tid; col < 2 * C; col += kThreads)
+    gp[col] = rcol[col] + rcol[2 * C + col] + rcol[4 * C + col] +
+              rcol[6 * C + col];
+}
+
+template <int DH>
+static cudaError_t launch_attn_tc(const void* qkv, const void* dy,
+                                  const void* attn, const float* stats,
+                                  float* delta, const int8_t* mask,
+                                  const int* kend, void* dqkv, int B, int L,
+                                  int C, float mult, cudaStream_t stream) {
+  const int tiles = (L + kTile - 1) / kTile;
+  block_delta_kernel<DH><<<dim3(tiles, B), kThreads, 0, stream>>>(
+      (const bf16*)dy, (const bf16*)attn, kend, delta, L, C, C / DH);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(tiles, C / DH, B);
+  constexpr int smem_kv = dkv_tc_smem(DH), smem_q = dq_tc_smem(DH);
+  err = cudaFuncSetAttribute(block_dkv_tc_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_kv);
+  if (err != cudaSuccess) return err;
+  block_dkv_tc_kernel<DH><<<grid, kTcThreads, smem_kv, stream>>>(
+      (const bf16*)qkv, (const bf16*)dy, stats, delta, mask, kend,
+      (bf16*)dqkv, L, C, mult);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(block_dq_tc_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_q);
+  if (err != cudaSuccess) return err;
+  block_dq_tc_kernel<DH><<<grid, kTcThreads, smem_q, stream>>>(
+      (const bf16*)qkv, (const bf16*)dy, stats, delta, mask, kend,
+      (bf16*)dqkv, L, C, mult);
+  return cudaGetLastError();
+}
+
+template <int NJC>
+static cudaError_t launch_ln_tc(const void* x, const float* gamma,
+                                const float* beta, const void* w,
+                                const int* kend, const void* dqkv,
+                                const void* dy, void* dx, void* ln_o,
+                                float* gpart, int B, int L,
+                                cudaStream_t stream) {
+  constexpr int smem = ln_bwd_tc_smem(16 * NJC);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_ln_bwd_tc_kernel<NJC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + kTile - 1) / kTile, B);
+  block_ln_bwd_tc_kernel<NJC><<<grid, kThreads, smem, stream>>>(
+      (const bf16*)x, gamma, beta, (const bf16*)w, kend, (const bf16*)dqkv,
+      (const bf16*)dy, (bf16*)dx, (bf16*)ln_o, gpart, L);
+  return cudaGetLastError();
+}
+
+static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
+                                 const float* beta, const void* w,
+                                 const int8_t* mask, const int* kend,
+                                 const void* attn, const float* stats,
+                                 const void* dy, const void* qkv,
+                                 float* delta, void* dqkv, void* ln_o,
+                                 void* dx, float* gpart, int B, int L, int C,
+                                 int H, float mult, cudaStream_t stream) {
+  const int dh = C / H;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dh == 64)
+    err = launch_attn_tc<64>(qkv, dy, attn, stats, delta, mask, kend, dqkv, B, L, C, mult, stream);
+  else if (dh == 32)
+    err = launch_attn_tc<32>(qkv, dy, attn, stats, delta, mask, kend, dqkv, B, L, C, mult, stream);
+  if (err != cudaSuccess) return err;
+  if (C == 256)
+    return launch_ln_tc<16>(x, gamma, beta, w, kend, dqkv, dy, dx, ln_o, gpart, B, L, stream);
+  if (C == 64)
+    return launch_ln_tc<4>(x, gamma, beta, w, kend, dqkv, dy, dx, ln_o, gpart, B, L, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace mtp
 
-// dtype: 0 = fp32, 1 = bf16 for x, w [C, 3C], attn, dy, qkv, dqkv, ln_o and
-// dx ([B, L, C] or [B, L, 3C]); gamma, beta and stats ([B, H, L, 2]) fp32;
-// mask int8 [B, L]; kend int32 [B]; qkv from attn_block_qkv. Writes dqkv,
-// ln_o, dx and gpart fp32 [B * ceil(L/64), 2C]. C in {64, 256}, C / H in
-// {32, 64}. Returns cudaGetLastError().
+// dtype: 0 = fp32 (the FMA kernels), 1 = bf16 (the tensor cores) for x,
+// w [C, 3C], attn, dy, qkv, dqkv, ln_o and dx ([B, L, C] or [B, L, 3C]);
+// gamma, beta and stats ([B, H, L, 2]) fp32; mask int8 [B, L]; kend int32
+// [B]; qkv from attn_block_qkv; delta: fp32 scratch [B, H, L] for bf16
+// (unused for fp32, may be NULL). Writes dqkv, ln_o, dx and gpart fp32
+// [B * ceil(L/64), 2C]. C in {64, 256}, C / H in {32, 64}. Returns
+// cudaGetLastError().
 extern "C" int attn_block_bwd(const void* x, const void* gamma,
                               const void* beta, const void* w,
                               const void* mask, const void* kend,
                               const void* attn, const void* stats,
-                              const void* dy, const void* qkv, void* dqkv,
-                              void* ln_o, void* dx, void* gpart, int B,
-                              int L, int C, int H, float mult, int dtype,
-                              void* stream) {
+                              const void* dy, const void* qkv, void* delta,
+                              void* dqkv, void* ln_o, void* dx, void* gpart,
+                              int B, int L, int C, int H, float mult,
+                              int dtype, void* stream) {
   using namespace mtp;
   const cudaStream_t s = (cudaStream_t)stream;
   if (H <= 0 || C % H != 0) return (int)cudaErrorInvalidValue;
@@ -504,7 +1153,7 @@ extern "C" int attn_block_bwd(const void* x, const void* gamma,
   float* gp = (float*)gpart;
   if (dtype == 0)
     return (int)launch_bwd<float>(x, g, be, w, mk, ke, attn, st, dy, qkv, dqkv, ln_o, dx, gp, B, L, C, H, mult, s);
-  if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(x, g, be, w, mk, ke, attn, st, dy, qkv, dqkv, ln_o, dx, gp, B, L, C, H, mult, s);
+  if (dtype == 1 && delta != nullptr)
+    return (int)launch_bwd_tc(x, g, be, w, mk, ke, attn, st, dy, qkv, (float*)delta, dqkv, ln_o, dx, gp, B, L, C, H, mult, s);
   return (int)cudaErrorInvalidValue;
 }

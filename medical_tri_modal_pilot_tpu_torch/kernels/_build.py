@@ -33,14 +33,16 @@ _U32 = ctypes.c_uint32
 # C entry points: name -> (argtypes); each returns an int: the launchers
 # cudaGetLastError(), swin_mlp_fuses a flag
 _SIGNATURES = {
-    # x, gamma, beta, w, bias, mask, kend, kv, out, attn, stats, B, L, C,
+    # x, gamma, beta, w, bias, mask, kend, qkv, out, attn, stats, B, L, C,
     # H, mult, dtype, stream
     "attn_block_fwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
     # x, gamma, beta, w, bias, kend, qkv, B, L, C, dtype, stream
     "attn_block_qkv": [_P] * 7 + [_I] * 4 + [_P],
-    # x, gamma, beta, w, mask, kend, attn, stats, dy, qkv, dqkv, ln_o, dx,
-    # gpart, B, L, C, H, mult, dtype, stream
-    "attn_block_bwd": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
+    # x, gamma, beta, w, mask, kend, attn, stats, dy, qkv, delta, dqkv,
+    # ln_o, dx, gpart, B, L, C, H, mult, dtype, stream
+    "attn_block_bwd": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
+    # kernel, C, dh -> shared-memory bytes of a tensor-core kernel
+    "attn_block_tc_smem": [_I] * 3,
     # x, gamma, beta, w1, b1, w2, b2, valid, y, R, C, F, seed, thr, q_t,
     # drop, dtype, stream
     "ffn_fwd": [_P] * 9 + [_I] * 3 + [_U64, _U32, _F, _I, _I, _P],

@@ -1,6 +1,8 @@
 """Fused pre-norm attention block, ``x + MHA(StdLN(x))``: the plain PyTorch
 version and the CUDA kernels (``csrc/attn_block.cu``, the lean and training
-forwards; ``csrc/attn_block_bwd.cu``, the backward).
+forwards; ``csrc/attn_block_bwd.cu``, the backward), in two routes
+(``attn_block_route``): bf16 on the tensor cores, fp32 (the checking dtype)
+on FMA loops.
 
 Counterpart of medical_tri_modal_pilot_tpu/kernels/attn_block.py
 (``xla_attn_block`` and ``pallas_attn_block``). ``w``/``b`` are the
@@ -16,6 +18,50 @@ import torch
 from . import _build
 from ._util import count, dtype_code, needs_grad, stream
 from .wgrad import col_sum, wgrad
+
+# the head widths the kernels are built for
+HEAD_DIMS = (32, 64)
+# the widths the backward's projection kernels are built for
+BWD_WIDTHS = (64, 256)
+# the C entry points' kernel numbers of the tensor-core route
+# (attn_block_tc_smem)
+TC_KERNELS = ("block_qkv_tc_kernel", "block_attn_tc_kernel",
+              "block_dkv_tc_kernel", "block_dq_tc_kernel",
+              "block_ln_bwd_tc_kernel")
+
+
+def attn_block_route(dtype: torch.dtype, C: int, H: int) -> str:
+    """The kernel route for x of this dtype, width C and H heads: bf16
+    takes the tensor cores ("tc"); fp32, the checking dtype, keeps the FMA
+    kernels ("fma"), whose products stay in full fp32. Raises for a head
+    width no kernel is built for."""
+    if H <= 0 or C % H or C // H not in HEAD_DIMS:
+        raise ValueError(f"the CUDA attn_block kernels take d_head in "
+                         f"{HEAD_DIMS}; got C={C}, heads={H}")
+    return "tc" if dtype == torch.bfloat16 else "fma"
+
+
+def tc_smem_bytes(C: int, d_head: int) -> dict:
+    """Shared memory of each tensor-core kernel at width C and head width
+    d_head, as csrc/attn_block_tc.cuh reckons it: bf16 tiles of pitch
+    width + 8, 64-row tiles. The projection: x / StdLN(x) [64][C] and a
+    three-stage W ring [64][128]; the attention forward: q and a two-stage
+    ring of k and v [64][d_head]; dK/dV: k, v and a two-stage ring of q
+    and dO with the rows' fp32 m, 1/l and delta; dQ: q, dO and a ring of
+    k and v; the projection backward: x [64][C], a three-stage ring of
+    a dq|dk|dv chunk [64][32] and a W chunk [C][32], fp32 stats
+    [4][64]."""
+    def tile(rows, width):
+        return 2 * rows * (width + 8)
+    return {
+        "block_qkv_tc_kernel": tile(64, C) + 3 * tile(64, 128),
+        "block_attn_tc_kernel": 5 * tile(64, d_head),
+        "block_dkv_tc_kernel": 6 * tile(64, d_head) + 4 * 2 * 3 * 64,
+        "block_dq_tc_kernel": 6 * tile(64, d_head),
+        "block_ln_bwd_tc_kernel": tile(64, C) + 3 * (tile(64, 32)
+                                                    + tile(C, 32))
+        + 4 * 4 * 64,
+    }
 
 
 def torch_attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
@@ -49,29 +95,33 @@ def key_ends(mask: torch.Tensor) -> torch.Tensor:
 
 
 def _check(x, w, b, key_mask, num_heads):
-    if x.device.type != "cuda":
-        raise ValueError(f"cuda_attn_block needs CUDA tensors, got {x.device}")
+    """The wrapper's checks, shapes and mask first (they hold on any
+    device), then the device; returns the int8 mask [B, L] on x's
+    device."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attn_block takes fp32 or bf16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("attn_block needs a contiguous x")
     B, L, C = x.shape
     H = num_heads
-    if C % 64 != 0 or C % H != 0 or C // H not in (32, 64):
-        raise ValueError(f"attn_block takes C % 64 == 0 and d_head in "
-                         f"(32, 64); got C={C}, heads={H}")
+    if C % 64 != 0:
+        raise ValueError(f"the CUDA attn_block kernels take C % 64 == 0, got "
+                         f"C={C}")
+    attn_block_route(x.dtype, C, H)
     if tuple(w.shape) != (C, 3 * C) or tuple(b.shape) != (3 * C,):
         raise ValueError(f"qkv weights must be [{C}, {3 * C}] and "
                          f"[{3 * C}], got {tuple(w.shape)}, {tuple(b.shape)}")
-    if key_mask is None:
-        return torch.zeros(B, L, dtype=torch.int8, device=x.device)
-    if key_mask.dim() == 3:
+    if key_mask is not None and key_mask.dim() == 3:
         raise NotImplementedError(
             "3-D block masks (multitoken MBT) have no CUDA attn_block "
             "yet (ROADMAP Queue 1 item 6)")
-    if tuple(key_mask.shape) != (B, L):
+    if key_mask is not None and tuple(key_mask.shape) != (B, L):
         raise ValueError(f"key mask must be [{B}, {L}], got "
                          f"{tuple(key_mask.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"cuda_attn_block needs CUDA tensors, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("attn_block needs a contiguous x")
+    if key_mask is None:
+        return torch.zeros(B, L, dtype=torch.int8, device=x.device)
     return key_mask.to(device=x.device, dtype=torch.int8).contiguous()
 
 
@@ -90,12 +140,14 @@ def _operands(x, gamma, beta, w, b):
 
 def _launch_fwd(x, gamma, beta, w, b, mask, scale, num_heads, train):
     """The two launches; ``train`` adds the pre-residual attention output
-    and the (m, l) stats [B, H, L, 2] of the live rows."""
+    and the (m, l) stats [B, H, L, 2] of the live rows. The scratch holds
+    k|v on the FMA route and q|k|v on the tensor cores."""
     B, L, C = x.shape
     H = num_heads
     gamma, beta, w, b = _operands(x, gamma, beta, w, b)
     kend = key_ends(mask)
-    kv = torch.empty(B, L, 2 * C, dtype=x.dtype, device=x.device)
+    width = 3 * C if attn_block_route(x.dtype, C, H) == "tc" else 2 * C
+    qkv = torch.empty(B, L, width, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     attn = stats = None
     if train:
@@ -103,7 +155,7 @@ def _launch_fwd(x, gamma, beta, w, b, mask, scale, num_heads, train):
         stats = torch.empty(B, H, L, 2, dtype=torch.float32, device=x.device)
     rc = _build.library().attn_block_fwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
-        b.data_ptr(), mask.data_ptr(), kend.data_ptr(), kv.data_ptr(),
+        b.data_ptr(), mask.data_ptr(), kend.data_ptr(), qkv.data_ptr(),
         out.data_ptr(), None if attn is None else attn.data_ptr(),
         None if stats is None else stats.data_ptr(), B, L, C, H,
         1.0 / scale, dtype_code(x.dtype), stream(x))
@@ -118,9 +170,15 @@ def cuda_attn_block_bwd(x, gamma, beta, w, b, mask, attn, stats,
     dtype of the ``w`` and ``b`` given (as the TPU kernel returns them),
     dgamma and dbeta in theirs; parameter gradients summed in fp32. q tiles
     that start past a sample's last valid key give dx = dy and add
-    nothing (their rows carry no cotangent in the model)."""
+    nothing (their rows carry no cotangent in the model); where whole
+    tiles tile each sample (L % 64 == 0) the weight sums skip their
+    rows."""
     mask = _check(x, w, b, mask, num_heads)
     B, L, C = x.shape
+    H = num_heads
+    if C not in BWD_WIDTHS:
+        raise ValueError(f"the attn_block backward takes C in {BWD_WIDTHS}, "
+                         f"got {C}")
     dt = x.dtype
     gamma_, beta_, w_, b_ = _operands(x, gamma, beta, w, b)
     kend = key_ends(mask)
@@ -132,6 +190,9 @@ def cuda_attn_block_bwd(x, gamma, beta, w, b, mask, attn, stats,
         b_.data_ptr(), kend.data_ptr(), qkv.data_ptr(), B, L, C,
         dtype_code(dt), stream(x))
     _build.check(rc, "attn_block_qkv")
+    # delta = rowsum(dO * O) per row and head: the tensor cores' pre-pass
+    delta = (torch.empty(B, H, L, dtype=torch.float32, device=x.device)
+             if attn_block_route(dt, C, H) == "tc" else None)
     dqkv = torch.empty_like(qkv)
     ln = torch.empty_like(x)
     dx = torch.empty_like(x)
@@ -140,11 +201,17 @@ def cuda_attn_block_bwd(x, gamma, beta, w, b, mask, attn, stats,
     rc = lib.attn_block_bwd(
         x.data_ptr(), gamma_.data_ptr(), beta_.data_ptr(), w_.data_ptr(),
         mask.data_ptr(), kend.data_ptr(), attn.data_ptr(), stats.data_ptr(),
-        dy.data_ptr(), qkv.data_ptr(), dqkv.data_ptr(), ln.data_ptr(),
-        dx.data_ptr(), gpart.data_ptr(), B, L, C, num_heads, 1.0 / scale,
-        dtype_code(dt), stream(x))
+        dy.data_ptr(), qkv.data_ptr(),
+        None if delta is None else delta.data_ptr(), dqkv.data_ptr(),
+        ln.data_ptr(), dx.data_ptr(), gpart.data_ptr(), B, L, C, H,
+        1.0 / scale, dtype_code(dt), stream(x))
     _build.check(rc, "attn_block_bwd")
-    dw, db = wgrad(ln.reshape(B * L, C), dqkv.reshape(B * L, 3 * C))
+    flags = None
+    if L % 64 == 0:
+        starts = torch.arange(0, L, 64, device=x.device, dtype=torch.int32)
+        flags = (starts[None, :] < kend[:, None]).to(torch.int8).reshape(-1)
+    dw, db = wgrad(ln.reshape(B * L, C), dqkv.reshape(B * L, 3 * C), flags,
+                   None if flags is None else 64)
     g = col_sum(gpart)
     count("attn_block_bwd")
     return (dx, g[:C].to(gamma.dtype), g[C:].to(beta.dtype), dw.to(w.dtype),

@@ -33,7 +33,8 @@ from medical_tri_modal_pilot_tpu_torch.models.swin import _shift_attn_mask
 pytestmark = pytest.mark.cuda
 PRECS = {"fp32": torch.float32, "bf16": torch.bfloat16}
 # as in chip_smoke.py: fp32 sums in another order; bf16 rounds at the same
-# points, one rounding flip and the fp32 probabilities of the kernel
+# points up to a rounding flip (the attention block's flash loop rounds p
+# before it divides by l, as the TPU kernel does, the plain version after)
 TOL = {"fp32": dict(atol=1e-4, rtol=1e-4), "bf16": dict(atol=6e-2, rtol=2e-2)}
 # gradients, as chip_smoke.py's GRAD_TOL: |kernel - plain|_F / |plain|_F
 # per tensor (fp32: summation order and the odd ReLU unit on the other
@@ -80,8 +81,14 @@ def test_umse_kernel(dev, prec):
     torch.testing.assert_close(out, ref, **TOL[prec])
 
 
-@pytest.mark.parametrize("L,C,H", [(54, 64, 2), (130, 64, 2),
-                                   (300, 256, 4)])
+# attn_block shapes: the small widths (d_head 32) and the main path's at
+# C 256 / H 4 (d_head 64): the vslt stream (1024), the txt stream (133),
+# the cross transformer's self layers (24), a ragged 300
+ATTN_BLOCK_SHAPES = [(54, 64, 2), (130, 64, 2), (300, 256, 4),
+                     (1024, 256, 4), (133, 256, 4), (24, 256, 4)]
+
+
+@pytest.mark.parametrize("L,C,H", ATTN_BLOCK_SHAPES)
 @pytest.mark.parametrize("prec", list(PRECS))
 def test_attn_block_kernel(dev, L, C, H, prec):
     """Random lengths with one fully masked sample; live rows only (the
@@ -99,6 +106,43 @@ def test_attn_block_kernel(dev, L, C, H, prec):
                                             (C // H) ** .5, H))
     live = torch.arange(L, device=dev)[None] < key_ends(mask)[:, None].long()
     torch.testing.assert_close(out[live], ref[live], **TOL[prec])
+
+
+@pytest.mark.parametrize("L,C,H", [(130, 64, 2), (1024, 256, 4)])
+def test_attn_block_backward_is_bit_identical(dev, L, C, H):
+    """The bf16 backward (delta pre-pass, dK/dV and dQ passes, projection
+    backward, weight sums) repeats bit for bit: no float atomics."""
+    g = torch.Generator().manual_seed(16)
+    B, dt = 4, torch.bfloat16
+    x = _rand(g, dev, B, L, C).to(dt)
+    gamma, beta = _rand(g, dev, C, std=.1, mean=1.), _rand(g, dev, C, std=.1)
+    w = _rand(g, dev, C, 3 * C, std=C ** -.5).to(dt)
+    b = _rand(g, dev, 3 * C, std=.1).to(dt)
+    mask = length_key_mask(torch.tensor([0, 1, L // 2, L], device=dev), L)
+    live = torch.arange(L, device=dev)[None] < key_ends(mask)[:, None].long()
+    cot = _rand(g, dev, B, L, C).to(dt) * live[:, :, None]
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, gamma, beta, w, b)]
+    out = ops.attn_block(*leaves, mask, (C // H) ** .5, H)
+    first = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, cot)
+    for name, a, e in zip(["dx", "dgamma", "dbeta", "dw", "db"], first,
+                          again):
+        assert torch.equal(a, e), name
+
+
+def test_attn_block_smem_table_matches_the_kernels(dev):
+    """The wrapper's shared-memory reckoning of each tensor-core kernel is
+    the bytes its launcher asks for, within the card's 227 KB."""
+    from medical_tri_modal_pilot_tpu_torch.kernels import _build
+    from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
+        TC_KERNELS, tc_smem_bytes)
+    lib = _build.library()
+    for C, dh in ((64, 32), (256, 64), (256, 32)):
+        table = tc_smem_bytes(C, dh)
+        for i, name in enumerate(TC_KERNELS):
+            assert lib.attn_block_tc_smem(i, C, dh) == table[name], name
+            assert table[name] <= 232448, name
 
 
 @pytest.mark.parametrize("C", [64, 256])
@@ -144,8 +188,7 @@ def _assert_grads_close(got, want, prec, names):
         assert err <= bound, f"{name}: {err:.3e} > {bound:.3e}"
 
 
-@pytest.mark.parametrize("L,C,H", [(54, 64, 2), (130, 64, 2),
-                                   (300, 256, 4)])
+@pytest.mark.parametrize("L,C,H", ATTN_BLOCK_SHAPES)
 @pytest.mark.parametrize("prec", list(PRECS))
 def test_attn_block_training_kernels(dev, L, C, H, prec):
     """The training forward and the backward kernels against autograd of
@@ -779,7 +822,10 @@ def test_tensor_core_kernels_compile_to_mma(dev):
     from medical_tri_modal_pilot_tpu_torch.kernels import _build
     code = _build.sass()
     for kernel in ("swin_fused_kernel", "window_attn_tc_kernel",
-                   "gemm_bf16_kernel", "ffn_bwd_tc_kernel", "wgrad_tc_kernel"):
+                   "gemm_bf16_kernel", "ffn_bwd_tc_kernel", "wgrad_tc_kernel",
+                   "block_qkv_tc_kernel", "block_attn_tc_kernel",
+                   "block_dkv_tc_kernel", "block_dq_tc_kernel",
+                   "block_ln_bwd_tc_kernel"):
         found = {n: c for n, c in code.items() if kernel in n}
         assert found, f"{kernel} not in the library"
         for name, text in found.items():

@@ -1,11 +1,13 @@
 """The kernel wrappers' choices that the CPU can hold: which route the
 bf16 and fp32 paths take (tensor cores or FMA loops), the fused window
-attention's shared-memory reckoning, the weight sums' row slicing, and the
-checks the wrappers make before they reach the card."""
+attention's and the attention block's shared-memory reckoning, the weight
+sums' row slicing, and the checks the wrappers make before they reach the
+card."""
 import pytest
 import torch
 
-from medical_tri_modal_pilot_tpu_torch.kernels import swin_attention, wgrad
+from medical_tri_modal_pilot_tpu_torch.kernels import (attn_block,
+                                                       swin_attention, wgrad)
 
 
 @pytest.mark.parametrize("C", [32, 64, 96, 192, 384, 768])
@@ -58,3 +60,56 @@ def test_wrappers_refuse_before_the_card():
         swin_attention.cuda_window_attention(
             xw, torch.zeros(64, 192), torch.zeros(192), torch.zeros(64, 64),
             torch.zeros(64), torch.zeros(2, 49, 49), None, 2)
+
+
+@pytest.mark.parametrize("C,H", [(64, 2), (64, 1), (128, 4), (256, 4),
+                                 (256, 8), (512, 8), (768, 12)])
+def test_attn_block_route_by_dtype_and_head_width(C, H):
+    """fp32 keeps the FMA kernels at every width; bf16 takes the tensor
+    cores at d_head 32 and 64."""
+    assert C // H in attn_block.HEAD_DIMS
+    assert attn_block.attn_block_route(torch.float32, C, H) == "fma"
+    assert attn_block.attn_block_route(torch.bfloat16, C, H) == "tc"
+
+
+@pytest.mark.parametrize("C,H", [(64, 4), (256, 2), (256, 3), (96, 0)])
+def test_attn_block_route_refuses_other_head_widths(C, H):
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="d_head"):
+            attn_block.attn_block_route(dt, C, H)
+
+
+@pytest.mark.parametrize("C,dh", [(64, 32), (256, 64), (256, 32)])
+def test_attn_block_tc_smem_within_the_card(C, dh):
+    """Each tensor-core kernel's shared memory fits a block's 227 KB at the
+    widths the backward is built for, and the projection backward (the
+    largest, 109 KB at C = 256) and the projection fit two blocks in an
+    SM's 228 KB (1 KB of it reserved per block), as their launch bounds
+    ask."""
+    table = attn_block.tc_smem_bytes(C, dh)
+    assert set(table) == set(attn_block.TC_KERNELS)
+    assert all(0 < v <= 232448 for v in table.values())
+    for name in ("block_ln_bwd_tc_kernel", "block_qkv_tc_kernel"):
+        assert 2 * (table[name] + 1024) <= 233472, name
+    if C == 256:
+        assert table["block_ln_bwd_tc_kernel"] == 111616
+    assert table["block_attn_tc_kernel"] == 5 * 2 * 64 * (dh + 8)
+
+
+def test_attn_block_wrapper_refuses_before_the_card():
+    """A 3-D block mask, a head width no kernel is built for and weights
+    of the wrong shape are refused in the wrapper, on any device."""
+    B, L, C = 2, 70, 64
+    x = torch.zeros(B, L, C, dtype=torch.bfloat16)
+    gamma, beta = torch.ones(C), torch.zeros(C)
+    w, b = torch.zeros(C, 3 * C), torch.zeros(3 * C)
+    with pytest.raises(NotImplementedError, match="3-D"):
+        attn_block.cuda_attn_block(x, gamma, beta, w, b,
+                                   torch.zeros(B, L, L, dtype=torch.bool),
+                                   4.0, 2)
+    with pytest.raises(ValueError, match="d_head"):
+        attn_block.cuda_attn_block(x, gamma, beta, w, b, None, 4.0, 4)
+    with pytest.raises(ValueError, match="qkv weights"):
+        attn_block.cuda_attn_block(x, gamma, beta, w[:, :C], b, None, 4.0, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        attn_block.cuda_attn_block(x, gamma, beta, w, b, None, 4.0, 2)
