@@ -57,14 +57,19 @@ Phases, each raising on failure (nothing is caught):
      (fp32 and bf16, dropout 0.1); not timed.
   9. attention: the masked attention of the cross-modal layers, its lean
      form, its training form and its backward, against autograd of the
-     plain version in fp32 and bf16: at both cross shapes ([64, 24] queries
-     against [64, 128] keys with the txt key mask, and back with the vslt
-     key mask) and at small shapes with no mask, a key mask with padding
-     mid-sequence, an all-masked sample, a block mask and a
-     self-attention with dead q tiles (compared on live rows). Median
-     kernel and plain ms, the bound, and the library column at the cross
-     shapes: one scaled_dot_product_attention call on the same inputs,
-     and its backward (autograd.grad of that call).
+     plain version in fp32 (the FMA route) and bf16 (the tensor-core
+     route): at both cross shapes ([64, 24] queries against [64, 128]
+     keys with the txt key mask, and back with the vslt key mask) and at
+     small shapes with no mask, a key mask with padding mid-sequence, an
+     all-masked sample, a block mask, a self-attention with dead q tiles
+     (compared on live rows) and the tile loop's edges (5 queries against
+     300 keys, 130 against 7). Median kernel and plain ms (CUDA events
+     around the call, host work included), the bound, and the library
+     column at the cross shapes: one scaled_dot_product_attention call on
+     the same inputs, and its backward (autograd.grad of that call); then
+     the profiler's device ms per call of each form and of the library
+     calls (the rest of the event time is the host's), and the kernels
+     the calls launched, which must be the dtype's route's.
   10. cross transformer eval: cross_transformer_txt_vslt (carryforward
      vslt + BioBERT notes, full width, bf16) as phase 4: launch counts,
      probabilities against the plain path in bf16 and fp32, ms/step in
@@ -79,8 +84,9 @@ Phases, each raising on failure (nothing is caught):
      (x [65536, 256], W [256, 384]) and at the single-device width (W
      [256, 768]), the plain form at [65536, 256] x [256, 768] beside
      torch.addmm; block flags from TIE lengths. Phase 9 also runs the
-     attention at the tensor-parallel self shape ([64, 1024, 2, 64] with
-     the TIE key mask) beside scaled_dot_product_attention.
+     attention at the tensor-parallel self shapes of the three streams
+     ([64, L, 2, 64], L = 1024 with the TIE key mask, 133, 54) beside
+     scaled_dot_product_attention.
   13. tensor parallelism: config 4 under --mp-size 2 --dp-size 1 in two
      ranks (parallel.launch) that share the one card over gloo, weights
      seeded as the single-process run: eval probabilities against the
@@ -260,7 +266,9 @@ TENSOR_CORE_KERNELS = ("swin_fused_kernel", "window_attn_tc_kernel",
                        "gemm_bf16_kernel", "ffn_bwd_tc_kernel",
                        "wgrad_tc_kernel", "block_qkv_tc_kernel",
                        "block_attn_tc_kernel", "block_dkv_tc_kernel",
-                       "block_dq_tc_kernel", "block_ln_bwd_tc_kernel")
+                       "block_dq_tc_kernel", "block_ln_bwd_tc_kernel",
+                       "attention_fwd_tc_kernel", "attention_dkv_tc_kernel",
+                       "attention_dq_tc_kernel")
 # swin_attention launches per config-4 step at each stage, with and without
 # the shift mask (Swin-T's depths 2/2/6/2 alternate unshifted and shifted
 # blocks; stage 4, one window per image, has no shift)
@@ -341,6 +349,32 @@ def _median_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _dev_us(e) -> float:
+    """A profiler event's own device time (us)."""
+    v = getattr(e, "self_device_time_total", None)
+    return v if v is not None else getattr(e, "self_cuda_time_total", 0)
+
+
+def _device_ms(fn, reps: int = 10):
+    """torch.profiler over ``reps`` calls of ``fn`` after a warm-up: the
+    device time of what they launched (kernels, copies) per call, and the
+    names of the kernels. Beside the CUDA-event time around a call, it
+    shows how much of that is the host's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+    return (sum(_dev_us(e) for e in events) / reps / 1e3,
+            sorted(e.key for e in events))
 
 
 def _bound(nbytes: float, flops: float, dt) -> dict:
@@ -830,10 +864,12 @@ CROSS_SHAPES = (("cross_v", 24, 128, "txt"), ("cross_o", 128, 24, "vslt"))
 # mask)
 TP_SELF = (("tp_self", 1024, "tie"), ("tp_txt", 133, "txt_self"),
            ("tp_img", 54, "img_self"))
-# small shapes: (B, H, Lq, Lk, d_head, mask form)
+# small shapes: (B, H, Lq, Lk, d_head, mask form), the tile loop's edges
+# (Lq < 16, Lk < 16) last
 ATTN_SMALL = ((3, 2, 54, 54, 32, "none"), (3, 2, 130, 130, 32, "noncontig"),
               (3, 2, 40, 100, 32, "all_masked"),
-              (2, 2, 130, 70, 32, "block"), (3, 2, 300, 300, 64, "self"))
+              (2, 2, 130, 70, 32, "block"), (3, 2, 300, 300, 64, "self"),
+              (3, 2, 5, 300, 32, "noncontig"), (3, 2, 130, 7, 32, "block"))
 
 
 def _attention_case(g, dev, B, H, Lq, Lk, D, kind):
@@ -898,6 +934,49 @@ def _attention_work(q, k, mask, is_self, backward=False):
     return 2 * _nbytes(q) + 2 * _nbytes(k) + _nbytes(mask), 4.0 * H * D * pairs
 
 
+# the kernels each route of the masked attention launches (forward and
+# backward; kernels/attention.py::attention_route picks the route)
+ATTN_ROUTE_KERNELS = {
+    "tc": ("attention_fwd_tc_kernel", "attention_delta_kernel",
+           "attention_dkv_tc_kernel", "attention_dq_tc_kernel"),
+    "fma": ("attention_fwd_kernel", "attention_dkv_kernel",
+            "attention_dq_kernel")}
+
+
+def _attention_device(tag, dt, fwd, inputs, cot, library) -> dict:
+    """Profiler device ms per call of the attention's lean form, training
+    form and backward (and of the library's forward and backward), to set
+    beside the CUDA-event times around the calls: the rest is the host's.
+    Raises unless the calls launched every kernel of the dtype's route and
+    none of the other route's."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.attention import \
+        attention_route
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    with torch.inference_mode():
+        lean, names = _device_ms(lambda: fwd(*inputs))
+    train, more = _device_ms(lambda: fwd(*leaves))
+    names += more
+    out = fwd(*leaves)
+    bwd, more = _device_ms(lambda: torch.autograd.grad(
+        out, leaves, cot, retain_graph=True))
+    names += more
+    route = attention_route(dt, inputs[0].shape[-1])
+    launched = {k for ks in ATTN_ROUTE_KERNELS.values() for k in ks
+                if any(k in n for n in names)}
+    lib = ((None, None) if library is None else
+           (_device_ms(library[0])[0], _device_ms(library[1])[0]))
+    prec = "bf16" if dt == torch.bfloat16 else "fp32"
+    lib_txt = ("" if library is None else
+               f"; library {lib[0]:.4f} / {lib[1]:.4f}")
+    print(f"device {tag} {prec}: lean {lean:.4f} ms, training {train:.4f}, "
+          f"backward {bwd:.4f}{lib_txt} (profiler); route {route}: "
+          f"{' '.join(sorted(launched))}")
+    if launched != set(ATTN_ROUTE_KERNELS[route]):
+        raise AssertionError(f"{tag} {prec}: launched {sorted(launched)}, "
+                             f"not the {route} route's kernels")
+    return {"lean": lean, "train": train, "bwd": bwd, "library": lib}
+
+
 def compare_attention_kernels() -> dict:
     """The masked attention against its plain version: the lean form, the
     training form and the backward, fp32 and bf16, at the cross-modal
@@ -950,6 +1029,13 @@ def compare_attention_kernels() -> dict:
                 _attention_work(qd, kd, mask, is_self),
                 _attention_work(qd, kd, mask, is_self, backward=True),
                 library=library)
+            dres = _attention_device(
+                tag, dt, lambda *a: ops.attention(*a, mask, D ** .5, is_self),
+                (qd, kd, vd), cot, library)
+            for res, form, i in ((r, "lean", 0), (fr, "train", 0),
+                                 (br, "bwd", 1)):
+                res["device_ms"] = dres[form]
+                res["library_device_ms"] = dres["library"][i]
             shape = f"q[{B},{Lq},{H},{D}] kv[{B},{Lk},{H},{D}]"
             key = {"cross_v": "attention", "tp_self": "attention_tp"}.get(
                 name)
@@ -1103,14 +1189,11 @@ def _profile_step(name, trainer, batch, power: str,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        v = getattr(e, "self_device_time_total", None)
-        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
-
     # device events only (kernels, copies); the CPU ops that launched
     # them would count their time twice
-    items = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+    items = sorted(((_dev_us(e), e.count, e.key)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and _dev_us(e) > 0),
                    reverse=True)
     total = sum(t for t, _, _ in items) / 1e3
     kind = "train" if train else "eval"
@@ -1591,20 +1674,16 @@ def _profile_tp_step(trainer, batch, rank: int) -> dict:
         dist.all_reduce, dist.all_gather = plain
     events = prof.key_averages()
 
-    def dev_us(e):
-        v = getattr(e, "self_device_time_total", None)
-        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
-
-    busy = sum(dev_us(e) for e in events
+    busy = sum(_dev_us(e) for e in events
                if e.device_type == DeviceType.CUDA) / 1e3
-    copies = sum(dev_us(e) for e in events if e.device_type ==
+    copies = sum(_dev_us(e) for e in events if e.device_type ==
                  DeviceType.CUDA and "Memcpy" in e.key) / 1e3
     return {"wall_ms": wall, "busy_ms": busy,
             "blocked_ms": blocked["s"] * 1e3, "blocked_calls":
             blocked["calls"], "copy_ms": copies,
-            "top": sorted(((dev_us(e) / 1e3, e.count, e.key) for e in events
+            "top": sorted(((_dev_us(e) / 1e3, e.count, e.key) for e in events
                            if e.device_type == DeviceType.CUDA
-                           and dev_us(e) > 0), reverse=True)[:12]}
+                           and _dev_us(e) > 0), reverse=True)[:12]}
 
 
 def run_tp(power: str) -> dict:

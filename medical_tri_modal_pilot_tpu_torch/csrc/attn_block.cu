@@ -16,7 +16,7 @@
 // launches. Two routes, picked by dtype (kernels/attn_block.py route):
 //
 //   tc (bf16): on the tensor cores (mma.sync m16n8k16, fp32 accumulate;
-//     helpers in mma.cuh, attn_block_tc.cuh):
+//     helpers in mma.cuh, flash_tc.cuh, attn_block_tc.cuh):
 //     1. block_qkv_tc_kernel: one block per 64-row tile that starts
 //        before the sample's last valid key: x staged by cp.async, StdLN
 //        in fp32 rounded to bf16 in place as the A operand, W streamed in
@@ -24,14 +24,15 @@
 //        round(round(acc) + bias) into a [B, L, 3C] scratch. The
 //        backward's recompute launches it too.
 //     2. block_attn_tc_kernel: one block per (64-row q tile, head,
-//        sample), warp w owning q rows 16 w .. + 15: q staged once, k
-//        and v tiles in a two-stage cp.async ring up to the last valid
-//        key; S = Q K^T on the tensor cores, the key mask as 64-bit rows
-//        by ballot, the online softmax on the accumulator fragments in
-//        fp32, P rounded to bf16 (as the TPU kernel casts p to v's
-//        dtype) straight from the C fragments into the A fragments of
-//        P V (V through ldmatrix.trans); the epilogue divides by l,
-//        rounds and adds the residual.
+//        sample), warp w owning q rows 16 w .. + 15, through the flash
+//        loop it shares with attention.cu (flash_tc.cuh::flash_fwd_tile
+//        at row stride 3C): q staged once, k and v tiles in a two-stage
+//        cp.async ring up to the last valid key; S = Q K^T on the tensor
+//        cores, the key mask as 64-bit rows by ballot, the online softmax
+//        on the accumulator fragments in fp32, P rounded to bf16 (as the
+//        TPU kernel casts p to v's dtype) straight from the C fragments
+//        into the A fragments of P V (V through ldmatrix.trans); the
+//        epilogue divides by l, rounds and adds the residual.
 //   fma (fp32, the checking dtype): fp32 FMAs on 4 x 4 register tiles,
 //     exact to the fp32 oracle:
 //     1. proj_kernel: StdLN + the k|v projection into a [B, L, 2C]
@@ -375,20 +376,19 @@ __global__ void __launch_bounds__(kProjThreads, 2) block_qkv_tc_kernel(
 }
 
 // out = x + MHA for head h's columns of one 64-row q tile, from qkv
-// [B, L, 3C]. TRAIN: also attn [B, L, C] (the pre-residual output) and
-// stats [B, H, L, 2] (the row max m of the scaled scores and l of
-// exp(s - m), floored at 1e-30) of the tile's rows. Dead q tiles copy
-// the residual. grid (ceil(L/64), H, B), kTcThreads threads.
+// [B, L, 3C] (flash_tc.cuh's forward loop at row stride 3C). TRAIN: also
+// attn [B, L, C] (the pre-residual output) and stats [B, H, L, 2] (the row
+// max m of the scaled scores and l of exp(s - m), floored at 1e-30) of the
+// tile's rows. Dead q tiles copy the residual. grid (ceil(L/64), H, B),
+// kTcThreads threads.
 template <int DH, bool TRAIN>
 __global__ void __launch_bounds__(kTcThreads) block_attn_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ qkv,
     const int8_t* __restrict__ mask, const int* __restrict__ kend,
     bf16* __restrict__ out, bf16* __restrict__ attn,
     float* __restrict__ stats, int L, int C, float mult) {
-  constexpr int LD = pitch(DH), TILE = kTile * LD, ND = DH / 8;
+  constexpr int ND = DH / 8;
   extern __shared__ __align__(16) unsigned char attn_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(attn_smem);  // [64][LD]
-  bf16* kvs = qs + TILE;                           // [2][k, v][64][LD]
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -403,114 +403,11 @@ __global__ void __launch_bounds__(kTcThreads) block_attn_tc_kernel(
     }
     return;
   }
-  const int N = 3 * C, nkt = (ke + kTile - 1) / kTile;
-  const bf16* qb = qkv + (size_t)b * L * N;
-  const int8_t* mb = mask + (size_t)b * L;
-  stage_head<DH>(qs, qb, q0, L, N, col0, tid);
-  stage_head<DH>(kvs, qb, 0, L, N, C + col0, tid);
-  stage_head<DH>(kvs + TILE, qb, 0, L, N, 2 * C + col0, tid);
-  cp_async_commit();
-  uint32_t qf[DH / 16][4];
-  float o[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
-  // rows g and g + 8 of the warp's 16
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  for (int kt = 0; kt < nkt; ++kt) {
-    cp_async_wait<0>();
-    // tile kt has landed; every warp is done with tile kt - 1
-    __syncthreads();
-    if (kt + 1 < nkt) {
-      bf16* nxt = kvs + ((kt + 1) & 1) * 2 * TILE;
-      stage_head<DH>(nxt, qb, (kt + 1) * kTile, L, N, C + col0, tid);
-      stage_head<DH>(nxt + TILE, qb, (kt + 1) * kTile, L, N, 2 * C + col0,
-                     tid);
-    }
-    cp_async_commit();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        ldsm_x4(qf[kk], frag_a(qs, LD, 16 * warp, 16 * kk, lane));
-    }
-    const bf16* ks = kvs + (kt & 1) * 2 * TILE;
-    const bf16* vs = ks + TILE;
-    uint64_t mbits, pbits;
-    key_bits(mb, kt * kTile, L, lane, mbits, pbits);
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4];
-        ldsm_x4(bk, frag_b_nk(ks, LD, 16 * np, 16 * kk, lane));
-        mma16816(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-      }
-    // the lane's columns are 8 j + 2 t + (e & 1): shift the mask rows
-    // once so that each score tests a bit at a constant position
-    mbits >>= 2 * t;
-    pbits >>= 2 * t;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int bit = 8 * j + (e & 1);
-        const float v = ((pbits >> bit) & 1) ? -INFINITY
-                        : ((mbits >> bit) & 1) ? kMaskFill
-                                               : s[j][e] * mult;
-        s[j][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    float alpha[2], rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      alpha[hh] = __expf(m[hh] - mx[hh]);  // 0 at the first tile
-      m[hh] = mx[hh];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = __expf(s[j][e] - m[e >> 1]);
-        rs[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
-      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
-      l[hh] = l[hh] * alpha[hh] + rs[hh];
-    }
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-    // O += P V, P rounded to bf16 from the C fragments
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t bv[4];
-        ldsm_x4_t(bv, frag_b_kn(vs, LD, 16 * kk, 16 * dp, lane));
-        mma16816(o[2 * dp], a, bv[0], bv[1]);
-        mma16816(o[2 * dp + 1], a, bv[2], bv[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
+  const int N = 3 * C;
+  const bf16* qb = qkv + (size_t)b * L * N + col0;
+  float o[ND][4], m[2], l[2];
+  flash_fwd_tile<DH>(attn_smem, qb, N, qb + C, qb + 2 * C, N, q0, L, L, ke,
+                     KeyMask{mask + (size_t)b * L, L}, mult, o, m, l);
   const int H = gridDim.y;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {

@@ -16,7 +16,8 @@
 // rows into [B, L, 3C]. Two routes, picked by dtype:
 //
 //   tc (bf16), every product on the tensor cores (mma.sync m16n8k16, fp32
-//   accumulate; attn_block_tc.cuh):
+//   accumulate; attn_block_tc.cuh; the dK/dV and dQ loops are
+//   flash_tc.cuh's, shared with attention.cu):
 //     block_delta_kernel: delta = rowsum(dO * O) per row and head, once,
 //       into fp32 [B, H, L] (FlashAttention-2's backward preprocess);
 //     block_dkv_tc_kernel: one block per (64-key tile, head, sample),
@@ -508,50 +509,25 @@ __global__ void __launch_bounds__(kThreads) block_delta_kernel(
     int H) {
   const int b = blockIdx.y, r0 = blockIdx.x * kTile;
   if (r0 >= kend[b]) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rows = min(kTile, L - r0);
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    const size_t row = (size_t)b * L + r0 + r;
-    for (int c0 = 0; c0 < C; c0 += 256) {
-      const int c = c0 + lane * 8;
-      float s = 0.0f;
-      if (c < C) {
-        const uint4 a = *reinterpret_cast<const uint4*>(dy + row * C + c);
-        const uint4 o = *reinterpret_cast<const uint4*>(attn + row * C + c);
-        const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
-        const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&o);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float2 af = __bfloat1622float2(ap[k]);
-          const float2 of = __bfloat1622float2(op[k]);
-          s += af.x * of.x + af.y * of.y;
-        }
-      }
-      // the DH / 8 lanes of one head
-#pragma unroll
-      for (int off = 1; off < DH / 8; off <<= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (c < C && (lane & (DH / 8 - 1)) == 0)
-        delta[((size_t)b * H + c / DH) * L + r0 + r] = s;
-    }
-  }
+  const size_t base = (size_t)b * L * C;
+  delta_rows<DH, kThreads / 32>(dy + base, attn + base,
+                                delta + (size_t)b * H * L, r0,
+                                min(kTile, L - r0), L, C, threadIdx.x >> 5,
+                                threadIdx.x & 31);
 }
 
-// dK and dV of head h for one 64-key tile: dk, dv rounded to bf16 into
-// dqkv[:, :, C:3C] (zeros for tiles that start past kend[b]). grid
-// (ceil(L/64), H, B), kTcThreads threads; warp w owns keys 16 w .. + 15.
+// dK and dV of head h for one 64-key tile (flash_tc.cuh's dK/dV loop at
+// row stride 3C): dk, dv rounded to bf16 into dqkv[:, :, C:3C] (zeros for
+// tiles that start past kend[b]). grid (ceil(L/64), H, B), kTcThreads
+// threads; warp w owns keys 16 w .. + 15.
 template <int DH>
 __global__ void __launch_bounds__(kTcThreads, 3) block_dkv_tc_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ dy,
     const float* __restrict__ stats, const float* __restrict__ delta,
     const int8_t* __restrict__ mask, const int* __restrict__ kend,
     bf16* __restrict__ dqkv, int L, int C, float mult) {
-  constexpr int LD = pitch(DH), TILE = kTile * LD, ND = DH / 8;
+  constexpr int ND = DH / 8;
   extern __shared__ __align__(16) unsigned char dkv_smem[];
-  bf16* ks = reinterpret_cast<bf16*>(dkv_smem);  // [64][LD]
-  bf16* vs = ks + TILE;
-  bf16* ring = vs + TILE;                         // [2][q, dO][64][LD]
-  float* rowv = reinterpret_cast<float*>(ring + 4 * TILE);  // [2][3][64]
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kTile;
   const int H = gridDim.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -568,153 +544,13 @@ __global__ void __launch_bounds__(kTcThreads, 3) block_dkv_tc_kernel(
     }
     return;
   }
-  const bf16* qb = qkv + (size_t)b * L * N;
-  const bf16* dyb = dy + (size_t)b * L * C;
-  const float* stb = stats + ((size_t)b * H + h) * L * 2;
-  const float* dlb = delta + ((size_t)b * H + h) * L;
-  const int nqt = (ke + kTile - 1) / kTile;
-  stage_head<DH>(ks, qb, k0, L, N, C + col0, tid);
-  stage_head<DH>(vs, qb, k0, L, N, 2 * C + col0, tid);
-  stage_head<DH>(ring, qb, 0, L, N, col0, tid);
-  stage_head<DH>(ring + TILE, dyb, 0, L, C, col0, tid);
-  cp_async_commit();
-  // the rows' m, 1 / l and delta of q tile qt (rows past L: p is 0)
-  float rm = 0.0f, ril = 1.0f, rdl = 0.0f;
-  auto row_scalars = [&](int qt) {
-    const int q = qt * kTile + tid;
-    rm = 0.0f, ril = 1.0f, rdl = 0.0f;
-    if (tid < kTile && q < L) {
-      const float2 ml = *reinterpret_cast<const float2*>(stb + (size_t)q * 2);
-      rm = ml.x;
-      ril = 1.0f / ml.y;
-      rdl = dlb[q];
-    }
-  };
-  auto put_scalars = [&](int st) {
-    if (tid < kTile) {
-      rowv[st * 3 * kTile + tid] = rm;
-      rowv[st * 3 * kTile + kTile + tid] = ril;
-      rowv[st * 3 * kTile + 2 * kTile + tid] = rdl;
-    }
-  };
-  row_scalars(0);
-  put_scalars(0);
-  // the flags of the lane's keys 16 w + g and + 8: 0 live, 1 masked, 2
-  // past the array end
-  int fl[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int key = k0 + 16 * warp + g + 8 * hh;
-    fl[hh] = key >= L ? 2 : (mask[(size_t)b * L + key] != 0 ? 1 : 0);
-  }
-  uint32_t vf[DH / 16][4];
+  const bf16* qb = qkv + (size_t)b * L * N + col0;
+  const size_t bh = (size_t)b * H + h;
   float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.0f;
-  for (int qt = 0; qt < nqt; ++qt) {
-    const int st = qt & 1;
-    cp_async_wait<0>();
-    // q tile qt has landed with its scalars; every warp is done with tile
-    // qt - 1, whose stage is refilled next
-    __syncthreads();
-    if (qt + 1 < nqt) {
-      bf16* nxt = ring + (st ^ 1) * 2 * TILE;
-      stage_head<DH>(nxt, qb, (qt + 1) * kTile, L, N, col0, tid);
-      stage_head<DH>(nxt + TILE, dyb, (qt + 1) * kTile, L, C, col0, tid);
-      row_scalars(qt + 1);
-    }
-    cp_async_commit();
-    if (qt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        ldsm_x4(vf[kk], frag_a(vs, LD, 16 * warp, 16 * kk, lane));
-    }
-    const bf16* qs = ring + st * 2 * TILE;
-    const bf16* dos = qs + TILE;
-    const float* rv = rowv + st * 3 * kTile;
-    const int q0 = qt * kTile;
-    // S^T = K Q^T: 16 keys x 64 q rows per warp
-    float sT[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sT[j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t kf[4];
-      ldsm_x4(kf, frag_a(ks, LD, 16 * warp, 16 * kk, lane));
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bq[4];
-        ldsm_x4(bq, frag_b_nk(qs, LD, 16 * np, 16 * kk, lane));
-        mma16816(sT[2 * np], kf, bq[0], bq[1]);
-        mma16816(sT[2 * np + 1], kf, bq[2], bq[3]);
-      }
-    }
-    // P^T in place (attn_block.py:428-447): key 16 w + g + 8 (e >> 1), q
-    // row 8 j + 2 t + (e & 1)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = 8 * j + 2 * t + (e & 1), f = fl[e >> 1];
-        float p = 0.0f;
-        if (f != 2 && q0 + qc < L) {
-          const float sc = f == 1 ? kMaskFill : sT[j][e] * mult;
-          p = __expf(sc - rv[qc]) * rv[kTile + qc];
-        }
-        sT[j][e] = p;
-      }
-    // per block of 16 q rows: dP^T = V dO^T, dS^T, then dV += P^T dO and
-    // dK += dS^T Q with P^T and dS^T rounded to bf16
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      float dpt[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dpt[jj][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        uint32_t bo[4];
-        ldsm_x4(bo, frag_b_nk(dos, LD, 16 * np, 16 * kk, lane));
-        mma16816(dpt[0], vf[kk], bo[0], bo[1]);
-        mma16816(dpt[1], vf[kk], bo[2], bo[3]);
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = 8 * (2 * np + jj) + 2 * t + (e & 1);
-          dpt[jj][e] = fl[e >> 1] == 0
-              ? sT[2 * np + jj][e] * (dpt[jj][e] - rv[2 * kTile + qc]) * mult
-              : 0.0f;
-        }
-      uint32_t pa[4], da[4];
-      pa[0] = pack_bf16(sT[2 * np][0], sT[2 * np][1]);
-      pa[1] = pack_bf16(sT[2 * np][2], sT[2 * np][3]);
-      pa[2] = pack_bf16(sT[2 * np + 1][0], sT[2 * np + 1][1]);
-      pa[3] = pack_bf16(sT[2 * np + 1][2], sT[2 * np + 1][3]);
-      da[0] = pack_bf16(dpt[0][0], dpt[0][1]);
-      da[1] = pack_bf16(dpt[0][2], dpt[0][3]);
-      da[2] = pack_bf16(dpt[1][0], dpt[1][1]);
-      da[3] = pack_bf16(dpt[1][2], dpt[1][3]);
-#pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t bo[4], bq[4];
-        ldsm_x4_t(bo, frag_b_kn(dos, LD, 16 * np, 16 * dp, lane));
-        mma16816(dv[2 * dp], pa, bo[0], bo[1]);
-        mma16816(dv[2 * dp + 1], pa, bo[2], bo[3]);
-        ldsm_x4_t(bq, frag_b_kn(qs, LD, 16 * np, 16 * dp, lane));
-        mma16816(dk[2 * dp], da, bq[0], bq[1]);
-        mma16816(dk[2 * dp + 1], da, bq[2], bq[3]);
-      }
-    }
-    if (qt + 1 < nqt) put_scalars(st ^ 1);
-  }
-  cp_async_wait<0>();
+  flash_dkv_tile<DH>(dkv_smem, qb, N, qb + C, qb + 2 * C, N,
+                     dy + (size_t)b * L * C + col0, C, stats + bh * L * 2,
+                     delta + bh * L, k0, L, L, ke,
+                     KeyMask{mask + (size_t)b * L, L}, mult, dk, dv);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int key = k0 + 16 * warp + g + 8 * hh;
@@ -730,20 +566,18 @@ __global__ void __launch_bounds__(kTcThreads, 3) block_dkv_tc_kernel(
   }
 }
 
-// dQ of head h for one 64-row q tile, rounded to bf16 into dqkv[:, :, 0:C]
-// (zeros for tiles that start past kend[b]). grid (ceil(L/64), H, B),
-// kTcThreads threads; warp w owns q rows 16 w .. + 15.
+// dQ of head h for one 64-row q tile (flash_tc.cuh's dQ loop at row
+// stride 3C), rounded to bf16 into dqkv[:, :, 0:C] (zeros for tiles that
+// start past kend[b]). grid (ceil(L/64), H, B), kTcThreads threads; warp w
+// owns q rows 16 w .. + 15.
 template <int DH>
 __global__ void __launch_bounds__(kTcThreads, 4) block_dq_tc_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ dy,
     const float* __restrict__ stats, const float* __restrict__ delta,
     const int8_t* __restrict__ mask, const int* __restrict__ kend,
     bf16* __restrict__ dqkv, int L, int C, float mult) {
-  constexpr int LD = pitch(DH), TILE = kTile * LD, ND = DH / 8;
+  constexpr int ND = DH / 8;
   extern __shared__ __align__(16) unsigned char dq_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(dq_smem);  // [64][LD]
-  bf16* dos = qs + TILE;
-  bf16* ring = dos + TILE;                       // [2][k, v][64][LD]
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
   const int H = gridDim.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -759,110 +593,17 @@ __global__ void __launch_bounds__(kTcThreads, 4) block_dq_tc_kernel(
     }
     return;
   }
-  const bf16* qb = qkv + (size_t)b * L * N;
-  const int8_t* mb = mask + (size_t)b * L;
-  const int nkt = (ke + kTile - 1) / kTile;
-  stage_head<DH>(qs, qb, q0, L, N, col0, tid);
-  stage_head<DH>(dos, dy + (size_t)b * L * C, q0, L, C, col0, tid);
-  stage_head<DH>(ring, qb, 0, L, N, C + col0, tid);
-  stage_head<DH>(ring + TILE, qb, 0, L, N, 2 * C + col0, tid);
-  cp_async_commit();
-  // m, 1 / l and delta of the lane's rows 16 w + g and + 8
-  float rm[2], ril[2], rdl[2];
-  bool qv[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int q = q0 + 16 * warp + g + 8 * hh;
-    qv[hh] = q < L;
-    rm[hh] = 0.0f, ril[hh] = 1.0f, rdl[hh] = 0.0f;
-    if (qv[hh]) {
-      const float2 ml = *reinterpret_cast<const float2*>(
-          stats + (((size_t)b * H + h) * L + q) * 2);
-      rm[hh] = ml.x;
-      ril[hh] = 1.0f / ml.y;
-      rdl[hh] = delta[((size_t)b * H + h) * L + q];
-    }
-  }
-  uint32_t qf[DH / 16][4], of[DH / 16][4];
+  const bf16* qb = qkv + (size_t)b * L * N + col0;
+  const size_t bh = (size_t)b * H + h;
   float dq[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.0f;
-  for (int kt = 0; kt < nkt; ++kt) {
-    cp_async_wait<0>();
-    __syncthreads();
-    if (kt + 1 < nkt) {
-      bf16* nxt = ring + ((kt + 1) & 1) * 2 * TILE;
-      stage_head<DH>(nxt, qb, (kt + 1) * kTile, L, N, C + col0, tid);
-      stage_head<DH>(nxt + TILE, qb, (kt + 1) * kTile, L, N, 2 * C + col0,
-                     tid);
-    }
-    cp_async_commit();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        ldsm_x4(qf[kk], frag_a(qs, LD, 16 * warp, 16 * kk, lane));
-        ldsm_x4(of[kk], frag_a(dos, LD, 16 * warp, 16 * kk, lane));
-      }
-    }
-    const bf16* ks = ring + (kt & 1) * 2 * TILE;
-    const bf16* vs = ks + TILE;
-    uint64_t mbits, pbits;
-    key_bits(mb, kt * kTile, L, lane, mbits, pbits);
-    mbits >>= 2 * t;
-    pbits >>= 2 * t;
-    // per block of 16 keys: S = Q K^T and dP = dO V^T (16 q rows x 16
-    // keys per warp), dS, then dQ += dS K with dS rounded to bf16 (K
-    // through ldmatrix.trans)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(bk, frag_b_nk(ks, LD, 16 * np, 16 * kk, lane));
-        mma16816(s[0], qf[kk], bk[0], bk[1]);
-        mma16816(s[1], qf[kk], bk[2], bk[3]);
-        ldsm_x4(bv, frag_b_nk(vs, LD, 16 * np, 16 * kk, lane));
-        mma16816(dp[0], of[kk], bv[0], bv[1]);
-        mma16816(dp[1], of[kk], bv[2], bv[3]);
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int bit = 8 * (2 * np + jj) + (e & 1), hh = e >> 1;
-          float ds = 0.0f;
-          if (!((pbits >> bit) & 1) && qv[hh] && !((mbits >> bit) & 1)) {
-            const float p = __expf(s[jj][e] * mult - rm[hh]) * ril[hh];
-            ds = p * (dp[jj][e] - rdl[hh]) * mult;
-          }
-          s[jj][e] = ds;
-        }
-      uint32_t da[4];
-      da[0] = pack_bf16(s[0][0], s[0][1]);
-      da[1] = pack_bf16(s[0][2], s[0][3]);
-      da[2] = pack_bf16(s[1][0], s[1][1]);
-      da[3] = pack_bf16(s[1][2], s[1][3]);
-#pragma unroll
-      for (int dd = 0; dd < DH / 16; ++dd) {
-        uint32_t bk[4];
-        ldsm_x4_t(bk, frag_b_kn(ks, LD, 16 * np, 16 * dd, lane));
-        mma16816(dq[2 * dd], da, bk[0], bk[1]);
-        mma16816(dq[2 * dd + 1], da, bk[2], bk[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
+  flash_dq_tile<DH>(dq_smem, qb, N, qb + C, qb + 2 * C, N,
+                    dy + (size_t)b * L * C + col0, C, stats + bh * L * 2,
+                    delta + bh * L, q0, L, L, ke,
+                    KeyMask{mask + (size_t)b * L, L}, mult, dq);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    if (!qv[hh]) continue;
     const int q = q0 + 16 * warp + g + 8 * hh;
+    if (q >= L) continue;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
       *reinterpret_cast<uint32_t*>(db + (size_t)q * N + col0 + 8 * j + 2 * t) =

@@ -65,12 +65,14 @@ _SIGNATURES = {
     "swin_mlp_fwd": [_P] * 10 + [_I] * 4 + [_P],
     # C -> 1 where swin_mlp_fwd runs it fused
     "swin_mlp_fuses": [_I],
-    # q, k, v, mask, kend, out, stats, B, Lq, Lk, H, dh, mode, is_self,
-    # mult, dtype, stream
-    "attention_fwd": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
-    # q, k, v, out, stats, dout, mask, kend, dq, dk, dv, B, Lq, Lk, H, dh,
+    # q, k, v, mask, out, stats, B, Lq, Lk, H, dh, mode, is_self, mult,
+    # dtype, stream
+    "attention_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, out, stats, dout, mask, delta, dq, dk, dv, B, Lq, Lk, H, dh,
     # mode, is_self, mult, dtype, stream
     "attention_bwd": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    # kernel, dh -> shared-memory bytes of a tensor-core kernel
+    "attention_tc_smem": [_I] * 2,
     # x, gamma, beta, w, b, valid, out0, out1, out2, R, Cin, Cout, Cs, ln,
     # dtype, stream
     "rowmm_fwd": [_P] * 9 + [_I] * 6 + [_P],

@@ -17,10 +17,10 @@ import torch
 
 from . import _build
 from ._util import count, dtype_code, needs_grad, stream
+from .attention import HEAD_DIMS
+from .attention import tc_smem_bytes as flash_smem_bytes
 from .wgrad import col_sum, wgrad
 
-# the head widths the kernels are built for
-HEAD_DIMS = (32, 64)
 # the widths the backward's projection kernels are built for
 BWD_WIDTHS = (64, 256)
 # the C entry points' kernel numbers of the tensor-core route
@@ -43,21 +43,21 @@ def attn_block_route(dtype: torch.dtype, C: int, H: int) -> str:
 
 def tc_smem_bytes(C: int, d_head: int) -> dict:
     """Shared memory of each tensor-core kernel at width C and head width
-    d_head, as csrc/attn_block_tc.cuh reckons it: bf16 tiles of pitch
-    width + 8, 64-row tiles. The projection: x / StdLN(x) [64][C] and a
-    three-stage W ring [64][128]; the attention forward: q and a two-stage
-    ring of k and v [64][d_head]; dK/dV: k, v and a two-stage ring of q
-    and dO with the rows' fp32 m, 1/l and delta; dQ: q, dO and a ring of
-    k and v; the projection backward: x [64][C], a three-stage ring of
-    a dq|dk|dv chunk [64][32] and a W chunk [C][32], fp32 stats
-    [4][64]."""
+    d_head, as csrc/attn_block_tc.cuh reckons the projections': bf16
+    tiles of pitch width + 8, 64-row tiles. The projection: x / StdLN(x)
+    [64][C] and a three-stage W ring [64][128]; the projection backward:
+    x [64][C], a three-stage ring of a dq|dk|dv chunk [64][32] and a W
+    chunk [C][32], fp32 stats [4][64]. The attention forward, dK/dV and
+    dQ run the flash loops of csrc/flash_tc.cuh, whose bytes
+    attention.tc_smem_bytes reckons."""
     def tile(rows, width):
         return 2 * rows * (width + 8)
+    flash = flash_smem_bytes(d_head)
     return {
         "block_qkv_tc_kernel": tile(64, C) + 3 * tile(64, 128),
-        "block_attn_tc_kernel": 5 * tile(64, d_head),
-        "block_dkv_tc_kernel": 6 * tile(64, d_head) + 4 * 2 * 3 * 64,
-        "block_dq_tc_kernel": 6 * tile(64, d_head),
+        "block_attn_tc_kernel": flash["attention_fwd_tc_kernel"],
+        "block_dkv_tc_kernel": flash["attention_dkv_tc_kernel"],
+        "block_dq_tc_kernel": flash["attention_dq_tc_kernel"],
         "block_ln_bwd_tc_kernel": tile(64, C) + 3 * (tile(64, 32)
                                                     + tile(C, 32))
         + 4 * 4 * 64,

@@ -52,7 +52,8 @@ def _mask(kind, B, Lq, Lk, rng):
 
 
 # (B, H, Lq, Lk, D, mask kind, is_self): the JAX kernel tests' shapes and
-# masks, and the cross-modal layers' [24] x [128] and [128] x [24]
+# masks, the cross-modal layers' [24] x [128] and [128] x [24], and the
+# edge shapes Lq < 16 and Lk < 16
 CASES = [
     (3, 2, 54, 54, 32, "tail", False),
     (2, 4, 130, 130, 64, "tail", False),
@@ -66,6 +67,12 @@ CASES = [
     (3, 4, 24, 128, 64, "tail", False),
     (3, 4, 128, 24, 64, "tail", False),
     (2, 2, 24, 128, 32, "noncontig", False),
+    # the tile loop's edges: fewer queries than a warp's 16 rows, and fewer
+    # keys than 16, each under a key mask and a block mask
+    (3, 2, 5, 300, 32, "tail", False),
+    (3, 2, 5, 300, 32, "block", False),
+    (3, 2, 130, 7, 32, "tail", False),
+    (3, 2, 130, 7, 32, "block", False),
 ]
 
 

@@ -352,11 +352,15 @@ def test_kernels_refuse_block_masks_and_grads(dev):
 # masked attention: (B, H, Lq, Lk, d_head, mask): the cross-modal layers'
 # [24] x [128] keys and back, no mask, a key mask with padding mid-sequence,
 # a sample whose keys are all masked, a block mask, a self-attention whose
-# later q tiles are dead
+# later q tiles are dead, the tile loop's edges (Lq < 16, Lk < 16) under a
+# key mask and a block mask, and the cross shapes at the models' batch
 ATTN_CASES = [(4, 4, 24, 128, 64, "keys"), (4, 4, 128, 24, 64, "keys"),
               (3, 2, 54, 54, 32, "none"), (3, 2, 130, 130, 32, "noncontig"),
               (3, 2, 40, 100, 32, "all_masked"),
-              (2, 2, 130, 70, 32, "block"), (3, 2, 300, 300, 64, "self")]
+              (2, 2, 130, 70, 32, "block"), (3, 2, 300, 300, 64, "self"),
+              (3, 2, 5, 300, 32, "keys"), (3, 2, 5, 300, 32, "block"),
+              (3, 2, 130, 7, 32, "keys"), (3, 2, 130, 7, 32, "block"),
+              (64, 4, 24, 128, 64, "keys"), (64, 4, 128, 24, 64, "keys")]
 
 
 def _attn_case(dev, B, H, Lq, Lk, D, kind, dt, seed):
@@ -418,6 +422,73 @@ def test_attention_training_kernels(dev, B, H, Lq, Lk, D, kind, prec):
     assert ops.launches["attention"] == ops.launches["attention_bwd"] == 1
     torch.testing.assert_close(out[live], ref[live], **TOL[prec])
     _assert_grads_close(grads, ref_grads, prec, ["dq", "dk", "dv"])
+
+
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_attention_takes_its_dtypes_route(dev, prec):
+    """bf16 launches the tensor-core kernels and fp32 the FMA kernels,
+    forward and backward, and nothing else (kernel names in a profiler
+    trace): no library attention."""
+    from torch.profiler import ProfilerActivity, profile
+    from medical_tri_modal_pilot_tpu_torch.kernels.attention import \
+        attention_route
+    dt = PRECS[prec]
+    route = attention_route(dt, 64)
+    assert route == {"bf16": "tc", "fp32": "fma"}[prec]
+    q, k, v, mask, _, _ = _attn_case(dev, 4, 4, 24, 128, 64, "keys", dt,
+                                     seed=12)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = ops.attention(*leaves, mask, 8.0)
+        torch.autograd.grad(out, leaves, torch.ones_like(out))
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if "kernel" in e.key.lower() or "attention" in e.key.lower()]
+    tc = ("attention_fwd_tc_kernel", "attention_delta_kernel",
+          "attention_dkv_tc_kernel", "attention_dq_tc_kernel")
+    fma = ("attention_fwd_kernel", "attention_dkv_kernel",
+           "attention_dq_kernel")
+    want, other = (tc, fma) if route == "tc" else (fma, tc)
+    for kernel in want:
+        assert any(kernel in n for n in names), (kernel, names)
+    for kernel in other:
+        assert not any(kernel in n for n in names), (kernel, names)
+    assert not any("flash" in n.lower() or "fmha" in n.lower()
+                   or "efficient_attention" in n.lower() for n in names)
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D,kind",
+                         [(4, 4, 24, 128, 64, "keys"),
+                          (3, 2, 300, 300, 64, "self"),
+                          (2, 2, 130, 70, 32, "block")])
+def test_attention_backward_is_bit_identical(dev, B, H, Lq, Lk, D, kind):
+    """The bf16 backward (delta pre-pass, dK/dV and dQ passes) repeats bit
+    for bit: no float atomics."""
+    dt = torch.bfloat16
+    q, k, v, mask, is_self, live = _attn_case(dev, B, H, Lq, Lk, D, kind,
+                                              dt, seed=13)
+    g = torch.Generator().manual_seed(14)
+    cot = _rand(g, dev, B, Lq, H, D).to(dt) * live[:, :, None, None]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ops.attention(*leaves, mask, D ** .5, is_self)
+    first = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, cot)
+    for name, a, e in zip(["dq", "dk", "dv"], first, again):
+        assert torch.equal(a, e), name
+
+
+def test_attention_smem_table_matches_the_kernels(dev):
+    """The wrapper's shared-memory reckoning of each tensor-core kernel is
+    the bytes its launcher asks for."""
+    from medical_tri_modal_pilot_tpu_torch.kernels import _build
+    from medical_tri_modal_pilot_tpu_torch.kernels.attention import (
+        TC_KERNELS, tc_smem_bytes)
+    lib = _build.library()
+    for dh in (32, 64):
+        table = tc_smem_bytes(dh)
+        for i, name in enumerate(TC_KERNELS):
+            assert lib.attention_tc_smem(i, dh) == table[name], name
 
 
 def test_attention_refuses_what_it_does_not_take(dev):
@@ -825,7 +896,8 @@ def test_tensor_core_kernels_compile_to_mma(dev):
                    "gemm_bf16_kernel", "ffn_bwd_tc_kernel", "wgrad_tc_kernel",
                    "block_qkv_tc_kernel", "block_attn_tc_kernel",
                    "block_dkv_tc_kernel", "block_dq_tc_kernel",
-                   "block_ln_bwd_tc_kernel"):
+                   "block_ln_bwd_tc_kernel", "attention_fwd_tc_kernel",
+                   "attention_dkv_tc_kernel", "attention_dq_tc_kernel"):
         found = {n: c for n, c in code.items() if kernel in n}
         assert found, f"{kernel} not in the library"
         for name, text in found.items():

@@ -1,12 +1,13 @@
 """The kernel wrappers' choices that the CPU can hold: which route the
 bf16 and fp32 paths take (tensor cores or FMA loops), the fused window
-attention's and the attention block's shared-memory reckoning, the weight
-sums' row slicing, and the checks the wrappers make before they reach the
-card."""
+attention's, the attention block's and the masked attention's
+shared-memory reckoning, the weight sums' row slicing, and the checks the
+wrappers make before they reach the card."""
 import pytest
 import torch
 
-from medical_tri_modal_pilot_tpu_torch.kernels import (attn_block,
+from medical_tri_modal_pilot_tpu_torch.kernels import (attention,
+                                                       attn_block,
                                                        swin_attention, wgrad)
 
 
@@ -113,3 +114,36 @@ def test_attn_block_wrapper_refuses_before_the_card():
         attn_block.cuda_attn_block(x, gamma, beta, w[:, :C], b, None, 4.0, 2)
     with pytest.raises(ValueError, match="CUDA"):
         attn_block.cuda_attn_block(x, gamma, beta, w, b, None, 4.0, 2)
+
+
+@pytest.mark.parametrize("d_head", [32, 64])
+def test_attention_route_by_dtype_and_head_width(d_head):
+    """The masked attention: fp32 keeps the FMA kernels, bf16 takes the
+    tensor cores, at both head widths the kernels are built for."""
+    assert attention.attention_route(torch.float32, d_head) == "fma"
+    assert attention.attention_route(torch.bfloat16, d_head) == "tc"
+
+
+@pytest.mark.parametrize("d_head", [0, 16, 48, 96, 128])
+def test_attention_route_refuses_other_head_widths(d_head):
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match=f"d_head.*got {d_head}"):
+            attention.attention_route(dt, d_head)
+
+
+@pytest.mark.parametrize("d_head", [32, 64])
+def test_attention_tc_smem_within_the_card(d_head):
+    """Each tensor-core kernel of the masked attention fits a block's
+    227 KB, and as many blocks as its launch bounds ask for fit an SM's
+    228 KB (1 KB of it reserved per block)."""
+    # the blocks per SM of each kernel's __launch_bounds__
+    min_blocks = {"attention_fwd_tc_kernel": 4, "attention_dkv_tc_kernel": 3,
+                  "attention_dq_tc_kernel": 4}
+    table = attention.tc_smem_bytes(d_head)
+    assert tuple(table) == attention.TC_KERNELS
+    for name, smem in table.items():
+        assert 0 < smem <= 232448, name
+        assert min_blocks[name] * (smem + 1024) <= 233472, name
+    if d_head == 64:
+        assert table["attention_fwd_tc_kernel"] == 46080
+        assert table["attention_dkv_tc_kernel"] == 56832
