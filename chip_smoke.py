@@ -14,8 +14,12 @@ Phases, each raising on failure (nothing is caught):
      over 33, 64 and 97 trunk rows), in fp32 and bf16, on live rows, with
      the stated tolerance; median kernel and plain times from CUDA events,
      beside the least time the card could take (bound) and, where one
-     PyTorch call computes the same function, that call's time. swin_mlp's
-     three-launch form is also timed at the widths it runs fused.
+     PyTorch call computes the same function, that call's time. The ffn
+     forward at the vslt shape also with dropout 0.1 (bf16). swin_mlp at
+     the main path's 33 trunk rows, bf16: each stage beside its plain
+     version and bound, their totals weighted by a step's launches
+     (2/2/6/2), and the dtype's split form timed at the widths its route
+     runs fused (stages 1 and 2 in bf16, stage 1 in fp32).
      swin_attention at the main path's 33 trunk rows: at each stage and
      mask, bf16, the tensor-core route beside
      F.multi_head_attention_forward, and their totals weighted by the
@@ -102,6 +106,12 @@ The kernel phases (3, 6, 9, 12) run first, then 4-5, 7-8, 10-11 and 13.
 Then one JSON line per the kernels (each with the path that launches it
 and its launches over that path's steps) and, last, {"ok": true,
 "device": ...}.
+
+    python3 chip_smoke.py ab ROOT
+
+reads the ffn forward's and swin_mlp's device ms and a config-4 train
+step's device busy time for the package under ROOT (``ab``), to compare
+two trees (git archive copies) in turns on one card.
 """
 from __future__ import annotations
 
@@ -268,12 +278,15 @@ TENSOR_CORE_KERNELS = ("swin_fused_kernel", "window_attn_tc_kernel",
                        "block_attn_tc_kernel", "block_dkv_tc_kernel",
                        "block_dq_tc_kernel", "block_ln_bwd_tc_kernel",
                        "attention_fwd_tc_kernel", "attention_dkv_tc_kernel",
-                       "attention_dq_tc_kernel")
+                       "attention_dq_tc_kernel", "ffn_fwd_tc_kernel",
+                       "swin_mlp_tc_kernel", "swin_fc1_tc_kernel")
 # swin_attention launches per config-4 step at each stage, with and without
 # the shift mask (Swin-T's depths 2/2/6/2 alternate unshifted and shifted
 # blocks; stage 4, one window per image, has no shift)
 SWIN_STAGE_LAUNCHES = [{"mask": 1, "none": 1}, {"mask": 1, "none": 1},
                        {"mask": 3, "none": 3}, {"none": 2}]
+# swin_mlp launches per config-4 step at each stage (one per block)
+SWIN_MLP_LAUNCHES = [2, 2, 6, 2]
 
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them,
 # HBM3 bandwidth
@@ -357,22 +370,28 @@ def _dev_us(e) -> float:
     return v if v is not None else getattr(e, "self_cuda_time_total", 0)
 
 
-def _device_ms(fn, reps: int = 10):
+def _device_ms(fn, reps: int = 10, sessions: int = 3):
     """torch.profiler over ``reps`` calls of ``fn`` after a warm-up: the
     device time of what they launched (kernels, copies) per call, and the
     names of the kernels. Beside the CUDA-event time around a call, it
-    shows how much of that is the host's."""
+    shows how much of that is the host's. A session in which the profiler
+    recorded no device event at all (it happens now and then on the card's
+    machine, the calls having run) is taken again, up to ``sessions``
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+        if events:
+            break
     return (sum(_dev_us(e) for e in events) / reps / 1e3,
             sorted(e.key for e in events))
 
@@ -431,17 +450,15 @@ def compare_kernels() -> dict:
     """Each kernel against its plain version at the eval steps' shapes. Returns
     the bf16 result at each kernel's main-path shape named in its entry."""
     from medical_tri_modal_pilot_tpu_torch import ops
-    from medical_tri_modal_pilot_tpu_torch.kernels import _build
     from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import key_ends
     from medical_tri_modal_pilot_tpu_torch.kernels.swin_attention import (
         cuda_window_attention, swin_attention_route)
-    from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import \
-        cuda_swin_mlp
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import (
+        cuda_swin_mlp, swin_mlp_route)
     from medical_tri_modal_pilot_tpu_torch.models.modules import (
         ffn_row_blocks, length_key_mask)
     from medical_tri_modal_pilot_tpu_torch.models.swin import _shift_attn_mask
     dev = torch.device("cuda")
-    lib = _build.library()
     g = torch.Generator(device="cpu").manual_seed(0)
     bf16 = torch.bfloat16
 
@@ -530,15 +547,24 @@ def compare_kernels() -> dict:
                     if not torch.equal(skipped, xf[~live]):
                         raise AssertionError("ffn: a skipped tile is not the "
                                              "residual")
+                if L == 1024 and dt == bf16:
+                    # the training forward's kernel alone (no autograd)
+                    drop = _compare(
+                        f"ffn[{BATCH * L},256] dropout 0.1 forward", dt,
+                        lambda: ops.ffn(xf, gamma, beta, w1, b1, w2, b2,
+                                        flags, p=0.1, training=True,
+                                        seed=DROPOUT_SEED), work, live)
             if L == 1024:
-                results["ffn"] = dict(r, shape="[65536,256]")
+                results["ffn"] = dict(r, shape="[65536,256]",
+                                      dropout_ms=drop["ms"],
+                                      dropout_plain_ms=drop["plain_ms"])
 
         # swin_attention and swin_mlp at Swin-T's four stages over the trunk
         # rows of each branch; window attention with and without the shift
         # mask where the stage has shifted blocks. At the main path's rows,
         # bf16: the library call beside the kernel at every stage and mask
         # (stage 1 also through the three-launch tensor-core route)
-        trunk = []
+        trunk, mlp_stages = [], []
         for stage, (side, C, M, has_shift) in enumerate(SWIN_STAGES):
             nh = C // 32
             wqkv, bqkv = rnd(C, 3 * C, std=C ** -.5), rnd(3 * C, std=.1)
@@ -594,17 +620,26 @@ def compare_kernels() -> dict:
                             16.0 * R * C * C)
                     call = lambda: ops.swin_mlp(xm, ln_s, ln_b, wm[0], c1,
                                                 wm[1], c2)
-                    r = _compare(f"swin_mlp[{R},{C}]", dt, call, work)
-                    if rows == TRUNK_ROWS[0] and side == 56 and dt == bf16:
-                        results["swin_mlp"] = dict(r, shape=f"[{R},{C}]")
-                    if rows == TRUNK_ROWS[0] and lib.swin_mlp_fuses(C):
-                        # the three-launch form at a width the fused kernel
-                        # takes: the reading that keeps both forms
+                    route = swin_mlp_route(dt, C)
+                    r = _compare(f"swin_mlp[{R},{C}] {route}", dt, call,
+                                 work)
+                    if rows != TRUNK_ROWS[0]:
+                        continue
+                    entry = dict(r, shape=f"[{R},{C}]", form=route,
+                                 launches_per_step=SWIN_MLP_LAUNCHES[stage])
+                    if route.endswith("fused"):
+                        # the dtype's split form at a width its route runs
+                        # fused: the reading that keeps both forms
                         split = lambda: cuda_swin_mlp(xm, ln_s, ln_b, wm[0],
                                                       c1, wm[1], c2,
                                                       split=True)
-                        _compare(f"swin_mlp[{R},{C}] split", dt, split, work,
-                                 plain=call)
+                        entry["split_ms"] = _compare(
+                            f"swin_mlp[{R},{C}] split route", dt, split,
+                            work, plain=call)["ms"]
+                    if dt == bf16:
+                        mlp_stages.append(entry)
+                        if side == 56:
+                            results["swin_mlp"] = dict(r, shape=f"[{R},{C}]")
     totals = {k: sum(e["launches_per_step"] * e[k] for e in trunk)
               for k in ("ms", "library_ms", "bound_ms")}
     print(f"swin_attention bf16 over a config-4 step's trunk ({TRUNK_ROWS[0]}"
@@ -612,6 +647,14 @@ def compare_kernels() -> dict:
           f"F.multi_head_attention_forward {totals['library_ms']:.3f} ms, "
           f"bound {totals['bound_ms']:.4f} ms")
     results["swin_attention"].update(stages=trunk, trunk_totals=totals)
+    totals = {k: sum(e["launches_per_step"] * e[k] for e in mlp_stages)
+              for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"swin_mlp bf16 over a config-4 step's trunk ({TRUNK_ROWS[0]} rows;"
+          f" launches per stage 2/2/6/2): kernel {totals['ms']:.3f} ms, "
+          f"plain {totals['plain_ms']:.3f} ms, bound "
+          f"{totals['bound_ms']:.4f} ms")
+    results["swin_mlp"] = dict(results["swin_mlp"], stages=mlp_stages,
+                               trunk_totals=totals)
     return results
 
 
@@ -1173,13 +1216,12 @@ def _timed_ms(trainer, batches, reference: bool) -> float:
     return (time.perf_counter() - t0) * 1e3 / len(batches)
 
 
-def _profile_step(name, trainer, batch, power: str,
-                  train: bool = False) -> None:
-    """torch.profiler over one step (after warm-up): device time by kernel,
-    the step's device total against its host wall time."""
+def _step_split(step, batch):
+    """torch.profiler over one step (after warm-up): its device events
+    (us, count, name), largest first, their total (ms) and the step's host
+    wall time (ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    step = trainer.train_step if train else trainer.eval_step
     step(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1195,7 +1237,15 @@ def _profile_step(name, trainer, batch, power: str,
                     for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA and _dev_us(e) > 0),
                    reverse=True)
-    total = sum(t for t, _, _ in items) / 1e3
+    return items, sum(t for t, _, _ in items) / 1e3, wall
+
+
+def _profile_step(name, trainer, batch, power: str,
+                  train: bool = False) -> None:
+    """torch.profiler over one step (after warm-up): device time by kernel,
+    the step's device total against its host wall time."""
+    step = trainer.train_step if train else trainer.eval_step
+    items, total, wall = _step_split(step, batch)
     kind = "train" if train else "eval"
     print(f"profile {name} bf16 {kind} step ({power}): device busy "
           f"{total:.2f} ms of {wall:.2f} ms host wall, device idle share "
@@ -1794,7 +1844,111 @@ PATH_STEPS = dict({k: len(v) for k, v in TRAIN_BATCHES.items()},
                   tp=len(TP_BATCHES))
 
 
+# the kernels the A/B reading sums in a step: this slice's (and the FMA
+# forms they replace)
+AB_KERNELS = ("ffn_kernel", "ffn_fwd_tc_kernel", "swin_mlp_kernel",
+              "swin_mlp_tc_kernel", "swin_fc1_tc_kernel", "gemm_kernel",
+              "gemm_bf16_kernel", "layer_norm_kernel")
+AB_STEPS = 5
+
+
+def ab(root: str, power: str) -> None:
+    """The A/B reading of the ffn forward and swin_mlp for the package
+    under ``root`` (a git archive of one tree): the profiler's device ms
+    per call of the bf16 ffn forward at the vslt shape ([64, 1024, 256],
+    TIE-length tile flags; dropout 0 and 0.1) and of swin_mlp at Swin-T's
+    four stages over the main path's 33 trunk rows, then one config-4
+    bf16 train step's device busy time, host wall, and the device ms of
+    each of AB_KERNELS in it (profiler), and the host-clock ms/step of
+    config 4 and of the cross transformer over AB_STEPS unprofiled train
+    steps. Only the wrappers both trees have are called. One process per tree, in turns (parent, change, change,
+    parent), each building its kernels into <root>/build:
+
+        python3 chip_smoke.py ab build/parent
+    """
+    sys.path.insert(0, os.path.abspath(root))
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.models.modules import (
+        ffn_row_blocks, length_key_mask)
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    if not ops.__file__.startswith(os.path.abspath(root)):
+        raise AssertionError(f"ab: imported {ops.__file__}, not {root}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).to(dev)
+
+    out = {"root": root, "device": power}
+    D, F, L = 256, 1024, 1024
+    lengths = torch.randint(1, L + 1, (BATCH,), generator=g)
+    mask = length_key_mask(lengths.to(dev), L)
+    x = rnd(BATCH, L, D).to(bf16)
+    flags = ffn_row_blocks(x, mask)
+    ws = (rnd(D, std=.1, mean=1.), rnd(D, std=.1),
+          rnd(D, F, std=D ** -.5).to(bf16), rnd(F, std=.1).to(bf16),
+          rnd(F, D, std=F ** -.5).to(bf16), rnd(D, std=.1).to(bf16))
+    with torch.inference_mode():
+        for p in (0.0, 0.1):
+            ms, names = _device_ms(lambda: ops.ffn(
+                x, *ws, flags, p=p, training=True, seed=DROPOUT_SEED))
+            out[f"ffn_p{p}"] = ms
+            print(f"ab {root}: ffn [65536,256] p {p}: {ms:.4f} device ms "
+                  f"per call ({names})")
+        for side, C, _, _ in SWIN_STAGES:
+            R = TRUNK_ROWS[0] * side * side
+            xm = rnd(R, C).to(bf16)
+            mw = (rnd(C, std=.1, mean=1.), rnd(C, std=.1),
+                  rnd(C, 4 * C, std=C ** -.5).to(bf16), rnd(4 * C, std=.1),
+                  rnd(4 * C, C, std=(4 * C) ** -.5).to(bf16),
+                  rnd(C, std=.1))
+            ms, names = _device_ms(lambda: ops.swin_mlp(xm, *mw))
+            out[f"swin_mlp_{C}"] = ms
+            print(f"ab {root}: swin_mlp [{R},{C}]: {ms:.4f} device ms per "
+                  f"call ({names})")
+    cfg = parse_config(CONFIG4)
+    model = get_model(cfg, torch.Generator().manual_seed(0))
+    trainer = Trainer(cfg, model, dev, eval_only=False, seed=0)
+    batch = synthetic_batch(cfg, BATCH, seed=10,
+                            present_frac=TRAIN_BATCHES["config4"][0])
+    items, busy, wall = _step_split(trainer.train_step, batch)
+    sums = {k: [0.0, 0] for k in AB_KERNELS}
+    for t, n, key in items:
+        for k in AB_KERNELS:
+            if f"mtp::{k}<" in key or f"mtp::{k}(" in key:
+                sums[k][0] += t / 1e3
+                sums[k][1] += n
+    out.update(step_busy_ms=busy, step_wall_ms=wall,
+               step_kernels={k: v for k, v in sums.items() if v[1]})
+    print(f"ab {root}: config4 bf16 train step: device busy {busy:.2f} ms "
+          f"of {wall:.2f} ms host wall; " + ", ".join(
+              f"{k} x{n} {t:.3f} ms" for k, (t, n) in sums.items() if n))
+    for name, argv in (("config4", CONFIG4), ("cross", CROSS)):
+        if name != "config4":
+            del trainer, model
+            torch.cuda.empty_cache()
+            cfg = parse_config(argv)
+            model = get_model(cfg, torch.Generator().manual_seed(0))
+            trainer = Trainer(cfg, model, dev, eval_only=False, seed=0)
+            batch = synthetic_batch(cfg, BATCH, seed=10,
+                                    present_frac=TRAIN_BATCHES[name][0])
+            trainer.train_step(batch)
+        ms = _timed_train_ms(trainer, [batch] * AB_STEPS, reference=False)
+        out[f"{name}_step_ms"] = ms
+        print(f"ab {root}: {name} bf16 train step {ms:.2f} ms (host clock, "
+              f"{AB_STEPS} steps)")
+    print("ab " + json.dumps(out))
+
+
 def main() -> None:
+    if len(sys.argv) == 3 and sys.argv[1] == "ab":
+        ab(sys.argv[2], check_device())
+        return
     power = check_device()
     build_kernels()
     results = compare_kernels()

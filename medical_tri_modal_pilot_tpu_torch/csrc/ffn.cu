@@ -12,12 +12,21 @@
 // elements in and out, so the operations, not the bytes, are the limit.
 // Unfused, the [R, F] hidden layer would make a round trip through device
 // memory (4x the stream); the TPU kernel keeps it in VMEM and so does this
-// one: a block owns a 64-row tile, keeps its StdLN rows in shared memory,
-// and walks d_ff in 64-wide chunks, h = relu(LN.W1[:, c] + b1[c]) into
-// shared memory, acc += h.W2[c, :] in registers. Only x is read and y
-// written. The products are fp32 FMAs on register tiles (tensor cores are
-// later work). A tile whose valid flag is 0 (every row past its sample's
+// one: a block owns a row tile, normalises it, and walks d_ff in 64-wide
+// chunks, h = relu(LN.W1[:, c] + b1[c]), acc += h.W2[c, :]. Only x is read
+// and y written. A tile whose valid flag is 0 (every row past its sample's
 // valid length) copies the residual and does no arithmetic.
+//
+// Two forms of the forward, picked by dtype (kernels/ffn.py::ffn_route):
+// ffn_kernel, fp32 FMAs on register tiles over 64-row tiles (fp32, the
+// checking dtype); and ffn_fwd_tc_kernel, the bf16 forward on the tensor
+// cores, the tile loop of mlp_tc.cuh with StdLN, ReluDropout and FfnOut:
+// 128-row tiles, the hidden chunk kept in registers between the two
+// products, W1/W2 chunks through the cp.async ring the backward's tile
+// pass also uses. The row flags stay per 64 rows: a 128-row tile whose
+// two flags are 0 copies x; one with a single live half computes both
+// halves and stores x on the dead one. (64-row tiles, two warps a row
+// slab splitting each chunk, measured slower on an H100: PERF.md.)
 //
 // Dropout: the TPU kernel draws from the TPU's hardware generator per
 // 256-row block; its bits cannot be reproduced here. This kernel keeps an
@@ -57,18 +66,9 @@
 // StdLN backward reads x and dy from shared memory, staged during the last
 // chunk; Philox draws once for four mask elements (dz) or for two lanes'
 // four (the hidden, traded by a shuffle), the fewest the generator allows.
-#include "common.cuh"
-#include "mma.cuh"
+#include "mlp_tc.cuh"
 
 namespace mtp {
-
-struct Dropout {
-  uint2 key;      // the seed's low and high words
-  uint32_t thr;   // keep when the draw is below floor(q * 2^32)
-  float q_t;      // q rounded to T (the forward's divisor)
-  float q_f;      // q in fp32 (the backward's divisor)
-  int on;
-};
 
 // grid (ceil(R/64)); C = 16 * NJC.
 template <typename T, int NJC>
@@ -226,19 +226,19 @@ __global__ void __launch_bounds__(kThreads) ffn_bwd_kernel(
 // ring's second stage holds the tile's x and dy (staged by cp.async with
 // the first weight chunk); during the last chunk they are staged again
 // into its free stage, for the StdLN backward, whose cross-warp sums go
-// through the other stage once the loop is done. 256 threads: warp w
+// through the other stage once the loop is done. The ring's stage and its
+// loads are the forward's (mlp_tc.cuh::MlpStage, stage_chunk), and so are
+// the dropout's keep bits (keep_bits). 256 threads: warp w
 // computes rows 16 (w & 3) .. + 16 of the tile, hidden columns
 // 32 (w >> 2) .. + 32 of each chunk and dln columns (C / 2)(w >> 2) ..
 // + C / 2. The weight sums' operands leave through shared memory in
 // 16-byte rows. grid (ceil(R/64)).
-constexpr int kFch = 64;  // d_ff columns per chunk
-
 template <int C>
 struct FfnBwdTc {
   static constexpr int LDC = pitch(C), LDF = pitch(kFch);
   static constexpr int LN = kTile * LDC;   // lns, dzs; x, dy
-  static constexpr int W1 = C * LDF;       // a W1 chunk, [c][f]
-  static constexpr int W2 = kFch * LDC;    // a W2 chunk, [f][c]
+  static constexpr int W1 = MlpStage<C>::W1;  // a W1 chunk, [c][f]
+  static constexpr int W2 = MlpStage<C>::W2;  // a W2 chunk, [f][c]
   static constexpr int DH = kTile * LDF;   // dhs, hds
   static constexpr int RING = 2 * (W1 + W2);
   static constexpr int kBytes = (2 * LN + RING + 2 * DH) * (int)sizeof(bf16) +
@@ -262,14 +262,6 @@ static __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
     *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * ldd + c) =
         *reinterpret_cast<const uint4*>(src + r * ld + c);
   }
-}
-
-// x / q for the dropout divisor q given iq = 1 / q: the product, then
-// one FMA correction (the division's own Newton step), without the
-// special-case path of an IEEE division (q is in (0, 1], x finite)
-static __device__ __forceinline__ float div_q(float x, float q, float iq) {
-  const float y = x * iq;
-  return fmaf(fmaf(-y, q, x), iq, y);
 }
 
 template <int NJC>
@@ -296,16 +288,10 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_bwd_tc_kernel(
   float* gp = gpart + (size_t)tile * 2 * C;
   if (valid != nullptr && valid[tile] == 0) {
     // the forward passed x through: dx = dy, nothing reaches the weights
-    copy_rows<bf16>(dy, dx, r0, rows, C, tid);
+    copy_rows16<C>(dy, dx, r0, rows, tid);
     for (int c = tid; c < 2 * C; c += kThreads) gp[c] = 0.0f;
     return;
   }
-  auto load_w = [&](int f0, int st) {
-    bf16* s1 = ring + st * (L::W1 + L::W2);
-    stage_rows<kFch, kThreads>(s1, L::LDF, w1 + f0, F, C, C, tid);
-    stage_rows<C, kThreads>(s1 + L::W1, L::LDC, w2 + (size_t)f0 * C, C, kFch,
-                            kFch, tid);
-  };
   // the tile's x and dy into the ring's second stage (rows past R zero),
   // the first weight chunk into its first
   bf16* xs = ring + L::W1 + L::W2;
@@ -314,7 +300,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_bwd_tc_kernel(
                           tid);
   stage_rows<C, kThreads>(dys, L::LDC, dy + (size_t)r0 * C, C, kTile, rows,
                           tid);
-  load_w(0, 0);
+  stage_chunk<C, kThreads>(ring, w1, w2, 0, F, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -394,7 +380,8 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_bwd_tc_kernel(
     // with dhs and hds
     __syncthreads();
     if (it + 1 < nch) {
-      load_w(f0 + kFch, st ^ 1);
+      stage_chunk<C, kThreads>(ring + (st ^ 1) * (L::W1 + L::W2), w1, w2,
+                               f0 + kFch, F, tid);
     } else {
       // the last chunk: x and dy again, for the StdLN backward
       bf16* xe = ring + (st ^ 1) * (L::W1 + L::W2);
@@ -434,29 +421,15 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_bwd_tc_kernel(
         mma16816(dacc[2 * np + 1], ad, b[2], b[3]);
       }
     }
-    // ffn_bwd_kernel's ReLU and mask logic on the fragments. A lane's two
-    // columns and its neighbour's (lane ^ 1) share a Philox counter: each
-    // draws for one of the two rows (g, g + 8) and they trade the other
-    // row's keep bits
+    // ffn_bwd_kernel's ReLU and mask logic on the fragments, the hidden
+    // mask's keep bits drawn once per four elements (keep_bits)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       // keep bits of rows g (bits0) and g + 8 (bits1), two columns each
       uint32_t bits0 = 3u, bits1 = 3u;
-      if (drop.on) {
-        const bool odd = (t & 1) != 0;
-        const uint4 w = philox4x32_10(
-            make_uint4((uint32_t)(f0 + 32 * ch + 8 * j) / 4 + (t >> 1),
-                       (uint32_t)(r0 + 16 * rs + g + (odd ? 8 : 0)), 0u, 0u),
-            drop.key);
-        const uint32_t lo = (uint32_t)(w.x < drop.thr) |
-                            ((uint32_t)(w.y < drop.thr) << 1);
-        const uint32_t hi = (uint32_t)(w.z < drop.thr) |
-                            ((uint32_t)(w.w < drop.thr) << 1);
-        const uint32_t mine = odd ? hi : lo;
-        const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? lo : hi, 1);
-        bits0 = odd ? got : mine;
-        bits1 = odd ? mine : got;
-      }
+      if (drop.on)
+        keep_bits(drop, 0, f0 + 32 * ch + 8 * j, r0 + 16 * rs + g, t, bits0,
+                  bits1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const uint32_t bits = h == 0 ? bits0 : bits1;
@@ -592,6 +565,36 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_bwd_tc_kernel(
               rcol[6 * C + col];
 }
 
+// The bf16 forward on the tensor cores: the tile loop of mlp_tc.cuh with
+// StdLN, ReluDropout and FfnOut over 128-row tiles. A tile whose 64-row
+// flags are all 0 copies x. grid (ceil(R / kMlpRows)).
+
+template <int C>
+__global__ void __launch_bounds__(kMlpThreads, C <= 96 ? 2 : 1)
+    ffn_fwd_tc_kernel(const bf16* __restrict__ x,
+                      const float* __restrict__ gamma,
+                      const float* __restrict__ beta,
+                      const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+                      const bf16* __restrict__ w2, const bf16* __restrict__ b2,
+                      const int8_t* __restrict__ valid, bf16* __restrict__ y,
+                      int R, int F, Dropout drop) {
+  extern __shared__ __align__(16) unsigned char ffn_fwd_smem[];
+  const int r0 = blockIdx.x * kMlpRows;
+  if (valid != nullptr) {
+    bool live = false;
+    for (int k = 0; k < kMlpRows / kTile && r0 + k * kTile < R; ++k)
+      live |= valid[r0 / kTile + k] != 0;
+    if (!live) {
+      copy_rows16<C>(x, y, r0, min(kMlpRows, R - r0), threadIdx.x);
+      return;
+    }
+  }
+  const float iq = 1.0f / drop.q_t;
+  mlp_tile<C>(x, y, w1, w2, R, F, r0, StdLN{gamma, beta},
+              ReluDropout{b1, drop, iq}, FfnOut{b2, valid, drop, iq, R},
+              ffn_fwd_smem);
+}
+
 // keep masks as int8: k1 [R, F] (hidden columns col0 .. col0 + F of the
 // whole [R, *] mask: one rank's share of d_ff under tensor parallelism)
 // and k2 [R, C] (output)
@@ -642,6 +645,25 @@ static cudaError_t launch(const void* x, const float* gamma,
   return cudaGetLastError();
 }
 
+template <int C>
+static cudaError_t launch_fwd_tc(const void* x, const float* gamma,
+                                 const float* beta, const void* w1,
+                                 const void* b1, const void* w2,
+                                 const void* b2, const int8_t* valid, void* y,
+                                 int R, int F, Dropout drop,
+                                 cudaStream_t stream) {
+  constexpr int bytes = MlpTc<C>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_fwd_tc_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = (R + kMlpRows - 1) / kMlpRows;
+  ffn_fwd_tc_kernel<C><<<blocks, kMlpThreads, bytes, stream>>>(
+      (const bf16*)x, gamma, beta, (const bf16*)w1, (const bf16*)b1,
+      (const bf16*)w2, (const bf16*)b2, valid, (bf16*)y, R, F, drop);
+  return cudaGetLastError();
+}
+
 template <typename T, int NJC>
 static cudaError_t launch_bwd(const void* x, const float* gamma,
                               const float* beta, const void* w1,
@@ -689,10 +711,12 @@ static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
 
 }  // namespace mtp
 
-// dtype: 0 = fp32, 1 = bf16 for x, w1 [C, F], b1, w2 [F, C], b2 and y;
-// gamma and beta fp32; valid: int8 [ceil(R/64)] tile flags or NULL (every
-// tile live). C in {64, 256}, F % 64 == 0. Dropout when drop != 0: keep
-// below thr, kept values divided by q_t. Returns cudaGetLastError().
+// The forward: fp32 FMAs (ffn_kernel) for dtype 0, the tensor cores
+// (ffn_fwd_tc_kernel) for dtype 1 (bf16), for x, w1 [C, F], b1, w2 [F, C],
+// b2 and y; gamma and beta fp32; valid: int8 [ceil(R/64)] flags of 64-row
+// tiles or NULL (every tile live). C in {64, 256}, F % 64 == 0. Dropout
+// when drop != 0: keep below thr, kept values divided by q_t. Returns
+// cudaGetLastError().
 extern "C" int ffn_fwd(const void* x, const void* gamma, const void* beta,
                        const void* w1, const void* b1, const void* w2,
                        const void* b2, const void* valid, void* y, int R,
@@ -705,16 +729,26 @@ extern "C" int ffn_fwd(const void* x, const void* gamma, const void* beta,
   const float* be = (const float*)beta;
   const int8_t* v = (const int8_t*)valid;
   const Dropout d = make_dropout(seed, thr, q_t, 1.0f, drop);
-  if (F <= 0 || F % kTile != 0) return (int)cudaErrorInvalidValue;
+  if (R < 0 || F <= 0 || F % kTile != 0) return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
   if (dtype == 0 && C == 256)
     return (int)launch<float, 16>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s);
   if (dtype == 0 && C == 64)
     return (int)launch<float, 4>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s);
   if (dtype == 1 && C == 256)
-    return (int)launch<__nv_bfloat16, 16>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s);
+    return (int)launch_fwd_tc<256>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s);
   if (dtype == 1 && C == 64)
-    return (int)launch<__nv_bfloat16, 4>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s);
+    return (int)launch_fwd_tc<64>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// shared-memory bytes of the bf16 forward (ffn_fwd_tc_kernel) at width C,
+// 0 for a width it is not built for
+extern "C" int ffn_tc_smem(int C) {
+  using namespace mtp;
+  if (C == 256) return MlpTc<256>::kBytes;
+  if (C == 64) return MlpTc<64>::kBytes;
+  return 0;
 }
 
 // The backward tile pass: fp32 FMAs for dtype 0, the tensor cores for

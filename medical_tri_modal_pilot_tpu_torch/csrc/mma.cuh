@@ -1,7 +1,7 @@
 // bf16 tensor-core building blocks for the Hopper kernels of the port:
 // cp.async staging, ldmatrix fragment loads and mma.sync.m16n8k16 with
-// fp32 accumulation, plus a tile GEMM with gemm_kernel's kEpiBiasT
-// epilogue that more than one source can launch.
+// fp32 accumulation, plus a tile GEMM with gemm_kernel's kEpiBiasT and
+// kEpiBiasResidual epilogues that more than one source can launch.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane >> 2, t = lane & 3):
 //   A 16 x 16: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
@@ -138,8 +138,10 @@ static __device__ __forceinline__ void stage_rows(bf16* dst, int ld,
   }
 }
 
-// out[r, n] = T(T(sum_k a[r, k] w[k, n]) + bias[n]) (gemm_kernel's
-// kEpiBiasT) in bf16 on the tensor cores: a [R, K], w [K, N], bias [N],
+// out = epilogue(sum_k a[r, k] w[k, n]) in bf16 on the tensor cores, with
+// gemm_kernel's epilogues: kEpiBiasT, T(T(acc) + bias[n]) with a bf16
+// bias; kEpiBiasResidual, T(res[r, n] + (acc + bias[n])) with an fp32 bias
+// (res NULL for the former). a [R, K], w [K, N], bias [N], res and
 // out [R, N] row-major; K % 32 == 0, N % 8 == 0. 64 x 64 output tiles over
 // four warps (32 x 32 each), operands staged 32 deep by cp.async in a
 // three-stage ring. grid (ceil(R/64), ceil(N/64)), 128 threads. (A
@@ -151,9 +153,10 @@ constexpr int kGemmStages = 3;
 template <int EPI>
 __global__ void __launch_bounds__(kGemmThreads) gemm_bf16_kernel(
     const bf16* __restrict__ a, const bf16* __restrict__ w,
-    const bf16* __restrict__ bias, bf16* __restrict__ out, int R, int K,
-    int N) {
-  static_assert(EPI == kEpiBiasT, "gemm_bf16_kernel: kEpiBiasT only");
+    const void* __restrict__ bias, const bf16* __restrict__ res,
+    bf16* __restrict__ out, int R, int K, int N) {
+  static_assert(EPI == kEpiBiasT || EPI == kEpiBiasResidual,
+                "gemm_bf16_kernel: kEpiBiasT or kEpiBiasResidual");
   constexpr int LDA = pitch(kGemmBK), LDB = pitch(kTile);
   __shared__ __align__(16) bf16 As[kGemmStages][kTile * LDA];
   __shared__ __align__(16) bf16 Bs[kGemmStages][kGemmBK * LDB];
@@ -229,15 +232,29 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_bf16_kernel(
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + wn + 8 * j + 2 * t;
       if (col >= N) continue;
-      const float b0 = bf(bias[col]), b1 = bf(bias[col + 1]);
+      float b0, b1;
+      if (EPI == kEpiBiasT) {
+        b0 = bf(((const bf16*)bias)[col]);
+        b1 = bf(((const bf16*)bias)[col + 1]);
+      } else {
+        b0 = ((const float*)bias)[col];
+        b1 = ((const float*)bias)[col + 1];
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = r0 + wm + 16 * i + g + 8 * h;
         if (row >= R) continue;
-        const float v0 = rnd<bf16>(acc[i][j][2 * h]) + b0;
-        const float v1 = rnd<bf16>(acc[i][j][2 * h + 1]) + b1;
-        *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) =
-            pack_bf16(v0, v1);
+        const size_t off = (size_t)row * N + col;
+        float v0, v1;
+        if (EPI == kEpiBiasT) {
+          v0 = rnd<bf16>(acc[i][j][2 * h]) + b0;
+          v1 = rnd<bf16>(acc[i][j][2 * h + 1]) + b1;
+        } else {
+          const uint32_t rr = *reinterpret_cast<const uint32_t*>(res + off);
+          v0 = __uint_as_float(rr << 16) + (acc[i][j][2 * h] + b0);
+          v1 = __uint_as_float(rr & 0xffff0000u) + (acc[i][j][2 * h + 1] + b1);
+        }
+        *reinterpret_cast<uint32_t*>(out + off) = pack_bf16(v0, v1);
       }
     }
 }

@@ -529,8 +529,8 @@ static cudaError_t launch_split(const void* xw, const void* wqkv,
   const int R = I * kWin;
   const dim3 g1((R + kTile - 1) / kTile, (3 * C + kTile - 1) / kTile);
   gemm_bf16_kernel<kEpiBiasT><<<g1, kGemmThreads, 0, stream>>>(
-      (const bf16*)xw, (const bf16*)wqkv, (const bf16*)bqkv, (bf16*)qkv, R,
-      C, 3 * C);
+      (const bf16*)xw, (const bf16*)wqkv, bqkv, nullptr, (bf16*)qkv, R, C,
+      3 * C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // head groups only where the windows alone leave the card's SMs short
@@ -549,8 +549,8 @@ static cudaError_t launch_split(const void* xw, const void* wqkv,
   if (err != cudaSuccess) return err;
   const dim3 g3((R + kTile - 1) / kTile, (C + kTile - 1) / kTile);
   gemm_bf16_kernel<kEpiBiasT><<<g3, kGemmThreads, 0, stream>>>(
-      (const bf16*)heads, (const bf16*)wproj, (const bf16*)bproj, (bf16*)out,
-      R, C, C);
+      (const bf16*)heads, (const bf16*)wproj, bproj, nullptr, (bf16*)out, R,
+      C, C);
   return cudaGetLastError();
 }
 

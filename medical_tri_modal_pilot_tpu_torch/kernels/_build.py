@@ -31,7 +31,7 @@ _F = ctypes.c_float
 _U64 = ctypes.c_uint64
 _U32 = ctypes.c_uint32
 # C entry points: name -> (argtypes); each returns an int: the launchers
-# cudaGetLastError(), swin_mlp_fuses a flag
+# cudaGetLastError(), the *_smem entries a byte count
 _SIGNATURES = {
     # x, gamma, beta, w, bias, mask, kend, qkv, out, attn, stats, B, L, C,
     # H, mult, dtype, stream
@@ -46,6 +46,8 @@ _SIGNATURES = {
     # x, gamma, beta, w1, b1, w2, b2, valid, y, R, C, F, seed, thr, q_t,
     # drop, dtype, stream
     "ffn_fwd": [_P] * 9 + [_I] * 3 + [_U64, _U32, _F, _I, _I, _P],
+    # C -> shared-memory bytes of the tensor-core forward
+    "ffn_tc_smem": [_I],
     # x, gamma, beta, w1, b1, w2, valid, dy, dx, ln_o, dz_o, hd_o, dh_o,
     # gpart, R, C, F, seed, thr, q_t, q_f, drop, dtype, stream
     "ffn_bwd": [_P] * 14 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
@@ -61,10 +63,10 @@ _SIGNATURES = {
     "swin_attention_fwd": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _P],
     # () -> shared-memory bytes of the fused route
     "swin_attention_fused_smem": [],
-    # x, scale, bias, w1, b1, w2, b2, ln, hidden, y, R, C, F, dtype, stream
+    # x, scale, bias, w1, b1, w2, b2, ln, hidden, y, R, C, F, route, stream
     "swin_mlp_fwd": [_P] * 10 + [_I] * 4 + [_P],
-    # C -> 1 where swin_mlp_fwd runs it fused
-    "swin_mlp_fuses": [_I],
+    # C -> shared-memory bytes of the bf16 route's LN-fused kernel
+    "swin_mlp_tc_smem": [_I],
     # q, k, v, mask, out, stats, B, Lq, Lk, H, dh, mode, is_self, mult,
     # dtype, stream
     "attention_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],

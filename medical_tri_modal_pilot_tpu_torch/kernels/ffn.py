@@ -1,8 +1,10 @@
 """Fused pre-norm FFN block, ``x + drop(W2 drop(relu(W1 StdLN(x) + b1)) +
 b2)``: the plain PyTorch version and the CUDA kernels (``csrc/ffn.cu``):
-the forward with in-kernel dropout, its backward (a tile pass, on the
-tensor cores for bf16, then the weight sums of ``csrc/wgrad.cu`` over the
-live tiles' rows), and the dropout masks.
+the forward with in-kernel dropout, its backward (a tile pass, then the
+weight sums of ``csrc/wgrad.cu`` over the live tiles' rows), and the
+dropout masks. Forward and tile pass take one of two routes
+(``ffn_route``): bf16 on the tensor cores (the forward on the tile loop
+of ``csrc/mlp_tc.cuh``), fp32 (the checking dtype) on FMA loops.
 
 Counterpart of medical_tri_modal_pilot_tpu/kernels/ffn.py (``xla_ffn``,
 ``pallas_ffn`` and ``dropout_masks``). Weights are in the JAX layout: w1
@@ -25,8 +27,13 @@ from .wgrad import col_sum, wgrad
 
 LN_EPS = 1e-6
 VAR_FLOOR = 1e-24
-# rows per kernel tile, and so the granularity of ``block_valid``
+# rows per row flag: the granularity of ``block_valid`` (the FMA kernels'
+# tile and the backward's)
 BLOCK_R = 64
+# the widths the kernels are built for
+WIDTHS = (64, 256)
+# rows per tile of the tensor-core forward (csrc/mlp_tc.cuh kMlpRows)
+TC_ROWS = 128
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -96,6 +103,29 @@ def plain_dropout_masks(R: int, F: int, C: int, seed: int, p: float,
             _keep(R, C, 1, seed, thr, device))
 
 
+def ffn_route(dtype: torch.dtype, C: int) -> str:
+    """The kernel route for x of this dtype and width: bf16 takes the
+    tensor cores ("tc"); fp32, the checking dtype, keeps the FMA kernels
+    ("fma"), whose products stay in full fp32. Raises for a width no
+    kernel is built for."""
+    if C not in WIDTHS:
+        raise ValueError(f"the CUDA ffn kernels take C in {WIDTHS}, got "
+                         f"C={C}")
+    return "tc" if dtype == torch.bfloat16 else "fma"
+
+
+def tc_smem_bytes(C: int) -> int:
+    """Shared memory of the tensor-core forward at width C, as
+    csrc/mlp_tc.cuh::MlpTc reckons it: bf16 tiles of pitch width + 8, the
+    normalised rows [128][C] and a two-stage ring of a W1 chunk [C][64]
+    and a W2 chunk [64][C] (a stage at least [128][C]: it takes the
+    tile's x for the epilogue), then b2 in fp32."""
+    def tile(rows, width):
+        return 2 * rows * (width + 8)
+    stage = max(tile(C, 64) + tile(64, C), tile(TC_ROWS, C))
+    return tile(TC_ROWS, C) + 2 * stage + 4 * C
+
+
 def torch_ffn(x, gamma, beta, w1, b1, w2, b2,
               block_valid: Optional[torch.Tensor] = None,
               keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -119,27 +149,30 @@ def torch_ffn(x, gamma, beta, w1, b1, w2, b2,
 
 
 def _check(x, w1, w2, block_valid):
-    if x.device.type != "cuda":
-        raise ValueError(f"cuda_ffn needs CUDA tensors, got {x.device}")
+    """Refuses, before anything reaches the card, what the kernels do not
+    take: dtype, width (``ffn_route``), d_ff, weight shapes, flag count,
+    then a device that is not CUDA."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ffn takes fp32 or bf16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("ffn needs a contiguous x")
     C = x.shape[-1]
     F = w1.shape[-1]
     R = x.numel() // C
-    if C not in (64, 256) or F % 64 != 0:
-        raise ValueError(f"ffn takes C in (64, 256) and d_ff % 64 == 0; "
-                         f"got C={C}, d_ff={F}")
+    ffn_route(x.dtype, C)
+    if F <= 0 or F % 64 != 0:
+        raise ValueError(f"ffn takes d_ff % 64 == 0, got d_ff={F}")
     if tuple(w1.shape) != (C, F) or tuple(w2.shape) != (F, C):
         raise ValueError(f"ffn weights must be [{C}, {F}] and [{F}, {C}], "
                          f"got {tuple(w1.shape)}, {tuple(w2.shape)}")
     n_tiles = -(-R // BLOCK_R)
+    if block_valid is not None and block_valid.numel() != n_tiles:
+        raise ValueError(f"block_valid has {block_valid.numel()} flags "
+                         f"for {n_tiles} tiles of {BLOCK_R} rows")
+    if x.device.type != "cuda":
+        raise ValueError(f"cuda_ffn needs CUDA tensors, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("ffn needs a contiguous x")
     valid = None
     if block_valid is not None:
-        if block_valid.numel() != n_tiles:
-            raise ValueError(f"block_valid has {block_valid.numel()} flags "
-                             f"for {n_tiles} tiles of {BLOCK_R} rows")
         valid = block_valid.reshape(-1).to(device=x.device,
                                            dtype=torch.int8).contiguous()
     return R, C, F, valid

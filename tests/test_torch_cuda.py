@@ -241,6 +241,65 @@ def test_ffn_training_kernels(dev, C, p, prec):
                         ["dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"])
 
 
+# the tensor-core forward's cases: (R, C, flags of the 64-row tiles): a
+# dead first half of the one 128-row tile with a single live row after it
+# (R = 65); a half-dead 128-row tile, a live one and a dead ragged tail
+# (R = 300)
+FFN_TC_CASES = [(65, 64, [0, 1]), (65, 256, [0, 1]),
+                (300, 64, [1, 0, 1, 1, 0]), (300, 256, [1, 0, 1, 1, 0])]
+
+
+@pytest.mark.parametrize("R,C,flags", FFN_TC_CASES)
+@pytest.mark.parametrize("p", [0.0, 0.25])
+def test_ffn_tc_forward(dev, R, C, flags, p):
+    """The bf16 forward on the tensor cores: dead 64-row tiles are x bit
+    for bit, live rows match the plain version on the same Philox masks
+    within TOL, and on live rows every element the output mask drops is x
+    bit for bit (the kernel's output mask is plain_dropout_masks')."""
+    g = torch.Generator().manual_seed(21)
+    F, dt, seed = 4 * C, torch.bfloat16, 4321
+    x = _rand(g, dev, R, C).to(dt)
+    ws = (_rand(g, dev, C, std=.1, mean=1.), _rand(g, dev, C, std=.1),
+          _rand(g, dev, C, F, std=C ** -.5).to(dt),
+          _rand(g, dev, F, std=.1).to(dt),
+          _rand(g, dev, F, C, std=F ** -.5).to(dt),
+          _rand(g, dev, C, std=.1).to(dt))
+    valid = torch.tensor(flags, dtype=torch.bool, device=dev)
+    live = valid.repeat_interleave(64)[:R]
+    ops.reset_launches()
+    out, ref = _both(lambda: ops.ffn(x, *ws, valid, p=p, training=True,
+                                     seed=seed))
+    assert ops.launches["ffn"] == 1
+    assert torch.equal(out[~live], x[~live].float())
+    torch.testing.assert_close(out[live], ref[live], **TOL["bf16"])
+    if p > 0:
+        _, keep = plain_dropout_masks(R, F, C, seed, p, dev)
+        dropped = ~keep & live[:, None]
+        assert int(dropped.sum()) > 0
+        assert torch.equal(out[dropped], x.float()[dropped])
+    with torch.inference_mode():
+        names = _launched(lambda: ops.ffn(x, *ws, valid, p=p, training=True,
+                                          seed=seed))
+    _route_kernels(names, {"tc": ("ffn_fwd_tc_kernel",),
+                           "fma": ("ffn_kernel",)}, "tc")
+
+
+def test_ffn_and_swin_mlp_smem_tables_match_the_kernels(dev):
+    """The wrappers' shared-memory reckoning of the tensor-core forwards
+    is the bytes their launchers ask for, within the card's opt-in
+    limit."""
+    from medical_tri_modal_pilot_tpu_torch.kernels import _build, ffn, \
+        swin_mlp
+    lib = _build.library()
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for C in ffn.WIDTHS:
+        assert lib.ffn_tc_smem(C) == ffn.tc_smem_bytes(C) <= limit, C
+    assert lib.ffn_tc_smem(96) == 0
+    for C in range(32, 1600, 32):
+        assert lib.swin_mlp_tc_smem(C) == swin_mlp.tc_smem_bytes(C) <= \
+            limit, C
+
+
 @pytest.mark.parametrize("R,F,C", [(300, 256, 64), (1000, 0, 256),
                                    (65, 1024, 256)])
 def test_dropout_masks_kernel_is_bit_identical(dev, R, F, C):
@@ -528,12 +587,62 @@ def test_swin_attention_kernel(dev, C, hw, images, shifted, prec):
     torch.testing.assert_close(out, ref, **TOL[prec])
 
 
+def _launched(fn):
+    """The names of the device events (kernels, copies) of ``fn``, from a
+    profiler trace over three calls after one outside it: a lone short
+    launch right after the trace starts can be missed; a trace with no
+    device event at all, which the profiler gives now and then, is taken
+    again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def _route_kernels(names, table, route):
+    """Every kernel of ``route`` in ``names``, and none of another route's
+    that is not also the route's."""
+    for kernel in table[route]:
+        assert any(kernel + "<" in n or kernel + "(" in n for n in names), \
+            (route, kernel, names)
+    others = {k for r, ks in table.items() if r != route for k in ks}
+    for kernel in others - set(table[route]):
+        assert not any(kernel + "<" in n or kernel + "(" in n
+                       for n in names), (route, kernel, names)
+
+
+# the kernels of each swin_mlp route (kernels/swin_mlp.py ROUTES)
+SWIN_MLP_ROUTE_KERNELS = {
+    "tc_fused": ("swin_mlp_tc_kernel",),
+    "tc_split": ("swin_fc1_tc_kernel", "gemm_bf16_kernel"),
+    "fma_fused": ("swin_mlp_kernel",),
+    "fma_split": ("layer_norm_kernel", "gemm_kernel")}
+
+
 @pytest.mark.parametrize("R,C", [(70, 32), (200, 96), (130, 192),
-                                 (100, 384), (49, 768)])
+                                 (100, 384), (49, 768), (7, 32), (7, 96),
+                                 (13, 192), (5, 384), (11, 768), (1617, 96),
+                                 (1617, 192), (1617, 384), (1617, 768)])
 @pytest.mark.parametrize("prec", list(PRECS))
 def test_swin_mlp_kernel(dev, R, C, prec):
-    """Ragged row counts, on the fused width (C 96) and on the
-    three-launch path (C 32, 192, 384, 768)."""
+    """Ragged row counts (below one 16-row fragment, and stage 4's 1617
+    trunk rows) at Swin-T's widths and C = 32, through each dtype's route
+    (bf16: the fused tensor-core launch up to C = 256, two above; fp32:
+    the fused FMA kernel at C = 96, three launches elsewhere), which must
+    launch that route's kernels and no other's."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import \
+        swin_mlp_route
     g = torch.Generator().manual_seed(4)
     dt = PRECS[prec]
     x = _rand(g, dev, R, C).to(dt)
@@ -543,12 +652,16 @@ def test_swin_mlp_kernel(dev, R, C, prec):
           _rand(g, dev, C, std=.1))
     out, ref = _both(lambda: ops.swin_mlp(x, *ws))
     torch.testing.assert_close(out, ref, **TOL[prec])
+    with torch.inference_mode():
+        names = _launched(lambda: ops.swin_mlp(x, *ws))
+    _route_kernels(names, SWIN_MLP_ROUTE_KERNELS, swin_mlp_route(dt, C))
 
 
 @pytest.mark.parametrize("prec", list(PRECS))
 def test_swin_mlp_split_form_at_fused_width(dev, prec):
-    """The three-launch form, forced at the width the fused kernel takes,
-    agrees with the plain version as the fused kernel does."""
+    """The split form (three FMA launches in fp32, two tensor-core launches
+    in bf16), forced at the width the fused kernel takes, agrees with the
+    plain version as the fused kernel does."""
     g = torch.Generator().manual_seed(5)
     dt, C = PRECS[prec], 96
     x = _rand(g, dev, 150, C).to(dt)
@@ -558,8 +671,11 @@ def test_swin_mlp_split_form_at_fused_width(dev, prec):
           _rand(g, dev, C, std=.1))
     with torch.inference_mode():
         out = cuda_swin_mlp(x, *ws, split=True).float()
+        names = _launched(lambda: cuda_swin_mlp(x, *ws, split=True))
     ref = torch_swin_mlp(x, *ws).float()
     torch.testing.assert_close(out, ref, **TOL[prec])
+    _route_kernels(names, SWIN_MLP_ROUTE_KERNELS,
+                   {"fp32": "fma_split", "bf16": "tc_split"}[prec])
 
 
 def _small_argv(types):
@@ -897,7 +1013,9 @@ def test_tensor_core_kernels_compile_to_mma(dev):
                    "block_qkv_tc_kernel", "block_attn_tc_kernel",
                    "block_dkv_tc_kernel", "block_dq_tc_kernel",
                    "block_ln_bwd_tc_kernel", "attention_fwd_tc_kernel",
-                   "attention_dkv_tc_kernel", "attention_dq_tc_kernel"):
+                   "attention_dkv_tc_kernel", "attention_dq_tc_kernel",
+                   "ffn_fwd_tc_kernel", "swin_mlp_tc_kernel",
+                   "swin_fc1_tc_kernel"):
         found = {n: c for n, c in code.items() if kernel in n}
         assert found, f"{kernel} not in the library"
         for name, text in found.items():

@@ -1,14 +1,19 @@
 """The kernel wrappers' choices that the CPU can hold: which route the
 bf16 and fp32 paths take (tensor cores or FMA loops), the fused window
-attention's, the attention block's and the masked attention's
-shared-memory reckoning, the weight sums' row slicing, and the checks the
-wrappers make before they reach the card."""
+attention's, the attention block's, the masked attention's, the FFN
+forward's and the Swin MLP's shared-memory reckoning, the weight sums' row
+slicing, and the checks the wrappers make before they reach the card."""
 import pytest
 import torch
 
 from medical_tri_modal_pilot_tpu_torch.kernels import (attention,
-                                                       attn_block,
-                                                       swin_attention, wgrad)
+                                                       attn_block, ffn,
+                                                       swin_attention,
+                                                       swin_mlp, wgrad)
+
+# a block's shared memory on an H100 (opt-in), an SM's (1 KB of it
+# reserved per block)
+BLOCK_SMEM, SM_SMEM = 232448, 233472
 
 
 @pytest.mark.parametrize("C", [32, 64, 96, 192, 384, 768])
@@ -147,3 +152,135 @@ def test_attention_tc_smem_within_the_card(d_head):
     if d_head == 64:
         assert table["attention_fwd_tc_kernel"] == 46080
         assert table["attention_dkv_tc_kernel"] == 56832
+
+
+@pytest.mark.parametrize("C", [64, 256])
+def test_ffn_route_by_dtype_and_width(C):
+    """The FFN: fp32 keeps the FMA kernels, bf16 takes the tensor cores,
+    at both widths the kernels are built for."""
+    assert ffn.ffn_route(torch.float32, C) == "fma"
+    assert ffn.ffn_route(torch.bfloat16, C) == "tc"
+
+
+@pytest.mark.parametrize("C", [0, 32, 96, 128, 192, 512])
+def test_ffn_route_refuses_other_widths(C):
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match=f"C in .*got C={C}"):
+            ffn.ffn_route(dt, C)
+
+
+@pytest.mark.parametrize("C,want", [(64, 55552), (256, 209920)])
+def test_ffn_tc_smem_within_the_card(C, want):
+    """The tensor-core forward's 128 normalised rows and its two-stage
+    W1/W2 chunk ring fit a block's 227 KB at both widths (209920 bytes
+    at C = 256), and at C = 64, whose launch bounds ask for two blocks an
+    SM, two blocks fit an SM."""
+    assert ffn.TC_ROWS == 128
+    smem = ffn.tc_smem_bytes(C)
+    assert smem == want
+    assert 0 < smem <= BLOCK_SMEM
+    if C <= 96:
+        assert 2 * (smem + 1024) <= SM_SMEM
+
+
+@pytest.mark.parametrize("C,fused", [(32, True), (64, True), (96, True),
+                                     (128, True), (160, True), (192, True),
+                                     (224, True), (256, True), (288, False),
+                                     (384, False), (768, False),
+                                     (1024, False)])
+def test_swin_mlp_route_by_dtype_and_width(C, fused):
+    """bf16 takes the fused tensor-core launch up to C = 256 (Swin-T's
+    stages 1 and 2) and the two tensor-core launches above (stages 3 and
+    4), or at any width when the split form is asked for; fp32 keeps the
+    fused FMA kernel at C = 96 and the three FMA launches elsewhere."""
+    bf16 = torch.bfloat16
+    assert swin_mlp.swin_mlp_route(bf16, C) == ("tc_fused" if fused
+                                                else "tc_split")
+    assert swin_mlp.swin_mlp_route(bf16, C, split=True) == "tc_split"
+    assert swin_mlp.swin_mlp_route(torch.float32, C) == (
+        "fma_fused" if C == 96 else "fma_split")
+    assert swin_mlp.swin_mlp_route(torch.float32, C, split=True) == \
+        "fma_split"
+    assert set(swin_mlp.ROUTES) == {"fma_fused", "fma_split", "tc_fused",
+                                    "tc_split"}
+
+
+@pytest.mark.parametrize("C", [0, 16, 48, 100, 200, 2048])
+def test_swin_mlp_route_refuses_other_widths(C):
+    """Widths that are not a multiple of 32, in either dtype; in bf16 also
+    one whose LN tile outgrows a block's shared memory (the FMA loops
+    stage the LN a row per warp and take it)."""
+    dts = (torch.bfloat16,) if C % 32 == 0 else (torch.float32,
+                                                 torch.bfloat16)
+    for dt in dts:
+        with pytest.raises(ValueError, match=f"C % 32 == 0.*got C={C}"):
+            swin_mlp.swin_mlp_route(dt, C)
+    if C == 2048:
+        assert swin_mlp.swin_mlp_route(torch.float32, C) == "fma_split"
+
+
+@pytest.mark.parametrize("C", list(range(32, 1600, 32)))
+def test_swin_mlp_tc_smem_within_the_card(C):
+    """The bf16 route's LN-fused kernel fits a block's 227 KB at every
+    width the route takes (the fused tile loop up to C = 256, two blocks
+    an SM up to 96 as its launch bounds ask; the split form's fc1 above:
+    its LN rows [64][C] and a three-stage W1 ring of 26 KB)."""
+    smem = swin_mlp.tc_smem_bytes(C)
+    assert 0 < smem <= BLOCK_SMEM
+    if C <= 96:
+        assert 2 * (smem + 1024) <= SM_SMEM
+    known = {96: 81280, 192: 158464, 256: 209920, 384: 76288, 768: 125440}
+    if C in known:
+        assert smem == known[C]
+
+
+def _ffn_args(C=64, F=256, R=130, dt=torch.bfloat16):
+    return (torch.zeros(R, C, dtype=dt), torch.ones(C), torch.zeros(C),
+            torch.zeros(C, F, dtype=dt), torch.zeros(F, dtype=dt),
+            torch.zeros(F, C, dtype=dt), torch.zeros(C, dtype=dt))
+
+
+def test_ffn_wrapper_refuses_before_the_card():
+    """A dtype, a width or a d_ff no kernel takes, weights of the wrong
+    shape and flags of the wrong count are refused in the wrapper, on any
+    device, before the library is built or the card touched; a CPU tensor
+    with a valid shape is refused last."""
+    x, g, b, w1, b1, w2, b2 = _ffn_args()
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        ffn.cuda_ffn(x.half(), g, b, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="C in"):
+        ffn.cuda_ffn(*_ffn_args(C=96, F=384))
+    with pytest.raises(ValueError, match="d_ff % 64"):
+        ffn.cuda_ffn(*_ffn_args(F=96))
+    with pytest.raises(ValueError, match="weights"):
+        ffn.cuda_ffn(x, g, b, w1, b1, w2[:128], b2)
+    with pytest.raises(ValueError, match="flags"):
+        ffn.cuda_ffn(x, g, b, w1, b1, w2, b2,
+                     torch.ones(2, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        ffn.cuda_ffn(x, g, b, w1, b1, w2, b2,
+                     torch.ones(3, dtype=torch.bool))
+
+
+def test_swin_mlp_wrapper_refuses_before_the_card():
+    """swin_mlp: a dtype, a width or a hidden width no kernel takes, x not
+    [R, C] and weights of the wrong shape are refused in the wrapper; a CPU
+    tensor with a valid shape is refused last."""
+    C = 96
+    x = torch.zeros(70, C, dtype=torch.bfloat16)
+    ws = (torch.ones(C), torch.zeros(C), torch.zeros(C, 4 * C),
+          torch.zeros(4 * C), torch.zeros(4 * C, C), torch.zeros(C))
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        swin_mlp.cuda_swin_mlp(x.half(), *ws)
+    with pytest.raises(ValueError, match=r"x \[R, C\]"):
+        swin_mlp.cuda_swin_mlp(x[None], *ws)
+    with pytest.raises(ValueError, match="C % 32"):
+        swin_mlp.cuda_swin_mlp(x[:, :80], *ws)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        swin_mlp.cuda_swin_mlp(x, ws[0], ws[1], ws[2][:, :100], ws[3][:100],
+                               ws[4][:100], ws[5])
+    with pytest.raises(ValueError, match="weights"):
+        swin_mlp.cuda_swin_mlp(x, ws[0], ws[1], ws[2], ws[3], ws[4][:128],
+                               ws[5])
+    with pytest.raises(ValueError, match="CUDA"):
+        swin_mlp.cuda_swin_mlp(x, *ws)
