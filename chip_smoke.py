@@ -83,11 +83,15 @@ Phases, each raising on failure (nothing is caught):
      steps on one batch, one step on both paths in fp32 and bf16 at
      dropout 0 and 0.1.
   12. rowmm: the row-skipping projections of tensor parallelism, forward
-     and backward against autograd of their plain versions in fp32 and
-     bf16: the LN-fused form at one rank's q|k|v width under --mp-size 2
-     (x [65536, 256], W [256, 384]) and at the single-device width (W
-     [256, 768]), the plain form at [65536, 256] x [256, 768] beside
-     torch.addmm; block flags from TIE lengths. Phase 9 also runs the
+     and backward against autograd of their plain versions in fp32 (the
+     FMA route) and bf16 (the tensor-core route): the LN-fused form at one
+     rank's q|k|v width under --mp-size 2 (x [65536, 256], W [256, 384])
+     and at the single-device width (W [256, 768]), timed as it returns
+     q, k and v, the plain form at [65536, 256] x [256, 768] beside
+     torch.addmm; block flags from TIE lengths. Then the profiler's device
+     ms per call of each form (lean, training, backward; and of
+     torch.addmm and its backward), and the kernels the calls launched,
+     which must be the dtype's route's. Phase 9 also runs the
      attention at the tensor-parallel self shapes of the three streams
      ([64, L, 2, 64], L = 1024 with the TIE key mask, 133, 54) beside
      scaled_dot_product_attention.
@@ -109,9 +113,10 @@ and its launches over that path's steps) and, last, {"ok": true,
 
     python3 chip_smoke.py ab ROOT
 
-reads the ffn forward's and swin_mlp's device ms and a config-4 train
-step's device busy time for the package under ROOT (``ab``), to compare
-two trees (git archive copies) in turns on one card.
+reads the device ms of the ffn forward, swin_mlp, the four rowmm forms and
+the attention block's kernels, and a config-4 train step's device busy
+time, for the package under ROOT (``ab``), to compare two trees (git
+archive copies) in turns on one card.
 """
 from __future__ import annotations
 
@@ -279,7 +284,8 @@ TENSOR_CORE_KERNELS = ("swin_fused_kernel", "window_attn_tc_kernel",
                        "block_dq_tc_kernel", "block_ln_bwd_tc_kernel",
                        "attention_fwd_tc_kernel", "attention_dkv_tc_kernel",
                        "attention_dq_tc_kernel", "ffn_fwd_tc_kernel",
-                       "swin_mlp_tc_kernel", "swin_fc1_tc_kernel")
+                       "swin_mlp_tc_kernel", "swin_fc1_tc_kernel",
+                       "rowmm_tc_kernel", "rowmm_bwd_tc_kernel")
 # swin_attention launches per config-4 step at each stage, with and without
 # the shift mask (Swin-T's depths 2/2/6/2 alternate unshifted and shifted
 # blocks; stage 4, one window per image, has no shift)
@@ -681,7 +687,8 @@ def _compare_train(name, dt, fwd, inputs, cot, live, work_fwd, work_bwd,
     against the plain path: the output on live rows (TOL), every gradient
     (GRAD_TOL); median ms of forward and backward on both paths, and of
     ``library`` (a forward and a backward call of PyTorch's own, where
-    there are such)."""
+    there are such). ``fwd`` may return a tuple (``cot`` is then one),
+    timed as it is returned."""
     from medical_tri_modal_pilot_tpu_torch import ops
     runs = []
     for plain in (False, True):
@@ -693,6 +700,10 @@ def _compare_train(name, dt, fwd, inputs, cot, live, work_fwd, work_bwd,
             f_ms = _median_ms(lambda: fwd(*leaves), reps=10)
             b_ms = _median_ms(lambda: torch.autograd.grad(
                 out, leaves, cot, retain_graph=True), reps=10)
+        # outputs that come apart (rowmm_ln's q, k, v) are joined for the
+        # comparison only, after the timing
+        if isinstance(out, tuple):
+            out = torch.cat(out, -1)
         runs.append((out.detach().float(), [g.float() for g in grads],
                      f_ms, b_ms))
         del out, grads, leaves
@@ -986,14 +997,13 @@ ATTN_ROUTE_KERNELS = {
             "attention_dq_kernel")}
 
 
-def _attention_device(tag, dt, fwd, inputs, cot, library) -> dict:
-    """Profiler device ms per call of the attention's lean form, training
-    form and backward (and of the library's forward and backward), to set
+def _device_forms(tag, dt, fwd, inputs, cot, library, routes, route
+                  ) -> dict:
+    """Profiler device ms per call of ``fwd``'s lean form, training form
+    and backward (and of the library's forward and backward), to set
     beside the CUDA-event times around the calls: the rest is the host's.
-    Raises unless the calls launched every kernel of the dtype's route and
-    none of the other route's."""
-    from medical_tri_modal_pilot_tpu_torch.kernels.attention import \
-        attention_route
+    Raises unless the calls launched every kernel of ``route`` in
+    ``routes`` (route -> kernel names) and none of another route's."""
     leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
     with torch.inference_mode():
         lean, names = _device_ms(lambda: fwd(*inputs))
@@ -1002,10 +1012,7 @@ def _attention_device(tag, dt, fwd, inputs, cot, library) -> dict:
     out = fwd(*leaves)
     bwd, more = _device_ms(lambda: torch.autograd.grad(
         out, leaves, cot, retain_graph=True))
-    names += more
-    route = attention_route(dt, inputs[0].shape[-1])
-    launched = {k for ks in ATTN_ROUTE_KERNELS.values() for k in ks
-                if any(k in n for n in names)}
+    launched = _launched_route(names + more, routes, route)
     lib = ((None, None) if library is None else
            (_device_ms(library[0])[0], _device_ms(library[1])[0]))
     prec = "bf16" if dt == torch.bfloat16 else "fp32"
@@ -1014,9 +1021,6 @@ def _attention_device(tag, dt, fwd, inputs, cot, library) -> dict:
     print(f"device {tag} {prec}: lean {lean:.4f} ms, training {train:.4f}, "
           f"backward {bwd:.4f}{lib_txt} (profiler); route {route}: "
           f"{' '.join(sorted(launched))}")
-    if launched != set(ATTN_ROUTE_KERNELS[route]):
-        raise AssertionError(f"{tag} {prec}: launched {sorted(launched)}, "
-                             f"not the {route} route's kernels")
     return {"lean": lean, "train": train, "bwd": bwd, "library": lib}
 
 
@@ -1030,6 +1034,8 @@ def compare_attention_kernels() -> dict:
     stream's TP shape."""
     import torch.nn.functional as F
     from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels.attention import \
+        attention_route
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(2)
     cases = [(name, BATCH, 4, Lq, Lk, 64, kind)
@@ -1072,9 +1078,10 @@ def compare_attention_kernels() -> dict:
                 _attention_work(qd, kd, mask, is_self),
                 _attention_work(qd, kd, mask, is_self, backward=True),
                 library=library)
-            dres = _attention_device(
+            dres = _device_forms(
                 tag, dt, lambda *a: ops.attention(*a, mask, D ** .5, is_self),
-                (qd, kd, vd), cot, library)
+                (qd, kd, vd), cot, library, ATTN_ROUTE_KERNELS,
+                attention_route(dt, D))
             for res, form, i in ((r, "lean", 0), (fr, "train", 0),
                                  (br, "bwd", 1)):
                 res["device_ms"] = dres[form]
@@ -1095,18 +1102,55 @@ def compare_attention_kernels() -> dict:
 # form at the single-device width (no path reaches it)
 ROWMM_SHAPES = (("rowmm_ln", 384, True), ("rowmm_ln_768", 768, True),
                 ("rowmm", 768, False))
+# the kernels of each rowmm route (kernels/rowmm.py rowmm_route)
+ROWMM_ROUTE_KERNELS = {"tc": ("rowmm_tc_kernel", "rowmm_bwd_tc_kernel"),
+                       "fma": ("rowmm_kernel", "rowmm_bwd_kernel")}
+
+
+def _launched_route(names, table, route) -> set:
+    """The kernels of ``table`` (route -> kernel names) that ``names``
+    (profiler keys) show launched; raises unless they are ``route``'s."""
+    launched = {k for ks in table.values() for k in ks
+                if any(f"mtp::{k}<" in n or f"mtp::{k}(" in n
+                       for n in names)}
+    if launched != set(table[route]):
+        raise AssertionError(f"launched {sorted(launched)}, not the {route} "
+                             f"route's kernels {table[route]}")
+    return launched
+
+
+def _rowmm_case(g, dev, dt, cout, ln, live, flags):
+    """Seeded inputs of one rowmm form over x [BATCH * 1024, 256]: (inputs,
+    the call, the cotangent: zero on dead blocks, split as the outputs)."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    L, D = 1024, 256
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).to(dev)
+
+    x = rnd(BATCH, L, D).to(dt)
+    w, b = rnd(D, cout, std=D ** -.5).to(dt), rnd(cout, std=.1).to(dt)
+    cot = rnd(BATCH, L, cout).to(dt) * live[:, :, None]
+    if ln:
+        inputs = (x, rnd(D, std=.1, mean=1.), rnd(D, std=.1), w, b)
+        cot = tuple(c.contiguous() for c in cot.split(cout // 3, -1))
+        return inputs, lambda *a: ops.rowskip_ln_affine(*a, flags), cot
+    return (x, w, b), lambda *a: ops.rowskip_affine(*a, flags), cot
 
 
 def compare_rowmm_kernels() -> dict:
     """rowmm_ln and rowmm, forward and backward, against autograd of their
     plain versions in fp32 and bf16 over x [64 * 1024, 256], the 256-row
     block flags of TIE lengths uniform in [5, 1000] (the fusion stream's
-    key mask), the cotangent zero on dead blocks. torch.addmm (and its
-    autograd.grad) is the library column of the plain form; no PyTorch call
-    computes the LN form. Returns the bf16 results by kernel name."""
-    import torch.nn.functional as F
-    from medical_tri_modal_pilot_tpu_torch import ops
-    from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import BLOCK_R
+    key mask), the cotangent zero on dead blocks. The LN form is timed as
+    it returns q, k and v (apart) and takes their cotangents apart.
+    torch.addmm (and its autograd.grad) is the library column of the plain
+    form; no PyTorch call computes the LN form. Then the profiler's device
+    ms per call of each form, lean, training and backward (and of the
+    library calls), and the kernels the calls launched, which must be the
+    dtype's route's. Returns the bf16 results by kernel name."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import (
+        BLOCK_R, rowmm_route)
     from medical_tri_modal_pilot_tpu_torch.models.modules import (
         ffn_row_blocks, length_key_mask)
     dev = torch.device("cuda")
@@ -1114,10 +1158,6 @@ def compare_rowmm_kernels() -> dict:
     L, D = 1024, 256
     lengths = torch.randint(5, TIE_LEN + 1, (BATCH,), generator=g) + 5
     mask = length_key_mask(lengths.to(dev), L)
-
-    def rnd(*shape, std=1.0, mean=0.0):
-        return (mean + std * torch.randn(*shape, generator=g)).to(dev)
-
     flags = ffn_row_blocks(mask[:, :, None], mask, BLOCK_R)
     live = flags.repeat_interleave(BLOCK_R, dim=1)
     n_live = float(live.sum())
@@ -1129,16 +1169,8 @@ def compare_rowmm_kernels() -> dict:
         name = "rowmm_ln" if ln else "rowmm"
         for dt in (torch.float32, torch.bfloat16):
             es = 2 if dt == torch.bfloat16 else 4
-            x = rnd(BATCH, L, D).to(dt)
-            w, b = rnd(D, cout, std=D ** -.5).to(dt), rnd(cout, std=.1).to(dt)
-            cot = rnd(BATCH, L, cout).to(dt) * live[:, :, None]
-            if ln:
-                inputs = (x, rnd(D, std=.1, mean=1.), rnd(D, std=.1), w, b)
-                fwd = lambda *a: torch.cat(ops.rowskip_ln_affine(*a, flags),
-                                           -1)
-            else:
-                inputs = (x, w, b)
-                fwd = lambda *a: ops.rowskip_affine(*a, flags)
+            inputs, fwd, cot = _rowmm_case(g, dev, dt, cout, ln, live, flags)
+            x, w, b = inputs[0], inputs[-2], inputs[-1]
             # x read on the live rows, every output row written once (dead
             # blocks as zeros); backward: x and dy read on the live rows, dx
             # written on every row, dW and db (and dgamma, dbeta) in fp32;
@@ -1161,6 +1193,12 @@ def compare_rowmm_kernels() -> dict:
             tag = f"{name}[{R},{D}]x[{D},{cout}]"
             fr, br = _compare_train(tag, dt, fwd, inputs, cot, live, work_f,
                                     work_b, library)
+            dres = _device_forms(tag, dt, fwd, inputs, cot, library,
+                                 ROWMM_ROUTE_KERNELS,
+                                 rowmm_route(dt, inputs[0].shape[-1]))
+            for res, form, i in ((fr, "train", 0), (br, "bwd", 1)):
+                res["device_ms"] = dres[form]
+                res["library_device_ms"] = dres["library"][i]
             del library
             if dt == torch.bfloat16:
                 shape = f"[{R},{D}]x[{D},{cout}]"
@@ -1728,12 +1766,16 @@ def _profile_tp_step(trainer, batch, rank: int) -> dict:
                if e.device_type == DeviceType.CUDA) / 1e3
     copies = sum(_dev_us(e) for e in events if e.device_type ==
                  DeviceType.CUDA and "Memcpy" in e.key) / 1e3
+    items = [(_dev_us(e), e.count, e.key) for e in events
+             if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
     return {"wall_ms": wall, "busy_ms": busy,
             "blocked_ms": blocked["s"] * 1e3, "blocked_calls":
             blocked["calls"], "copy_ms": copies,
-            "top": sorted(((_dev_us(e) / 1e3, e.count, e.key) for e in events
-                           if e.device_type == DeviceType.CUDA
-                           and _dev_us(e) > 0), reverse=True)[:12]}
+            "top": sorted(((t / 1e3, n, k) for t, n, k in items),
+                          reverse=True)[:12],
+            "rowmm": _by_kernel(items, [k for ks in
+                                        ROWMM_ROUTE_KERNELS.values()
+                                        for k in ks])}
 
 
 def run_tp(power: str) -> dict:
@@ -1813,6 +1855,9 @@ def run_tp(power: str) -> dict:
               f"device copies {prof['copy_ms']:.1f} ms")
     for t, count, key in r0["profile"]["top"]:
         print(f"  device {t:8.3f} ms x{count:<4d} {key[:90]}")
+    print("tp rank 0 rowmm kernels in the step: " + ", ".join(
+        f"{k} x{n} {t:.3f} ms" for k, (t, n) in
+        r0["profile"]["rowmm"].items()))
     curve = r0["curve"]
     head, tail = (float(np.mean(curve[:TP_CURVE_MEAN])),
                   float(np.mean(curve[-TP_CURVE_MEAN:])))
@@ -1844,25 +1889,46 @@ PATH_STEPS = dict({k: len(v) for k, v in TRAIN_BATCHES.items()},
                   tp=len(TP_BATCHES))
 
 
-# the kernels the A/B reading sums in a step: this slice's (and the FMA
-# forms they replace)
+# the kernels the A/B reading sums in a step and in an attn_block call:
+# the last slices' (and the FMA forms they replace)
 AB_KERNELS = ("ffn_kernel", "ffn_fwd_tc_kernel", "swin_mlp_kernel",
               "swin_mlp_tc_kernel", "swin_fc1_tc_kernel", "gemm_kernel",
-              "gemm_bf16_kernel", "layer_norm_kernel")
+              "gemm_bf16_kernel", "layer_norm_kernel", "block_qkv_tc_kernel",
+              "block_attn_tc_kernel", "block_ln_bwd_tc_kernel",
+              "rowmm_kernel", "rowmm_bwd_kernel", "rowmm_tc_kernel",
+              "rowmm_bwd_tc_kernel")
 AB_STEPS = 5
+# attn_block forward + backward calls profiled together in ``ab``
+AB_BLOCK_CALLS = 5
+
+
+def _by_kernel(items, names) -> dict:
+    """Profiler items (us, count, key) summed per kernel name: {name:
+    [ms, launches]} for the names that launched."""
+    sums = {k: [0.0, 0] for k in names}
+    for t, n, key in items:
+        for k in names:
+            if f"mtp::{k}<" in key or f"mtp::{k}(" in key:
+                sums[k][0] += t / 1e3
+                sums[k][1] += n
+    return {k: v for k, v in sums.items() if v[1]}
 
 
 def ab(root: str, power: str) -> None:
-    """The A/B reading of the ffn forward and swin_mlp for the package
-    under ``root`` (a git archive of one tree): the profiler's device ms
-    per call of the bf16 ffn forward at the vslt shape ([64, 1024, 256],
-    TIE-length tile flags; dropout 0 and 0.1) and of swin_mlp at Swin-T's
-    four stages over the main path's 33 trunk rows, then one config-4
-    bf16 train step's device busy time, host wall, and the device ms of
-    each of AB_KERNELS in it (profiler), and the host-clock ms/step of
-    config 4 and of the cross transformer over AB_STEPS unprofiled train
-    steps. Only the wrappers both trees have are called. One process per tree, in turns (parent, change, change,
-    parent), each building its kernels into <root>/build:
+    """The A/B reading for the package under ``root`` (a git archive of one
+    tree), all bf16, profiler device ms: per call, the ffn forward at the
+    vslt shape ([64, 1024, 256], TIE-length tile flags; dropout 0 and 0.1),
+    swin_mlp at Swin-T's four stages over the main path's 33 trunk rows,
+    and the four rowmm forms at the rowmm phase's shapes (forward and
+    backward, LN-fused at W [256, 384] and plain at [256, 768]); per
+    launch, the attn_block kernels of AB_BLOCK_CALLS training forwards and
+    backwards at [64, 1024, 256] (TIE key mask); then one config-4 train
+    step's device busy time, host wall, and the device ms of each of
+    AB_KERNELS in it, and the host-clock ms/step of config 4 and of the
+    cross transformer over AB_STEPS unprofiled train steps. Only the
+    wrappers both trees have are called. One process per tree, in turns
+    (parent, change, change, parent), each building its kernels into
+    <root>/build:
 
         python3 chip_smoke.py ab build/parent
     """
@@ -1871,6 +1937,7 @@ def ab(root: str, power: str) -> None:
     from medical_tri_modal_pilot_tpu_torch.config import parse_config
     from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
         synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import BLOCK_R
     from medical_tri_modal_pilot_tpu_torch.models import get_model
     from medical_tri_modal_pilot_tpu_torch.models.modules import (
         ffn_row_blocks, length_key_mask)
@@ -1911,23 +1978,50 @@ def ab(root: str, power: str) -> None:
             out[f"swin_mlp_{C}"] = ms
             print(f"ab {root}: swin_mlp [{R},{C}]: {ms:.4f} device ms per "
                   f"call ({names})")
+    # the rowmm forms at the rowmm phase's block flags
+    rflags = ffn_row_blocks(x, mask, BLOCK_R)
+    rlive = rflags.repeat_interleave(BLOCK_R, dim=1)
+    for key, cout, ln in (ROWMM_SHAPES[0], ROWMM_SHAPES[2]):
+        inputs, fwd, cot = _rowmm_case(g, dev, bf16, cout, ln, rlive, rflags)
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        f_ms, names = _device_ms(lambda: fwd(*leaves))
+        y = fwd(*leaves)
+        b_ms, more = _device_ms(lambda: torch.autograd.grad(
+            y, leaves, cot, retain_graph=True))
+        out[key], out[f"{key}_bwd"] = f_ms, b_ms
+        print(f"ab {root}: {key} [65536,256]x[256,{cout}]: forward "
+              f"{f_ms:.4f}, backward {b_ms:.4f} device ms per call "
+              f"({sorted(set(names + more))})")
+        del leaves, y, inputs, cot
+    # the attention block's projection kernels, per launch
+    blk = [rnd(D, std=.1, mean=1.), rnd(D, std=.1),
+           rnd(D, 3 * D, std=D ** -.5).to(bf16), rnd(3 * D, std=.1).to(bf16)]
+    leaves = [t.detach().clone().requires_grad_(True) for t in [x] + blk]
+    bcot = rnd(BATCH, L, D).to(bf16)
+
+    def block_calls(_):
+        for _ in range(AB_BLOCK_CALLS):
+            y = ops.attn_block(*leaves, mask, 8.0, 4)
+            torch.autograd.grad(y, leaves, bcot)
+    items, busy, _ = _step_split(block_calls, None)
+    split = _by_kernel(items, AB_KERNELS)
+    out["attn_block_kernels"] = split
+    print(f"ab {root}: attn_block [64,1024,256] training forward + "
+          f"backward: {busy / AB_BLOCK_CALLS:.4f} device ms per call; " +
+          ", ".join(f"{k} x{n} {t / n:.4f} ms a launch"
+                    for k, (t, n) in split.items()))
+    del leaves, bcot
     cfg = parse_config(CONFIG4)
     model = get_model(cfg, torch.Generator().manual_seed(0))
     trainer = Trainer(cfg, model, dev, eval_only=False, seed=0)
     batch = synthetic_batch(cfg, BATCH, seed=10,
                             present_frac=TRAIN_BATCHES["config4"][0])
     items, busy, wall = _step_split(trainer.train_step, batch)
-    sums = {k: [0.0, 0] for k in AB_KERNELS}
-    for t, n, key in items:
-        for k in AB_KERNELS:
-            if f"mtp::{k}<" in key or f"mtp::{k}(" in key:
-                sums[k][0] += t / 1e3
-                sums[k][1] += n
-    out.update(step_busy_ms=busy, step_wall_ms=wall,
-               step_kernels={k: v for k, v in sums.items() if v[1]})
+    sums = _by_kernel(items, AB_KERNELS)
+    out.update(step_busy_ms=busy, step_wall_ms=wall, step_kernels=sums)
     print(f"ab {root}: config4 bf16 train step: device busy {busy:.2f} ms "
           f"of {wall:.2f} ms host wall; " + ", ".join(
-              f"{k} x{n} {t:.3f} ms" for k, (t, n) in sums.items() if n))
+              f"{k} x{n} {t:.3f} ms" for k, (t, n) in sums.items()))
     for name, argv in (("config4", CONFIG4), ("cross", CROSS)):
         if name != "config4":
             del trainer, model

@@ -16,12 +16,14 @@
 // launches. Two routes, picked by dtype (kernels/attn_block.py route):
 //
 //   tc (bf16): on the tensor cores (mma.sync m16n8k16, fp32 accumulate;
-//     helpers in mma.cuh, flash_tc.cuh, attn_block_tc.cuh):
+//     helpers in mma.cuh, flash_tc.cuh, proj_tc.cuh):
 //     1. block_qkv_tc_kernel: one block per 64-row tile that starts
-//        before the sample's last valid key: x staged by cp.async, StdLN
-//        in fp32 rounded to bf16 in place as the A operand, W streamed in
-//        64 x 128 chunks through a three-stage cp.async ring; q|k|v =
-//        round(round(acc) + bias) into a [B, L, 3C] scratch. The
+//        before the sample's last valid key, through the projection tile
+//        loop it shares with rowmm.cu (proj_tc.cuh::proj_fwd_tile): x
+//        staged by cp.async, StdLN in fp32 rounded to bf16 in place as the
+//        A operand, W streamed in 64 x 128 chunks through a three-stage
+//        cp.async ring; q|k|v = round(round(acc) + bias) into a [B, L, 3C]
+//        scratch, through shared memory in 16-byte pieces. The
 //        backward's recompute launches it too.
 //     2. block_attn_tc_kernel: one block per (64-row q tile, head,
 //        sample), warp w owning q rows 16 w .. + 15, through the flash
@@ -45,7 +47,8 @@
 // out; a sample whose keys are all masked has kend = L and so attends
 // uniformly over its L keys; q tiles that start past the sample's last
 // valid key emit the pure residual.
-#include "attn_block_tc.cuh"
+#include "flash_tc.cuh"
+#include "proj_tc.cuh"
 
 namespace mtp {
 
@@ -276,103 +279,20 @@ static cudaError_t launch(const void* x, const float* gamma,
 
 // qkv[b, r, :] = round(round(StdLN(x[b, r]) . w) + bias), [B, L, 3C], for
 // the rows of tiles that start before kend[b] (other rows are left
-// unwritten). grid (ceil(L/64), B), kProjThreads threads: the StdLN once
-// per tile, then 128-column chunks of 3C, warp w computing rows
-// 16 (w & 3) .. + 16 and columns 64 (w >> 2) .. + 64 of each, W streamed
-// 64 rows deep through a three-stage cp.async ring; C % 64 == 0.
+// unwritten). grid (ceil(L/64), B), kProjThreads threads; C % 64 == 0.
 __global__ void __launch_bounds__(kProjThreads, 2) block_qkv_tc_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const bf16* __restrict__ w,
     const bf16* __restrict__ bias, const int* __restrict__ kend,
     bf16* __restrict__ qkv, int L, int C) {
   extern __shared__ __align__(16) unsigned char qkv_smem[];
-  constexpr int LDW = pitch(kProjCols), WSTAGE = kProjDepth * LDW;
-  constexpr int kPerRow = kProjCols / 8;
-  const int LDX = pitch(C);
-  bf16* xs = reinterpret_cast<bf16*>(qkv_smem);  // [64][LDX]: x, then LN
-  bf16* ws = xs + kTile * LDX;                    // [stages][64][LDW]
   const int b = blockIdx.y, r0 = blockIdx.x * kTile;
   if (r0 >= kend[b]) return;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3, rs = warp & 3, ch = warp >> 2;
-  const int rows = min(kTile, L - r0), N = 3 * C;
-  const bf16* xb = x + ((size_t)b * L + r0) * C;
-  // the tile's x, a warp per row (rows past L zero-filled)
-  for (int r = warp; r < kTile; r += kProjThreads / 32)
-    for (int c = lane * 8; c < C; c += 256)
-      cp_async16(xs + r * LDX + c, r < rows ? xb + (size_t)r * C + c : xb,
-                 r < rows);
-  const int ksteps = C / kProjDepth;
-  const int total = (N + kProjCols - 1) / kProjCols * ksteps;
-  // stage s of the walk over (128-column chunk, 64-row depth step);
-  // columns past 3C (C = 64: the second chunk's upper half) zero-filled
-  auto load_w = [&](int s) {
-    const int nc = s / ksteps, kc = s - nc * ksteps;
-    bf16* dst = ws + (s % kProjStages) * WSTAGE;
-    const bf16* src = w + (size_t)kc * kProjDepth * N + nc * kProjCols;
-    for (int e = tid; e < kProjDepth * kPerRow; e += kProjThreads) {
-      const int r = e / kPerRow, c = (e % kPerRow) * 8;
-      const bool in = nc * kProjCols + c < N;
-      cp_async16(dst + r * LDW + c, in ? src + (size_t)r * N + c : w, in);
-    }
-  };
-  load_w(0);
-  cp_async_commit();
-  if (total > 1) load_w(1);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  // StdLN in place, a warp per row
-  for (int r = warp; r < kTile; r += kProjThreads / 32)
-    stdln_row_bf16(xs + r * LDX, xs + r * LDX, C, gamma, beta, lane,
-                   nullptr, r);
-  float acc[8][4];
-  for (int s = 0; s < total; ++s) {
-    const int nc = s / ksteps, kc = s - nc * ksteps;
-    if (kc == 0) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-    }
-    cp_async_wait<1>();
-    // stage s has landed (and, at s = 0, every row's StdLN); every warp
-    // is done with stage s - 1, whose buffer is refilled next
-    __syncthreads();
-    if (s + 2 < total) load_w(s + 2);
-    cp_async_commit();
-    const bf16* wsb = ws + (s % kProjStages) * WSTAGE;
-#pragma unroll
-    for (int kk = 0; kk < kProjDepth; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, frag_a(xs, LDX, 16 * rs, kc * kProjDepth + kk, lane));
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bq[4];
-        ldsm_x4_t(bq, frag_b_kn(wsb, LDW, kk, 64 * ch + 16 * np, lane));
-        mma16816(acc[2 * np], a, bq[0], bq[1]);
-        mma16816(acc[2 * np + 1], a, bq[2], bq[3]);
-      }
-    }
-    if (kc == ksteps - 1) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = nc * kProjCols + 64 * ch + 8 * j + 2 * t;
-        if (col >= N) continue;
-        const float b0 = bf(bias[col]), b1 = bf(bias[col + 1]);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 16 * rs + g + 8 * h;
-          if (r < rows)
-            *reinterpret_cast<uint32_t*>(
-                qkv + ((size_t)b * L + r0 + r) * N + col) =
-                pack_bf16(rnd<bf16>(acc[j][2 * h]) + b0,
-                          rnd<bf16>(acc[j][2 * h + 1]) + b1);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
+  const int N = 3 * C;
+  const size_t row0 = (size_t)b * L + r0;
+  proj_fwd_tile<true>(
+      qkv_smem, x + row0 * C, min(kTile, L - r0), C, gamma, beta, w, bias,
+      N, Packed<bf16>{qkv + row0 * N, N});
 }
 
 // out = x + MHA for head h's columns of one 64-row q tile, from qkv

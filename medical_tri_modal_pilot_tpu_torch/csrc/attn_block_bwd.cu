@@ -16,8 +16,9 @@
 // rows into [B, L, 3C]. Two routes, picked by dtype:
 //
 //   tc (bf16), every product on the tensor cores (mma.sync m16n8k16, fp32
-//   accumulate; attn_block_tc.cuh; the dK/dV and dQ loops are
-//   flash_tc.cuh's, shared with attention.cu):
+//   accumulate; the dK/dV and dQ loops are flash_tc.cuh's, shared with
+//   attention.cu; the projection backward's is proj_tc.cuh's, shared with
+//   rowmm.cu):
 //     block_delta_kernel: delta = rowsum(dO * O) per row and head, once,
 //       into fp32 [B, H, L] (FlashAttention-2's backward preprocess);
 //     block_dkv_tc_kernel: one block per (64-key tile, head, sample),
@@ -49,7 +50,8 @@
 // Rows of q tiles that start past a sample's last valid key (kend) carry
 // no cotangent in the model (they are masked keys everywhere downstream
 // and the FFN passes them through): their dx is dy and they add nothing.
-#include "attn_block_tc.cuh"
+#include "flash_tc.cuh"
+#include "proj_tc.cuh"
 
 namespace mtp {
 
@@ -611,18 +613,13 @@ __global__ void __launch_bounds__(kTcThreads, 4) block_dq_tc_kernel(
   }
 }
 
-// The projection backward of one 64-row tile on the tensor cores: StdLN
-// recomputed (rows to ln_o for dW), dln = [dq|dk|dv] . W^T, the StdLN
-// backward with the residual cotangent, dx = round(round(dx_ln) + dy),
-// and the tile's dgamma | dbeta sums to gpart. Shared memory (bf16 tiles
-// of pitch width + 8): xs [64][C], a three-stage ring of a dq|dk|dv chunk
-// [64][32] and a W chunk [C][32] (W^T's rows), then the StdLN stats fp32
-// [4][64]. During the last chunk the tile's dy is staged into the ring's
-// first two stages, free by then; after the loop the third holds the
-// epilogue's cross-warp sums. 256 threads, two blocks an SM: warp w
-// computes rows 16 (w & 3) .. + 16 and dln columns (C / 2)(w >> 2) ..
-// + C / 2. Dead tiles write dx = dy, zero ln_o rows and zero partials.
-// grid (ceil(L/64), B); C = 16 * NJC.
+// The projection backward of one 64-row tile on the tensor cores
+// (proj_tc.cuh::proj_bwd_tile with the residual): StdLN recomputed (rows to
+// ln_o for dW), dln = [dq|dk|dv] . W^T, the StdLN backward with the
+// residual cotangent, dx = round(round(dx_ln) + dy), and the tile's
+// dgamma | dbeta sums to gpart. 256 threads, two blocks an SM. Dead tiles
+// write dx = dy, zero ln_o rows and zero partials. grid (ceil(L/64), B);
+// C = 16 * NJC.
 template <int NJC>
 __global__ void __launch_bounds__(kThreads, 2) block_ln_bwd_tc_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
@@ -630,167 +627,25 @@ __global__ void __launch_bounds__(kThreads, 2) block_ln_bwd_tc_kernel(
     const int* __restrict__ kend, const bf16* __restrict__ dqkv,
     const bf16* __restrict__ dy, bf16* __restrict__ dx,
     bf16* __restrict__ ln_o, float* __restrict__ gpart, int L) {
-  constexpr int C = 16 * NJC, N = 3 * C, KC = kLnBwdDepth;
-  constexpr int LDC = pitch(C), LDK = pitch(KC);
-  constexpr int AT = kTile * LDK, STAGE = ln_bwd_tc_stage(C);
-  constexpr int nch = N / KC;
-  static_assert(nch % kLnBwdStages == 0,
+  constexpr int C = 16 * NJC, N = 3 * C;
+  static_assert((N / kLnBwdDepth) % kLnBwdStages == 0,
                 "the last chunk runs in the ring's last stage");
-  static_assert(kTile * LDC <= 2 * STAGE, "dy fits in two stages");
-  static_assert((4 * kTile + 8 * C) * sizeof(float) <=
-                    STAGE * sizeof(bf16),
-                "the epilogue's sums fit in a stage of the ring");
   extern __shared__ __align__(16) unsigned char lnb_smem[];
-  bf16* xs = reinterpret_cast<bf16*>(lnb_smem);
-  bf16* ring = xs + kTile * LDC;  // [stage][dq|dk|dv chunk | W chunk]
-  float* stats = reinterpret_cast<float*>(ring + kLnBwdStages * STAGE);
   const int b = blockIdx.y, tile = blockIdx.x, r0 = tile * kTile;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rows = min(kTile, L - r0);
-  const size_t base = (size_t)b * L;
+  const size_t base = (size_t)b * L, row0 = base + r0;
   float* gp = gpart + ((size_t)b * gridDim.x + tile) * 2 * C;
   if (r0 >= kend[b]) {
+    const int tid = threadIdx.x;
     copy_rows<bf16>(dy + base * C, dx + base * C, r0, rows, C, tid);
     zero_rows<bf16>(ln_o + base * C, r0, rows, C, tid);
     for (int c = tid; c < 2 * C; c += kThreads) gp[c] = 0.0f;
     return;
   }
-  auto load = [&](int it) {
-    bf16* a = ring + (it % kLnBwdStages) * STAGE;
-    stage_rows<KC, kThreads>(a, LDK, dqkv + (base + r0) * N + it * KC, N,
-                             kTile, rows, tid);
-    stage_rows<KC, kThreads>(a + AT, LDK, w + it * KC, N, C, C, tid);
-  };
-  stage_rows<C, kThreads>(xs, LDC, x + (base + r0) * C, C, kTile, rows, tid);
-  load(0);
-  cp_async_commit();
-  load(1);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  // StdLN of the tile, one warp per row: its stats, and its live rows
-  // to ln_o for dW (the forward's values bit for bit)
-  for (int r = warp; r < kTile; r += kThreads / 32) {
-    bf16* dst = r < rows ? ln_o + (base + r0 + r) * C : nullptr;
-    stdln_row_bf16(xs + r * LDC, dst, C, gamma, beta, lane, stats, r);
-  }
-  const int rs = warp & 3, ch = warp >> 2;
-  const int g = lane >> 2, t = lane & 3;
-  float dln[NJC][4];
-#pragma unroll
-  for (int j = 0; j < NJC; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dln[j][e] = 0.0f;
-  for (int it = 0; it < nch; ++it) {
-    cp_async_wait<1>();
-    // chunk it has landed; every warp is done with chunk it - 1, whose
-    // stage is refilled next
-    __syncthreads();
-    if (it + 2 < nch)
-      load(it + 2);
-    else if (it == nch - 1)
-      stage_rows<C, kThreads>(ring, LDC, dy + (base + r0) * C, C, kTile,
-                              rows, tid);
-    cp_async_commit();
-    const bf16* as = ring + (it % kLnBwdStages) * STAGE;
-    const bf16* ws = as + AT;
-    // dln += chunk . W[:, chunk]^T (W's rows are the B operand stored
-    // [n][k])
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, frag_a(as, LDK, 16 * rs, kk, lane));
-#pragma unroll
-      for (int np = 0; np < NJC / 2; ++np) {
-        uint32_t bw[4];
-        ldsm_x4(bw, frag_b_nk(ws, LDK, (C / 2) * ch + 16 * np, kk, lane));
-        mma16816(dln[2 * np], a, bw[0], bw[1]);
-        mma16816(dln[2 * np + 1], a, bw[2], bw[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  // The StdLN backward on the fragments (stdln_backward_tile's
-  // arithmetic, ROUND_TWICE true, its sums in another order); the
-  // cross-warp sums through the ring's last stage
-  const bf16* dys = ring;
-  float* rrow = reinterpret_cast<float*>(ring + 2 * STAGE);  // [2][64][2]
-  float* rcol = rrow + 2 * 2 * kTile;                         // [4][2C]
-  float A[2] = {0.0f, 0.0f}, S[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int j = 0; j < NJC; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = (C / 2) * ch + 8 * j + 2 * t + e;
-      const float gam = gamma[col];
-      float gs = 0.0f, bs = 0.0f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = 16 * rs + g + 8 * h;
-        const float c = stats[kTile + r];
-        const float xhat = (bf(xs[r * LDC + col]) - stats[r]) * c;
-        const float d = dln[j][2 * h + e];
-        gs += d * xhat;
-        bs += d;
-        const float dxhat = d * gam;
-        A[h] += dxhat * (xhat / c);
-        S[h] += dxhat;
-      }
-      // column sums over the warp's 16 rows: the 8 lanes that share t
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        gs += __shfl_xor_sync(0xffffffffu, gs, off);
-        bs += __shfl_xor_sync(0xffffffffu, bs, off);
-      }
-      if (g == 0) {
-        rcol[rs * 2 * C + col] = gs;
-        rcol[rs * 2 * C + C + col] = bs;
-      }
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      A[h] += __shfl_xor_sync(0xffffffffu, A[h], off);
-      S[h] += __shfl_xor_sync(0xffffffffu, S[h], off);
-    }
-    if (t == 0) {
-      const int r = 16 * rs + g + 8 * h;
-      rrow[(ch * kTile + r) * 2] = A[h];
-      rrow[(ch * kTile + r) * 2 + 1] = S[h];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = 16 * rs + g + 8 * h;
-    if (r >= rows) continue;
-    const float a = rrow[r * 2] + rrow[(kTile + r) * 2];
-    const float mean = (rrow[r * 2 + 1] + rrow[(kTile + r) * 2 + 1]) /
-                       (float)C;
-    const float mu = stats[r], c = stats[kTile + r];
-    const float sd = stats[2 * kTile + r], var = stats[3 * kTile + r];
-    const float k2 = (c * c) * a * (var > kVarFloor ? 1.0f : 0.0f) /
-                     ((float)(C - 1) * sd);
-#pragma unroll
-    for (int j = 0; j < NJC; ++j) {
-      const int col = (C / 2) * ch + 8 * j + 2 * t;
-      float o[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float xhat = (bf(xs[r * LDC + col + e]) - mu) * c;
-        const float dxhat = dln[j][2 * h + e] * gamma[col + e];
-        o[e] = bf(dys[r * LDC + col + e]) +
-               rnd<bf16>(c * (dxhat - mean) - k2 * (xhat / c));
-      }
-      *reinterpret_cast<uint32_t*>(dx + (base + r0 + r) * C + col) =
-          pack_bf16(o[0], o[1]);
-    }
-  }
-  for (int col = tid; col < 2 * C; col += kThreads)
-    gp[col] = rcol[col] + rcol[2 * C + col] + rcol[4 * C + col] +
-              rcol[6 * C + col];
+  proj_bwd_tile<NJC, true, true>(
+      lnb_smem, x + row0 * C, rows, gamma, beta, w, N,
+      Packed<const bf16>{dqkv + row0 * N, N}, dy + row0 * C, dx + row0 * C,
+      ln_o + row0 * C, gp);
 }
 
 template <int DH>

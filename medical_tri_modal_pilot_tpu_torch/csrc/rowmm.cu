@@ -12,32 +12,48 @@
 // parallelism the LN form projects one rank's q|k|v columns of the TIE
 // stream: x [64 * 1024, 256], W [256, 384] per rank at --mp-size 2.
 //
-// What bounds it on an H100: 2 Cin Cout operations per live row (8 GFLOP
-// at the rank shape with 5/8 of the rows live) against x read on the live
-// rows and every output row written (71 MB in bf16): in bf16 on the tensor
-// cores the bytes would bound it (0.021 ms against 0.008 ms of
-// operations); these fp32 FMA loops are bound by the operations (0.12 ms
-// at 67 TFLOP/s). The TPU kernel's point is what it keeps out of device
-// memory, and so is this one's: the StdLN rows of a tile live in shared
-// memory and never make a round trip, and a dead tile reads nothing. One
-// block owns a 64-row tile and walks the output columns 64 at a time
-// (gemm_tile, fp32 FMAs; tensor cores are later work). The TPU kernel's
-// kBlockR = 256-row skip flags are read per 64-row tile (a 256-row block
-// is four tiles). The product rounds to T before the bias is added
-// in T (rowmm.py:59, :111-114). The LN form writes q, k and v as three
-// packed [R, Cout / 3] outputs, as the TPU kernel does (:115-118).
+// What bounds it on an H100: 2 Cin Cout operations per live row (16
+// GFLOP at [65536, 256] x [256, 768] with 5/8 of the rows live) against x
+// read on the live rows and every output row written (100 MB in bf16 at
+// that shape, dead blocks' zeros included): in bf16 the bytes bound it
+// (0.036 ms against 0.016 ms of operations at 989 TFLOP/s). Two routes,
+// picked by dtype (kernels/rowmm.py::rowmm_route):
 //
-// Backward (rowmm_bwd_kernel): per live tile, dx = dy.W^T in fp32 with dy
-// staged 64 columns at a time; the LN form recomputes StdLN and runs its
-// backward with the variance-floor flag (stdln_backward_tile, the same
-// math as rowmm.py:155-163) and leaves the tile's dgamma | dbeta sums as
-// partials. The TPU kernel adds each block's dW and db into one output as
+//   tc (bf16), on the tensor cores through the projection tile loops the
+//     attention block runs too (proj_tc.cuh; mma.sync m16n8k16, fp32
+//     accumulate):
+//     rowmm_tc_kernel: one block per 64-row tile, two blocks an SM; a
+//       dead tile (its 256-row flag 0) writes zeros in 16-byte pieces and
+//       reads nothing; a live one stages x by cp.async, normalises it in
+//       place (LN form), and walks the output columns in 128-column
+//       chunks against a three-stage ring of 64 x 128 W chunks, each
+//       chunk leaving through shared memory in 16-byte pieces
+//       (proj_fwd_tile, whose note gives what bounds the loop).
+//     rowmm_bwd_tc_kernel: one block per 64-row tile: dA = dy . W^T with
+//       dy and W^T in 32-deep chunks through a three-stage ring
+//       (proj_bwd_tile); the LN form recomputes StdLN (rows to ln_o) and
+//       runs its backward with the variance-floor flag on the fragments,
+//       the plain form writes dx = round(dA). Dead tiles write dx = 0 and
+//       zero partials.
+//   fma (fp32, the checking dtype): fp32 FMAs on 4 x 4 register tiles
+//     (gemm_tile, gemm_tile_t), exact to the fp32 oracle: rowmm_kernel
+//     and rowmm_bwd_kernel, one block per 64-row tile, the tile's (StdLN)
+//     rows in shared memory, 64 output columns at a time.
+//
+// The TPU kernel's point is what it keeps out of device memory, and so is
+// this one's: the StdLN rows of a tile live in shared memory and never
+// make a round trip, and a dead tile reads nothing. The product rounds to
+// T before the bias is added in T (rowmm.py:59, :111-114). The LN form
+// writes q, k and v as three packed [R, Cout / 3] outputs, as the TPU
+// kernel does (:115-118).
+//
+// Backward: the TPU kernel adds each block's dW and db into one output as
 // its sequential grid walks the rows; here the tile pass writes the A
 // operand of dW (the rounded StdLN rows; x itself for the plain form) and
-// wgrad.cu sums A^T dy and the column sums of dy over the live rows only,
-// in split-K slices in a fixed order. Deterministic; no atomics. A dead
-// tile writes dx = 0 and adds nothing.
-#include "common.cuh"
+// the LN form's dgamma | dbeta partials per tile, and wgrad.cu sums A^T dy
+// and the column sums of dy over the live rows only, in split-K slices in
+// a fixed order. Deterministic; no atomics.
+#include "proj_tc.cuh"
 
 namespace mtp {
 
@@ -175,6 +191,122 @@ __global__ void __launch_bounds__(kThreads) rowmm_bwd_kernel(
   }
 }
 
+// ---- the bf16 route on the tensor cores ----
+
+// rows [r0, r0 + rows) of a row-major bf16 [*, C] array set to zero in
+// 16-byte pieces, by kThreads threads (C % 8 == 0)
+static __device__ __forceinline__ void zero_rows16(bf16* p, int r0, int rows,
+                                                   int C, int tid) {
+  uint4* d = reinterpret_cast<uint4*>(p + (size_t)r0 * C);
+  for (int e = tid; e < rows * (C / 8); e += kThreads)
+    d[e] = make_uint4(0, 0, 0, 0);
+}
+
+// out0 | out1 | out2 (each [R, Cs]; out0 alone [R, Cout] when Cs = Cout)
+// for the 64-row tile at blockIdx.x. Cin % 64 == 0, Cout and Cs multiples
+// of 64. grid (ceil(R/64)), kProjThreads threads, two blocks an SM.
+template <bool LN>
+__global__ void __launch_bounds__(kProjThreads, 2)
+    rowmm_tc_kernel(const bf16* __restrict__ x,
+                    const float* __restrict__ gamma,
+                    const float* __restrict__ beta,
+                    const bf16* __restrict__ w, const bf16* __restrict__ b,
+                    const int8_t* __restrict__ valid, bf16* out0, bf16* out1,
+                    bf16* out2, int R, int Cin, int Cout, int Cs) {
+  extern __shared__ __align__(16) unsigned char rowmm_smem[];
+  const int r0 = blockIdx.x * kTile, rows = min(kTile, R - r0);
+  if (valid[r0 / kBlockR] == 0) {
+    bf16* outs[3] = {out0, out1, out2};
+    for (int o = 0; o < Cout / Cs; ++o)
+      zero_rows16(outs[o], r0, rows, Cs, threadIdx.x);
+    return;
+  }
+  proj_fwd_tile<LN>(
+      rowmm_smem, x + (size_t)r0 * Cin, rows, Cin, gamma, beta, w, b, Cout,
+      Split<bf16>{out0, out1, out2, Cs, r0});
+}
+
+// The backward tile pass of one 64-row tile: dx [R, Cin] (zeros in dead
+// tiles); the LN form also ln_o [R, Cin] on live tiles and gpart
+// [ceil(R/64), 2 Cin] (zeros in dead tiles). dy0 | dy1 | dy2 as the
+// forward's outputs. grid (ceil(R/64)), kThreads; Cin = 16 * NJC.
+template <int NJC, bool LN>
+__global__ void __launch_bounds__(kThreads, 2) rowmm_bwd_tc_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const bf16* __restrict__ w,
+    const int8_t* __restrict__ valid, const bf16* dy0, const bf16* dy1,
+    const bf16* dy2, bf16* __restrict__ dx, bf16* __restrict__ ln_o,
+    float* __restrict__ gpart, int R, int Cout, int Cs) {
+  constexpr int C = 16 * NJC;
+  extern __shared__ __align__(16) unsigned char rowmm_bwd_smem[];
+  const int tile = blockIdx.x, r0 = tile * kTile;
+  const int rows = min(kTile, R - r0);
+  float* gp = LN ? gpart + (size_t)tile * 2 * C : nullptr;
+  if (valid[r0 / kBlockR] == 0) {
+    zero_rows16(dx, r0, rows, C, threadIdx.x);
+    if (LN)
+      for (int c = threadIdx.x; c < 2 * C; c += kThreads) gp[c] = 0.0f;
+    return;
+  }
+  proj_bwd_tile<NJC, LN, false>(
+      rowmm_bwd_smem, x + (size_t)r0 * C, rows, gamma, beta, w, Cout,
+      Split<const bf16>{dy0, dy1, dy2, Cs, r0}, nullptr, dx + (size_t)r0 * C,
+      LN ? ln_o + (size_t)r0 * C : nullptr, gp);
+}
+
+template <bool LN>
+static cudaError_t launch_fwd_tc(const void* x, const float* gamma,
+                                 const float* beta, const void* w,
+                                 const void* b, const int8_t* valid,
+                                 void* out0, void* out1, void* out2, int R,
+                                 int Cin, int Cout, int Cs,
+                                 cudaStream_t stream) {
+  const int smem = proj_fwd_smem(Cin);
+  cudaError_t err = cudaFuncSetAttribute(
+      rowmm_tc_kernel<LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  rowmm_tc_kernel<LN><<<(R + kTile - 1) / kTile, kProjThreads, smem,
+                        stream>>>(
+      (const bf16*)x, gamma, beta, (const bf16*)w, (const bf16*)b, valid,
+      (bf16*)out0, (bf16*)out1, (bf16*)out2, R, Cin, Cout, Cs);
+  return cudaGetLastError();
+}
+
+template <int NJC, bool LN>
+static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
+                                 const float* beta, const void* w,
+                                 const int8_t* valid, const void* dy0,
+                                 const void* dy1, const void* dy2, void* dx,
+                                 void* ln_o, float* gpart, int R, int Cout,
+                                 int Cs, cudaStream_t stream) {
+  constexpr int smem = proj_bwd_smem(16 * NJC, LN);
+  cudaError_t err = cudaFuncSetAttribute(
+      rowmm_bwd_tc_kernel<NJC, LN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  rowmm_bwd_tc_kernel<NJC, LN><<<(R + kTile - 1) / kTile, kThreads, smem,
+                                 stream>>>(
+      (const bf16*)x, gamma, beta, (const bf16*)w, valid, (const bf16*)dy0,
+      (const bf16*)dy1, (const bf16*)dy2, (bf16*)dx, (bf16*)ln_o, gpart, R,
+      Cout, Cs);
+  return cudaGetLastError();
+}
+
+template <int NJC>
+static cudaError_t bwd_tc(int ln, const void* x, const float* g,
+                          const float* be, const void* w, const int8_t* v,
+                          const void* d0, const void* d1, const void* d2,
+                          void* dx, void* ln_o, float* gp, int R, int Cout,
+                          int Cs, cudaStream_t s) {
+  return ln ? launch_bwd_tc<NJC, true>(x, g, be, w, v, d0, d1, d2, dx, ln_o,
+                                        gp, R, Cout, Cs, s)
+            : launch_bwd_tc<NJC, false>(x, g, be, w, v, d0, d1, d2, dx,
+                                         ln_o, gp, R, Cout, Cs, s);
+}
+
+// ---- the fp32 route (FMA) ----
+
 template <typename T, int NJC, bool LN>
 static cudaError_t launch_fwd(const void* x, const float* gamma,
                               const float* beta, const void* w, const void* b,
@@ -247,9 +379,10 @@ static bool shapes_ok(int R, int Cout, int Cs) {
 
 }  // namespace mtp
 
-// dtype: 0 = fp32, 1 = bf16 for x [R, Cin], w [Cin, Cout], b [Cout] and the
-// outputs; gamma and beta fp32 [Cin] (LN form only, else NULL). valid: int8
-// flags, one per kBlockR (256) consecutive rows. ln != 0: the LN form,
+// dtype: 0 = fp32 (the FMA kernels), 1 = bf16 (the tensor cores) for x
+// [R, Cin], w [Cin, Cout], b [Cout] and the outputs; gamma and beta fp32
+// [Cin] (LN form only, else NULL). valid: int8 flags, one per kBlockR
+// (256) consecutive rows. ln != 0: the LN form,
 // outputs out0 | out1 | out2 each [R, Cs] with Cs = Cout / 3; else one
 // output out0 [R, Cout] (Cs = Cout). Cin in {64, 256}; Cout and Cs multiples
 // of 64. Returns cudaGetLastError().
@@ -268,10 +401,9 @@ extern "C" int rowmm_fwd(const void* x, const void* gamma, const void* beta,
     return (int)fwd_ln<float, 16>(ln, x, g, be, w, b, v, out0, out1, out2, R, Cout, Cs, s);
   if (dtype == 0 && Cin == 64)
     return (int)fwd_ln<float, 4>(ln, x, g, be, w, b, v, out0, out1, out2, R, Cout, Cs, s);
-  if (dtype == 1 && Cin == 256)
-    return (int)fwd_ln<__nv_bfloat16, 16>(ln, x, g, be, w, b, v, out0, out1, out2, R, Cout, Cs, s);
-  if (dtype == 1 && Cin == 64)
-    return (int)fwd_ln<__nv_bfloat16, 4>(ln, x, g, be, w, b, v, out0, out1, out2, R, Cout, Cs, s);
+  if (dtype == 1 && (Cin == 256 || Cin == 64))
+    return (int)(ln ? launch_fwd_tc<true>(x, g, be, w, b, v, out0, out1, out2, R, Cin, Cout, Cs, s)
+                    : launch_fwd_tc<false>(x, g, be, w, b, v, out0, out1, out2, R, Cin, Cout, Cs, s));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -297,8 +429,22 @@ extern "C" int rowmm_bwd(const void* x, const void* gamma, const void* beta,
   if (dtype == 0 && Cin == 64)
     return (int)bwd_ln<float, 4>(ln, x, g, be, w, v, dy0, dy1, dy2, dx, ln_o, gp, R, Cout, Cs, s);
   if (dtype == 1 && Cin == 256)
-    return (int)bwd_ln<__nv_bfloat16, 16>(ln, x, g, be, w, v, dy0, dy1, dy2, dx, ln_o, gp, R, Cout, Cs, s);
+    return (int)bwd_tc<16>(ln, x, g, be, w, v, dy0, dy1, dy2, dx, ln_o, gp, R, Cout, Cs, s);
   if (dtype == 1 && Cin == 64)
-    return (int)bwd_ln<__nv_bfloat16, 4>(ln, x, g, be, w, v, dy0, dy1, dy2, dx, ln_o, gp, R, Cout, Cs, s);
+    return (int)bwd_tc<4>(ln, x, g, be, w, v, dy0, dy1, dy2, dx, ln_o, gp, R, Cout, Cs, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Shared-memory bytes of a tensor-core kernel at width Cin, as the
+// launchers ask for them (0 rowmm_tc_kernel, 1 rowmm_bwd_tc_kernel in the
+// LN form, 2 in the plain form): kernels/rowmm.py::rowmm_tc_smem mirrors
+// this.
+extern "C" int rowmm_tc_smem(int kernel, int Cin) {
+  using namespace mtp;
+  switch (kernel) {
+    case 0: return proj_fwd_smem(Cin);
+    case 1: return proj_bwd_smem(Cin, true);
+    case 2: return proj_bwd_smem(Cin, false);
+  }
+  return -1;
 }

@@ -9,7 +9,9 @@
 // Hopper the row blocks run in parallel, so the sum over R = 64 * 1024
 // rows is split: each block computes one 64 x 64 tile of A^T B over one
 // slice of the rows (split-K, S slices, fp32 partials of S * Ka * Nb
-// floats), and col_sum_kernel adds the S partials in slice order.
+// floats), and col_sum_kernel adds the S partials in slice order. B's
+// columns may come from up to three arrays of Bcs columns each (the q, k
+// and v cotangents of rowmm's LN form: one launch for the three).
 // Deterministic, no atomics. Two forms, picked by dtype: wgrad_kernel,
 // fp32 FMAs from shared memory (fp32, the checking dtype); and
 // wgrad_tc_kernel, bf16 on
@@ -23,22 +25,33 @@
 
 namespace mtp {
 
+// B's columns n0 .. n0 + 63 (Bcs % 64 == 0): a pointer to them in row 0
+// of the array that holds them, whose row stride is Bcs
+template <typename T>
+static __device__ __forceinline__ const T* b_cols(const T* B0, const T* B1,
+                                                  const T* B2, int Bcs,
+                                                  int n0) {
+  const int o = n0 / Bcs;
+  return (o == 0 ? B0 : (o == 1 ? B1 : B2)) + n0 - o * Bcs;
+}
+
 // part[s, k, n] = sum_{r in slice s} A[r, k] B[r, n]; colpart[s, n] =
 // sum_{r in slice s} B[r, n] (blocks with blockIdx.x == 0); rows whose
 // flag valid[r / flag_rows] is 0 count as zeros and are not read (valid
-// NULL: every row counts). fp32 A and B. grid (Ka/64, Nb/64, S).
+// NULL: every row counts). fp32 A and B = B0 | B1 | B2 (each [R, Bcs]).
+// grid (Ka/64, Nb/64, S).
 __global__ void __launch_bounds__(kThreads) wgrad_kernel(
-    const float* __restrict__ A, const float* __restrict__ Bm, int R, int Ka,
-    int Nb,
-    int rows_per_slice, float* __restrict__ part,
-    float* __restrict__ colpart, const int8_t* __restrict__ valid,
-    int flag_rows) {
+    const float* __restrict__ A, const float* B0, const float* B1,
+    const float* B2, int R, int Ka, int Nb, int Bcs, int rows_per_slice,
+    float* __restrict__ part, float* __restrict__ colpart,
+    const int8_t* __restrict__ valid, int flag_rows) {
   __shared__ float As[kKChunk][kTile];
   __shared__ float Bs[kKChunk][kTile];
   const int k0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
   const int s = blockIdx.z;
   const int rs = s * rows_per_slice, re = min(R, rs + rows_per_slice);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const float* Bm = b_cols(B0, B1, B2, Bcs, n0);
   const bool sums = blockIdx.x == 0 && ty == 0;
   float acc[4][4], csum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   zero(acc);
@@ -48,7 +61,7 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(
       const bool in = r0 + kk < re &&
                       (valid == nullptr || valid[(r0 + kk) / flag_rows]);
       As[kk][c] = in ? A[(size_t)(r0 + kk) * Ka + k0 + c] : 0.0f;
-      Bs[kk][c] = in ? Bm[(size_t)(r0 + kk) * Nb + n0 + c] : 0.0f;
+      Bs[kk][c] = in ? Bm[(size_t)(r0 + kk) * Bcs + c] : 0.0f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -92,10 +105,10 @@ constexpr int kWgRows = 64;
 constexpr int kWgThreads = 128;
 
 __global__ void __launch_bounds__(kWgThreads) wgrad_tc_kernel(
-    const bf16* __restrict__ A, const bf16* __restrict__ Bm, int R, int Ka,
-    int Nb, int rows_per_slice, float* __restrict__ part,
-    float* __restrict__ colpart, const int8_t* __restrict__ valid,
-    int flag_rows) {
+    const bf16* __restrict__ A, const bf16* B0, const bf16* B1,
+    const bf16* B2, int R, int Ka, int Nb, int Bcs, int rows_per_slice,
+    float* __restrict__ part, float* __restrict__ colpart,
+    const int8_t* __restrict__ valid, int flag_rows) {
   constexpr int LD = pitch(kTile);
   __shared__ __align__(16) bf16 As[2][kWgRows * LD];
   __shared__ __align__(16) bf16 Bs[2][kWgRows * LD];
@@ -105,6 +118,7 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_tc_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
   const bool sums = blockIdx.x == 0 && tid < kTile;
+  const bf16* Bm = b_cols(B0, B1, B2, Bcs, n0);
   // the first chunk start at or after r under a live flag (re if none)
   auto live_from = [&](int r) {
     if (valid != nullptr)
@@ -116,7 +130,7 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_tc_kernel(
     const int n = min(kWgRows, re - r);
     stage_rows<kTile, kWgThreads>(As[st], LD, A + (size_t)r * Ka + k0, Ka,
                                   kWgRows, n, tid);
-    stage_rows<kTile, kWgThreads>(Bs[st], LD, Bm + (size_t)r * Nb + n0, Nb,
+    stage_rows<kTile, kWgThreads>(Bs[st], LD, Bm + (size_t)r * Bcs, Bcs,
                                   kWgRows, n, tid);
   };
   float acc[2][4][4];
@@ -192,19 +206,24 @@ __global__ void __launch_bounds__(kThreads) col_sum_kernel(
 
 }  // namespace mtp
 
-// A [R, Ka] and B [R, Nb] row-major in the dtype (0 = fp32, 1 = bf16);
-// Ka % 64 == Nb % 64 == 0; slices of rows_per_slice rows (the last may be
-// shorter), S = ceil(R / rows_per_slice). valid: int8 flags, one per
+// A [R, Ka] and B [R, Nb] row-major in the dtype (0 = fp32, 1 = bf16), B
+// as Nb / Bcs <= 3 arrays B0 | B1 | B2 of [R, Bcs] (B1, B2 NULL when
+// unused; Bcs = Nb: one array); Ka % 64 == Bcs % 64 == 0; slices of
+// rows_per_slice rows (the last may be shorter), S = ceil(R /
+// rows_per_slice). valid: int8 flags, one per
 // flag_rows consecutive rows, 0 leaving those rows out of both sums (and
 // unread), or NULL. fp32 sums by FMAs, bf16 on the tensor cores (then
 // rows_per_slice and flag_rows multiples of 64). Writes part fp32
 // [S, Ka, Nb] and colpart fp32 [S, Nb]. Returns cudaGetLastError().
-extern "C" int wgrad_partials(const void* A, const void* B, int R, int Ka,
-                              int Nb, int rows_per_slice, int S, void* part,
+extern "C" int wgrad_partials(const void* A, const void* B0, const void* B1,
+                              const void* B2, int R, int Ka, int Nb, int Bcs,
+                              int rows_per_slice, int S, void* part,
                               void* colpart, const void* valid, int flag_rows,
                               int dtype, void* stream) {
   using namespace mtp;
-  if (Ka % kTile != 0 || Nb % kTile != 0 || rows_per_slice <= 0 || S <= 0 ||
+  if (Ka % kTile != 0 || Bcs <= 0 || Bcs % kTile != 0 || Nb % Bcs != 0 ||
+      Nb / Bcs > 3 || (Nb / Bcs > 1 && B1 == nullptr) ||
+      (Nb / Bcs > 2 && B2 == nullptr) || rows_per_slice <= 0 || S <= 0 ||
       flag_rows <= 0)
     return (int)cudaErrorInvalidValue;
   const int8_t* v = (const int8_t*)valid;
@@ -214,12 +233,14 @@ extern "C" int wgrad_partials(const void* A, const void* B, int R, int Ka,
     if (rows_per_slice % kWgRows != 0 || flag_rows % kWgRows != 0)
       return (int)cudaErrorInvalidValue;
     wgrad_tc_kernel<<<grid, kWgThreads, 0, s>>>(
-        (const bf16*)A, (const bf16*)B, R, Ka, Nb, rows_per_slice,
-        (float*)part, (float*)colpart, v, flag_rows);
+        (const bf16*)A, (const bf16*)B0, (const bf16*)B1, (const bf16*)B2, R,
+        Ka, Nb, Bcs, rows_per_slice, (float*)part, (float*)colpart, v,
+        flag_rows);
   } else if (dtype == 0) {
     wgrad_kernel<<<grid, kThreads, 0, s>>>(
-        (const float*)A, (const float*)B, R, Ka, Nb, rows_per_slice,
-        (float*)part, (float*)colpart, v, flag_rows);
+        (const float*)A, (const float*)B0, (const float*)B1, (const float*)B2,
+        R, Ka, Nb, Bcs, rows_per_slice, (float*)part, (float*)colpart, v,
+        flag_rows);
   } else {
     return (int)cudaErrorInvalidValue;
   }

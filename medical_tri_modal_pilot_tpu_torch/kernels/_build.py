@@ -53,9 +53,9 @@ _SIGNATURES = {
     "ffn_bwd": [_P] * 14 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
     # k1, k2, R, F, C, col0, seed, thr, stream
     "ffn_dropout_masks": [_P] * 2 + [_I] * 4 + [_U64, _U32, _P],
-    # A, B, R, Ka, Nb, rows_per_slice, S, part, colpart, valid, flag_rows,
-    # dtype, stream
-    "wgrad_partials": [_P] * 2 + [_I] * 5 + [_P] * 3 + [_I] * 2 + [_P],
+    # A, B0, B1, B2, R, Ka, Nb, Bcs, rows_per_slice, S, part, colpart,
+    # valid, flag_rows, dtype, stream
+    "wgrad_partials": [_P] * 4 + [_I] * 6 + [_P] * 3 + [_I] * 2 + [_P],
     # part, S, N, out, stream
     "col_sum": [_P, _I, _I, _P, _P],
     # xw, wqkv, bqkv, wproj, bproj, bias, smask, qkv, heads, out, I, C, M,
@@ -81,6 +81,8 @@ _SIGNATURES = {
     # x, gamma, beta, w, valid, dy0, dy1, dy2, dx, ln_o, gpart, R, Cin, Cout,
     # Cs, ln, dtype, stream
     "rowmm_bwd": [_P] * 11 + [_I] * 6 + [_P],
+    # kernel, Cin -> shared-memory bytes of a tensor-core kernel
+    "rowmm_tc_smem": [_I] * 2,
 }
 
 

@@ -1,7 +1,11 @@
 """Row-block-skipped projections: ``x @ W + b`` and its LN-fused form
 ``StdLN(x) @ [Wq|Wk|Wv] + b`` split into its three projections, each
 skipping the 256-row blocks that are all padding: the plain PyTorch versions
-and the CUDA kernels (``csrc/rowmm.cu``), forward and backward.
+and the CUDA kernels (``csrc/rowmm.cu``), forward and backward, in two
+routes (``rowmm_route``): bf16 on the tensor cores (``rowmm_tc_kernel``,
+``rowmm_bwd_tc_kernel``, on the projection tile loops of
+``csrc/proj_tc.cuh`` that the attention block runs too), fp32 (the checking
+dtype) on FMA loops (``rowmm_kernel``, ``rowmm_bwd_kernel``).
 
 Counterpart of medical_tri_modal_pilot_tpu/kernels/rowmm.py
 (``pallas_rowskip_affine``, ``pallas_rowskip_ln_affine`` and their XLA
@@ -31,6 +35,39 @@ from .wgrad import col_sum, wgrad
 # rows per skip flag, as the TPU kernel's blocks (and the JAX package's
 # FFN row blocks, modules.py:387-405); kBlockR in csrc/common.cuh
 BLOCK_R = 256
+# the input widths the kernels are built for
+WIDTHS = (64, 256)
+# the tensor-core kernels in the order of the C entry rowmm_tc_smem
+TC_KERNELS = ("rowmm_tc_kernel", "rowmm_bwd_tc_kernel (LN)",
+              "rowmm_bwd_tc_kernel (plain)")
+
+
+def rowmm_route(dtype: torch.dtype, Cin: int) -> str:
+    """The kernel route for x of this dtype and input width: bf16 takes the
+    tensor cores ("tc"); fp32, the checking dtype, keeps the FMA kernels
+    ("fma"), whose products stay in full fp32. Raises for a width or dtype
+    no kernel is built for."""
+    if Cin not in WIDTHS:
+        raise ValueError(f"the rowmm kernels take Cin in {WIDTHS}; got "
+                         f"Cin={Cin}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rowmm takes fp32 or bf16, got {dtype}")
+    return "tc" if dtype == torch.bfloat16 else "fma"
+
+
+def rowmm_tc_smem(Cin: int) -> dict:
+    """Shared memory of each tensor-core kernel at input width Cin, as
+    csrc/proj_tc.cuh reckons it (bf16 tiles of pitch width + 8): the
+    forward's x [64][Cin] and a three-stage W ring [64][128] (each output
+    chunk staged in the stage it has consumed); the backward's three-stage
+    ring of a cotangent chunk [64][32] and a W chunk [Cin][32], plus, in
+    the LN form, x [64][Cin] and the fp32 StdLN stats [4][64]."""
+    def tile(rows, width):
+        return 2 * rows * (width + 8)
+    ring = 3 * (tile(64, 32) + tile(Cin, 32))
+    return {TC_KERNELS[0]: tile(64, Cin) + 3 * tile(64, 128),
+            TC_KERNELS[1]: tile(64, Cin) + ring + 4 * 4 * 64,
+            TC_KERNELS[2]: ring}
 
 
 def block_flags(R: int, block_valid: Optional[torch.Tensor],
@@ -45,6 +82,8 @@ def block_flags(R: int, block_valid: Optional[torch.Tensor],
     if bv.numel() > nb:
         raise ValueError(f"block_valid has {bv.numel()} flags for {nb} "
                          f"blocks of {BLOCK_R} rows")
+    if bv.numel() == nb:
+        return bv
     return torch.cat([bv, bv.new_zeros(nb - bv.numel())])
 
 
@@ -70,23 +109,23 @@ def torch_rowskip_ln_affine(x, gamma, beta, w, b, block_valid=None
 
 
 def _check(x, w, ln: bool):
-    """x flattened to [R, Cin]; raises on what the kernels do not take."""
-    if x.device.type != "cuda":
-        raise ValueError(f"the rowmm kernels need CUDA tensors, got "
-                         f"{x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"rowmm takes fp32 or bf16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("rowmm needs a contiguous x")
+    """x flattened to [R, Cin]; raises on what the kernels do not take:
+    dtype and shapes first (on any device), then the device."""
     Cin = x.shape[-1]
+    rowmm_route(x.dtype, Cin)
     Cout = w.shape[-1]
     cs = Cout // 3 if ln else Cout
-    if Cin not in (64, 256) or w.dim() != 2 or w.shape[0] != Cin:
-        raise ValueError(f"rowmm takes Cin in (64, 256) and w [Cin, Cout]; "
+    if w.dim() != 2 or w.shape[0] != Cin:
+        raise ValueError(f"rowmm takes Cin in {WIDTHS} and w [Cin, Cout]; "
                          f"got x {tuple(x.shape)}, w {tuple(w.shape)}")
     if Cout % 64 or (ln and (Cout % 3 or cs % 64)):
         raise ValueError(f"rowmm takes output widths that are multiples of "
                          f"64 (each third, in the LN form); got {Cout}")
+    if x.device.type != "cuda":
+        raise ValueError(f"the rowmm kernels need CUDA tensors, got "
+                         f"{x.device}")
+    if not x.is_contiguous():
+        raise ValueError("rowmm needs a contiguous x")
     return x.reshape(-1, Cin), cs
 
 
@@ -131,8 +170,9 @@ def cuda_rowmm_bwd(x2, gamma, beta, w, b, valid, dys):
     """The backward kernels on [R, Cin] x and the cotangents ``dys`` (q, k
     and v's in the LN form, gamma given; y's otherwise): (dx, dgamma,
     dbeta, dw, db) in the LN form, (dx, dw, db) otherwise. dW and db are
-    summed in fp32 over the live rows; dw is returned in w's dtype and db
-    rounded to x's dtype (rowmm.py:321, :339), then to b's."""
+    summed in fp32 over the live rows, in one wgrad launch over every
+    cotangent; dw is returned in w's dtype and db rounded to x's dtype
+    (rowmm.py:321, :339), then to b's."""
     ln = gamma is not None
     R, Cin = x2.shape
     Cout = w.shape[1]
@@ -152,9 +192,8 @@ def cuda_rowmm_bwd(x2, gamma, beta, w, b, valid, dys):
         int(ln), dtype_code(dt), stream(x2))
     name = "rowmm_ln_bwd" if ln else "rowmm_bwd"
     _build.check(rc, name)
-    sums = [wgrad(ln_o if ln else x2, d, valid, BLOCK_R) for d in dys]
-    dw = torch.cat([s[0] for s in sums], dim=1).to(w.dtype)
-    db = torch.cat([s[1] for s in sums]).to(dt).to(b.dtype)
+    dw, db = wgrad(ln_o if ln else x2, dys, valid, BLOCK_R)
+    dw, db = dw.to(w.dtype), db.to(dt).to(b.dtype)
     count(name)
     if not ln:
         return dx, dw, db

@@ -39,23 +39,29 @@ def col_sum(part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def wgrad(a: torch.Tensor, b: torch.Tensor,
-          valid: Optional[torch.Tensor] = None,
+def wgrad(a: torch.Tensor, b, valid: Optional[torch.Tensor] = None,
           flag_rows: Optional[int] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """a [R, Ka], b [R, Nb], contiguous, one dtype -> (a^T b fp32 [Ka, Nb],
-    b.sum(0) fp32 [Nb]). ``valid``: optional int8 flags on a's device, one
-    per ``flag_rows`` consecutive rows (a multiple of CHUNK_ROWS: the FFN's
-    64-row tiles, rowmm's 256-row blocks); rows under a 0 flag are left out
-    of both sums and not read, so they may hold anything."""
+    b.sum(0) fp32 [Nb]). ``b`` may also be a sequence of up to three
+    [R, Cs] arrays (Cs % 64 == 0) whose columns are b's, in order: one
+    launch for the q, k and v cotangents. ``valid``: optional int8 flags on
+    a's device, one per ``flag_rows`` consecutive rows (a multiple of
+    CHUNK_ROWS: the FFN's 64-row tiles, rowmm's 256-row blocks); rows under
+    a 0 flag are left out of both sums and not read, so they may hold
+    anything."""
+    bs = list(b) if isinstance(b, (list, tuple)) else [b]
     R, Ka = a.shape
-    Nb = b.shape[1]
-    if b.shape[0] != R or a.dtype != b.dtype:
+    Bcs = bs[0].shape[1]
+    Nb = Bcs * len(bs)
+    if len(bs) > 3 or any(t.shape != (R, Bcs) or t.dtype != a.dtype
+                          for t in bs):
         raise ValueError(f"wgrad operands {tuple(a.shape)} {a.dtype} and "
-                         f"{tuple(b.shape)} {b.dtype} do not match")
-    if Ka % 64 or Nb % 64:
+                         f"{[(tuple(t.shape), t.dtype) for t in bs]} do not "
+                         f"match")
+    if Ka % 64 or Bcs % 64:
         raise ValueError(f"wgrad takes widths that are multiples of 64, got "
-                         f"{Ka} and {Nb}")
+                         f"{Ka} and {Bcs}")
     if a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"wgrad takes fp32 or bf16, got {a.dtype}")
     if valid is not None:
@@ -68,8 +74,9 @@ def wgrad(a: torch.Tensor, b: torch.Tensor,
     rows, slices = slicing(R, Ka, Nb)
     part = torch.empty(slices, Ka * Nb, dtype=torch.float32, device=a.device)
     colpart = torch.empty(slices, Nb, dtype=torch.float32, device=a.device)
+    ptrs = [t.data_ptr() for t in bs] + [None] * (3 - len(bs))
     rc = _build.library().wgrad_partials(
-        a.data_ptr(), b.data_ptr(), R, Ka, Nb, rows, slices,
+        a.data_ptr(), *ptrs, R, Ka, Nb, Bcs, rows, slices,
         part.data_ptr(), colpart.data_ptr(),
         None if valid is None else valid.data_ptr(),
         flag_rows or CHUNK_ROWS, dtype_code(a.dtype), stream(a))

@@ -5,8 +5,8 @@ backward kernels against autograd of the plain versions, the dropout
 masks bit for bit; the masked attention of the cross-modal layers at
 every mask form; and the small eval and train steps (vslt+txt, and
 vslt+img+txt with the full Swin-T; the cross transformer) on both paths;
-the row-skipping projections of tensor parallelism and the dropout masks'
-column offset.
+the row-skipping projections of tensor parallelism (both routes, the
+kernels each dtype launches) and the dropout masks' column offset.
 Marked ``cuda``: skipped without a GPU. This file imports no jax, so it
 also runs where the port runs:
 
@@ -325,10 +325,12 @@ def test_dropout_masks_kernel_takes_the_column_offset(dev, col0, F):
 
 
 # rowmm: (B, L, Cin, Cout, lengths): small widths with a dead 256-row block
-# and a ragged row count, and the tensor-parallel rank's widths (Cin 256,
-# one rank's q|k|v of 384) with an all-dead sample
+# and a ragged row count, the tensor-parallel rank's widths (Cin 256, one
+# rank's q|k|v of 384) with an all-masked sample, and the single-device
+# q|k|v width (768) ragged and with a dead block
 ROWMM_CASES = [(2, 512, 64, 192, (200, 512)), (1, 130, 64, 192, None),
-               (3, 512, 256, 384, (0, 100, 512))]
+               (3, 512, 256, 384, (0, 100, 512)), (1, 130, 256, 768, None),
+               (2, 512, 256, 768, (200, 512))]
 
 
 @pytest.mark.parametrize("case", ROWMM_CASES)
@@ -369,6 +371,108 @@ def test_rowmm_kernels(dev, case, ln, prec):
     _assert_grads_close(grads, ref_grads, prec, names)
 
 
+@pytest.mark.parametrize("Cin,Cout", [(64, 64), (64, 128), (256, 64),
+                                      (256, 128), (256, 320)])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_rowmm_plain_form_at_other_widths(dev, Cin, Cout, prec):
+    """The plain form at output widths the LN form never takes (one
+    64-column tile; a last 128-column chunk half past the end; backward
+    rings of 2, 4 and 10 chunks), a dead block and a ragged tail."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import BLOCK_R
+    g = torch.Generator().manual_seed(15)
+    dt = PRECS[prec]
+    B, L = 2, 512
+    x = _rand(g, dev, B, L, Cin).to(dt)
+    w = _rand(g, dev, Cin, Cout, std=Cin ** -.5).to(dt)
+    b = _rand(g, dev, Cout, std=.1).to(dt)
+    mask = length_key_mask(torch.tensor([100, 512], device=dev), L)
+    flags = ffn_row_blocks(x, mask, BLOCK_R)
+    live = flags.repeat_interleave(BLOCK_R, dim=1)
+    cot = _rand(g, dev, B, L, Cout).to(dt) * live[:, :, None]
+    (out, grads), (ref, ref_grads) = _grads(
+        lambda *a: ops.rowskip_affine(*a, flags), (x, w, b), cot)
+    torch.testing.assert_close(out[live], ref[live], **TOL[prec])
+    assert torch.all(out[~live] == 0)
+    _assert_grads_close(grads, ref_grads, prec, ["dx", "dw", "db"])
+    # a ragged row count: the last forward tile holds 2 of its rows
+    x2, cot2 = x.reshape(-1, Cin)[:130], cot.reshape(-1, Cout)[:130]
+    (out, grads), (ref, ref_grads) = _grads(
+        lambda *a: ops.rowskip_affine(*a), (x2, w, b), cot2)
+    torch.testing.assert_close(out, ref, **TOL[prec])
+    _assert_grads_close(grads, ref_grads, prec, ["dx", "dw", "db"])
+
+
+# the kernels of each rowmm route (kernels/rowmm.py rowmm_route)
+ROWMM_ROUTE_KERNELS = {"tc": ("rowmm_tc_kernel", "rowmm_bwd_tc_kernel"),
+                       "fma": ("rowmm_kernel", "rowmm_bwd_kernel")}
+
+
+@pytest.mark.parametrize("ln", [True, False])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_rowmm_takes_its_dtypes_route(dev, ln, prec):
+    """bf16 launches the tensor-core kernels and fp32 the FMA kernels,
+    forward and backward, and not the other route's (kernel names in a
+    profiler trace)."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import rowmm_route
+    g = torch.Generator().manual_seed(16)
+    dt = PRECS[prec]
+    route = rowmm_route(dt, 256)
+    assert route == {"bf16": "tc", "fp32": "fma"}[prec]
+    x = _rand(g, dev, 2, 256, 256).to(dt)
+    w = _rand(g, dev, 256, 384, std=1 / 16).to(dt)
+    b = _rand(g, dev, 384, std=.1).to(dt)
+    vec = _rand(g, dev, 256, std=.1, mean=1.)
+    leaves = [t.clone().requires_grad_(True) for t in (x, vec, vec, w, b)]
+    if not ln:
+        leaves = [leaves[0], leaves[3], leaves[4]]
+
+    def step():
+        out = (torch.cat(ops.rowskip_ln_affine(*leaves), -1) if ln
+               else ops.rowskip_affine(*leaves))
+        torch.autograd.grad(out, leaves, torch.ones_like(out))
+    _route_kernels(_launched(step), ROWMM_ROUTE_KERNELS, route)
+
+
+@pytest.mark.parametrize("ln", [True, False])
+def test_rowmm_backward_is_bit_identical(dev, ln):
+    """The bf16 backward (tile pass and weight sums) repeats bit for bit: no
+    float atomics."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import BLOCK_R
+    g = torch.Generator().manual_seed(17)
+    dt = torch.bfloat16
+    B, L, Cin, Cout = 3, 512, 256, 384
+    x = _rand(g, dev, B, L, Cin).to(dt)
+    w = _rand(g, dev, Cin, Cout, std=Cin ** -.5).to(dt)
+    b = _rand(g, dev, Cout, std=.1).to(dt)
+    mask = length_key_mask(torch.tensor([0, 100, 512], device=dev), L)
+    flags = ffn_row_blocks(x, mask, BLOCK_R)
+    live = flags.repeat_interleave(BLOCK_R, dim=1)
+    cot = _rand(g, dev, B, L, Cout).to(dt) * live[:, :, None]
+    inputs = ((x, _rand(g, dev, Cin, std=.1, mean=1.),
+               _rand(g, dev, Cin, std=.1), w, b) if ln else (x, w, b))
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    out = (torch.cat(ops.rowskip_ln_affine(*leaves, flags), -1) if ln
+           else ops.rowskip_affine(*leaves, flags))
+    first = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, cot)
+    for i, (a, e) in enumerate(zip(first, again)):
+        assert torch.equal(a, e), i
+
+
+def test_rowmm_smem_table_matches_the_kernels(dev):
+    """The wrapper's shared-memory reckoning of each tensor-core kernel is
+    the bytes its launcher asks for, within the card's opt-in limit."""
+    from medical_tri_modal_pilot_tpu_torch.kernels import _build
+    from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import (
+        TC_KERNELS, WIDTHS, rowmm_tc_smem)
+    lib = _build.library()
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for Cin in WIDTHS:
+        table = rowmm_tc_smem(Cin)
+        for i, name in enumerate(TC_KERNELS):
+            assert lib.rowmm_tc_smem(i, Cin) == table[name] <= limit, name
+
+
 def test_rowmm_refuses_what_it_does_not_take(dev):
     from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import (
         cuda_rowskip_affine, cuda_rowskip_ln_affine)
@@ -384,6 +488,22 @@ def test_rowmm_refuses_what_it_does_not_take(dev):
     with pytest.raises(TypeError, match="fp32 or bf16"):
         cuda_rowskip_affine(x.half(), torch.zeros(64, 64, device=dev),
                             torch.zeros(64, device=dev))
+
+
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_wgrad_takes_the_cotangents_apart(dev, prec):
+    """B given as three [R, Cs] arrays (rowmm's q, k and v cotangents) sums
+    bit for bit as their concatenation, flags and all."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.wgrad import CHUNK_ROWS
+    g = torch.Generator().manual_seed(18)
+    dt = PRECS[prec]
+    a = _rand(g, dev, 1000, 256).to(dt)
+    parts = [_rand(g, dev, 1000, 128).to(dt) for _ in range(3)]
+    valid = torch.tensor([1, 0, 1, 1, 0, 1, 1, 0, 1, 1, 1, 0, 1, 1, 0, 1],
+                         dtype=torch.int8, device=dev)
+    whole = wgrad(a, torch.cat(parts, 1), valid, CHUNK_ROWS)
+    apart = wgrad(a, parts, valid, CHUNK_ROWS)
+    assert torch.equal(whole[0], apart[0]) and torch.equal(whole[1], apart[1])
 
 
 @pytest.mark.parametrize("prec", list(PRECS))
@@ -1015,7 +1135,8 @@ def test_tensor_core_kernels_compile_to_mma(dev):
                    "block_ln_bwd_tc_kernel", "attention_fwd_tc_kernel",
                    "attention_dkv_tc_kernel", "attention_dq_tc_kernel",
                    "ffn_fwd_tc_kernel", "swin_mlp_tc_kernel",
-                   "swin_fc1_tc_kernel"):
+                   "swin_fc1_tc_kernel", "rowmm_tc_kernel",
+                   "rowmm_bwd_tc_kernel"):
         found = {n: c for n, c in code.items() if kernel in n}
         assert found, f"{kernel} not in the library"
         for name, text in found.items():

@@ -1,13 +1,15 @@
 """The kernel wrappers' choices that the CPU can hold: which route the
 bf16 and fp32 paths take (tensor cores or FMA loops), the fused window
 attention's, the attention block's, the masked attention's, the FFN
-forward's and the Swin MLP's shared-memory reckoning, the weight sums' row
-slicing, and the checks the wrappers make before they reach the card."""
+forward's, the Swin MLP's and the row-skipping projections' shared-memory
+reckoning, the weight sums' row slicing, and the checks the wrappers make
+before they reach the card."""
 import pytest
 import torch
 
 from medical_tri_modal_pilot_tpu_torch.kernels import (attention,
                                                        attn_block, ffn,
+                                                       rowmm,
                                                        swin_attention,
                                                        swin_mlp, wgrad)
 
@@ -66,6 +68,22 @@ def test_wrappers_refuse_before_the_card():
         swin_attention.cuda_window_attention(
             xw, torch.zeros(64, 192), torch.zeros(192), torch.zeros(64, 64),
             torch.zeros(64), torch.zeros(2, 49, 49), None, 2)
+
+
+def test_wgrad_refuses_mismatched_cotangent_parts():
+    """B in parts: more than three, parts of different widths or rows, or
+    a width that is not whole 64-column tiles are refused before the
+    card."""
+    a = torch.zeros(300, 64, dtype=torch.bfloat16)
+    part = torch.zeros(300, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="do not match"):
+        wgrad.wgrad(a, [part] * 4)
+    with pytest.raises(ValueError, match="do not match"):
+        wgrad.wgrad(a, [part, torch.zeros(300, 128, dtype=torch.bfloat16)])
+    with pytest.raises(ValueError, match="do not match"):
+        wgrad.wgrad(a, [part, part[:200]])
+    with pytest.raises(ValueError, match="multiples of 64"):
+        wgrad.wgrad(a, [part[:, :32]] * 3)
 
 
 @pytest.mark.parametrize("C,H", [(64, 2), (64, 1), (128, 4), (256, 4),
@@ -284,3 +302,69 @@ def test_swin_mlp_wrapper_refuses_before_the_card():
                                ws[5])
     with pytest.raises(ValueError, match="CUDA"):
         swin_mlp.cuda_swin_mlp(x, *ws)
+
+
+@pytest.mark.parametrize("Cin", [64, 256])
+def test_rowmm_route_by_dtype_and_width(Cin):
+    """The row-skipping projections: fp32 keeps the FMA kernels, bf16 takes
+    the tensor cores, at both input widths the kernels are built for (no
+    bf16 width falls back to the FMA loops)."""
+    assert rowmm.rowmm_route(torch.float32, Cin) == "fma"
+    assert rowmm.rowmm_route(torch.bfloat16, Cin) == "tc"
+
+
+@pytest.mark.parametrize("Cin", [0, 32, 96, 128, 384, 768])
+def test_rowmm_route_refuses_other_widths(Cin):
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match=f"Cin in .*got Cin={Cin}"):
+            rowmm.rowmm_route(dt, Cin)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        rowmm.rowmm_route(torch.float16, 64)
+
+
+@pytest.mark.parametrize("Cin,want", [(64, (61440, 40960, 30720)),
+                                      (256, (86016, 111616, 76800))])
+def test_rowmm_tc_smem_within_the_card(Cin, want):
+    """The tensor-core forward's 64 rows of x and its three-stage W ring,
+    and the backward's ring (with x and the StdLN stats in the LN form),
+    fit a block's 227 KB at both widths, and two blocks fit an SM's 228 KB
+    (1 KB of it reserved per block), as every one of their launch bounds
+    asks. At Cin 256 they are the attention block's projection kernels'
+    bytes: the same loops."""
+    table = rowmm.rowmm_tc_smem(Cin)
+    assert tuple(table) == rowmm.TC_KERNELS
+    assert tuple(table.values()) == want
+    for name, smem in table.items():
+        assert 0 < smem <= BLOCK_SMEM, name
+        assert 2 * (smem + 1024) <= SM_SMEM, name
+    if Cin == 256:
+        block = attn_block.tc_smem_bytes(256, 64)
+        assert table["rowmm_tc_kernel"] == block["block_qkv_tc_kernel"]
+        assert table["rowmm_bwd_tc_kernel (LN)"] == \
+            block["block_ln_bwd_tc_kernel"]
+
+
+def test_rowmm_wrapper_refuses_before_the_card():
+    """A dtype or an input width no kernel takes, weights of the wrong
+    shape and output widths that are not whole 64-column tiles (each third
+    in the LN form) are refused in the wrapper, on any device, before the
+    library is built or the card touched; a CPU tensor with a valid shape
+    is refused last."""
+    x = torch.zeros(2, 8, 64, dtype=torch.bfloat16)
+    vec = torch.ones(64)
+    w, b = torch.zeros(64, 192), torch.zeros(192)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        rowmm.cuda_rowskip_affine(x.half(), w, b)
+    with pytest.raises(ValueError, match="Cin in"):
+        rowmm.cuda_rowskip_affine(torch.zeros(2, 8, 96), w, b)
+    with pytest.raises(ValueError, match=r"w \[Cin, Cout\]"):
+        rowmm.cuda_rowskip_affine(x, torch.zeros(32, 192), b)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        rowmm.cuda_rowskip_affine(x, torch.zeros(64, 96), torch.zeros(96))
+    with pytest.raises(ValueError, match="multiples of 64"):
+        rowmm.cuda_rowskip_ln_affine(x, vec, vec, torch.zeros(64, 128),
+                                     torch.zeros(128))
+    with pytest.raises(ValueError, match="CUDA"):
+        rowmm.cuda_rowskip_affine(x, w, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        rowmm.cuda_rowskip_ln_affine(x, vec, vec, w, b)
