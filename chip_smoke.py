@@ -5,8 +5,8 @@
 Phases, each raising on failure (nothing is caught):
   1. device: needs CUDA; prints the card's name and power limit.
   2. build: compiles the CUDA C++ kernels (csrc/*.cu, one nvcc for sm_90a
-     per source, all started together) and the Triton kernel from the
-     checkout, and prints the build seconds; cuobjdump -sass of the library
+     per source, all started together) from the checkout, and prints the
+     build seconds; cuobjdump -sass of the library
      must show tensor-core instructions (HMMA) in each bf16 tensor-core
      kernel (TENSOR_CORE_KERNELS).
   3. kernels: each kernel against its plain PyTorch version at every shape
@@ -14,7 +14,8 @@ Phases, each raising on failure (nothing is caught):
      over 33, 64 and 97 trunk rows), in fp32 and bf16, on live rows, with
      the stated tolerance; median kernel and plain times from CUDA events,
      beside the least time the card could take (bound) and, where one
-     PyTorch call computes the same function, that call's time. The ffn
+     PyTorch call computes the same function, that call's time; the umse
+     forward also by the profiler's device ms. The ffn
      forward at the vslt shape also with dropout 0.1 (bf16). swin_mlp at
      the main path's 33 trunk rows, bf16: each stage beside its plain
      version and bound, their totals weighted by a step's launches
@@ -37,25 +38,36 @@ Phases, each raising on failure (nothing is caught):
      then a torch.profiler split of one step.
   5. config 5: one eval step of config 4 with --multiimages 1, the same
      checks, no timing.
+  5b. umse backward: the backward kernel against torch_umse_bwd (its
+     closed form in plain torch) at [64, 1000, 256], fp32 by Frobenius
+     ratio, bf16 against the fp32 closed form within STEP_BF16_RATIO of the
+     bf16 closed form's distance, bit for bit over two runs; events and
+     device ms beside the closed form's and the autograd recompute's it
+     replaces. dropout_masks at MASK_SHAPES (the main path's input dropout
+     of three streams, a TP FFN's masks, both FFN masks of the vslt
+     stream): bit for bit, keep rates within 5 sd, events and device ms,
+     one kernel launched per call.
   6. training kernels: the training forward of attn_block and its backward,
      ffn with dropout and its backward, at each fusion stream's length in
      fp32 and bf16, against autograd of the plain versions on the same
      inputs (the cotangent zero on rows no later layer reads), forward on
      live rows and every gradient, the bf16 attn_block backward bit for
-     bit the same over two runs at the vslt shape; dropout_masks bit for
-     bit against its plain version, and its keep rate within binomial
-     bounds. Median kernel and plain ms of forward and backward, the
+     bit the same over two runs at the vslt shape. Median kernel and plain
+     ms of forward and backward, the
      bound, the library column. The ffn backward at [65536, 256]: its tile
      pass and its weight sums timed apart, the live-row share, the weight
      sums bit for bit the same over two runs.
   7. config 4 train: Trainer.train_step at full width (bf16, batch 64,
      --dropout 0.1, adamw) over seeded batches through the packed trunk
-     and its overflow: launch counts per step, peak device memory; one
+     and its overflow: launch counts per step, the shapes of its dropout
+     masks (MASK_SHAPES' input entries), peak device memory; one
      step from identical weights on the kernel and the plain path, fp32
      and bf16 at dropout 0 and 0.1 (the plain path draws the same Philox
      masks): loss, every trainable parameter's gradient (bf16 held
      against the fp32 step) and the updated parameters; train ms/step on
-     both paths in turns; a torch.profiler split of one kernel-path step;
+     both paths in turns; a torch.profiler split of one kernel-path step,
+     in which the umse forward and backward kernels and dropout_masks run
+     as often as STEP_KERNELS says;
      20 steps on one batch, the loss finite and falling.
   8. config 2 train: a few steps, launch counts, one step on both paths
      (fp32 and bf16, dropout 0.1); not timed.
@@ -106,17 +118,19 @@ Phases, each raising on failure (nothing is caught):
      one card: not a speed figure of tensor parallelism), a profiler split
      with gloo's share, 32 steps on one batch with the mean loss of the
      last 8 below that of the first 8.
-The kernel phases (3, 6, 9, 12) run first, then 4-5, 7-8, 10-11 and 13.
+The kernel phases (3, 5b, 6, 9, 12) run first, then 4-5, 7-8, 10-11 and
+13.
 Then one JSON line per the kernels (each with the path that launches it
 and its launches over that path's steps) and, last, {"ok": true,
 "device": ...}.
 
     python3 chip_smoke.py ab ROOT
 
-reads the device ms of the ffn forward, swin_mlp, the four rowmm forms and
-the attention block's kernels, and a config-4 train step's device busy
-time, for the package under ROOT (``ab``), to compare two trees (git
-archive copies) in turns on one card.
+reads the device ms of the ffn forward, swin_mlp, the four rowmm forms,
+the attention block's kernels, the dropout masks and the umse forward and
+backward as a config-4 step calls them, and a config-4 train step's
+device busy time and peak memory, for the package under ROOT (``ab``), to
+compare two trees (git archive copies) in turns on one card.
 """
 from __future__ import annotations
 
@@ -171,18 +185,20 @@ LAUNCHES_PER_STEP["config5"] = LAUNCHES_PER_STEP["config4"]
 # stream (3 x 2), an attention and an FFN per cross layer and direction
 # (3 x 2)
 LAUNCHES_PER_STEP["cross"] = {"attn_block": 6, "ffn": 12, "attention": 6}
-# per train step: the forward's launches; a backward per fusion layer and
+# per train step: the forward's launches; the TIE embedding's backward; a
+# backward per fusion layer and
 # stream whose output the loss reaches (the last layer's non-vslt streams
 # feed only the bottleneck mix, which nothing reads after the last layer,
 # so autograd runs no backward for them: 16 of 18, 11 of 12); one
 # dropout_masks per stream for the input dropout at --dropout 0.1 (the
 # FFN's masks are drawn inside its kernels)
 TRAIN_LAUNCHES_PER_STEP = {
-    "config2": {"umse": 1, "attn_block": 12, "attn_block_bwd": 11,
-                "ffn": 12, "ffn_bwd": 11, "dropout_masks": 2},
-    "config4": {"umse": 1, "attn_block": 18, "attn_block_bwd": 16,
-                "ffn": 18, "ffn_bwd": 16, "dropout_masks": 3,
-                "swin_attention": 12, "swin_mlp": 12},
+    "config2": {"umse": 1, "umse_bwd": 1, "attn_block": 12,
+                "attn_block_bwd": 11, "ffn": 12, "ffn_bwd": 11,
+                "dropout_masks": 2},
+    "config4": {"umse": 1, "umse_bwd": 1, "attn_block": 18,
+                "attn_block_bwd": 16, "ffn": 18, "ffn_bwd": 16,
+                "dropout_masks": 3, "swin_attention": 12, "swin_mlp": 12},
 }
 # the cross transformer's both streams reach the head through their
 # pooled features, so every layer gets its backward
@@ -232,8 +248,12 @@ STEP_BF16_RATIO = 1.5
 STEP_LOSS_TOL = {"fp32": 1e-4, "bf16": 2e-2}
 
 KERNEL_SOURCES = {
-    "umse": ("triton", "medical_tri_modal_pilot_tpu_torch/kernels/umse_triton.py",
+    "umse": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/umse.cu",
              "medical_tri_modal_pilot_tpu/kernels/umse.py:100"),
+    # the JAX package's umse gradient is jax.vjp of xla_umse in its custom
+    # VJP's backward (no pallas_call of its own)
+    "umse_bwd": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/umse.cu",
+                 "medical_tri_modal_pilot_tpu/kernels/umse.py:132"),
     "attn_block": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/attn_block.cu",
                    "medical_tri_modal_pilot_tpu/kernels/attn_block.py:245"),
     "ffn": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/ffn.cu",
@@ -250,7 +270,8 @@ KERNEL_SOURCES = {
         "medical_tri_modal_pilot_tpu/kernels/attn_block.py:577"),
     "ffn_bwd": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/ffn.cu",
                 "medical_tri_modal_pilot_tpu/kernels/ffn.py:298"),
-    "dropout_masks": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/ffn.cu",
+    "dropout_masks": ("cuda",
+                      "medical_tri_modal_pilot_tpu_torch/csrc/dropout.cu",
                       "medical_tri_modal_pilot_tpu/kernels/ffn.py:230"),
     "attention": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/attention.cu",
                   "medical_tri_modal_pilot_tpu/kernels/attention.py:257"),
@@ -294,9 +315,20 @@ SWIN_STAGE_LAUNCHES = [{"mask": 1, "none": 1}, {"mask": 1, "none": 1},
 # swin_mlp launches per config-4 step at each stage (one per block)
 SWIN_MLP_LAUNCHES = [2, 2, 6, 2]
 
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them,
-# HBM3 bandwidth
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Philox4x32-10, the dropout masks' work, on the integer multiply pipe: a
+# draw is ten rounds of two 32 x 32 -> 64-bit products, each two 32-bit
+# multiply results (mul.lo and mul.hi, one IMAD.WIDE), so 40 results per
+# four mask bytes; its xors and the compares run on the ALU pipe beside
+# them
+PHILOX_OPS_PER_BYTE = 10
+# 32-bit integer multiply results a second: the CUDA C Programming Guide's
+# arithmetic-instruction throughput table gives compute capability 9.0 64
+# a clock per SM; 132 SMs at the H100 SXM's 1.98 GHz boost clock
+PEAK_INT_OPS = 64 * 132 * 1.98e9
+# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 outside them
+# (both counting an FMA as two), HBM3 bandwidth; int32: PEAK_INT_OPS
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int32: PEAK_INT_OPS}
 PEAK_BYTES = 3.35e12
 # Swin-T stages at 224 x 224: (map side, C, windows per image, whether the
 # stage has shifted blocks)
@@ -308,6 +340,18 @@ TRUNK_ROWS = (33, 64, 97)
 # rows per sample of the fusion streams: vslt, txt, one image, three image
 # slots (bottlenecks and cls included)
 STREAM_LENGTHS = (1024, 133, 54, 152)
+# dropout_masks at the main path's shapes (R, F, C, col0): config 4's MBT
+# input dropout of its three streams ([64, L, 256] with the cls token,
+# before the 4 bottleneck rows: L = 1020 (TIE, padded), 129, 50; F = 0; 3
+# launches a train step); under --mp-size 2 each FFN's masks (rank 1's 512
+# hidden columns from 512, here at the vslt stream's 64 x 1024 rows; 18
+# launches a rank step, with the input dropout's 21); and both FFN masks of
+# the vslt stream on one device, the shape of earlier rows of PERF.md
+MASK_SHAPES = {"input_vslt": (BATCH * 1020, 0, 256, 0),
+               "input_txt": (BATCH * 129, 0, 256, 0),
+               "input_img": (BATCH * 50, 0, 256, 0),
+               "tp_ffn": (BATCH * 1024, 512, 256, 512),
+               "ffn_whole": (BATCH * 1024, 1024, 256, 0)}
 
 
 def check_device() -> str:
@@ -329,21 +373,10 @@ def check_device() -> str:
 
 def build_kernels() -> None:
     from medical_tri_modal_pilot_tpu_torch.kernels import _build
-    from medical_tri_modal_pilot_tpu_torch.kernels.umse import triton_umse
     t0 = time.perf_counter()
     _build.library()
-    t1 = time.perf_counter()
-    # the Triton kernel compiles at its first launch, per dtype
-    dev = torch.device("cuda")
-    x = torch.zeros(1, 8, 3, device=dev)
-    vec = torch.zeros(256, device=dev)
-    for dt in (torch.float32, torch.bfloat16):
-        triton_umse(x, vec[None], vec, vec, vec, vec[None], vec, vec, vec,
-                    torch.zeros(20, 256, device=dev), dt)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    print(f"build: nvcc {t1 - t0:.1f} s ({_build.library_path().name}), "
-          f"triton {t2 - t1:.1f} s")
+    print(f"build: nvcc {time.perf_counter() - t0:.1f} s "
+          f"({_build.library_path().name})")
     code = _build.sass()
     for kernel in TENSOR_CORE_KERNELS:
         found = {n: c.count("HMMA") + c.count("HGMMA")
@@ -376,7 +409,7 @@ def _dev_us(e) -> float:
     return v if v is not None else getattr(e, "self_cuda_time_total", 0)
 
 
-def _device_ms(fn, reps: int = 10, sessions: int = 3):
+def _device_ms(fn, reps: int = 10, sessions: int = 6):
     """torch.profiler over ``reps`` calls of ``fn`` after a warm-up: the
     device time of what they launched (kernels, copies) per call, and the
     names of the kernels. Beside the CUDA-event time around a call, it
@@ -416,12 +449,14 @@ def _nbytes(*tensors) -> int:
                if t is not None)
 
 
-def _compare(name, dt, call, work, live=None, library=None, plain=None):
+def _compare(name, dt, call, work, live=None, library=None, plain=None,
+             rate=None):
     """Run ``call`` through the kernel and ``plain`` (by default ``call``)
     through the plain version, check the tolerance on live rows, time both
     (and ``library``, one PyTorch call of the same function, where there is
     one). ``work``: (bytes, operations) the function needs on these
-    inputs."""
+    inputs; ``rate``: the PEAK_FLOPS key of those operations (default
+    ``dt``)."""
     from medical_tri_modal_pilot_tpu_torch import ops
     plain = plain or call
     out = call()
@@ -440,7 +475,7 @@ def _compare(name, dt, call, work, live=None, library=None, plain=None):
         plain_ms = _median_ms(plain)
     library_ms = None if library is None else _median_ms(library)
     res = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-           **_bound(*work, dt), "library_ms": library_ms}
+           **_bound(*work, rate or dt), "library_ms": library_ms}
     tag = "bf16" if dt == torch.bfloat16 else "fp32"
     lib = "" if library_ms is None else f" library_ms={library_ms:.3f}"
     print(f"kernel {name} {tag}: max_abs_err={max_err:.3e} "
@@ -488,13 +523,20 @@ def compare_kernels() -> dict:
         tokens = BATCH * TIE_LEN
         for dt in (torch.float32, bf16):
             # per token: two affine + LayerNorm + relu stems (about 10
-            # operations per element each), the table row and the sum
+            # operations per element each, on the CUDA cores), the table
+            # row and the sum
             work = (_nbytes(x, table, *stems) + tokens * D * (2 if dt == bf16
                                                               else 4),
                     22 * tokens * D)
             r = _compare("umse[64,1000,3]", dt,
-                         lambda: ops.umse(x, *stems, table, dt), work)
-        results["umse"] = dict(r, shape="[64,1000,3]")
+                         lambda: ops.umse(x, *stems, table, dt), work,
+                         rate=torch.float32)
+        dev_ms, names = _device_ms(lambda: ops.umse(x, *stems, table, bf16))
+        print(f"device umse[64,1000,3] bf16: {dev_ms:.4f} ms per call "
+              f"(profiler; {names})")
+        if not names or not all("umse_fwd_kernel" in n for n in names):
+            raise AssertionError(f"umse launched {names}")
+        results["umse"] = dict(r, shape="[64,1000,3]", device_ms=dev_ms)
 
         # attn_block and ffn at each stream's length: vslt 1024 and txt 133
         # with random lengths (sample 3 with every key masked); the single
@@ -783,12 +825,10 @@ def _ffn_bwd_parts(x, ws, flags, cot, n_live) -> dict:
 
 def compare_training_kernels() -> dict:
     """The training kernels against autograd of their plain versions at each
-    fusion stream's length, and the dropout masks. Returns the bf16 results
-    at the main-path shapes (vslt: [64, 1024, 256], R = 65536)."""
+    fusion stream's length. Returns the bf16 results at the main-path
+    shapes (vslt: [64, 1024, 256], R = 65536)."""
     from medical_tri_modal_pilot_tpu_torch import ops
     from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import key_ends
-    from medical_tri_modal_pilot_tpu_torch.kernels.ffn import (
-        keep_threshold, plain_dropout_masks)
     from medical_tri_modal_pilot_tpu_torch.models.modules import (
         ffn_row_blocks, length_key_mask)
     dev = torch.device("cuda")
@@ -869,41 +909,163 @@ def compare_training_kernels() -> dict:
                     **_ffn_bwd_parts(xf, (g1, be1, w1, b1, w2), flags, cot,
                                      n_live))
 
-    # dropout masks at the vslt stream's FFN shapes: bit for bit, keep rate
-    R = BATCH * 1024
-    with torch.inference_mode():
-        got = ops.dropout_masks(R, F, D, DROPOUT_SEED, P, dev)
-        with ops.reference_path():
-            want = ops.dropout_masks(R, F, D, DROPOUT_SEED, P, dev)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, e) for a, e in zip(got, want))
-        keep = [float(k.float().mean()) for k in got]
-        sds = [((1 - P) * P / k.numel()) ** .5 for k in got]
-        ms = _median_ms(lambda: ops.dropout_masks(R, F, D, DROPOUT_SEED, P,
-                                                  dev))
-        with ops.reference_path():
-            plain_ms = _median_ms(lambda: plain_dropout_masks(
-                R, F, D, DROPOUT_SEED, P, dev), reps=5)
-    # the int8 masks written once; Philox4x32-10 is ~25 integer operations
-    # per mask element (10 rounds of 2 multiplies, 2 high words, 3 xors and
-    # 2 key additions per 4 words), held to the card's non-tensor rate
-    work = (R * (F + D), 25.0 * R * (F + D))
-    res = {"max_abs_err": 0.0 if same else 1.0, "ms": ms,
-           "plain_ms": plain_ms, **_bound(*work, torch.float32),
-           "library_ms": None, "shape": f"[{R},{F}]+[{R},{D}]",
-           "keep_rate": keep, "threshold": keep_threshold(P)}
-    print(f"kernel dropout_masks [{R},{F}]+[{R},{D}] p={P}: bit-identical "
-          f"{same}; keep rate {keep[0]:.6f} / {keep[1]:.6f} (q {1 - P}, "
-          f"sd {sds[0]:.2e} / {sds[1]:.2e}) ms={ms:.3f} "
-          f"plain_ms={plain_ms:.3f} bound_ms={res['bound_ms']:.4f} "
-          f"({res['bound_by']})")
-    if not same:
-        raise AssertionError("dropout_masks differs from its plain version")
-    if any(abs(k - (1 - P)) > 5 * sd for k, sd in zip(keep, sds)):
-        raise AssertionError(f"dropout keep rate {keep} outside 5 sd of "
-                             f"{1 - P}")
-    results["dropout_masks"] = res
     return results
+
+
+def compare_dropout_masks() -> dict:
+    """dropout_masks at MASK_SHAPES: both masks bit for bit against the
+    plain version, keep rates within 5 sd of q, CUDA-event ms (host work
+    included) and the profiler's device ms per call beside the plain
+    version's ms and the bound; the calls must launch dropout_masks_kernel
+    alone. Returns the main path's vslt input shape as the kernel's entry,
+    every shape under "shapes"."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels.ffn import keep_threshold
+    dev = torch.device("cuda")
+    P = 0.1
+    shapes = {}
+    for key, (R, F, C, col0) in MASK_SHAPES.items():
+        call = lambda: ops.dropout_masks(R, F, C, DROPOUT_SEED, P, dev,
+                                         col0=col0)
+        with torch.inference_mode():
+            got = call()
+            with ops.reference_path():
+                want = call()
+            torch.cuda.synchronize()
+            same = all(a.dtype == torch.bool and torch.equal(a, e)
+                       for a, e in zip(got, want))
+            keep = [float(k.float().mean()) for k in got if k.numel()]
+            sds = [((1 - P) * P / k.numel()) ** .5 for k in got if k.numel()]
+            del got, want
+            ms = _median_ms(call)
+            dev_ms, names = _device_ms(call)
+            with ops.reference_path():
+                plain_ms = _median_ms(call, reps=3)
+        nbytes = R * (F + C)
+        res = {"max_abs_err": 0.0 if same else 1.0, "ms": ms,
+               "device_ms": dev_ms, "plain_ms": plain_ms,
+               **_bound(nbytes, PHILOX_OPS_PER_BYTE * nbytes, torch.int32),
+               "library_ms": None, "shape": f"[{R},{F}]+[{R},{C}]",
+               "col0": col0, "keep_rate": keep,
+               "threshold": keep_threshold(P)}
+        print(f"kernel dropout_masks {key} [{R},{F}]+[{R},{C}] col0 {col0} "
+              f"p={P}: bit-identical {same}; keep rate "
+              f"{' / '.join(f'{k:.6f}' for k in keep)} (q {1 - P}, sd "
+              f"{' / '.join(f'{sd:.2e}' for sd in sds)}) ms={ms:.4f} "
+              f"device_ms={dev_ms:.4f} plain_ms={plain_ms:.3f} "
+              f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}); "
+              f"launched {names}")
+        if not same:
+            raise AssertionError(f"dropout_masks {key} differs from its "
+                                 "plain version")
+        if any(abs(k - (1 - P)) > 5 * sd for k, sd in zip(keep, sds)):
+            raise AssertionError(f"dropout_masks {key}: keep rate {keep} "
+                                 f"outside 5 sd of {1 - P}")
+        if not names or not all("dropout_masks_kernel" in n for n in names):
+            raise AssertionError(f"dropout_masks {key} launched {names}")
+        shapes[key] = res
+    return {"dropout_masks": dict(shapes["input_vslt"], shapes=shapes)}
+
+
+def _umse_case(g, dev):
+    """Seeded umse inputs at the main path's shape: x [64, 1000, 3] with
+    the TIE stream's feature ids (0-17) and two ids past the table's end,
+    the eight stem vectors and the [20, 256] table."""
+    D = 256
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).to(dev)
+
+    x = torch.stack([
+        -24 * torch.rand(BATCH, TIE_LEN, generator=g),
+        torch.rand(BATCH, TIE_LEN, generator=g),
+        torch.randint(0, 18, (BATCH, TIE_LEN), generator=g).float()], dim=-1)
+    x[0, 0, 2], x[-1, -1, 2] = 20, 23
+    params = []
+    for _ in range(2):
+        params += [rnd(1, D), rnd(D, std=.1), rnd(D, std=.1, mean=1.),
+                   rnd(D, std=.1)]
+    return x.to(dev), params + [rnd(20, D)]
+
+
+def compare_umse_bwd() -> dict:
+    """The umse backward kernel against torch_umse_bwd, its closed form in
+    plain torch rounded where the kernel rounds, at the main path's shape
+    ([64, 1000, 3] -> [64, 1000, 256]): fp32 per tensor by Frobenius ratio
+    within 1e-2; bf16 held against the fp32 closed form, within
+    STEP_BF16_RATIO of the bf16 closed form's distance from it plus 1e-2
+    (the rule of PERF.md §2); bit for bit the same over two runs. CUDA-event
+    ms of the kernel, of the closed form and of the autograd recompute of
+    torch_umse it replaces (the parent's backward), and the profiler's
+    device ms and launched kernels of the kernel and of that recompute."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.umse import (
+        cuda_umse_bwd, torch_umse, torch_umse_bwd)
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(2)
+    x, params = _umse_case(g, dev)
+    D, bf16 = 256, torch.bfloat16
+    dout = {torch.float32: torch.randn(BATCH, TIE_LEN, D, generator=g)
+            .to(dev)}
+    dout[bf16] = dout[torch.float32].to(bf16)
+    f32_err = _grad_errors(
+        cuda_umse_bwd(x, *params, dout[torch.float32], torch.float32),
+        torch_umse_bwd(x, *params, dout[torch.float32], torch.float32))
+    ref32 = torch_umse_bwd(x, *params, dout[bf16].float(), torch.float32)
+    got = cuda_umse_bwd(x, *params, dout[bf16], bf16)
+    plain = torch_umse_bwd(x, *params, dout[bf16], bf16)
+    bf_err, plain_err = _grad_errors(got, ref32), _grad_errors(plain, ref32)
+    max_err = max(float((a - e).abs().max()) for a, e in zip(got, plain))
+    del got, plain, ref32
+    same = all(torch.equal(a, e) for a, e in zip(
+        cuda_umse_bwd(x, *params, dout[bf16], bf16),
+        cuda_umse_bwd(x, *params, dout[bf16], bf16)))
+    kernel = lambda: cuda_umse_bwd(x, *params, dout[bf16], bf16)
+    closed = lambda: torch_umse_bwd(x, *params, dout[bf16], bf16)
+    leaves = [p.detach().clone().requires_grad_(True) for p in params]
+    recompute = lambda: torch.autograd.grad(
+        torch_umse(x, *leaves, bf16), leaves, dout[bf16])
+    ms, plain_ms, re_ms = (_median_ms(kernel), _median_ms(closed),
+                           _median_ms(recompute))
+    dev_ms, names = _device_ms(kernel)
+    items, re_dev, _ = _step_split(lambda _: recompute(), None)
+    re_launches = sum(n for _, n, _ in items)
+    R = BATCH * TIE_LEN
+    # read dout and x once, the stem vectors and the table; write the
+    # [28, 256] gradients. Per element and stem about 8 operations to
+    # recompute the stem and 13 for its backward, on the CUDA cores
+    nbytes = R * D * 2 + R * 12 + 2 * (8 + 20) * D * 4
+    res = {"max_abs_err": max_err, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, **_bound(nbytes, 42 * R * D,
+                                          torch.float32),
+           "library_ms": None, "shape": "[64,1000,256]",
+           "grad_err_f": max(bf_err), "bit_identical": same,
+           "recompute_ms": re_ms, "recompute_device_ms": re_dev,
+           "recompute_launches": re_launches}
+    fmt = lambda es: " ".join(f"{e:.2e}" for e in es)
+    print(f"kernel umse_bwd [64,1000,256] fp32: |err|_F/|plain|_F "
+          f"{fmt(f32_err)} (tol 1e-2)")
+    print(f"kernel umse_bwd [64,1000,256] bf16: |err|_F/|fp32|_F "
+          f"{fmt(bf_err)}, the bf16 closed form's {fmt(plain_err)} (tol "
+          f"{STEP_BF16_RATIO}x + 1e-2); max |err| against the bf16 closed "
+          f"form {max_err:.3e}; bit-identical "
+          f"over two runs: {same}; ms={ms:.4f} device_ms={dev_ms:.4f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={res['bound_ms']:.4f} "
+          f"({res['bound_by']}); launched {names}")
+    print(f"umse backward as autograd of torch_umse (the recompute it "
+          f"replaces), bf16: {re_ms:.3f} ms by events, device {re_dev:.4f} "
+          f"ms in {re_launches} launches")
+    if not all(np.isfinite(e) and e <= 1e-2 for e in f32_err):
+        raise AssertionError("umse_bwd fp32 disagrees with torch_umse_bwd")
+    if not all(np.isfinite(k) and k <= STEP_BF16_RATIO * p + 1e-2
+               for k, p in zip(bf_err, plain_err)):
+        raise AssertionError("umse_bwd bf16 strays from the fp32 closed form")
+    if not same:
+        raise AssertionError("umse_bwd differs between runs")
+    want = ("umse_bwd_kernel", "col_sum_kernel")
+    if sorted({k for n in names for k in want if k in n}) != sorted(want) \
+            or not all(any(k in n for k in want) for n in names):
+        raise AssertionError(f"umse_bwd launched {names}")
+    return {"umse_bwd": res}
 
 
 # the cross-modal layers' attention, 4 heads of 64 over batch 64: (name,
@@ -1279,9 +1441,10 @@ def _step_split(step, batch):
 
 
 def _profile_step(name, trainer, batch, power: str,
-                  train: bool = False) -> None:
+                  train: bool = False) -> list:
     """torch.profiler over one step (after warm-up): device time by kernel,
-    the step's device total against its host wall time."""
+    the step's device total against its host wall time. Returns the
+    device events (us, count, name)."""
     step = trainer.train_step if train else trainer.eval_step
     items, total, wall = _step_split(step, batch)
     kind = "train" if train else "eval"
@@ -1291,6 +1454,29 @@ def _profile_step(name, trainer, batch, power: str,
     for t, count, key in items[:24 if train else 16]:
         print(f"  {t / 1e3:8.3f} ms {100 * t / 1e3 / total:5.1f} % "
               f"x{count:<4d} {key[:90]}")
+    return items
+
+
+# the kernels of the TIE embedding and the input dropout in one config-4
+# train step: the umse forward and its backward (a row pass, then col_sum,
+# which the other backward kernels' weight sums launch too), and a mask
+# launch per stream
+STEP_KERNELS = {"umse_fwd_kernel": 1, "umse_bwd_kernel": 1,
+                "dropout_masks_kernel": 3}
+
+
+def _check_step_kernels(items) -> None:
+    """The profiled step launched STEP_KERNELS as many times as they say:
+    the umse backward ran as its kernel, not as a recompute."""
+    got = {k: sum(n for _, n, key in items if f"mtp::{k}" in key)
+           for k in STEP_KERNELS}
+    ms = {k: sum(t for t, _, key in items if f"mtp::{k}" in key) / 1e3
+          for k in STEP_KERNELS}
+    print("profile config4 train step: " + ", ".join(
+        f"{k} x{got[k]} {ms[k]:.4f} ms" for k in STEP_KERNELS))
+    if got != STEP_KERNELS:
+        raise AssertionError(f"config4 train step launched {got}, expected "
+                             f"{STEP_KERNELS}")
 
 
 def run_config(name: str, argv, power: str, timed: bool) -> dict:
@@ -1528,13 +1714,24 @@ def run_train(name: str, argv, power: str, timed: bool) -> dict:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
-    # the main path: every kernel launch of these steps is counted
+    # the main path: every kernel launch of these steps is counted, and the
+    # shapes of its dropout masks are recorded
+    masks, dispatch = [], ops.dropout_masks
+
+    def record(R, F, C, *args, col0=0):
+        masks.append((R, F, C, col0))
+        return dispatch(R, F, C, *args, col0=col0)
+
+    ops.dropout_masks = record
     ops.reset_launches()
     losses, rows = [], []
-    for batch in batches:
-        losses.append(trainer.train_step(batch))
-        rows.append(getattr(model, "trunk_rows", 0))
-    torch.cuda.synchronize()
+    try:
+        for batch in batches:
+            losses.append(trainer.train_step(batch))
+            rows.append(getattr(model, "trunk_rows", 0))
+        torch.cuda.synchronize()
+    finally:
+        ops.dropout_masks = dispatch
     counts = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
     n = len(batches)
@@ -1551,6 +1748,11 @@ def run_train(name: str, argv, power: str, timed: bool) -> dict:
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{name}: non-finite train loss {losses}")
     if name == "config4":
+        want = {v for k, v in MASK_SHAPES.items() if k.startswith("input")}
+        if set(masks) != want:
+            raise AssertionError(f"{name}: dropout masks of shapes "
+                                 f"{sorted(set(masks))}, MASK_SHAPES has "
+                                 f"{sorted(want)}")
         cap = pack_capacity(cfg, BATCH)
         if cap + 1 not in rows or BATCH not in rows:
             raise AssertionError(f"{name}: trunk rows {rows} miss the packed "
@@ -1568,7 +1770,9 @@ def run_train(name: str, argv, power: str, timed: bool) -> dict:
               f"({BATCH * 1e3 / kernel_ms:.1f} samples/s), plain "
               f"{plain_ms:.2f} ms/step ({BATCH * 1e3 / plain_ms:.1f} "
               f"samples/s); rounds {ms[False]} / {ms[True]}")
-        _profile_step(name, trainer, batches[0], power, train=True)
+        items = _profile_step(name, trainer, batches[0], power, train=True)
+        if name == "config4":
+            _check_step_kernels(items)
 
         # 20 steps on one batch from the starting weights: the loss falls
         model.load_state_dict(state)
@@ -1604,8 +1808,8 @@ TP_ARGV = CONFIG4 + ["--mp-size", "2", "--dp-size", "1"]
 TP_BATCHES = [0.5, 0.25, 0.75]
 TP_EVAL_LAUNCHES = {"umse": 1, "attention": 18, "rowmm_ln": 6,
                     "swin_attention": 12, "swin_mlp": 12}
-TP_TRAIN_LAUNCHES = dict(TP_EVAL_LAUNCHES, attention_bwd=16, rowmm_ln_bwd=6,
-                         dropout_masks=21)
+TP_TRAIN_LAUNCHES = dict(TP_EVAL_LAUNCHES, umse_bwd=1, attention_bwd=16,
+                         rowmm_ln_bwd=6, dropout_masks=21)
 TP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                       "tp_smoke")
 TP_LABEL = "2 ranks share one H100 over gloo: not a TP speed figure"
@@ -1891,12 +2095,13 @@ PATH_STEPS = dict({k: len(v) for k, v in TRAIN_BATCHES.items()},
 
 # the kernels the A/B reading sums in a step and in an attn_block call:
 # the last slices' (and the FMA forms they replace)
-AB_KERNELS = ("ffn_kernel", "ffn_fwd_tc_kernel", "swin_mlp_kernel",
-              "swin_mlp_tc_kernel", "swin_fc1_tc_kernel", "gemm_kernel",
-              "gemm_bf16_kernel", "layer_norm_kernel", "block_qkv_tc_kernel",
-              "block_attn_tc_kernel", "block_ln_bwd_tc_kernel",
-              "rowmm_kernel", "rowmm_bwd_kernel", "rowmm_tc_kernel",
-              "rowmm_bwd_tc_kernel")
+AB_KERNELS = ("umse_fwd_kernel", "umse_bwd_kernel", "col_sum_kernel",
+              "dropout_masks_kernel", "ffn_kernel", "ffn_fwd_tc_kernel",
+              "swin_mlp_kernel", "swin_mlp_tc_kernel", "swin_fc1_tc_kernel",
+              "gemm_kernel", "gemm_bf16_kernel", "layer_norm_kernel",
+              "block_qkv_tc_kernel", "block_attn_tc_kernel",
+              "block_ln_bwd_tc_kernel", "rowmm_kernel", "rowmm_bwd_kernel",
+              "rowmm_tc_kernel", "rowmm_bwd_tc_kernel")
 AB_STEPS = 5
 # attn_block forward + backward calls profiled together in ``ab``
 AB_BLOCK_CALLS = 5
@@ -1914,6 +2119,84 @@ def _by_kernel(items, names) -> dict:
     return {k: v for k, v in sums.items() if v[1]}
 
 
+def _ab_umse_masks(root: str, trainer, batch) -> dict:
+    """The TIE embedding and the dropout masks as one config-4 train step
+    calls them (the ops dispatchers watched over one step): the device ms
+    per call of dropout_masks at each shape the step draws, at the TP FFN
+    shape and at both FFN masks of the vslt stream (MASK_SHAPES), beside
+    CUDA-event ms; the umse forward's device ms on the step's tensors; and
+    the umse backward alone on them (the gradients of the nine parameters
+    for a seeded cotangent): its device ms, its launches and its peak
+    memory above what was allocated before it; then the step's peak
+    memory."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    dev = torch.device("cuda")
+    seen = {"masks": set()}
+    masks_fn, umse_fn = ops.dropout_masks, ops.umse
+
+    def record_masks(R, F, C, *args, col0=0):
+        seen["masks"].add((R, F, C, col0))
+        return masks_fn(R, F, C, *args, col0=col0)
+
+    def record_umse(*args):
+        seen["umse"] = args
+        return umse_fn(*args)
+
+    ops.dropout_masks, ops.umse = record_masks, record_umse
+    try:
+        trainer.train_step(batch)
+    finally:
+        ops.dropout_masks, ops.umse = masks_fn, umse_fn
+    out = {}
+    shapes = sorted(seen["masks"]) + [MASK_SHAPES["tp_ffn"],
+                                      MASK_SHAPES["ffn_whole"]]
+    with torch.inference_mode():
+        for R, F, C, col0 in shapes:
+            call = lambda: ops.dropout_masks(R, F, C, DROPOUT_SEED, 0.1, dev,
+                                             col0=col0)
+            dev_ms, names = _device_ms(call)
+            ms = _median_ms(call)
+            key = f"dropout_masks [{R},{F}]+[{R},{C}] col0 {col0}"
+            out[key] = {"device_ms": dev_ms, "ms": ms}
+            print(f"ab {root}: {key}: {dev_ms:.4f} device ms, {ms:.4f} ms "
+                  f"by events ({names})")
+        x, *params, table, dt = seen["umse"]
+        dev_ms, names = _device_ms(lambda: ops.umse(x, *params, table, dt))
+        out["umse_fwd"] = {"device_ms": dev_ms, "shape": list(x.shape)}
+        print(f"ab {root}: umse forward {list(x.shape)} {dt}: {dev_ms:.4f} "
+              f"device ms ({names})")
+    leaves = [p.detach().clone().requires_grad_(True)
+              for p in params + [table]]
+    y = ops.umse(x, *leaves, dt)
+    dout = torch.randn(y.shape, generator=torch.Generator().manual_seed(5)
+                       ).to(dev, dt)
+    backward = lambda _: torch.autograd.grad(y, leaves, dout,
+                                             retain_graph=True)
+    items, busy, _ = _step_split(backward, None)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    backward(None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = sum(n for _, n, _ in items)
+    out["umse_bwd"] = {"device_ms": busy, "launches": launches,
+                       "peak_bytes": peak}
+    print(f"ab {root}: umse backward alone on the step's tensors: {busy:.4f} "
+          f"device ms in {launches} launches, peak {peak / 2 ** 20:.1f} MiB "
+          f"above its inputs; top: " + ", ".join(
+              f"{key[:40]} x{n} {t / 1e3:.4f}" for t, n, key in items[:6]))
+    del y, leaves, dout
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    out["step_peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"ab {root}: config4 bf16 train step peak device memory "
+          f"{out['step_peak_bytes'] / 2 ** 30:.3f} GiB")
+    return out
+
+
 def ab(root: str, power: str) -> None:
     """The A/B reading for the package under ``root`` (a git archive of one
     tree), all bf16, profiler device ms: per call, the ffn forward at the
@@ -1922,10 +2205,12 @@ def ab(root: str, power: str) -> None:
     and the four rowmm forms at the rowmm phase's shapes (forward and
     backward, LN-fused at W [256, 384] and plain at [256, 768]); per
     launch, the attn_block kernels of AB_BLOCK_CALLS training forwards and
-    backwards at [64, 1024, 256] (TIE key mask); then one config-4 train
-    step's device busy time, host wall, and the device ms of each of
-    AB_KERNELS in it, and the host-clock ms/step of config 4 and of the
-    cross transformer over AB_STEPS unprofiled train steps. Only the
+    backwards at [64, 1024, 256] (TIE key mask); the dropout masks and the
+    umse forward and backward as a config-4 train step calls them
+    (_ab_umse_masks); then one config-4 train step's device busy time, host
+    wall, and the device ms of each of AB_KERNELS in it, and the host-clock
+    ms/step of config 4 and of the cross transformer over AB_STEPS
+    unprofiled train steps. Only the
     wrappers both trees have are called. One process per tree, in turns
     (parent, change, change, parent), each building its kernels into
     <root>/build:
@@ -2016,11 +2301,17 @@ def ab(root: str, power: str) -> None:
     trainer = Trainer(cfg, model, dev, eval_only=False, seed=0)
     batch = synthetic_batch(cfg, BATCH, seed=10,
                             present_frac=TRAIN_BATCHES["config4"][0])
+    out.update(_ab_umse_masks(root, trainer, batch))
     items, busy, wall = _step_split(trainer.train_step, batch)
     sums = _by_kernel(items, AB_KERNELS)
-    out.update(step_busy_ms=busy, step_wall_ms=wall, step_kernels=sums)
+    # the kernels alone: the pageable H2D copy moves by milliseconds
+    # between steps
+    kernels = sum(t for t, _, key in items if not key.startswith("Memcpy"))
+    out.update(step_busy_ms=busy, step_kernels_ms=kernels / 1e3,
+               step_wall_ms=wall, step_kernels=sums)
     print(f"ab {root}: config4 bf16 train step: device busy {busy:.2f} ms "
-          f"of {wall:.2f} ms host wall; " + ", ".join(
+          f"({kernels / 1e3:.2f} ms in kernels, copies left out) of "
+          f"{wall:.2f} ms host wall; " + ", ".join(
               f"{k} x{n} {t:.3f} ms" for k, (t, n) in sums.items()))
     for name, argv in (("config4", CONFIG4), ("cross", CROSS)):
         if name != "config4":
@@ -2046,6 +2337,8 @@ def main() -> None:
     power = check_device()
     build_kernels()
     results = compare_kernels()
+    results.update(compare_umse_bwd())
+    results.update(compare_dropout_masks())
     results.update(compare_training_kernels())
     results.update(compare_attention_kernels())
     results.update(compare_rowmm_kernels())

@@ -1,11 +1,11 @@
 // Fused pre-norm feed-forward block,
 //   y = x + drop(W2.drop(relu(W1.StdLN(x) + b1)) + b2),
-// forward with in-kernel dropout and per-tile row skipping, its backward,
-// and the dropout masks alone.
+// forward with in-kernel dropout and per-tile row skipping, and its
+// backward. The dropout masks alone are dropout.cu's.
 //
 // Replaces medical_tri_modal_pilot_tpu/kernels/ffn.py::_call_fwd (body
-// _fwd_kernel), ::_call_bwd (body _bwd_kernel / _bwd_block) and
-// ::dropout_masks (body _masks_kernel), reached through pallas_ffn.
+// _fwd_kernel) and ::_call_bwd (body _bwd_kernel / _bwd_block), reached
+// through pallas_ffn.
 //
 // What bounds it on an H100: two products of 2*R*C*F operations each
 // (R = 64*1024 rows, C = 256, F = 1024 on the TIE stream) against R*C
@@ -595,24 +595,6 @@ __global__ void __launch_bounds__(kMlpThreads, C <= 96 ? 2 : 1)
               ffn_fwd_smem);
 }
 
-// keep masks as int8: k1 [R, F] (hidden columns col0 .. col0 + F of the
-// whole [R, *] mask: one rank's share of d_ff under tensor parallelism)
-// and k2 [R, C] (output)
-__global__ void __launch_bounds__(kThreads) dropout_masks_kernel(
-    int8_t* __restrict__ k1, int8_t* __restrict__ k2, int R, int F, int C,
-    int col0, uint2 key, uint32_t thr) {
-  const size_t n1 = (size_t)R * F, n = n1 + (size_t)R * C;
-  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * kThreads) {
-    if (e < n1) {
-      k1[e] = dropout_keep(key, thr, 0, (int)(e / F), col0 + (int)(e % F));
-    } else {
-      const size_t e2 = e - n1;
-      k2[e2] = dropout_keep(key, thr, 1, (int)(e2 / C), (int)(e2 % C));
-    }
-  }
-}
-
 static Dropout make_dropout(unsigned long long seed, unsigned int thr,
                             float q_t, float q_f, int on) {
   Dropout d;
@@ -780,21 +762,4 @@ extern "C" int ffn_bwd(const void* x, const void* gamma, const void* beta,
   if (dtype == 1 && C == 64)
     return (int)launch_bwd_tc<4>(x, g, be, w1, b1, w2, v, dy, dx, ln_o, dz_o, hd_o, dh_o, gp, R, F, d, s);
   return (int)cudaErrorInvalidValue;
-}
-
-// The keep masks the two kernels above draw for (seed, thr): int8 k1
-// [R, F] and k2 [R, C], 1 = kept; k1 holds hidden columns col0 .. col0 + F
-// (col0 = 0: the kernels' own mask).
-extern "C" int ffn_dropout_masks(void* k1, void* k2, int R, int F, int C,
-                                 int col0, unsigned long long seed,
-                                 unsigned int thr, void* stream) {
-  using namespace mtp;
-  const Dropout d = make_dropout(seed, thr, 1.0f, 1.0f, 1);
-  const size_t n = (size_t)R * (F + C);
-  const int blocks = (int)((n + kThreads - 1) / kThreads < 4096
-                               ? (n + kThreads - 1) / kThreads : 4096);
-  if (blocks <= 0) return 0;
-  dropout_masks_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (int8_t*)k1, (int8_t*)k2, R, F, C, col0, d.key, d.thr);
-  return (int)cudaGetLastError();
 }

@@ -52,7 +52,13 @@ _SIGNATURES = {
     # gpart, R, C, F, seed, thr, q_t, q_f, drop, dtype, stream
     "ffn_bwd": [_P] * 14 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
     # k1, k2, R, F, C, col0, seed, thr, stream
-    "ffn_dropout_masks": [_P] * 2 + [_I] * 4 + [_U64, _U32, _P],
+    "dropout_masks": [_P] * 2 + [_I] * 4 + [_U64, _U32, _P],
+    # x, wv, bv, sv, bbv, wt, bt, st, bbt, table, out, R, D, n_ids, dtype,
+    # stream
+    "umse_fwd": [_P] * 11 + [_I] * 4 + [_P],
+    # x, wv, bv, sv, bbv, wt, bt, st, bbt, dout, part, grads, R, D, n_ids,
+    # blocks, dtype, stream
+    "umse_bwd": [_P] * 12 + [_I] * 5 + [_P],
     # A, B0, B1, B2, R, Ka, Nb, Bcs, rows_per_slice, S, part, colpart,
     # valid, flag_rows, dtype, stream
     "wgrad_partials": [_P] * 4 + [_I] * 6 + [_P] * 3 + [_I] * 2 + [_P],

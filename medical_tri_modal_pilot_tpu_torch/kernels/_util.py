@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("umse", "attn_block", "attn_block_bwd", "ffn", "ffn_bwd",
-           "dropout_masks", "swin_attention", "swin_mlp", "attention",
-           "attention_bwd", "rowmm_ln", "rowmm_ln_bwd", "rowmm", "rowmm_bwd")
+KERNELS = ("umse", "umse_bwd", "attn_block", "attn_block_bwd", "ffn",
+           "ffn_bwd", "dropout_masks", "swin_attention", "swin_mlp",
+           "attention", "attention_bwd", "rowmm_ln", "rowmm_ln_bwd", "rowmm",
+           "rowmm_bwd")
 launches = {name: 0 for name in KERNELS}
 
 

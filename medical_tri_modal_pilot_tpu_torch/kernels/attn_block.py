@@ -43,7 +43,7 @@ def attn_block_route(dtype: torch.dtype, C: int, H: int) -> str:
 
 def tc_smem_bytes(C: int, d_head: int) -> dict:
     """Shared memory of each tensor-core kernel at width C and head width
-    d_head, as csrc/attn_block_tc.cuh reckons the projections': bf16
+    d_head, as csrc/proj_tc.cuh reckons the projections': bf16
     tiles of pitch width + 8, 64-row tiles. The projection: x / StdLN(x)
     [64][C] and a three-stage W ring [64][128]; the projection backward:
     x [64][C], a three-stage ring of a dq|dk|dv chunk [64][32] and a W

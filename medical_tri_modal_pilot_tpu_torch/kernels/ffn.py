@@ -2,9 +2,10 @@
 b2)``: the plain PyTorch version and the CUDA kernels (``csrc/ffn.cu``):
 the forward with in-kernel dropout, its backward (a tile pass, then the
 weight sums of ``csrc/wgrad.cu`` over the live tiles' rows), and the
-dropout masks. Forward and tile pass take one of two routes
-(``ffn_route``): bf16 on the tensor cores (the forward on the tile loop
-of ``csrc/mlp_tc.cuh``), fp32 (the checking dtype) on FMA loops.
+dropout masks (``csrc/dropout.cu``). Forward and tile pass take one of
+two routes (``ffn_route``): bf16 on the tensor cores (the forward on the
+tile loop of ``csrc/mlp_tc.cuh``), fp32 (the checking dtype) on FMA
+loops.
 
 Counterpart of medical_tri_modal_pilot_tpu/kernels/ffn.py (``xla_ffn``,
 ``pallas_ffn`` and ``dropout_masks``). Weights are in the JAX layout: w1
@@ -304,20 +305,23 @@ def cuda_ffn(x, gamma, beta, w1, b1, w2, b2,
 def cuda_dropout_masks(R: int, F: int, C: int, seed: int, p: float,
                        device, col0: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernels' keep masks for ``seed``, drawn on the card (bool [R, F],
-    [R, C]); the hidden one from column ``col0`` on, as
-    plain_dropout_masks."""
+    """The kernels' keep masks for ``seed``, drawn on the card in one launch
+    straight into bool [R, F] and [R, C] (``csrc/dropout.cu``); the hidden
+    one from column ``col0`` on, as plain_dropout_masks."""
     device = torch.device(device)
+    if min(R, F, C, col0) < 0:
+        raise ValueError(f"dropout_masks takes sizes and an offset >= 0, "
+                         f"got R={R} F={F} C={C} col0={col0}")
     if device.type != "cuda":
         raise ValueError(f"cuda_dropout_masks needs a CUDA device, got "
                          f"{device}")
-    k1 = torch.empty(R, F, dtype=torch.int8, device=device)
-    k2 = torch.empty(R, C, dtype=torch.int8, device=device)
+    k1 = torch.empty(R, F, dtype=torch.bool, device=device)
+    k2 = torch.empty(R, C, dtype=torch.bool, device=device)
     if R * (F + C) == 0:
-        return k1.bool(), k2.bool()
-    rc = _build.library().ffn_dropout_masks(
+        return k1, k2
+    rc = _build.library().dropout_masks(
         k1.data_ptr(), k2.data_ptr(), R, F, C, int(col0),
         int(seed) & (2 ** 64 - 1), keep_threshold(p), stream(k1))
     _build.check(rc, "dropout_masks")
     count("dropout_masks")
-    return k1.bool(), k2.bool()
+    return k1, k2

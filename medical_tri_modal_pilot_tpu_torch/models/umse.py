@@ -2,9 +2,10 @@
 medical_tri_modal_pilot_tpu/models/umse.py:70-144).
 
 Per TIE token the value and time stems and the feature-id embedding are
-summed through ``ops.umse`` (the Triton kernel on CUDA); the demographics
-stem, the BioBERT projection (768 -> d) and the img/txt timestamp
-enrichment (feature ids 18/19, ``--imgtxt-time 1``) are plain PyTorch.
+summed through ``ops.umse`` (the CUDA kernels of ``csrc/umse.cu``, forward
+and backward, on the card); the demographics stem, the BioBERT projection
+(768 -> d) and the img/txt timestamp enrichment (feature ids 18/19,
+``--imgtxt-time 1``) are plain PyTorch.
 
 The stems are attributes of the model itself (``ie_vslt``, ``ie_time``,
 ``ie_feat``, ``ie_demo``, ``txt_embedding``), as in the reference, so the

@@ -11,12 +11,12 @@ the tests and ``chip_smoke.py`` build their oracle on the card. On the
 plain path the gradients are autograd of the plain versions; on the kernel
 path ``umse``, ``attn_block``, ``ffn``, ``attention`` and the two
 ``rowskip`` projections are autograd Functions whose backward launches the
-backward kernels (``umse``'s differentiates its plain version, as in the
-JAX package).
+backward kernels.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it
-(kernels/_util.py); the backward kernels count as ``attn_block_bwd``,
-``ffn_bwd``, ``attention_bwd``, ``rowmm_ln_bwd`` and ``rowmm_bwd``.
+(kernels/_util.py); the backward kernels count as ``umse_bwd``,
+``attn_block_bwd``, ``ffn_bwd``, ``attention_bwd``, ``rowmm_ln_bwd`` and
+``rowmm_bwd``.
 """
 from __future__ import annotations
 
@@ -70,8 +70,8 @@ def umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table, dtype):
     if not _launches_kernel(x.device):
         return _umse.torch_umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table,
                                 dtype)
-    return _umse.triton_umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table,
-                             dtype)
+    return _umse.cuda_umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table,
+                           dtype)
 
 
 def attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
@@ -98,7 +98,8 @@ def attention(q, k, v, key_mask: Optional[torch.Tensor], scale: float,
 def dropout_masks(R: int, F: int, C: int, seed: int, p: float, device,
                   col0: int = 0):
     """The FFN kernels' keep masks for ``seed`` (bool [R, F], [R, C]), the
-    hidden one holding columns ``col0`` .. col0 + F of the whole mask."""
+    hidden one holding columns ``col0`` .. col0 + F of the whole mask; one
+    launch on the card, both masks written as bool."""
     device = torch.device(device)
     if not _launches_kernel(device):
         return _ffn.plain_dropout_masks(R, F, C, seed, p, device, col0)

@@ -1,8 +1,9 @@
-"""The port's CUDA and Triton kernels against their plain PyTorch versions
+"""The port's CUDA kernels against their plain PyTorch versions
 on the card, at the small widths of the CPU tests (d_head 32, C 64) and at
 the flagship's (d_head 64, C 256; Swin-T's C 96-768): forwards, the
-backward kernels against autograd of the plain versions, the dropout
-masks bit for bit; the masked attention of the cross-modal layers at
+backward kernels against autograd of the plain versions (the umse
+backward against its closed form, torch_umse_bwd), the dropout masks bit
+for bit; the masked attention of the cross-modal layers at
 every mask form; and the small eval and train steps (vslt+txt, and
 vslt+img+txt with the full Swin-T; the cross transformer) on both paths;
 the row-skipping projections of tensor parallelism (both routes, the
@@ -79,6 +80,81 @@ def test_umse_kernel(dev, prec):
     table = _rand(g, dev, 20, D)
     out, ref = _both(lambda: ops.umse(x, *vecs, table, PRECS[prec]))
     torch.testing.assert_close(out, ref, **TOL[prec])
+
+
+def _umse_case(g, dev, B, L, D, prec):
+    """Seeded umse inputs with ids 20 and 23 past the table's end, and a
+    cotangent in the dtype."""
+    x = torch.stack([-24 * torch.rand(B, L, generator=g),
+                     torch.rand(B, L, generator=g),
+                     torch.randint(0, 20, (B, L), generator=g).float()],
+                    dim=-1)
+    x[0, 1, 2], x[-1, -1, 2] = 20, 23
+    vecs = [_rand(g, dev, 1, D)] + [_rand(g, dev, D, std=.1) for _ in range(3)]
+    vecs += [_rand(g, dev, 1, D)] + [_rand(g, dev, D, std=.1)
+                                     for _ in range(3)]
+    vecs[2] = vecs[2] + 1.0
+    vecs[6] = vecs[6] + 1.0
+    dout = _rand(g, dev, B, L, D).to(PRECS[prec])
+    return x.to(dev), vecs + [_rand(g, dev, 20, D)], dout
+
+
+@pytest.mark.parametrize("B,L,D", [(3, 77, 64), (4, 300, 256), (2, 5, 32)])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_umse_backward_kernel(dev, B, L, D, prec):
+    """The backward kernel's nine gradients against torch_umse_bwd, its
+    closed form in plain torch with the same rounding points, on the card;
+    both sum in fp32 in another order. Through the autograd Function too:
+    the same gradients, one launch each way."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.umse import (
+        cuda_umse_bwd, torch_umse_bwd)
+    g = torch.Generator().manual_seed(31)
+    dt = PRECS[prec]
+    x, params, dout = _umse_case(g, dev, B, L, D, prec)
+    ops.reset_launches()
+    got = cuda_umse_bwd(x, *params, dout, dt)
+    assert ops.launches["umse_bwd"] == 1
+    want = torch_umse_bwd(x, *params, dout, dt)
+    for a, e in zip(got, want):
+        assert a.shape == e.shape
+        torch.testing.assert_close(a, e, **TOL[prec])
+    leaves = [p.clone().requires_grad_(True) for p in params]
+    via = torch.autograd.grad(ops.umse(x, *leaves, dt), leaves, dout)
+    assert ops.launches["umse"] == 1 and ops.launches["umse_bwd"] == 2
+    assert all(torch.equal(a, e) for a, e in zip(via, got))
+
+
+def test_umse_backward_is_bit_identical(dev):
+    """Two runs of the bf16 backward at the main path's width give the same
+    gradients bit for bit: fixed-order sums, no float atomics."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.umse import cuda_umse_bwd
+    g = torch.Generator().manual_seed(32)
+    x, params, dout = _umse_case(g, dev, 16, 1000, 256, "bf16")
+    first = cuda_umse_bwd(x, *params, dout, torch.bfloat16)
+    again = cuda_umse_bwd(x, *params, dout, torch.bfloat16)
+    assert all(torch.equal(a, e) for a, e in zip(first, again))
+
+
+def test_umse_and_dropout_masks_launch_their_kernels(dev):
+    """A bf16 umse forward and backward launch umse_fwd_kernel, then
+    umse_bwd_kernel and col_sum_kernel, and nothing else (no recompute of
+    torch_umse); dropout_masks launches dropout_masks_kernel alone (no
+    .bool() copy)."""
+    g = torch.Generator().manual_seed(33)
+    x, params, dout = _umse_case(g, dev, 4, 300, 256, "bf16")
+    leaves = [p.clone().requires_grad_(True) for p in params]
+    names = _launched(lambda: torch.autograd.grad(
+        ops.umse(x, *leaves, torch.bfloat16), leaves, dout))
+    want = ("umse_fwd_kernel", "umse_bwd_kernel", "col_sum_kernel")
+    for kernel in want:
+        assert any(kernel + "<" in n or kernel + "(" in n for n in names), \
+            (kernel, names)
+    assert all(any(k in n for k in want) for n in names), names
+    for F in (0, 512):
+        names = _launched(lambda: ops.dropout_masks(300, F, 256, 7, 0.1, dev,
+                                                    col0=F))
+        assert names and all("dropout_masks_kernel" in n for n in names), \
+            names
 
 
 # attn_block shapes: the small widths (d_head 32) and the main path's at
@@ -301,21 +377,29 @@ def test_ffn_and_swin_mlp_smem_tables_match_the_kernels(dev):
 
 
 @pytest.mark.parametrize("R,F,C", [(300, 256, 64), (1000, 0, 256),
-                                   (65, 1024, 256)])
+                                   (65, 1024, 256), (997, 0, 256),
+                                   (61, 0, 100), (33, 70, 18)])
 def test_dropout_masks_kernel_is_bit_identical(dev, R, F, C):
+    """Both masks bit for bit the plain version's, as bool: the main
+    path's widths (16-byte stores), F = 0 at a ragged R (the input
+    dropout) and widths that are not multiples of 16 or 4 (4-byte and byte
+    stores at the row edges)."""
     for seed, p in ((5, 0.1), (2 ** 63 - 1, 0.5)):
         got = ops.dropout_masks(R, F, C, seed, p, dev)
         want = plain_dropout_masks(R, F, C, seed, p, dev)
         for a, e in zip(got, want):
-            assert torch.equal(a, e)
+            assert a.dtype == torch.bool and torch.equal(a, e)
 
 
-@pytest.mark.parametrize("col0,F", [(0, 64), (1, 7), (5, 64), (512, 512)])
-def test_dropout_masks_kernel_takes_the_column_offset(dev, col0, F):
-    """A rank's hidden mask (F columns from col0) is bit for bit the
-    plain version's and those columns of the kernel's whole mask; offset 0
-    is the kernels' own mask."""
-    R, C, p, seed = 300, 64, 0.1, 2 ** 40 + 5
+@pytest.mark.parametrize("col0,F,C", [(0, 64, 64), (1, 7, 64), (5, 64, 64),
+                                      (512, 512, 64), (512, 512, 256),
+                                      (3, 61, 100)])
+def test_dropout_masks_kernel_takes_the_column_offset(dev, col0, F, C):
+    """A rank's hidden mask (F columns from col0; 512 from 512 at C 256 is
+    rank 1's share under --mp-size 2) is bit for bit the plain version's
+    and those columns of the kernel's whole mask; offset 0 is the kernels'
+    own mask."""
+    R, p, seed = 300, 0.1, 2 ** 40 + 5
     part = ops.dropout_masks(R, F, C, seed, p, dev, col0=col0)
     whole = ops.dropout_masks(R, col0 + F, C, seed, p, dev)
     want = plain_dropout_masks(R, F, C, seed, p, dev, col0=col0)
@@ -873,8 +957,9 @@ def test_small_train_step_on_both_paths(dev, dropout):
             loss = tr.train_step(batch)
             masks = 2 if dropout != "0" else 0
             assert ops.launches == dict.fromkeys(ops.KERNELS, 0) | {
-                "umse": 1, "attn_block": 4, "attn_block_bwd": 3, "ffn": 4,
-                "ffn_bwd": 3, "dropout_masks": masks}
+                "umse": 1, "umse_bwd": 1, "attn_block": 4,
+                "attn_block_bwd": 3, "ffn": 4, "ffn_bwd": 3,
+                "dropout_masks": masks}
         runs.append((loss, {n: p.grad.float() for n, p in
                             tr.model.named_parameters()}))
     (loss, grads), (ref_loss, ref_grads) = runs

@@ -1,11 +1,14 @@
 """The port's plain kernel versions (torch_umse, torch_attn_block,
 torch_ffn) against the JAX package's oracles (xla_*) and its Pallas
 kernels (interpret mode on the CPU), on the same numpy inputs, plus the
-dispatch and build plumbing the CPU reaches. The CUDA and Triton kernels
-themselves are held against these plain versions on the card
+dispatch and build plumbing the CPU reaches; the umse backward's closed
+form (torch_umse_bwd) against jax.vjp of the Pallas kernel and autograd
+of torch_umse. The CUDA kernels themselves are held against these plain
+versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,8 +25,8 @@ from medical_tri_modal_pilot_tpu_torch.kernels import _build
 from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
     cuda_attn_block, key_ends, torch_attn_block)
 from medical_tri_modal_pilot_tpu_torch.kernels.ffn import cuda_ffn, torch_ffn
-from medical_tri_modal_pilot_tpu_torch.kernels.umse import (torch_umse,
-                                                           triton_umse)
+from medical_tri_modal_pilot_tpu_torch.kernels.umse import (
+    cuda_umse, torch_umse, torch_umse_bwd)
 
 JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -62,6 +65,71 @@ def test_umse_plain_matches_jax(prec):
     got = _f32(torch_umse(*map(torch.from_numpy, args), TDT[prec]))
     np.testing.assert_allclose(got, want, **TOL[prec])
     np.testing.assert_allclose(got, kern, **TOL[prec])
+
+
+def _umse_grad_args(prec, seed=0):
+    """Odd L (the Pallas kernel pads rows to its 1024-row block), ids 20 and
+    23 past the table's end (they embed as zeros, and JAX's gather VJP drops
+    them as torch's one-hot product does) and a cotangent in the dtype."""
+    args = list(_umse_args(seed=seed))
+    x = args[0].copy()
+    x[0, 5, 2], x[2, 70, 2] = 20, 23
+    dout = np.random.default_rng(seed + 1).standard_normal(
+        x.shape[:2] + (args[1].shape[1],)).astype(np.float32)
+    dout = _f32(torch.from_numpy(dout).to(TDT[prec]))
+    return [x] + args[1:], dout
+
+
+# The umse gradients, sums over the 231 rows of values of O(1): fp32 and
+# the bf16 scale, bias and table gradients (fp32 sums of fp32 terms on
+# every side) elementwise at TOL. bf16 dW and db (indices 0, 1, 4, 5): JAX
+# and autograd of torch_umse round each dh * x product and the row sum to
+# bf16 (JAX on the CPU also accumulates in bf16: 1.2 % of db's largest
+# entry here), where torch_umse_bwd, like the kernel, sums in fp32. Those
+# are held per tensor by |got - want|_F / |want|_F, as chip_smoke.py holds
+# bf16 gradients, within 2**-5 (measured: 1.1e-2 against JAX, 2.2e-3
+# against autograd).
+UMSE_AFFINE = (0, 1, 4, 5)
+UMSE_AFFINE_FRO = 2 ** -5
+
+
+def _assert_umse_grads(got, want, prec):
+    assert len(got) == len(want) == 9
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert tuple(g.shape) == tuple(w.shape) and g.dtype == torch.float32
+        g, w = _f32(g), _f32(w)
+        if prec == "bf16" and i in UMSE_AFFINE:
+            ratio = np.linalg.norm(g - w) / np.linalg.norm(w)
+            assert ratio <= UMSE_AFFINE_FRO, (i, ratio)
+        else:
+            np.testing.assert_allclose(g, w, **TOL[prec])
+
+
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
+def test_umse_bwd_matches_jax(prec):
+    """torch_umse_bwd against jax.vjp of pallas_umse (interpret mode; its
+    custom VJP differentiates xla_umse) for the nine parameters."""
+    args, dout = _umse_grad_args(prec)
+    jx, *jparams = map(jnp.asarray, args)
+    _, vjp = jax.vjp(lambda *p: pallas_umse(jx, *p, JDT[prec]), *jparams)
+    want = vjp(jnp.asarray(dout, JDT[prec]))
+    got = torch_umse_bwd(*map(torch.from_numpy, args),
+                         torch.from_numpy(dout).to(TDT[prec]), TDT[prec])
+    _assert_umse_grads(got, want, prec)
+
+
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
+def test_umse_bwd_matches_autograd(prec):
+    """torch_umse_bwd against autograd of torch_umse, the CPU path's
+    gradient, on the same inputs."""
+    args, dout = _umse_grad_args(prec, seed=3)
+    x, *params = map(torch.from_numpy, args)
+    leaves = [p.clone().requires_grad_(True) for p in params]
+    cot = torch.from_numpy(dout).to(TDT[prec])
+    want = torch.autograd.grad(torch_umse(x, *leaves, TDT[prec]), leaves,
+                               cot)
+    _assert_umse_grads(torch_umse_bwd(x, *params, cot, TDT[prec]), want,
+                       prec)
 
 
 # ---------------------------------------------------------- attn_block
@@ -190,8 +258,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_ffn(*[torch.from_numpy(a) for a in _ffn_args(R=8)])
     with pytest.raises(ValueError, match="CUDA"):
-        triton_umse(*[torch.from_numpy(a) for a in _umse_args(2, 9, 32)],
-                    torch.float32)
+        cuda_umse(*[torch.from_numpy(a) for a in _umse_args(2, 9, 32)],
+                  torch.float32)
 
 
 def test_kernel_wrappers_are_forward_only():

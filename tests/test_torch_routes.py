@@ -3,7 +3,7 @@ bf16 and fp32 paths take (tensor cores or FMA loops), the fused window
 attention's, the attention block's, the masked attention's, the FFN
 forward's, the Swin MLP's and the row-skipping projections' shared-memory
 reckoning, the weight sums' row slicing, and the checks the wrappers make
-before they reach the card."""
+before they reach the card (umse and the dropout masks' too)."""
 import pytest
 import torch
 
@@ -11,7 +11,7 @@ from medical_tri_modal_pilot_tpu_torch.kernels import (attention,
                                                        attn_block, ffn,
                                                        rowmm,
                                                        swin_attention,
-                                                       swin_mlp, wgrad)
+                                                       swin_mlp, umse, wgrad)
 
 # a block's shared memory on an H100 (opt-in), an SM's (1 KB of it
 # reserved per block)
@@ -368,3 +368,56 @@ def test_rowmm_wrapper_refuses_before_the_card():
         rowmm.cuda_rowskip_affine(x, w, b)
     with pytest.raises(ValueError, match="CUDA"):
         rowmm.cuda_rowskip_ln_affine(x, vec, vec, w, b)
+
+
+def _umse_args(D=64, n_ids=20):
+    x = torch.zeros(2, 9, 3)
+    vecs = [torch.zeros(1, D)] + [torch.zeros(D)] * 3
+    return [x, *vecs, *vecs, torch.zeros(n_ids, D)]
+
+
+def test_umse_wrappers_refuse_before_the_card():
+    """The umse forward and backward: x not fp32 [B, L, 3], a compute dtype
+    other than fp32 and bf16, a width no kernel is built for, stem vectors
+    of another width, a table of another width or larger than the kernels'
+    shared-memory budget, a cotangent of the wrong shape or dtype are
+    refused in the wrapper, on any device, before the library is built or
+    the card touched; CPU tensors with valid shapes are refused last."""
+    args = _umse_args()
+    x, rest = args[0], args[1:]
+    dout = torch.zeros(2, 9, 64, dtype=torch.bfloat16)
+    for call in (lambda *a: umse.cuda_umse(*a),
+                 lambda *a: umse.cuda_umse_bwd(*a[:-1], dout, a[-1])):
+        with pytest.raises(ValueError, match=r"fp32 \[B, L, 3\]"):
+            call(x.double(), *rest, torch.bfloat16)
+        with pytest.raises(ValueError, match=r"fp32 \[B, L, 3\]"):
+            call(x[..., :2], *rest, torch.bfloat16)
+        with pytest.raises(TypeError, match="fp32 or bf16"):
+            call(x, *rest, torch.float16)
+        with pytest.raises(ValueError, match="D in"):
+            call(*_umse_args(D=96), torch.bfloat16)
+        with pytest.raises(ValueError, match="hold 64 values"):
+            call(x, *rest[:2], torch.zeros(32), *rest[3:], torch.bfloat16)
+        with pytest.raises(ValueError, match=r"\[n_ids, 64\]"):
+            call(x, *rest[:-1], torch.zeros(20, 32), torch.bfloat16)
+        with pytest.raises(ValueError, match="exceeds"):
+            call(*_umse_args(D=256, n_ids=49), torch.bfloat16)
+    assert umse.MAX_TABLE_BYTES == 48 * 1024
+    for bad in (dout.float(), dout[:, :8]):
+        with pytest.raises(ValueError, match="cotangent"):
+            umse.cuda_umse_bwd(*args, bad, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        umse.cuda_umse(*args, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        umse.cuda_umse_bwd(*args, dout, torch.bfloat16)
+
+
+def test_dropout_masks_wrapper_refuses_before_the_card():
+    """Negative sizes or a negative column offset are refused on any
+    device; a CPU device with valid sizes is refused last."""
+    for bad in ((-1, 0, 256, 0), (64, -4, 256, 0), (64, 0, -1, 0),
+                (64, 512, 256, -512)):
+        with pytest.raises(ValueError, match=">= 0"):
+            ffn.cuda_dropout_masks(*bad[:3], 5, 0.1, "cpu", col0=bad[3])
+    with pytest.raises(ValueError, match="CUDA"):
+        ffn.cuda_dropout_masks(64, 512, 256, 5, 0.1, "cpu", col0=512)
