@@ -118,8 +118,27 @@ Phases, each raising on failure (nothing is caught):
      one card: not a speed figure of tensor parallelism), a profiler split
      with gloo's share, 32 steps on one batch with the mean loss of the
      last 8 below that of the first 8.
-The kernel phases (3, 5b, 6, 9, 12) run first, then 4-5, 7-8, 10-11 and
-13.
+  14. drivers: config 4 through the train driver's fold
+     (drivers.train.run_fold) at full width, bf16, --dropout 0.1, adamw,
+     over seeded synthetic loaders in the real loader's wire format (uint8
+     CXRs packed at --img-pack-frac 0.55, notes as txt_id rows into a
+     TxtTable of the batches' notes): 2 epochs of 4 train batches, 2 val
+     and 2 test batches, --checkpoint-every 3, --log-iter 1. Checks the
+     launch counts of the run (8 train steps and 6 eval steps of config
+     4), the run record (8 finite train losses, 2 validation blocks,
+     settings.txt, last and best), the step-3 async save (written while
+     steps 4-8 ran) against a Trainer stepped 3 times on the same batches,
+     bit for bit; a batch's dense and wire forms (packed, and over the
+     capacity) to the same probabilities bit for bit, and a batch of TIE
+     lengths <= 256 at bucket 256 against full length (PROB_TOL bf16); the
+     test driver's walk to the train driver's final test metrics exactly;
+     --resume last --epochs 3: the state right after the restore equal to
+     the file's bit for bit, the LR of its step, and the run to its end.
+     Prints the driver's ms/step (events clock) beside phase 7's, the
+     main thread's ms per async save beside save_checkpoint, the
+     checkpoint's MB, the run's peak memory and the phase's seconds.
+The kernel phases (3, 5b, 6, 9, 12) run first, then 4-5, 7-8, 10-11, 13
+and 14.
 Then one JSON line per the kernels (each with the path that launches it
 and its launches over that path's steps) and, last, {"ok": true,
 "device": ...}.
@@ -131,6 +150,13 @@ the attention block's kernels, the dropout masks and the umse forward and
 backward as a config-4 step calls them, and a config-4 train step's
 device busy time and peak memory, for the package under ROOT (``ab``), to
 compare two trees (git archive copies) in turns on one card.
+
+    python3 chip_smoke.py saver
+
+reads the async saver's cost to the config-4 train steps it overlaps:
+the steps with no save in flight, then per form of its writer (as it
+is; a clone per tensor, its first design; the zip's CRC32 off) the main
+thread's ms per save call and the six steps after it, in turns.
 """
 from __future__ import annotations
 
@@ -1685,6 +1711,11 @@ def _timed_train_ms(trainer, batches, reference: bool) -> float:
     return (time.perf_counter() - t0) * 1e3 / len(batches)
 
 
+# the kernel path's train ms/step of each timed run_train (phase 7's
+# config-4 figure stands beside the driver's in phase 14)
+TRAIN_STEP_MS = {}
+
+
 def run_train(name: str, argv, power: str, timed: bool) -> dict:
     """Drive one BASELINE configuration's train step at full width: the
     launch counts of its run (reset just before, read just after), peak
@@ -1766,6 +1797,7 @@ def run_train(name: str, argv, power: str, timed: bool) -> dict:
             ms[reference].append(_timed_train_ms(trainer, batches,
                                                  reference))
         kernel_ms, plain_ms = np.mean(ms[False]), np.mean(ms[True])
+        TRAIN_STEP_MS[name] = kernel_ms
         print(f"{name} train step ({power}): kernels {kernel_ms:.2f} ms/step "
               f"({BATCH * 1e3 / kernel_ms:.1f} samples/s), plain "
               f"{plain_ms:.2f} ms/step ({BATCH * 1e3 / plain_ms:.1f} "
@@ -2085,6 +2117,343 @@ def run_tp(power: str) -> dict:
     return r0["train_counts"]
 
 
+# phase 14, the drivers: config 4 through drivers.train.run_fold at full
+# width over seeded synthetic loaders in the real loader's wire format
+# (uint8 CXRs packed at --img-pack-frac 0.55: capacity 36, so 32 and 16
+# images pack and 48 overflow to the dense uint8 wire; notes as txt_id rows
+# into the batches' note table), two epochs of 4 train batches, 2 val and
+# 2 test batches, an asynchronous save every 3 steps
+DRIVER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "driver_smoke")
+DRIVER_ARGV = CONFIG4 + ["--img-pack-frac", "0.55", "--epochs", "2",
+                         "--checkpoint-every", "3", "--log-iter", "1",
+                         "--dir-result", DRIVER_DIR,
+                         "--project-name", "drivers"]
+DRIVER_BATCHES = {"train": [0.5, 0.25, 0.75, 0.5], "val": [0.5, 0.25],
+                  "test": [0.5, 0.75]}
+
+
+def _driver_loaders(cfg):
+    """The run's wire batches per split, their dense form and the note
+    table."""
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import (
+        synthetic_batch, to_wire)
+    names, batches = [], []
+    for split, fracs in DRIVER_BATCHES.items():
+        for f in fracs:
+            names.append(split)
+            batches.append(synthetic_batch(cfg, BATCH, seed=200 + len(names),
+                                           present_frac=f))
+    wire, dense, table = to_wire(batches)
+    split = lambda bs: {k: [b for n, b in zip(names, bs) if n == k]
+                        for k in DRIVER_BATCHES}
+    return split(wire), split(dense), table
+
+
+def _events(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _state_equal(what, got, want) -> None:
+    """Model and optimizer state_dicts equal bit for bit."""
+    (gm, go), (wm, wo) = got, want
+    bad = [k for k in wm if not torch.equal(gm[k].cpu(), wm[k].cpu())]
+    bad += [f"opt {i} {k}" for i, st in wo["state"].items()
+            for k, v in st.items()
+            if not torch.equal(go["state"][i][k].cpu(), v.cpu())]
+    if gm.keys() != wm.keys() or go["state"].keys() != wo["state"].keys() \
+            or bad:
+        raise AssertionError(f"{what}: not bit for bit: {bad[:8]}")
+
+
+def run_drivers(power: str) -> None:
+    """Phase 14: the train driver's fold at full width, then its run
+    record, the wire format and buckets, the step-3 async save against a
+    Trainer stepped 3 times, a resume, and the test driver's walk."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import BatchList
+    from medical_tri_modal_pilot_tpu_torch.drivers import test as test_drv
+    from medical_tri_modal_pilot_tpu_torch.drivers import train as train_drv
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train import checkpoints as ckpt
+    from medical_tri_modal_pilot_tpu_torch.train.logger import (
+        Logger, make_setting_file)
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    shutil.rmtree(DRIVER_DIR, ignore_errors=True)
+    cfg = parse_config(DRIVER_ARGV)
+    widths = (cfg.transformer_dim, cfg.transformer_num_layers,
+              cfg.transformer_num_head, cfg.tie_len, cfg.precision,
+              cfg.dropout, cfg.optim, cfg.batch_size)
+    if widths != (256, 6, 4, TIE_LEN, "bf16", 0.1, "adamw", BATCH):
+        raise AssertionError(f"driver run defaults changed: {widths}")
+    wire, dense, table = _driver_loaders(cfg)
+    loaders = [BatchList(wire[k]) for k in ("train", "val", "test")]
+    root = os.path.join(DRIVER_DIR, cfg.project_name)
+    last = ckpt.ckpt_path(DRIVER_DIR, cfg.project_name, "last", 0, cfg.seed)
+    best = ckpt.ckpt_path(DRIVER_DIR, cfg.project_name, "best", 0, cfg.seed)
+    step3 = os.path.join(root, "step3.pth")
+
+    # keep the step-3 save, which later saves overwrite, as it is written
+    write = ckpt._write
+
+    def keep_step3(path, payload):
+        write(path, payload)
+        if payload["step"] == 3 and path == last:
+            shutil.copyfile(path, step3)
+
+    # the main path: every kernel launch of the run is counted
+    make_setting_file(cfg)
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt._write = keep_step3
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        val, test = train_drv.run_fold(cfg, 0, *loaders, txt_table=table)
+        torch.cuda.synchronize()
+    finally:
+        ckpt._write = write
+    run_s = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_train = 2 * len(wire["train"])
+    n_eval = 2 * len(wire["val"]) + len(wire["test"])
+    print(f"drivers: launches over {n_train} train and {n_eval} eval steps: "
+          f"{counts}; val {val}; test {test}")
+    for kernel in ops.KERNELS:
+        want = (n_train * TRAIN_LAUNCHES_PER_STEP["config4"].get(kernel, 0)
+                + n_eval * LAUNCHES_PER_STEP["config4"].get(kernel, 0))
+        if counts[kernel] != want:
+            raise AssertionError(f"drivers {kernel}: {counts[kernel]} "
+                                 f"launches, expected {want}")
+
+    # the run record
+    events = _events(os.path.join(root, "logs_0", "events.jsonl"))
+    losses = [e for e in events if e["tag"] == "train/loss"]
+    vals = [e for e in events if e["tag"] == "val/loss"]
+    lrs = {e["step"]: e["value"] for e in events if e["tag"] == "train/lr"}
+    if ([e["step"] for e in losses] != list(range(1, n_train + 1))
+            or not all(np.isfinite(e["value"]) for e in losses)
+            or [e["step"] for e in vals] != [4, 8]):
+        raise AssertionError(f"drivers: events {losses} {vals}")
+    for path in (os.path.join(root, "settings.txt"), last, best, step3):
+        if not os.path.exists(path):
+            raise AssertionError(f"drivers: no {path}")
+    if test is None or not np.isfinite(test["apr"]):
+        raise AssertionError(f"drivers: test metrics {test}")
+    # per-step wall time from the events' clock (each train/loss line is
+    # written after its step), within an epoch: the validation sits between
+    # epochs, and the first step has no line before it
+    t = [e["t"] for e in losses]
+    per = len(wire["train"])
+    step_ms = [1e3 * (t[i] - t[i - 1]) for i in range(1, n_train)
+               if i % per != 0]
+    print(f"drivers train step ({power}): {statistics.median(step_ms):.2f} "
+          f"ms/step median over {len(step_ms)} steps (driver, events "
+          f"clock; async saves at steps 3 and 6 included) "
+          f"{[round(x, 2) for x in step_ms]}"
+          f"; Trainer only (phase 7): "
+          f"{TRAIN_STEP_MS.get('config4', float('nan')):.2f} ms/step; "
+          f"run {run_s:.2f} s; peak device memory {peak / 2 ** 30:.3f} GiB "
+          "with the async snapshots")
+
+    # the step-3 file, written while steps 4-8 ran, against a Trainer
+    # stepped 3 times from the same weights and batches
+    ref = Trainer(cfg, get_model(cfg), dev, eval_only=False,
+                  iters_per_epoch=per, seed=cfg.seed, txt_table=table)
+    for batch in wire["train"][:3]:
+        ref.train_step(batch)
+    pay = ckpt.load_checkpoint(step3)
+    if (pay["step"], pay["last_step"], pay["epoch"]) != (3, 3, 1):
+        raise AssertionError(f"drivers: step-3 file {pay['step']} "
+                             f"{pay['last_step']} {pay['epoch']}")
+    _state_equal("step-3 async save vs 3 Trainer steps",
+                 (pay["model"], pay["optimizer"]), ref.state_dicts())
+    mb = os.path.getsize(last) / 2 ** 20
+    # the main thread's cost of a save: async (snapshot and copies
+    # started) against save_checkpoint (gather to the host and write)
+    saver = ckpt.AsyncCheckpointer()
+    tmp = os.path.join(root, "timing.pth")
+    ms = {"async": [], "sync": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save(tmp, ref, 0.0, 1)
+        ms["async"].append((time.perf_counter() - t0) * 1e3)
+        saver.wait()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(tmp, ref, 0.0, 1)
+        ms["sync"].append((time.perf_counter() - t0) * 1e3)
+    print(f"drivers checkpoint ({power}): {mb:.1f} MB; main thread "
+          f"{statistics.median(ms['async']):.1f} ms a save async vs "
+          f"{statistics.median(ms['sync']):.1f} ms save_checkpoint "
+          f"(rounds {[round(x, 1) for x in ms['async']]} / "
+          f"{[round(x, 1) for x in ms['sync']]})")
+    del ref, saver
+    gc_collect()
+
+    # the wire format: the dense fp32 batch and its wire form, packed (32
+    # images) and over the capacity (48, dense uint8), bit for bit; a
+    # batch of TIE lengths <= 256 at bucket 256 against full length
+    model = get_model(cfg)
+    ev = Trainer(cfg, model, dev, txt_table=table)
+    for i in (0, 2):
+        w, d = wire["train"][i], dense["train"][i]
+        packed = "img_pack" in ev.wire_pack(w)
+        if packed != (i == 0):
+            raise AssertionError(f"drivers: batch {i} packed {packed}")
+        pw, pd = ev.eval_step(w)[0], ev.eval_step(d)[0]
+        if not np.array_equal(pw, pd):
+            raise AssertionError(f"drivers: wire batch {i} (packed "
+                                 f"{packed}) differs from its dense form by "
+                                 f"{np.abs(pw - pd).max():.3e}")
+    short = dict(dense["test"][0])
+    short["input_length"] = np.minimum(short["input_length"], 256)
+    short["vslt"] = short["vslt"].copy()
+    short["vslt"][:, 256:] = 0.0
+    if ev.device_batch(short)["vslt"].shape[1] != 256:
+        raise AssertionError("drivers: the short batch is not at bucket 256")
+    full = Trainer(cfg.replace(tie_buckets="off"), model, dev)
+    ps, pf = ev.eval_step(short)[0], full.eval_step(short)[0]
+    err = float(np.abs(ps - pf).max())
+    print(f"drivers wire: dense and wire probabilities bit for bit (packed "
+          f"and over capacity); bucket 256 vs {TIE_LEN}: max |diff| "
+          f"{err:.3e}")
+    if not err <= PROB_TOL["bf16"]:
+        raise AssertionError(f"drivers: bucket 256 vs full {err:.3e}")
+    del ev, full, model
+    gc_collect()
+
+    # the test driver over the checkpoint directory, the same test batches
+    walked = test_drv.run_checkpoints(cfg, test_drv.checkpoints_of(cfg),
+                                      BatchList(wire["test"]), table)
+    got = dict(walked).get(best)
+    print(f"drivers test driver: {[(os.path.basename(p), m['auc'], m['apr']) for p, m in walked]}")
+    if got != test:
+        raise AssertionError(f"drivers: test driver {got} vs the train "
+                             f"driver's final test {test}")
+
+    # resume from 'last' (step 8, epoch 2) with --epochs 3: the state right
+    # after the restore is the file's; then the run goes on to its end
+    rcfg = parse_config(DRIVER_ARGV + ["--resume", "last", "--epochs", "3"])
+    pay = ckpt.load_checkpoint(last)
+    tr = Trainer(rcfg, get_model(rcfg), dev, eval_only=False,
+                 iters_per_epoch=per, seed=rcfg.seed, txt_table=table)
+    log = Logger(rcfg)
+    start, it, path = train_drv.restore_for_resume(rcfg, 0, tr, log)
+    log.close()
+    if (start, it, path, tr.step) != (2, n_train, last, n_train) \
+            or tr.current_lr() != lrs[n_train]:
+        raise AssertionError(f"drivers resume: {start} {it} {path} "
+                             f"{tr.step} lr {tr.current_lr()} vs "
+                             f"{lrs[n_train]}")
+    _state_equal("resume", tr.state_dicts(),
+                 (pay["model"], pay["optimizer"]))
+    del tr
+    gc_collect()
+    _, rtest = train_drv.run_fold(rcfg, 0, *loaders, txt_table=table)
+    events = _events(os.path.join(root, "logs_0", "events.jsonl"))
+    steps = [e["step"] for e in events if e["tag"] == "val/loss"]
+    if steps != [4, 8, 12, 16] or rtest is None:
+        raise AssertionError(f"drivers resume: validation at {steps}, test "
+                             f"{rtest}")
+    print(f"drivers resume: restored step {n_train} bit for bit (lr "
+          f"{lrs[n_train]:.6g}), ran to step 16, test {rtest}")
+    gc_collect()
+    print(f"drivers phase ({power}): {time.perf_counter() - t_phase:.1f} s")
+
+
+# the saver's forms in ``saver``: as it is (the state_dicts as views of the
+# pinned buffers, one storage per dtype in the file), a clone per tensor
+# (its first design), and the saver with the zip's CRC32 off
+def _cloned_snapshot(view_result):
+    def result(snapshot):
+        clone = lambda t: t.clone() if torch.is_tensor(t) else t
+        model, opt = view_result(snapshot)
+        model = {k: clone(v) for k, v in model.items()}
+        if opt is not None:
+            opt = dict(opt, state={i: {k: clone(v) for k, v in st.items()}
+                                   for i, st in opt["state"].items()})
+        return model, opt
+    return result
+
+
+def saver_ab(power: str) -> None:
+    """``python3 chip_smoke.py saver``: the async saver's cost to the train
+    steps it overlaps. Config 4 at full width on phase 14's batches: the
+    ms of a step with no save in flight, then per form of the writer
+    (blocks of three saves in turns A B C C B A) the main thread's ms per
+    save call and the ms of the six steps after each call."""
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train import checkpoints as ckpt
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+
+    print(f"host: {os.cpu_count()} cpus, torch threads "
+          f"{torch.get_num_threads()}")
+    cfg = parse_config(DRIVER_ARGV)
+    wire, _, table = _driver_loaders(cfg)
+    tr = Trainer(cfg, get_model(cfg), torch.device("cuda"), eval_only=False,
+                 iters_per_epoch=4, seed=0, txt_table=table)
+    batches = wire["train"]
+
+    def step() -> float:
+        t0 = time.perf_counter()
+        tr.train_step(batches[tr.step % len(batches)])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(4):
+        step()
+    idle = [step() for _ in range(12)]
+    views = ckpt._Snapshot.result
+    forms = {"views": (views, True),
+             "clone per tensor": (_cloned_snapshot(views), True),
+             "views, no crc32": (views, False)}
+    path = os.path.join(DRIVER_DIR, "saver_ab.pth")
+    os.makedirs(DRIVER_DIR, exist_ok=True)
+    got = {name: {"call": [], "steps": []} for name in forms}
+    try:
+        for name in list(forms) + list(forms)[::-1]:
+            result, crc = forms[name]
+            ckpt._Snapshot.result = result
+            torch.serialization.set_crc32_options(crc)
+            saver = ckpt.AsyncCheckpointer()
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                saver.save(path, tr, 0.0, 1)
+                got[name]["call"].append((time.perf_counter() - t0) * 1e3)
+                got[name]["steps"] += [step() for _ in range(6)]
+                saver.wait()
+                step()
+                step()
+    finally:
+        ckpt._Snapshot.result = views
+        torch.serialization.set_crc32_options(True)
+    print(f"saver ab ({power}): no save in flight "
+          f"{statistics.median(idle):.2f} ms/step median of {len(idle)} "
+          f"{[round(x, 1) for x in idle]}")
+    for name, g in got.items():
+        print(f"saver ab ({power}): {name}: call median "
+              f"{statistics.median(g['call']):.2f} ms "
+              f"{[round(x, 1) for x in g['call']]}; the 6 steps after each "
+              f"call median {statistics.median(g['steps']):.2f} ms "
+              f"{[round(x, 1) for x in g['steps']]}")
+
+
+def gc_collect() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 PATH_NAMES = {"config4": "tri_mbt_vsltcls config 4 train",
               "cross": "cross_transformer_txt_vslt train",
               "tp": "tri_mbt_vsltcls config 4 train, --mp-size 2 (rank 0)",
@@ -2334,6 +2703,11 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "ab":
         ab(sys.argv[2], check_device())
         return
+    if len(sys.argv) == 2 and sys.argv[1] == "saver":
+        power = check_device()
+        build_kernels()
+        saver_ab(power)
+        return
     power = check_device()
     build_kernels()
     results = compare_kernels()
@@ -2350,6 +2724,7 @@ def main() -> None:
     run_config("cross", CROSS, power, timed=True)
     counts["cross"] = run_train("cross", CROSS, power, timed=True)
     counts["tp"] = run_tp(power)
+    run_drivers(power)
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         path = KERNEL_PATHS[name]

@@ -1,19 +1,20 @@
 """Seeded synthetic batches in the batch contract
 (medical_tri_modal_pilot_tpu/data/dataset.py:354-370), restricted to the
 keys the train and eval steps read. Counterpart of
-``__graft_entry__._synthetic_batch``.
-
-The real loader cannot run where the port runs yet: ``data/dataset.py``
-imports ``data/images.py``, which imports PIL at module level.
+``__graft_entry__._synthetic_batch``. ``to_wire`` gives such batches in the
+real loader's H2D wire format, and ``BatchList`` serves them where the
+drivers take a loader (``drivers.train.run_fold``): the real loader
+(``data/pipeline.py``) needs the data files, and PIL for images.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from ..config import Config
 from ..constants import N_FEATURES
+from .txt_table import TxtTable
 
 
 def _images(cfg: Config, rng, present: np.ndarray):
@@ -104,3 +105,52 @@ def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
         missing[:, 1] = ~present
         batch["img"], batch["img_time"] = _images(cfg, rng, present)
     return batch
+
+
+def to_wire(batches: Sequence[Dict[str, np.ndarray]]
+            ) -> Tuple[List[dict], List[dict], TxtTable]:
+    """Synthetic batches as the real loader sends them with its defaults
+    (--img-wire-u8 1 and a device note table): CXR pixels as uint8 (the
+    k/255 values back to k), notes as ``txt_id`` rows into a ``TxtTable``
+    of the batches' present notes (row 0 zeros, as data/txt_table.py
+    builds it). Returns (wire batches, their dense form, the table): the
+    dense form is what the wire resolves to, pixels k / 255 in fp32 as the
+    loader's to_tensor computes them and notes the table's rows."""
+    rows, lengths = [None], [0]
+    wire, dense = [], []
+    for b in batches:
+        w = {k: v for k, v in b.items() if k != "txt"}
+        ids = np.zeros(len(b["missing"]), np.int32)
+        for i in np.flatnonzero(b["missing"][:, 2] == 0):
+            ids[i] = len(rows)
+            rows.append(b["txt"][i])
+            lengths.append(int(b["txt_length"][i]))
+        w["txt_id"] = ids
+        if "img" in b:
+            w["img"] = np.rint(b["img"] * 255.0).astype(np.uint8)
+        wire.append(w)
+    rows[0] = np.zeros_like(batches[0]["txt"][0])
+    table = TxtTable(rows=np.stack(rows),
+                     lengths=np.asarray(lengths, np.int32))
+    u8 = np.arange(256, dtype=np.float32) / 255.0
+    for w in wire:
+        d = {k: v for k, v in w.items() if k != "txt_id"}
+        d["txt"] = table.rows[w["txt_id"]]
+        if "img" in w:
+            d["img"] = u8[w["img"]]
+        dense.append(d)
+    return wire, dense, table
+
+
+class BatchList:
+    """A loader over fixed batches: ``len`` and iteration, as the drivers
+    read a loader."""
+
+    def __init__(self, batches: Sequence[Dict[str, np.ndarray]]):
+        self.batches = list(batches)
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)

@@ -4,8 +4,12 @@ detection loss, eval output selection, the LR schedules and optimizers,
 and a ``Trainer`` whose ``train_step`` returns the loss and whose
 ``eval_step`` returns ``(probs, loss, rmse)`` like the JAX one.
 
-Dense ``txt`` and fp32 ``img`` batches only: the ``txt_id``/uint8/packed
-image wire format and TIE length bucketing are ROADMAP Queue 1 item 4.
+``device_batch`` takes the loader's batches as they come: dense or in the
+H2D wire format (``txt_id`` rows into a ``TxtTable`` the Trainer holds on
+the device, uint8 CXR pixels, the presence-packed image rows of
+``wire_pack``), and TIE streams sliced to their ``--tie-buckets`` bucket
+on the host. The wire resolves on the device to exactly the dense fp32
+batch (``resolve_wire``).
 
 Tensor parallelism: ``Trainer(..., mesh=make_mesh(...))`` with mp > 1
 shards the model (``parallel.mesh.shard_model``) and builds the optimizer
@@ -16,6 +20,7 @@ whole, reference-layout state in and out.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,9 +33,14 @@ from ..parallel.mesh import (Mesh, gather_state_dict, shard_model,
                              shard_state_dict)
 from .schedule import cosine_annealing_warmup_restarts, cosine_warmup_single
 
-# the batch keys the train and eval steps read
+# the batch keys the train and eval steps read, and the wire format's
+# (resolved on the device into "txt" and "img")
 BATCH_KEYS = ("vslt", "static", "input_length", "img", "img_time", "txt",
               "txt_length", "txt_time", "missing", "target", "target_aux")
+WIRE_KEYS = ("txt_id", "img_pack", "img_rows")
+# k -> k / 255 in fp32, as the loader's to_tensor computes it
+# (data/images.py): uint8 pixels resolve by lookup, bit for bit
+U8_TO_F32 = np.arange(256, dtype=np.float32) / 255.0
 
 
 def compute_missing_num(cfg: Config, missing: torch.Tensor) -> torch.Tensor:
@@ -180,6 +190,42 @@ def build_optimizer(cfg: Config, model: torch.nn.Module,
                      [n in split for n, _ in named], mesh)
 
 
+def resolve_buckets(cfg: Config) -> Tuple[int, ...]:
+    """The TIE stream-length buckets of ``--tie-buckets`` (JAX
+    trainer.py:337-357): "auto" is 256 and 512 below --TIE-len, a list
+    its entries below it, each followed by --TIE-len; () when off or not a
+    TIE/QIE run."""
+    spec = cfg.tie_buckets
+    if cfg.vslt_type not in ("TIE", "QIE") or spec in ("off", ""):
+        return ()
+    if spec == "auto":
+        cand = [b for b in (256, 512) if b < cfg.tie_len]
+    else:
+        cand = sorted({int(x) for x in spec.split(",")
+                       if x.strip() and 0 < int(x) < cfg.tie_len})
+    return tuple(cand) + (cfg.tie_len,) if cand else ()
+
+
+def bucket_batch(buckets: Tuple[int, ...], batch: Dict[str, np.ndarray]
+                 ) -> Dict[str, np.ndarray]:
+    """Slice a batch's TIE stream to the smallest bucket that holds its
+    longest sample (JAX trainer.py:359-376). TIE rows are time-ordered
+    with the padding at the end, and every op downstream masks by
+    input_length, so the outputs do not depend on the bucket. No-op when
+    bucketing is off, the batch is already sliced or not TIE-shaped."""
+    if not buckets:
+        return batch
+    v = batch.get("vslt")
+    if (v is None or v.ndim < 3 or v.shape[1] != buckets[-1]
+            or "input_length" not in batch):
+        return batch
+    ml = int(np.max(np.asarray(batch["input_length"])))
+    bucket = next((bk for bk in buckets if ml <= bk), buckets[-1])
+    if bucket >= v.shape[1]:
+        return batch
+    return dict(batch, vslt=v[:, :bucket])
+
+
 def _moment(v) -> bool:
     """An optimizer state entry shaped like its parameter (a moment, not
     the step count)."""
@@ -198,9 +244,13 @@ class Trainer:
     def __init__(self, cfg: Config, model: torch.nn.Module,
                  device: torch.device, eval_only: bool = True,
                  iters_per_epoch: int = 1, seed: int = 0,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, txt_table=None):
         """``mesh``: the process mesh (parallel.mesh.make_mesh); with mp > 1
-        the model is cut to this rank's tensor-parallel shard here."""
+        the model is cut to this rank's tensor-parallel shard here.
+        ``txt_table``: the loader's ``data.txt_table.TxtTable``, whose rows
+        go to the device once, in the model's compute dtype (its first use
+        of the notes casts them to it, so bf16 rows give the dense batch's
+        result bit for bit)."""
         if cfg.model_types != "detection":
             raise NotImplementedError(
                 f"--model-types {cfg.model_types}: only detection is ported")
@@ -225,6 +275,23 @@ class Trainer:
         self.schedule = build_schedule(cfg, max(iters_per_epoch, 1))
         self.optimizer = None if eval_only else build_optimizer(
             cfg, self.model, self.split, mesh)
+        self.buckets = resolve_buckets(cfg)
+        # the packed image wire (JAX trainer.py:280-286): a batch's present
+        # image rows, uint8, at the static capacity of --img-pack-frac; one
+        # process (the pack axis is not data-shardable in the JAX package)
+        self.wire_pack_c = None
+        if (cfg.img_wire_pack and cfg.img_wire_u8
+                and (mesh is None or mesh.dp * mesh.mp == 1)
+                and 0.0 < cfg.img_pack_frac < 1.0):
+            self.wire_pack_c = min(
+                cfg.batch_size,
+                int(math.ceil(cfg.batch_size * cfg.img_pack_frac)) + 1)
+        self.txt_table = None
+        if txt_table is not None:
+            dt = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
+            self.txt_table = torch.as_tensor(txt_table.rows).to(
+                self.device, dt)
+        self._u8 = torch.as_tensor(U8_TO_F32).to(self.device)
 
     def _param_names(self) -> List[str]:
         names = {id(p): n for n, p in self.model.named_parameters()}
@@ -275,16 +342,67 @@ class Trainer:
         if self.optimizer is not None and opt_sd is not None:
             self.optimizer.load_state_dict(opt_sd)
 
+    def wire_pack(self, batch: Dict[str, np.ndarray]
+                  ) -> Dict[str, np.ndarray]:
+        """The packed image wire on the host (JAX trainer.py:378-399):
+        replace a dense uint8 ``img`` whose present rows fit the capacity
+        with ``img_pack`` [C, ...] and ``img_rows`` [C] (padding rows index
+        B, past the batch, and are dropped on the device). No-op when off,
+        fp32, or over the capacity (the dense wire then)."""
+        C = self.wire_pack_c
+        img = batch.get("img")
+        if (C is None or not isinstance(img, np.ndarray)
+                or img.dtype != np.uint8 or "missing" not in batch):
+            return batch
+        rows = np.nonzero(np.asarray(batch["missing"])[:, 1] == 0.0)[0]
+        if len(rows) > C:
+            return batch
+        pack = np.zeros((C,) + img.shape[1:], np.uint8)
+        pack[:len(rows)] = img[rows]
+        ids = np.full((C,), img.shape[0], np.int32)
+        ids[:len(rows)] = rows
+        out = {k: v for k, v in batch.items() if k != "img"}
+        out["img_pack"] = pack
+        out["img_rows"] = ids
+        return out
+
+    def resolve_wire(self, b: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The wire format on the device (JAX trainer.py:426-448): ``txt``
+        gathered from the table by ``txt_id``, uint8 pixels to k / 255 in
+        fp32, packed image rows scattered into a zero batch. The result is
+        the dense fp32 batch the loader would have sent, bit for bit."""
+        b = dict(b)
+        if "txt_id" in b:
+            if self.txt_table is None:
+                raise ValueError("a txt_id batch needs the Trainer's "
+                                 "txt_table (data.txt_table.build_txt_table)")
+            b["txt"] = self.txt_table.index_select(
+                0, b.pop("txt_id").long()).float()
+        if "img_pack" in b:
+            pack = self._u8[b.pop("img_pack").long()]
+            rows = b.pop("img_rows").long()
+            B = b["missing"].shape[0]
+            # one spare row takes the padding rows' (zero) writes
+            img = pack.new_zeros((B + 1,) + pack.shape[1:])
+            b["img"] = img.index_copy_(0, rows, pack)[:B]
+        elif "img" in b and b["img"].dtype == torch.uint8:
+            b["img"] = self._u8[b["img"].long()]
+        return b
+
     def device_batch(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, torch.Tensor]:
-        wire = ("txt_id" in batch or "img_pack" in batch
-                or np.asarray(batch.get("img", np.zeros(0))).dtype == np.uint8)
-        if wire:
-            raise NotImplementedError(
-                "the txt_id / uint8-image / packed-image wire format is "
-                "ROADMAP Queue 1 item 4")
-        return {k: torch.as_tensor(np.asarray(batch[k])).to(self.device)
-                for k in BATCH_KEYS if k in batch}
+        """A host batch on the device: its TIE stream cut to its bucket and
+        its images packed on the host, copied, and the wire resolved."""
+        batch = self.wire_pack(bucket_batch(self.buckets, batch))
+        with warnings.catch_warnings():
+            # replayed eval batches are read-only (data.pipeline.
+            # ReplayLoader); the steps never write into a batch
+            warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                    "writable")
+            b = {k: torch.as_tensor(np.asarray(batch[k])).to(self.device)
+                 for k in BATCH_KEYS + WIRE_KEYS if k in batch}
+        return self.resolve_wire(b)
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> float:
         """One optimizer step on ``batch``: the loss (JAX trainer.py:

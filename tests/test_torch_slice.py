@@ -23,6 +23,7 @@ from medical_tri_modal_pilot_tpu.models.convert_ref import \
     convert_reference_state_dict
 from medical_tri_modal_pilot_tpu.train import trainer as jax_trainer
 from medical_tri_modal_pilot_tpu_torch.data.synthetic import synthetic_batch
+from medical_tri_modal_pilot_tpu_torch.drivers.common import check_flags
 from medical_tri_modal_pilot_tpu_torch.models import get_model
 from medical_tri_modal_pilot_tpu_torch.models.convert import \
     from_jax_variables
@@ -156,8 +157,10 @@ def test_missing_num_and_losses_match_jax():
 def test_unported_paths_raise():
     """What the port does not run yet raises, naming its ROADMAP item:
     other models, other image encoders, loading pretrained trunk weights,
-    training a trainable trunk (--img-pretrain No), and the txt_id /
-    uint8 / packed-image wire format."""
+    training a trainable trunk (--img-pretrain No), and several optimizer
+    steps a dispatch (--train-multi-k > 1). The txt_id / uint8 /
+    packed-image wire format runs (tests/test_torch_drivers.py); a txt_id
+    batch without the note table is refused by name."""
     with pytest.raises(KeyError, match="tri_mbt_vsltcls"):
         get_model(_cfg("--model", "tri_mbt_v1"))
     tri = ("--input-types", "vslt_img_txt")
@@ -174,19 +177,15 @@ def test_unported_paths_raise():
     model = get_model(cfg)
     batch = _batch(cfg)
     batch["txt_id"] = np.arange(B, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="txt_table"):
         trainer.Trainer(cfg, model, "cpu").eval_step(batch)
-    cfg = _cfg(*tri)
-    tr = trainer.Trainer(cfg, get_model(cfg), "cpu")
-    for wire in ({"img": np.zeros((B, 1, 224, 224), np.uint8)},
-                 {"img_pack": np.zeros((3, 1, 224, 224), np.uint8)}):
-        batch = dict(synthetic_batch(cfg, B), **wire)
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tr.eval_step(batch)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        check_flags(_cfg("--train-multi-k", "2"))
 
 
 def test_port_imports_no_jax():
-    """No module of the port (parallel/ and its launcher included), nor
+    """No module of the port (parallel/ and its launcher, the data path,
+    the logger, the saver and the drivers included), nor
     chip_smoke.py, nor the rank bodies the launcher starts in the tests
     (tests/tp_worker.py), imports jax, flax or the JAX package (the port
     keeps its own copies of config, constants and metrics)."""
@@ -196,6 +195,10 @@ def test_port_imports_no_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                           REPO / "tests" / "tp_worker.py"]
     assert PORT / "parallel" / "launch.py" in files
+    for sub in ("data/pipeline.py", "data/dataset.py", "data/images.py",
+                "train/logger.py", "train/checkpoints.py",
+                "drivers/train.py", "drivers/test.py"):
+        assert PORT / sub in files, sub
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f

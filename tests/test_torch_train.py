@@ -309,9 +309,14 @@ def _close_to_tensor_max(got, want, rtol, floor, what):
     assert err <= bound, f"{what}: {err:.3e} > {bound:.3e}"
 
 
-def compare_train_state(cfg, jt, tr, lr_sum):
+def compare_train_state(cfg, jt, tr, lr_sum, bias_walk=0.0):
     """Parameters, optimizer moments and BatchNorm statistics of a JAX
-    Trainer and a port Trainer after the same steps."""
+    Trainer and a port Trainer after the same steps. ``bias_walk``: an
+    allowance on the running mean for longer runs. The running mean
+    carries fc_list.0's bias, whose true gradient is zero (the BatchNorm
+    cancels it), so each side's Adam walks it by noise, within the
+    parameter bound below (2.01 lr_sum); the running mean, a weighted mean
+    of batch means that include the bias, inherits that difference."""
     jparams = jax.device_get(jt.state.params)
     want = params_from_jax(cfg, jparams)
     named = dict(tr.model.named_parameters())
@@ -334,8 +339,8 @@ def compare_train_state(cfg, jt, tr, lr_sum):
             initial=0.0))
     bn = jax.device_get(jt.state.batch_stats)["fc_list"]["bn"]
     head = tr.model.fc_list[1]
-    _close_to_tensor_max(head.running_mean.numpy(), bn["mean"], 1e-4, 1e-6,
-                         "running mean")
+    _close_to_tensor_max(head.running_mean.numpy(), bn["mean"], 1e-4,
+                         1e-6 + bias_walk, "running mean")
     _close_to_tensor_max(head.running_var.numpy(), bn["var"], 1e-4, 1e-6,
                          "running var")
 
