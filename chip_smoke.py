@@ -26,12 +26,13 @@ Phases, each raising on failure (nothing is caught):
      F.multi_head_attention_forward, and their totals weighted by the
      launches of a step (2/2/6/2 over the stages); stage 1 also through the
      three-launch tensor-core route.
-  4. config 2: BASELINE config 2 (tri_mbt_vsltcls, vslt+txt, TIE, full
-     width, bf16) built by get_model with seeded random weights;
-     Trainer.eval_step on seeded synthetic batches. Asserts the launch
-     counts per step, that the probabilities are finite and match the
-     plain path (and, tighter, in fp32), feeds them to the port's
-     Evaluator, and times ms/step on both paths in turns.
+  4. vslt_txt: tri_mbt_vsltcls on vslt+txt (the JAX package's
+     bitxt_mbt_vsltcls alias; BASELINE config 2's own model is phase 15's
+     bi_vslttxt_mbt_v1), TIE, full width, bf16, built by get_model with
+     seeded random weights; Trainer.eval_step on seeded synthetic batches.
+     Asserts the launch counts per step, that the probabilities are finite
+     and match the plain path (and, tighter, in fp32), feeds them to the
+     port's Evaluator, and times ms/step on both paths in turns.
   4b. config 4: the same for BASELINE config 4 (vslt+img+txt, one CXR per
      sample through the frozen Swin-T), over batches that take the
      presence-packed trunk and one that overflows it to the full batch;
@@ -69,7 +70,8 @@ Phases, each raising on failure (nothing is caught):
      in which the umse forward and backward kernels and dropout_masks run
      as often as STEP_KERNELS says;
      20 steps on one batch, the loss finite and falling.
-  8. config 2 train: a few steps, launch counts, one step on both paths
+  8. vslt_txt train (tri_mbt_vsltcls, as phase 4): a few steps, launch
+     counts, one step on both paths
      (fp32 and bf16, dropout 0.1); not timed.
   9. attention: the masked attention of the cross-modal layers, its lean
      form, its training form and its backward, against autograd of the
@@ -137,11 +139,34 @@ Phases, each raising on failure (nothing is caught):
      Prints the driver's ms/step (events clock) beside phase 7's, the
      main thread's ms per async save beside save_checkpoint, the
      checkpoint's MB, the run's peak memory and the phase's seconds.
-The kernel phases (3, 5b, 6, 9, 12) run first, then 4-5, 7-8, 10-11, 13
-and 14.
+  15. the BASELINE configs' own models, full width, bf16 (tools/
+     golden_parity.py:57-113). Config 1 (unimodal_transformer, vslt only,
+     TIE: one stream of 6 layers, 1001 rows padded to 1024): eval as phase
+     4 (ms/step in turns), train as phase 7 (launch counts, peak memory,
+     ms/step in turns, a profiler split with the idle share, 20 steps on
+     one batch, one step on both paths in fp32 and bf16 at dropout 0 and
+     0.1); --remat 1 against --remat 0 (one fp32 step at dropout 0.1:
+     the loss equal, every gradient within REMAT_TOL by Frobenius ratio,
+     each layer's forward launched twice; the peak memory of both, fp32
+     and bf16); QIE and carryforward eval against the plain path with
+     launch counts (carryforward launches no umse); the train driver's
+     fold (1 epoch of 4 train, 2 val, 2 test batches) and the test
+     driver's walk to its final test metrics exactly. Config 2
+     (bi_vslttxt_mbt_v1), config 3 (bi_vsltimg_mbt_v1, vslt+img,
+     fullmodal: every image present, the trunk over all 64 rows) and
+     tri_mbt_v1 (config 4's flags): eval against the plain path in bf16
+     and fp32, one train step on both paths (fp32 and bf16, dropout 0.1),
+     launch counts. Prints the phase's seconds.
+The kernel phases (3, 5b, 6, 9, 12) run first, then 4-5, 7-8, 10-11, 13,
+14 and 15.
 Then one JSON line per the kernels (each with the path that launches it
-and its launches over that path's steps) and, last, {"ok": true,
+and its launches over that path's steps, and under ``other_paths`` its
+launches on phase 15's train paths) and, last, {"ok": true,
 "device": ...}.
+
+    python3 chip_smoke.py baseline
+
+runs the build and phase 15 alone.
 
     python3 chip_smoke.py ab ROOT
 
@@ -174,14 +199,14 @@ import torch
 
 BATCH = 64
 TIE_LEN = 1000
-CONFIG2 = [
+VSLT_TXT = [
     "--model", "tri_mbt_vsltcls", "--input-types", "vslt_txt",
     "--vslt-type", "TIE", "--imgtxt-time", "1",
     "--output-type", "intubation",
     "--modality-inclusion", "train-missing_test-missing",
     "--batch-size", str(BATCH),
 ]
-CONFIG4 = [a if a != "vslt_txt" else "vslt_img_txt" for a in CONFIG2]
+CONFIG4 = [a if a != "vslt_txt" else "vslt_img_txt" for a in VSLT_TXT]
 CONFIG5 = CONFIG4 + ["--multiimages", "1"]
 # the cross-modal transformer over carryforward vital signs (window 24, 16
 # channels plus age and gender) and BioBERT notes (128 x 768): 3 self
@@ -192,17 +217,41 @@ CROSS = [
     "--modality-inclusion", "train-missing_test-missing",
     "--batch-size", str(BATCH),
 ]
-# present-image fractions of the batches: config 2 has no images; config 4
+# phase 15, the BASELINE configs' own models (tools/golden_parity.py:57-
+# 113): config 1, unimodal_transformer over the TIE stream; config 2,
+# bi_vslttxt_mbt_v1 (phases 4 and 8 run VSLT_TXT: tri_mbt_vsltcls on
+# vslt_txt, the JAX package's bitxt_mbt_vsltcls alias); config 3,
+# bi_vsltimg_mbt_v1 on one CXR per sample under fullmodal; tri_mbt_v1 on
+# config 4's flags
+CONFIG1 = ["--model", "unimodal_transformer", "--input-types", "vslt",
+           "--vslt-type", "TIE", "--output-type", "intubation",
+           "--modality-inclusion", "train-missing_test-missing",
+           "--batch-size", str(BATCH)]
+BASE2 = [a if a != "tri_mbt_vsltcls" else "bi_vslttxt_mbt_v1"
+         for a in VSLT_TXT]
+BASE3 = ["--model", "bi_vsltimg_mbt_v1", "--input-types", "vslt_img",
+         "--vslt-type", "TIE", "--imgtxt-time", "1",
+         "--output-type", "intubation",
+         "--modality-inclusion", "train-full_test-full",
+         "--batch-size", str(BATCH)]
+TRI_V1 = [a if a != "tri_mbt_vsltcls" else "tri_mbt_v1" for a in CONFIG4]
+# present-image fractions of the batches: vslt_txt has no images; config 4
 # packs 32 and 16 of 64 images (capacity 32, so 33 trunk rows) and
 # overflows with 48 (64 rows); config 5 holds 1-3 images in 32 samples
 # (at most 96 slots, the capacity of its 192 rows)
-BATCHES = {"config2": [0.5] * 3, "config4": [0.5, 0.25, 0.75],
-           "config5": [0.5], "cross": [0.5] * 3}
+BATCHES = {"vslt_txt": [0.5] * 3, "config4": [0.5, 0.25, 0.75],
+           "config5": [0.5], "cross": [0.5] * 3,
+           # phase 15: config 3 has every image (fullmodal, the trunk over
+           # all 64 rows), tri_mbt_v1 config 4's packed and overflowing
+           # batches
+           "config1": [0.5] * 3, "config1_qie": [0.5], "config1_cf": [0.5],
+           "base2": [0.5] * 2, "base3": [1.0] * 2,
+           "tri_v1": [0.5, 0.75]}
 # per eval step: one TIE embedding; one attention and one FFN half per
 # layer per stream (6 layers x {vslt, txt} or {vslt, img, txt}); one
 # window attention and one MLP per Swin block (2 + 2 + 6 + 2)
 LAUNCHES_PER_STEP = {
-    "config2": {"umse": 1, "attn_block": 12, "ffn": 12},
+    "vslt_txt": {"umse": 1, "attn_block": 12, "ffn": 12},
     "config4": {"umse": 1, "attn_block": 18, "ffn": 18,
                 "swin_attention": 12, "swin_mlp": 12},
 }
@@ -211,6 +260,17 @@ LAUNCHES_PER_STEP["config5"] = LAUNCHES_PER_STEP["config4"]
 # stream (3 x 2), an attention and an FFN per cross layer and direction
 # (3 x 2)
 LAUNCHES_PER_STEP["cross"] = {"attn_block": 6, "ffn": 12, "attention": 6}
+# phase 15: config 1 runs one stream of 6 layers (1001 rows padded to
+# 1024); its carryforward grid needs no umse; the v1 models as configs 2
+# and 4, config 3 as config 4 without the notes
+LAUNCHES_PER_STEP.update(
+    config1={"umse": 1, "attn_block": 6, "ffn": 6},
+    config1_cf={"attn_block": 6, "ffn": 6},
+    base2=LAUNCHES_PER_STEP["vslt_txt"],
+    base3={"umse": 1, "attn_block": 12, "ffn": 12, "swin_attention": 12,
+           "swin_mlp": 12},
+    tri_v1=LAUNCHES_PER_STEP["config4"])
+LAUNCHES_PER_STEP["config1_qie"] = LAUNCHES_PER_STEP["config1"]
 # per train step: the forward's launches; the TIE embedding's backward; a
 # backward per fusion layer and
 # stream whose output the loss reaches (the last layer's non-vslt streams
@@ -219,7 +279,7 @@ LAUNCHES_PER_STEP["cross"] = {"attn_block": 6, "ffn": 12, "attention": 6}
 # dropout_masks per stream for the input dropout at --dropout 0.1 (the
 # FFN's masks are drawn inside its kernels)
 TRAIN_LAUNCHES_PER_STEP = {
-    "config2": {"umse": 1, "umse_bwd": 1, "attn_block": 12,
+    "vslt_txt": {"umse": 1, "umse_bwd": 1, "attn_block": 12,
                 "attn_block_bwd": 11, "ffn": 12, "ffn_bwd": 11,
                 "dropout_masks": 2},
     "config4": {"umse": 1, "umse_bwd": 1, "attn_block": 18,
@@ -231,8 +291,28 @@ TRAIN_LAUNCHES_PER_STEP = {
 TRAIN_LAUNCHES_PER_STEP["cross"] = {
     "attn_block": 6, "attn_block_bwd": 6, "ffn": 12, "ffn_bwd": 12,
     "attention": 6, "attention_bwd": 6}
-TRAIN_BATCHES = {"config2": [0.5, 0.5], "config4": [0.5, 0.25, 0.75],
-                 "cross": [0.5] * 3}
+# phase 15: config 1's head reads the cls row, which attends to every
+# layer's stream, so every layer gets its backward; the v1 heads read
+# every stream's cls token (a mix of the two vectors, or of per-stream
+# logits), so the last layer's img and txt streams get theirs too (12 of
+# 12, 18 of 18); one input-dropout mask per stream
+TRAIN_LAUNCHES_PER_STEP.update(
+    config1={"umse": 1, "umse_bwd": 1, "attn_block": 6,
+             "attn_block_bwd": 6, "ffn": 6, "ffn_bwd": 6,
+             "dropout_masks": 1},
+    base2={"umse": 1, "umse_bwd": 1, "attn_block": 12,
+           "attn_block_bwd": 12, "ffn": 12, "ffn_bwd": 12,
+           "dropout_masks": 2},
+    base3={"umse": 1, "umse_bwd": 1, "attn_block": 12,
+           "attn_block_bwd": 12, "ffn": 12, "ffn_bwd": 12,
+           "dropout_masks": 2, "swin_attention": 12, "swin_mlp": 12},
+    tri_v1={"umse": 1, "umse_bwd": 1, "attn_block": 18,
+            "attn_block_bwd": 18, "ffn": 18, "ffn_bwd": 18,
+            "dropout_masks": 3, "swin_attention": 12, "swin_mlp": 12})
+TRAIN_BATCHES = {"vslt_txt": [0.5, 0.5], "config4": [0.5, 0.25, 0.75],
+                 "cross": [0.5] * 3, "config1": [0.5] * 3,
+                 "base2": [0.5] * 2, "base3": [1.0] * 2,
+                 "tri_v1": [0.5, 0.75]}
 DROPOUT_SEED = 20231016
 
 # tolerances |kernel - plain| <= atol + rtol * |plain|, on live rows.
@@ -1515,7 +1595,6 @@ def run_config(name: str, argv, power: str, timed: bool) -> dict:
     from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
         synthetic_batch
     from medical_tri_modal_pilot_tpu_torch.models import get_model
-    from medical_tri_modal_pilot_tpu_torch.models.models import pack_capacity
     from medical_tri_modal_pilot_tpu_torch.train.metrics import Evaluator
     from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
 
@@ -1544,12 +1623,11 @@ def run_config(name: str, argv, power: str, timed: bool) -> dict:
         if counts[kernel] != want:
             raise AssertionError(f"{name} {kernel}: {counts[kernel]} "
                                  f"launches, expected {want}")
-    if "img" in cfg.input_types and name == "config4":
-        cap = pack_capacity(cfg, BATCH)
-        if cap + 1 not in rows or BATCH not in rows:
-            raise AssertionError(f"{name}: trunk rows {rows} miss the packed "
-                                 f"({cap + 1}) or the overflow ({BATCH}) "
-                                 "branch")
+    # a path whose batches overflow the packed trunk takes both branches,
+    # and both are held in fp32 below
+    overflow = _overflow_batch(cfg, model, batches, fracs)
+    if overflow:
+        _check_trunk_rows(name, cfg, rows)
     if probs.shape != (BATCH * n,) or not np.all(np.isfinite(probs)):
         raise AssertionError(f"bad probabilities {probs.shape}")
     with ops.reference_path():
@@ -1584,13 +1662,13 @@ def run_config(name: str, argv, power: str, timed: bool) -> dict:
         if name == "config4":
             _profile_step(name, trainer, batches[0], power)
 
-    # the same weights in fp32: a tight check of the kernel path (for
-    # config 4 on a packed and on the overflowing batch)
+    # the same weights in fp32: a tight check of the kernel path (on a
+    # packed and on the overflowing batch where the path has both)
     del trainer, model
     cfg32 = cfg.replace(precision="fp32")
     model32 = get_model(cfg32, torch.Generator().manual_seed(0))
     trainer32 = Trainer(cfg32, model32, device=dev, eval_only=True)
-    checked = [batches[0]] + ([batches[-1]] if name == "config4" else [])
+    checked = [batches[0]] + overflow
     p32, _, _ = _eval_steps(trainer32, checked)
     with ops.reference_path():
         r32, _, _ = _eval_steps(trainer32, checked)
@@ -1603,6 +1681,27 @@ def run_config(name: str, argv, power: str, timed: bool) -> dict:
     del trainer32, model32
     torch.cuda.empty_cache()
     return counts
+
+
+def _overflow_batch(cfg, model, batches, fracs) -> list:
+    """The first batch with more images than the packed trunk holds, in a
+    list, where the model packs its single-image trunk; else []. A path
+    with one runs both trunk branches: cap + 1 rows and all of them."""
+    from medical_tri_modal_pilot_tpu_torch.models.models import pack_capacity
+    if not getattr(model, "img_pack", False) or cfg.multiimages == 1:
+        return []
+    cap = pack_capacity(cfg, BATCH)
+    return [b for b, f in zip(batches, fracs)
+            if round(f * BATCH) > cap][:1]
+
+
+def _check_trunk_rows(name, cfg, rows) -> None:
+    from medical_tri_modal_pilot_tpu_torch.models.models import pack_capacity
+    cap = pack_capacity(cfg, BATCH)
+    if cap + 1 not in rows or BATCH not in rows:
+        raise AssertionError(f"{name}: trunk rows {rows} miss the packed "
+                             f"({cap + 1}) or the overflow ({BATCH}) "
+                             "branch")
 
 
 def _train_run(cfg, state, batch, plain: bool):
@@ -1632,16 +1731,20 @@ def _train_run(cfg, state, batch, plain: bool):
 # there: a key-projection bias (softmax is shift invariant per query), and
 # the biases the head's BatchNorm cancels (fc_list.0 and the LayerNorm
 # before it add the same vector to every sample: layer_norms_after_concat
-# in tri_mbt_vsltcls, final_ln in the cross transformer)
+# in tri_mbt_vsltcls and the bimodal v1 models, final_ln in the cross
+# transformer, layer_norm_final in unimodal_transformer). A LayerNorm
+# head (ClsHeadLN, tri_mbt_v1's, with no running statistics) normalises
+# each sample over its features, which cancels neither
 ZERO_GRAD = ("key_proj.linear.bias", "fc_list.0.bias",
-             "layer_norms_after_concat.bias", "final_ln.bias")
+             "layer_norms_after_concat.bias", "final_ln.bias",
+             "layer_norm_final.bias")
 
 
-def _step_errors(a, b):
+def _step_errors(a, b, zero=ZERO_GRAD):
     """|a - b|_F / |b|_F per trainable tensor with a nonzero true
-    gradient."""
+    gradient (the rest named by ``zero``)."""
     return {n: _grad_errors([a[n][0]], [b[n][0]])[0] for n in b
-            if not n.endswith(ZERO_GRAD)}
+            if not n.endswith(zero)}
 
 
 def _summary(errs) -> str:
@@ -1656,6 +1759,8 @@ def _check_step_parity(name, cfg, state, batch, precs) -> None:
     """One step from the same weights on the kernel and the plain path,
     for each (precision, dropout) in ``precs``; every bf16 entry needs an
     fp32 one at its dropout, the step its gradients are held against."""
+    batchnorm_head = "fc_list.1.running_mean" in state
+    zero = ZERO_GRAD if batchnorm_head else ZERO_GRAD[:1]
     runs, failures = {}, []
     for prec, p in precs:
         c = cfg.replace(precision=prec, dropout=p)
@@ -1665,7 +1770,7 @@ def _check_step_parity(name, cfg, state, batch, precs) -> None:
         if plain:
             continue
         ref_loss, want, _ = runs[prec, p, True]
-        errs = _step_errors(got, want)
+        errs = _step_errors(got, want, zero)
         # each side's Adam step is at most lr per element, plus the
         # parameter's fp32 rounding
         p_err = max(float((got[n][1] - want[n][1]).abs().max())
@@ -1675,7 +1780,8 @@ def _check_step_parity(name, cfg, state, batch, precs) -> None:
         print(f"{name} train step {prec} dropout {p}: loss {loss:.6f} vs "
               f"plain {ref_loss:.6f}; grads |kernel - plain|_F/|plain|_F "
               f"over {len(errs)} tensors: {_summary(errs)}; updated params "
-              f"max |diff| {p_err:.3e} (bound {2.01 * lr:.3e} = 2.01 lr; "
+              f"max |diff| {p_err:.3e} (bound {2.01 * lr + 1e-7:.3e} = "
+              f"2.01 lr + 1e-7; "
               f"moved up to {moved:.3e})")
         if not np.isfinite(loss) or abs(loss - ref_loss) > STEP_LOSS_TOL[prec]:
             failures.append(f"{prec} {p}: loss")
@@ -1686,7 +1792,8 @@ def _check_step_parity(name, cfg, state, batch, precs) -> None:
                 failures.append(f"fp32 {p}: gradients")
             continue
         fp32 = runs["fp32", p, True][1]
-        k_err, p_err32 = _step_errors(got, fp32), _step_errors(want, fp32)
+        k_err = _step_errors(got, fp32, zero)
+        p_err32 = _step_errors(want, fp32, zero)
         print(f"{name} train step dropout {p}, bf16 against the fp32 plain "
               f"step: kernel path {_summary(k_err)}; plain path "
               f"{_summary(p_err32)}")
@@ -1726,7 +1833,6 @@ def run_train(name: str, argv, power: str, timed: bool) -> dict:
     from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
         synthetic_batch
     from medical_tri_modal_pilot_tpu_torch.models import get_model
-    from medical_tri_modal_pilot_tpu_torch.models.models import pack_capacity
     from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
 
     dev = torch.device("cuda")
@@ -1784,11 +1890,8 @@ def run_train(name: str, argv, power: str, timed: bool) -> dict:
             raise AssertionError(f"{name}: dropout masks of shapes "
                                  f"{sorted(set(masks))}, MASK_SHAPES has "
                                  f"{sorted(want)}")
-        cap = pack_capacity(cfg, BATCH)
-        if cap + 1 not in rows or BATCH not in rows:
-            raise AssertionError(f"{name}: trunk rows {rows} miss the packed "
-                                 f"({cap + 1}) or the overflow ({BATCH}) "
-                                 "branch")
+    if _overflow_batch(cfg, model, batches, TRAIN_BATCHES[name]):
+        _check_trunk_rows(name, cfg, rows)
 
     if timed:
         # in turns: plain, kernel, kernel, plain
@@ -2369,6 +2472,187 @@ def run_drivers(power: str) -> None:
     print(f"drivers phase ({power}): {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 15: --remat 1 against --remat 0 (one fp32 step at dropout 0.1,
+# every gradient by Frobenius ratio), and config 1 through the drivers
+REMAT_TOL = 1e-6
+BASE_DRIVER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "baseline_driver_smoke")
+BASE_DRIVER_BATCHES = {"train": 4, "val": 2, "test": 2}
+BASE_PATHS = {"config1": "unimodal_transformer config 1 train",
+              "base2": "bi_vslttxt_mbt_v1 config 2 train",
+              "base3": "bi_vsltimg_mbt_v1 config 3 train",
+              "tri_v1": "tri_mbt_v1 config 4 train"}
+
+
+def _remat_step(cfg, state, batch, remat: int):
+    """One train step from ``state`` at ``--remat``: (loss, gradients of
+    the trainable parameters, peak device memory, launches)."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    c = cfg.replace(remat=remat)
+    model = get_model(c, torch.Generator().manual_seed(0))
+    model.load_state_dict(state)
+    tr = Trainer(c, model, torch.device("cuda"), eval_only=False, seed=0)
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    loss = tr.train_step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: v for k, v in ops.launches.items() if v}
+    names = {id(p): n for n, p in model.named_parameters()}
+    grads = {names[id(p)]: p.grad.double().clone()
+             for p in tr.optimizer.params}
+    del tr, model
+    gc_collect()
+    return loss, grads, peak, counts
+
+
+def _check_remat(cfg, state, batch, power: str) -> None:
+    """--remat 1 recomputes each layer's forward in the backward with the
+    seeds it drew first: fp32 gradients within REMAT_TOL (relative
+    Frobenius) of --remat 0's at dropout 0.1, the loss equal; the peak
+    memory of both, fp32 and bf16; bf16 ms/step of both in turns."""
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    out = {}
+    for prec in ("fp32", "bf16"):
+        c = cfg.replace(precision=prec, dropout=0.1)
+        for remat in (0, 1):
+            out[prec, remat] = _remat_step(c, state, batch, remat)
+    (l0, g0, _, n0), (l1, g1, _, n1) = out["fp32", 0], out["fp32", 1]
+    errs = {n: float((g1[n] - g).norm() / g.norm().clamp_min(1e-30))
+            for n, g in g0.items()}
+    worst = max(errs, key=errs.get)
+    print(f"config1 remat fp32 dropout 0.1: loss {l1:.7f} vs {l0:.7f}; "
+          f"grads |remat 1 - remat 0|_F/|remat 0|_F max {errs[worst]:.3e} "
+          f"({worst}) over {len(errs)} tensors; launches remat 0 {n0}, "
+          f"remat 1 {n1}")
+    for prec in ("fp32", "bf16"):
+        p0, p1 = out[prec, 0][2], out[prec, 1][2]
+        print(f"config1 remat peak device memory {prec} ({power}): remat 0 "
+              f"{p0 / 2 ** 30:.3f} GiB, remat 1 {p1 / 2 ** 30:.3f} GiB "
+              f"({100 * (1 - p1 / p0):.1f} % less)")
+    if l1 != l0 or errs[worst] > REMAT_TOL or n1["attn_block"] != \
+            2 * n0["attn_block"]:
+        raise AssertionError("config1: --remat 1 differs from --remat 0")
+    # bf16 train ms/step at --remat 0 and 1, in turns (0, 1, 1, 0)
+    trainers = {}
+    for remat in (0, 1):
+        c = cfg.replace(remat=remat)
+        model = get_model(c, torch.Generator().manual_seed(0))
+        model.load_state_dict(state)
+        trainers[remat] = Trainer(c, model, torch.device("cuda"),
+                                  eval_only=False, seed=0)
+        trainers[remat].train_step(batch)
+    ms = {0: [], 1: []}
+    for remat in (0, 1, 1, 0):
+        ms[remat].append(_timed_train_ms(trainers[remat], [batch] * 3,
+                                         False))
+    print(f"config1 remat bf16 train step ({power}): remat 0 "
+          f"{np.mean(ms[0]):.2f} ms/step, remat 1 {np.mean(ms[1]):.2f} "
+          f"ms/step ({np.mean(ms[1]) / np.mean(ms[0]):.3f}x); rounds "
+          f"{ms[0]} / {ms[1]}")
+    del trainers, model
+    gc_collect()
+
+
+def _base_driver_run(power: str) -> None:
+    """Config 1 through the train driver's fold (1 epoch of 4 train, 2
+    val, 2 test batches, bf16, dropout 0.1) and the test driver's walk to
+    the same test metrics."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import (
+        BatchList, synthetic_batch)
+    from medical_tri_modal_pilot_tpu_torch.drivers import test as test_drv
+    from medical_tri_modal_pilot_tpu_torch.drivers import train as train_drv
+    from medical_tri_modal_pilot_tpu_torch.train import checkpoints as ckpt
+    from medical_tri_modal_pilot_tpu_torch.train.logger import \
+        make_setting_file
+
+    shutil.rmtree(BASE_DRIVER_DIR, ignore_errors=True)
+    # --img-pack-frac: the driver resolves -1 from the real loader's
+    # sampler, which synthetic loaders lack; config 1 has no images
+    cfg = parse_config(CONFIG1 + ["--epochs", "1", "--log-iter", "1",
+                                  "--img-pack-frac", "0.5",
+                                  "--dir-result", BASE_DRIVER_DIR,
+                                  "--project-name", "config1"])
+    loaders, seed = {}, 300
+    for split, n in BASE_DRIVER_BATCHES.items():
+        loaders[split] = BatchList([synthetic_batch(cfg, BATCH, seed=seed + i)
+                                    for i in range(n)])
+        seed += n
+    make_setting_file(cfg)
+    gc_collect()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    val, test = train_drv.run_fold(cfg, 0, loaders["train"], loaders["val"],
+                                   loaders["test"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    n_train = BASE_DRIVER_BATCHES["train"]
+    n_eval = BASE_DRIVER_BATCHES["val"] + BASE_DRIVER_BATCHES["test"]
+    print(f"config1 drivers: launches over {n_train} train and {n_eval} eval "
+          f"steps: {counts}; val {val}; test {test}; run {run_s:.2f} s "
+          f"({power})")
+    for kernel in ops.KERNELS:
+        want = (n_train * TRAIN_LAUNCHES_PER_STEP["config1"].get(kernel, 0)
+                + n_eval * LAUNCHES_PER_STEP["config1"].get(kernel, 0))
+        if counts[kernel] != want:
+            raise AssertionError(f"config1 drivers {kernel}: "
+                                 f"{counts[kernel]} launches, expected "
+                                 f"{want}")
+    if test is None or not np.isfinite(test["apr"]):
+        raise AssertionError(f"config1 drivers: test metrics {test}")
+    best = ckpt.ckpt_path(BASE_DRIVER_DIR, cfg.project_name, "best", 0,
+                          cfg.seed)
+    walked = test_drv.run_checkpoints(cfg, test_drv.checkpoints_of(cfg),
+                                      loaders["test"])
+    got = dict(walked).get(best)
+    print(f"config1 test driver: {[(os.path.basename(p), m['auc'], m['apr']) for p, m in walked]}")
+    if got != test:
+        raise AssertionError(f"config1: test driver {got} vs the train "
+                             f"driver's final test {test}")
+    gc_collect()
+
+
+def run_baseline(power: str) -> dict:
+    """Phase 15: the BASELINE configs' own models at full width. Config 1
+    (unimodal_transformer, TIE): eval and train as phases 4 and 7 (timed,
+    profiled, 20 steps, one step on both paths at dropout 0 and 0.1),
+    --remat 1 against --remat 0, QIE and carryforward eval, the drivers;
+    configs 2 and 3 (bi_vslttxt_mbt_v1, bi_vsltimg_mbt_v1) and
+    tri_mbt_v1: eval against the plain path in bf16 and fp32, one train
+    step on both paths, launch counts. Returns each train path's
+    launches."""
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    run_config("config1", CONFIG1, power, timed=True)
+    counts = {"config1": run_train("config1", CONFIG1, power, timed=True)}
+    cfg = parse_config(CONFIG1)
+    state = get_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    _check_remat(cfg, state, synthetic_batch(cfg, BATCH, seed=10), power)
+    del state
+    for vslt in ("QIE", "carryforward"):
+        name = "config1_qie" if vslt == "QIE" else "config1_cf"
+        run_config(name, [a if a != "TIE" else vslt for a in CONFIG1],
+                   power, timed=False)
+    _base_driver_run(power)
+    for name, argv in (("base2", BASE2), ("base3", BASE3),
+                       ("tri_v1", TRI_V1)):
+        run_config(name, argv, power, timed=False)
+        counts[name] = run_train(name, argv, power, timed=False)
+    print(f"baseline phase ({power}): {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # the saver's forms in ``saver``: as it is (the state_dicts as views of the
 # pinned buffers, one storage per dtype in the file), a clone per tensor
 # (its first design), and the saver with the zip's CRC32 off
@@ -2460,6 +2744,7 @@ PATH_NAMES = {"config4": "tri_mbt_vsltcls config 4 train",
               None: "none: no path of the JAX package dispatches it"}
 PATH_STEPS = dict({k: len(v) for k, v in TRAIN_BATCHES.items()},
                   tp=len(TP_BATCHES))
+PATH_NAMES.update(BASE_PATHS)
 
 
 # the kernels the A/B reading sums in a step and in an attn_block call:
@@ -2708,6 +2993,11 @@ def main() -> None:
         build_kernels()
         saver_ab(power)
         return
+    if len(sys.argv) == 2 and sys.argv[1] == "baseline":
+        power = check_device()
+        build_kernels()
+        run_baseline(power)
+        return
     power = check_device()
     build_kernels()
     results = compare_kernels()
@@ -2716,23 +3006,28 @@ def main() -> None:
     results.update(compare_training_kernels())
     results.update(compare_attention_kernels())
     results.update(compare_rowmm_kernels())
-    run_config("config2", CONFIG2, power, timed=True)
+    run_config("vslt_txt", VSLT_TXT, power, timed=True)
     run_config("config4", CONFIG4, power, timed=True)
     run_config("config5", CONFIG5, power, timed=False)
     counts = {"config4": run_train("config4", CONFIG4, power, timed=True)}
-    run_train("config2", CONFIG2, power, timed=False)
+    run_train("vslt_txt", VSLT_TXT, power, timed=False)
     run_config("cross", CROSS, power, timed=True)
     counts["cross"] = run_train("cross", CROSS, power, timed=True)
     counts["tp"] = run_tp(power)
     run_drivers(power)
+    counts.update(run_baseline(power))
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         path = KERNEL_PATHS[name]
+        # the launches of phase 15's train paths, each over its steps
+        also = {PATH_NAMES[p]: {"launches": counts[p][name],
+                                "steps": PATH_STEPS[p]}
+                for p in BASE_PATHS if counts[p][name]}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "path": PATH_NAMES[path],
                         "launches": counts[path][name] if path else 0,
                         "steps": PATH_STEPS[path] if path else 0,
-                        **results[name]})
+                        "other_paths": also, **results[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

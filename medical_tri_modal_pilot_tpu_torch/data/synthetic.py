@@ -63,11 +63,29 @@ def _carryforward(cfg: Config, rng, B: int):
     return vslt, lengths
 
 
+def _token_ids(cfg: Config, rng, missing: np.ndarray):
+    """Notes as ``--berttype bert`` token ids [B, token_max_length] (fp32,
+    as the loader ships them, data/text.py:129-139): BOS (2), then
+    txt_length ids in [4, 30000), zeros past them; a missing note is zeros
+    of length 0."""
+    B, E = len(missing), cfg.token_max_length
+    txt = np.zeros((B, E), np.float32)
+    txt_length = rng.integers(1, E, B).astype(np.int32)
+    for i in range(B):
+        if missing[i]:
+            txt_length[i] = 0
+            continue
+        txt[i, 0] = 2
+        txt[i, 1:txt_length[i] + 1] = rng.integers(4, 30000, txt_length[i])
+    return txt, txt_length
+
+
 def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
                     present_frac: float = 0.5) -> Dict[str, np.ndarray]:
-    """Vital signs as TIE streams (``--vslt-type TIE``) or carryforward
-    grids (``carryforward``), BioBERT note embeddings [txt_token_size, 768]
-    with a missing note as zeros of length 0, random targets and, when
+    """Vital signs as TIE streams (``--vslt-type TIE`` or QIE) or
+    carryforward grids (``carryforward``), BioBERT note embeddings
+    [txt_token_size, 768] (or ``--berttype bert`` token ids) with a
+    missing note as zeros of length 0, random targets and, when
     ``--input-types`` has img, images for round(present_frac * batch_size)
     samples at random positions (so a caller can force the packed trunk or
     its overflow)."""
@@ -79,15 +97,18 @@ def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
         vslt, lengths = _tie(cfg, rng, B)
     missing = np.zeros((B, 3), np.float32)
     missing[:, 2] = rng.integers(0, 2, B)
-    T, E = cfg.txt_token_size, cfg.token_max_length
-    txt = rng.normal(0, 1, (B, T, E)).astype(np.float32)
-    txt_length = rng.integers(1, T + 1, B).astype(np.int32)
-    for i in range(B):
-        if missing[i, 2]:
-            txt[i] = 0.0
-            txt_length[i] = 0
-        else:
-            txt[i, txt_length[i]:] = 0.0
+    if cfg.berttype == "bert":
+        txt, txt_length = _token_ids(cfg, rng, missing[:, 2])
+    else:
+        T, E = cfg.txt_token_size, cfg.token_max_length
+        txt = rng.normal(0, 1, (B, T, E)).astype(np.float32)
+        txt_length = rng.integers(1, T + 1, B).astype(np.int32)
+        for i in range(B):
+            if missing[i, 2]:
+                txt[i] = 0.0
+                txt_length[i] = 0
+            else:
+                txt[i, txt_length[i]:] = 0.0
     batch = {
         "vslt": vslt,
         "static": rng.uniform(0, 1, (B, 2)).astype(np.float32),

@@ -5,7 +5,10 @@
 the reference's torch state_dict keys, so the JAX package's own
 ``models/convert_ref.py::convert_reference_state_dict`` is the inverse: it
 maps a port state_dict back onto the flax tree and raises on any key it
-does not use. The legacy cross transformer has no reference state_dict
+does not use. Covered: ``tri_mbt_vsltcls`` (and its bimodal aliases),
+``bi_vslttxt_mbt_v1``, ``bi_vsltimg_mbt_v1``, ``tri_mbt_v1``,
+``unimodal_transformer`` under every UMSE branch, and the cross
+transformer. The legacy cross transformer has no reference state_dict
 names in the JAX package's bridge; its port modules are named after the
 flax tree instead (``models/legacy.py``).
 
@@ -60,6 +63,15 @@ def _encoder_layer(sd, base: str, p: Mapping,
         kern = np.asarray(p["feed_forward"][w]["kernel"])   # [in, out]
         sd[f"{base}.feed_forward.{w}.weight"] = _t(kern.T[:, :, None])
         sd[f"{base}.feed_forward.{w}.bias"] = _t(p["feed_forward"][w]["bias"])
+
+
+def _txt_embedding(sd, key: str, p: Mapping) -> None:
+    """The note embedding: a Dense over BioBERT vectors, or under
+    ``--berttype bert`` an Embed table -> ``nn.Embedding`` weight."""
+    if "embedding" in p:
+        sd[f"{key}.weight"] = _t(p["embedding"])
+    else:
+        _lin(sd, key, p)
 
 
 def _cross_layer(sd, base: str, p: Mapping) -> None:
@@ -133,9 +145,14 @@ def _fusion(sd, pre: str, p: Mapping, n_mod: int) -> None:
 
 
 def _cls_head(sd, params: Mapping, stats: Mapping) -> None:
-    """ClsHead ``fc_list`` (fc1, bn, fc2) -> Linear, BatchNorm1d, Linear."""
+    """ClsHead ``fc_list`` (fc1, bn, fc2) -> Linear, BatchNorm1d, Linear;
+    ClsHeadLN (fc1, ln, fc2) -> Linear, LayerNorm, Linear."""
     head = params["fc_list"]
     _lin(sd, "fc_list.0", head["fc1"])
+    if "ln" in head:
+        _ln(sd, "fc_list.1", head["ln"])
+        _lin(sd, "fc_list.3", head["fc2"])
+        return
     sd["fc_list.1.weight"] = _t(head["bn"]["scale"])
     sd["fc_list.1.bias"] = _t(head["bn"]["bias"])
     bn = stats["fc_list"]["bn"]
@@ -155,8 +172,8 @@ def _cross_transformer(params: Mapping, stats: Mapping
     module names."""
     sd: Dict[str, torch.Tensor] = {}
     _lin(sd, "vslt_tokens.init_fc", params["vslt_tokens"]["init_fc"])
-    _lin(sd, "txt_tokens.txt_embedding",
-         params["txt_tokens"]["txt_embedding"])
+    _txt_embedding(sd, "txt_tokens.txt_embedding",
+                   params["txt_tokens"]["txt_embedding"])
     for key, layer in params.items():
         if key.startswith("self_"):
             _encoder_layer(sd, key, layer)
@@ -164,6 +181,46 @@ def _cross_transformer(params: Mapping, stats: Mapping
             _cross_layer(sd, key, layer)
     _lin(sd, "merge", params["merge"])
     _ln(sd, "final_ln", params["final_ln"])
+    _cls_head(sd, params, stats)
+    return sd
+
+
+_MBT_MODELS = ("tri_mbt_vsltcls", "biimg_mbt_vsltcls", "bitxt_mbt_vsltcls",
+               "bi_vslttxt_mbt_v1", "bi_vsltimg_mbt_v1", "tri_mbt_v1")
+
+
+def _umse(sd, p: Mapping) -> None:
+    """The UMSE stems the JAX model holds (its tree has the ones its
+    inputs use): the MLPStems, the feature-id table and the note
+    embedding."""
+    for name in ("vslt_enc", "ie_vslt", "ie_time", "ie_demo"):
+        if name in p:
+            _stem(sd, name, p[name])
+    if "ie_feat" in p:
+        sd["ie_feat.weight"] = _t(p["ie_feat"]["embedding"])
+    if "txt_embedding" in p:
+        _txt_embedding(sd, "txt_embedding", p["txt_embedding"])
+
+
+def _encoder(sd, pre: str, p: Mapping) -> None:
+    """TransformerEncoder tree -> ``{pre}.cls_tokens``,
+    ``.layer_norm_in``, ``.layer_stack.{i}``."""
+    sd[f"{pre}.cls_tokens"] = _t(p["cls_tokens"])
+    _ln(sd, f"{pre}.layer_norm_in", p["layer_norm_in"])
+    for key, layer in p.items():
+        if key.startswith("layers_"):
+            _encoder_layer(sd, f"{pre}.layer_stack.{key.split('_')[1]}",
+                           layer)
+
+
+def _unimodal(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """UNIMODAL_TRANSFORMER: the stems, ``transformer_encoder`` (its
+    ``layers_i`` at ``layer_stack.i``), ``final_ln`` at
+    ``layer_norm_final``, the head (convert_ref.py:195-206)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _umse(sd, params["umse"])
+    _encoder(sd, "transformer_encoder", params["transformer_encoder"])
+    _ln(sd, "layer_norm_final", params["final_ln"])
     _cls_head(sd, params, stats)
     return sd
 
@@ -176,15 +233,13 @@ def from_jax_variables(cfg: Config, variables: Mapping
     stats = variables.get("batch_stats", {})
     if cfg.model in _CROSS_TRANSFORMERS:
         return _cross_transformer(params, stats)
-    if cfg.model != "tri_mbt_vsltcls":
+    if cfg.model == "unimodal_transformer":
+        return _unimodal(params, stats)
+    if cfg.model not in _MBT_MODELS:
         raise NotImplementedError(
             f"no weight bridge for model '{cfg.model}' yet")
     sd: Dict[str, torch.Tensor] = {}
-    umse = params["backbone"]["umse"]
-    for name in ("ie_vslt", "ie_time", "ie_demo"):
-        _stem(sd, name, umse[name])
-    sd["ie_feat.weight"] = _t(umse["ie_feat"]["embedding"])
-    _lin(sd, "txt_embedding", umse["txt_embedding"])
+    _umse(sd, params["backbone"]["umse"])
     if "img" in cfg.input_types.split("_"):
         img = params["backbone"]["img_enc"]
         sd.update(swin_state_dict(img["img_encoder"], "img_encoder."))

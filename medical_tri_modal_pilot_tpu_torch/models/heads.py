@@ -1,10 +1,13 @@
-"""Classifier head (counterpart of medical_tri_modal_pilot_tpu/models/
-heads.py ``ClsHead``; reference tri_mbt_vsltcls.py:147-158)."""
+"""Classifier heads (counterpart of medical_tri_modal_pilot_tpu/models/
+heads.py ``ClsHead`` and ``ClsHeadLN``; reference tri_mbt_vsltcls.py:147-158,
+tri_mbt_v1.py:153-157)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .modules import LayerNorm
 
 
 class ClsHead(nn.Sequential):
@@ -52,3 +55,24 @@ class ClsHead(nn.Sequential):
             bn.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + bn.eps) * bn.weight
         return (h - mean) * mul + bn.bias
+
+
+class ClsHeadLN(nn.Sequential):
+    """``fc_list`` with a LayerNorm in place of the BatchNorm: Linear ->
+    LayerNorm -> act -> Linear (JAX heads.py:40-53), computed in
+    ``dtype``. Applies to [..., d_in] (tri_mbt_v1 runs it over the
+    stacked [M, B, d_in] cls vectors)."""
+
+    def __init__(self, d_in: int, d_model: int, output_dim: int = 1,
+                 activation: str = "relu",
+                 dtype: torch.dtype = torch.float32):
+        act = nn.ReLU() if activation == "relu" else nn.SELU()
+        super().__init__(nn.Linear(d_in, d_model), LayerNorm(d_model, dtype),
+                         act, nn.Linear(d_model, output_dim))
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        fc1, ln, act, fc2 = self
+        dt = self.compute_dtype
+        h = F.linear(x.to(dt), fc1.weight.to(dt), fc1.bias.to(dt))
+        return F.linear(act(ln(h)), fc2.weight.to(dt), fc2.bias.to(dt))

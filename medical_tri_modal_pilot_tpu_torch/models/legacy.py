@@ -25,6 +25,7 @@ from .heads import ClsHead
 from .models import ModelOutput, model_dtype
 from .modules import (CrossmodalTransformerEncoderLayer, DropoutSeeds,
                       LayerNorm, TransformerEncoderLayer, length_key_mask)
+from .umse import BERT_VOCAB
 
 
 def _dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
@@ -48,24 +49,26 @@ class _VsltTokens(nn.Module):
 
 
 class _TxtTokens(nn.Module):
-    """Dense BioBERT note embeddings [B, T, 768] (or [B, 768]) -> d_model
-    tokens. Token ids and ``--berttype bert`` (an embedding table) are
-    ROADMAP Queue 1 item 3."""
+    """Notes -> d_model tokens: dense BioBERT embeddings [B, T, 768] (or
+    [B, 768]) through a Linear, or under ``--berttype bert`` token ids
+    [B, T] through a 30000 x d table (JAX legacy.py:131-147)."""
 
     def __init__(self, cfg: Config, dtype: torch.dtype):
         super().__init__()
-        if cfg.berttype == "bert":
-            raise NotImplementedError(
-                "--berttype bert: the token-id embedding of the legacy "
-                "models is ROADMAP Queue 1 item 3")
         self.compute_dtype = dtype
-        self.txt_embedding = nn.Linear(768, cfg.transformer_dim)
+        self.bert = cfg.berttype == "bert"
+        self.txt_embedding = (nn.Embedding(BERT_VOCAB, cfg.transformer_dim)
+                              if self.bert
+                              else nn.Linear(768, cfg.transformer_dim))
 
     def forward(self, txt: torch.Tensor) -> torch.Tensor:
+        if self.bert:
+            return F.embedding(txt.long(), self.txt_embedding.weight).to(
+                self.compute_dtype)
         if not txt.is_floating_point():
-            raise NotImplementedError(
-                "token ids for the legacy models' notes: the embedding "
-                "table is ROADMAP Queue 1 item 3")
+            raise ValueError("note token ids need --berttype bert (the "
+                             "token table); this model projects BioBERT "
+                             "embeddings")
         if txt.dim() == 2:
             txt = txt[:, None, :]
         return _dense(txt, self.txt_embedding, self.compute_dtype)

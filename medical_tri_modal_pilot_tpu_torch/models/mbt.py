@@ -9,6 +9,7 @@ each stream's bottleneck outputs. Quirks kept: a text length of 3
 bottleneck key masks run over ``vlen + n`` of the concatenated sequence;
 ``vsltonly`` skips the other streams and the mix in the last layer;
 ``resbottle`` averages the new bottlenecks with the previous ones.
+``remat`` checkpoints every encoder layer (``--remat 1``).
 
 Long masked streams are padded so [bottlenecks | cls | tokens] is a
 multiple of 256 rows, as in the JAX package; the padded rows are masked
@@ -56,7 +57,7 @@ class MBTFusion(nn.Module):
                  resbottle: bool = False,
                  use_pe: Tuple[bool, ...] = (False, False, True),
                  mask: Tuple[bool, ...] = (True, False, True),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         M = n_modality
         self.n_modality = M
@@ -82,7 +83,7 @@ class MBTFusion(nn.Module):
             mods = 1 if (vsltonly == 1 and layer == n_layers - 1) else M
             self.layer_stacks.append(nn.ModuleList(
                 [TransformerEncoderLayer(d_model, n_head, d_ff, dropout,
-                                         dtype)
+                                         dtype, remat)
                  for _ in range(mods)]))
         self.register_buffer("pe", positional_encoding(pe_maxlen, d_model),
                              persistent=False)

@@ -1,6 +1,9 @@
-"""The flagship model (counterpart of medical_tri_modal_pilot_tpu/models/
-models.py:49-284): UMSE stems + modality encoders + MBT fusion, and the
-``tri_mbt_vsltcls`` head on the vslt cls token plus demographics.
+"""The MBT models (counterpart of medical_tri_modal_pilot_tpu/models/
+models.py:49-387, :530-561): UMSE stems + modality encoders + MBT fusion,
+and the heads of ``tri_mbt_vsltcls`` (the vslt cls token plus
+demographics), ``bi_*_mbt_v1`` (a missing-aware mix of the two cls
+vectors) and ``tri_mbt_v1`` (a missing-aware mix of per-modality logits);
+and ``unimodal_transformer``, the UMSE stems under one encoder.
 
 The classes extend each other (UMSE <- ImageEncoder <- MBTBackbone <-
 TRI_MBT_VSLTCLS) so every parameter sits where the reference's single
@@ -17,8 +20,9 @@ from torch import nn
 
 from ..config import Config
 from ..constants import IMG_FEATURE_ID, TXT_FEATURE_ID
-from .heads import ClsHead
-from .mbt import MBTFusion
+from .encoder import TransformerEncoder
+from .heads import ClsHead, ClsHeadLN
+from .mbt import MBTFusion, missing_candidate_weights
 from .modules import DropoutSeeds, LayerNorm
 from .swin import SwinTransformer
 from .umse import UMSE
@@ -37,22 +41,44 @@ def pack_capacity(cfg: Config, rows: int) -> int:
     return max(1, min(rows - 1, int(-(-rows * frac // 1))))
 
 
+def head_width(cfg: Config) -> int:
+    """Width of the head's input: the normalised cls vector, plus the
+    demographics but under QIE, whose tokens carry them (models.py:
+    260-264)."""
+    return cfg.transformer_dim * (1 if cfg.vslt_type == "QIE" else 2)
+
+
+def class_input(norm: nn.Module, cls_vec: torch.Tensor, demo: torch.Tensor,
+                cfg: Config) -> torch.Tensor:
+    """``norm(cls_vec)`` [..., D], with ``demo`` [B, D] concatenated on the
+    last axis but under QIE; the leading axes end in the batch's."""
+    h = norm(cls_vec)
+    if cfg.vslt_type != "QIE":
+        demo = demo.to(h.dtype).expand(h.shape[:-1] + demo.shape[-1:])
+        h = torch.cat([h, demo], dim=-1)
+    return h
+
+
 class ImageEncoder(UMSE):
     """UMSE plus, when ``--input-types`` has img, the Swin-T trunk
     (``img_encoder``) and its 768 -> d projection (``linear``)
-    (tri_mbt_vsltcls.py:83-118, :202-214). The trunk is frozen when
-    ``--img-pretrain Yes``: its parameters take no gradient, it stays in
-    eval mode under ``model.train()`` and runs under ``torch.no_grad()``
-    (JAX: stop_gradient, models.py:125-141, and the optimizer mask). Only
-    ``linear`` trains on the image side. The weights are seeded or carried
-    across, since loading ``--img-pretrain-path`` is not ported yet."""
+    (tri_mbt_vsltcls.py:83-118, :202-214). The trunk is frozen where
+    ``img_frozen`` says, or at ``--img-pretrain Yes`` when it is None (JAX
+    models.py:125; the v1 family passes True, tri_mbt_v1.py:228): its
+    parameters take no gradient, it stays in eval mode under ``model.train()`` and runs
+    under ``torch.no_grad()`` (JAX: stop_gradient, models.py:125-141, and
+    the optimizer mask). Only ``linear`` trains on the image side. The
+    weights are seeded or carried across, since loading
+    ``--img-pretrain-path`` is not ported yet."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, img_frozen: Optional[bool] = None):
         dt = model_dtype(cfg)
+        mods = cfg.input_types.split("_")
         super().__init__(cfg.transformer_dim, cfg.vslt_type, cfg.berttype,
-                         dt)
+                         dt, cfg.vslt_len, txt="txt" in mods,
+                         timestamps=cfg.imgtxt_time == 1 and len(mods) > 1)
         self.cfg = cfg
-        if "img" not in cfg.input_types.split("_"):
+        if "img" not in mods:
             return
         if cfg.img_model_type != "swin":
             raise NotImplementedError(
@@ -66,9 +92,10 @@ class ImageEncoder(UMSE):
         self.img_encoder = SwinTransformer(in_channels=1, dtype=dt)
         self.linear = nn.Linear(self.img_encoder.num_features,
                                 cfg.transformer_dim)
-        frozen = cfg.img_pretrain == "Yes"
-        self.img_encoder.requires_grad_(not frozen)
-        self.img_pack = frozen and (
+        self.frozen = (cfg.img_pretrain == "Yes" if img_frozen is None
+                       else img_frozen)
+        self.img_encoder.requires_grad_(not self.frozen)
+        self.img_pack = self.frozen and (
             cfg.img_pack == 1
             or (cfg.img_pack == -1 and "missing" in cfg.modality_inclusion))
         # rows the trunk ran on in the last call (cap + 1 when packed)
@@ -76,14 +103,14 @@ class ImageEncoder(UMSE):
 
     def train(self, mode: bool = True):
         """Training mode for everything but a frozen trunk, which stays in
-        eval mode. A trainable trunk (``--img-pretrain No``) is not ported
-        and raises."""
+        eval mode. A trainable trunk is not ported and raises."""
         super().train(mode)
         trunk = getattr(self, "img_encoder", None)
         if trunk is not None:
-            if mode and self.cfg.img_pretrain != "Yes":
+            if mode and not self.frozen:
                 raise NotImplementedError(
-                    "--img-pretrain No: training the Swin trunk (its "
+                    f"--img-pretrain {self.cfg.img_pretrain} with --model "
+                    f"{self.cfg.model}: training the Swin trunk (its "
                     "backward and stochastic depth) is ROADMAP Queue 1 "
                     "item 11")
             trunk.eval()
@@ -126,17 +153,28 @@ class ImageEncoder(UMSE):
 
 class MBTBackbone(ImageEncoder):
     """UMSE stems + the image trunk and text projection + MBT fusion over
-    the streams of ``--input-types`` (vslt, then img, then txt)."""
+    the streams of ``--input-types`` (vslt, then img, then txt). The v1
+    wiring knobs (JAX models.py:155-165): ``img_frozen`` (see
+    ``ImageEncoder``), ``allow_multiimages`` (False: one
+    image per sample, ``--multiimages 1`` refused), ``allow_resbottle``
+    (False: ``--residual-bottlenecks`` ignored) and ``img_use_pe`` (the
+    image stream gets the positional encoding, bi_vsltimg_mbt_v1.py:130).
+    """
 
-    def __init__(self, cfg: Config):
-        super().__init__(cfg)
+    def __init__(self, cfg: Config, img_frozen: Optional[bool] = None,
+                 allow_multiimages: bool = True,
+                 allow_resbottle: bool = True, img_use_pe: bool = False):
+        super().__init__(cfg, img_frozen)
         mods = cfg.input_types.split("_")
+        if cfg.multiimages == 1 and "img" in mods and not allow_multiimages:
+            raise ValueError(f"--multiimages 1: --model {cfg.model} takes "
+                             "one image per sample")
         use_pe = [cfg.vslt_type == "carryforward"]
         mask = [True]
         if "img" in mods:
             # a single image per sample runs unmasked; multi-image stacks
             # mask their absent slots
-            use_pe.append(False)
+            use_pe.append(img_use_pe)
             mask.append(cfg.multiimages == 1)
         if "txt" in mods:
             use_pe.append(True)
@@ -152,11 +190,11 @@ class MBTBackbone(ImageEncoder):
             dropout=cfg.dropout,
             txt_idx=mods.index("txt") if "txt" in mods else -1,
             vsltonly=cfg.mbt_only_vslt,
-            resbottle=cfg.residual_bottlenecks == 1,
+            resbottle=cfg.residual_bottlenecks == 1 and allow_resbottle,
             use_pe=tuple(use_pe), mask=tuple(mask),
-            dtype=model_dtype(cfg))
+            dtype=model_dtype(cfg), remat=cfg.remat == 1)
 
-    def _img_stream(self, batch: Dict[str, torch.Tensor]
+    def _img_stream(self, batch: Dict[str, torch.Tensor], demo
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Image tokens [B, 49 (x3), d] and their valid lengths
         (models.py:183-217)."""
@@ -172,7 +210,7 @@ class MBTBackbone(ImageEncoder):
         per_image = tokens.shape[1]
         if cfg.imgtxt_time == 1:
             tokens = self.add_time_feature(
-                tokens, batch["img_time"].reshape(-1), IMG_FEATURE_ID)
+                tokens, batch["img_time"].reshape(-1), IMG_FEATURE_ID, demo)
         if not multi:
             return tokens, torch.full((B,), per_image, dtype=torch.long,
                                       device=tokens.device)
@@ -191,7 +229,7 @@ class MBTBackbone(ImageEncoder):
         enc_inputs = [vslt_tokens]
         varying = [batch["input_length"].long()]
         if "img" in mods:
-            img_tokens, img_len = self._img_stream(batch)
+            img_tokens, img_len = self._img_stream(batch, demo)
             enc_inputs.append(img_tokens)
             varying.append(img_len.long())
         if "txt" in mods:
@@ -200,7 +238,7 @@ class MBTBackbone(ImageEncoder):
                 txt_tokens = txt_tokens[:, None, :]
             if cfg.imgtxt_time == 1:
                 txt_tokens = self.add_time_feature(
-                    txt_tokens, batch["txt_time"], TXT_FEATURE_ID)
+                    txt_tokens, batch["txt_time"], TXT_FEATURE_ID, demo)
             enc_inputs.append(txt_tokens)
             varying.append(batch["txt_length"].long() + 2)
         outputs = self.fusion_transformer(enc_inputs, varying, missing_num,
@@ -210,23 +248,23 @@ class MBTBackbone(ImageEncoder):
 
 class TRI_MBT_VSLTCLS(MBTBackbone):
     """Flagship: classify from the vslt cls token + demographics
-    (tri_mbt_vsltcls.py:248-255)."""
+    (tri_mbt_vsltcls.py:248-255). Also the bimodal ``biimg_mbt_vsltcls``
+    and ``bitxt_mbt_vsltcls``, as in the JAX registry."""
 
-    def __init__(self, cfg: Config):
-        super().__init__(cfg)
+    def __init__(self, cfg: Config, **wiring):
+        super().__init__(cfg, **wiring)
         D = cfg.transformer_dim
         dt = model_dtype(cfg)
         self.layer_norms_after_concat = LayerNorm(D, dt)
-        d_in = D if cfg.vslt_type == "QIE" else 2 * D
         if "rmse" in cfg.auxiliary_loss_type:
-            self.rmse_layer = nn.Linear(d_in, 1)
-        self.fc_list = ClsHead(d_in, D, cfg.output_dim, cfg.activation, dt)
+            self.rmse_layer = nn.Linear(head_width(cfg), 1)
+        self.fc_list = ClsHead(head_width(cfg), D, cfg.output_dim,
+                               cfg.activation, dt)
 
-    def _class_input(self, cls_vec, demo):
-        h = self.layer_norms_after_concat(cls_vec)
-        if self.cfg.vslt_type != "QIE":
-            h = torch.cat([h, demo.to(h.dtype)], dim=-1)
-        return h
+    def cls_vector(self, outputs: List[torch.Tensor],
+                   missing_num: torch.Tensor) -> torch.Tensor:
+        """The head's input: the vslt stream's cls token [B, D]."""
+        return outputs[0][:, 0, :]
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 missing_num: torch.Tensor,
@@ -234,7 +272,8 @@ class TRI_MBT_VSLTCLS(MBTBackbone):
         """``seeds``: the step's dropout seeds, needed in training mode."""
         cfg = self.cfg
         outputs, demo = self.backbone(batch, missing_num, seeds)
-        x = self._class_input(outputs[0][:, 0, :], demo)
+        x = class_input(self.layer_norms_after_concat,
+                        self.cls_vector(outputs, missing_num), demo, cfg)
         rmse = None
         if "rmse" in cfg.auxiliary_loss_type:
             lin = self.rmse_layer
@@ -242,3 +281,113 @@ class TRI_MBT_VSLTCLS(MBTBackbone):
                             lin.bias.to(x.dtype))[..., 0]
         logits = self.fc_list(x)
         return (logits[..., 0] if cfg.output_dim == 1 else logits), rmse, None
+
+
+class BI_MBT_V1(TRI_MBT_VSLTCLS):
+    """``bi_vslttxt_mbt_v1`` / ``bi_vsltimg_mbt_v1`` (JAX models.py:350-387;
+    bi_vslttxt_mbt_v1.py:167-183): the missing-selected mean of the two
+    cls VECTORS (both streams' mean, or the vslt one alone when the other
+    modality is missing) -> LayerNorm -> (+demo) -> the BatchNorm head. The
+    reference's ``all_cls_stack[missing, idx_order]`` select is a one-hot
+    of ``missing_num`` times a constant (2, 2) mix. Wiring: one image per
+    sample, no residual bottlenecks, the image stream with a positional
+    encoding; the trunk always frozen."""
+
+    def __init__(self, cfg: Config):
+        if cfg.n_modality != 2:
+            raise ValueError(f"--model {cfg.model} fuses two streams, not "
+                             f"--input-types {cfg.input_types}")
+        super().__init__(cfg, img_frozen=True, allow_multiimages=False,
+                         allow_resbottle=False, img_use_pe=True)
+        self.register_buffer("cls_mix", torch.tensor([[0.5, 0.5],
+                                                      [1.0, 0.0]]),
+                             persistent=False)
+
+    def cls_vector(self, outputs, missing_num):
+        cls0, cls1 = outputs[0][:, 0, :], outputs[1][:, 0, :]
+        onehot = F.one_hot(missing_num.long(), 2).float()
+        mix = (onehot @ self.cls_mix).to(cls0.dtype)             # [B, 2]
+        return mix[:, :1] * cls0 + mix[:, 1:] * cls1
+
+
+class TRI_MBT_V1(MBTBackbone):
+    """``tri_mbt_v1`` (JAX models.py:291-347, variant 1; tri_mbt_v1.py:
+    269-280): each stream's cls token, stacked [3, B, D], through one
+    LayerNorm (+demo) and the LayerNorm head ``ClsHeadLN`` with one output,
+    and the per-modality logits mixed by a one-hot of ``missing_num``
+    times the constant (4, 3) missing-aware weights. No rmse output (the
+    reference returns None). The trunk is always frozen. Variant 2
+    (``tri_mbt_v2``) trains the image trunk and variant 3
+    (``tri_mbt_v3``) runs the patch stem: not ported."""
+
+    def __init__(self, cfg: Config, variant: int = 1):
+        if variant == 2:
+            raise NotImplementedError(
+                "--model tri_mbt_v2 trains the Swin trunk: ROADMAP Queue 1 "
+                "item 11")
+        if variant == 3:
+            raise NotImplementedError(
+                "--model tri_mbt_v3 runs the patch-embed image stem: ROADMAP "
+                "Queue 1 item 7")
+        if cfg.input_types != "vslt_img_txt":
+            raise ValueError(f"--model {cfg.model} fuses vslt_img_txt, not "
+                             f"--input-types {cfg.input_types}")
+        super().__init__(cfg, img_frozen=True)
+        D = cfg.transformer_dim
+        dt = model_dtype(cfg)
+        self.layer_norms_after_concat = LayerNorm(D, dt)
+        # the reference forces one output (tri_mbt_v1.py:26)
+        self.fc_list = ClsHeadLN(head_width(cfg), D, 1, cfg.activation, dt)
+        self.register_buffer(
+            "logit_mix", torch.from_numpy(missing_candidate_weights(3)),
+            persistent=False)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                missing_num: torch.Tensor,
+                seeds: Optional[DropoutSeeds] = None) -> ModelOutput:
+        outputs, demo = self.backbone(batch, missing_num, seeds)
+        stack = torch.stack([o[:, 0, :] for o in outputs])      # [M, B, D]
+        stack = class_input(self.layer_norms_after_concat, stack, demo,
+                            self.cfg)
+        logits = self.fc_list(stack)                            # [M, B, 1]
+        onehot = F.one_hot(missing_num.long(), 4).float()
+        mix = (onehot @ self.logit_mix).to(logits.dtype)        # [B, M]
+        return torch.einsum("bm,mbo->bo", mix, logits)[..., 0], None, None
+
+
+class UNIMODAL_TRANSFORMER(UMSE):
+    """``unimodal_transformer`` (JAX models.py:530-561; reference
+    unimodal_transformer.py:67-124): the vslt stems, one
+    ``TransformerEncoder`` with a cls token (the positional encoding for a
+    carryforward grid only), ``layer_norm_final`` on the cls token, the
+    demographics (but under QIE, whose tokens carry them) and the
+    BatchNorm head."""
+
+    def __init__(self, cfg: Config):
+        D = cfg.transformer_dim
+        dt = model_dtype(cfg)
+        super().__init__(D, cfg.vslt_type, cfg.berttype, dt, cfg.vslt_len,
+                         txt=False)
+        self.cfg = cfg
+        self.transformer_encoder = TransformerEncoder(
+            n_layers=cfg.transformer_num_layers,
+            n_head=cfg.transformer_num_head, d_model=D, d_ff=4 * D,
+            dropout=cfg.dropout, pe_maxlen=2000,
+            use_pe=cfg.vslt_type == "carryforward", dtype=dt,
+            remat=cfg.remat == 1)
+        self.layer_norm_final = LayerNorm(D, dt)
+        self.fc_list = ClsHead(head_width(cfg), D, cfg.output_dim,
+                               cfg.activation, dt)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                missing_num: torch.Tensor,
+                seeds: Optional[DropoutSeeds] = None) -> ModelOutput:
+        """``missing_num`` is unused (one modality)."""
+        cfg = self.cfg
+        tokens, demo = self.embed_vslt(
+            batch["vslt"], batch["static"][:, 1], batch["static"][:, 0])
+        h = self.transformer_encoder(tokens, batch["input_length"].long() + 1,
+                                     seeds)
+        logits = self.fc_list(class_input(self.layer_norm_final, h[:, 0, :],
+                                          demo, cfg))
+        return (logits[..., 0] if cfg.output_dim == 1 else logits), None, None

@@ -32,11 +32,12 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..constants import MASK_FILL_VALUE
@@ -339,22 +340,57 @@ def ffn_row_blocks(x, key_mask, block: int = FFN_BLOCK_R
     return flags | torch.logical_not(flags.any(dim=-1, keepdim=True))
 
 
+class _DrawnSeeds:
+    """Seeds drawn in advance, handed out in order: a checkpointed layer's
+    forward and its recompute each get a fresh one over the same list, so
+    both draw the same dropout masks."""
+
+    def __init__(self, seeds: List[int]):
+        self.seeds = seeds
+        self.calls = 0
+
+    def next(self) -> int:
+        seed = self.seeds[self.calls]
+        self.calls += 1
+        return seed
+
+
 class TransformerEncoderLayer(nn.Module):
     """Pre-norm block: StdLN -> MHA -> +res; StdLN -> FFN -> +res
     (encoder.py:8-34). Both halves go through the fused ops; dropout only
-    in the FFN half, as in the JAX package."""
+    in the FFN half, as in the JAX package.
+
+    ``remat`` (``--remat 1``): a training forward that records gradients
+    runs under ``torch.utils.checkpoint`` (non-reentrant), so the
+    backward recomputes the layer instead of keeping its activations
+    (JAX modules.py:437-459, ``nn.remat``). The layer's dropout seed (one,
+    the FFN's) is drawn before the checkpointed call, at the place the
+    layer draws it without remat, and given to both runs: the masks, and
+    so the gradients, are those of ``remat`` off. The parameters and the
+    state_dict do not change."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
-                 dropout_p: float = 0.1, dtype: torch.dtype = torch.float32):
+                 dropout_p: float = 0.1, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.attention_prenorm = StdLayerNorm(d_model, dtype=dtype)
         self.self_attention = MultiHeadAttention(d_model, num_heads, dtype)
         self.feed_forward_prenorm = StdLayerNorm(d_model, dtype=dtype)
         self.feed_forward = FeedForward(d_model, d_ff, dropout_p, dtype)
+        self.remat = remat
 
     def forward(self, x, key_mask: Optional[torch.Tensor] = None,
                 seeds: Optional[DropoutSeeds] = None):
         """``seeds``: the step's dropout seeds (training mode)."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return self._forward(x, key_mask, seeds)
+        drawn = ([draw_seed(seeds)] if self.feed_forward.dropout_p > 0.0
+                 else [])
+        return torch.utils.checkpoint.checkpoint(
+            lambda h: self._forward(h, key_mask, _DrawnSeeds(drawn)), x,
+            use_reentrant=False)
+
+    def _forward(self, x, key_mask, seeds):
         x = self.self_attention(x, x, x, key_mask,
                                 prenorm=self.attention_prenorm.scales(),
                                 residual=x)

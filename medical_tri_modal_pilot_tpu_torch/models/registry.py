@@ -17,10 +17,19 @@ from .swin import WindowAttention
 
 _REGISTRY: Dict[str, Callable] = {
     "tri_mbt_vsltcls": M.TRI_MBT_VSLTCLS,
+    # the bimodal counterparts of the flagship, as the JAX registry maps
+    # them (its registry.py:40-41)
+    "biimg_mbt_vsltcls": M.TRI_MBT_VSLTCLS,
+    "bitxt_mbt_vsltcls": M.TRI_MBT_VSLTCLS,
+    "tri_mbt_v1": M.TRI_MBT_V1,
+    "tri_mbt_v2": lambda cfg: M.TRI_MBT_V1(cfg, variant=2),
+    "tri_mbt_v3": lambda cfg: M.TRI_MBT_V1(cfg, variant=3),
+    "bi_vslttxt_mbt_v1": M.BI_MBT_V1,
+    "bi_vsltimg_mbt_v1": M.BI_MBT_V1,
+    "unimodal_transformer": M.UNIMODAL_TRANSFORMER,
     "cross_transformer_txt_vslt": LG.CROSS_TRANSFORMER,
     "bi_cross_transformer_txt_vslt": LG.CROSS_TRANSFORMER,
 }
-
 
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
@@ -29,7 +38,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     other dense and convolution weights (the Swin trunk's included), zero
     biases, truncated normals of std 0.02 for the Swin relative-position
     bias tables (flax's ``truncated_normal(0.02)``), unit normals for the
-    embedding table, cls tokens and bottlenecks, identity norms."""
+    embedding tables, cls tokens and bottlenecks, identity norms (the
+    LayerNorm of ``ClsHeadLN`` included)."""
     def fill(p, values):
         p.copy_(values.to(p.dtype))
 

@@ -68,7 +68,16 @@ def test_eval_matches_jax_apply(name):
     """Probabilities and loss of one eval step against the JAX model's
     apply on the same weights (1e-5: fp32 on both sides, the same math
     summed in another order), with non-trivial BatchNorm statistics."""
-    argv = _argv(name)
+    _check_eval(_argv(name))
+
+
+def test_cross_transformer_bert_eval_matches_jax():
+    """--berttype bert: the notes as token ids through the 30000 x d table
+    (JAX legacy.py:138-141), the eval step as above."""
+    _check_eval(_argv(NAMES[0], "--berttype", "bert"))
+
+
+def _check_eval(argv):
     cfg = parse_config(argv)
     batch = _batch(cfg)
     try:
@@ -186,17 +195,17 @@ def test_carryforward_batches():
 
 
 def test_unported_inputs_raise():
-    """Images (the legacy image backbones, ROADMAP Queue 1 item 7) and note
-    token ids (Queue 1 item 3) raise, naming their item."""
+    """Images (the legacy image backbones, ROADMAP Queue 1 item 7) raise,
+    naming their item; note token ids reach a BioBERT projection only by
+    mistake, and raise naming --berttype bert (whose token table is
+    ported: test_cross_transformer_bert_eval_matches_jax)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         get_model(parse_config(_argv(NAMES[0], "--input-types",
                                      "vslt_img_txt")))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        get_model(parse_config(_argv(NAMES[0], "--berttype", "bert")))
     cfg = parse_config(_argv())
     batch = _batch(cfg)
     batch["txt"] = np.zeros((B, 128), np.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(ValueError, match="--berttype bert"):
         port_trainer.Trainer(cfg, get_model(cfg), "cpu").eval_step(batch)
     with pytest.raises(NotImplementedError, match="carryforward"):
         get_model(parse_config(_argv(NAMES[0], "--vslt-type", "TIE")))
