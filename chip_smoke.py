@@ -157,16 +157,39 @@ Phases, each raising on failure (nothing is caught):
      tri_mbt_v1 (config 4's flags): eval against the plain path in bf16
      and fp32, one train step on both paths (fp32 and bf16, dropout 0.1),
      launch counts. Prints the phase's seconds.
+  16. the multitoken MBT family (config 4's flags, full width, bf16, the
+     trunk over all 64 rows, unpacked). First the attention block under
+     the streams' 3-D block masks (models/mbt.py::block_key_mask, seeded
+     lengths, samples without a note: rows with every key masked) at
+     [64, 1016 / 63 / 142, 256] (vslt / img / txt) and the VSLTMAIN img
+     and txt streams' [64, 61 / 140, 256], fp32 and bf16: the lean form,
+     the training form and the backward against the plain version
+     (every row, every gradient by Frobenius ratio), event and plain ms,
+     the bound, the profiler's device ms per form and the launched
+     kernels (the dtype's route's, in their block-mask instantiations).
+     Then tri_mbt_vmulti, tri_mbt_vmulti2 and tri_mbt_vmultivslt: eval as
+     phase 4 (the selected probabilities in bf16 and fp32, and every
+     head's [4, B] probabilities), one train step on both paths in fp32
+     and bf16 at dropout 0 and 0.1, launch counts (attn_block_3d 18 +
+     bwd 18; 16 backward for tri_mbt_vmultivslt); tri_mbt_vmulti also
+     timed in turns, profiled, its peak memory, 20 steps on one batch and
+     a fold through the train driver (1 epoch of 2 train, 1 val and 1
+     test batch) with the test driver's walk to its final test metrics.
+     Prints its train ms/step beside config 4's and the phase's seconds.
 The kernel phases (3, 5b, 6, 9, 12) run first, then 4-5, 7-8, 10-11, 13,
-14 and 15.
+14, 15 and 16.
 Then one JSON line per the kernels (each with the path that launches it
 and its launches over that path's steps, and under ``other_paths`` its
-launches on phase 15's train paths) and, last, {"ok": true,
+launches on phases 15 and 16's other train paths) and, last, {"ok": true,
 "device": ...}.
 
     python3 chip_smoke.py baseline
 
-runs the build and phase 15 alone.
+runs the build and phase 15 alone;
+
+    python3 chip_smoke.py multitoken
+
+the build and phase 16.
 
     python3 chip_smoke.py ab ROOT
 
@@ -175,6 +198,14 @@ the attention block's kernels, the dropout masks and the umse forward and
 backward as a config-4 step calls them, and a config-4 train step's
 device busy time and peak memory, for the package under ROOT (``ab``), to
 compare two trees (git archive copies) in turns on one card.
+
+    python3 chip_smoke.py stepgate [ROOT]
+
+reads phase 16's bf16 step gate of tri_mbt_vmultivslt at dropout 0 on
+STEPGATE_SEEDS batches (phase 16 takes the first): per batch, the kernel
+path's and the plain path's gradient errors against the fp32 plain step
+(median, largest and the two worst tensors), and the largest's share of
+the gate's bound, for the package under ROOT (this tree by default).
 
     python3 chip_smoke.py saver
 
@@ -374,6 +405,14 @@ KERNEL_SOURCES = {
     "attn_block_bwd": (
         "cuda", "medical_tri_modal_pilot_tpu_torch/csrc/attn_block_bwd.cu",
         "medical_tri_modal_pilot_tpu/kernels/attn_block.py:577"),
+    # the 3-D block-mask forms of the same two pallas_calls (their
+    # branches at :219-227 and :558-566), phase 16
+    "attn_block_3d": (
+        "cuda", "medical_tri_modal_pilot_tpu_torch/csrc/attn_block.cu",
+        "medical_tri_modal_pilot_tpu/kernels/attn_block.py:245"),
+    "attn_block_3d_bwd": (
+        "cuda", "medical_tri_modal_pilot_tpu_torch/csrc/attn_block_bwd.cu",
+        "medical_tri_modal_pilot_tpu/kernels/attn_block.py:577"),
     "ffn_bwd": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/ffn.cu",
                 "medical_tri_modal_pilot_tpu/kernels/ffn.py:298"),
     "dropout_masks": ("cuda",
@@ -401,7 +440,8 @@ KERNEL_SOURCES = {
 KERNEL_PATHS = {name: "cross" if name.startswith("attention") else "config4"
                 for name in KERNEL_SOURCES}
 KERNEL_PATHS.update(rowmm_ln="tp", rowmm_ln_bwd="tp", rowmm=None,
-                    rowmm_bwd=None)
+                    rowmm_bwd=None, attn_block_3d="vmulti",
+                    attn_block_3d_bwd="vmulti")
 
 # the bf16 kernels on the tensor cores: each must compile to HMMA
 TENSOR_CORE_KERNELS = ("swin_fused_kernel", "window_attn_tc_kernel",
@@ -515,30 +555,52 @@ def _dev_us(e) -> float:
     return v if v is not None else getattr(e, "self_cuda_time_total", 0)
 
 
-def _device_ms(fn, reps: int = 10, sessions: int = 6):
+def _is_kernel(name: str, kernel: str) -> bool:
+    """Whether the profiler key ``name`` is the port's kernel ``kernel``
+    (any instantiation)."""
+    return f"mtp::{kernel}<" in name or f"mtp::{kernel}(" in name
+
+
+def _device_ms(fn, reps: int = 10, sessions: int = 10, expect=()):
     """torch.profiler over ``reps`` calls of ``fn`` after a warm-up: the
     device time of what they launched (kernels, copies) per call, and the
     names of the kernels. Beside the CUDA-event time around a call, it
-    shows how much of that is the host's. A session in which the profiler
-    recorded no device event at all (it happens now and then on the card's
-    machine, the calls having run) is taken again, up to ``sessions``
-    times."""
+    shows how much of that is the host's. On the card's machine the
+    profiler can miss device records, the calls having run (the first
+    launch after it starts, or now and then more): so each session runs
+    the calls twice, a warm-up cycle whose records are dropped and the
+    cycle it reads, and it counts only if every device event appears a
+    whole number of times per call and each kernel named in ``expect``
+    appears; else it is taken again, up to ``sessions`` times, and then
+    this raises."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # device records only; the schedule's step annotation spans them
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
-        if events:
-            break
-    return (sum(_dev_us(e) for e in events) / reps / 1e3,
-            sorted(e.key for e in events))
+                  if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
+                  and not e.key.startswith("ProfilerStep")]
+        counts = {e.key: e.count for e in events}
+        missing = [k for k in expect
+                   if not any(_is_kernel(n, k) for n in counts)]
+        if events and not missing and all(c % reps == 0
+                                          for c in counts.values()):
+            return (sum(_dev_us(e) for e in events) / reps / 1e3,
+                    sorted(counts))
+        print(f"profiler session of {reps} calls dropped records: counts "
+              f"{counts}, missing {missing}; taken again")
+    raise AssertionError(f"{sessions} profiler sessions dropped records")
 
 
 def _bound(nbytes: float, flops: float, dt) -> dict:
@@ -1259,10 +1321,11 @@ def _attention_work(q, k, mask, is_self, backward=False):
 # the kernels each route of the masked attention launches (forward and
 # backward; kernels/attention.py::attention_route picks the route)
 ATTN_ROUTE_KERNELS = {
-    "tc": ("attention_fwd_tc_kernel", "attention_delta_kernel",
-           "attention_dkv_tc_kernel", "attention_dq_tc_kernel"),
-    "fma": ("attention_fwd_kernel", "attention_dkv_kernel",
-            "attention_dq_kernel")}
+    "tc": (("attention_fwd_tc_kernel",),
+           ("attention_delta_kernel", "attention_dkv_tc_kernel",
+            "attention_dq_tc_kernel")),
+    "fma": (("attention_fwd_kernel",),
+            ("attention_dkv_kernel", "attention_dq_kernel"))}
 
 
 def _device_forms(tag, dt, fwd, inputs, cot, library, routes, route
@@ -1271,15 +1334,17 @@ def _device_forms(tag, dt, fwd, inputs, cot, library, routes, route
     and backward (and of the library's forward and backward), to set
     beside the CUDA-event times around the calls: the rest is the host's.
     Raises unless the calls launched every kernel of ``route`` in
-    ``routes`` (route -> kernel names) and none of another route's."""
+    ``routes`` (route -> (forward, backward) kernel names), each form its
+    own, and none of another route's."""
     leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    fwd_kernels, bwd_kernels = routes[route]
     with torch.inference_mode():
-        lean, names = _device_ms(lambda: fwd(*inputs))
-    train, more = _device_ms(lambda: fwd(*leaves))
+        lean, names = _device_ms(lambda: fwd(*inputs), expect=fwd_kernels)
+    train, more = _device_ms(lambda: fwd(*leaves), expect=fwd_kernels)
     names += more
     out = fwd(*leaves)
     bwd, more = _device_ms(lambda: torch.autograd.grad(
-        out, leaves, cot, retain_graph=True))
+        out, leaves, cot, retain_graph=True), expect=bwd_kernels)
     launched = _launched_route(names + more, routes, route)
     lib = ((None, None) if library is None else
            (_device_ms(library[0])[0], _device_ms(library[1])[0]))
@@ -1289,7 +1354,8 @@ def _device_forms(tag, dt, fwd, inputs, cot, library, routes, route
     print(f"device {tag} {prec}: lean {lean:.4f} ms, training {train:.4f}, "
           f"backward {bwd:.4f}{lib_txt} (profiler); route {route}: "
           f"{' '.join(sorted(launched))}")
-    return {"lean": lean, "train": train, "bwd": bwd, "library": lib}
+    return {"lean": lean, "train": train, "bwd": bwd, "library": lib,
+            "names": names + more}
 
 
 def compare_attention_kernels() -> dict:
@@ -1371,19 +1437,21 @@ def compare_attention_kernels() -> dict:
 ROWMM_SHAPES = (("rowmm_ln", 384, True), ("rowmm_ln_768", 768, True),
                 ("rowmm", 768, False))
 # the kernels of each rowmm route (kernels/rowmm.py rowmm_route)
-ROWMM_ROUTE_KERNELS = {"tc": ("rowmm_tc_kernel", "rowmm_bwd_tc_kernel"),
-                       "fma": ("rowmm_kernel", "rowmm_bwd_kernel")}
+ROWMM_ROUTE_KERNELS = {
+    "tc": (("rowmm_tc_kernel",), ("rowmm_bwd_tc_kernel",)),
+    "fma": (("rowmm_kernel",), ("rowmm_bwd_kernel",))}
 
 
 def _launched_route(names, table, route) -> set:
-    """The kernels of ``table`` (route -> kernel names) that ``names``
-    (profiler keys) show launched; raises unless they are ``route``'s."""
-    launched = {k for ks in table.values() for k in ks
-                if any(f"mtp::{k}<" in n or f"mtp::{k}(" in n
-                       for n in names)}
-    if launched != set(table[route]):
+    """The kernels of ``table`` (route -> (forward, backward) kernel names)
+    that ``names`` (profiler keys) show launched; raises unless they are
+    ``route``'s."""
+    launched = {k for forms in table.values() for ks in forms for k in ks
+                if any(_is_kernel(n, k) for n in names)}
+    want = set(table[route][0] + table[route][1])
+    if launched != want:
         raise AssertionError(f"launched {sorted(launched)}, not the {route} "
-                             f"route's kernels {table[route]}")
+                             f"route's kernels {sorted(want)}")
     return launched
 
 
@@ -1823,11 +1891,13 @@ def _timed_train_ms(trainer, batches, reference: bool) -> float:
 TRAIN_STEP_MS = {}
 
 
-def run_train(name: str, argv, power: str, timed: bool) -> dict:
+def run_train(name: str, argv, power: str, timed: bool,
+              all_parity: bool = False) -> dict:
     """Drive one BASELINE configuration's train step at full width: the
     launch counts of its run (reset just before, read just after), peak
-    memory, kernel vs plain path on one step, and (``timed``) 20 steps on
-    one batch, ms/step on both paths in turns and a profiler split."""
+    memory, kernel vs plain path on one step (at dropout 0.1, and 0 too
+    when ``timed`` or ``all_parity``), and (``timed``) 20 steps on one
+    batch, ms/step on both paths in turns and a profiler split."""
     from medical_tri_modal_pilot_tpu_torch import ops
     from medical_tri_modal_pilot_tpu_torch.config import parse_config
     from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
@@ -1926,7 +1996,7 @@ def run_train(name: str, argv, power: str, timed: bool) -> dict:
     # one step from the same weights on both paths; the plain path draws
     # the same Philox masks
     parity = ([("fp32", 0.0), ("bf16", 0.0), ("fp32", 0.1), ("bf16", 0.1)]
-              if timed else [("fp32", 0.1), ("bf16", 0.1)])
+              if timed or all_parity else [("fp32", 0.1), ("bf16", 0.1)])
     _check_step_parity(name, cfg, state, batches[0], parity)
     return counts
 
@@ -2112,9 +2182,9 @@ def _profile_tp_step(trainer, batch, rank: int) -> dict:
             blocked["calls"], "copy_ms": copies,
             "top": sorted(((t / 1e3, n, k) for t, n, k in items),
                           reverse=True)[:12],
-            "rowmm": _by_kernel(items, [k for ks in
+            "rowmm": _by_kernel(items, [k for forms in
                                         ROWMM_ROUTE_KERNELS.values()
-                                        for k in ks])}
+                                        for ks in forms for k in ks])}
 
 
 def run_tp(power: str) -> dict:
@@ -2558,10 +2628,10 @@ def _check_remat(cfg, state, batch, power: str) -> None:
     gc_collect()
 
 
-def _base_driver_run(power: str) -> None:
-    """Config 1 through the train driver's fold (1 epoch of 4 train, 2
-    val, 2 test batches, bf16, dropout 0.1) and the test driver's walk to
-    the same test metrics."""
+def _driver_run(name: str, argv, batches: dict, power: str) -> None:
+    """One fold of ``argv`` through the train driver (1 epoch of
+    ``batches`` train, val and test batches, bf16, dropout 0.1) with its
+    launch counts, then the test driver's walk to the same test metrics."""
     from medical_tri_modal_pilot_tpu_torch import ops
     from medical_tri_modal_pilot_tpu_torch.config import parse_config
     from medical_tri_modal_pilot_tpu_torch.data.synthetic import (
@@ -2572,15 +2642,15 @@ def _base_driver_run(power: str) -> None:
     from medical_tri_modal_pilot_tpu_torch.train.logger import \
         make_setting_file
 
-    shutil.rmtree(BASE_DRIVER_DIR, ignore_errors=True)
+    root = os.path.join(BASE_DRIVER_DIR, name)
+    shutil.rmtree(root, ignore_errors=True)
     # --img-pack-frac: the driver resolves -1 from the real loader's
-    # sampler, which synthetic loaders lack; config 1 has no images
-    cfg = parse_config(CONFIG1 + ["--epochs", "1", "--log-iter", "1",
-                                  "--img-pack-frac", "0.5",
-                                  "--dir-result", BASE_DRIVER_DIR,
-                                  "--project-name", "config1"])
+    # sampler, which synthetic loaders lack
+    cfg = parse_config(argv + ["--epochs", "1", "--log-iter", "1",
+                               "--img-pack-frac", "0.5",
+                               "--dir-result", root, "--project-name", name])
     loaders, seed = {}, 300
-    for split, n in BASE_DRIVER_BATCHES.items():
+    for split, n in batches.items():
         loaders[split] = BatchList([synthetic_batch(cfg, BATCH, seed=seed + i)
                                     for i in range(n)])
         seed += n
@@ -2593,28 +2663,27 @@ def _base_driver_run(power: str) -> None:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = dict(ops.launches)
-    n_train = BASE_DRIVER_BATCHES["train"]
-    n_eval = BASE_DRIVER_BATCHES["val"] + BASE_DRIVER_BATCHES["test"]
-    print(f"config1 drivers: launches over {n_train} train and {n_eval} eval "
+    n_train = batches["train"]
+    n_eval = batches["val"] + batches["test"]
+    print(f"{name} drivers: launches over {n_train} train and {n_eval} eval "
           f"steps: {counts}; val {val}; test {test}; run {run_s:.2f} s "
           f"({power})")
     for kernel in ops.KERNELS:
-        want = (n_train * TRAIN_LAUNCHES_PER_STEP["config1"].get(kernel, 0)
-                + n_eval * LAUNCHES_PER_STEP["config1"].get(kernel, 0))
+        want = (n_train * TRAIN_LAUNCHES_PER_STEP[name].get(kernel, 0)
+                + n_eval * LAUNCHES_PER_STEP[name].get(kernel, 0))
         if counts[kernel] != want:
-            raise AssertionError(f"config1 drivers {kernel}: "
+            raise AssertionError(f"{name} drivers {kernel}: "
                                  f"{counts[kernel]} launches, expected "
                                  f"{want}")
     if test is None or not np.isfinite(test["apr"]):
-        raise AssertionError(f"config1 drivers: test metrics {test}")
-    best = ckpt.ckpt_path(BASE_DRIVER_DIR, cfg.project_name, "best", 0,
-                          cfg.seed)
+        raise AssertionError(f"{name} drivers: test metrics {test}")
+    best = ckpt.ckpt_path(root, cfg.project_name, "best", 0, cfg.seed)
     walked = test_drv.run_checkpoints(cfg, test_drv.checkpoints_of(cfg),
                                       loaders["test"])
     got = dict(walked).get(best)
-    print(f"config1 test driver: {[(os.path.basename(p), m['auc'], m['apr']) for p, m in walked]}")
+    print(f"{name} test driver: {[(os.path.basename(p), m['auc'], m['apr']) for p, m in walked]}")
     if got != test:
-        raise AssertionError(f"config1: test driver {got} vs the train "
+        raise AssertionError(f"{name}: test driver {got} vs the train "
                              f"driver's final test {test}")
     gc_collect()
 
@@ -2644,13 +2713,294 @@ def run_baseline(power: str) -> dict:
         name = "config1_qie" if vslt == "QIE" else "config1_cf"
         run_config(name, [a if a != "TIE" else vslt for a in CONFIG1],
                    power, timed=False)
-    _base_driver_run(power)
+    _driver_run("config1", CONFIG1, BASE_DRIVER_BATCHES, power)
     for name, argv in (("base2", BASE2), ("base3", BASE3),
                        ("tri_v1", TRI_V1)):
         run_config(name, argv, power, timed=False)
         counts[name] = run_train(name, argv, power, timed=False)
     print(f"baseline phase ({power}): {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+# phase 16, the multitoken MBT family on config 4's flags (one CXR per
+# sample, the trunk over all 64 rows: the family runs it unpacked, as the
+# JAX package does): tri_mbt_vmulti (4/2/2 cls tokens, four bottleneck
+# groups), tri_mbt_vmulti2 (its head over the VSLTMAIN fusion) and
+# tri_mbt_vmultivslt (the vslt stream's four cls tokens). Every fusion
+# layer runs the attention block under its stream's 3-D block mask
+# (attn_block_3d) and the FFN over every row. Per eval step: umse 1,
+# attn_block_3d 18, ffn 18, swin 12 / 12; per train step also umse_bwd 1,
+# the input dropout's masks 3 and a backward per layer whose output the
+# loss reaches: every one (18) where the head reads each stream's tokens,
+# 16 for tri_mbt_vmultivslt, whose last img and txt layers feed only the
+# group mix that nothing reads after the last layer
+MULTI_ARGV = {name: [a if a != "tri_mbt_vsltcls" else model for a in CONFIG4]
+              for name, model in (("vmulti", "tri_mbt_vmulti"),
+                                  ("vmulti2", "tri_mbt_vmulti2"),
+                                  ("vmultivslt", "tri_mbt_vmultivslt"))}
+MULTI_EVAL = {"umse": 1, "attn_block_3d": 18, "ffn": 18,
+              "swin_attention": 12, "swin_mlp": 12}
+for _name in MULTI_ARGV:
+    _bwd = 16 if _name == "vmultivslt" else 18
+    LAUNCHES_PER_STEP[_name] = MULTI_EVAL
+    TRAIN_LAUNCHES_PER_STEP[_name] = dict(
+        MULTI_EVAL, umse_bwd=1, attn_block_3d_bwd=_bwd, ffn_bwd=_bwd,
+        dropout_masks=3)
+    BATCHES[_name] = [0.5, 0.25, 0.75] if _name == "vmulti" else [0.5, 0.75]
+    TRAIN_BATCHES[_name] = ([0.5, 0.25, 0.75] if _name == "vmulti"
+                            else [0.5])
+MULTI_DRIVER_BATCHES = {"train": 2, "val": 1, "test": 1}
+MULTI_PATHS = {"vmulti": "tri_mbt_vmulti train",
+               "vmulti2": "tri_mbt_vmulti2 train",
+               "vmultivslt": "tri_mbt_vmultivslt train"}
+# the kernel phase's cases: (tag, stream, content rows, VSLTMAIN) at full
+# width, [64, cls + rows + 12, 256]: the vslt stream (4 cls + 1000 TIE
+# rows), the img stream (2 cls + 49) and the txt stream (2 cls + 128 note
+# rows), and the VSLTMAIN img and txt streams (no cls)
+BLOCK_SHAPES = (("vslt", 0, TIE_LEN, False), ("img", 1, 49, False),
+                ("txt", 2, 128, False), ("img_main", 1, 49, True),
+                ("txt_main", 2, 128, True))
+# the kernels of each attn_block route (kernels/attn_block.py route)
+BLOCK_ROUTE_KERNELS = {
+    "tc": (("block_qkv_tc_kernel", "block_attn_tc_kernel"),
+           ("block_delta_kernel", "block_dkv_tc_kernel", "block_dq_tc_kernel",
+            "block_ln_bwd_tc_kernel")),
+    "fma": (("proj_kernel", "attn_kernel"),
+            ("dkv_kernel", "dq_kernel", "ln_bwd_kernel"))}
+
+
+def _stream_block_mask(g, dev, stream: int, rows: int, vslt_main: bool):
+    """The fusion's block mask of one stream (models/mbt.py::
+    block_key_mask) over seeded lengths as the model computes them: TIE
+    lengths in [1, 1000] (cls included), the image stream at its full
+    length, note lengths in [1, 126] plus the 2 BOS/EOS rows with samples
+    3 and 5 without a note (under the 16 x 16 pattern their rows 14-15
+    then have every key masked); ``vlen == 3 -> 0`` on the txt stream."""
+    from medical_tri_modal_pilot_tpu_torch.models.mbt import block_key_mask
+    cls = 4 if stream == 0 else (0 if vslt_main else 2)
+    if stream == 0:
+        vlen = torch.randint(1, rows + 1, (BATCH,), generator=g)
+    elif stream == 1:
+        vlen = torch.full((BATCH,), rows)
+    else:
+        vlen = torch.randint(1, rows - 1, (BATCH,), generator=g)
+        vlen[3] = vlen[5] = 0
+        vlen = vlen + 2
+    vlen = vlen + cls
+    if stream == 2:
+        vlen = torch.where(vlen == 3, 0, vlen)
+    return block_key_mask(vlen.to(dev), cls + rows, 4, stream, vslt_main)
+
+
+def compare_block_mask_kernels() -> dict:
+    """The attention block under the multitoken streams' 3-D block masks
+    (BLOCK_SHAPES) against its plain version, fp32 (the FMA route) and
+    bf16 (the tensor cores): the lean form (every row), the training form
+    and the backward (every gradient by Frobenius ratio in float64), the
+    rows whose every key is masked included; CUDA-event ms beside the
+    plain version's and the bound, then the profiler's device ms per form
+    and the launched kernels (the dtype's route's, in their block-mask
+    instantiations). Returns the bf16 results at the vslt shape."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import \
+        attn_block_route
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(16)
+    bf16 = torch.bfloat16
+    D, H = 256, 4
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).to(dev)
+
+    results = {}
+    for tag, stream, rows, vslt_main in BLOCK_SHAPES:
+        mask = _stream_block_mask(g, dev, stream, rows, vslt_main)
+        Lb = mask.shape[1]
+        dead = int(mask.all(dim=-1).sum())
+        print(f"attn_block_3d {tag}: mask [{BATCH},{Lb},{Lb}], "
+              f"{float(mask.float().mean()):.3f} of the pairs masked, "
+              f"{dead} rows with every key masked")
+        if tag == "txt" and not dead:
+            raise AssertionError("the txt stream's mask has no fully "
+                                 "masked row")
+        # the keys each sample needs (the bound counts these; the kernel,
+        # as the TPU kernel, runs all Lb): up to the last key any row
+        # leaves unmasked, or all Lb where some row has every key masked
+        # (it attends uniformly over them)
+        open_keys = (~mask.bool()).any(dim=1)
+        last = torch.where(open_keys, torch.arange(1, Lb + 1, device=dev),
+                           0).amax(dim=1)
+        kext = torch.where(mask.bool().all(dim=-1).any(dim=-1), Lb,
+                           last).double()
+        print(f"attn_block_3d {tag}: keys the bound counts per sample, "
+              f"mean {float(kext.mean()):.1f} of {Lb}")
+        # per sample: the q projection of every row and the k|v projection
+        # of the kext keys; the attention products of every row over them
+        fwd_flops = float((2 * Lb * D * D + 4 * kext * D * D
+                           + 4 * Lb * kext * D).sum())
+        # the backward: the projections' recompute, dx and dW (3x), the
+        # five attention products (S, dP, dV, dK, dQ)
+        bwd_flops = float((3 * (2 * Lb * D * D + 4 * kext * D * D)
+                           + 10 * Lb * kext * D).sum())
+        gamma, beta = rnd(D, std=.1, mean=1.), rnd(D, std=.1)
+        w, b = rnd(D, 3 * D, std=D ** -.5), rnd(3 * D, std=.1)
+        fwd = lambda *a: ops.attn_block(*a, mask, (D // H) ** .5, H)
+        for dt in (torch.float32, bf16):
+            es = 2 if dt == bf16 else 4
+            xa = rnd(BATCH, Lb, D).to(dt)
+            wd, bd = w.to(dt), b.to(dt)
+            stream_bytes = BATCH * Lb * D * es
+            work = (2 * stream_bytes + _nbytes(wd, bd, gamma, beta, mask),
+                    fwd_flops)
+            name = f"attn_block_3d[{BATCH},{Lb},{D}] {tag}"
+            with torch.inference_mode():
+                lean = _compare(name, dt, lambda: fwd(xa, gamma, beta, wd,
+                                                      bd), work)
+            cot = rnd(BATCH, Lb, D).to(dt)
+            work_f = (3 * stream_bytes + 8 * BATCH * H * Lb
+                      + _nbytes(wd, bd, gamma, beta, mask), fwd_flops)
+            work_b = (4 * stream_bytes + 8 * BATCH * H * Lb
+                      + (3 * D * D + 3 * D) * (es + 4) + _nbytes(mask),
+                      bwd_flops)
+            fr, br = _compare_train(name, dt, fwd, (xa, gamma, beta, wd, bd),
+                                    cot, None, work_f, work_b)
+            route = attn_block_route(dt, D, H)
+            dev_ms = _device_forms(name, dt, fwd, (xa, gamma, beta, wd, bd),
+                                   cot, None, BLOCK_ROUTE_KERNELS, route)
+            # the forward's attention kernel in its block-mask form
+            form = "BlockMask" if route == "tc" else ", true>"
+            if not any(form in n for n in dev_ms["names"]
+                       if "attn_kernel" in n or "block_attn_tc" in n):
+                raise AssertionError(f"{name}: no block-mask instantiation "
+                                     f"launched: {dev_ms['names']}")
+            if tag == "vslt" and dt == bf16:
+                results["attn_block_3d"] = dict(
+                    lean, shape=f"[{BATCH},{Lb},{D}]", train_ms=fr["ms"],
+                    train_plain_ms=fr["plain_ms"],
+                    train_bound_ms=fr["bound_ms"],
+                    device_ms=dev_ms["lean"], train_device_ms=dev_ms["train"])
+                results["attn_block_3d_bwd"] = dict(
+                    br, shape=f"[{BATCH},{Lb},{D}]",
+                    device_ms=dev_ms["bwd"])
+        del mask
+        gc_collect()
+    return results
+
+
+def _check_case_probs(name: str, argv) -> None:
+    """Every head's probabilities, the model's [4, B] logits through the
+    sigmoid, on the kernel path against the plain path on one batch, bf16
+    and fp32 (PROB_TOL)."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import (
+        Trainer, compute_missing_num)
+    cfg = parse_config(argv)
+    batch = synthetic_batch(cfg, BATCH, seed=0, present_frac=0.5)
+    for prec in ("bf16", "fp32"):
+        c = cfg.replace(precision=prec)
+        tr = Trainer(c, get_model(c, torch.Generator().manual_seed(0)),
+                     torch.device("cuda"))
+        with torch.inference_mode():
+            b = tr.device_batch(batch)
+            mn = compute_missing_num(c, b["missing"])
+            got = torch.sigmoid(tr.model(b, mn)[0].float())
+            with ops.reference_path():
+                want = torch.sigmoid(tr.model(b, mn)[0].float())
+        err = float((got - want).abs().max())
+        print(f"{name} {prec}: [4, {BATCH}] head probabilities, max |kernel "
+              f"- plain| = {err:.3e} (tol {PROB_TOL[prec]})")
+        if got.shape != (4, BATCH) or not err <= PROB_TOL[prec]:
+            raise AssertionError(f"{name} {prec}: the heads disagree with "
+                                 "the plain path")
+        del tr
+        gc_collect()
+
+
+def run_multitoken(power: str):
+    """Phase 16: the 3-D block-mask kernels (compare_block_mask_kernels),
+    then tri_mbt_vmulti, tri_mbt_vmulti2 and tri_mbt_vmultivslt at full
+    width: eval against the plain path (the selected probabilities, bf16
+    and fp32, and every head's), one train step on both paths in fp32 and
+    bf16 at dropout 0 and 0.1, launch counts; tri_mbt_vmulti also timed
+    in turns (eval and train), profiled, its peak memory, 20 steps on one
+    batch, and a fold through the train and test drivers. Returns (the
+    kernel results, each train path's launches)."""
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    t_phase = time.perf_counter()
+    results = compare_block_mask_kernels()
+    counts = {}
+    for name, argv in MULTI_ARGV.items():
+        if parse_config(argv).mbt_bottlenecks_n != 4:
+            raise AssertionError(f"{name}: --mbt-bottlenecks-n changed")
+        timed = name == "vmulti"
+        run_config(name, argv, power, timed=timed)
+        _check_case_probs(name, argv)
+        counts[name] = run_train(name, argv, power, timed=timed,
+                                 all_parity=True)
+        gc_collect()
+    _driver_run("vmulti", MULTI_ARGV["vmulti"], MULTI_DRIVER_BATCHES, power)
+    if "config4" in TRAIN_STEP_MS:
+        print(f"multitoken train step ({power}): tri_mbt_vmulti "
+              f"{TRAIN_STEP_MS['vmulti']:.2f} ms/step, config 4 (phase 7, "
+              f"this call) {TRAIN_STEP_MS['config4']:.2f} ms/step, "
+              f"{TRAIN_STEP_MS['vmulti'] / TRAIN_STEP_MS['config4']:.2f}x")
+    print(f"multitoken phase ({power}): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return results, counts
+
+
+# the batch seeds of the stepgate mode; run_train's first batch is seed 10
+STEPGATE_SEEDS = (10, 11, 12, 13, 14, 15)
+
+
+def stepgate(root: str, power: str) -> None:
+    """The bf16 step gate of _check_step_parity for tri_mbt_vmultivslt at
+    dropout 0 (phase 16's tightest) on each of STEPGATE_SEEDS batches, from
+    run_train's starting weights, for the package under ``root``: the
+    kernel path's and the plain path's errors against the fp32 plain step,
+    and the kernel path's largest over its bound (STEP_BF16_RATIO times
+    the plain path's largest, plus 1e-2). Prints one line per batch and a
+    JSON line; raises nothing on a gate's excess (it is a reading)."""
+    sys.path.insert(0, os.path.abspath(root))
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    if not ops.__file__.startswith(os.path.abspath(root)):
+        raise AssertionError(f"stepgate: imported {ops.__file__}, not "
+                             f"{root}")
+    cfg = parse_config(MULTI_ARGV["vmultivslt"])
+    state = get_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    zero = ZERO_GRAD[:1]
+    rows = []
+    for seed in STEPGATE_SEEDS:
+        batch = synthetic_batch(cfg, BATCH, seed=seed,
+                                present_frac=TRAIN_BATCHES["vmultivslt"][0])
+        runs = {(prec, plain): _train_run(
+                    cfg.replace(precision=prec, dropout=0.0), state, batch,
+                    plain)[1]
+                for prec, plain in (("fp32", True), ("bf16", True),
+                                    ("bf16", False))}
+        k_err = _step_errors(runs["bf16", False], runs["fp32", True], zero)
+        p_err = _step_errors(runs["bf16", True], runs["fp32", True], zero)
+        bound = STEP_BF16_RATIO * max(p_err.values()) + 1e-2
+        row = {"seed": seed, "kernel_max": max(k_err.values()),
+               "plain_max": max(p_err.values()), "bound": bound,
+               "share": max(k_err.values()) / bound,
+               "kernel_median": statistics.median(k_err.values()),
+               "plain_median": statistics.median(p_err.values())}
+        rows.append(row)
+        print(f"stepgate {root} ({power}) batch {seed}: kernel path "
+              f"{_summary(k_err)}; plain path {_summary(p_err)}; largest "
+              f"{row['share']:.4f} of the bound {bound:.4f}")
+        del runs
+        gc_collect()
+    print("stepgate " + json.dumps({"root": root, "rows": rows}))
 
 
 # the saver's forms in ``saver``: as it is (the state_dicts as views of the
@@ -2744,7 +3094,10 @@ PATH_NAMES = {"config4": "tri_mbt_vsltcls config 4 train",
               None: "none: no path of the JAX package dispatches it"}
 PATH_STEPS = dict({k: len(v) for k, v in TRAIN_BATCHES.items()},
                   tp=len(TP_BATCHES))
-PATH_NAMES.update(BASE_PATHS)
+# the train paths whose launches the kernels line gives under other_paths
+OTHER_PATHS = dict(BASE_PATHS, vmulti2=MULTI_PATHS["vmulti2"],
+                   vmultivslt=MULTI_PATHS["vmultivslt"])
+PATH_NAMES.update(BASE_PATHS, **MULTI_PATHS)
 
 
 # the kernels the A/B reading sums in a step and in an attn_block call:
@@ -2767,7 +3120,7 @@ def _by_kernel(items, names) -> dict:
     sums = {k: [0.0, 0] for k in names}
     for t, n, key in items:
         for k in names:
-            if f"mtp::{k}<" in key or f"mtp::{k}(" in key:
+            if _is_kernel(key, k):
                 sums[k][0] += t / 1e3
                 sums[k][1] += n
     return {k: v for k, v in sums.items() if v[1]}
@@ -2988,6 +3341,10 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "ab":
         ab(sys.argv[2], check_device())
         return
+    if len(sys.argv) in (2, 3) and sys.argv[1] == "stepgate":
+        power = check_device()
+        stepgate(sys.argv[2] if len(sys.argv) == 3 else ".", power)
+        return
     if len(sys.argv) == 2 and sys.argv[1] == "saver":
         power = check_device()
         build_kernels()
@@ -2997,6 +3354,11 @@ def main() -> None:
         power = check_device()
         build_kernels()
         run_baseline(power)
+        return
+    if len(sys.argv) == 2 and sys.argv[1] == "multitoken":
+        power = check_device()
+        build_kernels()
+        run_multitoken(power)
         return
     power = check_device()
     build_kernels()
@@ -3016,13 +3378,17 @@ def main() -> None:
     counts["tp"] = run_tp(power)
     run_drivers(power)
     counts.update(run_baseline(power))
+    mt_results, mt_counts = run_multitoken(power)
+    results.update(mt_results)
+    counts.update(mt_counts)
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         path = KERNEL_PATHS[name]
-        # the launches of phase 15's train paths, each over its steps
+        # the launches of phases 15 and 16's other train paths, each over
+        # its steps
         also = {PATH_NAMES[p]: {"launches": counts[p][name],
                                 "steps": PATH_STEPS[p]}
-                for p in BASE_PATHS if counts[p][name]}
+                for p in OTHER_PATHS if counts[p][name]}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "path": PATH_NAMES[path],
                         "launches": counts[path][name] if path else 0,

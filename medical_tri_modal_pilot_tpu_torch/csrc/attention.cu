@@ -691,9 +691,10 @@ __global__ void __launch_bounds__(kTcThreads, 3) attention_dkv_tc_kernel(
   const size_t bh = (size_t)b * H + h, qoff = (size_t)b * Lq * C + col;
   const size_t koff = (size_t)b * Lk * C + col;
   float dka[ND][4], dva[ND][4];
-  flash_dkv_tile<DH>(dkv_smem, q + qoff, C, k + koff, v + koff, C,
-                     dout + qoff, C, stats + bh * Lq * 2, delta + bh * Lq,
-                     k0, Lq, Lk, is_self ? ke : Lq, mk, mult, dka, dva);
+  flash_dkv_tile<DH, false>(dkv_smem, q + qoff, C, k + koff, v + koff, C,
+                            dout + qoff, C, stats + bh * Lq * 2,
+                            delta + bh * Lq, k0, Lq, Lk, is_self ? ke : Lq,
+                            mk, mult, dka, dva);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = 16 * warp + g + 8 * hh;
@@ -741,9 +742,9 @@ __global__ void __launch_bounds__(kTcThreads, 4) attention_dq_tc_kernel(
   const size_t bh = (size_t)b * H + h, qoff = (size_t)b * Lq * C + col;
   const size_t koff = (size_t)b * Lk * C + col;
   float dqa[ND][4];
-  flash_dq_tile<DH>(dq_smem, q + qoff, C, k + koff, v + koff, C,
-                    dout + qoff, C, stats + bh * Lq * 2, delta + bh * Lq, q0,
-                    Lq, Lk, ke, mk, mult, dqa);
+  flash_dq_tile<DH, false>(dq_smem, q + qoff, C, k + koff, v + koff, C,
+                           dout + qoff, C, stats + bh * Lq * 2,
+                           delta + bh * Lq, q0, Lq, Lk, ke, mk, mult, dqa);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = 16 * warp + g + 8 * hh;

@@ -1,4 +1,5 @@
-// Fused pre-norm attention block: out = x + MHA(StdLN(x)), 2-D key mask.
+// Fused pre-norm attention block: out = x + MHA(StdLN(x)), under a 2-D key
+// mask [B, L] or a 3-D block mask [B, L, L] (the multitoken MBT streams).
 // The lean form (eval) and the training form, which also writes the
 // pre-residual attention output and the per-row, per-head softmax stats
 // (m, l) that the backward (attn_block_bwd.cu) needs.
@@ -46,7 +47,12 @@
 // a valid-but-masked key scores -65504; keys past the array end are left
 // out; a sample whose keys are all masked has kend = L and so attends
 // uniformly over its L keys; q tiles that start past the sample's last
-// valid key emit the pure residual.
+// valid key emit the pure residual. A block mask ([B, L, L], the BLOCK
+// template flag of the FMA kernels, BlockMask on the tensor cores) masks
+// (query, key) pairs; the caller passes kend = L for every sample, as the
+// TPU kernel does no per-sample skipping there (attn_block.py:219-227): a
+// query whose every key is masked attends uniformly over all L keys, so
+// its output depends on every real key.
 #include "flash_tc.cuh"
 #include "proj_tc.cuh"
 
@@ -89,7 +95,8 @@ __global__ void __launch_bounds__(kThreads) proj_kernel(
 // grid (ceil(L/64), B); DH = head width. TRAIN: also attn [B, L, C] (the
 // pre-residual output in T) and stats [B, H, L, 2] fp32 (the row max m
 // and the sum l of exp(s - m), floored at 1e-30) of the live q tiles.
-template <typename T, int DH, bool TRAIN>
+// BLOCK: mask is [B, L, L], read per (query, key) pair; else [B, L].
+template <typename T, int DH, bool TRAIN, bool BLOCK>
 __global__ void __launch_bounds__(kThreads) attn_kernel(
     const T* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const T* __restrict__ w,
@@ -119,7 +126,7 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
   }
   ln_tile<T>(xb, q0, L, C, gamma, beta, lns, lda, tid);
   const T* kvb = kv + (size_t)b * L * 2 * C;
-  const int8_t* mb = mask + (size_t)b * L;
+  const int8_t* mb = mask + (size_t)b * L * (BLOCK ? L : 1);
   const int H = C / DH;
   for (int h = 0; h < H; ++h) {
     {
@@ -174,10 +181,14 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
         const bool pad = key >= L;
-        const bool masked = !pad && mb[key] != 0;
+        const bool kmasked = !BLOCK && !pad && mb[key] != 0;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          const int q = q0 + ty + 16 * i;
+          const bool masked =
+              BLOCK ? !pad && q < L && mb[(size_t)q * L + key] != 0 : kmasked;
           s[i][j] = pad ? -INFINITY : (masked ? kMaskFill : s[i][j] * mult);
+        }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -252,7 +263,7 @@ static cudaError_t launch_proj(const void* x, const float* gamma,
   return cudaGetLastError();
 }
 
-template <typename T, int DH, bool TRAIN>
+template <typename T, int DH, bool TRAIN, bool BLOCK>
 static cudaError_t launch(const void* x, const float* gamma,
                           const float* beta, const void* w, const void* bias,
                           const int8_t* mask, const int* kend, void* kv,
@@ -264,12 +275,12 @@ static cudaError_t launch(const void* x, const float* gamma,
   const size_t smem_at = sizeof(float) *
       (kTile * (C + 1) + 2 * kTile * (DH + 1) + kTile * DH +
        kTile * (kTile + 1));
-  err = cudaFuncSetAttribute(attn_kernel<T, DH, TRAIN>,
+  err = cudaFuncSetAttribute(attn_kernel<T, DH, TRAIN, BLOCK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_at);
   if (err != cudaSuccess) return err;
   const dim3 g2((L + kTile - 1) / kTile, B);
-  attn_kernel<T, DH, TRAIN><<<g2, kThreads, smem_at, stream>>>(
+  attn_kernel<T, DH, TRAIN, BLOCK><<<g2, kThreads, smem_at, stream>>>(
       (const T*)x, gamma, beta, (const T*)w, (const T*)bias, mask, kend,
       (const T*)kv, (T*)out, (T*)attn, stats, L, C, mult);
   return cudaGetLastError();
@@ -299,9 +310,10 @@ __global__ void __launch_bounds__(kProjThreads, 2) block_qkv_tc_kernel(
 // [B, L, 3C] (flash_tc.cuh's forward loop at row stride 3C). TRAIN: also
 // attn [B, L, C] (the pre-residual output) and stats [B, H, L, 2] (the row
 // max m of the scaled scores and l of exp(s - m), floored at 1e-30) of the
-// tile's rows. Dead q tiles copy the residual. grid (ceil(L/64), H, B),
-// kTcThreads threads.
-template <int DH, bool TRAIN>
+// tile's rows. Dead q tiles copy the residual. Mask: KeyMask over a
+// [B, L] mask or BlockMask over a [B, L, L] one (flash_tc.cuh). grid
+// (ceil(L/64), H, B), kTcThreads threads.
+template <int DH, bool TRAIN, class Mask>
 __global__ void __launch_bounds__(kTcThreads) block_attn_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ qkv,
     const int8_t* __restrict__ mask, const int* __restrict__ kend,
@@ -327,7 +339,7 @@ __global__ void __launch_bounds__(kTcThreads) block_attn_tc_kernel(
   const bf16* qb = qkv + (size_t)b * L * N + col0;
   float o[ND][4], m[2], l[2];
   flash_fwd_tile<DH>(attn_smem, qb, N, qb + C, qb + 2 * C, N, q0, L, L, ke,
-                     KeyMask{mask + (size_t)b * L, L}, mult, o, m, l);
+                     Mask::at(mask, b, L, L), mult, o, m, l);
   const int H = gridDim.y;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -371,7 +383,7 @@ static cudaError_t launch_qkv_tc(const void* x, const float* gamma,
   return cudaGetLastError();
 }
 
-template <int DH, bool TRAIN>
+template <int DH, bool TRAIN, class Mask>
 static cudaError_t launch_tc(const void* x, const float* gamma,
                              const float* beta, const void* w,
                              const void* bias, const int8_t* mask,
@@ -382,12 +394,12 @@ static cudaError_t launch_tc(const void* x, const float* gamma,
                                   C, stream);
   if (err != cudaSuccess) return err;
   constexpr int smem = attn_tc_smem(DH);
-  err = cudaFuncSetAttribute(block_attn_tc_kernel<DH, TRAIN>,
+  err = cudaFuncSetAttribute(block_attn_tc_kernel<DH, TRAIN, Mask>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kTile - 1) / kTile, C / DH, B);
-  block_attn_tc_kernel<DH, TRAIN><<<grid, kTcThreads, smem, stream>>>(
+  block_attn_tc_kernel<DH, TRAIN, Mask><<<grid, kTcThreads, smem, stream>>>(
       (const bf16*)x, (const bf16*)qkv, mask, kend, (bf16*)out, (bf16*)attn,
       stats, L, C, mult);
   return cudaGetLastError();
@@ -397,7 +409,8 @@ static cudaError_t launch_tc(const void* x, const float* gamma,
 
 // dtype: 0 = fp32 (the FMA kernels), 1 = bf16 (the tensor cores). x, w,
 // bias, qkv, out and attn are in that type; gamma and beta fp32; mask int8
-// [B, L] (1 = masked); kend int32 [B]; qkv a scratch of [B, L, 2C] (fp32:
+// (1 = masked), [B, L] or, when block != 0, [B, L, L]; kend int32 [B] (L
+// for every sample under a block mask); qkv a scratch of [B, L, 2C] (fp32:
 // k|v) or [B, L, 3C] (bf16: q|k|v). attn [B, L, C] and stats fp32
 // [B, H, L, 2] are written when attn is not NULL (the training form).
 // C % 64 == 0 and C / H in {32, 64}. Returns cudaGetLastError().
@@ -406,7 +419,8 @@ extern "C" int attn_block_fwd(const void* x, const void* gamma,
                               const void* bias, const void* mask,
                               const void* kend, void* qkv, void* out,
                               void* attn, void* stats, int B, int L, int C,
-                              int H, float mult, int dtype, void* stream) {
+                              int H, int block, float mult, int dtype,
+                              void* stream) {
   using namespace mtp;
   const cudaStream_t s = (cudaStream_t)stream;
   const float* g = (const float*)gamma;
@@ -417,14 +431,24 @@ extern "C" int attn_block_fwd(const void* x, const void* gamma,
   if (H <= 0 || C % 64 != 0 || C % H != 0) return (int)cudaErrorInvalidValue;
   const int dh = C / H;
   const bool train = attn != nullptr;
-#define MTP_ATTN(DH, TR) \
-  return (int)launch<float, DH, TR>(x, g, be, w, bias, mk, ke, qkv, out, attn, st, B, L, C, mult, s)
-#define MTP_ATTN_TC(DH, TR) \
-  return (int)launch_tc<DH, TR>(x, g, be, w, bias, mk, ke, qkv, out, attn, st, B, L, C, mult, s)
-  if (dtype == 0 && dh == 64) { if (train) MTP_ATTN(64, true); MTP_ATTN(64, false); }
-  if (dtype == 0 && dh == 32) { if (train) MTP_ATTN(32, true); MTP_ATTN(32, false); }
-  if (dtype == 1 && dh == 64) { if (train) MTP_ATTN_TC(64, true); MTP_ATTN_TC(64, false); }
-  if (dtype == 1 && dh == 32) { if (train) MTP_ATTN_TC(32, true); MTP_ATTN_TC(32, false); }
+#define MTP_ATTN(DH, TR, BL) \
+  return (int)launch<float, DH, TR, BL>(x, g, be, w, bias, mk, ke, qkv, out, attn, st, B, L, C, mult, s)
+#define MTP_ATTN_TC(DH, TR, MK) \
+  return (int)launch_tc<DH, TR, MK>(x, g, be, w, bias, mk, ke, qkv, out, attn, st, B, L, C, mult, s)
+#define MTP_FORMS(DH)                                                    \
+  if (dtype == 0 && dh == DH) {                                          \
+    if (block) { if (train) MTP_ATTN(DH, true, true); MTP_ATTN(DH, false, true); } \
+    if (train) MTP_ATTN(DH, true, false);                                \
+    MTP_ATTN(DH, false, false);                                          \
+  }                                                                      \
+  if (dtype == 1 && dh == DH) {                                          \
+    if (block) { if (train) MTP_ATTN_TC(DH, true, BlockMask); MTP_ATTN_TC(DH, false, BlockMask); } \
+    if (train) MTP_ATTN_TC(DH, true, KeyMask);                           \
+    MTP_ATTN_TC(DH, false, KeyMask);                                     \
+  }
+  MTP_FORMS(64)
+  MTP_FORMS(32)
+#undef MTP_FORMS
 #undef MTP_ATTN
 #undef MTP_ATTN_TC
   return (int)cudaErrorInvalidValue;

@@ -26,7 +26,8 @@
 //       registers; it walks the live q tiles (q and dO in a two-stage
 //       cp.async ring): S^T = K Q^T and dP^T = V dO^T, P^T and dS^T on
 //       the fragments, rounded to bf16 into the A fragments of
-//       dV += P^T dO and dK += dS^T Q;
+//       dV += P^T dO and dK += dS^T Q (dS^T in two bf16 parts under a
+//       block mask, kSplitDs);
 //     block_dq_tc_kernel: one block per (64-row q tile, head, sample): it
 //       walks the live key tiles (k and v in the ring): S, dP, dS and
 //       dQ += dS K. Two passes instead of float atomics on dq keep the
@@ -44,16 +45,30 @@
 // The probabilities come from the forward's saved (m, l) per row and head,
 // p = exp(s - m) / l, and delta from the saved pre-residual output O, as
 // in the TPU kernel. Roundings follow it: p and ds are rounded to T before
-// their products, dq, dk and dv to T before the projection backward, dx
-// to T before the residual is added.
+// their products (on the tensor cores under a block mask ds enters dK
+// and dQ in two bf16 parts, kSplitDs), dq, dk and dv to T before the
+// projection backward, dx to T before the residual is added.
 //
 // Rows of q tiles that start past a sample's last valid key (kend) carry
 // no cotangent in the model (they are masked keys everywhere downstream
 // and the FFN passes them through): their dx is dy and they add nothing.
+// Under a block mask ([B, L, L]: the BLOCK flag of the FMA kernels,
+// BlockMask on the tensor cores) the caller passes kend = L, so every row
+// is live, as in the TPU kernel's full coverage (attn_block.py:558-566); a
+// masked pair keeps its probability (dV takes it) and has no score
+// gradient, also in a row whose every key is masked.
+#include <type_traits>
+
 #include "flash_tc.cuh"
 #include "proj_tc.cuh"
 
 namespace mtp {
+
+// dS enters dK and dQ in two bf16 parts (flash_tc.cuh's SPLIT) under a
+// block mask, rounded once under a key mask as in the TPU kernel: the
+// multitoken models' bf16 train step needs the former (PERF.md §6)
+template <class Mask>
+constexpr bool kSplitDs = std::is_same_v<Mask, BlockMask>;
 
 template <int DH>
 struct AttnBwdSmem {
@@ -103,8 +118,9 @@ static __device__ __forceinline__ void load_q_side(
 }
 
 // Load key rows [k0, k0 + 64) of head h (k, v) and their flags: 0 live,
-// 1 valid but masked, 2 past the array end.
-template <typename T, int DH>
+// 1 valid but masked, 2 past the array end. BLOCK: the flags say only
+// whether a key lies past the end (pair_flag reads the pair's mask).
+template <typename T, int DH, bool BLOCK>
 static __device__ __forceinline__ void load_k_side(
     const T* __restrict__ qkvb, const int8_t* __restrict__ mb, int k0,
     int L, int C, int h, float* ks, float* vs, int* kflag, int tid) {
@@ -123,8 +139,19 @@ static __device__ __forceinline__ void load_k_side(
   }
   for (int j = tid; j < kTile; j += kThreads) {
     const int key = k0 + j;
-    kflag[j] = key >= L ? 2 : (mb[key] != 0 ? 1 : 0);
+    kflag[j] = key >= L ? 2 : (!BLOCK && mb[key] != 0 ? 1 : 0);
   }
+}
+
+// The flag of the pair (q, key) from the key's flag: under a block mask
+// (BLOCK, mb the sample's [L][L]) a key within the array is masked for
+// query q where mb[q][key] is set; rows past L read no mask.
+template <bool BLOCK>
+static __device__ __forceinline__ int pair_flag(int kflag,
+                                                const int8_t* __restrict__ mb,
+                                                int q, int key, int L) {
+  if (!BLOCK || kflag != 0 || q >= L) return kflag;
+  return mb[(size_t)q * L + key] != 0 ? 1 : 0;
 }
 
 // p and ds of one (q row, key) pair (attn_block.py:428-447)
@@ -139,8 +166,8 @@ static __device__ __forceinline__ void prob_and_ds(
   if (flag == 0) ds = p * (dp - delta) * mult;
 }
 
-// grid (ceil(L/64), H, B)
-template <typename T, int DH>
+// grid (ceil(L/64), H, B); BLOCK: mask [B, L, L], else [B, L]
+template <typename T, int DH, bool BLOCK>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dy,
     const T* __restrict__ attn, const float* __restrict__ stats,
@@ -178,8 +205,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
   const T* dyb = dy + (size_t)b * L * C;
   const T* attnb = attn + (size_t)b * L * C;
   const float* stb = stats + ((size_t)b * H + h) * L * 2;
-  load_k_side<T, DH>(qkvb, mask + (size_t)b * L, k0, L, C, h, ks, vs, kflag,
-                     tid);
+  const int8_t* mb = mask + (size_t)b * L * (BLOCK ? L : 1);
+  load_k_side<T, DH, BLOCK>(qkvb, mb, k0, L, C, h, ks, vs, kflag, tid);
   float dk[4][NJ], dv[4][NJ];
   zero(dk);
   zero(dv);
@@ -218,8 +245,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
       for (int j = 0; j < 4; ++j) {
         const int key = ty + 16 * i, q = tx + 16 * j;
         float p, ds;
-        prob_and_ds(s[i][j], dp[i][j], kflag[key], q0 + q < L, mrow[q],
-                    lrow[q], delta[q], mult, p, ds);
+        prob_and_ds(s[i][j], dp[i][j],
+                    pair_flag<BLOCK>(kflag[key], mb, q0 + q, k0 + key, L),
+                    q0 + q < L, mrow[q], lrow[q], delta[q], mult, p, ds);
         ps[key * LDP + q] = rnd<T>(p);
         dss[key * LDP + q] = rnd<T>(ds);
       }
@@ -260,8 +288,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
   }
 }
 
-// grid (ceil(L/64), H, B)
-template <typename T, int DH>
+// grid (ceil(L/64), H, B); BLOCK: mask [B, L, L], else [B, L]
+template <typename T, int DH, bool BLOCK>
 __global__ void __launch_bounds__(kThreads) dq_kernel(
     const T* __restrict__ qkv, const T* __restrict__ dy,
     const T* __restrict__ attn, const float* __restrict__ stats,
@@ -293,14 +321,14 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
     return;
   }
   const T* qkvb = qkv + (size_t)b * L * 3 * C;
-  const int8_t* mb = mask + (size_t)b * L;
+  const int8_t* mb = mask + (size_t)b * L * (BLOCK ? L : 1);
   load_q_side<T, DH>(qkvb, dy + (size_t)b * L * C, attn + (size_t)b * L * C,
                      stats + ((size_t)b * H + h) * L * 2, q0, L, C, h, qs,
                      dos, mrow, lrow, delta, tid);
   float dq[4][NJ];
   zero(dq);
   for (int k0 = 0; k0 < ke; k0 += kTile) {
-    load_k_side<T, DH>(qkvb, mb, k0, L, C, h, ks, vs, kflag, tid);
+    load_k_side<T, DH, BLOCK>(qkvb, mb, k0, L, C, h, ks, vs, kflag, tid);
     __syncthreads();
     // q row ty + 16i, key tx + 16j
     float s[4][4], dp[4][4];
@@ -333,8 +361,9 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
       for (int j = 0; j < 4; ++j) {
         const int q = ty + 16 * i, key = tx + 16 * j;
         float p, ds;
-        prob_and_ds(s[i][j], dp[i][j], kflag[key], q0 + q < L, mrow[q],
-                    lrow[q], delta[q], mult, p, ds);
+        prob_and_ds(s[i][j], dp[i][j],
+                    pair_flag<BLOCK>(kflag[key], mb, q0 + q, k0 + key, L),
+                    q0 + q < L, mrow[q], lrow[q], delta[q], mult, p, ds);
         dss[q * LDP + key] = rnd<T>(ds);
       }
     __syncthreads();
@@ -427,7 +456,7 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(
                                     Bs, gp, tx, ty, tid);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool BLOCK>
 static cudaError_t launch_attn(const void* qkv, const void* dy,
                                const void* attn, const float* stats,
                                const int8_t* mask, const int* kend,
@@ -436,19 +465,19 @@ static cudaError_t launch_attn(const void* qkv, const void* dy,
   const size_t smem = sizeof(float) * AttnBwdSmem<DH>::floats;
   const dim3 grid((L + kTile - 1) / kTile, C / DH, B);
   cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkv_kernel<T, DH, BLOCK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dkv_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  dkv_kernel<T, DH, BLOCK><<<grid, kThreads, smem, stream>>>(
       (const T*)qkv, (const T*)dy, (const T*)attn, stats, mask, kend,
       (T*)dqkv, L, C, mult);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_kernel<T, DH>,
+  err = cudaFuncSetAttribute(dq_kernel<T, DH, BLOCK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  dq_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  dq_kernel<T, DH, BLOCK><<<grid, kThreads, smem, stream>>>(
       (const T*)qkv, (const T*)dy, (const T*)attn, stats, mask, kend,
       (T*)dqkv, L, C, mult);
   return cudaGetLastError();
@@ -482,14 +511,17 @@ static cudaError_t launch_bwd(const void* x, const float* gamma,
                               const void* attn, const float* stats,
                               const void* dy, const void* qkv, void* dqkv,
                               void* ln_o, void* dx, float* gpart, int B,
-                              int L, int C, int H, float mult,
+                              int L, int C, int H, bool block, float mult,
                               cudaStream_t stream) {
   const int dh = C / H;
   cudaError_t err = cudaErrorInvalidValue;
-  if (dh == 64)
-    err = launch_attn<T, 64>(qkv, dy, attn, stats, mask, kend, dqkv, B, L, C, mult, stream);
-  else if (dh == 32)
-    err = launch_attn<T, 32>(qkv, dy, attn, stats, mask, kend, dqkv, B, L, C, mult, stream);
+#define MTP_DQKV(DH, BL) \
+  err = launch_attn<T, DH, BL>(qkv, dy, attn, stats, mask, kend, dqkv, B, L, C, mult, stream)
+  if (dh == 64 && block) MTP_DQKV(64, true);
+  else if (dh == 64) MTP_DQKV(64, false);
+  else if (dh == 32 && block) MTP_DQKV(32, true);
+  else if (dh == 32) MTP_DQKV(32, false);
+#undef MTP_DQKV
   if (err != cudaSuccess) return err;
   if (C == 256)
     return launch_ln<T, 16>(x, gamma, beta, w, kend, dqkv, dy, dx, ln_o, gpart, B, L, stream);
@@ -520,9 +552,10 @@ __global__ void __launch_bounds__(kThreads) block_delta_kernel(
 
 // dK and dV of head h for one 64-key tile (flash_tc.cuh's dK/dV loop at
 // row stride 3C): dk, dv rounded to bf16 into dqkv[:, :, C:3C] (zeros for
-// tiles that start past kend[b]). grid (ceil(L/64), H, B), kTcThreads
-// threads; warp w owns keys 16 w .. + 15.
-template <int DH>
+// tiles that start past kend[b]). Mask: KeyMask ([B, L]) or BlockMask
+// ([B, L, L]). grid (ceil(L/64), H, B), kTcThreads threads; warp w owns
+// keys 16 w .. + 15.
+template <int DH, class Mask>
 __global__ void __launch_bounds__(kTcThreads, 3) block_dkv_tc_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ dy,
     const float* __restrict__ stats, const float* __restrict__ delta,
@@ -549,10 +582,10 @@ __global__ void __launch_bounds__(kTcThreads, 3) block_dkv_tc_kernel(
   const bf16* qb = qkv + (size_t)b * L * N + col0;
   const size_t bh = (size_t)b * H + h;
   float dk[ND][4], dv[ND][4];
-  flash_dkv_tile<DH>(dkv_smem, qb, N, qb + C, qb + 2 * C, N,
-                     dy + (size_t)b * L * C + col0, C, stats + bh * L * 2,
-                     delta + bh * L, k0, L, L, ke,
-                     KeyMask{mask + (size_t)b * L, L}, mult, dk, dv);
+  flash_dkv_tile<DH, kSplitDs<Mask>>(
+      dkv_smem, qb, N, qb + C, qb + 2 * C, N, dy + (size_t)b * L * C + col0,
+      C, stats + bh * L * 2, delta + bh * L, k0, L, L, ke,
+      Mask::at(mask, b, L, L), mult, dk, dv);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int key = k0 + 16 * warp + g + 8 * hh;
@@ -570,9 +603,10 @@ __global__ void __launch_bounds__(kTcThreads, 3) block_dkv_tc_kernel(
 
 // dQ of head h for one 64-row q tile (flash_tc.cuh's dQ loop at row
 // stride 3C), rounded to bf16 into dqkv[:, :, 0:C] (zeros for tiles that
-// start past kend[b]). grid (ceil(L/64), H, B), kTcThreads threads; warp w
-// owns q rows 16 w .. + 15.
-template <int DH>
+// start past kend[b]). Mask: KeyMask ([B, L]) or BlockMask ([B, L, L]).
+// grid (ceil(L/64), H, B), kTcThreads threads; warp w owns q rows
+// 16 w .. + 15.
+template <int DH, class Mask>
 __global__ void __launch_bounds__(kTcThreads, 4) block_dq_tc_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ dy,
     const float* __restrict__ stats, const float* __restrict__ delta,
@@ -598,10 +632,10 @@ __global__ void __launch_bounds__(kTcThreads, 4) block_dq_tc_kernel(
   const bf16* qb = qkv + (size_t)b * L * N + col0;
   const size_t bh = (size_t)b * H + h;
   float dq[ND][4];
-  flash_dq_tile<DH>(dq_smem, qb, N, qb + C, qb + 2 * C, N,
-                    dy + (size_t)b * L * C + col0, C, stats + bh * L * 2,
-                    delta + bh * L, q0, L, L, ke,
-                    KeyMask{mask + (size_t)b * L, L}, mult, dq);
+  flash_dq_tile<DH, kSplitDs<Mask>>(
+      dq_smem, qb, N, qb + C, qb + 2 * C, N, dy + (size_t)b * L * C + col0,
+      C, stats + bh * L * 2, delta + bh * L, q0, L, L, ke,
+      Mask::at(mask, b, L, L), mult, dq);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int q = q0 + 16 * warp + g + 8 * hh;
@@ -648,7 +682,7 @@ __global__ void __launch_bounds__(kThreads, 2) block_ln_bwd_tc_kernel(
       ln_o + row0 * C, gp);
 }
 
-template <int DH>
+template <int DH, class Mask>
 static cudaError_t launch_attn_tc(const void* qkv, const void* dy,
                                   const void* attn, const float* stats,
                                   float* delta, const int8_t* mask,
@@ -661,20 +695,20 @@ static cudaError_t launch_attn_tc(const void* qkv, const void* dy,
   if (err != cudaSuccess) return err;
   const dim3 grid(tiles, C / DH, B);
   constexpr int smem_kv = dkv_tc_smem(DH), smem_q = dq_tc_smem(DH);
-  err = cudaFuncSetAttribute(block_dkv_tc_kernel<DH>,
+  err = cudaFuncSetAttribute(block_dkv_tc_kernel<DH, Mask>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_kv);
   if (err != cudaSuccess) return err;
-  block_dkv_tc_kernel<DH><<<grid, kTcThreads, smem_kv, stream>>>(
+  block_dkv_tc_kernel<DH, Mask><<<grid, kTcThreads, smem_kv, stream>>>(
       (const bf16*)qkv, (const bf16*)dy, stats, delta, mask, kend,
       (bf16*)dqkv, L, C, mult);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(block_dq_tc_kernel<DH>,
+  err = cudaFuncSetAttribute(block_dq_tc_kernel<DH, Mask>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_q);
   if (err != cudaSuccess) return err;
-  block_dq_tc_kernel<DH><<<grid, kTcThreads, smem_q, stream>>>(
+  block_dq_tc_kernel<DH, Mask><<<grid, kTcThreads, smem_q, stream>>>(
       (const bf16*)qkv, (const bf16*)dy, stats, delta, mask, kend,
       (bf16*)dqkv, L, C, mult);
   return cudaGetLastError();
@@ -706,13 +740,17 @@ static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
                                  const void* dy, const void* qkv,
                                  float* delta, void* dqkv, void* ln_o,
                                  void* dx, float* gpart, int B, int L, int C,
-                                 int H, float mult, cudaStream_t stream) {
+                                 int H, bool block, float mult,
+                                 cudaStream_t stream) {
   const int dh = C / H;
   cudaError_t err = cudaErrorInvalidValue;
-  if (dh == 64)
-    err = launch_attn_tc<64>(qkv, dy, attn, stats, delta, mask, kend, dqkv, B, L, C, mult, stream);
-  else if (dh == 32)
-    err = launch_attn_tc<32>(qkv, dy, attn, stats, delta, mask, kend, dqkv, B, L, C, mult, stream);
+#define MTP_DQKV_TC(DH, MK) \
+  err = launch_attn_tc<DH, MK>(qkv, dy, attn, stats, delta, mask, kend, dqkv, B, L, C, mult, stream)
+  if (dh == 64 && block) MTP_DQKV_TC(64, BlockMask);
+  else if (dh == 64) MTP_DQKV_TC(64, KeyMask);
+  else if (dh == 32 && block) MTP_DQKV_TC(32, BlockMask);
+  else if (dh == 32) MTP_DQKV_TC(32, KeyMask);
+#undef MTP_DQKV_TC
   if (err != cudaSuccess) return err;
   if (C == 256)
     return launch_ln_tc<16>(x, gamma, beta, w, kend, dqkv, dy, dx, ln_o, gpart, B, L, stream);
@@ -725,8 +763,9 @@ static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
 
 // dtype: 0 = fp32 (the FMA kernels), 1 = bf16 (the tensor cores) for x,
 // w [C, 3C], attn, dy, qkv, dqkv, ln_o and dx ([B, L, C] or [B, L, 3C]);
-// gamma, beta and stats ([B, H, L, 2]) fp32; mask int8 [B, L]; kend int32
-// [B]; qkv from attn_block_qkv; delta: fp32 scratch [B, H, L] for bf16
+// gamma, beta and stats ([B, H, L, 2]) fp32; mask int8, [B, L] or, when
+// block != 0, [B, L, L]; kend int32 [B] (L for every sample under a block
+// mask); qkv from attn_block_qkv; delta: fp32 scratch [B, H, L] for bf16
 // (unused for fp32, may be NULL). Writes dqkv, ln_o, dx and gpart fp32
 // [B * ceil(L/64), 2C]. C in {64, 256}, C / H in {32, 64}. Returns
 // cudaGetLastError().
@@ -736,8 +775,8 @@ extern "C" int attn_block_bwd(const void* x, const void* gamma,
                               const void* attn, const void* stats,
                               const void* dy, const void* qkv, void* delta,
                               void* dqkv, void* ln_o, void* dx, void* gpart,
-                              int B, int L, int C, int H, float mult,
-                              int dtype, void* stream) {
+                              int B, int L, int C, int H, int block,
+                              float mult, int dtype, void* stream) {
   using namespace mtp;
   const cudaStream_t s = (cudaStream_t)stream;
   if (H <= 0 || C % H != 0) return (int)cudaErrorInvalidValue;
@@ -748,8 +787,8 @@ extern "C" int attn_block_bwd(const void* x, const void* gamma,
   const float* st = (const float*)stats;
   float* gp = (float*)gpart;
   if (dtype == 0)
-    return (int)launch_bwd<float>(x, g, be, w, mk, ke, attn, st, dy, qkv, dqkv, ln_o, dx, gp, B, L, C, H, mult, s);
+    return (int)launch_bwd<float>(x, g, be, w, mk, ke, attn, st, dy, qkv, dqkv, ln_o, dx, gp, B, L, C, H, block != 0, mult, s);
   if (dtype == 1 && delta != nullptr)
-    return (int)launch_bwd_tc(x, g, be, w, mk, ke, attn, st, dy, qkv, (float*)delta, dqkv, ln_o, dx, gp, B, L, C, H, mult, s);
+    return (int)launch_bwd_tc(x, g, be, w, mk, ke, attn, st, dy, qkv, (float*)delta, dqkv, ln_o, dx, gp, B, L, C, H, block != 0, mult, s);
   return (int)cudaErrorInvalidValue;
 }

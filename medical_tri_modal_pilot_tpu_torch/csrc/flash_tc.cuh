@@ -22,8 +22,12 @@
 // a query whose keys are all masked attends uniformly over them; a key
 // past Lk (tile padding) scores -inf and leaves the softmax. Roundings
 // follow the TPU kernels: P is rounded to bf16 from the C fragments
-// before P V, l is summed from the fp32 P; dS is rounded to bf16 before
-// its products; the backward's P is exp(s - m) / l from the saved stats.
+// before P V, l is summed from the fp32 P; the backward's P is
+// exp(s - m) / l from the saved stats, rounded to bf16 before
+// dV += P^T dO; dS is rounded to bf16 before its products. With SPLIT
+// (the block-mask attention block, attn_block_bwd.cu) dS enters dK and
+// dQ as two bf16 parts (ds_frags): that rounding and what it leaves, so
+// those products carry about 16 bits of dS (PERF.md §6).
 #pragma once
 
 #include "common.cuh"
@@ -89,6 +93,26 @@ static __device__ __forceinline__ int scan_key_end(
   }
   last = __reduce_max_sync(0xffffffffu, last);
   return last < 0 ? Lk : last + 1;
+}
+
+// dS of a warp's 16 x 16 block (C fragments d) as the A fragments of its
+// products: rounded to bf16 (hi) and, with SPLIT, the bf16 of what that
+// rounding leaves (lo), a second product whose sum with the first carries
+// about 16 bits of each value
+template <bool SPLIT>
+static __device__ __forceinline__ void ds_frags(const float (&d)[2][4],
+                                                uint32_t (&hi)[4],
+                                                uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float a = d[i >> 1][2 * (i & 1)], b = d[i >> 1][2 * (i & 1) + 1];
+    hi[i] = pack_bf16(a, b);
+    if constexpr (SPLIT) {
+      const __nv_bfloat162 h =
+          *reinterpret_cast<const __nv_bfloat162*>(&hi[i]);
+      lo[i] = pack_bf16(a - bf(h.x), b - bf(h.y));
+    }
+  }
 }
 
 // Bits 0 and 1 of each byte j of the 64-bit span lo | hi << 32 (shifted
@@ -376,9 +400,9 @@ static __device__ __forceinline__ void flash_fwd_idle(
 // tiles that start before qe (rows past Lq add nothing), for the lane's
 // keys 16 w + g (index 0) and + 8 (index 1). S^T = K Q^T and dP^T = V dO^T
 // per warp (16 keys x 64 q rows), P^T and dS^T on the fragments, rounded
-// to bf16 into the A fragments of dV += P^T dO and dK += dS^T Q. smem:
-// dkv_tc_smem bytes.
-template <int DH, class Mask>
+// to bf16 into the A fragments of dV += P^T dO and dK += dS^T Q (dS^T in
+// two bf16 parts with SPLIT). smem: dkv_tc_smem bytes.
+template <int DH, bool SPLIT, class Mask>
 static __device__ __forceinline__ void flash_dkv_tile(
     unsigned char* smem, const bf16* __restrict__ q, int ldq,
     const bf16* __restrict__ k, const bf16* __restrict__ v, int ldkv,
@@ -512,15 +536,12 @@ static __device__ __forceinline__ void flash_dkv_tile(
                              : sT[j][e] * (dpt[jj][e] - rv[2 * kTile + qc]) *
                                    mult;
           }
-        uint32_t pa[4], da[4];
+        uint32_t pa[4], da[4], dl[4];
         pa[0] = pack_bf16(sT[2 * np][0], sT[2 * np][1]);
         pa[1] = pack_bf16(sT[2 * np][2], sT[2 * np][3]);
         pa[2] = pack_bf16(sT[2 * np + 1][0], sT[2 * np + 1][1]);
         pa[3] = pack_bf16(sT[2 * np + 1][2], sT[2 * np + 1][3]);
-        da[0] = pack_bf16(dpt[0][0], dpt[0][1]);
-        da[1] = pack_bf16(dpt[0][2], dpt[0][3]);
-        da[2] = pack_bf16(dpt[1][0], dpt[1][1]);
-        da[3] = pack_bf16(dpt[1][2], dpt[1][3]);
+        ds_frags<SPLIT>(dpt, da, dl);
 #pragma unroll
         for (int dp = 0; dp < DH / 16; ++dp) {
           uint32_t bo[4], bq[4];
@@ -530,6 +551,10 @@ static __device__ __forceinline__ void flash_dkv_tile(
           ldsm_x4_t(bq, frag_b_kn(qs, LD, 16 * np, 16 * dp, lane));
           mma16816(dk[2 * dp], da, bq[0], bq[1]);
           mma16816(dk[2 * dp + 1], da, bq[2], bq[3]);
+          if constexpr (SPLIT) {
+            mma16816(dk[2 * dp], dl, bq[0], bq[1]);
+            mma16816(dk[2 * dp + 1], dl, bq[2], bq[3]);
+          }
         }
       }
     }
@@ -541,9 +566,9 @@ static __device__ __forceinline__ void flash_dkv_tile(
 // dQ of q rows [q0, q0 + 64) of one (sample, head), summed over keys
 // [0, ke), for the lane's rows 16 w + g (index 0) and + 8 (index 1): per
 // block of 16 keys S = Q K^T and dP = dO V^T, dS on the fragments, then
-// dQ += dS K with dS rounded to bf16 (K through ldmatrix.trans). smem:
-// dq_tc_smem bytes.
-template <int DH, class Mask>
+// dQ += dS K with dS rounded to bf16 (two parts with SPLIT; K through
+// ldmatrix.trans). smem: dq_tc_smem bytes.
+template <int DH, bool SPLIT, class Mask>
 static __device__ __forceinline__ void flash_dq_tile(
     unsigned char* smem, const bf16* __restrict__ q, int ldq,
     const bf16* __restrict__ k, const bf16* __restrict__ v, int ldkv,
@@ -640,17 +665,18 @@ static __device__ __forceinline__ void flash_dq_tile(
           }
           s[jj][e] = ds;
         }
-      uint32_t da[4];
-      da[0] = pack_bf16(s[0][0], s[0][1]);
-      da[1] = pack_bf16(s[0][2], s[0][3]);
-      da[2] = pack_bf16(s[1][0], s[1][1]);
-      da[3] = pack_bf16(s[1][2], s[1][3]);
+      uint32_t da[4], dl[4];
+      ds_frags<SPLIT>(s, da, dl);
 #pragma unroll
       for (int dd = 0; dd < DH / 16; ++dd) {
         uint32_t bk[4];
         ldsm_x4_t(bk, frag_b_kn(ks, LD, 16 * np, 16 * dd, lane));
         mma16816(dq[2 * dd], da, bk[0], bk[1]);
         mma16816(dq[2 * dd + 1], da, bk[2], bk[3]);
+        if constexpr (SPLIT) {
+          mma16816(dq[2 * dd], dl, bk[0], bk[1]);
+          mma16816(dq[2 * dd + 1], dl, bk[2], bk[3]);
+        }
       }
     }
   }

@@ -34,13 +34,13 @@ _U32 = ctypes.c_uint32
 # cudaGetLastError(), the *_smem entries a byte count
 _SIGNATURES = {
     # x, gamma, beta, w, bias, mask, kend, qkv, out, attn, stats, B, L, C,
-    # H, mult, dtype, stream
-    "attn_block_fwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
+    # H, block, mult, dtype, stream
+    "attn_block_fwd": [_P] * 11 + [_I] * 5 + [_F, _I, _P],
     # x, gamma, beta, w, bias, kend, qkv, B, L, C, dtype, stream
     "attn_block_qkv": [_P] * 7 + [_I] * 4 + [_P],
     # x, gamma, beta, w, mask, kend, attn, stats, dy, qkv, delta, dqkv,
-    # ln_o, dx, gpart, B, L, C, H, mult, dtype, stream
-    "attn_block_bwd": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
+    # ln_o, dx, gpart, B, L, C, H, block, mult, dtype, stream
+    "attn_block_bwd": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
     # kernel, C, dh -> shared-memory bytes of a tensor-core kernel
     "attn_block_tc_smem": [_I] * 3,
     # x, gamma, beta, w1, b1, w2, b2, valid, y, R, C, F, seed, thr, q_t,

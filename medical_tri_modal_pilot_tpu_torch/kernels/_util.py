@@ -3,16 +3,17 @@
 ``launches`` counts, per kernel, the wrapper calls that launched it on the
 card; each wrapper adds one where it launches and nowhere else (a wrapper
 may run several CUDA launches for one call, as the two-pass attention
-forward does). ``ops`` re-exports the dict.
+forward does). The attention block counts its 3-D block-mask form apart
+(``attn_block_3d``, ``attn_block_3d_bwd``). ``ops`` re-exports the dict.
 """
 from __future__ import annotations
 
 import torch
 
-KERNELS = ("umse", "umse_bwd", "attn_block", "attn_block_bwd", "ffn",
-           "ffn_bwd", "dropout_masks", "swin_attention", "swin_mlp",
-           "attention", "attention_bwd", "rowmm_ln", "rowmm_ln_bwd", "rowmm",
-           "rowmm_bwd")
+KERNELS = ("umse", "umse_bwd", "attn_block", "attn_block_bwd",
+           "attn_block_3d", "attn_block_3d_bwd", "ffn", "ffn_bwd",
+           "dropout_masks", "swin_attention", "swin_mlp", "attention",
+           "attention_bwd", "rowmm_ln", "rowmm_ln_bwd", "rowmm", "rowmm_bwd")
 launches = {name: 0 for name in KERNELS}
 
 

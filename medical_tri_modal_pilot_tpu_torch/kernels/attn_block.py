@@ -8,6 +8,15 @@ Counterpart of medical_tri_modal_pilot_tpu/kernels/attn_block.py
 (``xla_attn_block`` and ``pallas_attn_block``). ``w``/``b`` are the
 concatenated q|k|v projection weights [C, 3C] / [3C] in the JAX layout
 ([in, out]); ``scale`` is the score divisor sqrt(d_head).
+
+The mask is None, a key mask [B, L] or a block mask [B, L, L] (the
+multitoken MBT streams), True = masked; the kernels count the block form
+apart (``attn_block_3d``, ``attn_block_3d_bwd``). A bool, int8 or uint8
+mask on x's device is read as it is, one byte per entry (an int8 view, no
+copy), which matters for the block form: the vslt stream's mask is
+64 x 1016 x 1016 bytes, read by every layer. A block mask takes no
+per-sample skipping: every q tile and every key is live, as in the TPU
+kernel (attn_block.py:219-227, :558-566).
 """
 from __future__ import annotations
 
@@ -17,7 +26,7 @@ import torch
 
 from . import _build
 from ._util import count, dtype_code, needs_grad, stream
-from .attention import HEAD_DIMS
+from .attention import _BYTE_MASKS, HEAD_DIMS
 from .attention import tc_smem_bytes as flash_smem_bytes
 from .wgrad import col_sum, wgrad
 
@@ -96,8 +105,9 @@ def key_ends(mask: torch.Tensor) -> torch.Tensor:
 
 def _check(x, w, b, key_mask, num_heads):
     """The wrapper's checks, shapes and mask first (they hold on any
-    device), then the device; returns the int8 mask [B, L] on x's
-    device."""
+    device), then the device; returns the int8 mask on x's device
+    ([B, L] or [B, L, L]), kend int32 [B] (``key_ends``, or L for every
+    sample under a block mask) and whether the mask is a block mask."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attn_block takes fp32 or bf16, got {x.dtype}")
     B, L, C = x.shape
@@ -109,20 +119,25 @@ def _check(x, w, b, key_mask, num_heads):
     if tuple(w.shape) != (C, 3 * C) or tuple(b.shape) != (3 * C,):
         raise ValueError(f"qkv weights must be [{C}, {3 * C}] and "
                          f"[{3 * C}], got {tuple(w.shape)}, {tuple(b.shape)}")
-    if key_mask is not None and key_mask.dim() == 3:
-        raise NotImplementedError(
-            "3-D block masks (multitoken MBT) have no CUDA attn_block "
-            "yet (ROADMAP Queue 1 item 6)")
-    if key_mask is not None and tuple(key_mask.shape) != (B, L):
-        raise ValueError(f"key mask must be [{B}, {L}], got "
-                         f"{tuple(key_mask.shape)}")
+    block = key_mask is not None and key_mask.dim() == 3
+    want = (B, L, L) if block else (B, L)
+    if key_mask is not None and tuple(key_mask.shape) != want:
+        raise ValueError(f"key mask must be [{B}, {L}] or [{B}, {L}, {L}], "
+                         f"got {tuple(key_mask.shape)}")
     if x.device.type != "cuda":
         raise ValueError(f"cuda_attn_block needs CUDA tensors, got {x.device}")
     if not x.is_contiguous():
         raise ValueError("attn_block needs a contiguous x")
     if key_mask is None:
-        return torch.zeros(B, L, dtype=torch.int8, device=x.device)
-    return key_mask.to(device=x.device, dtype=torch.int8).contiguous()
+        mask = torch.zeros(B, L, dtype=torch.int8, device=x.device)
+    elif (key_mask.dtype in _BYTE_MASKS and key_mask.device == x.device
+          and key_mask.is_contiguous()):
+        mask = key_mask.view(torch.int8)
+    else:
+        mask = key_mask.to(device=x.device, dtype=torch.int8).contiguous()
+    kend = (torch.full((B,), L, dtype=torch.int32, device=x.device) if block
+            else key_ends(mask))
+    return mask, kend, block
 
 
 def _operands(x, gamma, beta, w, b):
@@ -138,14 +153,14 @@ def _operands(x, gamma, beta, w, b):
     return gamma, beta, w, b
 
 
-def _launch_fwd(x, gamma, beta, w, b, mask, scale, num_heads, train):
+def _launch_fwd(x, gamma, beta, w, b, mask, kend, block, scale, num_heads,
+                train):
     """The two launches; ``train`` adds the pre-residual attention output
     and the (m, l) stats [B, H, L, 2] of the live rows. The scratch holds
     k|v on the FMA route and q|k|v on the tensor cores."""
     B, L, C = x.shape
     H = num_heads
     gamma, beta, w, b = _operands(x, gamma, beta, w, b)
-    kend = key_ends(mask)
     width = 3 * C if attn_block_route(x.dtype, C, H) == "tc" else 2 * C
     qkv = torch.empty(B, L, width, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
@@ -157,10 +172,10 @@ def _launch_fwd(x, gamma, beta, w, b, mask, scale, num_heads, train):
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
         b.data_ptr(), mask.data_ptr(), kend.data_ptr(), qkv.data_ptr(),
         out.data_ptr(), None if attn is None else attn.data_ptr(),
-        None if stats is None else stats.data_ptr(), B, L, C, H,
+        None if stats is None else stats.data_ptr(), B, L, C, H, int(block),
         1.0 / scale, dtype_code(x.dtype), stream(x))
     _build.check(rc, "attn_block")
-    count("attn_block")
+    count("attn_block_3d" if block else "attn_block")
     return out, attn, stats
 
 
@@ -168,12 +183,12 @@ def cuda_attn_block_bwd(x, gamma, beta, w, b, mask, attn, stats,
                         scale: float, num_heads: int, dy):
     """The backward kernels: (dx, dgamma, dbeta, dw, db), dw and db in the
     dtype of the ``w`` and ``b`` given (as the TPU kernel returns them),
-    dgamma and dbeta in theirs; parameter gradients summed in fp32. q tiles
-    that start past a sample's last valid key give dx = dy and add
-    nothing (their rows carry no cotangent in the model); where whole
-    tiles tile each sample (L % 64 == 0) the weight sums skip their
-    rows."""
-    mask = _check(x, w, b, mask, num_heads)
+    dgamma and dbeta in theirs; parameter gradients summed in fp32. Under a
+    key mask, q tiles that start past a sample's last valid key give
+    dx = dy and add nothing (their rows carry no cotangent in the model);
+    where whole tiles tile each sample (L % 64 == 0) the weight sums skip
+    their rows. Under a block mask every row is live."""
+    mask, kend, block = _check(x, w, b, mask, num_heads)
     B, L, C = x.shape
     H = num_heads
     if C not in BWD_WIDTHS:
@@ -181,7 +196,6 @@ def cuda_attn_block_bwd(x, gamma, beta, w, b, mask, attn, stats,
                          f"got {C}")
     dt = x.dtype
     gamma_, beta_, w_, b_ = _operands(x, gamma, beta, w, b)
-    kend = key_ends(mask)
     dy = dy.to(dt).contiguous()
     lib = _build.library()
     qkv = torch.empty(B, L, 3 * C, dtype=dt, device=x.device)
@@ -204,16 +218,16 @@ def cuda_attn_block_bwd(x, gamma, beta, w, b, mask, attn, stats,
         dy.data_ptr(), qkv.data_ptr(),
         None if delta is None else delta.data_ptr(), dqkv.data_ptr(),
         ln.data_ptr(), dx.data_ptr(), gpart.data_ptr(), B, L, C, H,
-        1.0 / scale, dtype_code(dt), stream(x))
+        int(block), 1.0 / scale, dtype_code(dt), stream(x))
     _build.check(rc, "attn_block_bwd")
     flags = None
-    if L % 64 == 0:
+    if L % 64 == 0 and not block:
         starts = torch.arange(0, L, 64, device=x.device, dtype=torch.int32)
         flags = (starts[None, :] < kend[:, None]).to(torch.int8).reshape(-1)
     dw, db = wgrad(ln.reshape(B * L, C), dqkv.reshape(B * L, 3 * C), flags,
                    None if flags is None else 64)
     g = col_sum(gpart)
-    count("attn_block_bwd")
+    count("attn_block_3d_bwd" if block else "attn_block_bwd")
     return (dx, g[:C].to(gamma.dtype), g[C:].to(beta.dtype), dw.to(w.dtype),
             db.to(b.dtype))
 
@@ -223,9 +237,10 @@ class _AttnBlock(torch.autograd.Function):
     x, the pre-residual attention output and the row stats."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w, b, mask, scale, num_heads):
-        out, attn, stats = _launch_fwd(x, gamma, beta, w, b, mask, scale,
-                                       num_heads, train=True)
+    def forward(ctx, x, gamma, beta, w, b, mask, kend, block, scale,
+                num_heads):
+        out, attn, stats = _launch_fwd(x, gamma, beta, w, b, mask, kend,
+                                       block, scale, num_heads, train=True)
         ctx.save_for_backward(x, gamma, beta, w, b, mask, attn, stats)
         ctx.scale, ctx.num_heads = scale, num_heads
         return out
@@ -234,17 +249,18 @@ class _AttnBlock(torch.autograd.Function):
     def backward(ctx, dy):
         grads = cuda_attn_block_bwd(*ctx.saved_tensors, ctx.scale,
                                     ctx.num_heads, dy)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def cuda_attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
                     scale: float, num_heads: int) -> torch.Tensor:
     """Launch the kernel on CUDA tensors: the lean form, or the training
-    form through the autograd Function when a gradient is needed. Rows past
-    a sample's last valid key, in q tiles that start past it, hold the pure
-    residual."""
-    mask = _check(x, w, b, key_mask, num_heads)
+    form through the autograd Function when a gradient is needed. Under a
+    key mask, rows past a sample's last valid key, in q tiles that start
+    past it, hold the pure residual."""
+    mask, kend, block = _check(x, w, b, key_mask, num_heads)
     if needs_grad(x, gamma, beta, w, b):
-        return _AttnBlock.apply(x, gamma, beta, w, b, mask, scale, num_heads)
-    return _launch_fwd(x, gamma, beta, w, b, mask, scale, num_heads,
-                       train=False)[0]
+        return _AttnBlock.apply(x, gamma, beta, w, b, mask, kend, block,
+                                scale, num_heads)
+    return _launch_fwd(x, gamma, beta, w, b, mask, kend, block, scale,
+                       num_heads, train=False)[0]

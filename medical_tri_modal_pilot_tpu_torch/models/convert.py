@@ -7,8 +7,14 @@ the reference's torch state_dict keys, so the JAX package's own
 maps a port state_dict back onto the flax tree and raises on any key it
 does not use. Covered: ``tri_mbt_vsltcls`` (and its bimodal aliases),
 ``bi_vslttxt_mbt_v1``, ``bi_vsltimg_mbt_v1``, ``tri_mbt_v1``,
-``unimodal_transformer`` under every UMSE branch, and the cross
-transformer. The legacy cross transformer has no reference state_dict
+``unimodal_transformer`` under every UMSE branch, the multitoken family
+(``tri_mbt_vmulti``, ``tri_mbt_vmulti2``, ``tri_mbt_vmultivslt``) and the
+cross transformer. The JAX package's bridge does not reach the multitoken
+trees; their port names follow the reference's other MBT fusions
+(``cls_token_per_modality``, ``bottlenecks``, ``layer_norms_in``,
+``layer_stacks``), with ``cls_token`` for the VSLTMAIN fusion's single
+cls parameter (its flax name), ``layer_norms_after_concat`` and
+``fc_lists.{i}``. The legacy cross transformer has no reference state_dict
 names in the JAX package's bridge; its port modules are named after the
 flax tree instead (``models/legacy.py``).
 
@@ -144,15 +150,63 @@ def _fusion(sd, pre: str, p: Mapping, n_mod: int) -> None:
             _encoder_layer(sd, f"{pre}.layer_stacks.{li}.{m}", layer)
 
 
+def _multitoken_fusion(sd, pre: str, p: Mapping) -> None:
+    """MultitokenMBTFusion (``cls_tokens_{m}``, ``bottlenecks_{g}``) or
+    MultitokenMBTVSLTMAINFusion (``cls_token``, ``bottlenecks``) ->
+    ``{pre}.cls_token_per_modality.{m}`` / ``.cls_token``,
+    ``.bottlenecks.{g}`` / ``.bottlenecks``, ``.layer_norms_in.{m}``,
+    ``.layer_stacks.{layer}.{m}``."""
+    if "cls_token" in p:
+        sd[f"{pre}.cls_token"] = _t(p["cls_token"])
+        sd[f"{pre}.bottlenecks"] = _t(p["bottlenecks"])
+    else:
+        for m in range(3):
+            sd[f"{pre}.cls_token_per_modality.{m}"] = _t(p[f"cls_tokens_{m}"])
+        for g in range(4):
+            sd[f"{pre}.bottlenecks.{g}"] = _t(p[f"bottlenecks_{g}"])
+    for m in range(3):
+        _ln(sd, f"{pre}.layer_norms_in.{m}", p[f"layer_norm_in_{m}"])
+    for key, layer in p.items():
+        if key.startswith("layers_"):
+            _, li, m = key.split("_")
+            _encoder_layer(sd, f"{pre}.layer_stacks.{li}.{m}", layer)
+
+
+def _ln_head(sd, key: str, head: Mapping) -> None:
+    """ClsHeadLN (fc1, ln, fc2) -> Linear, LayerNorm, Linear."""
+    _lin(sd, f"{key}.0", head["fc1"])
+    _ln(sd, f"{key}.1", head["ln"])
+    _lin(sd, f"{key}.3", head["fc2"])
+
+
+_MULTITOKEN_MODELS = ("tri_mbt_vmulti", "tri_mbt_vmulti2",
+                      "tri_mbt_vmultivslt")
+
+
+def _multitoken(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The multitoken models: the stems, the trunk and its projection
+    (``img_enc``), the fusion, ``after_concat_ln`` and the four LayerNorm
+    heads ``fc_lists_{i}`` (JAX models.py:564-667)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _umse(sd, params["umse"])
+    img = params["img_enc"]
+    sd.update(swin_state_dict(img["img_encoder"], "img_encoder."))
+    _lin(sd, "linear", img["linear"])
+    _multitoken_fusion(sd, "fusion_transformer", params["fusion_transformer"])
+    _ln(sd, "layer_norms_after_concat", params["after_concat_ln"])
+    for i in range(4):
+        _ln_head(sd, f"fc_lists.{i}", params[f"fc_lists_{i}"])
+    return sd
+
+
 def _cls_head(sd, params: Mapping, stats: Mapping) -> None:
     """ClsHead ``fc_list`` (fc1, bn, fc2) -> Linear, BatchNorm1d, Linear;
     ClsHeadLN (fc1, ln, fc2) -> Linear, LayerNorm, Linear."""
     head = params["fc_list"]
-    _lin(sd, "fc_list.0", head["fc1"])
     if "ln" in head:
-        _ln(sd, "fc_list.1", head["ln"])
-        _lin(sd, "fc_list.3", head["fc2"])
+        _ln_head(sd, "fc_list", head)
         return
+    _lin(sd, "fc_list.0", head["fc1"])
     sd["fc_list.1.weight"] = _t(head["bn"]["scale"])
     sd["fc_list.1.bias"] = _t(head["bn"]["bias"])
     bn = stats["fc_list"]["bn"]
@@ -235,6 +289,8 @@ def from_jax_variables(cfg: Config, variables: Mapping
         return _cross_transformer(params, stats)
     if cfg.model == "unimodal_transformer":
         return _unimodal(params, stats)
+    if cfg.model in _MULTITOKEN_MODELS:
+        return _multitoken(params)
     if cfg.model not in _MBT_MODELS:
         raise NotImplementedError(
             f"no weight bridge for model '{cfg.model}' yet")

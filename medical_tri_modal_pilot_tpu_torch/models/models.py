@@ -3,7 +3,9 @@ models.py:49-387, :530-561): UMSE stems + modality encoders + MBT fusion,
 and the heads of ``tri_mbt_vsltcls`` (the vslt cls token plus
 demographics), ``bi_*_mbt_v1`` (a missing-aware mix of the two cls
 vectors) and ``tri_mbt_v1`` (a missing-aware mix of per-modality logits);
-and ``unimodal_transformer``, the UMSE stems under one encoder.
+the multitoken family ``tri_mbt_vmulti``, ``tri_mbt_vmulti2`` and
+``tri_mbt_vmultivslt`` (four cls heads, one per missing case); and
+``unimodal_transformer``, the UMSE stems under one encoder.
 
 The classes extend each other (UMSE <- ImageEncoder <- MBTBackbone <-
 TRI_MBT_VSLTCLS) so every parameter sits where the reference's single
@@ -22,7 +24,8 @@ from ..config import Config
 from ..constants import IMG_FEATURE_ID, TXT_FEATURE_ID
 from .encoder import TransformerEncoder
 from .heads import ClsHead, ClsHeadLN
-from .mbt import MBTFusion, missing_candidate_weights
+from .mbt import (MBTFusion, MultitokenMBTFusion,
+                  MultitokenMBTVSLTMAINFusion, missing_candidate_weights)
 from .modules import DropoutSeeds, LayerNorm
 from .swin import SwinTransformer
 from .umse import UMSE
@@ -353,6 +356,113 @@ class TRI_MBT_V1(MBTBackbone):
         onehot = F.one_hot(missing_num.long(), 4).float()
         mix = (onehot @ self.logit_mix).to(logits.dtype)        # [B, M]
         return torch.einsum("bm,mbo->bo", mix, logits)[..., 0], None, None
+
+
+class MultitokenBase(ImageEncoder):
+    """The multitoken family's embedding path (JAX models.py:564-621;
+    tri_mbt_vmulti.py:128+): the UMSE stems, the trunk over every image row
+    (no presence packing: the JAX package runs this family's frozen trunk
+    over all rows), the timestamp enrichment of the img and txt tokens, and
+    a multitoken fusion with every stream masked (the image stream at its
+    full length, the notes at ``txt_length + 2``); then the head over the
+    four per-case vectors [4, B, D]: ``layer_norms_after_concat``, the
+    demographics (concatenated under every ``--vslt-type``, as the JAX
+    package does) and four LayerNorm heads ``fc_lists.{i}``. Returns
+    logits [4, B]. The trunk is frozen at ``--img-pretrain Yes`` (JAX
+    registry.py:105)."""
+
+    # logits [4, B], one head per missing case: the Trainer's loss and
+    # eval selection read this (train/trainer.py::compute_loss)
+    MULTI_HEAD = True
+
+    def __init__(self, cfg: Config, vslt_main: bool = False):
+        if cfg.input_types != "vslt_img_txt":
+            raise ValueError(f"--model {cfg.model} fuses vslt_img_txt, not "
+                             f"--input-types {cfg.input_types}")
+        if cfg.multiimages == 1:
+            raise ValueError(f"--multiimages 1: --model {cfg.model} takes "
+                             "one image per sample")
+        super().__init__(cfg)
+        self.img_pack = False  # the trunk runs over every row
+        D = cfg.transformer_dim
+        dt = model_dtype(cfg)
+        fusion = (MultitokenMBTVSLTMAINFusion if vslt_main
+                  else MultitokenMBTFusion)
+        self.fusion_transformer = fusion(
+            n_modality=3, bottlenecks_n=cfg.mbt_bottlenecks_n,
+            fusion_startidx=cfg.mbt_fusion_startidx,
+            n_layers=cfg.transformer_num_layers,
+            n_head=cfg.transformer_num_head, d_model=D, d_ff=4 * D,
+            dropout=cfg.dropout,
+            use_pe=(cfg.vslt_type == "carryforward", False, True),
+            mask=(True, True, True), dtype=dt, remat=cfg.remat == 1)
+        self.layer_norms_after_concat = LayerNorm(D, dt)
+        self.fc_lists = nn.ModuleList(
+            ClsHeadLN(2 * D, D, cfg.output_dim, cfg.activation, dt)
+            for _ in range(4))
+
+    def case_vectors(self, outputs: List[torch.Tensor]) -> torch.Tensor:
+        """The four per-case vectors [4, B, D] from the streams' outputs."""
+        raise NotImplementedError
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                missing_num: torch.Tensor,
+                seeds: Optional[DropoutSeeds] = None) -> ModelOutput:
+        cfg = self.cfg
+        vslt_tokens, demo = self.embed_vslt(
+            batch["vslt"], batch["static"][:, 1], batch["static"][:, 0])
+        img_tokens = self.encode_images(batch["img"],
+                                        batch["missing"][:, 1] == 0.0)
+        txt_tokens = self.embed_txt(batch["txt"])
+        if txt_tokens.dim() == 2:
+            txt_tokens = txt_tokens[:, None, :]
+        if cfg.imgtxt_time == 1:
+            img_tokens = self.add_time_feature(
+                img_tokens, batch["img_time"].reshape(-1), IMG_FEATURE_ID,
+                demo)
+            txt_tokens = self.add_time_feature(
+                txt_tokens, batch["txt_time"], TXT_FEATURE_ID, demo)
+        B = img_tokens.shape[0]
+        varying = [batch["input_length"].long(),
+                   torch.full((B,), img_tokens.shape[1], dtype=torch.long,
+                              device=img_tokens.device),
+                   batch["txt_length"].long() + 2]
+        outputs = self.fusion_transformer(
+            [vslt_tokens, img_tokens, txt_tokens], varying, missing_num,
+            seeds)
+        h = self.layer_norms_after_concat(self.case_vectors(outputs))
+        h = torch.cat([h, demo.to(h.dtype).expand(4, -1, -1)], dim=-1)
+        logits = torch.stack([head(h[i])[..., 0]
+                              for i, head in enumerate(self.fc_lists)])
+        return logits, None, None
+
+
+class TRI_MBT_VMULTI(MultitokenBase):
+    """``tri_mbt_vmulti`` (JAX models.py:624-641; tri_mbt_vmulti.py:
+    154-180): tri = the mean of each stream's cls 0; v+i = the mean of the
+    vslt cls 1 and the img cls 1; v+t = the mean of the vslt cls 2 and the
+    txt cls 1; v = the vslt cls 3. ``tri_mbt_vmulti2`` (vslt_main) wires
+    the same head over the VSLTMAIN fusion, whose img and txt streams carry
+    no cls tokens, so their slots 0 and 1 are content tokens (the
+    reference's quirk, kept)."""
+
+    def case_vectors(self, outputs):
+        v, i, t = outputs
+        return torch.stack([(v[:, 0] + i[:, 0] + t[:, 0]) / 3,
+                            (v[:, 1] + i[:, 1]) / 2,
+                            (v[:, 2] + t[:, 1]) / 2, v[:, 3]])
+
+
+class TRI_MBT_VMULTIVSLT(MultitokenBase):
+    """``tri_mbt_vmultivslt`` (JAX models.py:651-667;
+    tri_mbt_vmultivslt.py:181-187): the VSLTMAIN fusion, classified from
+    the vslt stream's four cls tokens."""
+
+    def __init__(self, cfg: Config):
+        super().__init__(cfg, vslt_main=True)
+
+    def case_vectors(self, outputs):
+        return outputs[0][:, :4].transpose(0, 1)
 
 
 class UNIMODAL_TRANSFORMER(UMSE):

@@ -26,6 +26,9 @@ _REGISTRY: Dict[str, Callable] = {
     "tri_mbt_v3": lambda cfg: M.TRI_MBT_V1(cfg, variant=3),
     "bi_vslttxt_mbt_v1": M.BI_MBT_V1,
     "bi_vsltimg_mbt_v1": M.BI_MBT_V1,
+    "tri_mbt_vmulti": M.TRI_MBT_VMULTI,
+    "tri_mbt_vmulti2": lambda cfg: M.TRI_MBT_VMULTI(cfg, vslt_main=True),
+    "tri_mbt_vmultivslt": M.TRI_MBT_VMULTIVSLT,
     "unimodal_transformer": M.UNIMODAL_TRANSFORMER,
     "cross_transformer_txt_vslt": LG.CROSS_TRANSFORMER,
     "bi_cross_transformer_txt_vslt": LG.CROSS_TRANSFORMER,

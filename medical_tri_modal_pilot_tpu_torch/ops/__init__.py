@@ -16,7 +16,8 @@ backward kernels.
 ``launches`` counts, per kernel, the wrapper calls that launched it
 (kernels/_util.py); the backward kernels count as ``umse_bwd``,
 ``attn_block_bwd``, ``ffn_bwd``, ``attention_bwd``, ``rowmm_ln_bwd`` and
-``rowmm_bwd``.
+``rowmm_bwd``, the attention block under a 3-D block mask as
+``attn_block_3d`` and ``attn_block_3d_bwd``.
 """
 from __future__ import annotations
 
@@ -76,7 +77,8 @@ def umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table, dtype):
 
 def attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
                scale: float, num_heads: int):
-    """x + MHA(StdLN(x)) with q|k|v weights [C, 3C] / [3C]."""
+    """x + MHA(StdLN(x)) with q|k|v weights [C, 3C] / [3C]; the mask None,
+    [B, L] or [B, L, L], True = masked."""
     if not _launches_kernel(x.device):
         return _attn_block.torch_attn_block(x, gamma, beta, w, b, key_mask,
                                             scale, num_heads)

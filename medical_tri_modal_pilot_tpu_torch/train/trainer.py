@@ -57,18 +57,56 @@ def compute_missing_num(cfg: Config, missing: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(img)
 
 
+# the multitoken models' loss weights (reference trainer.py:78-84): row =
+# the sample's missing case, column = the head's candidate subset (tri,
+# v+i, v+t, v), 1 = the subset holds a missing modality and is not trained
+_MULTITOKEN_MISSING = np.array([
+    [0., 0., 0., 0.],
+    [1., 0., 1., 0.],
+    [1., 1., 0., 0.],
+    [1., 1., 1., 0.],
+], dtype=np.float32)
+
+
+def multitoken_targets(cfg: Config, targets: torch.Tensor) -> torch.Tensor:
+    """``--multitoken 1`` under ``--fullmodal-definition`` txt1 or img1
+    repeats each target twice, sample-major (JAX trainer.py:161-169); the
+    train step only."""
+    if cfg.multitoken and cfg.fullmodal_definition in ("txt1", "img1"):
+        return torch.repeat_interleave(targets, 2, dim=0)
+    return targets
+
+
 def bce(logits, targets):
     """Elementwise sigmoid binary cross-entropy (optax's formula)."""
     return F.binary_cross_entropy_with_logits(logits, targets,
                                               reduction="none")
 
 
-def compute_loss(cfg: Config, logits, rmse, targets, targets_aux):
-    """The detection loss of single-output models: mean BCE, plus the
-    aux-rmse term on positive samples when configured."""
+def compute_loss(cfg: Config, logits, rmse, targets, targets_aux,
+                 missing=None, missing_num=None, multi_head: bool = False):
+    """The detection loss (JAX trainer.py:172-209): for a model with one
+    head per missing case (``multi_head``, logits [4, B]) the BCE of each
+    head against the target, averaged over the heads whose candidate
+    subset the sample's missing case (``missing_num``) holds; else the
+    mean BCE, plus the aux-rmse term on positive samples when configured.
+    ``missing`` [B, 3] serves the vnoshnoavgtr loss, which is not
+    ported."""
     if cfg.model_types != "detection":
         raise NotImplementedError(
             f"--model-types {cfg.model_types}: only detection is ported")
+    if multi_head:
+        if missing_num is None:
+            raise ValueError(f"--model {cfg.model}: the loss needs "
+                             "missing_num")
+        table = torch.as_tensor(_MULTITOKEN_MISSING, device=logits.device)
+        w = 1.0 - table[missing_num.long()].T                  # [4, B]
+        losses = bce(logits, targets[None].expand_as(logits))
+        return (losses * w).sum() / w.sum().clamp_min(1.0)
+    if "mbt_vnoshnoavgtr" in cfg.model:
+        raise NotImplementedError(
+            f"--model {cfg.model}: the vnoshnoavgtr loss is ROADMAP Queue "
+            "1 item 6")
     loss = bce(logits, targets).mean()
     if rmse is not None and "rmse" in cfg.auxiliary_loss_type:
         err = (rmse - targets_aux) ** 2
@@ -79,13 +117,18 @@ def compute_loss(cfg: Config, logits, rmse, targets, targets_aux):
     return loss
 
 
-def select_eval_output(cfg: Config, logits, missing_num):
-    """Eval-time output selection (trainer.py:218-230): single-output
-    models return their logits as they are."""
-    if "multi" in cfg.model or "mbt_vnoshnoavgtr" in cfg.model:
+def select_eval_output(cfg: Config, logits, missing_num,
+                       multi_head: bool = False):
+    """Eval-time output selection (JAX trainer.py:212-225): a model with
+    one head per missing case (``multi_head``) gives, per sample, the head
+    of its case from [4, B]; single-output models return their logits as
+    they are."""
+    if multi_head:
+        return logits.gather(0, missing_num.long()[None])[0]
+    if "mbt_vnoshnoavgtr" in cfg.model:
         raise NotImplementedError(
-            f"--model {cfg.model}: multi-output selection is ROADMAP "
-            "Queue 1 item 6")
+            f"--model {cfg.model}: the vnoshnoavgtr output selection is "
+            "ROADMAP Queue 1 item 6")
     return logits
 
 
@@ -270,6 +313,8 @@ class Trainer:
         self.mesh = mesh
         self.split = {} if mesh is None else shard_model(model, mesh)
         self.model = model.to(self.device).eval()
+        # one output per missing case, [4, B] (models.py::MultitokenBase)
+        self.multi_head = getattr(model, "MULTI_HEAD", False)
         self.seed = int(seed)
         self.step = 0
         self.schedule = build_schedule(cfg, max(iters_per_epoch, 1))
@@ -419,7 +464,9 @@ class Trainer:
                                        DropoutSeeds(self.seed, self.step))
         loss = compute_loss(cfg, logits.float(),
                             None if rmse is None else rmse.float(),
-                            b["target"].float(), b["target_aux"].float())
+                            multitoken_targets(cfg, b["target"].float()),
+                            b["target_aux"].float(), b["missing"],
+                            missing_num, self.multi_head)
         if aux is not None:
             # a model-computed auxiliary loss (JAX trainer.py:463-468)
             loss = loss + cfg.auxiliary_loss_weight * aux.float()
@@ -444,7 +491,8 @@ class Trainer:
             missing_num = compute_missing_num(cfg, b["missing"])
             logits, rmse, _ = self.model(b, missing_num)
             logits = logits.float()
-            out = select_eval_output(cfg, logits, missing_num)
+            out = select_eval_output(cfg, logits, missing_num,
+                                     self.multi_head)
             # detection eval loss: BCE on the selected output, no aux term
             loss = bce(out, b["target"].float()).mean()
             probs = torch.sigmoid(out)

@@ -4,7 +4,8 @@ the flagship's (d_head 64, C 256; Swin-T's C 96-768): forwards, the
 backward kernels against autograd of the plain versions (the umse
 backward against its closed form, torch_umse_bwd), the dropout masks bit
 for bit; the masked attention of the cross-modal layers at
-every mask form; and the small eval and train steps (vslt+txt, and
+every mask form; the attention block under the multitoken streams' 3-D
+block masks; and the small eval and train steps (vslt+txt, and
 vslt+img+txt with the full Swin-T; the cross transformer) on both paths;
 the row-skipping projections of tensor parallelism (both routes, the
 kernels each dtype launches) and the dropout masks' column offset.
@@ -604,12 +605,63 @@ def test_wgrad_matches_a_product(dev, prec):
 
 
 def test_kernels_refuse_block_masks_and_grads(dev):
+    """The 3-D block mask runs on the card (test_attn_block_block_mask);
+    a block mask of the wrong shape is refused there."""
     x = torch.zeros(2, 8, 64, device=dev)
     args = (torch.ones(64, device=dev), torch.zeros(64, device=dev),
             torch.zeros(64, 192, device=dev), torch.zeros(192, device=dev))
-    with pytest.raises(NotImplementedError, match="3-D"):
-        cuda_attn_block(x, *args, torch.zeros(2, 8, 8, dtype=torch.bool,
+    with pytest.raises(ValueError, match="key mask"):
+        cuda_attn_block(x, *args, torch.zeros(2, 8, 7, dtype=torch.bool,
                                               device=dev), 4.0, 2)
+    out = cuda_attn_block(x, *args, torch.zeros(2, 8, 8, dtype=torch.bool,
+                                                device=dev), 4.0, 2)
+    assert torch.equal(out, x)
+
+
+# the multitoken streams' block masks at small widths: (stream, content
+# rows, C, heads); stream 0 is vslt (4 cls), 1 img (2 cls), 2 txt (2 cls)
+BLOCK_MASK_CASES = [(0, 60, 64, 2), (1, 49, 64, 2), (2, 40, 256, 4),
+                    (2, 128, 256, 4)]
+
+
+@pytest.mark.parametrize("stream,n_rows,C,H", BLOCK_MASK_CASES)
+@pytest.mark.parametrize("vslt_main", [False, True])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_attn_block_block_mask(dev, stream, n_rows, C, H, vslt_main, prec):
+    """The 3-D block-mask form (lean, training forward and backward)
+    against the plain version under the multitoken fusion's own masks
+    (models/mbt.py::block_key_mask) with seeded lengths and a sample
+    without a note (in the txt stream its rows 14-15 have every key
+    masked): every row on the output and the gradients, one launch each
+    of attn_block_3d and attn_block_3d_bwd, none of the key-mask form."""
+    from medical_tri_modal_pilot_tpu_torch.models.mbt import block_key_mask
+    g = torch.Generator().manual_seed(9)
+    B, dt = 4, PRECS[prec]
+    cls = 4 if stream == 0 else (0 if vslt_main else 2)
+    L = cls + n_rows
+    lengths = torch.randint(1, n_rows + 1, (B,), generator=g)
+    lengths[1] = 0 if stream == 2 else lengths[1]
+    vlen = (lengths + cls).to(dev)
+    mask = block_key_mask(vlen, L, 4, stream, vslt_main)
+    if stream == 2 and not vslt_main:
+        assert mask[1, 14:16].all()
+    Lb = L + 12
+    x = _rand(g, dev, B, Lb, C).to(dt)
+    gamma, beta = _rand(g, dev, C, std=.1, mean=1.), _rand(g, dev, C, std=.1)
+    w = _rand(g, dev, C, 3 * C, std=C ** -.5).to(dt)
+    b = _rand(g, dev, 3 * C, std=.1).to(dt)
+    cot = _rand(g, dev, B, Lb, C).to(dt)
+    fwd = lambda *a: ops.attn_block(*a, mask, (C // H) ** .5, H)
+    out, ref = _both(lambda: fwd(x, gamma, beta, w, b))
+    torch.testing.assert_close(out, ref, **TOL[prec])
+    ops.reset_launches()
+    (out, grads), (ref, ref_grads) = _grads(fwd, (x, gamma, beta, w, b), cot)
+    assert ops.launches["attn_block_3d"] == 1
+    assert ops.launches["attn_block_3d_bwd"] == 1
+    assert ops.launches["attn_block"] == ops.launches["attn_block_bwd"] == 0
+    torch.testing.assert_close(out, ref, **TOL[prec])
+    _assert_grads_close(grads, ref_grads, prec,
+                        ["dx", "dgamma", "dbeta", "dw", "db"])
 
 
 # masked attention: (B, H, Lq, Lk, d_head, mask): the cross-modal layers'

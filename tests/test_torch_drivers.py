@@ -414,3 +414,29 @@ def test_config4_run_trains_validates_saves_and_tests(tmp_path,
     for kind in ("best", "last"):
         assert (root / "ckpts" / f"{kind}_fold0_seed412.pth").exists()
     assert test_driver.main(argv, device="cpu") == test
+
+
+def test_vmulti_fold_through_both_drivers(tmp_path):
+    """tri_mbt_vmulti (the [4, B] logits, the selected output) through the
+    train driver's fold on the CPU (1 epoch of 2 train, 1 val and 1 test
+    batch; full Swin-T, 2 layers at d 64): finite losses, a validation
+    block, last and best saved; the test driver scores best to the train
+    driver's final test metrics."""
+    cfg = parse_config(CONFIG4 + ["--model", "tri_mbt_vmulti",
+                                  "--dir-result", str(tmp_path),
+                                  "--epochs", "1", "--log-iter", "1",
+                                  "--img-pack-frac", "0.5"])
+    loaders = [BatchList(_batches(cfg, n, seed=s))
+               for n, s in ((2, 10), (1, 20), (1, 30))]
+    for b in loaders[1].batches + loaders[2].batches:
+        b["target"][:] = [1, 0, 1, 0]
+    val, test = train_driver.run_fold(cfg, 0, *loaders, device="cpu")
+    assert val is not None and np.isfinite(test["auc"])
+    root = tmp_path / cfg.project_name
+    events = (root / "logs_0" / "events.jsonl").read_text()
+    assert events.count('"train/loss"') == 2 and '"val/loss"' in events
+    best = checkpoints.ckpt_path(str(tmp_path), cfg.project_name, "best", 0,
+                                 cfg.seed)
+    walked = test_driver.run_checkpoints(cfg, test_driver.checkpoints_of(cfg),
+                                         loaders[2], device="cpu")
+    assert dict(walked)[best] == test

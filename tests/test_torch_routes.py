@@ -121,13 +121,20 @@ def test_attn_block_tc_smem_within_the_card(C, dh):
 
 
 def test_attn_block_wrapper_refuses_before_the_card():
-    """A 3-D block mask, a head width no kernel is built for and weights
-    of the wrong shape are refused in the wrapper, on any device."""
+    """A mask of the wrong shape (2-D or 3-D), a head width no kernel is
+    built for and weights of the wrong shape are refused in the wrapper,
+    on any device; a [B, L, L] block mask passes the wrapper's checks and
+    reaches the device check."""
     B, L, C = 2, 70, 64
     x = torch.zeros(B, L, C, dtype=torch.bfloat16)
     gamma, beta = torch.ones(C), torch.zeros(C)
     w, b = torch.zeros(C, 3 * C), torch.zeros(3 * C)
-    with pytest.raises(NotImplementedError, match="3-D"):
+    for shape in ((B, L, L - 1), (B, L + 1, L + 1), (B, L - 1)):
+        with pytest.raises(ValueError, match="key mask"):
+            attn_block.cuda_attn_block(x, gamma, beta, w, b,
+                                       torch.zeros(shape, dtype=torch.bool),
+                                       4.0, 2)
+    with pytest.raises(ValueError, match="CUDA"):
         attn_block.cuda_attn_block(x, gamma, beta, w, b,
                                    torch.zeros(B, L, L, dtype=torch.bool),
                                    4.0, 2)

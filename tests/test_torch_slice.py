@@ -162,7 +162,7 @@ def test_unported_paths_raise():
     packed-image wire format runs (tests/test_torch_drivers.py); a txt_id
     batch without the note table is refused by name."""
     with pytest.raises(KeyError, match="tri_mbt_vsltcls"):
-        get_model(_cfg("--model", "tri_mbt_vmulti"))
+        get_model(_cfg("--model", "tri_mbt_vflexible"))
     tri = ("--input-types", "vslt_img_txt")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         get_model(_cfg(*tri, "--img-model-type", "vit"))

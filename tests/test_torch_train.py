@@ -316,7 +316,9 @@ def compare_train_state(cfg, jt, tr, lr_sum, bias_walk=0.0):
     carries fc_list.0's bias, whose true gradient is zero (the BatchNorm
     cancels it), so each side's Adam walks it by noise, within the
     parameter bound below (2.01 lr_sum); the running mean, a weighted mean
-    of batch means that include the bias, inherits that difference."""
+    of batch means that include the bias, inherits that difference. A
+    model whose heads hold no BatchNorm (the LayerNorm heads of the
+    multitoken family) has no statistics to compare."""
     jparams = jax.device_get(jt.state.params)
     want = params_from_jax(cfg, jparams)
     named = dict(tr.model.named_parameters())
@@ -337,7 +339,12 @@ def compare_train_state(cfg, jt, tr, lr_sum, bias_walk=0.0):
         bound = np.where(clear, 2e-6 + 0.02 * lr_sum, 2.01 * lr_sum + 2e-6)
         assert np.all(err <= bound), (name, err.max(), err[clear].max(
             initial=0.0))
-    bn = jax.device_get(jt.state.batch_stats)["fc_list"]["bn"]
+    stats = jax.device_get(jt.state.batch_stats)
+    if "fc_list" not in stats:
+        assert not stats and not any(
+            isinstance(m, torch.nn.BatchNorm1d) for m in tr.model.modules())
+        return
+    bn = stats["fc_list"]["bn"]
     head = tr.model.fc_list[1]
     _close_to_tensor_max(head.running_mean.numpy(), bn["mean"], 1e-4,
                          1e-6 + bias_walk, "running mean")
