@@ -176,11 +176,48 @@ Phases, each raising on failure (nothing is caught):
      a fold through the train driver (1 epoch of 2 train, 1 val and 1
      test batch) with the test driver's walk to its final test metrics.
      Prints its train ms/step beside config 4's and the phase's seconds.
-The kernel phases (3, 5b, 6, 9, 12) run first, then 4-5, 7-8, 10-11, 13,
-14, 15 and 16.
+  3w. the kernels at the other model widths (WIDTH_CASES: d_model 128
+     with 4 heads, 512 with 4 heads, 256 with 2 heads; d_head 32, 128,
+     128): umse at D 512 (forward against torch_umse, backward against
+     its closed form); attn_block at [64, 1024, C] under the TIE key mask
+     and at [64, 142, C] under a multitoken txt stream's 3-D block mask
+     (lean, training, backward); ffn at C 128 (fused) and 512 (the split
+     route, csrc/ffn_split.cu), dropout 0.1, training and backward, and
+     at 512 its masks held to dropout_masks' bit for bit (every dropped
+     output is x, every dropped hidden unit 0); rowmm at Cin 128 and 512
+     (the LN form at one rank's q|k|v, W [C, 3C/2], and the plain form);
+     the masked attention at d_head 128 (the TIE stream's TP self shape,
+     the cross shapes, a block mask, no mask). fp32 and bf16 against the
+     plain versions with phase 3's and 6's tolerances, event ms, the
+     profiler's device ms per form with the launched kernels (the dtype's
+     route's), plain ms and the bound; the library column where one
+     PyTorch call computes the same (scaled_dot_product_attention at the
+     TP self and cross shapes, torch.addmm for the plain rowmm).
+  14b. the drivers under --mp-size 2 --dp-size 1: two ranks
+     (parallel.launch) sharing the one card over gloo, each through the
+     drivers' set-up (drivers/common.py::setup_distributed: the group,
+     cuda:0, the mesh), config 4 at full width: the train driver's fold
+     (1 epoch of 2 train, 1 val and 1 test wire-format batches, the epoch
+     save), the fold again under --resume last, the test driver's walk.
+     Checks the launch counts per rank, the run record rank 0 wrote and
+     nothing else in the run's directory, the walk to the fold's final
+     test metrics; rank 0's best checkpoint loaded into a single-process
+     Trainer scores the test batch to the ranks' probabilities within
+     PROB_TOL bf16 (phase 13's bound). Prints rank 0's ms/step (events
+     clock; TP_LABEL).
+  17. config 4 at the other widths (WIDTH_CASES; the rest as the
+     flagship's: bf16, batch 64, TIE-len 1000, 6 layers, --dropout 0.1,
+     adamw): eval launch counts (every attn_block, ffn and umse call on
+     its kernel), probabilities against the plain path in bf16 and fp32
+     (phase 4's bounds), ms/step in turns; train launch counts, peak
+     memory, ms/step in turns, one step on both paths in fp32 and bf16 at
+     dropout 0.1 (phase 7's gates).
+The kernel phases (3, 5b, 6, 9, 12, 3w) run first, then 4-5, 7-8, 10-11,
+13, 14, 14b, 15, 16 and 17.
 Then one JSON line per the kernels (each with the path that launches it
-and its launches over that path's steps, and under ``other_paths`` its
-launches on phases 15 and 16's other train paths) and, last, {"ok": true,
+and its launches over that path's steps, under ``other_paths`` its
+launches on phases 15 and 16's other train paths, and under ``widths``
+its bf16 results at the other widths of phase 3w) and, last, {"ok": true,
 "device": ...}.
 
     python3 chip_smoke.py baseline
@@ -189,7 +226,21 @@ runs the build and phase 15 alone;
 
     python3 chip_smoke.py multitoken
 
-the build and phase 16.
+the build and phase 16;
+
+    python3 chip_smoke.py widths
+
+the build, phase 3w and phase 17;
+
+    python3 chip_smoke.py tpdrivers
+
+the build and phase 14b;
+
+    python3 chip_smoke.py gradprobe
+
+the build and the fp32 train step's gradient errors at phase 17's widths
+and the flagship's, against the plain path's own under a one-rounding
+nudge of the weights.
 
     python3 chip_smoke.py ab ROOT
 
@@ -452,7 +503,8 @@ TENSOR_CORE_KERNELS = ("swin_fused_kernel", "window_attn_tc_kernel",
                        "attention_fwd_tc_kernel", "attention_dkv_tc_kernel",
                        "attention_dq_tc_kernel", "ffn_fwd_tc_kernel",
                        "swin_mlp_tc_kernel", "swin_fc1_tc_kernel",
-                       "rowmm_tc_kernel", "rowmm_bwd_tc_kernel")
+                       "rowmm_tc_kernel", "rowmm_bwd_tc_kernel",
+                       "ffn_ln_bwd_tc_kernel")
 # swin_attention launches per config-4 step at each stage, with and without
 # the shift mask (Swin-T's depths 2/2/6/2 alternate unshifted and shifted
 # blocks; stage 4, one window per image, has no shift)
@@ -2306,20 +2358,22 @@ DRIVER_BATCHES = {"train": [0.5, 0.25, 0.75, 0.5], "val": [0.5, 0.25],
                   "test": [0.5, 0.75]}
 
 
-def _driver_loaders(cfg):
-    """The run's wire batches per split, their dense form and the note
-    table."""
+def _driver_loaders(cfg, splits=None):
+    """The run's wire batches per split (``splits``: the present-image
+    fraction of each batch by split, DRIVER_BATCHES by default), their
+    dense form and the note table."""
     from medical_tri_modal_pilot_tpu_torch.data.synthetic import (
         synthetic_batch, to_wire)
+    splits = splits or DRIVER_BATCHES
     names, batches = [], []
-    for split, fracs in DRIVER_BATCHES.items():
+    for split, fracs in splits.items():
         for f in fracs:
             names.append(split)
             batches.append(synthetic_batch(cfg, BATCH, seed=200 + len(names),
                                            present_frac=f))
     wire, dense, table = to_wire(batches)
     split = lambda bs: {k: [b for n, b in zip(names, bs) if n == k]
-                        for k in DRIVER_BATCHES}
+                        for k in splits}
     return split(wire), split(dense), table
 
 
@@ -3082,6 +3136,668 @@ def saver_ab(power: str) -> None:
               f"{[round(x, 1) for x in g['steps']]}")
 
 
+# ---------------------------------------------------------------------------
+# the other model widths (phases 3w and 17): d_model 128 with 4 heads
+# (d_head 32), 512 with 4 heads (d_head 128; the ffn's split route) and 256
+# with 2 heads (d_head 128), as "C/H"
+WIDTH_CASES = ((128, 4), (512, 4), (256, 2))
+# the kernels each attn_block route launches (forward, backward; the
+# backward recomputes q|k|v with the forward's projection kernel)
+ATTN_BLOCK_ROUTE_KERNELS = {
+    "tc": (("block_qkv_tc_kernel", "block_attn_tc_kernel"),
+           ("block_delta_kernel", "block_dkv_tc_kernel",
+            "block_dq_tc_kernel", "block_ln_bwd_tc_kernel")),
+    "fma": (("proj_kernel", "attn_kernel"),
+            ("dkv_kernel", "dq_kernel", "ln_bwd_kernel"))}
+# the kernels each ffn route launches (kernels/ffn.py::ffn_route)
+FFN_ROUTE_KERNELS = {
+    "tc": (("ffn_fwd_tc_kernel",), ("ffn_bwd_tc_kernel",)),
+    "fma": (("ffn_kernel",), ("ffn_bwd_kernel",)),
+    "tc_split": (("ffn_ln_kernel", "gemm_bf16_kernel"),
+                 ("ffn_dz_kernel", "ffn_ln_bwd_tc_kernel")),
+    "fma_split": (("ffn_ln_kernel", "gemm_kernel"),
+                  ("ffn_dz_kernel", "ffn_ln_bwd_kernel"))}
+
+
+def _width_key(C: int, H: int = 0) -> str:
+    return f"C{C}" + (f"/H{H}" if H else "")
+
+
+def _add_width(results, name, key, res, shape) -> None:
+    """results[name][key] = res with its shape (the kernels line's
+    ``widths`` entry of the kernel)."""
+    results.setdefault(name, {})[key] = dict(res, shape=shape)
+
+
+def _train_forms(tag, dt, fwd, inputs, cot, live, work_f, work_b, routes,
+                 route, lean=True, library=None):
+    """The lean form (``lean``), the training form and the backward against
+    the plain path (_compare, _compare_train), and the profiler's device
+    ms per call of each (_device_forms, which holds the launched kernels
+    to the route's); ``library``: (forward, backward) calls of PyTorch's
+    own that compute the same, timed beside them. (lean, forward,
+    backward) results, lean None when not asked."""
+    r = None
+    if lean:
+        with torch.inference_mode():
+            r = _compare(tag, dt, lambda: fwd(*inputs), work_f, live,
+                         library=library and library[0])
+    fr, br = _compare_train(tag, dt, fwd, inputs, cot, live, work_f, work_b,
+                            library)
+    dres = _device_forms(tag, dt, fwd, inputs, cot, library, routes, route)
+    for res, form, i in ((r, "lean", 0), (fr, "train", 0), (br, "bwd", 1)):
+        if res is not None:
+            res["device_ms"] = dres[form]
+            res["library_device_ms"] = dres["library"][i]
+    return r, fr, br
+
+
+def _sdpa_library(q, k, v, mask, cot):
+    """scaled_dot_product_attention on [B, H, L, Dh] copies of q, k, v
+    made before the timing (True = attend), and its backward: the library
+    column of the masked attention."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    keep = None if mask is None else ~mask[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+    out_t, cot_t = sdpa(), cot.transpose(1, 2).contiguous()
+    return sdpa, lambda: torch.autograd.grad(out_t, (qt, kt, vt), cot_t,
+                                             retain_graph=True)
+
+
+def compare_width_kernels() -> dict:
+    """Phase 3w: each kernel at the other model widths against its plain
+    version, fp32 and bf16, at the shapes config 4 gives it there (batch
+    64): umse at D 512; attn_block at [64, 1024, C] under the TIE key mask
+    (lean, training, backward) and under a multitoken txt stream's 3-D
+    block mask at [64, 142, C]; ffn at C 128 and 512 (the split route)
+    with dropout 0.1 over the vslt stream's rows, its masks at 512 held
+    to dropout_masks' bit for bit; rowmm (the LN form at one rank's q|k|v
+    under --mp-size 2, W [C, 3C/2], and the plain form, W [C, C]) at Cin
+    128 and 512; the masked attention at d_head 128 (the TP self shape of
+    the TIE stream, the cross shapes, a block mask, no mask). Each with
+    its error, event ms, the profiler's device ms, plain ms and bound.
+    Returns {kernel: {width: bf16 result}} for the kernels line."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels.attention import \
+        attention_route
+    from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
+        attn_block_route, key_ends)
+    from medical_tri_modal_pilot_tpu_torch.kernels.ffn import (
+        ffn_bwd_tiles, ffn_route)
+    from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import (
+        BLOCK_R, rowmm_route)
+    from medical_tri_modal_pilot_tpu_torch.kernels.umse import (
+        cuda_umse_bwd, torch_umse_bwd)
+    from medical_tri_modal_pilot_tpu_torch.models.mbt import block_key_mask
+    from medical_tri_modal_pilot_tpu_torch.models.modules import (
+        ffn_row_blocks, length_key_mask)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(17)
+    bf16 = torch.bfloat16
+    results = {}
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).to(dev)
+
+    # umse at D 512: the forward against torch_umse, the backward kernel
+    # against its closed form (fp32 by Frobenius ratio within 1e-2, bf16
+    # within STEP_BF16_RATIO of the bf16 closed form's distance from the
+    # fp32 one, as phase 5b)
+    D = 512
+    x, params = _umse_case(g, dev)
+    params = [rnd(1, D), rnd(D, std=.1), rnd(D, std=.1, mean=1.),
+              rnd(D, std=.1)] * 2 + [rnd(20, D)]
+    R = BATCH * TIE_LEN
+    for dt in (torch.float32, bf16):
+        es = 2 if dt == bf16 else 4
+        with torch.inference_mode():
+            r = _compare(f"umse[64,1000,{D}]", dt,
+                         lambda: ops.umse(x, *params, dt),
+                         (R * 12 + R * D * es + 28 * D * 4,
+                          30.0 * R * D), rate=torch.float32)
+        r["device_ms"] = _device_ms(lambda: ops.umse(x, *params, dt),
+                                    expect=("umse_fwd_kernel",))[0]
+        dout = rnd(BATCH, TIE_LEN, D).to(dt)
+        got = cuda_umse_bwd(x, *params, dout, dt)
+        ref32 = torch_umse_bwd(x, *params, dout.float(), torch.float32)
+        plain = torch_umse_bwd(x, *params, dout, dt)
+        k_err, p_err = _grad_errors(got, ref32), _grad_errors(plain, ref32)
+        kernel = lambda: cuda_umse_bwd(x, *params, dout, dt)
+        b = {"max_abs_err": max(float((a - e).abs().max())
+                                for a, e in zip(got, plain)),
+             "grad_err_f": max(k_err), "ms": _median_ms(kernel),
+             "device_ms": _device_ms(kernel,
+                                     expect=("umse_bwd_kernel",))[0],
+             "plain_ms": _median_ms(lambda: torch_umse_bwd(
+                 x, *params, dout, dt)),
+             **_bound(R * D * es + R * 12 + 56 * D * 4, 42.0 * R * D,
+                      torch.float32), "library_ms": None}
+        tag = "bf16" if dt == bf16 else "fp32"
+        print(f"kernel umse_bwd [64,1000,{D}] {tag}: |err|_F/|fp32|_F "
+              f"{max(k_err):.2e} (the {tag} closed form's {max(p_err):.2e})"
+              f" ms={b['ms']:.3f} device_ms={b['device_ms']:.4f} "
+              f"plain_ms={b['plain_ms']:.3f} bound_ms={b['bound_ms']:.4f} "
+              f"({b['bound_by']}); forward device_ms={r['device_ms']:.4f}")
+        ok = (all(np.isfinite(e) and e <= 1e-2 for e in k_err)
+              if dt == torch.float32 else
+              all(np.isfinite(k) and k <= STEP_BF16_RATIO * p + 1e-2
+                  for k, p in zip(k_err, p_err)))
+        if not ok:
+            raise AssertionError(f"umse_bwd D {D} {tag} disagrees")
+        if dt == bf16:
+            _add_width(results, "umse", _width_key(D), r, "[64,1000,3]")
+            _add_width(results, "umse_bwd", _width_key(D), b,
+                       f"[64,1000,{D}]")
+        del got, ref32, plain, dout
+    del x, params
+
+    # the TIE stream's key mask and a multitoken txt stream's block mask
+    L = 1024
+    lengths = torch.randint(5, TIE_LEN + 1, (BATCH,), generator=g) + 5
+    lengths[3] = 0
+    tie_mask = length_key_mask(lengths.to(dev), L)
+    tie_live = torch.arange(L, device=dev)[None] < key_ends(
+        tie_mask)[:, None].long()
+    Lb = 142
+    vlen = torch.randint(3, 131, (BATCH,), generator=g)
+    vlen[1] = 2   # a note-less sample: rows with every key masked
+    block_mask = block_key_mask(vlen.to(dev), Lb - 12, 4, 2, False)
+    for C, H in WIDTH_CASES:
+        wk = _width_key(C, H)
+        n = key_ends(tie_mask).double()
+        for dt in (torch.float32, bf16):
+            es = 2 if dt == bf16 else 4
+            gamma, beta = rnd(C, std=.1, mean=1.), rnd(C, std=.1)
+            w = rnd(C, 3 * C, std=C ** -.5).to(dt)
+            b = rnd(3 * C, std=.1).to(dt)
+            for form, mask, Lx, live in (
+                    ("key", tie_mask, L, tie_live),
+                    ("3d", block_mask, Lb, None)):
+                xa = rnd(BATCH, Lx, C).to(dt)
+                cot = rnd(BATCH, Lx, C).to(dt)
+                nn = n if form == "key" else torch.full((BATCH,), float(Lx),
+                                                        dtype=torch.float64)
+                if live is not None:
+                    cot = cot * live[:, :, None]
+                sb = BATCH * Lx * C * es
+                wb = (3 * C * C + 3 * C) * es
+                work_f = (3 * sb + 8 * BATCH * H * Lx + wb,
+                          float((6 * nn * C * C + 4 * nn * nn * C).sum()))
+                work_b = (4 * sb + 8 * BATCH * H * Lx + wb + 12 * C * C,
+                          float((10 * nn * nn * C + 18 * nn * C * C).sum()))
+                tag = f"attn_block{'_3d' if form == '3d' else ''}" \
+                      f"[64,{Lx},{C}] heads {H}"
+                r, fr, br = _train_forms(
+                    tag, dt,
+                    lambda *a, m=mask: ops.attn_block(*a, m, (C // H) ** .5,
+                                                      H),
+                    (xa, gamma, beta, w, b), cot, live, work_f, work_b,
+                    ATTN_BLOCK_ROUTE_KERNELS, attn_block_route(dt, C, H))
+                if dt == bf16:
+                    name = "attn_block" + ("_3d" if form == "3d" else "")
+                    shape = f"[64,{Lx},{C}]"
+                    _add_width(results, name, wk, dict(r, train=fr), shape)
+                    _add_width(results, name + "_bwd", wk, br, shape)
+                del xa, cot
+        if C == 256:
+            continue
+        # the ffn at C 128 (fused) and 512 (split), dropout 0.1, over the
+        # TIE stream's rows and tile flags
+        F, P = 4 * C, 0.1
+        g1, be1 = rnd(C, std=.1, mean=1.), rnd(C, std=.1)
+        w1, b1 = rnd(C, F, std=C ** -.5), rnd(F, std=.1)
+        w2, b2 = rnd(F, C, std=F ** -.5), rnd(C, std=.1)
+        for dt in (torch.float32, bf16):
+            es = 2 if dt == bf16 else 4
+            xf = rnd(BATCH, L, C).to(dt)
+            flags = ffn_row_blocks(xf, tie_mask)
+            rows = flags.repeat_interleave(L // flags.shape[1], dim=1)
+            n_live = float(rows.sum())
+            cot = rnd(BATCH, L, C).to(dt) * rows[:, :, None]
+            wbytes = (2 * C * F + F + C) * 4
+            work_f = (2 * BATCH * L * C * es + wbytes, 4.0 * n_live * C * F)
+            work_b = (3 * BATCH * L * C * es + 2 * wbytes,
+                      10.0 * n_live * C * F)
+            fwd = lambda *a: ops.ffn(*a, flags, p=P, training=True,
+                                     seed=DROPOUT_SEED)
+            _, fr, br = _train_forms(
+                f"ffn[{BATCH * L},{C}] dropout {P}", dt, fwd,
+                (xf, g1, be1, w1, b1, w2, b2), cot, rows, work_f, work_b,
+                FFN_ROUTE_KERNELS, ffn_route(dt, C), lean=False)
+            if C == 512:
+                # the masks: where dropout_masks drops an output element the
+                # forward leaves x, bit for bit; where it drops a hidden
+                # one the backward's dropped hidden is 0, and it is 0
+                # nowhere else but at a ReLU
+                k1, k2 = ops.dropout_masks(BATCH * L, F, C, DROPOUT_SEED, P,
+                                           dev)
+                with torch.inference_mode():
+                    y = fwd(xf, g1, be1, w1, b1, w2, b2)
+                hd = ffn_bwd_tiles(xf, g1, be1, w1, b1, w2, flags, P,
+                                   DROPOUT_SEED, cot)[3]
+                live2 = rows.reshape(-1)
+                y2, x2 = y.reshape(-1, C)[live2], xf.reshape(-1, C)[live2]
+                out_drop = ~k2[live2]
+                hid_drop = ~k1[live2]
+                hd2 = hd[live2]
+                ok = (bool(torch.equal(y2[out_drop], x2[out_drop]))
+                      and bool((hd2[hid_drop] == 0).all())
+                      and bool(k1[live2][hd2 != 0].all()))
+                kept = float(k1.float().mean()), float(k2.float().mean())
+                print(f"ffn split C {C} {'bf16' if dt == bf16 else 'fp32'}:"
+                      f" masks against dropout_masks on the live rows: "
+                      f"{int(out_drop.sum())} dropped outputs are x bit for "
+                      f"bit, {int(hid_drop.sum())} dropped hidden units 0, "
+                      f"every nonzero hidden unit kept: {ok} (keep rates "
+                      f"{kept[0]:.4f}, {kept[1]:.4f})")
+                if not ok or int(out_drop.sum()) == 0:
+                    raise AssertionError("ffn split route: masks differ "
+                                         "from dropout_masks'")
+                del y, hd, k1, k2
+            if dt == bf16:
+                shape = f"[{BATCH * L},{C}]"
+                _add_width(results, "ffn", wk, fr, shape)
+                _add_width(results, "ffn_bwd", wk, br, shape)
+            del xf, cot
+        # rowmm at Cin = C: the LN form at one rank's q|k|v (--mp-size 2)
+        # and the plain form, over 256-row block flags of the TIE lengths
+        bflags = ffn_row_blocks(tie_mask[:, :, None], tie_mask, BLOCK_R)
+        blive = bflags.repeat_interleave(BLOCK_R, dim=1)
+        n_live = float(blive.sum())
+        for cout, ln in ((3 * C // 2, True), (C, False)):
+            name = "rowmm_ln" if ln else "rowmm"
+            for dt in (torch.float32, bf16):
+                es = 2 if dt == bf16 else 4
+                xr = rnd(BATCH, L, C).to(dt)
+                w, b = rnd(C, cout, std=C ** -.5).to(dt), \
+                    rnd(cout, std=.1).to(dt)
+                cot = rnd(BATCH, L, cout).to(dt) * blive[:, :, None]
+                if ln:
+                    inputs = (xr, rnd(C, std=.1, mean=1.), rnd(C, std=.1),
+                              w, b)
+                    cot = tuple(c.contiguous() for c in
+                                cot.split(cout // 3, -1))
+                    fwd = lambda *a: ops.rowskip_ln_affine(*a, bflags)
+                else:
+                    inputs = (xr, w, b)
+                    fwd = lambda *a: ops.rowskip_affine(*a, bflags)
+                wbytes = (C * cout + cout) * es + (8 * C if ln else 0)
+                R = BATCH * L
+                library = None
+                if not ln:
+                    # torch.addmm and its autograd.grad: the plain form's
+                    # library column
+                    xl, wl, bl = (t.detach().clone().requires_grad_()
+                                  for t in (xr.reshape(R, C), w, b))
+                    out_t = torch.addmm(bl, xl, wl)
+                    cot_t = cot.reshape(R, cout)
+                    library = (lambda: torch.addmm(b, xr.reshape(R, C), w),
+                               lambda: torch.autograd.grad(
+                                   out_t, (xl, wl, bl), cot_t,
+                                   retain_graph=True))
+                work_f = ((n_live * C + R * cout) * es + wbytes,
+                          2.0 * n_live * C * cout)
+                work_b = ((n_live * (C + cout) + R * C) * es + wbytes
+                          + (C * cout + cout) * 4, 4.0 * n_live * C * cout)
+                _, fr, br = _train_forms(
+                    f"{name}[{R},{C}]x[{C},{cout}]", dt, fwd, inputs, cot,
+                    blive, work_f, work_b, ROWMM_ROUTE_KERNELS,
+                    rowmm_route(dt, C), lean=False, library=library)
+                del library
+                if dt == bf16:
+                    shape = f"[{R},{C}]x[{C},{cout}]"
+                    _add_width(results, name, _width_key(C), fr, shape)
+                    _add_width(results, name + "_bwd", _width_key(C), br,
+                               shape)
+                del xr, cot, inputs
+
+    # the masked attention at d_head 128: the TIE stream's TP self shape
+    # (256 / 2 heads: one head a rank; 512 / 4: two), the cross shapes of
+    # a 512-wide cross transformer, a block mask and no mask
+    D = 128
+    cases = [("tp_self", BATCH, 2, L, L, "tie")]
+    cases += [(name, BATCH, 4, Lq, Lk, kind)
+              for name, Lq, Lk, kind in CROSS_SHAPES]
+    cases += [("block", 2, 2, 130, 70, "block"), ("none", 3, 2, 54, 54,
+                                                   "none")]
+    for name, B, H, Lq, Lk, kind in cases:
+        q, k, v, mask, is_self, live = _attention_case(g, dev, B, H, Lq, Lk,
+                                                       D, kind)
+        for dt in (torch.float32, bf16):
+            qd, kd, vd = (t.to(dt) for t in (q, k, v))
+            cot = torch.randn(B, Lq, H, D, generator=g).to(dev).to(dt)
+            cot = cot * live[:, :, None, None]
+            tag = f"attention {name} q[{B},{Lq},{H},{D}] kv[{B},{Lk},{H},{D}]"
+            library = (_sdpa_library(qd, kd, vd, mask, cot)
+                       if name in ("tp_self", "cross_v", "cross_o") else None)
+            r, fr, br = _train_forms(
+                tag, dt, lambda *a: ops.attention(*a, mask, D ** .5, is_self),
+                (qd, kd, vd), cot, live,
+                _attention_work(qd, kd, mask, is_self),
+                _attention_work(qd, kd, mask, is_self, backward=True),
+                ATTN_ROUTE_KERNELS, attention_route(dt, D), library=library)
+            del library
+            if dt == bf16 and name in ("tp_self", "cross_v"):
+                key = f"dh{D}" + ("/tp" if name == "tp_self" else "")
+                shape = f"q[{B},{Lq},{H},{D}] kv[{B},{Lk},{H},{D}]"
+                _add_width(results, "attention", key, dict(r, train=fr),
+                           shape)
+                _add_width(results, "attention_bwd", key, br, shape)
+    print(f"width kernels phase: {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+# phase 17: config 4 at the other widths (the rest as the flagship's:
+# bf16, batch 64, TIE-len 1000, 6 layers, --dropout 0.1, adamw), its
+# packed and overflowing batches
+WIDTH_BATCHES = [0.5, 0.75]
+
+
+def run_widths(power: str) -> dict:
+    """Phase 17: tri_mbt_vsltcls on config 4's flags at each of
+    WIDTH_CASES. Eval: the launch counts of config 4 (every attn_block,
+    ffn and umse call on its kernel: a call on the plain path would miss
+    its count), the probabilities against the plain path in bf16 and, on
+    the same weights, in fp32 (phase 4's bounds), ms/step in turns. Train:
+    the launch counts, peak device memory, ms/step in turns, and one step
+    from the same weights on both paths in fp32 and bf16 at dropout 0.1
+    (phase 7's gates). Returns the train launch counts per width."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counts = {}
+    for C, H in WIDTH_CASES:
+        name = f"config4 d{C} h{H}"
+        argv = CONFIG4 + ["--transformer-dim", str(C),
+                          "--transformer-num-head", str(H)]
+        cfg = parse_config(argv)
+        widths = (cfg.transformer_dim, cfg.transformer_num_head,
+                  cfg.transformer_num_layers, cfg.tie_len, cfg.precision,
+                  cfg.dropout, cfg.optim)
+        if widths != (C, H, 6, TIE_LEN, "bf16", 0.1, "adamw"):
+            raise AssertionError(f"{name}: {widths}")
+        batches = [synthetic_batch(cfg, BATCH, seed=40 + s, present_frac=f)
+                   for s, f in enumerate(WIDTH_BATCHES)]
+        n = len(batches)
+        model = get_model(cfg, torch.Generator().manual_seed(0))
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        ev = Trainer(cfg, model, dev, eval_only=True)
+        ops.reset_launches()
+        probs, _, rows = _eval_steps(ev, batches)
+        torch.cuda.synchronize()
+        got = dict(ops.launches)
+        print(f"{name}: launches over {n} eval steps: {got}; trunk rows "
+              f"{rows}")
+        _check_counts(f"{name} eval", got, LAUNCHES_PER_STEP["config4"], n)
+        with ops.reference_path():
+            ref, _, _ = _eval_steps(ev, batches)
+        d16 = float(np.max(np.abs(probs - ref)))
+        ms = {True: [], False: []}
+        for reference in (True, False, False, True):
+            ms[reference].append(_timed_ms(ev, batches, reference))
+        del ev
+        c32 = cfg.replace(precision="fp32")
+        ev32 = Trainer(c32, get_model(c32, torch.Generator().manual_seed(0)),
+                       dev, eval_only=True)
+        p32, _, _ = _eval_steps(ev32, batches)
+        with ops.reference_path():
+            r32, _, _ = _eval_steps(ev32, batches)
+        d32 = float(np.max(np.abs(p32 - r32)))
+        del ev32
+        print(f"{name} eval ({power}): max |prob - plain prob| bf16 "
+              f"{d16:.3e} (tol {PROB_TOL['bf16']}), fp32 {d32:.3e} (tol "
+              f"{PROB_TOL['fp32']}); kernels {np.mean(ms[False]):.2f} "
+              f"ms/step, plain {np.mean(ms[True]):.2f} ms/step; rounds "
+              f"{ms[False]} / {ms[True]}")
+        if not np.all(np.isfinite(probs)) or d16 > PROB_TOL["bf16"] \
+                or d32 > PROB_TOL["fp32"]:
+            raise AssertionError(f"{name}: eval disagrees with the plain "
+                                 "path")
+
+        # train: the launches of two steps, peak memory, ms/step in turns
+        model.load_state_dict(state)
+        tr = Trainer(cfg, model, dev, eval_only=False, seed=0)
+        torch.cuda.synchronize()
+        gc_collect()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        losses = [tr.train_step(bt) for bt in batches]
+        torch.cuda.synchronize()
+        got = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{name}: launches over {n} train steps: {got}; losses "
+              f"{losses}; peak device memory {peak / 2 ** 30:.3f} GiB "
+              f"(before the steps {base / 2 ** 30:.3f} GiB)")
+        _check_counts(f"{name} train", got,
+                      TRAIN_LAUNCHES_PER_STEP["config4"], n)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: train loss {losses}")
+        ms = {True: [], False: []}
+        for reference in (True, False, False, True):
+            ms[reference].append(_timed_train_ms(tr, batches, reference))
+        print(f"{name} train step ({power}): kernels "
+              f"{np.mean(ms[False]):.2f} ms/step, plain "
+              f"{np.mean(ms[True]):.2f} ms/step; rounds {ms[False]} / "
+              f"{ms[True]}")
+        counts[name] = got
+        del tr, model
+        gc_collect()
+        _check_step_parity(name, cfg, state, batches[0],
+                           [("fp32", 0.1), ("bf16", 0.1)])
+        del state
+        gc_collect()
+    print(f"widths phase ({power}): {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# ``gradprobe``: phase 17's widths and the flagship's, each fp32 step
+# read three ways: the kernel path and the plain path against the plain
+# path with every weight moved by one fp32 rounding (2^-23 relative), so a
+# gradient error of the kernels' that the plain path shows as much against
+# itself comes from the function's sensitivity, not from a kernel
+GRADPROBE_CASES = ((256, 2), (256, 4), (512, 4), (128, 4))
+
+
+def _error_spike(a, b, n, top: int = 3) -> float:
+    """The share of |a - b|_F^2 on tensor ``n`` that its ``top`` largest
+    elements carry."""
+    d = (a[n][0] - b[n][0]).double().flatten() ** 2
+    return float(d.topk(min(top, d.numel())).values.sum() / d.sum()) \
+        if float(d.sum()) > 0 else 0.0
+
+
+def gradprobe(power: str) -> None:
+    """The fp32 train step's gradient errors at GRADPROBE_CASES on phase
+    17's first batch, at dropout 0 and 0.1: kernel against plain, and the
+    nudged plain against plain; for the kernel path's worst tensor, the
+    share of its squared error in its three largest elements (a ReLU that
+    one path's rounding flips moves a whole element)."""
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    for C, H in GRADPROBE_CASES:
+        cfg = parse_config(CONFIG4 + ["--transformer-dim", str(C),
+                                      "--transformer-num-head", str(H)])
+        batch = synthetic_batch(cfg, BATCH, seed=40,
+                                present_frac=WIDTH_BATCHES[0])
+        state = get_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+        g = torch.Generator().manual_seed(1)
+        nudged = {k: v * (1 + 2.0 ** -23 * (2 * torch.randint(
+            0, 2, v.shape, generator=g) - 1)) if v.is_floating_point()
+            else v for k, v in state.items()}
+        for p in (0.0, 0.1):
+            c = cfg.replace(precision="fp32", dropout=p)
+            _, kern, _ = _train_run(c, state, batch, False)
+            _, plain, _ = _train_run(c, state, batch, True)
+            _, moved, _ = _train_run(c, nudged, batch, True)
+            e_k, e_m = _step_errors(kern, plain), _step_errors(moved, plain)
+            worst = max(e_k, key=e_k.get)
+            print(f"gradprobe d{C} h{H} fp32 dropout {p} ({power}): kernel "
+                  f"vs plain {_summary(e_k)}; nudged plain vs plain "
+                  f"{_summary(e_m)}; {worst}: kernel {e_k[worst]:.3e} "
+                  f"(top-3 share {_error_spike(kern, plain, worst):.3f}), "
+                  f"nudged {e_m[worst]:.3e} (top-3 share "
+                  f"{_error_spike(moved, plain, worst):.3f})", flush=True)
+            del kern, plain, moved
+            gc_collect()
+
+
+# phase 14 under --mp-size 2 --dp-size 1: the drivers' bodies in two ranks
+# on the one card over gloo, config 4 at full width, 1 epoch of 2 train, 1
+# val and 1 test wire-format batches, an epoch save, a resume and the test
+# driver
+TP_DRIVER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "tp_driver_smoke")
+TP_DRIVER_ARGV = CONFIG4 + ["--img-pack-frac", "0.55", "--epochs", "1",
+                            "--log-iter", "1", "--dir-result",
+                            TP_DRIVER_DIR, "--project-name", "tp_drivers",
+                            "--mp-size", "2", "--dp-size", "1"]
+TP_DRIVER_BATCHES = {"train": [0.5, 0.75], "val": [0.5], "test": [0.25]}
+
+
+def tp_driver_rank(out_dir: str) -> None:
+    """One rank of the TP drivers' phase (started by parallel.launch): the
+    train driver's set-up (common.setup_distributed: the group over gloo,
+    the ranks sharing cuda:0, the mesh), its fold, the fold again under
+    --resume last, the test driver's walk; rank 0 writes its results and
+    the best checkpoint's eval probabilities on the test batch."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import BatchList
+    from medical_tri_modal_pilot_tpu_torch.drivers import common
+    from medical_tri_modal_pilot_tpu_torch.drivers import test as test_drv
+    from medical_tri_modal_pilot_tpu_torch.drivers import train as train_drv
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train import checkpoints as ckpt
+    from medical_tri_modal_pilot_tpu_torch.train.logger import \
+        make_setting_file
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = parse_config(TP_DRIVER_ARGV)
+    dev, mesh = common.setup_distributed(cfg)
+    rank = mesh.rank
+    wire, _, table = _driver_loaders(cfg, TP_DRIVER_BATCHES)
+    loaders = lambda: [BatchList(wire[k]) for k in ("train", "val", "test")]
+    make_setting_file(cfg)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    val, test = train_drv.run_fold(cfg, 0, *loaders(), txt_table=table,
+                                   device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(ops.launches)
+    rcfg = cfg.replace(resume="last")
+    rval, rtest = train_drv.run_fold(rcfg, 0, *loaders(), txt_table=table,
+                                     device=dev, mesh=mesh)
+    walked = test_drv.run_checkpoints(cfg, test_drv.checkpoints_of(cfg),
+                                      loaders()[2], table, dev, mesh)
+    best = ckpt.ckpt_path(TP_DRIVER_DIR, cfg.project_name, "best", 0,
+                          cfg.seed)
+    ev = Trainer(cfg, get_model(cfg), dev, eval_only=True, mesh=mesh,
+                 txt_table=table)
+    ckpt.restore(ev, ckpt.load_checkpoint(best), with_optimizer=False)
+    probs = ev.eval_step(wire["test"][0])[0]
+    if rank == 0:
+        torch.save({"counts": counts, "run_s": run_s, "val": val,
+                    "test": test, "resumed_val": rval,
+                    "resumed_test": rtest, "walked": walked, "probs": probs,
+                    "best": best},
+                   os.path.join(out_dir, "rank0.pt"))
+
+
+def run_tp_drivers(power: str) -> None:
+    """Phase 14 under --mp-size 2 --dp-size 1: two ranks of tp_driver_rank
+    through parallel.launch. Checks each rank's launch counts over the
+    fold (config 4's TP launches per train and eval step), the run record
+    rank 0 wrote (train losses at every step, a validation block,
+    settings.txt, last and best, and nothing else of the run in the
+    directory), the resumed run's validation at its step, the test
+    driver's walk to the fold's final test metrics exactly; and rank 0's
+    best checkpoint, the whole model in the single-process layout, loaded
+    into a single-process Trainer: its eval probabilities on the test
+    batch against the TP ranks' within phase 13's bound (PROB_TOL bf16).
+    Prints rank 0's ms/step from the events' clock (TP_LABEL)."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.parallel.launch import launch
+    from medical_tri_modal_pilot_tpu_torch.train import checkpoints as ckpt
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    t_phase = time.perf_counter()
+    shutil.rmtree(TP_DRIVER_DIR, ignore_errors=True)
+    os.makedirs(TP_DRIVER_DIR)
+    out = os.path.join(TP_DRIVER_DIR, "ranks")
+    os.makedirs(out)
+    launch("chip_smoke:tp_driver_rank", 2, f"file://{out}/rendezvous", [out],
+           timeout=900)
+    r0 = torch.load(os.path.join(out, "rank0.pt"), weights_only=False)
+    n_train = len(TP_DRIVER_BATCHES["train"])
+    n_eval = len(TP_DRIVER_BATCHES["val"]) + len(TP_DRIVER_BATCHES["test"])
+    print(f"tp drivers: rank 0 launches over {n_train} train and {n_eval} "
+          f"eval steps: {r0['counts']}; val {r0['val']}; test {r0['test']}; "
+          f"resumed test {r0['resumed_test']}")
+    for kernel in ops.KERNELS:
+        want = (n_train * TP_TRAIN_LAUNCHES.get(kernel, 0)
+                + n_eval * TP_EVAL_LAUNCHES.get(kernel, 0))
+        if r0["counts"][kernel] != want:
+            raise AssertionError(f"tp drivers {kernel}: "
+                                 f"{r0['counts'][kernel]}, expected {want}")
+    cfg = parse_config(TP_DRIVER_ARGV)
+    root = os.path.join(TP_DRIVER_DIR, cfg.project_name)
+    events = _events(os.path.join(root, "logs_0", "events.jsonl"))
+    losses = [e for e in events if e["tag"] == "train/loss"]
+    vals = [e["step"] for e in events if e["tag"] == "val/loss"]
+    if ([e["step"] for e in losses] != list(range(1, 2 * n_train + 1))
+            or not all(np.isfinite(e["value"]) for e in losses)
+            or vals != [n_train, 2 * n_train]):
+        raise AssertionError(f"tp drivers: events {losses} {vals}")
+    files = sorted(os.path.relpath(os.path.join(d, f), root)
+                   for d, _, fs in os.walk(root) for f in fs
+                   if "tfevents" not in f)
+    want_files = sorted(["settings.txt", "logs_0/events.jsonl",
+                         f"ckpts/best_fold0_seed{cfg.seed}.pth",
+                         f"ckpts/last_fold0_seed{cfg.seed}.pth"])
+    got_walk = dict(r0["walked"]).get(r0["best"])
+    print(f"tp drivers: files {files}; test driver walk {got_walk}")
+    if files != want_files or got_walk != r0["resumed_test"]:
+        raise AssertionError(f"tp drivers: files {files}, walk {got_walk} "
+                             f"vs {r0['resumed_test']}")
+    t = [e["t"] for e in losses]
+    step_ms = [1e3 * (t[i] - t[i - 1]) for i in range(1, n_train)]
+    print(f"tp drivers rank 0 train step ({power}; {TP_LABEL}): "
+          f"{[round(x, 1) for x in step_ms]} ms/step (events clock); the "
+          f"first fold {r0['run_s']:.1f} s")
+    single = cfg.replace(mp_size=0, dp_size=0)
+    wire, _, table = _driver_loaders(single, TP_DRIVER_BATCHES)
+    ev = Trainer(single, get_model(single), torch.device("cuda"),
+                 eval_only=True, txt_table=table)
+    pay = ckpt.load_checkpoint(r0["best"])
+    ckpt.restore(ev, pay, with_optimizer=False)
+    probs = ev.eval_step(wire["test"][0])[0]
+    d = float(np.max(np.abs(probs - r0["probs"])))
+    print(f"tp drivers: rank 0's best checkpoint (step {pay['step']}) in a "
+          f"single-process Trainer: max |prob - TP prob| {d:.3e} (tol "
+          f"{PROB_TOL['bf16']})")
+    if not np.all(np.isfinite(probs)) or d > PROB_TOL["bf16"]:
+        raise AssertionError("tp drivers: the checkpoint scores apart in "
+                             "one process")
+    print(f"tp drivers phase ({power}): {time.perf_counter() - t_phase:.1f} "
+          "s")
+
+
 def gc_collect() -> None:
     import gc
     gc.collect()
@@ -3360,6 +4076,22 @@ def main() -> None:
         build_kernels()
         run_multitoken(power)
         return
+    if len(sys.argv) == 2 and sys.argv[1] == "widths":
+        power = check_device()
+        build_kernels()
+        compare_width_kernels()
+        run_widths(power)
+        return
+    if len(sys.argv) == 2 and sys.argv[1] == "gradprobe":
+        power = check_device()
+        build_kernels()
+        gradprobe(power)
+        return
+    if len(sys.argv) == 2 and sys.argv[1] == "tpdrivers":
+        power = check_device()
+        build_kernels()
+        run_tp_drivers(power)
+        return
     power = check_device()
     build_kernels()
     results = compare_kernels()
@@ -3368,6 +4100,7 @@ def main() -> None:
     results.update(compare_training_kernels())
     results.update(compare_attention_kernels())
     results.update(compare_rowmm_kernels())
+    widths = compare_width_kernels()
     run_config("vslt_txt", VSLT_TXT, power, timed=True)
     run_config("config4", CONFIG4, power, timed=True)
     run_config("config5", CONFIG5, power, timed=False)
@@ -3377,10 +4110,12 @@ def main() -> None:
     counts["cross"] = run_train("cross", CROSS, power, timed=True)
     counts["tp"] = run_tp(power)
     run_drivers(power)
+    run_tp_drivers(power)
     counts.update(run_baseline(power))
     mt_results, mt_counts = run_multitoken(power)
     results.update(mt_results)
     counts.update(mt_counts)
+    run_widths(power)
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         path = KERNEL_PATHS[name]
@@ -3393,7 +4128,8 @@ def main() -> None:
                         "replaces": replaces, "path": PATH_NAMES[path],
                         "launches": counts[path][name] if path else 0,
                         "steps": PATH_STEPS[path] if path else 0,
-                        "other_paths": also, **results[name]})
+                        "other_paths": also, **results[name],
+                        "widths": widths.get(name, {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -586,7 +586,8 @@ static cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 // start at or past the sample's last valid key are zeros with m = 0,
 // l = 1. grid (ceil(Lq/64), H, B), kTcThreads threads.
 template <int DH, class Mask, bool TRAIN>
-__global__ void __launch_bounds__(kTcThreads, 4) attention_fwd_tc_kernel(
+__global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashFwdBlocks))
+    attention_fwd_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int8_t* __restrict__ mask,
     bf16* __restrict__ out, float* __restrict__ stats, int Lq, int Lk,
@@ -661,7 +662,8 @@ __global__ void __launch_bounds__(kThreads) attention_delta_kernel(
 // the sample's last valid key. grid (ceil(Lk/64), H, B), kTcThreads
 // threads; warp w owns keys 16 w .. + 15.
 template <int DH, class Mask>
-__global__ void __launch_bounds__(kTcThreads, 3) attention_dkv_tc_kernel(
+__global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashDkvBlocks))
+    attention_dkv_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ stats, const float* __restrict__ delta,
@@ -715,7 +717,8 @@ __global__ void __launch_bounds__(kTcThreads, 3) attention_dkv_tc_kernel(
 // self-attention. grid (ceil(Lq/64), H, B), kTcThreads threads; warp w
 // owns q rows 16 w .. + 15.
 template <int DH, class Mask>
-__global__ void __launch_bounds__(kTcThreads, 4) attention_dq_tc_kernel(
+__global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashDqBlocks))
+    attention_dq_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ stats, const float* __restrict__ delta,
@@ -827,8 +830,8 @@ static cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
 // [B, Lq, H, dh], k and v [B, Lk, H, dh] and out [B, Lq, H, dh] (bf16:
 // 16-byte aligned); mask one byte per entry, nonzero = masked ([B, Lk]
 // for mode 1, [B, Lq, Lk] for mode 2, unused for mode 0); stats fp32
-// [B, H, Lq, 2] written when not NULL (the training form). dh in {32, 64};
-// mult = 1 / scale. Returns cudaGetLastError().
+// [B, H, Lq, 2] written when not NULL (the training form). dh in {32, 64,
+// 128}; mult = 1 / scale. Returns cudaGetLastError().
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* out, void* stats, int B,
                              int Lq, int Lk, int H, int dh, int mode,
@@ -851,8 +854,10 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
     if (mode == kMaskKeys) MTP_FWD_TC(DH, KeyMask);   \
     MTP_FWD_TC(DH, BlockMask);                        \
   }
+  if (dtype == 0 && dh == 128) MTP_FWD(128);
   if (dtype == 0 && dh == 64) MTP_FWD(64);
   if (dtype == 0 && dh == 32) MTP_FWD(32);
+  if (dtype == 1 && dh == 128) MTP_FWD_TC_MODES(128)
   if (dtype == 1 && dh == 64) MTP_FWD_TC_MODES(64)
   if (dtype == 1 && dh == 32) MTP_FWD_TC_MODES(32)
 #undef MTP_FWD
@@ -890,9 +895,11 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
     if (mode == kMaskKeys) MTP_BWD_TC(DH, KeyMask);   \
     MTP_BWD_TC(DH, BlockMask);                        \
   }
+  if (dtype == 0 && dh == 128) MTP_BWD(128);
   if (dtype == 0 && dh == 64) MTP_BWD(64);
   if (dtype == 0 && dh == 32) MTP_BWD(32);
   if (dtype == 1 && dl == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && dh == 128) MTP_BWD_TC_MODES(128)
   if (dtype == 1 && dh == 64) MTP_BWD_TC_MODES(64)
   if (dtype == 1 && dh == 32) MTP_BWD_TC_MODES(32)
 #undef MTP_BWD
@@ -910,6 +917,19 @@ extern "C" int attention_tc_smem(int kernel, int dh) {
     case 0: return attn_tc_smem(dh);
     case 1: return dkv_tc_smem(dh);
     case 2: return dq_tc_smem(dh);
+  }
+  return -1;
+}
+
+// Blocks an SM that a tensor-core kernel's launch bounds ask for at head
+// width dh (kernels as attention_tc_smem's): kernels/attention.py::
+// tc_min_blocks mirrors this.
+extern "C" int attention_tc_min_blocks(int kernel, int dh) {
+  using namespace mtp;
+  switch (kernel) {
+    case 0: return flash_min_blocks(dh, kFlashFwdBlocks);
+    case 1: return flash_min_blocks(dh, kFlashDkvBlocks);
+    case 2: return flash_min_blocks(dh, kFlashDqBlocks);
   }
   return -1;
 }

@@ -38,10 +38,13 @@
 //        epilogue divides by l, rounds and adds the residual.
 //   fma (fp32, the checking dtype): fp32 FMAs on 4 x 4 register tiles,
 //     exact to the fp32 oracle:
-//     1. proj_kernel: StdLN + the k|v projection into a [B, L, 2C]
-//        scratch (all 3C columns for the backward's recompute);
-//     2. attn_kernel: one block per (64-row q tile, sample): StdLN + the
-//        q projection of the tile, the flash loop per head, the residual.
+//     1. proj_kernel: StdLN + the q|k|v projection into a [B, L, 3C]
+//        scratch (the backward's recompute launches it too);
+//     2. attn_kernel: one block per (64-row q tile, sample): the flash
+//        loop per head over the scratch's q, k and v, the residual. (Its
+//        shared memory no longer holds the tile's StdLN rows, [64][C + 1]
+//        fp32, which at C = 512 with d_head 128 outgrew a block's
+//        227 KB.)
 //
 // Mask contract (kernels/attn_block.py:27-38, kernels/attention.py:186-196):
 // a valid-but-masked key scores -65504; keys past the array end are left
@@ -98,20 +101,16 @@ __global__ void __launch_bounds__(kThreads) proj_kernel(
 // BLOCK: mask is [B, L, L], read per (query, key) pair; else [B, L].
 template <typename T, int DH, bool TRAIN, bool BLOCK>
 __global__ void __launch_bounds__(kThreads) attn_kernel(
-    const T* __restrict__ x, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const T* __restrict__ w,
-    const T* __restrict__ bias, const int8_t* __restrict__ mask,
-    const int* __restrict__ kend, const T* __restrict__ kv,
+    const T* __restrict__ x, const int8_t* __restrict__ mask,
+    const int* __restrict__ kend, const T* __restrict__ qkv,
     T* __restrict__ out, T* __restrict__ attn, float* __restrict__ stats,
     int L, int C, float mult) {
   constexpr int NJ = DH / 16;
   constexpr int LDQ = DH + 1;
   constexpr int LDP = kTile + 1;
   extern __shared__ float smem[];
-  const int lda = C + 1;
-  float* lns = smem;                // kTile x (C + 1): StdLN of the q tile
-  float* qs = lns + kTile * lda;    // kTile x LDQ: q of the current head
-  float* ks = qs + kTile * LDQ;     // kTile x LDQ: k tile; weight chunk
+  float* qs = smem;                 // kTile x LDQ: q of the current head
+  float* ks = qs + kTile * LDQ;     // kTile x LDQ: k tile
   float* vs = ks + kTile * LDQ;     // kTile x DH: v tile
   float* ps = vs + kTile * DH;      // kTile x LDP: probabilities
   const int b = blockIdx.y, q0 = blockIdx.x * kTile;
@@ -124,23 +123,18 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
     copy_rows<T>(xb, ob, q0, rows, C, tid);
     return;
   }
-  ln_tile<T>(xb, q0, L, C, gamma, beta, lns, lda, tid);
-  const T* kvb = kv + (size_t)b * L * 2 * C;
+  const T* qkvb = qkv + (size_t)b * L * 3 * C;
+  const T* kvb = qkvb + C;  // k at column 0 of a row, v at C
   const int8_t* mb = mask + (size_t)b * L * (BLOCK ? L : 1);
   const int H = C / DH;
   for (int h = 0; h < H; ++h) {
-    {
-      float acc[4][NJ];
-      zero(acc);
-      gemm_tile<T, NJ>(lns, lda, C, w, 3 * C, h * DH, ks, acc, tx, ty, tid);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int col = tx + 16 * j;
-          qs[(ty + 16 * i) * LDQ + col] = rnd<T>(
-              rnd<T>(acc[i][j]) + Num<T>::load(bias[h * DH + col]));
-        }
+    // q of the tile's rows (zeros past L); the previous head's last
+    // barrier ordered every read of qs before these writes
+    for (int e = tid; e < kTile * DH; e += kThreads) {
+      const int r = e / DH, d = e - r * DH;
+      qs[r * LDQ + d] = q0 + r < L
+          ? Num<T>::load(qkvb[(size_t)(q0 + r) * 3 * C + h * DH + d])
+          : 0.0f;
     }
     float m[4], l[4], o[4][NJ];
 #pragma unroll
@@ -155,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(
         const int key = k0 + j;
         float kval = 0.0f, vval = 0.0f;
         if (key < L) {
-          const T* row = kvb + (size_t)key * 2 * C + h * DH + d;
+          const T* row = kvb + (size_t)key * 3 * C + h * DH + d;
           kval = Num<T>::load(row[0]);
           vval = Num<T>::load(row[C]);
         }
@@ -270,19 +264,18 @@ static cudaError_t launch(const void* x, const float* gamma,
                           void* out, void* attn, float* stats, int B, int L,
                           int C, float mult, cudaStream_t stream) {
   cudaError_t err = launch_proj<T>(x, gamma, beta, w, bias, kend, kv, B, L,
-                                   C, C, 2 * C, stream);
+                                   C, 0, 3 * C, stream);
   if (err != cudaSuccess) return err;
   const size_t smem_at = sizeof(float) *
-      (kTile * (C + 1) + 2 * kTile * (DH + 1) + kTile * DH +
-       kTile * (kTile + 1));
+      (2 * kTile * (DH + 1) + kTile * DH + kTile * (kTile + 1));
   err = cudaFuncSetAttribute(attn_kernel<T, DH, TRAIN, BLOCK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_at);
   if (err != cudaSuccess) return err;
   const dim3 g2((L + kTile - 1) / kTile, B);
   attn_kernel<T, DH, TRAIN, BLOCK><<<g2, kThreads, smem_at, stream>>>(
-      (const T*)x, gamma, beta, (const T*)w, (const T*)bias, mask, kend,
-      (const T*)kv, (T*)out, (T*)attn, stats, L, C, mult);
+      (const T*)x, mask, kend, (const T*)kv, (T*)out, (T*)attn, stats, L,
+      C, mult);
   return cudaGetLastError();
 }
 
@@ -290,8 +283,10 @@ static cudaError_t launch(const void* x, const float* gamma,
 
 // qkv[b, r, :] = round(round(StdLN(x[b, r]) . w) + bias), [B, L, 3C], for
 // the rows of tiles that start before kend[b] (other rows are left
-// unwritten). grid (ceil(L/64), B), kProjThreads threads; C % 64 == 0.
-__global__ void __launch_bounds__(kProjThreads, 2) block_qkv_tc_kernel(
+// unwritten). grid (ceil(L/64), B), kProjThreads threads; C % 64 == 0;
+// MINB blocks an SM (proj_fwd_min_blocks).
+template <int MINB>
+__global__ void __launch_bounds__(kProjThreads, MINB) block_qkv_tc_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const bf16* __restrict__ w,
     const bf16* __restrict__ bias, const int* __restrict__ kend,
@@ -366,21 +361,34 @@ __global__ void __launch_bounds__(kTcThreads) block_attn_tc_kernel(
   }
 }
 
+template <int MINB>
+static cudaError_t launch_qkv_tc_at(const void* x, const float* gamma,
+                                    const float* beta, const void* w,
+                                    const void* bias, const int* kend,
+                                    void* qkv, int B, int L, int C,
+                                    cudaStream_t stream) {
+  const int smem = qkv_tc_smem(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_qkv_tc_kernel<MINB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + kTile - 1) / kTile, B);
+  block_qkv_tc_kernel<MINB><<<grid, kProjThreads, smem, stream>>>(
+      (const bf16*)x, gamma, beta, (const bf16*)w, (const bf16*)bias, kend,
+      (bf16*)qkv, L, C);
+  return cudaGetLastError();
+}
+
 static cudaError_t launch_qkv_tc(const void* x, const float* gamma,
                                  const float* beta, const void* w,
                                  const void* bias, const int* kend,
                                  void* qkv, int B, int L, int C,
                                  cudaStream_t stream) {
-  const int smem = qkv_tc_smem(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_qkv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + kTile - 1) / kTile, B);
-  block_qkv_tc_kernel<<<grid, kProjThreads, smem, stream>>>(
-      (const bf16*)x, gamma, beta, (const bf16*)w, (const bf16*)bias, kend,
-      (bf16*)qkv, L, C);
-  return cudaGetLastError();
+  if (proj_fwd_min_blocks(C) == 1)
+    return launch_qkv_tc_at<1>(x, gamma, beta, w, bias, kend, qkv, B, L, C,
+                               stream);
+  return launch_qkv_tc_at<2>(x, gamma, beta, w, bias, kend, qkv, B, L, C,
+                             stream);
 }
 
 template <int DH, bool TRAIN, class Mask>
@@ -410,10 +418,10 @@ static cudaError_t launch_tc(const void* x, const float* gamma,
 // dtype: 0 = fp32 (the FMA kernels), 1 = bf16 (the tensor cores). x, w,
 // bias, qkv, out and attn are in that type; gamma and beta fp32; mask int8
 // (1 = masked), [B, L] or, when block != 0, [B, L, L]; kend int32 [B] (L
-// for every sample under a block mask); qkv a scratch of [B, L, 2C] (fp32:
-// k|v) or [B, L, 3C] (bf16: q|k|v). attn [B, L, C] and stats fp32
-// [B, H, L, 2] are written when attn is not NULL (the training form).
-// C % 64 == 0 and C / H in {32, 64}. Returns cudaGetLastError().
+// for every sample under a block mask); qkv a scratch of [B, L, 3C]
+// (q|k|v). attn [B, L, C] and stats fp32 [B, H, L, 2] are written when
+// attn is not NULL (the training form). C in {64, 128, 256, 512} and
+// C / H in {32, 64, 128}. Returns cudaGetLastError().
 extern "C" int attn_block_fwd(const void* x, const void* gamma,
                               const void* beta, const void* w,
                               const void* bias, const void* mask,
@@ -428,7 +436,8 @@ extern "C" int attn_block_fwd(const void* x, const void* gamma,
   const int8_t* mk = (const int8_t*)mask;
   const int* ke = (const int*)kend;
   float* st = (float*)stats;
-  if (H <= 0 || C % 64 != 0 || C % H != 0) return (int)cudaErrorInvalidValue;
+  if (H <= 0 || !model_width(C) || C % H != 0)
+    return (int)cudaErrorInvalidValue;
   const int dh = C / H;
   const bool train = attn != nullptr;
 #define MTP_ATTN(DH, TR, BL) \
@@ -446,6 +455,7 @@ extern "C" int attn_block_fwd(const void* x, const void* gamma,
     if (train) MTP_ATTN_TC(DH, true, KeyMask);                           \
     MTP_ATTN_TC(DH, false, KeyMask);                                     \
   }
+  MTP_FORMS(128)
   MTP_FORMS(64)
   MTP_FORMS(32)
 #undef MTP_FORMS
@@ -464,7 +474,7 @@ extern "C" int attn_block_qkv(const void* x, const void* gamma,
                               int B, int L, int C, int dtype, void* stream) {
   using namespace mtp;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (C % 64 != 0) return (int)cudaErrorInvalidValue;
+  if (!model_width(C)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch_proj<float>(x, (const float*)gamma, (const float*)beta, w, bias, (const int*)kend, qkv, B, L, C, 0, 3 * C, s);
   if (dtype == 1)
@@ -484,6 +494,21 @@ extern "C" int attn_block_tc_smem(int kernel, int C, int dh) {
     case 2: return dkv_tc_smem(dh);
     case 3: return dq_tc_smem(dh);
     case 4: return ln_bwd_tc_smem(C);
+  }
+  return -1;
+}
+
+// Blocks an SM that a kernel of the tensor-core route asks for in its
+// launch bounds (kernels as attn_block_tc_smem's; the attention forward
+// asks for none, 1): kernels/attn_block.py::tc_min_blocks mirrors this.
+extern "C" int attn_block_tc_min_blocks(int kernel, int C, int dh) {
+  using namespace mtp;
+  switch (kernel) {
+    case 0: return proj_fwd_min_blocks(C);
+    case 1: return 1;
+    case 2: return flash_min_blocks(dh, kFlashDkvBlocks);
+    case 3: return flash_min_blocks(dh, kFlashDqBlocks);
+    case 4: return proj_bwd_min_blocks(C);
   }
   return -1;
 }

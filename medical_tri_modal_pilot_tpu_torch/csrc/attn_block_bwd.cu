@@ -425,32 +425,8 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(
   // dln[r][c] = sum_n dqkv[r][n] w[c][n], n < 3C
   float dln[4][NJC];
   zero(dln);
-  const T* g = dqkv + (base + r0) * 3 * C;
-  for (int k0 = 0; k0 < 3 * C; k0 += kKChunk) {
-    for (int e = tid; e < kTile * kKChunk; e += kThreads) {
-      const int r = e / kKChunk, kk = e - r * kKChunk;
-      As[r * LDK + kk] = r < rows
-          ? Num<T>::load(g[(size_t)r * 3 * C + k0 + kk]) : 0.0f;
-    }
-    for (int e = tid; e < kKChunk * C; e += kThreads) {
-      const int c = e / kKChunk, kk = e - c * kKChunk;
-      Bs[kk * C + c] = Num<T>::load(w[(size_t)c * 3 * C + k0 + kk]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kKChunk; ++kk) {
-      float a[4], bb[NJC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * LDK + kk];
-#pragma unroll
-      for (int j = 0; j < NJC; ++j) bb[j] = Bs[kk * C + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJC; ++j) dln[i][j] = fmaf(a[i], bb[j], dln[i][j]);
-    }
-    __syncthreads();
-  }
+  dln_tile<T, NJC>(dqkv + (base + r0) * 3 * C, 3 * C, 3 * C, rows, w, As, Bs,
+                   dln, tx, ty, tid);
   stdln_backward_tile<T, NJC, true>(dln, x + base * C, dy + base * C,
                                     dx + base * C, r0, rows, gamma, stats,
                                     Bs, gp, tx, ty, tid);
@@ -517,16 +493,19 @@ static cudaError_t launch_bwd(const void* x, const float* gamma,
   cudaError_t err = cudaErrorInvalidValue;
 #define MTP_DQKV(DH, BL) \
   err = launch_attn<T, DH, BL>(qkv, dy, attn, stats, mask, kend, dqkv, B, L, C, mult, stream)
-  if (dh == 64 && block) MTP_DQKV(64, true);
+  if (dh == 128 && block) MTP_DQKV(128, true);
+  else if (dh == 128) MTP_DQKV(128, false);
+  else if (dh == 64 && block) MTP_DQKV(64, true);
   else if (dh == 64) MTP_DQKV(64, false);
   else if (dh == 32 && block) MTP_DQKV(32, true);
   else if (dh == 32) MTP_DQKV(32, false);
 #undef MTP_DQKV
   if (err != cudaSuccess) return err;
-  if (C == 256)
-    return launch_ln<T, 16>(x, gamma, beta, w, kend, dqkv, dy, dx, ln_o, gpart, B, L, stream);
-  if (C == 64)
-    return launch_ln<T, 4>(x, gamma, beta, w, kend, dqkv, dy, dx, ln_o, gpart, B, L, stream);
+#define MTP_LN(CC) \
+  if (C == CC) \
+    return launch_ln<T, CC / 16>(x, gamma, beta, w, kend, dqkv, dy, dx, ln_o, gpart, B, L, stream);
+  MTP_LN(64) MTP_LN(128) MTP_LN(256) MTP_LN(512)
+#undef MTP_LN
   return cudaErrorInvalidValue;
 }
 
@@ -556,7 +535,8 @@ __global__ void __launch_bounds__(kThreads) block_delta_kernel(
 // ([B, L, L]). grid (ceil(L/64), H, B), kTcThreads threads; warp w owns
 // keys 16 w .. + 15.
 template <int DH, class Mask>
-__global__ void __launch_bounds__(kTcThreads, 3) block_dkv_tc_kernel(
+__global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashDkvBlocks))
+    block_dkv_tc_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ dy,
     const float* __restrict__ stats, const float* __restrict__ delta,
     const int8_t* __restrict__ mask, const int* __restrict__ kend,
@@ -607,7 +587,8 @@ __global__ void __launch_bounds__(kTcThreads, 3) block_dkv_tc_kernel(
 // grid (ceil(L/64), H, B), kTcThreads threads; warp w owns q rows
 // 16 w .. + 15.
 template <int DH, class Mask>
-__global__ void __launch_bounds__(kTcThreads, 4) block_dq_tc_kernel(
+__global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashDqBlocks))
+    block_dq_tc_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ dy,
     const float* __restrict__ stats, const float* __restrict__ delta,
     const int8_t* __restrict__ mask, const int* __restrict__ kend,
@@ -651,11 +632,13 @@ __global__ void __launch_bounds__(kTcThreads, 4) block_dq_tc_kernel(
 // (proj_tc.cuh::proj_bwd_tile with the residual): StdLN recomputed (rows to
 // ln_o for dW), dln = [dq|dk|dv] . W^T, the StdLN backward with the
 // residual cotangent, dx = round(round(dx_ln) + dy), and the tile's
-// dgamma | dbeta sums to gpart. 256 threads, two blocks an SM. Dead tiles
+// dgamma | dbeta sums to gpart. 256 threads, two blocks an SM up to C =
+// 256, one at 512 (proj_bwd_min_blocks). Dead tiles
 // write dx = dy, zero ln_o rows and zero partials. grid (ceil(L/64), B);
 // C = 16 * NJC.
 template <int NJC>
-__global__ void __launch_bounds__(kThreads, 2) block_ln_bwd_tc_kernel(
+__global__ void __launch_bounds__(kThreads, proj_bwd_min_blocks(16 * NJC))
+    block_ln_bwd_tc_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const bf16* __restrict__ w,
     const int* __restrict__ kend, const bf16* __restrict__ dqkv,
@@ -746,16 +729,19 @@ static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
   cudaError_t err = cudaErrorInvalidValue;
 #define MTP_DQKV_TC(DH, MK) \
   err = launch_attn_tc<DH, MK>(qkv, dy, attn, stats, delta, mask, kend, dqkv, B, L, C, mult, stream)
-  if (dh == 64 && block) MTP_DQKV_TC(64, BlockMask);
+  if (dh == 128 && block) MTP_DQKV_TC(128, BlockMask);
+  else if (dh == 128) MTP_DQKV_TC(128, KeyMask);
+  else if (dh == 64 && block) MTP_DQKV_TC(64, BlockMask);
   else if (dh == 64) MTP_DQKV_TC(64, KeyMask);
   else if (dh == 32 && block) MTP_DQKV_TC(32, BlockMask);
   else if (dh == 32) MTP_DQKV_TC(32, KeyMask);
 #undef MTP_DQKV_TC
   if (err != cudaSuccess) return err;
-  if (C == 256)
-    return launch_ln_tc<16>(x, gamma, beta, w, kend, dqkv, dy, dx, ln_o, gpart, B, L, stream);
-  if (C == 64)
-    return launch_ln_tc<4>(x, gamma, beta, w, kend, dqkv, dy, dx, ln_o, gpart, B, L, stream);
+#define MTP_LN_TC(CC) \
+  if (C == CC) \
+    return launch_ln_tc<CC / 16>(x, gamma, beta, w, kend, dqkv, dy, dx, ln_o, gpart, B, L, stream);
+  MTP_LN_TC(64) MTP_LN_TC(128) MTP_LN_TC(256) MTP_LN_TC(512)
+#undef MTP_LN_TC
   return cudaErrorInvalidValue;
 }
 
@@ -767,8 +753,8 @@ static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
 // block != 0, [B, L, L]; kend int32 [B] (L for every sample under a block
 // mask); qkv from attn_block_qkv; delta: fp32 scratch [B, H, L] for bf16
 // (unused for fp32, may be NULL). Writes dqkv, ln_o, dx and gpart fp32
-// [B * ceil(L/64), 2C]. C in {64, 256}, C / H in {32, 64}. Returns
-// cudaGetLastError().
+// [B * ceil(L/64), 2C]. C in {64, 128, 256, 512}, C / H in {32, 64, 128}.
+// Returns cudaGetLastError().
 extern "C" int attn_block_bwd(const void* x, const void* gamma,
                               const void* beta, const void* w,
                               const void* mask, const void* kend,
@@ -779,7 +765,8 @@ extern "C" int attn_block_bwd(const void* x, const void* gamma,
                               float mult, int dtype, void* stream) {
   using namespace mtp;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (H <= 0 || C % H != 0) return (int)cudaErrorInvalidValue;
+  if (H <= 0 || !model_width(C) || C % H != 0)
+    return (int)cudaErrorInvalidValue;
   const float* g = (const float*)gamma;
   const float* be = (const float*)beta;
   const int8_t* mk = (const int8_t*)mask;

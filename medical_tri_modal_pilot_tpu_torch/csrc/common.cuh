@@ -13,7 +13,8 @@
 //
 // Besides the tile helpers, two whole kernels live here because more than
 // one source launches them: gemm_kernel (a row-major product with a fused
-// epilogue) and layer_norm_kernel (torch's LayerNorm, one warp per row).
+// epilogue functor) and layer_norm_kernel (torch's LayerNorm, one warp per
+// row).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,9 +34,19 @@ constexpr float kStdLnEps = 1e-6f;       // StdLayerNorm: std + eps
 constexpr float kVarFloor = 1e-24f;      // StdLayerNorm variance floor
 
 template <typename T> struct Num;
+// load2 / store2: the neighbours p[0], p[1] (p 4-byte aligned), in one
+// access for bf16
 template <> struct Num<float> {
   static __device__ __forceinline__ float load(float v) { return v; }
   static __device__ __forceinline__ float store(float v) { return v; }
+  static __device__ __forceinline__ float2 load2(const float* p) {
+    return make_float2(p[0], p[1]);
+  }
+  static __device__ __forceinline__ void store2(float* p, float v0,
+                                                float v1) {
+    p[0] = v0;
+    p[1] = v1;
+  }
 };
 template <> struct Num<__nv_bfloat16> {
   static __device__ __forceinline__ float load(__nv_bfloat16 v) {
@@ -43,6 +54,13 @@ template <> struct Num<__nv_bfloat16> {
   }
   static __device__ __forceinline__ __nv_bfloat16 store(float v) {
     return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0,
+                                                float v1) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
   }
 };
 
@@ -311,6 +329,44 @@ static __device__ __forceinline__ void stdln_backward_tile(
   __syncthreads();
 }
 
+// dln[i][j] += sum_n cot[ty + 16i][n] w[tx + 16j][n] over n < N: cot the
+// tile's rows (row stride ldc; rows past `rows` read as zero), w [C, N]
+// row-major (C = 16 NJC), staged kKChunk columns at a time through As
+// [kTile][kKChunk + 1] and Bs [kKChunk][C] (fp32, shared memory). N %
+// kKChunk == 0. Ends with __syncthreads.
+template <typename T, int NJC>
+static __device__ __forceinline__ void dln_tile(
+    const T* __restrict__ cot, int ldc, int N, int rows,
+    const T* __restrict__ w, float* As, float* Bs, float (&dln)[4][NJC],
+    int tx, int ty, int tid) {
+  constexpr int C = 16 * NJC, LDK = kKChunk + 1;
+  for (int k0 = 0; k0 < N; k0 += kKChunk) {
+    for (int e = tid; e < kTile * kKChunk; e += kThreads) {
+      const int r = e / kKChunk, kk = e - r * kKChunk;
+      As[r * LDK + kk] = r < rows
+          ? Num<T>::load(cot[(size_t)r * ldc + k0 + kk]) : 0.0f;
+    }
+    for (int e = tid; e < kKChunk * C; e += kThreads) {
+      const int c = e / kKChunk, kk = e - c * kKChunk;
+      Bs[kk * C + c] = Num<T>::load(w[(size_t)c * N + k0 + kk]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kKChunk; ++kk) {
+      float a[4], bb[NJC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * LDK + kk];
+#pragma unroll
+      for (int j = 0; j < NJC; ++j) bb[j] = Bs[kk * C + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJC; ++j) dln[i][j] = fmaf(a[i], bb[j], dln[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
 // rows [row0, row0 + rows) of a row-major [*, C] matrix set to zero
 template <typename T>
 static __device__ __forceinline__ void zero_rows(T* __restrict__ dst,
@@ -343,24 +399,85 @@ static __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-// Epilogues of gemm_kernel (bias of T for kEpiBiasT, else fp32):
-constexpr int kEpiBiasT = 0;         // out = T(T(acc) + bias[n])
-constexpr int kEpiBiasGelu = 1;      // out = T(gelu(acc + bias[n]))
-constexpr int kEpiBiasResidual = 2;  // out = T(res[r, n] + (acc + bias[n]))
+// Epilogues of gemm_kernel and gemm_bf16_kernel (mma.cuh): operator()
+// stores element (row, col) from its fp32 sum, pair() the neighbours
+// (row, col) and (row, col + 1) (col even; the tensor-core kernel's
+// fragments), dead() runs in place of the product of a row tile whose
+// flag is 0 (rows [r0, r0 + rows), columns [n0, n0 + 64), by nthreads
+// threads). out and res [R, N] row-major in T.
 
-// out[r, n] = epilogue(sum_k a[r, k] w[k, n]); a [R, K], w [K, N], res and
-// out [R, N] row-major in T; K % kKChunk == 0. 64 x 64 output tiles, a and
-// w staged kKChunk deep in shared memory, 4 x 4 register tiles per thread.
-// grid (ceil(R/64), ceil(N/64)).
-template <typename T, int EPI>
+// out = T(T(acc) + bias[n]), a bias of T
+template <typename T>
+struct EpiBiasT {
+  const T* __restrict__ bias;
+  T* __restrict__ out;
+  int N;
+  __device__ __forceinline__ void operator()(int row, int col,
+                                             float acc) const {
+    out[(size_t)row * N + col] =
+        Num<T>::store(rnd<T>(acc) + Num<T>::load(bias[col]));
+  }
+  __device__ __forceinline__ void pair(int row, int col, float a0,
+                                       float a1) const {
+    Num<T>::store2(out + (size_t)row * N + col,
+                   rnd<T>(a0) + Num<T>::load(bias[col]),
+                   rnd<T>(a1) + Num<T>::load(bias[col + 1]));
+  }
+  __device__ __forceinline__ void dead(int, int, int, int, int) const {}
+};
+
+// out = T(gelu(acc + bias[n])), an fp32 bias
+template <typename T>
+struct EpiBiasGelu {
+  const float* __restrict__ bias;
+  T* __restrict__ out;
+  int N;
+  __device__ __forceinline__ void operator()(int row, int col,
+                                             float acc) const {
+    out[(size_t)row * N + col] = Num<T>::store(gelu_exact(acc + bias[col]));
+  }
+  __device__ __forceinline__ void dead(int, int, int, int, int) const {}
+};
+
+// out = T(res[r, n] + (acc + bias[n])), an fp32 bias
+template <typename T>
+struct EpiBiasResidual {
+  const float* __restrict__ bias;
+  const T* __restrict__ res;
+  T* __restrict__ out;
+  int N;
+  __device__ __forceinline__ void operator()(int row, int col,
+                                             float acc) const {
+    const size_t off = (size_t)row * N + col;
+    out[off] = Num<T>::store(Num<T>::load(res[off]) + (acc + bias[col]));
+  }
+  __device__ __forceinline__ void pair(int row, int col, float a0,
+                                       float a1) const {
+    const size_t off = (size_t)row * N + col;
+    const float2 r = Num<T>::load2(res + off);
+    Num<T>::store2(out + off, r.x + (a0 + bias[col]),
+                   r.y + (a1 + bias[col + 1]));
+  }
+  __device__ __forceinline__ void dead(int, int, int, int, int) const {}
+};
+
+// epi(sum_k a[r, k] w(k, n)) for a [R, K] and w [K, N] (BT false) or
+// [N, K] (BT true), row-major in T; K % kKChunk == 0. 64 x 64 output
+// tiles, a and w staged kKChunk deep in shared memory, 4 x 4 register
+// tiles a thread. valid: a flag per 64-row tile, or NULL (every tile
+// live); a dead tile runs epi.dead. grid (ceil(R/64), ceil(N/64)).
+template <typename T, class Epi, bool BT = false>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(
     const T* __restrict__ a, const T* __restrict__ w,
-    const void* __restrict__ bias, const T* __restrict__ res,
-    T* __restrict__ out, int R, int K, int N) {
+    const int8_t* __restrict__ valid, Epi epi, int R, int K, int N) {
   __shared__ float As[kTile][kKChunk + 1];
-  __shared__ float Bs[kKChunk][kTile];
+  __shared__ float Bs[kKChunk][kTile + 1];
   const int r0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  if (valid != nullptr && valid[blockIdx.x] == 0) {
+    epi.dead(r0, min(kTile, R - r0), n0, tid, kThreads);
+    return;
+  }
   float acc[4][4];
   zero(acc);
   for (int k0 = 0; k0 < K; k0 += kKChunk) {
@@ -370,9 +487,15 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
           ? Num<T>::load(a[(size_t)(r0 + r) * K + k0 + k]) : 0.0f;
     }
     for (int e = tid; e < kKChunk * kTile; e += kThreads) {
-      const int kk = e / kTile, n = e - kk * kTile;
-      Bs[kk][n] = (n0 + n < N)
-          ? Num<T>::load(w[(size_t)(k0 + kk) * N + n0 + n]) : 0.0f;
+      if constexpr (BT) {
+        const int n = e / kKChunk, kk = e - n * kKChunk;
+        Bs[kk][n] = (n0 + n < N)
+            ? Num<T>::load(w[(size_t)(n0 + n) * K + k0 + kk]) : 0.0f;
+      } else {
+        const int kk = e / kTile, n = e - kk * kTile;
+        Bs[kk][n] = (n0 + n < N)
+            ? Num<T>::load(w[(size_t)(k0 + kk) * N + n0 + n]) : 0.0f;
+      }
     }
     __syncthreads();
 #pragma unroll 8
@@ -396,17 +519,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx + 16 * j;
-      if (col >= N) continue;
-      const size_t off = (size_t)row * N + col;
-      float v;
-      if (EPI == kEpiBiasT) {
-        v = rnd<T>(acc[i][j]) + Num<T>::load(((const T*)bias)[col]);
-      } else if (EPI == kEpiBiasGelu) {
-        v = gelu_exact(acc[i][j] + ((const float*)bias)[col]);
-      } else {
-        v = Num<T>::load(res[off]) + (acc[i][j] + ((const float*)bias)[col]);
-      }
-      out[off] = Num<T>::store(v);
+      if (col < N) epi(row, col, acc[i][j]);
     }
   }
 }

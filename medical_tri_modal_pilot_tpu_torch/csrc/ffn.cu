@@ -26,7 +26,9 @@
 // pass also uses. The row flags stay per 64 rows: a 128-row tile whose
 // two flags are 0 copies x; one with a single live half computes both
 // halves and stores x on the dead one. (64-row tiles, two warps a row
-// slab splitting each chunk, measured slower on an H100: PERF.md.)
+// slab splitting each chunk, measured slower on an H100: PERF.md.) Both
+// forms, and the tile pass below, are built for C = 64, 128 and 256; at
+// C = 512 the route is ffn_split.cu's.
 //
 // Dropout: the TPU kernel draws from the TPU's hardware generator per
 // 256-row block; its bits cannot be reproduced here. This kernel keeps an
@@ -264,8 +266,11 @@ static __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
   }
 }
 
+// blocks an SM that the tile pass's launch bounds ask for
+constexpr int kFfnBwdTcBlocks = 1;
+
 template <int NJC>
-__global__ void __launch_bounds__(kThreads, 1) ffn_bwd_tc_kernel(
+__global__ void __launch_bounds__(kThreads, kFfnBwdTcBlocks) ffn_bwd_tc_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const bf16* __restrict__ w1,
     const bf16* __restrict__ b1, const bf16* __restrict__ w2,
@@ -569,8 +574,14 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_bwd_tc_kernel(
 // StdLN, ReluDropout and FfnOut over 128-row tiles. A tile whose 64-row
 // flags are all 0 copies x. grid (ceil(R / kMlpRows)).
 
+// blocks an SM that the forward's launch bounds ask for at width C: two
+// while two blocks' rows and rings fit an SM
+__host__ __device__ constexpr int ffn_fwd_min_blocks(int C) {
+  return C <= 96 ? 2 : 1;
+}
+
 template <int C>
-__global__ void __launch_bounds__(kMlpThreads, C <= 96 ? 2 : 1)
+__global__ void __launch_bounds__(kMlpThreads, ffn_fwd_min_blocks(C))
     ffn_fwd_tc_kernel(const bf16* __restrict__ x,
                       const float* __restrict__ gamma,
                       const float* __restrict__ beta,
@@ -593,18 +604,6 @@ __global__ void __launch_bounds__(kMlpThreads, C <= 96 ? 2 : 1)
   mlp_tile<C>(x, y, w1, w2, R, F, r0, StdLN{gamma, beta},
               ReluDropout{b1, drop, iq}, FfnOut{b2, valid, drop, iq, R},
               ffn_fwd_smem);
-}
-
-static Dropout make_dropout(unsigned long long seed, unsigned int thr,
-                            float q_t, float q_f, int on) {
-  Dropout d;
-  d.key = make_uint2((uint32_t)(seed & 0xffffffffull),
-                     (uint32_t)(seed >> 32));
-  d.thr = thr;
-  d.q_t = q_t;
-  d.q_f = q_f;
-  d.on = on;
-  return d;
 }
 
 template <typename T, int NJC>
@@ -696,9 +695,9 @@ static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
 // The forward: fp32 FMAs (ffn_kernel) for dtype 0, the tensor cores
 // (ffn_fwd_tc_kernel) for dtype 1 (bf16), for x, w1 [C, F], b1, w2 [F, C],
 // b2 and y; gamma and beta fp32; valid: int8 [ceil(R/64)] flags of 64-row
-// tiles or NULL (every tile live). C in {64, 256}, F % 64 == 0. Dropout
-// when drop != 0: keep below thr, kept values divided by q_t. Returns
-// cudaGetLastError().
+// tiles or NULL (every tile live). C in {64, 128, 256} (512: ffn_split.cu),
+// F % 64 == 0. Dropout when drop != 0: keep below thr, kept values divided
+// by q_t. Returns cudaGetLastError().
 extern "C" int ffn_fwd(const void* x, const void* gamma, const void* beta,
                        const void* w1, const void* b1, const void* w2,
                        const void* b2, const void* valid, void* y, int R,
@@ -713,14 +712,13 @@ extern "C" int ffn_fwd(const void* x, const void* gamma, const void* beta,
   const Dropout d = make_dropout(seed, thr, q_t, 1.0f, drop);
   if (R < 0 || F <= 0 || F % kTile != 0) return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
-  if (dtype == 0 && C == 256)
-    return (int)launch<float, 16>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s);
-  if (dtype == 0 && C == 64)
-    return (int)launch<float, 4>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s);
-  if (dtype == 1 && C == 256)
-    return (int)launch_fwd_tc<256>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s);
-  if (dtype == 1 && C == 64)
-    return (int)launch_fwd_tc<64>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s);
+#define MTP_FWD(CC) \
+  if (dtype == 0 && C == CC) \
+    return (int)launch<float, CC / 16>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s); \
+  if (dtype == 1 && C == CC) \
+    return (int)launch_fwd_tc<CC>(x, g, be, w1, b1, w2, b2, v, y, R, F, d, s);
+  MTP_FWD(64) MTP_FWD(128) MTP_FWD(256)
+#undef MTP_FWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -729,8 +727,22 @@ extern "C" int ffn_fwd(const void* x, const void* gamma, const void* beta,
 extern "C" int ffn_tc_smem(int C) {
   using namespace mtp;
   if (C == 256) return MlpTc<256>::kBytes;
+  if (C == 128) return MlpTc<128>::kBytes;
   if (C == 64) return MlpTc<64>::kBytes;
   return 0;
+}
+
+// blocks an SM that the fused bf16 kernels' launch bounds ask for at width
+// C (0 ffn_fwd_tc_kernel, 1 ffn_bwd_tc_kernel), 0 for a width they are not
+// built for: kernels/ffn.py::tc_min_blocks mirrors this
+extern "C" int ffn_tc_min_blocks(int kernel, int C) {
+  using namespace mtp;
+  if (C != 64 && C != 128 && C != 256) return 0;
+  switch (kernel) {
+    case 0: return ffn_fwd_min_blocks(C);
+    case 1: return kFfnBwdTcBlocks;
+  }
+  return -1;
 }
 
 // The backward tile pass: fp32 FMAs for dtype 0, the tensor cores for
@@ -753,13 +765,12 @@ extern "C" int ffn_bwd(const void* x, const void* gamma, const void* beta,
   float* gp = (float*)gpart;
   const Dropout d = make_dropout(seed, thr, q_t, q_f, drop);
   if (F <= 0 || F % kTile != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && C == 256)
-    return (int)launch_bwd<float, 16>(x, g, be, w1, b1, w2, v, dy, dx, ln_o, dz_o, hd_o, dh_o, gp, R, F, d, s);
-  if (dtype == 0 && C == 64)
-    return (int)launch_bwd<float, 4>(x, g, be, w1, b1, w2, v, dy, dx, ln_o, dz_o, hd_o, dh_o, gp, R, F, d, s);
-  if (dtype == 1 && C == 256)
-    return (int)launch_bwd_tc<16>(x, g, be, w1, b1, w2, v, dy, dx, ln_o, dz_o, hd_o, dh_o, gp, R, F, d, s);
-  if (dtype == 1 && C == 64)
-    return (int)launch_bwd_tc<4>(x, g, be, w1, b1, w2, v, dy, dx, ln_o, dz_o, hd_o, dh_o, gp, R, F, d, s);
+#define MTP_BWD(CC) \
+  if (dtype == 0 && C == CC) \
+    return (int)launch_bwd<float, CC / 16>(x, g, be, w1, b1, w2, v, dy, dx, ln_o, dz_o, hd_o, dh_o, gp, R, F, d, s); \
+  if (dtype == 1 && C == CC) \
+    return (int)launch_bwd_tc<CC / 16>(x, g, be, w1, b1, w2, v, dy, dx, ln_o, dz_o, hd_o, dh_o, gp, R, F, d, s);
+  MTP_BWD(64) MTP_BWD(128) MTP_BWD(256)
+#undef MTP_BWD
   return (int)cudaErrorInvalidValue;
 }

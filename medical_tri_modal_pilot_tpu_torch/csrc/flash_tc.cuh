@@ -53,6 +53,16 @@ __host__ __device__ constexpr int dq_tc_smem(int dh) {
   return 2 * 6 * kTile * pitch(dh);
 }
 
+// blocks an SM that a flash kernel's launch bounds ask for: `blocks` up
+// to DH = 64; at DH = 128 two, whatever the loop (a thread's 16 n8 tiles
+// of the output or of dK and dV take 64 and 128 fp32 registers, and the
+// tiles of pitch 136 take 85-104 KB a block)
+__host__ __device__ constexpr int flash_min_blocks(int dh, int blocks) {
+  return dh > 64 ? 2 : blocks;
+}
+// the `blocks` of the forward, dK/dV and dQ loops' kernels
+constexpr int kFlashFwdBlocks = 4, kFlashDkvBlocks = 3, kFlashDqBlocks = 4;
+
 // rows [row0, row0 + 64) x DH columns of a row-major bf16 matrix (nrows
 // rows, leading dimension ld, src at the first column) into a shared tile
 // of pitch pitch(DH), by kTcThreads threads; rows past nrows are

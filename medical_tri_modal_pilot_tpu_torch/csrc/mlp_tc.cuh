@@ -63,6 +63,19 @@ struct Dropout {
   int on;
 };
 
+// the Dropout of the C entry points' arguments (seed: the Philox key)
+static inline Dropout make_dropout(unsigned long long seed, unsigned int thr,
+                                   float q_t, float q_f, int on) {
+  Dropout d;
+  d.key = make_uint2((uint32_t)(seed & 0xffffffffull),
+                     (uint32_t)(seed >> 32));
+  d.thr = thr;
+  d.q_t = q_t;
+  d.q_f = q_f;
+  d.on = on;
+  return d;
+}
+
 // x / q for the dropout divisor q given iq = 1 / q: the product, then
 // one FMA correction (the division's own Newton step), without the
 // special-case path of an IEEE division (q is in (0, 1], x finite)

@@ -1,7 +1,7 @@
 // bf16 tensor-core building blocks for the Hopper kernels of the port:
 // cp.async staging, ldmatrix fragment loads and mma.sync.m16n8k16 with
-// fp32 accumulation, plus a tile GEMM with gemm_kernel's kEpiBiasT and
-// kEpiBiasResidual epilogues that more than one source can launch.
+// fp32 accumulation, plus a tile GEMM with gemm_kernel's epilogue functors
+// that more than one source can launch.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane >> 2, t = lane & 3):
 //   A 16 x 16: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
@@ -138,30 +138,33 @@ static __device__ __forceinline__ void stage_rows(bf16* dst, int ld,
   }
 }
 
-// out = epilogue(sum_k a[r, k] w[k, n]) in bf16 on the tensor cores, with
-// gemm_kernel's epilogues: kEpiBiasT, T(T(acc) + bias[n]) with a bf16
-// bias; kEpiBiasResidual, T(res[r, n] + (acc + bias[n])) with an fp32 bias
-// (res NULL for the former). a [R, K], w [K, N], bias [N], res and
-// out [R, N] row-major; K % 32 == 0, N % 8 == 0. 64 x 64 output tiles over
-// four warps (32 x 32 each), operands staged 32 deep by cp.async in a
-// three-stage ring. grid (ceil(R/64), ceil(N/64)), 128 threads. (A
-// template so that every source including this header may launch it.)
+// epi(sum_k a[r, k] w(k, n)) on the tensor cores, with the epilogue
+// functors of gemm_kernel (common.cuh), which store a pair of neighbours
+// at a time (pair()): a [R, K] and w [K, N] (BT false) or [N, K] (BT
+// true), bf16, row-major; K % 32 == 0, N % 8 == 0. 64 x 64 output tiles
+// over four warps (32 x 32 each), operands staged 32 deep by cp.async in
+// a three-stage ring. valid: a flag per 64-row tile, or NULL (every tile
+// live); a dead tile runs epi.dead. grid (ceil(R/64), ceil(N/64)), 128
+// threads. (A template so that every source including this header may
+// launch it.)
 constexpr int kGemmThreads = 128;
 constexpr int kGemmBK = 32;
 constexpr int kGemmStages = 3;
 
-template <int EPI>
+template <class Epi, bool BT = false>
 __global__ void __launch_bounds__(kGemmThreads) gemm_bf16_kernel(
     const bf16* __restrict__ a, const bf16* __restrict__ w,
-    const void* __restrict__ bias, const bf16* __restrict__ res,
-    bf16* __restrict__ out, int R, int K, int N) {
-  static_assert(EPI == kEpiBiasT || EPI == kEpiBiasResidual,
-                "gemm_bf16_kernel: kEpiBiasT or kEpiBiasResidual");
+    const int8_t* __restrict__ valid, Epi epi, int R, int K, int N) {
   constexpr int LDA = pitch(kGemmBK), LDB = pitch(kTile);
+  constexpr int BSTAGE = BT ? kTile * LDA : kGemmBK * LDB;
   __shared__ __align__(16) bf16 As[kGemmStages][kTile * LDA];
-  __shared__ __align__(16) bf16 Bs[kGemmStages][kGemmBK * LDB];
+  __shared__ __align__(16) bf16 Bs[kGemmStages][BSTAGE];
   const int r0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (valid != nullptr && valid[blockIdx.x] == 0) {
+    epi.dead(r0, min(kTile, R - r0), n0, tid, kGemmThreads);
+    return;
+  }
   const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
   const int nk = K / kGemmBK;
 
@@ -174,12 +177,22 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_bf16_kernel(
       cp_async16(&As[st][r * LDA + c],
                  in ? a + (size_t)(r0 + r) * K + k0 + c : a, in);
     }
-    // w: 32 rows x 64 columns, 8 chunks per row
-    for (int e = tid; e < kGemmBK * 8; e += kGemmThreads) {
-      const int r = e >> 3, c = (e & 7) << 3;
-      const bool in = n0 + c < N;
-      cp_async16(&Bs[st][r * LDB + c],
-                 in ? w + (size_t)(k0 + r) * N + n0 + c : w, in);
+    if constexpr (BT) {
+      // w [N][K]: 64 rows (n) x 32 columns (k), stored [n][k]
+      for (int e = tid; e < kTile * 4; e += kGemmThreads) {
+        const int n = e >> 2, c = (e & 3) << 3;
+        const bool in = n0 + n < N;
+        cp_async16(&Bs[st][n * LDA + c],
+                   in ? w + (size_t)(n0 + n) * K + k0 + c : w, in);
+      }
+    } else {
+      // w [K][N]: 32 rows (k) x 64 columns (n), 8 chunks per row
+      for (int e = tid; e < kGemmBK * 8; e += kGemmThreads) {
+        const int r = e >> 3, c = (e & 7) << 3;
+        const bool in = n0 + c < N;
+        cp_async16(&Bs[st][r * LDB + c],
+                   in ? w + (size_t)(k0 + r) * N + n0 + c : w, in);
+      }
     }
   };
 
@@ -213,8 +226,12 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_bf16_kernel(
       for (int i = 0; i < 2; ++i)
         ldsm_x4(af[i], frag_a(as, LDA, wm + 16 * i, kk, lane));
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        ldsm_x4_t(bfr[j], frag_b_kn(bs, LDB, kk, wn + 16 * j, lane));
+      for (int j = 0; j < 2; ++j) {
+        if constexpr (BT)
+          ldsm_x4(bfr[j], frag_b_nk(bs, LDA, wn + 16 * j, kk, lane));
+        else
+          ldsm_x4_t(bfr[j], frag_b_kn(bs, LDB, kk, wn + 16 * j, lane));
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -232,29 +249,10 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_bf16_kernel(
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + wn + 8 * j + 2 * t;
       if (col >= N) continue;
-      float b0, b1;
-      if (EPI == kEpiBiasT) {
-        b0 = bf(((const bf16*)bias)[col]);
-        b1 = bf(((const bf16*)bias)[col + 1]);
-      } else {
-        b0 = ((const float*)bias)[col];
-        b1 = ((const float*)bias)[col + 1];
-      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = r0 + wm + 16 * i + g + 8 * h;
-        if (row >= R) continue;
-        const size_t off = (size_t)row * N + col;
-        float v0, v1;
-        if (EPI == kEpiBiasT) {
-          v0 = rnd<bf16>(acc[i][j][2 * h]) + b0;
-          v1 = rnd<bf16>(acc[i][j][2 * h + 1]) + b1;
-        } else {
-          const uint32_t rr = *reinterpret_cast<const uint32_t*>(res + off);
-          v0 = __uint_as_float(rr << 16) + (acc[i][j][2 * h] + b0);
-          v1 = __uint_as_float(rr & 0xffff0000u) + (acc[i][j][2 * h + 1] + b1);
-        }
-        *reinterpret_cast<uint32_t*>(out + off) = pack_bf16(v0, v1);
+        if (row < R) epi.pair(row, col, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
       }
     }
 }

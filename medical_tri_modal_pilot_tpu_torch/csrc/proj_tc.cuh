@@ -85,6 +85,25 @@ __host__ __device__ constexpr int qkv_tc_smem(int C) {
 __host__ __device__ constexpr int ln_bwd_tc_smem(int C) {
   return proj_bwd_smem(C, true);
 }
+// the model widths (d_model) the attention block's and the row-skipping
+// projections' kernels are built for (kernels/attn_block.py and
+// kernels/rowmm.py WIDTHS)
+__host__ __device__ constexpr bool model_width(int C) {
+  return C == 64 || C == 128 || C == 256 || C == 512;
+}
+// blocks an SM that the forward's launch bounds ask for at width C: two
+// up to C = 256; at 512 x and the W ring take 116 KB, room for one block
+// (a thread's registers do not depend on C)
+__host__ __device__ constexpr int proj_fwd_min_blocks(int C) {
+  return C > 256 ? 1 : 2;
+}
+// blocks an SM that the backward's launch bounds ask for at width C: two
+// up to C = 256; at 512 a thread's dA accumulators are 128 fp32 registers
+// (NJC 32 n8 tiles), which two blocks' 128-register budget cannot hold,
+// and the LN form's 201 KB leave room for one block only
+__host__ __device__ constexpr int proj_bwd_min_blocks(int C) {
+  return C > 256 ? 1 : 2;
+}
 
 // rows a warp normalises at a time (stdln_rows_bf16)
 constexpr int kLnRows = 4;
@@ -287,11 +306,14 @@ static __device__ __forceinline__ void proj_fwd_tile(
 //                 + dy), dy from dyt) and the tile's column sums of
 //                 dA * xhat | dA into gp[0, 2C).
 // xt, dyt, dxt, lnt: the tile's first row (row stride C); rows past
-// `rows` are zero-filled and not stored. N % 32 == 0; RES also needs
-// (N / 32) % kLnBwdStages == 0 (the last chunk in the ring's last stage,
-// dy staged into the first two). Every thread of the block (kThreads)
-// calls it.
-template <int NJC, bool LN, bool RES, typename Cot>
+// `rows` are zero-filled and not stored. N % 32 == 0. With RES, when
+// (N / 32) % kLnBwdStages == 0 the last chunk runs in the ring's last
+// stage and dy is staged into the first two during it; otherwise (the
+// FFN's split route: N = 4C) the epilogue reads dy from device memory.
+// RND_LN false adds dy to the unrounded dx_ln (ffn.cu's rounding, once)
+// in place of round(round(dx_ln) + dy). Every thread of the block
+// (kThreads) calls it.
+template <int NJC, bool LN, bool RES, bool RND_LN = true, typename Cot>
 static __device__ __forceinline__ void proj_bwd_tile(
     unsigned char* smem, const bf16* __restrict__ xt, int rows,
     const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -311,6 +333,7 @@ static __device__ __forceinline__ void proj_bwd_tile(
   float* stats = reinterpret_cast<float*>(ring + kLnBwdStages * STAGE);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nch = N / KC;
+  const bool stage_dy = RES && nch % kLnBwdStages == 0;
   auto load = [&](int it) {
     bf16* a = ring + (it % kLnBwdStages) * STAGE;
     stage_rows<KC, kThreads>(a, LDK, cot.at(0, it * KC), cot.stride(),
@@ -346,7 +369,7 @@ static __device__ __forceinline__ void proj_bwd_tile(
     __syncthreads();
     if (it + 2 < nch)
       load(it + 2);
-    else if (RES && it == nch - 1)
+    else if (stage_dy && it == nch - 1)
       stage_rows<C, kThreads>(ring, LDC, dyt, C, kTile, rows, tid);
     cp_async_commit();
     const bf16* as = ring + (it % kLnBwdStages) * STAGE;
@@ -451,8 +474,13 @@ static __device__ __forceinline__ void proj_bwd_tile(
       for (int e = 0; e < 2; ++e) {
         const float xhat = (bf(xs[r * LDC + col + e]) - mu) * c;
         const float dxhat = dln[j][2 * h + e] * gamma[col + e];
-        const float d = rnd<bf16>(c * (dxhat - mean) - k2 * (xhat / c));
-        o[e] = RES ? bf(dys[r * LDC + col + e]) + d : d;
+        const float d0 = c * (dxhat - mean) - k2 * (xhat / c);
+        const float d = RND_LN ? rnd<bf16>(d0) : d0;
+        float dyv = 0.0f;
+        if (RES)
+          dyv = stage_dy ? bf(dys[r * LDC + col + e])
+                         : bf(dyt[(size_t)r * C + col + e]);
+        o[e] = RES ? dyv + d : d;
       }
       *reinterpret_cast<uint32_t*>(dxt + (size_t)r * C + col) =
           pack_bf16(o[0], o[1]);

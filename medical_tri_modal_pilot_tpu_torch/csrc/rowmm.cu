@@ -204,9 +204,10 @@ static __device__ __forceinline__ void zero_rows16(bf16* p, int r0, int rows,
 
 // out0 | out1 | out2 (each [R, Cs]; out0 alone [R, Cout] when Cs = Cout)
 // for the 64-row tile at blockIdx.x. Cin % 64 == 0, Cout and Cs multiples
-// of 64. grid (ceil(R/64)), kProjThreads threads, two blocks an SM.
-template <bool LN>
-__global__ void __launch_bounds__(kProjThreads, 2)
+// of 64. grid (ceil(R/64)), kProjThreads threads; MINB blocks an SM
+// (proj_fwd_min_blocks: two up to Cin = 256, one at 512).
+template <bool LN, int MINB>
+__global__ void __launch_bounds__(kProjThreads, MINB)
     rowmm_tc_kernel(const bf16* __restrict__ x,
                     const float* __restrict__ gamma,
                     const float* __restrict__ beta,
@@ -229,9 +230,12 @@ __global__ void __launch_bounds__(kProjThreads, 2)
 // The backward tile pass of one 64-row tile: dx [R, Cin] (zeros in dead
 // tiles); the LN form also ln_o [R, Cin] on live tiles and gpart
 // [ceil(R/64), 2 Cin] (zeros in dead tiles). dy0 | dy1 | dy2 as the
-// forward's outputs. grid (ceil(R/64)), kThreads; Cin = 16 * NJC.
+// forward's outputs. grid (ceil(R/64)), kThreads; Cin = 16 * NJC. Two
+// blocks an SM up to Cin = 256; at 512 the 128 fp32 dA accumulators a
+// thread and the 201 KB ring take one (proj_bwd_min_blocks).
 template <int NJC, bool LN>
-__global__ void __launch_bounds__(kThreads, 2) rowmm_bwd_tc_kernel(
+__global__ void __launch_bounds__(kThreads, proj_bwd_min_blocks(16 * NJC))
+    rowmm_bwd_tc_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const bf16* __restrict__ w,
     const int8_t* __restrict__ valid, const bf16* dy0, const bf16* dy1,
@@ -254,6 +258,25 @@ __global__ void __launch_bounds__(kThreads, 2) rowmm_bwd_tc_kernel(
       LN ? ln_o + (size_t)r0 * C : nullptr, gp);
 }
 
+template <bool LN, int MINB>
+static cudaError_t launch_fwd_tc_at(const void* x, const float* gamma,
+                                    const float* beta, const void* w,
+                                    const void* b, const int8_t* valid,
+                                    void* out0, void* out1, void* out2,
+                                    int R, int Cin, int Cout, int Cs,
+                                    cudaStream_t stream) {
+  const int smem = proj_fwd_smem(Cin);
+  cudaError_t err = cudaFuncSetAttribute(
+      rowmm_tc_kernel<LN, MINB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  rowmm_tc_kernel<LN, MINB><<<(R + kTile - 1) / kTile, kProjThreads, smem,
+                              stream>>>(
+      (const bf16*)x, gamma, beta, (const bf16*)w, (const bf16*)b, valid,
+      (bf16*)out0, (bf16*)out1, (bf16*)out2, R, Cin, Cout, Cs);
+  return cudaGetLastError();
+}
+
 template <bool LN>
 static cudaError_t launch_fwd_tc(const void* x, const float* gamma,
                                  const float* beta, const void* w,
@@ -261,16 +284,11 @@ static cudaError_t launch_fwd_tc(const void* x, const float* gamma,
                                  void* out0, void* out1, void* out2, int R,
                                  int Cin, int Cout, int Cs,
                                  cudaStream_t stream) {
-  const int smem = proj_fwd_smem(Cin);
-  cudaError_t err = cudaFuncSetAttribute(
-      rowmm_tc_kernel<LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  rowmm_tc_kernel<LN><<<(R + kTile - 1) / kTile, kProjThreads, smem,
-                        stream>>>(
-      (const bf16*)x, gamma, beta, (const bf16*)w, (const bf16*)b, valid,
-      (bf16*)out0, (bf16*)out1, (bf16*)out2, R, Cin, Cout, Cs);
-  return cudaGetLastError();
+  if (proj_fwd_min_blocks(Cin) == 1)
+    return launch_fwd_tc_at<LN, 1>(x, gamma, beta, w, b, valid, out0, out1,
+                                   out2, R, Cin, Cout, Cs, stream);
+  return launch_fwd_tc_at<LN, 2>(x, gamma, beta, w, b, valid, out0, out1,
+                                 out2, R, Cin, Cout, Cs, stream);
 }
 
 template <int NJC, bool LN>
@@ -384,8 +402,8 @@ static bool shapes_ok(int R, int Cout, int Cs) {
 // [Cin] (LN form only, else NULL). valid: int8 flags, one per kBlockR
 // (256) consecutive rows. ln != 0: the LN form,
 // outputs out0 | out1 | out2 each [R, Cs] with Cs = Cout / 3; else one
-// output out0 [R, Cout] (Cs = Cout). Cin in {64, 256}; Cout and Cs multiples
-// of 64. Returns cudaGetLastError().
+// output out0 [R, Cout] (Cs = Cout). Cin in {64, 128, 256, 512}; Cout and
+// Cs multiples of 64. Returns cudaGetLastError().
 extern "C" int rowmm_fwd(const void* x, const void* gamma, const void* beta,
                          const void* w, const void* b, const void* valid,
                          void* out0, void* out1, void* out2, int R, int Cin,
@@ -397,11 +415,12 @@ extern "C" int rowmm_fwd(const void* x, const void* gamma, const void* beta,
   const int8_t* v = (const int8_t*)valid;
   if (!shapes_ok(R, Cout, Cs) || (ln && Cs * 3 != Cout))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && Cin == 256)
-    return (int)fwd_ln<float, 16>(ln, x, g, be, w, b, v, out0, out1, out2, R, Cout, Cs, s);
-  if (dtype == 0 && Cin == 64)
-    return (int)fwd_ln<float, 4>(ln, x, g, be, w, b, v, out0, out1, out2, R, Cout, Cs, s);
-  if (dtype == 1 && (Cin == 256 || Cin == 64))
+#define MTP_FWD(CIN) \
+  if (dtype == 0 && Cin == CIN) \
+    return (int)fwd_ln<float, CIN / 16>(ln, x, g, be, w, b, v, out0, out1, out2, R, Cout, Cs, s);
+  MTP_FWD(64) MTP_FWD(128) MTP_FWD(256) MTP_FWD(512)
+#undef MTP_FWD
+  if (dtype == 1 && model_width(Cin))
     return (int)(ln ? launch_fwd_tc<true>(x, g, be, w, b, v, out0, out1, out2, R, Cin, Cout, Cs, s)
                     : launch_fwd_tc<false>(x, g, be, w, b, v, out0, out1, out2, R, Cin, Cout, Cs, s));
   return (int)cudaErrorInvalidValue;
@@ -424,14 +443,13 @@ extern "C" int rowmm_bwd(const void* x, const void* gamma, const void* beta,
   float* gp = (float*)gpart;
   if (!shapes_ok(R, Cout, Cs) || (ln && Cs * 3 != Cout))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && Cin == 256)
-    return (int)bwd_ln<float, 16>(ln, x, g, be, w, v, dy0, dy1, dy2, dx, ln_o, gp, R, Cout, Cs, s);
-  if (dtype == 0 && Cin == 64)
-    return (int)bwd_ln<float, 4>(ln, x, g, be, w, v, dy0, dy1, dy2, dx, ln_o, gp, R, Cout, Cs, s);
-  if (dtype == 1 && Cin == 256)
-    return (int)bwd_tc<16>(ln, x, g, be, w, v, dy0, dy1, dy2, dx, ln_o, gp, R, Cout, Cs, s);
-  if (dtype == 1 && Cin == 64)
-    return (int)bwd_tc<4>(ln, x, g, be, w, v, dy0, dy1, dy2, dx, ln_o, gp, R, Cout, Cs, s);
+#define MTP_BWD(CIN) \
+  if (dtype == 0 && Cin == CIN) \
+    return (int)bwd_ln<float, CIN / 16>(ln, x, g, be, w, v, dy0, dy1, dy2, dx, ln_o, gp, R, Cout, Cs, s); \
+  if (dtype == 1 && Cin == CIN) \
+    return (int)bwd_tc<CIN / 16>(ln, x, g, be, w, v, dy0, dy1, dy2, dx, ln_o, gp, R, Cout, Cs, s);
+  MTP_BWD(64) MTP_BWD(128) MTP_BWD(256) MTP_BWD(512)
+#undef MTP_BWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -445,6 +463,19 @@ extern "C" int rowmm_tc_smem(int kernel, int Cin) {
     case 0: return proj_fwd_smem(Cin);
     case 1: return proj_bwd_smem(Cin, true);
     case 2: return proj_bwd_smem(Cin, false);
+  }
+  return -1;
+}
+
+// Blocks an SM that a tensor-core kernel's launch bounds ask for at width
+// Cin (kernels as rowmm_tc_smem's): kernels/rowmm.py::tc_min_blocks
+// mirrors this.
+extern "C" int rowmm_tc_min_blocks(int kernel, int Cin) {
+  using namespace mtp;
+  switch (kernel) {
+    case 0: return proj_fwd_min_blocks(Cin);
+    case 1:
+    case 2: return proj_bwd_min_blocks(Cin);
   }
   return -1;
 }

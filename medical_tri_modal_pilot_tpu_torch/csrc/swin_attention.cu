@@ -528,9 +528,9 @@ static cudaError_t launch_split(const void* xw, const void* wqkv,
                                 cudaStream_t stream) {
   const int R = I * kWin;
   const dim3 g1((R + kTile - 1) / kTile, (3 * C + kTile - 1) / kTile);
-  gemm_bf16_kernel<kEpiBiasT><<<g1, kGemmThreads, 0, stream>>>(
-      (const bf16*)xw, (const bf16*)wqkv, bqkv, nullptr, (bf16*)qkv, R, C,
-      3 * C);
+  gemm_bf16_kernel<<<g1, kGemmThreads, 0, stream>>>(
+      (const bf16*)xw, (const bf16*)wqkv, nullptr,
+      EpiBiasT<bf16>{(const bf16*)bqkv, (bf16*)qkv, 3 * C}, R, C, 3 * C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // head groups only where the windows alone leave the card's SMs short
@@ -548,9 +548,9 @@ static cudaError_t launch_split(const void* xw, const void* wqkv,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 g3((R + kTile - 1) / kTile, (C + kTile - 1) / kTile);
-  gemm_bf16_kernel<kEpiBiasT><<<g3, kGemmThreads, 0, stream>>>(
-      (const bf16*)heads, (const bf16*)wproj, bproj, nullptr, (bf16*)out, R,
-      C, C);
+  gemm_bf16_kernel<<<g3, kGemmThreads, 0, stream>>>(
+      (const bf16*)heads, (const bf16*)wproj, nullptr,
+      EpiBiasT<bf16>{(const bf16*)bproj, (bf16*)out, C}, R, C, C);
   return cudaGetLastError();
 }
 
@@ -562,9 +562,9 @@ static cudaError_t launch_fma(const void* xw, const void* wqkv,
                               cudaStream_t stream) {
   const int R = I * kWin;
   const dim3 g1((R + kTile - 1) / kTile, (3 * C + kTile - 1) / kTile);
-  gemm_kernel<float, kEpiBiasT><<<g1, kThreads, 0, stream>>>(
-      (const float*)xw, (const float*)wqkv, bqkv, nullptr, (float*)qkv, R,
-      C, 3 * C);
+  gemm_kernel<<<g1, kThreads, 0, stream>>>(
+      (const float*)xw, (const float*)wqkv, nullptr,
+      EpiBiasT<float>{(const float*)bqkv, (float*)qkv, 3 * C}, R, C, 3 * C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   window_attn_kernel<<<dim3(I, C / kHeadDim), kThreads, 0, stream>>>(
@@ -572,9 +572,9 @@ static cudaError_t launch_fma(const void* xw, const void* wqkv,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 g3((R + kTile - 1) / kTile, (C + kTile - 1) / kTile);
-  gemm_kernel<float, kEpiBiasT><<<g3, kThreads, 0, stream>>>(
-      (const float*)heads, (const float*)wproj, bproj, nullptr, (float*)out,
-      R, C, C);
+  gemm_kernel<<<g3, kThreads, 0, stream>>>(
+      (const float*)heads, (const float*)wproj, nullptr,
+      EpiBiasT<float>{(const float*)bproj, (float*)out, C}, R, C, C);
   return cudaGetLastError();
 }
 

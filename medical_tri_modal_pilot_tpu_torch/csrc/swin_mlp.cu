@@ -143,14 +143,15 @@ static cudaError_t launch_split(const void* x, const float* scale,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int row_tiles = (R + kTile - 1) / kTile;
-  gemm_kernel<T, kEpiBiasGelu>
-      <<<dim3(row_tiles, (F + kTile - 1) / kTile), kThreads, 0, stream>>>(
-          (const T*)ln, (const T*)w1, b1, nullptr, (T*)hidden, R, C, F);
+  gemm_kernel<<<dim3(row_tiles, (F + kTile - 1) / kTile), kThreads, 0,
+                stream>>>((const T*)ln, (const T*)w1, nullptr,
+                          EpiBiasGelu<T>{b1, (T*)hidden, F}, R, C, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gemm_kernel<T, kEpiBiasResidual>
-      <<<dim3(row_tiles, (C + kTile - 1) / kTile), kThreads, 0, stream>>>(
-          (const T*)hidden, (const T*)w2, b2, (const T*)x, (T*)y, R, F, C);
+  gemm_kernel<<<dim3(row_tiles, (C + kTile - 1) / kTile), kThreads, 0,
+                stream>>>((const T*)hidden, (const T*)w2, nullptr,
+                          EpiBiasResidual<T>{b2, (const T*)x, (T*)y, C}, R,
+                          F, C);
   return cudaGetLastError();
 }
 
@@ -352,10 +353,10 @@ static cudaError_t launch_split_tc(const void* x, const float* scale,
       F, cpb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gemm_bf16_kernel<kEpiBiasResidual>
-      <<<dim3(row_tiles, (C + kTile - 1) / kTile), kGemmThreads, 0,
-          stream>>>((const bf16*)hidden, (const bf16*)w2, b2, (const bf16*)x,
-                    (bf16*)y, R, F, C);
+  gemm_bf16_kernel<<<dim3(row_tiles, (C + kTile - 1) / kTile),
+                     kGemmThreads, 0, stream>>>(
+      (const bf16*)hidden, (const bf16*)w2, nullptr,
+      EpiBiasResidual<bf16>{b2, (const bf16*)x, (bf16*)y, C}, R, F, C);
   return cudaGetLastError();
 }
 

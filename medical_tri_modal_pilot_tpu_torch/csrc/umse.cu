@@ -28,7 +28,10 @@
 // of 32 rows at once, one row a lane, and hands them round by shuffles;
 // it takes two rows at a time, whose four stem rows reduce together in
 // one reduce-scatter (warp_sums), so their latencies overlap and the
-// shuffles fall from 40 to 17. StemRows is the one device function of
+// shuffles fall from 40 to 17. At D = 512 a row goes alone (kUmsePairs)
+// and the forward asks for one block an SM: a lane's sixteen columns of
+// the eight stem vectors take 160 registers, and the backward's sums
+// as many again, which spill (ptxas -v says how far). StemRows is the one device function of
 // both kernels: the backward recomputes each stem with the forward's
 // roundings (the affine in T; fp32 statistics, E[h^2] - mu^2 clamped at
 // 0, eps 1e-5), so its relu mask is the forward's. The forward stages the
@@ -73,6 +76,12 @@ struct UmseStems {  // [0] the value stem, [1] the time stem; fp32 [D] each
 
 template <typename T>
 constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
+
+// whether a warp takes two rows at a time: up to D = 256 (V = 8); at D =
+// 512 a lane's sixteen columns of the stem vectors, and in the backward
+// of their sums, hold most of its registers, and a row goes alone
+template <int V>
+constexpr bool kUmsePairs = V <= 8;
 
 // a lane's V consecutive columns of one stem's vectors: w and b rounded to
 // T (kept as bf16 pairs for the paired affine), scale and bias in fp32
@@ -325,7 +334,8 @@ static __device__ __forceinline__ void fwd_rows(
 // grid (ceil(R / (32 kUmseWarps)), at most kUmseFwdMaxBlocks); dynamic
 // shared memory: the table and a zero row, (n_ids + 1) * D fp32
 template <typename T, int D>
-__global__ void __launch_bounds__(32 * kUmseWarps, 2) umse_fwd_kernel(
+__global__ void __launch_bounds__(32 * kUmseWarps, D > 256 ? 1 : 2)
+    umse_fwd_kernel(
     const float* __restrict__ x, UmseStems p,
     const float* __restrict__ table, T* __restrict__ out, int R,
     int n_ids) {
@@ -347,10 +357,11 @@ __global__ void __launch_bounds__(32 * kUmseWarps, 2) umse_fwd_kernel(
     const int nr = min(32, R - r0);
     T* row = out + (size_t)r0 * D + c0;
     int j = 0;
-    for (; j + 2 <= nr; j += 2)
-      fwd_rows<T, V, 2>(t, v, id, j, ps, tab, n_ids, row + (size_t)j * D,
-                        c0);
-    if (j < nr)
+    if constexpr (kUmsePairs<V>)
+      for (; j + 2 <= nr; j += 2)
+        fwd_rows<T, V, 2>(t, v, id, j, ps, tab, n_ids, row + (size_t)j * D,
+                          c0);
+    for (; j < nr; ++j)
       fwd_rows<T, V, 1>(t, v, id, j, ps, tab, n_ids, row + (size_t)j * D,
                         c0);
   }
@@ -515,15 +526,17 @@ __global__ void __launch_bounds__(32 * kUmseWarps, 1) umse_bwd_kernel(
       __syncwarp();
       const T* slot = ring + (q & 1) * kSlot;
       const int j = q * kUmseStage;
-      if (j + 2 <= nr) {
+      if (kUmsePairs<V> && j + 2 <= nr) {
         float g[2][V];
         load_cols<T, V>(slot + c0, g[0]);
         load_cols<T, V>(slot + D + c0, g[1]);
         bwd_rows<T, V, 2>(t, v, id, j, g, ps, sums, mine, c0);
       } else {
-        float g[1][V];
-        load_cols<T, V>(slot + c0, g[0]);
-        bwd_rows<T, V, 1>(t, v, id, j, g, ps, sums, mine, c0);
+        for (int r = 0; r < kUmseStage && j + r < nr; ++r) {
+          float g[1][V];
+          load_cols<T, V>(slot + r * D + c0, g[0]);
+          bwd_rows<T, V, 1>(t, v, id, j + r, g, ps, sums, mine, c0);
+        }
       }
       __syncwarp();
       if (q + 2 < pairs)
@@ -622,7 +635,7 @@ extern "C" int col_sum(const void* part, int S, int N, void* out,
 
 // out [R, D] in the dtype (0 fp32, 1 bf16) from x fp32 [R, 3] (time, value,
 // id), the eight stem vectors fp32 [D] and table fp32 [n_ids, D]; D in 32,
-// 64, 128, 256. Returns cudaGetLastError().
+// 64, 128, 256, 512. Returns cudaGetLastError().
 extern "C" int umse_fwd(const void* x, const void* wv, const void* bv,
                         const void* sv, const void* bbv, const void* wt,
                         const void* bt, const void* st, const void* bbt,
@@ -638,10 +651,11 @@ extern "C" int umse_fwd(const void* x, const void* wv, const void* bv,
   if (D == DD) return (int)launch_fwd<TT, DD>(xf, p, tb, out, R, n_ids, s);
   if (dtype == 0) {
     UMSE_FWD(float, 32) UMSE_FWD(float, 64) UMSE_FWD(float, 128)
-    UMSE_FWD(float, 256)
+    UMSE_FWD(float, 256) UMSE_FWD(float, 512)
   } else if (dtype == 1) {
     UMSE_FWD(__nv_bfloat16, 32) UMSE_FWD(__nv_bfloat16, 64)
     UMSE_FWD(__nv_bfloat16, 128) UMSE_FWD(__nv_bfloat16, 256)
+    UMSE_FWD(__nv_bfloat16, 512)
   }
 #undef UMSE_FWD
   return (int)cudaErrorInvalidValue;
@@ -669,10 +683,11 @@ extern "C" int umse_bwd(const void* x, const void* wv, const void* bv,
   if (D == DD) err = launch_bwd<TT, DD>(xf, p, dout, pt, R, n_ids, blocks, s);
   if (dtype == 0) {
     UMSE_BWD(float, 32) UMSE_BWD(float, 64) UMSE_BWD(float, 128)
-    UMSE_BWD(float, 256)
+    UMSE_BWD(float, 256) UMSE_BWD(float, 512)
   } else if (dtype == 1) {
     UMSE_BWD(__nv_bfloat16, 32) UMSE_BWD(__nv_bfloat16, 64)
     UMSE_BWD(__nv_bfloat16, 128) UMSE_BWD(__nv_bfloat16, 256)
+    UMSE_BWD(__nv_bfloat16, 512)
   }
 #undef UMSE_BWD
   if (err != cudaSuccess) return (int)err;

@@ -1,16 +1,20 @@
-"""What the train and test drivers share: the device, the flags they
-refuse, the seeds and the eval loop."""
+"""What the train and test drivers share: the device and the process
+group, the flags they refuse, the seeds, the eval loop, and the output
+only process 0 prints."""
 from __future__ import annotations
 
 import os
 import random
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.pipeline import length_rebatch
+from ..parallel.distributed import is_primary, maybe_init_distributed
+from ..parallel.mesh import Mesh, make_mesh
 
 
 def resolve_device(device=None) -> torch.device:
@@ -32,20 +36,61 @@ def check_flags(cfg: Config, train: bool = True) -> None:
         raise NotImplementedError(
             "--ckpt-backend orbax: the port reads and writes single-file "
             ".pth checkpoints only")
-    if cfg.mp_size > 1 or cfg.dp_size > 1:
+    if cfg.dp_size > 1:
         raise NotImplementedError(
-            f"--mp-size {cfg.mp_size} --dp-size {cfg.dp_size}: the drivers "
-            "run one process; the tensor-parallel drivers are the next "
-            "ROADMAP item")
-    if cfg.dist_coordinator or os.environ.get("GRAFT_COORDINATOR"):
-        raise NotImplementedError(
-            "--dist-coordinator: the drivers run one process; the "
-            "multi-process drivers are the next ROADMAP item")
+            f"--dp-size {cfg.dp_size}: data parallelism is ROADMAP Queue 1 "
+            "item 8b; the drivers run --mp-size N with --dp-size 1")
     if train and cfg.train_multi_k > 1:
         raise NotImplementedError(
             f"--train-multi-k {cfg.train_multi_k}: several optimizer steps "
             "per dispatch are ROADMAP Queue 1 item 4 (CUDA graphs); 0 or 1 "
             "run one step per batch")
+
+
+def say(*args, **kwargs) -> None:
+    """print on process 0 only: every process computes the same lines."""
+    if is_primary():
+        print(*args, **kwargs)
+
+
+def setup_distributed(cfg: Config, device=None
+                      ) -> Tuple[torch.device, Optional[Mesh]]:
+    """Join the process group when one is configured (``--dist-*`` or the
+    launcher's GRAFT_* environment: 2_train.py:80-83) and build the mesh
+    (``make_mesh(cfg.dp_size, cfg.batch_size, cfg.mp_size)``). Returns
+    this process's device and the mesh, None for a single process. The
+    backend follows from the hardware: nccl when this host shows a card
+    per rank (rank r on ``cuda:r``), gloo when the ranks share one card
+    (all on ``cuda:0``, the collectives staged through the host) or run
+    on the CPU (``device="cpu"``). Process 0 prints the backend and the
+    mesh."""
+    coord = cfg.dist_coordinator or os.environ.get("GRAFT_COORDINATOR", "")
+    if not coord:
+        if cfg.mp_size > 1:
+            raise ValueError(
+                f"--mp-size {cfg.mp_size} needs {cfg.mp_size} processes: "
+                "start them with parallel.launch or --dist-coordinator, "
+                "--dist-num-processes and --dist-process-id")
+        return resolve_device(device), None
+    on_cpu = resolve_device(device).type == "cpu"
+    if not dist.is_initialized():     # else a later run in these processes
+        num = cfg.dist_num_processes
+        if num < 0:
+            num = int(os.environ.get("GRAFT_NUM_PROCESSES", "0") or 0)
+        cards = 0 if on_cpu else torch.cuda.device_count()
+        maybe_init_distributed(cfg, "nccl" if 0 < num <= cards else "gloo")
+    if on_cpu:
+        dev = torch.device("cpu")
+    elif dist.get_backend() == "nccl":
+        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cuda", 0)
+    mesh = make_mesh(cfg.dp_size, cfg.batch_size, cfg.mp_size)
+    say(f"[dist] {dist.get_world_size()} processes over "
+        f"{dist.get_backend()}, mesh (dp {mesh.dp}, mp {mesh.mp}), rank 0 "
+        f"on {dev}", flush=True)
+    return dev, mesh
 
 
 def set_seeds(seed: int) -> None:

@@ -11,7 +11,16 @@ over seeds. ``run_fold`` is one seed's body, over loaders and a note
 table its caller gives (``main`` builds them from the data paths).
 
 It runs on the GPU and raises when there is none, unless the caller passes
-``device="cpu"`` to ``main`` or ``run_fold``. ``--profile-dir`` writes a
+``device="cpu"`` to ``main`` or ``run_fold``. Under ``--mp-size N
+--dp-size 1`` it runs in N processes (started by ``parallel.launch`` or
+given ``--dist-coordinator``, ``--dist-num-processes`` and
+``--dist-process-id``): each joins the group, builds the mesh and a
+sharded ``Trainer``, computes on the batches process 0 draws (each one
+broadcast to the others) and takes part in every save (the state is
+gathered from the model group); process 0 builds the index caches before
+the others read them, the processes agree on the checkpoint they resume
+from, on each best-checkpoint decision and on the one they test, and only
+process 0 prints and writes files. ``--profile-dir`` writes a
 ``torch.profiler`` trace of the first 10 steps there (``trace.json``);
 ``--debug-nans 1`` turns on autograd's anomaly mode and raises on a
 non-finite train loss. ``--resume`` restores the saved epoch's number and
@@ -33,12 +42,13 @@ from ..data.pipeline import (auto_img_pack_frac, get_data_loaders,
 from ..data.indexer import patient_wise_ordering
 from ..data.txt_table import build_txt_table
 from ..models import get_model
-from ..parallel.distributed import barrier
+from ..parallel.distributed import (BroadcastLoader, assert_agreement,
+                                    barrier, is_primary, primary_first)
 from ..train import checkpoints as ckpt
 from ..train.logger import Logger, ResultsAggregator, make_setting_file
 from ..train.trainer import Trainer
-from .common import (check_flags, first_batch, resolve_device, run_eval,
-                     set_seeds)
+from .common import (check_flags, first_batch, resolve_device, run_eval, say,
+                     set_seeds, setup_distributed)
 
 # the steps a --profile-dir trace holds (2_train.py:225)
 PROFILE_STEPS = 10
@@ -72,7 +82,7 @@ class StepProfiler:
         os.makedirs(self.dir, exist_ok=True)
         path = os.path.join(self.dir, "trace.json")
         prof.export_chrome_trace(path)
-        print(f"profile trace: {path}", flush=True)
+        say(f"profile trace: {path}", flush=True)
 
 
 def restore_for_resume(cfg: Config, k_indx: int, trainer, logger
@@ -80,7 +90,9 @@ def restore_for_resume(cfg: Config, k_indx: int, trainer, logger
     """``--resume auto|best|last`` and ``--checkpoint --last/--best``
     (2_train.py:155-195): restore the chosen checkpoint of this fold and
     seed into ``trainer`` and ``logger``. ``auto`` takes the newest of last
-    and best by optimizer step. Returns (start epoch, iteration, the path
+    and best by optimizer step. Every process finds and reads its own, and
+    they must agree on its step (none: -1) before any restores it
+    (2_train.py:182-186). Returns (start epoch, iteration, the path
     restored or None)."""
     resume = cfg.resume
     payload, path = None, None
@@ -102,6 +114,8 @@ def restore_for_resume(cfg: Config, k_indx: int, trainer, logger
         if ckpt.ckpt_exists(p):
             payload = ckpt.load_checkpoint_any(cfg.ckpt_backend, p)
             path = p
+    assert_agreement("resume checkpoint step",
+                     -1 if payload is None else int(payload.get("step", 0)))
     if payload is None:
         return 1, 0, None
     ckpt.restore(trainer, payload)
@@ -110,42 +124,48 @@ def restore_for_resume(cfg: Config, k_indx: int, trainer, logger
     logger.mark_restored()
     start_epoch = int(payload["epoch"])
     iteration = int(payload.get("last_step", 0))
-    print(f"resumed from {path} (epoch {start_epoch}, iteration "
-          f"{iteration})")
+    say(f"resumed from {path} (epoch {start_epoch}, iteration "
+        f"{iteration})")
     return start_epoch, iteration, path
 
 
 def run_fold(cfg: Config, k_indx: int, train_loader, val_loader,
              test_loader, txt_table=None, device=None,
-             profiler: Optional[StepProfiler] = None):
+             profiler: Optional[StepProfiler] = None, mesh=None):
     """One seed's run (2_train.py:100-349) over the given loaders (``len``
     and iteration of numpy batches; val and test need no ``dataset``) and
-    the note table their batches' ``txt_id`` rows index. Returns the last
-    validation metrics and the test metrics of the best checkpoint (None
-    where there was nothing to run)."""
+    the note table their batches' ``txt_id`` rows index; under ``--mp-size``
+    on this process's device and ``mesh`` (``common.setup_distributed``),
+    where every process computes on the batches process 0 draws.
+    Returns the last validation metrics and the test metrics of the best
+    checkpoint (None where there was nothing to run)."""
     dev = resolve_device(device)
     check_flags(cfg)
+    if mesh is not None:
+        train_loader, val_loader, test_loader = (
+            BroadcastLoader(ld) for ld in (train_loader, val_loader,
+                                           test_loader))
     logger = Logger(cfg, fold=k_indx, seed=cfg.seed)
-    print("########## Experiment Begins ##########")
-    print(cfg.input_types, cfg.modality_inclusion, cfg.model)
+    say("########## Experiment Begins ##########")
+    say(cfg.input_types, cfg.modality_inclusion, cfg.model)
     # validation runs every epoch over identical batches: replay them from
     # memory after the first pass (a no-op under --*-observed-prop < 100)
     val_loader = maybe_replay(val_loader, cfg)
     iters_per_epoch = len(train_loader)
-    print("# of Iterations (per epoch): ", iters_per_epoch)
+    say("# of Iterations (per epoch): ", iters_per_epoch)
     if iters_per_epoch == 0:
-        print("empty train loader — reduce batch size or add data")
+        say("empty train loader — reduce batch size or add data")
         logger.close()
         return None, None
     if cfg.img_pack_frac < 0:
         cfg = cfg.replace(img_pack_frac=auto_img_pack_frac(train_loader))
-        print("auto img-pack capacity fraction: "
-              f"{cfg.img_pack_frac:.3f}")
+        say("auto img-pack capacity fraction: "
+            f"{cfg.img_pack_frac:.3f}")
     model = get_model(cfg)
     first_batch(train_loader)
     trainer = Trainer(cfg, model, dev, eval_only=False,
                       iters_per_epoch=iters_per_epoch, seed=cfg.seed,
-                      txt_table=txt_table)
+                      mesh=mesh, txt_table=txt_table)
     start_epoch, iteration, _ = restore_for_resume(cfg, k_indx, trainer,
                                                    logger)
     t_start = time.time()
@@ -175,22 +195,26 @@ def run_fold(cfg: Config, k_indx: int, train_loader, val_loader,
             saver.wait()        # the epoch's 'last' save comes after it
             logger.save(trainer, iteration, epoch)
             barrier()
-            print(f"epoch {epoch}/{cfg.epochs} done ({iteration} iters, "
-                  f"{time.time() - t_start:.1f}s elapsed)", flush=True)
+            say(f"epoch {epoch}/{cfg.epochs} done ({iteration} iters, "
+                f"{time.time() - t_start:.1f}s elapsed)", flush=True)
     if profiler is not None:
         profiler.stop()
     val_results = logger.val_results
 
-    # the final test with the best checkpoint (2_train.py:298-349)
+    # the final test with the best checkpoint (2_train.py:298-349): process
+    # 0's writes are done before any process reads, and every process
+    # restores the same state (or none)
     kind = "last" if cfg.last and not cfg.best else "best"
     path = ckpt.ckpt_path(cfg.dir_result, cfg.project_name, kind, k_indx,
                           cfg.seed)
     logger.wait_saves()
     barrier()
-    if ckpt.ckpt_exists(path):
-        ckpt.restore(trainer, ckpt.load_checkpoint_any(cfg.ckpt_backend,
-                                                       path),
-                     with_optimizer=False)
+    payload = (ckpt.load_checkpoint_any(cfg.ckpt_backend, path)
+               if ckpt.ckpt_exists(path) else None)
+    assert_agreement(f"final {kind} checkpoint step",
+                     -1 if payload is None else int(payload.get("step", 0)))
+    if payload is not None:
+        ckpt.restore(trainer, payload, with_optimizer=False)
     test_results = None
     if len(test_loader) > 0:
         run_eval(trainer, test_loader, logger.evaluator)
@@ -204,28 +228,29 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
     aggregates (validation, test) over the seeds."""
     cfg = parse_config(argv)
     check_flags(cfg)
-    dev = resolve_device(device)
+    dev, mesh = setup_distributed(cfg, device)
     make_setting_file(cfg)
-    profiler = StepProfiler(cfg.profile_dir, dev)
+    profiler = StepProfiler(cfg.profile_dir if is_primary() else None, dev)
     save_valid = ResultsAggregator("validation (all seeds)")
     save_test = ResultsAggregator("test (all seeds)")
     patient_dict, keys_list = patient_wise_ordering(cfg)
-    print("Selected Dataset: ", cfg.train_data_path.split("/")[-2])
+    say("Selected Dataset: ", cfg.train_data_path.split("/")[-2])
     for k_indx, seed_num in enumerate(cfg.seed_list):
         seed_cfg = cfg.replace(
             seed=seed_num if cfg.cross_fold_val != 1 else cfg.seed,
             log_fold=k_indx)
         set_seeds(seed_cfg.seed)
-        loaders = get_data_loaders(seed_cfg, patient_dict, keys_list, k_indx)
+        loaders = primary_first(lambda: get_data_loaders(
+            seed_cfg, patient_dict, keys_list, k_indx))
         t_tab = time.time()
         txt_table = build_txt_table(seed_cfg,
                                     [ld.dataset for ld in loaders])
         if txt_table is not None:
-            print(f"txt device table: {len(txt_table.lengths)} rows, "
-                  f"{txt_table.nbytes / 2**20:.0f} MB "
-                  f"({time.time() - t_tab:.1f}s build)", flush=True)
+            say(f"txt device table: {len(txt_table.lengths)} rows, "
+                f"{txt_table.nbytes / 2**20:.0f} MB "
+                f"({time.time() - t_tab:.1f}s build)", flush=True)
         val, test = run_fold(seed_cfg, k_indx, *loaders, txt_table=txt_table,
-                             device=dev, profiler=profiler)
+                             device=dev, profiler=profiler, mesh=mesh)
         save_valid.add(val)
         save_test.add(test)
     profiler.stop()

@@ -31,7 +31,8 @@ _F = ctypes.c_float
 _U64 = ctypes.c_uint64
 _U32 = ctypes.c_uint32
 # C entry points: name -> (argtypes); each returns an int: the launchers
-# cudaGetLastError(), the *_smem entries a byte count
+# cudaGetLastError(), the *_smem entries a byte count, the *_min_blocks
+# entries the blocks an SM a kernel's launch bounds ask for
 _SIGNATURES = {
     # x, gamma, beta, w, bias, mask, kend, qkv, out, attn, stats, B, L, C,
     # H, block, mult, dtype, stream
@@ -43,14 +44,24 @@ _SIGNATURES = {
     "attn_block_bwd": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
     # kernel, C, dh -> shared-memory bytes of a tensor-core kernel
     "attn_block_tc_smem": [_I] * 3,
+    "attn_block_tc_min_blocks": [_I] * 3,
     # x, gamma, beta, w1, b1, w2, b2, valid, y, R, C, F, seed, thr, q_t,
     # drop, dtype, stream
     "ffn_fwd": [_P] * 9 + [_I] * 3 + [_U64, _U32, _F, _I, _I, _P],
     # C -> shared-memory bytes of the tensor-core forward
     "ffn_tc_smem": [_I],
+    "ffn_tc_min_blocks": [_I] * 2,
     # x, gamma, beta, w1, b1, w2, valid, dy, dx, ln_o, dz_o, hd_o, dh_o,
     # gpart, R, C, F, seed, thr, q_t, q_f, drop, dtype, stream
     "ffn_bwd": [_P] * 14 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
+    # x, gamma, beta, w1, b1, w2, b2, valid, ln, hidden, y, R, C, F, seed,
+    # thr, q_t, drop, dtype, stream
+    "ffn_split_fwd": [_P] * 11 + [_I] * 3 + [_U64, _U32, _F, _I, _I, _P],
+    # as ffn_bwd
+    "ffn_split_bwd": [_P] * 14 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
+    # kernel -> shared-memory bytes of the split route's LN backward
+    "ffn_split_smem": [_I],
+    "ffn_split_min_blocks": [_I],
     # k1, k2, R, F, C, col0, seed, thr, stream
     "dropout_masks": [_P] * 2 + [_I] * 4 + [_U64, _U32, _P],
     # x, wv, bv, sv, bbv, wt, bt, st, bbt, table, out, R, D, n_ids, dtype,
@@ -81,6 +92,7 @@ _SIGNATURES = {
     "attention_bwd": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
     # kernel, dh -> shared-memory bytes of a tensor-core kernel
     "attention_tc_smem": [_I] * 2,
+    "attention_tc_min_blocks": [_I] * 2,
     # x, gamma, beta, w, b, valid, out0, out1, out2, R, Cin, Cout, Cs, ln,
     # dtype, stream
     "rowmm_fwd": [_P] * 9 + [_I] * 6 + [_P],
@@ -89,6 +101,7 @@ _SIGNATURES = {
     "rowmm_bwd": [_P] * 11 + [_I] * 6 + [_P],
     # kernel, Cin -> shared-memory bytes of a tensor-core kernel
     "rowmm_tc_smem": [_I] * 2,
+    "rowmm_tc_min_blocks": [_I] * 2,
 }
 
 

@@ -28,7 +28,7 @@ from ._util import count, dtype_code, needs_grad, stream
 MODE_NONE, MODE_KEYS, MODE_BLOCK = 0, 1, 2
 # the head widths the kernels (and the attention block's, which run the
 # same flash loops) are built for
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 128)
 # the tensor-core kernels in the order of the C entry attention_tc_smem
 TC_KERNELS = ("attention_fwd_tc_kernel", "attention_dkv_tc_kernel",
               "attention_dq_tc_kernel")
@@ -60,6 +60,17 @@ def tc_smem_bytes(d_head: int) -> dict:
             "attention_dq_tc_kernel": 6 * tile}
 
 
+def tc_min_blocks(d_head: int) -> dict:
+    """Blocks an SM that each tensor-core kernel's launch bounds ask for
+    (csrc/flash_tc.cuh flash_min_blocks; the C entry
+    attention_tc_min_blocks, which the card tests hold this to): 4, 3, 4
+    up to d_head 64; 2 at
+    128, where a thread's fp32 accumulators (64 forward, 128 for dK and
+    dV) need more than 128 registers and the tiles 85-104 KB a block."""
+    blocks = (4, 3, 4) if d_head <= 64 else (2, 2, 2)
+    return dict(zip(TC_KERNELS, blocks))
+
+
 def torch_masked_attention(q, k, v, key_mask: Optional[torch.Tensor],
                            scale: float, is_self: bool = False
                            ) -> torch.Tensor:
@@ -80,12 +91,10 @@ def torch_masked_attention(q, k, v, key_mask: Optional[torch.Tensor],
 
 def _check(q, k, v, key_mask):
     """The mask mode and the byte mask (or None); raises on what the
-    kernels do not take. A mask of another dtype or device, or not
+    kernels do not take: dtypes, shapes and the head width first (on any
+    device), then the device. A mask of another dtype or device, or not
     contiguous, is converted (a copy per call: the models pass bool masks
     on the card)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"cuda_masked_attention needs CUDA tensors, got "
-                         f"{q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention takes fp32 or bf16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -104,6 +113,9 @@ def _check(q, k, v, key_mask):
     if min(B, Lq, Lk) == 0:
         raise ValueError(f"attention needs nonempty q and k: {tuple(q.shape)}"
                          f", {tuple(k.shape)}")
+    if q.device.type != "cuda":
+        raise ValueError(f"cuda_masked_attention needs CUDA tensors, got "
+                         f"{q.device}")
     for t in (q, k, v):
         if t.device != q.device:
             raise ValueError(f"attention operands on {t.device} and "

@@ -27,11 +27,13 @@ import torch
 from . import _build
 from ._util import count, dtype_code, needs_grad, stream
 from .attention import _BYTE_MASKS, HEAD_DIMS
+from .attention import tc_min_blocks as flash_min_blocks
 from .attention import tc_smem_bytes as flash_smem_bytes
+from .rowmm import tc_min_blocks as proj_min_blocks
 from .wgrad import col_sum, wgrad
 
-# the widths the backward's projection kernels are built for
-BWD_WIDTHS = (64, 256)
+# the model widths the kernels are built for, forward and backward
+WIDTHS = (64, 128, 256, 512)
 # the C entry points' kernel numbers of the tensor-core route
 # (attn_block_tc_smem)
 TC_KERNELS = ("block_qkv_tc_kernel", "block_attn_tc_kernel",
@@ -42,11 +44,11 @@ TC_KERNELS = ("block_qkv_tc_kernel", "block_attn_tc_kernel",
 def attn_block_route(dtype: torch.dtype, C: int, H: int) -> str:
     """The kernel route for x of this dtype, width C and H heads: bf16
     takes the tensor cores ("tc"); fp32, the checking dtype, keeps the FMA
-    kernels ("fma"), whose products stay in full fp32. Raises for a head
-    width no kernel is built for."""
-    if H <= 0 or C % H or C // H not in HEAD_DIMS:
-        raise ValueError(f"the CUDA attn_block kernels take d_head in "
-                         f"{HEAD_DIMS}; got C={C}, heads={H}")
+    kernels ("fma"), whose products stay in full fp32. Raises for a width
+    or head width no kernel is built for."""
+    if C not in WIDTHS or H <= 0 or C % H or C // H not in HEAD_DIMS:
+        raise ValueError(f"the CUDA attn_block kernels take C in {WIDTHS} "
+                         f"and d_head in {HEAD_DIMS}; got C={C}, heads={H}")
     return "tc" if dtype == torch.bfloat16 else "fma"
 
 
@@ -71,6 +73,21 @@ def tc_smem_bytes(C: int, d_head: int) -> dict:
                                                     + tile(C, 32))
         + 4 * 4 * 64,
     }
+
+
+def tc_min_blocks(C: int, d_head: int) -> dict:
+    """Blocks an SM that each tensor-core kernel's launch bounds ask for
+    at width C and head width d_head: the projections' as rowmm's
+    (rowmm.tc_min_blocks), the flash loops' as the masked attention's
+    (attention.tc_min_blocks); the forward's attention kernel asks for
+    none (1). The card tests hold this to the C entry
+    attn_block_tc_min_blocks."""
+    proj = proj_min_blocks(C)["rowmm_tc_kernel"]
+    flash = flash_min_blocks(d_head)
+    return {"block_qkv_tc_kernel": proj, "block_attn_tc_kernel": 1,
+            "block_dkv_tc_kernel": flash["attention_dkv_tc_kernel"],
+            "block_dq_tc_kernel": flash["attention_dq_tc_kernel"],
+            "block_ln_bwd_tc_kernel": proj}
 
 
 def torch_attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
@@ -112,9 +129,6 @@ def _check(x, w, b, key_mask, num_heads):
         raise TypeError(f"attn_block takes fp32 or bf16, got {x.dtype}")
     B, L, C = x.shape
     H = num_heads
-    if C % 64 != 0:
-        raise ValueError(f"the CUDA attn_block kernels take C % 64 == 0, got "
-                         f"C={C}")
     attn_block_route(x.dtype, C, H)
     if tuple(w.shape) != (C, 3 * C) or tuple(b.shape) != (3 * C,):
         raise ValueError(f"qkv weights must be [{C}, {3 * C}] and "
@@ -157,12 +171,11 @@ def _launch_fwd(x, gamma, beta, w, b, mask, kend, block, scale, num_heads,
                 train):
     """The two launches; ``train`` adds the pre-residual attention output
     and the (m, l) stats [B, H, L, 2] of the live rows. The scratch holds
-    k|v on the FMA route and q|k|v on the tensor cores."""
+    q|k|v."""
     B, L, C = x.shape
     H = num_heads
     gamma, beta, w, b = _operands(x, gamma, beta, w, b)
-    width = 3 * C if attn_block_route(x.dtype, C, H) == "tc" else 2 * C
-    qkv = torch.empty(B, L, width, dtype=x.dtype, device=x.device)
+    qkv = torch.empty(B, L, 3 * C, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     attn = stats = None
     if train:
@@ -191,9 +204,6 @@ def cuda_attn_block_bwd(x, gamma, beta, w, b, mask, attn, stats,
     mask, kend, block = _check(x, w, b, mask, num_heads)
     B, L, C = x.shape
     H = num_heads
-    if C not in BWD_WIDTHS:
-        raise ValueError(f"the attn_block backward takes C in {BWD_WIDTHS}, "
-                         f"got {C}")
     dt = x.dtype
     gamma_, beta_, w_, b_ = _operands(x, gamma, beta, w, b)
     dy = dy.to(dt).contiguous()

@@ -5,7 +5,10 @@ weight sums of ``csrc/wgrad.cu`` over the live tiles' rows), and the
 dropout masks (``csrc/dropout.cu``). Forward and tile pass take one of
 two routes (``ffn_route``): bf16 on the tensor cores (the forward on the
 tile loop of ``csrc/mlp_tc.cuh``), fp32 (the checking dtype) on FMA
-loops.
+loops. At C = 512, past what the fused tiles hold, each dtype takes its
+split route (``csrc/ffn_split.cu``: StdLN, fc1, fc2 as separate launches
+through [R, C] and [R, F] scratches; the backward's tile pass likewise),
+with the same Philox masks and roundings.
 
 Counterpart of medical_tri_modal_pilot_tpu/kernels/ffn.py (``xla_ffn``,
 ``pallas_ffn`` and ``dropout_masks``). Weights are in the JAX layout: w1
@@ -31,8 +34,13 @@ VAR_FLOOR = 1e-24
 # rows per row flag: the granularity of ``block_valid`` (the FMA kernels'
 # tile and the backward's)
 BLOCK_R = 64
-# the widths the kernels are built for
-WIDTHS = (64, 256)
+# the widths the kernels are built for: the fused routes up to 256, the
+# split routes (csrc/ffn_split.cu) at SPLIT_WIDTH
+WIDTHS = (64, 128, 256, 512)
+SPLIT_WIDTH = 512
+# the kernels of the split route's LN backward in the order of the C
+# entry ffn_split_smem
+SPLIT_KERNELS = ("ffn_ln_bwd_tc_kernel", "ffn_ln_bwd_kernel")
 # rows per tile of the tensor-core forward (csrc/mlp_tc.cuh kMlpRows)
 TC_ROWS = 128
 
@@ -107,24 +115,63 @@ def plain_dropout_masks(R: int, F: int, C: int, seed: int, p: float,
 def ffn_route(dtype: torch.dtype, C: int) -> str:
     """The kernel route for x of this dtype and width: bf16 takes the
     tensor cores ("tc"); fp32, the checking dtype, keeps the FMA kernels
-    ("fma"), whose products stay in full fp32. Raises for a width no
-    kernel is built for."""
+    ("fma"), whose products stay in full fp32; at SPLIT_WIDTH the dtype's
+    split route ("tc_split", "fma_split"). Raises for a width no kernel is
+    built for."""
     if C not in WIDTHS:
         raise ValueError(f"the CUDA ffn kernels take C in {WIDTHS}, got "
                          f"C={C}")
-    return "tc" if dtype == torch.bfloat16 else "fma"
+    route = "tc" if dtype == torch.bfloat16 else "fma"
+    return route + "_split" if C == SPLIT_WIDTH else route
+
+
+def _tile(rows, width):
+    return 2 * rows * (width + 8)
 
 
 def tc_smem_bytes(C: int) -> int:
-    """Shared memory of the tensor-core forward at width C, as
+    """Shared memory of the fused tensor-core forward at width C, as
     csrc/mlp_tc.cuh::MlpTc reckons it: bf16 tiles of pitch width + 8, the
     normalised rows [128][C] and a two-stage ring of a W1 chunk [C][64]
     and a W2 chunk [64][C] (a stage at least [128][C]: it takes the
     tile's x for the epilogue), then b2 in fp32."""
-    def tile(rows, width):
-        return 2 * rows * (width + 8)
-    stage = max(tile(C, 64) + tile(64, C), tile(TC_ROWS, C))
-    return tile(TC_ROWS, C) + 2 * stage + 4 * C
+    stage = max(_tile(C, 64) + _tile(64, C), _tile(TC_ROWS, C))
+    return _tile(TC_ROWS, C) + 2 * stage + 4 * C
+
+
+def bwd_tc_smem_bytes(C: int) -> int:
+    """Shared memory of the fused tensor-core tile pass at width C
+    (csrc/ffn.cu FfnBwdTc): LN and dz [64][C], a two-stage ring of a W1
+    chunk [C][64] and a W2 chunk [64][C], dh and h_d chunks [64][64], the
+    StdLN stats fp32 [4][64]."""
+    ring = 2 * (_tile(C, 64) + _tile(64, C))
+    return 2 * _tile(64, C) + ring + 2 * _tile(64, 64) + 4 * 4 * 64
+
+
+def split_smem_bytes() -> dict:
+    """Shared memory of the split route's LN backward at SPLIT_WIDTH, the
+    route's only kernels with more than the static 48 KB: the tensor
+    cores' (csrc/proj_tc.cuh proj_bwd_tile: x [64][C], a three-stage ring
+    of a dh chunk [64][32] and a W1 chunk [C][32], fp32 stats [4][64]) and
+    the FMAs' (fp32: the StdLN rows [64][C + 1], a dh slice [64][33], a W1
+    slice [32][C], the stats)."""
+    C = SPLIT_WIDTH
+    tc = _tile(64, C) + 3 * (_tile(64, 32) + _tile(C, 32)) + 4 * 4 * 64
+    fma = 4 * (64 * (C + 1) + 64 * 33 + 32 * C + 4 * 64)
+    return dict(zip(SPLIT_KERNELS, (tc, fma)))
+
+
+def tc_min_blocks(C: int) -> dict:
+    """Blocks an SM that the bf16 kernels' launch bounds ask for at width
+    C: the fused forward two up to C = 96 (csrc/ffn.cu: C <= 96 ? 2 : 1),
+    the fused tile pass one; the split route's LN backward one (csrc/
+    proj_tc.cuh proj_bwd_min_blocks at 512), its GEMMs none (1). The card
+    tests hold this to the C entries ffn_tc_min_blocks and
+    ffn_split_min_blocks."""
+    if C == SPLIT_WIDTH:
+        return {"gemm_bf16_kernel": 1, "ffn_ln_bwd_tc_kernel": 1}
+    return {"ffn_fwd_tc_kernel": 2 if C <= 96 else 1,
+            "ffn_bwd_tc_kernel": 1}
 
 
 def torch_ffn(x, gamma, beta, w1, b1, w2, b2,
@@ -207,19 +254,27 @@ def _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed):
     gamma, beta, (w1, b1, w2, b2) = _operands(x, gamma, beta, w1, b1, w2, b2)
     s, thr, q_t, _, on = _dropout_args(p, seed, x.dtype)
     y = torch.empty_like(x)
-    rc = _build.library().ffn_fwd(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        None if valid is None else valid.data_ptr(), y.data_ptr(),
-        R, C, F, s, thr, q_t, on, dtype_code(x.dtype), stream(x))
+    args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            None if valid is None else valid.data_ptr())
+    tail = (R, C, F, s, thr, q_t, on, dtype_code(x.dtype), stream(x))
+    if C == SPLIT_WIDTH:
+        # the split route's scratches: the StdLN rows and the hidden layer
+        ln = torch.empty(R, C, dtype=x.dtype, device=x.device)
+        hidden = torch.empty(R, F, dtype=x.dtype, device=x.device)
+        rc = _build.library().ffn_split_fwd(
+            *args, ln.data_ptr(), hidden.data_ptr(), y.data_ptr(), *tail)
+    else:
+        rc = _build.library().ffn_fwd(*args, y.data_ptr(), *tail)
     _build.check(rc, "ffn")
     count("ffn")
     return y
 
 
 def ffn_bwd_tiles(x, gamma, beta, w1, b1, w2, block_valid, p, seed, dy):
-    """The backward's tile pass (fp32 FMAs, or the tensor cores for bf16):
-    (dx, ln, dz, hd, dh, gpart, valid). ln, dz [R, C] and hd, dh [R, F] are
+    """The backward's tile pass (fp32 FMAs, or the tensor cores for bf16;
+    at SPLIT_WIDTH the split route's launches): (dx, ln, dz, hd, dh,
+    gpart, valid). ln, dz [R, C] and hd, dh [R, F] are
     the weight sums' operands, written on the rows of live tiles only;
     gpart fp32 [tiles, 2C] the tiles' dgamma | dbeta sums; valid the int8
     tile flags (None: every tile live)."""
@@ -234,7 +289,9 @@ def ffn_bwd_tiles(x, gamma, beta, w1, b1, w2, block_valid, p, seed, dy):
     hd, dh = (torch.empty(R, F, dtype=dt, device=dev) for _ in range(2))
     gpart = torch.empty(-(-R // BLOCK_R), 2 * C, dtype=torch.float32,
                         device=dev)
-    rc = _build.library().ffn_bwd(
+    lib = _build.library()
+    entry = lib.ffn_split_bwd if C == SPLIT_WIDTH else lib.ffn_bwd
+    rc = entry(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(),
         None if valid is None else valid.data_ptr(), dy.data_ptr(),

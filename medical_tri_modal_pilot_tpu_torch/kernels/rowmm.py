@@ -35,8 +35,8 @@ from .wgrad import col_sum, wgrad
 # rows per skip flag, as the TPU kernel's blocks (and the JAX package's
 # FFN row blocks, modules.py:387-405); kBlockR in csrc/common.cuh
 BLOCK_R = 256
-# the input widths the kernels are built for
-WIDTHS = (64, 256)
+# the input widths the kernels are built for: the model widths
+WIDTHS = (64, 128, 256, 512)
 # the tensor-core kernels in the order of the C entry rowmm_tc_smem
 TC_KERNELS = ("rowmm_tc_kernel", "rowmm_bwd_tc_kernel (LN)",
               "rowmm_bwd_tc_kernel (plain)")
@@ -68,6 +68,17 @@ def rowmm_tc_smem(Cin: int) -> dict:
     return {TC_KERNELS[0]: tile(64, Cin) + 3 * tile(64, 128),
             TC_KERNELS[1]: tile(64, Cin) + ring + 4 * 4 * 64,
             TC_KERNELS[2]: ring}
+
+
+def tc_min_blocks(Cin: int) -> dict:
+    """Blocks an SM that each tensor-core kernel's launch bounds ask for
+    at input width Cin (csrc/proj_tc.cuh proj_fwd_min_blocks and
+    proj_bwd_min_blocks): two up to 256; one at 512, where two blocks'
+    shared memory (and, backward, their 128-register budget against a
+    thread's 128 fp32 accumulators) do not fit an SM. The card tests hold
+    this to the C entry rowmm_tc_min_blocks."""
+    n = 1 if Cin > 256 else 2
+    return {name: n for name in TC_KERNELS}
 
 
 def block_flags(R: int, block_valid: Optional[torch.Tensor],

@@ -25,8 +25,9 @@ from . import _build
 from ._util import count, dtype_code, needs_grad, stream
 
 LN_EPS = 1e-5    # torch nn.LayerNorm default (the reference stems)
-# the widths the kernels are built for (a warp a row, D / 32 columns a lane)
-WIDTHS = (32, 64, 128, 256)
+# the widths the kernels are built for (a warp a row, D / 32 columns a
+# lane; at 512 a row at a time and one forward block an SM)
+WIDTHS = (32, 64, 128, 256, 512)
 # the table's bytes, which each block stages in shared memory
 # (csrc/umse.cu kUmseMaxTableBytes)
 MAX_TABLE_BYTES = 48 * 1024

@@ -13,18 +13,20 @@ Configuration, in order of precedence:
 The backend is the caller's explicit choice. ``nccl`` needs one visible
 card per rank on this host and raises otherwise; ``gloo`` serves the CPU
 and ranks that share one card (its collectives stage CUDA tensors through
-the host). Every process runs the same seeded pipeline and holds the same
-batch; process 0 writes files.
+the host). Process 0 draws the batches and the others receive them
+(``BroadcastLoader``), so every process holds the same batch; process 0
+writes files.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple, TypeVar
 
 import torch
 import torch.distributed as dist
 
 BACKENDS = ("gloo", "nccl")
+T = TypeVar("T")
 
 
 def _pick(cfg, attr: str, env: str) -> Optional[int]:
@@ -79,8 +81,86 @@ def is_primary() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def assert_agreement(tag: str, value) -> None:
+    """Raise when a small scalar decision differs between the processes
+    (JAX parallel/distributed.py:105-123): each process finds and reads
+    checkpoints in its own file system, and ranks that restored different
+    states would go on silently apart inside the collectives. An
+    all-gather of one float64; a no-op in one process."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    t = torch.tensor([float(value)], dtype=torch.float64)
+    if dist.get_backend() == "nccl":
+        t = t.cuda()
+    vals = [torch.zeros_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(vals, t)
+    vals = [float(v.item()) for v in vals]
+    if any(v != vals[0] for v in vals):
+        raise RuntimeError(
+            f"the processes disagree on {tag}: per-process values {vals}; "
+            "the checkpoint and results directory must be shared (or "
+            "populated alike) by every process")
+
+
 def barrier() -> None:
     """Every process waits for the others (a no-op single-process): orders
     process 0's checkpoint write before any process reads it."""
     if dist.is_initialized():
         dist.barrier()
+
+
+def primary_first(make: Callable[[], T]) -> T:
+    """``make()`` on process 0, then, after it, on the others: what process
+    0 writes on the way (the eval index caches of ``./data/testIndexes``)
+    the others then read. ``make()`` alone in one process."""
+    if is_primary():
+        out = make()
+    barrier()
+    if not is_primary():
+        out = make()
+    return out
+
+
+def _broadcast(obj):
+    """Process 0's ``obj`` on every process (pickled; over nccl through
+    this process's current card)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+class BroadcastLoader:
+    """A loader of which only process 0 draws batches; each is broadcast to
+    the other processes of the group, which yield it in step. Under tensor
+    parallelism every process must compute on the same batch, and a
+    loader's draws need not repeat from one process to the next: the
+    dataset's items come from one ``random.Random`` that its worker threads
+    share, in whatever order they run. The length, and every other
+    attribute (``dataset``, ``sampler``, ``batch_size``), are the wrapped
+    loader's; the processes agree on the length. Every process must begin
+    and give up each pass at the same batch, as the drivers do."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        assert_agreement("batches a pass", len(loader))
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __getattr__(self, name):
+        if name == "loader":        # not set yet (unpickling)
+            raise AttributeError(name)
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        if is_primary():
+            for batch in self.loader:
+                _broadcast(batch)
+                yield batch
+            _broadcast(None)        # the pass ended
+            return
+        while True:
+            batch = _broadcast(None)
+            if batch is None:
+                return
+            yield batch

@@ -16,7 +16,7 @@ import time
 from typing import Dict, Optional
 
 from ..config import Config
-from ..parallel.distributed import is_primary
+from ..parallel.distributed import assert_agreement, is_primary
 from .checkpoints import AsyncCheckpointer, ckpt_path
 from .metrics import Evaluator
 
@@ -94,8 +94,9 @@ class Logger:
             self.log_scalar("val/rmse", m["rmse"], step)
             rmse_txt = f" rmse={m['rmse']:.4f}"
         self.val_results = m
-        print(f"[val @ {step}] loss={val_loss:.4f} auc={m['auc']:.4f} "
-              f"apr={m['apr']:.4f} f1={m['f1']:.4f}" + rmse_txt)
+        if self.primary:
+            print(f"[val @ {step}] loss={val_loss:.4f} auc={m['auc']:.4f} "
+                  f"apr={m['apr']:.4f} f1={m['f1']:.4f}" + rmse_txt)
         return m
 
     def save(self, trainer, step: int, epoch: int) -> bool:
@@ -125,6 +126,9 @@ class Logger:
         first = not self._saved_once
         self._saved_once = True
         improved = score > self.best_score or first
+        # under tensor parallelism every process takes part in each save
+        # (a collective): a process that decided otherwise would hang it
+        assert_agreement("the best-checkpoint decision", improved)
         jobs = [(last, self.best_iter, step)]
         if improved:
             self.best_score = score
@@ -150,8 +154,9 @@ class Logger:
         m = self.evaluator.performance_metric()
         self.test_results = m
         rmse_txt = f" rmse={m['rmse']:.4f}" if "rmse" in m else ""
-        print(f"[test] auc={m['auc']:.4f} apr={m['apr']:.4f} "
-              f"f1={m['f1']:.4f}" + rmse_txt)
+        if self.primary:
+            print(f"[test] auc={m['auc']:.4f} apr={m['apr']:.4f} "
+                  f"f1={m['f1']:.4f}" + rmse_txt)
         return m
 
     def val_result_only(self):
@@ -178,13 +183,15 @@ class ResultsAggregator:
     def summarize(self):
         import numpy as np
         if not self.rows:
-            print(f"[{self.name}] no results")
+            if is_primary():
+                print(f"[{self.name}] no results")
             return {}
         out = {}
         for k in ("auc", "apr", "f1"):
             vals = np.array([r[k] for r in self.rows if r.get(k) == r.get(k)])
             if len(vals):
                 out[k] = (float(vals.mean()), float(vals.std()))
-        print(f"[{self.name}] " + "  ".join(
-            f"{k}={m:.4f}±{s:.4f}" for k, (m, s) in out.items()))
+        if is_primary():
+            print(f"[{self.name}] " + "  ".join(
+                f"{k}={m:.4f}±{s:.4f}" for k, (m, s) in out.items()))
         return out

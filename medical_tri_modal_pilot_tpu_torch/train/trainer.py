@@ -361,7 +361,10 @@ class Trainer:
                         st, {k: dim for k, v in st.items() if _moment(v)},
                         self.mesh)
                 opt_sd = dict(opt_sd, state=state)
-        cpu = lambda t: t.detach().cpu() if torch.is_tensor(t) else t
+        # copies even of CPU tensors: the saver writes them from a thread
+        # while the steps go on updating the live ones in place
+        cpu = (lambda t: t.detach().to("cpu", copy=True)
+               if torch.is_tensor(t) else t)
         model_sd = {k: cpu(v) for k, v in model_sd.items()}
         if opt_sd is not None:
             opt_sd = dict(opt_sd, state={

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions
-on the card, at the small widths of the CPU tests (d_head 32, C 64) and at
-the flagship's (d_head 64, C 256; Swin-T's C 96-768): forwards, the
+on the card, at the small widths of the CPU tests (d_head 32, C 64), at
+the flagship's (d_head 64, C 256; Swin-T's C 96-768) and at the other
+model widths (C 128 and 512, d_head 128; the FFN's split route at 512):
+forwards, the
 backward kernels against autograd of the plain versions (the umse
 backward against its closed form, torch_umse_bwd), the dropout masks bit
 for bit; the masked attention of the cross-modal layers at
@@ -100,7 +102,8 @@ def _umse_case(g, dev, B, L, D, prec):
     return x.to(dev), vecs + [_rand(g, dev, 20, D)], dout
 
 
-@pytest.mark.parametrize("B,L,D", [(3, 77, 64), (4, 300, 256), (2, 5, 32)])
+@pytest.mark.parametrize("B,L,D", [(3, 77, 64), (4, 300, 256), (2, 5, 32),
+                                   (3, 200, 128), (4, 300, 512)])
 @pytest.mark.parametrize("prec", list(PRECS))
 def test_umse_backward_kernel(dev, B, L, D, prec):
     """The backward kernel's nine gradients against torch_umse_bwd, its
@@ -162,7 +165,9 @@ def test_umse_and_dropout_masks_launch_their_kernels(dev):
 # C 256 / H 4 (d_head 64): the vslt stream (1024), the txt stream (133),
 # the cross transformer's self layers (24), a ragged 300
 ATTN_BLOCK_SHAPES = [(54, 64, 2), (130, 64, 2), (300, 256, 4),
-                     (1024, 256, 4), (133, 256, 4), (24, 256, 4)]
+                     (1024, 256, 4), (133, 256, 4), (24, 256, 4),
+                     (300, 128, 4), (300, 512, 4), (300, 256, 2),
+                     (130, 512, 8)]
 
 
 @pytest.mark.parametrize("L,C,H", ATTN_BLOCK_SHAPES)
@@ -185,7 +190,8 @@ def test_attn_block_kernel(dev, L, C, H, prec):
     torch.testing.assert_close(out[live], ref[live], **TOL[prec])
 
 
-@pytest.mark.parametrize("L,C,H", [(130, 64, 2), (1024, 256, 4)])
+@pytest.mark.parametrize("L,C,H", [(130, 64, 2), (1024, 256, 4),
+                                   (300, 512, 4)])
 def test_attn_block_backward_is_bit_identical(dev, L, C, H):
     """The bf16 backward (delta pre-pass, dK/dV and dQ passes, projection
     backward, weight sums) repeats bit for bit: no float atomics."""
@@ -208,21 +214,32 @@ def test_attn_block_backward_is_bit_identical(dev, L, C, H):
         assert torch.equal(a, e), name
 
 
+def _sm_smem(dev) -> int:
+    return torch.cuda.get_device_properties(
+        dev).shared_memory_per_multiprocessor
+
+
 def test_attn_block_smem_table_matches_the_kernels(dev):
     """The wrapper's shared-memory reckoning of each tensor-core kernel is
-    the bytes its launcher asks for, within the card's 227 KB."""
+    the bytes its launcher asks for, within the card's 227 KB, and its
+    blocks an SM those the kernel's launch bounds ask for, whose shared
+    memory fits an SM."""
     from medical_tri_modal_pilot_tpu_torch.kernels import _build
     from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
-        TC_KERNELS, tc_smem_bytes)
+        TC_KERNELS, tc_min_blocks, tc_smem_bytes)
     lib = _build.library()
-    for C, dh in ((64, 32), (256, 64), (256, 32)):
-        table = tc_smem_bytes(C, dh)
+    for C, dh in ((64, 32), (256, 64), (256, 32), (128, 32), (512, 128),
+                  (256, 128)):
+        table, blocks = tc_smem_bytes(C, dh), tc_min_blocks(C, dh)
         for i, name in enumerate(TC_KERNELS):
             assert lib.attn_block_tc_smem(i, C, dh) == table[name], name
             assert table[name] <= 232448, name
+            assert lib.attn_block_tc_min_blocks(i, C, dh) == blocks[name], \
+                name
+            assert blocks[name] * (table[name] + 1024) <= _sm_smem(dev), name
 
 
-@pytest.mark.parametrize("C", [64, 256])
+@pytest.mark.parametrize("C", [64, 256, 128, 512])
 @pytest.mark.parametrize("prec", list(PRECS))
 def test_ffn_kernel(dev, C, prec):
     """Tile flags from lengths (one sample fully masked keeps all its
@@ -291,7 +308,7 @@ def test_attn_block_training_kernels(dev, L, C, H, prec):
                         ["dx", "dgamma", "dbeta", "dw", "db"])
 
 
-@pytest.mark.parametrize("C", [64, 256])
+@pytest.mark.parametrize("C", [64, 256, 128, 512])
 @pytest.mark.parametrize("p", [0.0, 0.25])
 @pytest.mark.parametrize("prec", list(PRECS))
 def test_ffn_training_kernels(dev, C, p, prec):
@@ -323,16 +340,24 @@ def test_ffn_training_kernels(dev, C, p, prec):
 # (R = 65); a half-dead 128-row tile, a live one and a dead ragged tail
 # (R = 300)
 FFN_TC_CASES = [(65, 64, [0, 1]), (65, 256, [0, 1]),
-                (300, 64, [1, 0, 1, 1, 0]), (300, 256, [1, 0, 1, 1, 0])]
+                (300, 64, [1, 0, 1, 1, 0]), (300, 256, [1, 0, 1, 1, 0]),
+                (300, 128, [1, 0, 1, 1, 0]), (65, 512, [0, 1]),
+                (300, 512, [1, 0, 1, 1, 0])]
+# the kernels each FFN forward route launches
+FFN_ROUTE_KERNELS = {"tc": ("ffn_fwd_tc_kernel",), "fma": ("ffn_kernel",),
+                     "tc_split": ("ffn_ln_kernel", "gemm_bf16_kernel"),
+                     "fma_split": ("ffn_ln_kernel", "gemm_kernel")}
 
 
 @pytest.mark.parametrize("R,C,flags", FFN_TC_CASES)
 @pytest.mark.parametrize("p", [0.0, 0.25])
 def test_ffn_tc_forward(dev, R, C, flags, p):
-    """The bf16 forward on the tensor cores: dead 64-row tiles are x bit
-    for bit, live rows match the plain version on the same Philox masks
-    within TOL, and on live rows every element the output mask drops is x
-    bit for bit (the kernel's output mask is plain_dropout_masks')."""
+    """The bf16 forward on the tensor cores (the split route at C = 512):
+    dead 64-row tiles are x bit for bit, live rows match the plain version
+    on the same Philox masks within TOL, and on live rows every element
+    the output mask drops is x bit for bit (the kernel's output mask is
+    plain_dropout_masks')."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.ffn import ffn_route
     g = torch.Generator().manual_seed(21)
     F, dt, seed = 4 * C, torch.bfloat16, 4321
     x = _rand(g, dev, R, C).to(dt)
@@ -357,21 +382,35 @@ def test_ffn_tc_forward(dev, R, C, flags, p):
     with torch.inference_mode():
         names = _launched(lambda: ops.ffn(x, *ws, valid, p=p, training=True,
                                           seed=seed))
-    _route_kernels(names, {"tc": ("ffn_fwd_tc_kernel",),
-                           "fma": ("ffn_kernel",)}, "tc")
+    _route_kernels(names, FFN_ROUTE_KERNELS, ffn_route(dt, C))
 
 
 def test_ffn_and_swin_mlp_smem_tables_match_the_kernels(dev):
     """The wrappers' shared-memory reckoning of the tensor-core forwards
     is the bytes their launchers ask for, within the card's opt-in
-    limit."""
+    limit; the ffn's blocks an SM are those its kernels' launch bounds ask
+    for."""
     from medical_tri_modal_pilot_tpu_torch.kernels import _build, ffn, \
         swin_mlp
     lib = _build.library()
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     for C in ffn.WIDTHS:
-        assert lib.ffn_tc_smem(C) == ffn.tc_smem_bytes(C) <= limit, C
-    assert lib.ffn_tc_smem(96) == 0
+        blocks = ffn.tc_min_blocks(C)
+        if C != ffn.SPLIT_WIDTH:
+            assert lib.ffn_tc_smem(C) == ffn.tc_smem_bytes(C) <= limit, C
+            for i, name in enumerate(("ffn_fwd_tc_kernel",
+                                      "ffn_bwd_tc_kernel")):
+                assert lib.ffn_tc_min_blocks(i, C) == blocks[name], (C, name)
+            assert blocks["ffn_fwd_tc_kernel"] * (
+                ffn.tc_smem_bytes(C) + 1024) <= _sm_smem(dev), C
+        else:
+            for i, name in enumerate(("gemm_bf16_kernel",
+                                      "ffn_ln_bwd_tc_kernel")):
+                assert lib.ffn_split_min_blocks(i) == blocks[name], name
+    assert lib.ffn_tc_smem(96) == lib.ffn_tc_smem(ffn.SPLIT_WIDTH) == 0
+    assert lib.ffn_tc_min_blocks(0, 96) == 0
+    for i, (name, smem) in enumerate(ffn.split_smem_bytes().items()):
+        assert lib.ffn_split_smem(i) == smem <= limit, name
     for C in range(32, 1600, 32):
         assert lib.swin_mlp_tc_smem(C) == swin_mlp.tc_smem_bytes(C) <= \
             limit, C
@@ -415,7 +454,10 @@ def test_dropout_masks_kernel_takes_the_column_offset(dev, col0, F, C):
 # q|k|v width (768) ragged and with a dead block
 ROWMM_CASES = [(2, 512, 64, 192, (200, 512)), (1, 130, 64, 192, None),
                (3, 512, 256, 384, (0, 100, 512)), (1, 130, 256, 768, None),
-               (2, 512, 256, 768, (200, 512))]
+               (2, 512, 256, 768, (200, 512)),
+               (2, 512, 128, 384, (200, 512)), (1, 130, 128, 192, None),
+               (3, 512, 512, 768, (0, 100, 512)),
+               (2, 512, 512, 1536, (200, 512))]
 
 
 @pytest.mark.parametrize("case", ROWMM_CASES)
@@ -546,16 +588,20 @@ def test_rowmm_backward_is_bit_identical(dev, ln):
 
 def test_rowmm_smem_table_matches_the_kernels(dev):
     """The wrapper's shared-memory reckoning of each tensor-core kernel is
-    the bytes its launcher asks for, within the card's opt-in limit."""
+    the bytes its launcher asks for, within the card's opt-in limit, and
+    its blocks an SM those the kernel's launch bounds ask for, whose shared
+    memory fits an SM."""
     from medical_tri_modal_pilot_tpu_torch.kernels import _build
     from medical_tri_modal_pilot_tpu_torch.kernels.rowmm import (
-        TC_KERNELS, WIDTHS, rowmm_tc_smem)
+        TC_KERNELS, WIDTHS, rowmm_tc_smem, tc_min_blocks)
     lib = _build.library()
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     for Cin in WIDTHS:
-        table = rowmm_tc_smem(Cin)
+        table, blocks = rowmm_tc_smem(Cin), tc_min_blocks(Cin)
         for i, name in enumerate(TC_KERNELS):
             assert lib.rowmm_tc_smem(i, Cin) == table[name] <= limit, name
+            assert lib.rowmm_tc_min_blocks(i, Cin) == blocks[name], name
+            assert blocks[name] * (table[name] + 1024) <= _sm_smem(dev), name
 
 
 def test_rowmm_refuses_what_it_does_not_take(dev):
@@ -621,7 +667,8 @@ def test_kernels_refuse_block_masks_and_grads(dev):
 # the multitoken streams' block masks at small widths: (stream, content
 # rows, C, heads); stream 0 is vslt (4 cls), 1 img (2 cls), 2 txt (2 cls)
 BLOCK_MASK_CASES = [(0, 60, 64, 2), (1, 49, 64, 2), (2, 40, 256, 4),
-                    (2, 128, 256, 4)]
+                    (2, 128, 256, 4), (2, 128, 512, 4), (0, 60, 128, 4),
+                    (2, 40, 256, 2)]
 
 
 @pytest.mark.parametrize("stream,n_rows,C,H", BLOCK_MASK_CASES)
@@ -675,7 +722,10 @@ ATTN_CASES = [(4, 4, 24, 128, 64, "keys"), (4, 4, 128, 24, 64, "keys"),
               (2, 2, 130, 70, 32, "block"), (3, 2, 300, 300, 64, "self"),
               (3, 2, 5, 300, 32, "keys"), (3, 2, 5, 300, 32, "block"),
               (3, 2, 130, 7, 32, "keys"), (3, 2, 130, 7, 32, "block"),
-              (64, 4, 24, 128, 64, "keys"), (64, 4, 128, 24, 64, "keys")]
+              (64, 4, 24, 128, 64, "keys"), (64, 4, 128, 24, 64, "keys"),
+              (4, 4, 24, 128, 128, "keys"), (3, 2, 54, 54, 128, "none"),
+              (2, 2, 130, 70, 128, "block"), (3, 2, 300, 300, 128, "self"),
+              (3, 2, 5, 300, 128, "keys")]
 
 
 def _attn_case(dev, B, H, Lq, Lk, D, kind, dt, seed):
@@ -743,8 +793,8 @@ def test_attention_training_kernels(dev, B, H, Lq, Lk, D, kind, prec):
 def test_attention_takes_its_dtypes_route(dev, prec):
     """bf16 launches the tensor-core kernels and fp32 the FMA kernels,
     forward and backward, and nothing else (kernel names in a profiler
-    trace): no library attention."""
-    from torch.profiler import ProfilerActivity, profile
+    trace, taken again where it holds no device event): no library
+    attention."""
     from medical_tri_modal_pilot_tpu_torch.kernels.attention import \
         attention_route
     dt = PRECS[prec]
@@ -753,13 +803,12 @@ def test_attention_takes_its_dtypes_route(dev, prec):
     q, k, v, mask, _, _ = _attn_case(dev, 4, 4, 24, 128, 64, "keys", dt,
                                      seed=12)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def step():
         out = ops.attention(*leaves, mask, 8.0)
         torch.autograd.grad(out, leaves, torch.ones_like(out))
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()
-             if "kernel" in e.key.lower() or "attention" in e.key.lower()]
+
+    names = _launched(step)
     tc = ("attention_fwd_tc_kernel", "attention_delta_kernel",
           "attention_dkv_tc_kernel", "attention_dq_tc_kernel")
     fma = ("attention_fwd_kernel", "attention_dkv_kernel",
@@ -776,7 +825,8 @@ def test_attention_takes_its_dtypes_route(dev, prec):
 @pytest.mark.parametrize("B,H,Lq,Lk,D,kind",
                          [(4, 4, 24, 128, 64, "keys"),
                           (3, 2, 300, 300, 64, "self"),
-                          (2, 2, 130, 70, 32, "block")])
+                          (2, 2, 130, 70, 32, "block"),
+                          (3, 2, 300, 300, 128, "self")])
 def test_attention_backward_is_bit_identical(dev, B, H, Lq, Lk, D, kind):
     """The bf16 backward (delta pre-pass, dK/dV and dQ passes) repeats bit
     for bit: no float atomics."""
@@ -795,15 +845,18 @@ def test_attention_backward_is_bit_identical(dev, B, H, Lq, Lk, D, kind):
 
 def test_attention_smem_table_matches_the_kernels(dev):
     """The wrapper's shared-memory reckoning of each tensor-core kernel is
-    the bytes its launcher asks for."""
+    the bytes its launcher asks for, and its blocks an SM those the
+    kernel's launch bounds ask for, whose shared memory fits an SM."""
     from medical_tri_modal_pilot_tpu_torch.kernels import _build
     from medical_tri_modal_pilot_tpu_torch.kernels.attention import (
-        TC_KERNELS, tc_smem_bytes)
+        TC_KERNELS, tc_min_blocks, tc_smem_bytes)
     lib = _build.library()
-    for dh in (32, 64):
-        table = tc_smem_bytes(dh)
+    for dh in (32, 64, 128):
+        table, blocks = tc_smem_bytes(dh), tc_min_blocks(dh)
         for i, name in enumerate(TC_KERNELS):
             assert lib.attention_tc_smem(i, dh) == table[name], name
+            assert lib.attention_tc_min_blocks(i, dh) == blocks[name], name
+            assert blocks[name] * (table[name] + 1024) <= _sm_smem(dev), name
 
 
 def test_attention_refuses_what_it_does_not_take(dev):
@@ -1158,6 +1211,9 @@ FFN_BWD_CASES = {
     "ragged": (3, 133, 64, [1, 0, 1, 1, 0, 0, 1]),
     "txt": (5, 133, 256, None),
     "img": (5, 54, 256, None),
+    "wide_ragged": (3, 133, 512, [1, 0, 1, 1, 0, 0, 1]),
+    "mid_island": (2, 512, 128, [0, 1, 0, 0, 0, 0, 0, 0,
+                                 0, 0, 0, 0, 0, 0, 1, 0]),
 }
 
 
@@ -1273,7 +1329,7 @@ def test_tensor_core_kernels_compile_to_mma(dev):
                    "attention_dkv_tc_kernel", "attention_dq_tc_kernel",
                    "ffn_fwd_tc_kernel", "swin_mlp_tc_kernel",
                    "swin_fc1_tc_kernel", "rowmm_tc_kernel",
-                   "rowmm_bwd_tc_kernel"):
+                   "rowmm_bwd_tc_kernel", "ffn_ln_bwd_tc_kernel"):
         found = {n: c for n, c in code.items() if kernel in n}
         assert found, f"{kernel} not in the library"
         for name, text in found.items():

@@ -2,13 +2,16 @@
 the settings file, the wire format and the TIE buckets of
 ``Trainer.device_batch``, the asynchronous saver, ``--resume``, the test
 driver over both checkpoint formats and the JAX checkpoint reader, the
-flags the drivers refuse or honour, and a config-4 run (full Swin-T, 2
-MBT layers at d 64) that trains, validates, saves and tests end to
-end."""
+flags the drivers refuse or honour (the tensor-parallel ones in two gloo
+ranks, rank bodies in tests/tp_drivers_worker.py), and a config-4 run
+(full Swin-T, 2 MBT layers at d 64) that trains, validates, saves and
+tests end to end."""
 import collections
 import io
+import json
 import os
 import pickle
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -310,9 +313,7 @@ def test_jax_reader_knows_every_optim_form():
 
 REFUSED = {
     "orbax": (["--ckpt-backend", "orbax"], "orbax"),
-    "mp": (["--mp-size", "2"], "--mp-size"),
     "dp": (["--dp-size", "2"], "--dp-size"),
-    "dist": (["--dist-coordinator", "localhost:1234"], "--dist-coordinator"),
     "multi_k": (["--train-multi-k", "2"], "--train-multi-k 2"),
 }
 
@@ -330,6 +331,130 @@ def test_refused_flags_raise_by_name(tmp_path, name, driver):
         return
     with pytest.raises(NotImplementedError, match=match):
         main(argv, device="cpu")
+
+
+# the flags of tensor parallelism, which the drivers take: --mp-size 2 in
+# two ranks joined through the launcher's environment, and the same with
+# --dist-coordinator, --dist-num-processes and --dist-process-id given
+ACCEPTED = {"mp": "0", "dist": "1"}
+# a two-layer config-2 model whose four heads split over the two ranks
+TP_FLAGS = ["--mp-size", "2", "--dp-size", "1", "--transformer-num-head",
+            "4"]
+TESTS = Path(__file__).resolve().parent
+# a walk of the same checkpoints by two ranks and by one process: the
+# ranks' sums split over the model group (tests/test_torch_tp.py's bound)
+TP_WALK_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def single_run(tmp_path_factory):
+    """The synthetic fixtures (vslt + BioBERT notes), and one epoch of the
+    single-process train driver over them with its test driver's walk, run
+    from the fixture's own directory (the eval index caches go to
+    ./data/testIndexes, and the test driver reads the one the train
+    driver built): (argv without --dir-result, that directory, train
+    result, walk result)."""
+    from tools.make_synthetic_fixtures import main as make
+    root = tmp_path_factory.mktemp("single")
+    synth = root / "synth"
+    make(["--out", str(synth), "--n-train", "12", "--n-test", "6",
+          "--seed", "3"])
+    argv = CONFIG2 + [
+        "--train-data-path", f"{synth}/train",
+        "--test-data-path", f"{synth}/test",
+        "--biobert-path", f"{synth}/mimic4_embeddings.h5",
+        "--dir-root", str(synth), "--num-workers", "1", "--epochs", "1",
+        "--seed-list", "412", "--transformer-num-head", "4"]
+    one = argv + ["--dir-result", str(root / "res")]
+    from tp_drivers_worker import record_probs
+    from medical_tri_modal_pilot_tpu_torch.train.metrics import Evaluator
+    cwd, add, threads = os.getcwd(), Evaluator.add_batch, torch.get_num_threads()
+    os.chdir(root)
+    torch.set_num_threads(1)    # as the ranks
+    try:
+        probs = record_probs()
+        trained = train_driver.main(one, device="cpu")
+        n_train = len(probs)
+        walked = test_driver.main(one, device="cpu")
+    finally:
+        os.chdir(cwd)
+        Evaluator.add_batch = add
+        torch.set_num_threads(threads)
+    return (argv, root, (trained, probs[:n_train]),
+            (walked, probs[n_train:]))
+
+
+def _agg_close(got, want, tol=1e-4):
+    """Two aggregates ({metric: (mean, std)}, tuples or JSON lists) within
+    ``tol``, nan equal to nan."""
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(np.asarray(got[k], float),
+                                   np.asarray(want[k], float), rtol=0,
+                                   atol=tol, equal_nan=True, err_msg=k)
+
+
+@pytest.mark.parametrize("name", list(ACCEPTED))
+@pytest.mark.parametrize("driver", ["train", "test"])
+def test_tp_flags_are_taken_and_run(tmp_path, single_run, name, driver):
+    """--mp-size 2 --dp-size 1 (from the launcher's environment, or with
+    the --dist-* flags): each driver's ``main`` runs in two gloo ranks.
+    The test driver walks the single process's checkpoints to its
+    probabilities (every sample the metrics read) within TP_WALK_TOL, and
+    to its aggregates where no two probabilities lie within that bound of
+    each other or of an F1 threshold (near-tied probabilities can swap
+    order). The train driver logs the single process's losses at the same
+    steps and gives finite aggregates of the same metrics: two ``main``
+    runs need not see the same batches, since the loader's worker threads
+    draw items from one shared RNG (ROADMAP Queue 3; tests/
+    test_torch_tp_drivers.py holds a fold over fixed batches to the single
+    process's)."""
+    import shutil
+    from medical_tri_modal_pilot_tpu_torch.parallel.launch import launch
+    argv, root, trained, walked = single_run
+    # the ranks start in this test's directory: the single run's index
+    # caches there, and its checkpoints for the test driver
+    shutil.copytree(root / "data", tmp_path / "data", dirs_exist_ok=True)
+    out = tmp_path / "out"
+    out.mkdir()
+    run = tmp_path / "res"
+    if driver == "test":
+        shutil.copytree(root / "res", run)
+    (out / "argv.json").write_text(json.dumps(
+        argv + TP_FLAGS + ["--dir-result", str(run)]))
+    launch("tp_drivers_worker:run_driver", 2,
+           f"file://{tmp_path / 'rendezvous'}",
+           [str(out), driver, ACCEPTED[name]], pythonpath=[str(TESTS)],
+           timeout=240, capture=True)
+    got = json.loads((out / "results.json").read_text())
+    want, probs = trained if driver == "train" else walked
+    if driver == "train":
+        assert _losses(run).keys() == _losses(root / "res").keys()
+        assert len(got["probs"]) == len(probs)
+        for g, w in zip(got["result"], want):
+            assert set(g) == set(w)
+            assert all(np.isfinite(g[k]).all() for k in g if k != "auc")
+        return
+    np.testing.assert_allclose(got["probs"], probs, rtol=0,
+                               atol=TP_WALK_TOL)
+    if _well_separated(probs, TP_WALK_TOL):
+        _agg_close(got["result"], want)
+
+
+def _well_separated(probs, tol=1e-4) -> bool:
+    """No two probabilities, and none and a threshold of the F1 sweep
+    (0.01 .. 0.99), within tol."""
+    p = np.sort(np.concatenate([np.asarray(probs, float),
+                                np.arange(1, 100) / 100]))
+    return bool(np.all(np.diff(p) > tol))
+
+
+def _losses(res):
+    """The train and validation losses a run logged, by (tag, step)."""
+    events = next(Path(res).glob("*/logs_0/events.jsonl")).read_text()
+    rows = [json.loads(line) for line in events.splitlines()]
+    return {(r["tag"], r["step"]): r["value"] for r in rows
+            if r["tag"] in ("train/loss", "val/loss")}
 
 
 def test_orbax_checkpoints_are_refused_by_name(tmp_path):

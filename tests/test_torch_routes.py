@@ -87,36 +87,44 @@ def test_wgrad_refuses_mismatched_cotangent_parts():
 
 
 @pytest.mark.parametrize("C,H", [(64, 2), (64, 1), (128, 4), (256, 4),
-                                 (256, 8), (512, 8), (768, 12)])
+                                 (256, 8), (512, 8), (256, 2), (512, 4)])
 def test_attn_block_route_by_dtype_and_head_width(C, H):
     """fp32 keeps the FMA kernels at every width; bf16 takes the tensor
-    cores at d_head 32 and 64."""
-    assert C // H in attn_block.HEAD_DIMS
+    cores, at C 64, 128, 256 and 512 and d_head 32, 64 and 128."""
+    assert C in attn_block.WIDTHS and C // H in attn_block.HEAD_DIMS
     assert attn_block.attn_block_route(torch.float32, C, H) == "fma"
     assert attn_block.attn_block_route(torch.bfloat16, C, H) == "tc"
 
 
-@pytest.mark.parametrize("C,H", [(64, 4), (256, 2), (256, 3), (96, 0)])
+@pytest.mark.parametrize("C,H", [(64, 4), (768, 12), (256, 3), (96, 0),
+                                 (128, 8), (512, 2), (192, 3)])
 def test_attn_block_route_refuses_other_head_widths(C, H):
+    """d_head 16 and 256, a width outside 64/128/256/512 (768, 192), heads
+    that do not divide C, no heads: refused in both dtypes."""
     for dt in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="d_head"):
             attn_block.attn_block_route(dt, C, H)
 
 
-@pytest.mark.parametrize("C,dh", [(64, 32), (256, 64), (256, 32)])
+@pytest.mark.parametrize("C,dh", [(64, 32), (256, 64), (256, 32), (128, 32),
+                                  (512, 128), (256, 128), (512, 64)])
 def test_attn_block_tc_smem_within_the_card(C, dh):
-    """Each tensor-core kernel's shared memory fits a block's 227 KB at the
-    widths the backward is built for, and the projection backward (the
-    largest, 109 KB at C = 256) and the projection fit two blocks in an
-    SM's 228 KB (1 KB of it reserved per block), as their launch bounds
-    ask."""
+    """Each tensor-core kernel's shared memory fits a block's 227 KB at
+    every width and head width, and as many blocks as its launch bounds
+    ask for (two projections up to C = 256, one at 512, where the
+    projection backward takes 201 KB; the flash loops' two at d_head 128)
+    fit an SM's 228 KB (1 KB of it reserved per block)."""
     table = attn_block.tc_smem_bytes(C, dh)
-    assert set(table) == set(attn_block.TC_KERNELS)
+    blocks = attn_block.tc_min_blocks(C, dh)
+    assert set(table) == set(attn_block.TC_KERNELS) == set(blocks)
     assert all(0 < v <= 232448 for v in table.values())
-    for name in ("block_ln_bwd_tc_kernel", "block_qkv_tc_kernel"):
-        assert 2 * (table[name] + 1024) <= 233472, name
+    for name, smem in table.items():
+        assert blocks[name] * (smem + 1024) <= 233472, name
+    assert blocks["block_qkv_tc_kernel"] == (1 if C == 512 else 2)
     if C == 256:
         assert table["block_ln_bwd_tc_kernel"] == 111616
+    if C == 512:
+        assert table["block_ln_bwd_tc_kernel"] == 205824
     assert table["block_attn_tc_kernel"] == 5 * 2 * 64 * (dh + 8)
 
 
@@ -146,29 +154,31 @@ def test_attn_block_wrapper_refuses_before_the_card():
         attn_block.cuda_attn_block(x, gamma, beta, w, b, None, 4.0, 2)
 
 
-@pytest.mark.parametrize("d_head", [32, 64])
+@pytest.mark.parametrize("d_head", [32, 64, 128])
 def test_attention_route_by_dtype_and_head_width(d_head):
     """The masked attention: fp32 keeps the FMA kernels, bf16 takes the
-    tensor cores, at both head widths the kernels are built for."""
+    tensor cores, at the three head widths the kernels are built for."""
     assert attention.attention_route(torch.float32, d_head) == "fma"
     assert attention.attention_route(torch.bfloat16, d_head) == "tc"
 
 
-@pytest.mark.parametrize("d_head", [0, 16, 48, 96, 128])
+@pytest.mark.parametrize("d_head", [0, 16, 48, 96, 8, 256])
 def test_attention_route_refuses_other_head_widths(d_head):
     for dt in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match=f"d_head.*got {d_head}"):
             attention.attention_route(dt, d_head)
 
 
-@pytest.mark.parametrize("d_head", [32, 64])
+@pytest.mark.parametrize("d_head", [32, 64, 128])
 def test_attention_tc_smem_within_the_card(d_head):
     """Each tensor-core kernel of the masked attention fits a block's
-    227 KB, and as many blocks as its launch bounds ask for fit an SM's
-    228 KB (1 KB of it reserved per block)."""
-    # the blocks per SM of each kernel's __launch_bounds__
-    min_blocks = {"attention_fwd_tc_kernel": 4, "attention_dkv_tc_kernel": 3,
-                  "attention_dq_tc_kernel": 4}
+    227 KB, and as many blocks as its launch bounds ask for (4 / 3 / 4 up
+    to d_head 64, 2 at 128) fit an SM's 228 KB (1 KB of it reserved per
+    block)."""
+    min_blocks = attention.tc_min_blocks(d_head)
+    assert tuple(min_blocks) == attention.TC_KERNELS
+    assert min_blocks["attention_dkv_tc_kernel"] == (2 if d_head == 128
+                                                     else 3)
     table = attention.tc_smem_bytes(d_head)
     assert tuple(table) == attention.TC_KERNELS
     for name, smem in table.items():
@@ -177,35 +187,65 @@ def test_attention_tc_smem_within_the_card(d_head):
     if d_head == 64:
         assert table["attention_fwd_tc_kernel"] == 46080
         assert table["attention_dkv_tc_kernel"] == 56832
+    if d_head == 128:
+        assert table["attention_fwd_tc_kernel"] == 87040
 
 
-@pytest.mark.parametrize("C", [64, 256])
+@pytest.mark.parametrize("C", [64, 256, 128, 512])
 def test_ffn_route_by_dtype_and_width(C):
     """The FFN: fp32 keeps the FMA kernels, bf16 takes the tensor cores,
-    at both widths the kernels are built for."""
-    assert ffn.ffn_route(torch.float32, C) == "fma"
-    assert ffn.ffn_route(torch.bfloat16, C) == "tc"
+    at the four model widths; at 512 each dtype's split route."""
+    split = "_split" if C == ffn.SPLIT_WIDTH else ""
+    assert ffn.ffn_route(torch.float32, C) == "fma" + split
+    assert ffn.ffn_route(torch.bfloat16, C) == "tc" + split
 
 
-@pytest.mark.parametrize("C", [0, 32, 96, 128, 192, 512])
+@pytest.mark.parametrize("C", [0, 32, 96, 192, 384, 768])
 def test_ffn_route_refuses_other_widths(C):
     for dt in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match=f"C in .*got C={C}"):
             ffn.ffn_route(dt, C)
 
 
-@pytest.mark.parametrize("C,want", [(64, 55552), (256, 209920)])
+@pytest.mark.parametrize("C,want", [(64, 55552), (256, 209920),
+                                    (128, 107008)])
 def test_ffn_tc_smem_within_the_card(C, want):
-    """The tensor-core forward's 128 normalised rows and its two-stage
-    W1/W2 chunk ring fit a block's 227 KB at both widths (209920 bytes
-    at C = 256), and at C = 64, whose launch bounds ask for two blocks an
-    SM, two blocks fit an SM."""
+    """The fused tensor-core forward's 128 normalised rows and its
+    two-stage W1/W2 chunk ring, and the fused tile pass, fit a block's
+    227 KB at the fused widths (209920 bytes forward at C = 256), and as
+    many blocks as their launch bounds ask for fit an SM (two forward
+    blocks at C = 64)."""
     assert ffn.TC_ROWS == 128
     smem = ffn.tc_smem_bytes(C)
     assert smem == want
-    assert 0 < smem <= BLOCK_SMEM
-    if C <= 96:
-        assert 2 * (smem + 1024) <= SM_SMEM
+    table = {"ffn_fwd_tc_kernel": smem,
+             "ffn_bwd_tc_kernel": ffn.bwd_tc_smem_bytes(C)}
+    blocks = ffn.tc_min_blocks(C)
+    for name, v in table.items():
+        assert 0 < v <= BLOCK_SMEM, name
+        assert blocks[name] * (v + 1024) <= SM_SMEM, name
+    assert blocks["ffn_fwd_tc_kernel"] == (2 if C <= 96 else 1)
+
+
+def test_ffn_split_smem_within_the_card():
+    """At C = 512 the fused tiles would outgrow a block (the forward's
+    410 KB, the tile pass's 433 KB), so the width takes the split route,
+    whose LN backward (201 KB on the tensor cores, 202 KB on the FMAs)
+    fits one block an SM, as its launch bounds ask; its GEMM tiles keep to
+    the static 48 KB."""
+    C = ffn.SPLIT_WIDTH
+    assert ffn.tc_smem_bytes(C) > BLOCK_SMEM
+    assert ffn.bwd_tc_smem_bytes(C) > BLOCK_SMEM
+    table = ffn.split_smem_bytes()
+    assert tuple(table) == ffn.SPLIT_KERNELS
+    assert table == {"ffn_ln_bwd_tc_kernel": 205824,
+                     "ffn_ln_bwd_kernel": 206336}
+    assert table["ffn_ln_bwd_tc_kernel"] == \
+        attn_block.tc_smem_bytes(C, 128)["block_ln_bwd_tc_kernel"]
+    blocks = ffn.tc_min_blocks(C)
+    assert blocks["ffn_ln_bwd_tc_kernel"] * (
+        table["ffn_ln_bwd_tc_kernel"] + 1024) <= SM_SMEM
+    assert max(table.values()) <= BLOCK_SMEM
 
 
 @pytest.mark.parametrize("C,fused", [(32, True), (64, True), (96, True),
@@ -311,16 +351,16 @@ def test_swin_mlp_wrapper_refuses_before_the_card():
         swin_mlp.cuda_swin_mlp(x, *ws)
 
 
-@pytest.mark.parametrize("Cin", [64, 256])
+@pytest.mark.parametrize("Cin", [64, 256, 128, 512])
 def test_rowmm_route_by_dtype_and_width(Cin):
     """The row-skipping projections: fp32 keeps the FMA kernels, bf16 takes
-    the tensor cores, at both input widths the kernels are built for (no
-    bf16 width falls back to the FMA loops)."""
+    the tensor cores, at the four input widths the kernels are built for
+    (no bf16 width falls back to the FMA loops)."""
     assert rowmm.rowmm_route(torch.float32, Cin) == "fma"
     assert rowmm.rowmm_route(torch.bfloat16, Cin) == "tc"
 
 
-@pytest.mark.parametrize("Cin", [0, 32, 96, 128, 384, 768])
+@pytest.mark.parametrize("Cin", [0, 32, 96, 192, 384, 768])
 def test_rowmm_route_refuses_other_widths(Cin):
     for dt in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match=f"Cin in .*got Cin={Cin}"):
@@ -330,22 +370,26 @@ def test_rowmm_route_refuses_other_widths(Cin):
 
 
 @pytest.mark.parametrize("Cin,want", [(64, (61440, 40960, 30720)),
-                                      (256, (86016, 111616, 76800))])
+                                      (256, (86016, 111616, 76800)),
+                                      (128, (69632, 64512, 46080)),
+                                      (512, (118784, 205824, 138240))])
 def test_rowmm_tc_smem_within_the_card(Cin, want):
     """The tensor-core forward's 64 rows of x and its three-stage W ring,
     and the backward's ring (with x and the StdLN stats in the LN form),
-    fit a block's 227 KB at both widths, and two blocks fit an SM's 228 KB
-    (1 KB of it reserved per block), as every one of their launch bounds
-    asks. At Cin 256 they are the attention block's projection kernels'
-    bytes: the same loops."""
+    fit a block's 227 KB at every width, and as many blocks as their
+    launch bounds ask for (two up to Cin 256, one at 512) fit an SM's
+    228 KB (1 KB of it reserved per block). They are the attention
+    block's projection kernels' bytes: the same loops."""
     table = rowmm.rowmm_tc_smem(Cin)
-    assert tuple(table) == rowmm.TC_KERNELS
+    blocks = rowmm.tc_min_blocks(Cin)
+    assert tuple(table) == rowmm.TC_KERNELS == tuple(blocks)
     assert tuple(table.values()) == want
     for name, smem in table.items():
         assert 0 < smem <= BLOCK_SMEM, name
-        assert 2 * (smem + 1024) <= SM_SMEM, name
-    if Cin == 256:
-        block = attn_block.tc_smem_bytes(256, 64)
+        assert blocks[name] * (smem + 1024) <= SM_SMEM, name
+    assert set(blocks.values()) == {1 if Cin == 512 else 2}
+    if Cin in attn_block.WIDTHS:
+        block = attn_block.tc_smem_bytes(Cin, 64)
         assert table["rowmm_tc_kernel"] == block["block_qkv_tc_kernel"]
         assert table["rowmm_bwd_tc_kernel (LN)"] == \
             block["block_ln_bwd_tc_kernel"]

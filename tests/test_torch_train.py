@@ -309,7 +309,8 @@ def _close_to_tensor_max(got, want, rtol, floor, what):
     assert err <= bound, f"{what}: {err:.3e} > {bound:.3e}"
 
 
-def compare_train_state(cfg, jt, tr, lr_sum, bias_walk=0.0):
+def compare_train_state(cfg, jt, tr, lr_sum, bias_walk=0.0,
+                        sq_rtol=MOMENT_RTOL):
     """Parameters, optimizer moments and BatchNorm statistics of a JAX
     Trainer and a port Trainer after the same steps. ``bias_walk``: an
     allowance on the running mean for longer runs. The running mean
@@ -318,7 +319,9 @@ def compare_train_state(cfg, jt, tr, lr_sum, bias_walk=0.0):
     parameter bound below (2.01 lr_sum); the running mean, a weighted mean
     of batch means that include the bias, inherits that difference. A
     model whose heads hold no BatchNorm (the LayerNorm heads of the
-    multitoken family) has no statistics to compare."""
+    multitoken family) has no statistics to compare. ``sq_rtol``: the
+    second moments' bound, which holds squared gradients (a gradient's
+    relative error doubles in its square)."""
     jparams = jax.device_get(jt.state.params)
     want = params_from_jax(cfg, jparams)
     named = dict(tr.model.named_parameters())
@@ -328,10 +331,10 @@ def compare_train_state(cfg, jt, tr, lr_sum, bias_walk=0.0):
     for key, tree in moments.items():
         for name, w in tree.items():
             if named[name].requires_grad:
-                floor = 5e-6 if key != "exp_avg_sq" else 1e-10
+                sq = key == "exp_avg_sq"
                 _close_to_tensor_max(state[named[name]][key].numpy(),
-                                     w.numpy(), MOMENT_RTOL, floor,
-                                     f"{key} {name}")
+                                     w.numpy(), sq_rtol if sq else MOMENT_RTOL,
+                                     1e-10 if sq else 5e-6, f"{key} {name}")
     mu = moments.get("exp_avg", moments.get("momentum_buffer"))
     for name, w in want.items():
         err = np.abs(named[name].detach().numpy() - w.numpy())
