@@ -8,7 +8,8 @@ Phases, each raising on failure (nothing is caught):
      per source, all started together) from the checkout, and prints the
      build seconds; cuobjdump -sass of the library
      must show tensor-core instructions (HMMA) in each bf16 tensor-core
-     kernel (TENSOR_CORE_KERNELS).
+     kernel (TENSOR_CORE_KERNELS), and wgmma (HGMMA) fed by TMA loads
+     (UTMALDG) in the Hopper mainloop's (WGMMA_KERNELS).
   3. kernels: each kernel against its plain PyTorch version at every shape
      the eval steps give it (each fusion stream's length; the Swin stages
      over 33, 64 and 97 trunk rows), in fp32 and bf16, on live rows, with
@@ -166,13 +167,19 @@ Phases, each raising on failure (nothing is caught):
      the training form and the backward against the plain version
      (every row, every gradient by Frobenius ratio), event and plain ms,
      the bound, the profiler's device ms per form and the launched
-     kernels (the dtype's route's, in their block-mask instantiations).
+     kernels (the dtype's route's, in their block-mask instantiations);
+     each mask's tile map (the card's against block_tile_map, bit for bit;
+     its dead and full shares; block_tile_map_kernel's device ms, built
+     in each bf16 call and counted in the forms' times), and at the vslt
+     shape the bf16 forms beside their readings before the tile map
+     (EARLIER_MS) and the 2-D key-mask form's device ms at the same shape.
      Then tri_mbt_vmulti, tri_mbt_vmulti2 and tri_mbt_vmultivslt: eval as
      phase 4 (the selected probabilities in bf16 and fp32, and every
      head's [4, B] probabilities), one train step on both paths in fp32
      and bf16 at dropout 0 and 0.1, launch counts (attn_block_3d 18 +
      bwd 18; 16 backward for tri_mbt_vmultivslt); tri_mbt_vmulti also
-     timed in turns, profiled, its peak memory, 20 steps on one batch and
+     timed in turns, profiled (with the tile maps the step built), its
+     peak memory, 20 steps on one batch and
      a fold through the train driver (1 epoch of 2 train, 1 val and 1
      test batch) with the test driver's walk to its final test metrics.
      Prints its train ms/step beside config 4's and the phase's seconds.
@@ -182,9 +189,13 @@ Phases, each raising on failure (nothing is caught):
      its closed form); attn_block at [64, 1024, C] under the TIE key mask
      and at [64, 142, C] under a multitoken txt stream's 3-D block mask
      (lean, training, backward); ffn at C 128 (fused) and 512 (the split
-     route, csrc/ffn_split.cu), dropout 0.1, training and backward, and
-     at 512 its masks held to dropout_masks' bit for bit (every dropped
-     output is x, every dropped hidden unit 0); rowmm at Cin 128 and 512
+     route, csrc/ffn_split.cu; in bf16 on csrc/wgmma.cuh), dropout 0.1,
+     training and backward, and at 512 its masks held to dropout_masks'
+     bit for bit (every dropped output is x, every dropped hidden unit
+     0), the bf16 backward bit for bit over two runs, both forms beside
+     their readings before the wgmma mainloop (EARLIER_MS) and kernel by
+     kernel (the forward at dropout 0.1 and 0, the backward); rowmm at
+     Cin 128 and 512
      (the LN form at one rank's q|k|v, W [C, 3C/2], and the plain form);
      the masked attention at d_head 128 (the TIE stream's TP self shape,
      the cross shapes, a block mask, no mask). fp32 and bf16 against the
@@ -210,8 +221,9 @@ Phases, each raising on failure (nothing is caught):
      adamw): eval launch counts (every attn_block, ffn and umse call on
      its kernel), probabilities against the plain path in bf16 and fp32
      (phase 4's bounds), ms/step in turns; train launch counts, peak
-     memory, ms/step in turns, one step on both paths in fp32 and bf16 at
-     dropout 0.1 (phase 7's gates).
+     memory, ms/step in turns (at C 512 a profiled step: device time by
+     kernel and the idle share), one step on both paths in fp32 and bf16
+     at dropout 0.1 (phase 7's gates).
 The kernel phases (3, 5b, 6, 9, 12, 3w) run first, then 4-5, 7-8, 10-11,
 13, 14, 14b, 15, 16 and 17.
 Then one JSON line per the kernels (each with the path that launches it
@@ -240,7 +252,15 @@ the build and phase 14b;
 
 the build and the fp32 train step's gradient errors at phase 17's widths
 and the flagship's, against the plain path's own under a one-rounding
-nudge of the weights.
+nudge of the weights;
+
+    python3 chip_smoke.py keyprobe
+
+the build and the fp32 step at C 512 / 4 heads, dropout 0: its worst
+key_proj weight gradient against the plain path with one kernel at a
+time on its plain version (KEYPROBE_SWAPS), that error's share in its
+first singular value, and the attention block and the FFN alone at that
+width against float64, kernel and plain path each.
 
     python3 chip_smoke.py ab ROOT
 
@@ -269,6 +289,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -503,8 +524,10 @@ TENSOR_CORE_KERNELS = ("swin_fused_kernel", "window_attn_tc_kernel",
                        "attention_fwd_tc_kernel", "attention_dkv_tc_kernel",
                        "attention_dq_tc_kernel", "ffn_fwd_tc_kernel",
                        "swin_mlp_tc_kernel", "swin_fc1_tc_kernel",
-                       "rowmm_tc_kernel", "rowmm_bwd_tc_kernel",
-                       "ffn_ln_bwd_tc_kernel")
+                       "rowmm_tc_kernel", "rowmm_bwd_tc_kernel")
+# the kernels of the Hopper mainloop (csrc/wgmma.cuh; the ffn's bf16 split
+# route): each must compile to wgmma (HGMMA) fed by TMA loads (UTMALDG)
+WGMMA_KERNELS = ("wg_gemm_kernel",)
 # swin_attention launches per config-4 step at each stage, with and without
 # the shift mask (Swin-T's depths 2/2/6/2 alternate unshifted and shifted
 # blocks; stage 4, one window per image, has no shift)
@@ -584,6 +607,14 @@ def build_kernels() -> None:
         if not found or not all(found.values()):
             raise AssertionError(f"{kernel}: no tensor-core instructions in "
                                  "its SASS")
+    for kernel in WGMMA_KERNELS:
+        found = {n: (c.count("HGMMA"), c.count("UTMALDG"))
+                 for n, c in code.items() if kernel in n}
+        print(f"sass {kernel}: (HGMMA, UTMALDG) per instantiation "
+              f"{sorted(found.values())}")
+        if not found or not all(h and t for h, t in found.values()):
+            raise AssertionError(f"{kernel}: no HGMMA or no UTMALDG in its "
+                                 "SASS")
 
 
 def _median_ms(fn, reps: int = 20) -> float:
@@ -1705,6 +1736,20 @@ def _check_step_kernels(items) -> None:
                              f"{STEP_KERNELS}")
 
 
+def _check_step_maps(name, items) -> int:
+    """The block masks' tile maps a profiled multitoken train step built:
+    block_tile_map_kernel's launches and device ms, one a bf16 forward
+    call of attn_block_3d on a stream longer than one key tile (the
+    backward reuses its forward's). Raises if the step built none."""
+    ms, n = _by_kernel(items, ("block_tile_map_kernel",)).get(
+        "block_tile_map_kernel", [0.0, 0])
+    print(f"profile {name} train step: block_tile_map_kernel x{n} "
+          f"{ms:.4f} ms device")
+    if not n:
+        raise AssertionError(f"{name}: the train step built no tile map")
+    return n
+
+
 def run_config(name: str, argv, power: str, timed: bool) -> dict:
     """Drive one BASELINE configuration's eval step at full width: the
     launch counts of its run (reset just before, read just after), the
@@ -1824,10 +1869,12 @@ def _check_trunk_rows(name, cfg, rows) -> None:
                              "branch")
 
 
-def _train_run(cfg, state, batch, plain: bool):
+def _train_run(cfg, state, batch, plain):
     """One train step from ``state`` on one path: (loss, gradients and
     updated values of the trainable parameters, the step's learning
-    rate)."""
+    rate). ``plain``: True for the plain path, False for the kernels, or
+    the ``ops`` wrappers that take their plain versions while the others
+    launch their kernels."""
     from medical_tri_modal_pilot_tpu_torch import ops
     from medical_tri_modal_pilot_tpu_torch.models import get_model
     from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
@@ -1835,7 +1882,9 @@ def _train_run(cfg, state, batch, plain: bool):
     model.load_state_dict(state)
     tr = Trainer(cfg, model, torch.device("cuda"), eval_only=False, seed=0)
     lr = tr.current_lr()
-    with ops.reference_path() if plain else contextlib.nullcontext():
+    names = () if plain is True else tuple(plain or ())
+    with (ops.reference_path(*names) if plain
+          else contextlib.nullcontext()):
         loss = tr.train_step(batch)
     torch.cuda.synchronize()
     params = tr.optimizer.params
@@ -2030,6 +2079,8 @@ def run_train(name: str, argv, power: str, timed: bool,
         items = _profile_step(name, trainer, batches[0], power, train=True)
         if name == "config4":
             _check_step_kernels(items)
+        if name in MULTI_PATHS:
+            _check_step_maps(name, items)
 
         # 20 steps on one batch from the starting weights: the loss falls
         model.load_state_dict(state)
@@ -2856,8 +2907,9 @@ def compare_block_mask_kernels() -> dict:
     and the launched kernels (the dtype's route's, in their block-mask
     instantiations). Returns the bf16 results at the vslt shape."""
     from medical_tri_modal_pilot_tpu_torch import ops
-    from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import \
-        attn_block_route
+    from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
+        TILE_DEAD, TILE_FULL, attn_block_route, block_tile_map,
+        cuda_block_tile_map)
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(16)
     bf16 = torch.bfloat16
@@ -2877,6 +2929,23 @@ def compare_block_mask_kernels() -> dict:
         if tag == "txt" and not dead:
             raise AssertionError("the txt stream's mask has no fully "
                                  "masked row")
+        # the tile map the bf16 loops skip by: the card's against the
+        # plain version, bit for bit
+        tmap = cuda_block_tile_map(mask.view(torch.int8))
+        if not torch.equal(tmap, block_tile_map(mask)):
+            raise AssertionError(f"attn_block_3d {tag}: the tile map "
+                                 "differs from block_tile_map")
+        n_tiles = tmap.numel()
+        # built in each call of the bf16 forms (kernels/attn_block.py), so
+        # their per-call times below include it
+        map_ms = _device_ms(lambda: cuda_block_tile_map(
+            mask.view(torch.int8)), expect=("block_tile_map_kernel",))[0]
+        print(f"attn_block_3d {tag}: tile map {tuple(tmap.shape)}, "
+              f"{int((tmap == TILE_DEAD).sum()) / n_tiles:.3f} dead, "
+              f"{int((tmap == TILE_FULL).sum()) / n_tiles:.3f} full, the "
+              f"rest mixed; block_tile_map_kernel {map_ms:.4f} ms device, "
+              "once a bf16 call ("
+              + ("used" if Lb > 64 else "not used: one key tile") + ")")
         # the keys each sample needs (the bound counts these; the kernel,
         # as the TPU kernel, runs all Lb): up to the last key any row
         # leaves unmasked, or all Lb where some row has every key masked
@@ -2928,6 +2997,22 @@ def compare_block_mask_kernels() -> dict:
                 raise AssertionError(f"{name}: no block-mask instantiation "
                                      f"launched: {dev_ms['names']}")
             if tag == "vslt" and dt == bf16:
+                fr["device_ms"], br["device_ms"] = (dev_ms["train"],
+                                                    dev_ms["bwd"])
+                _print_earlier(f"{name} training forward", fr,
+                               EARLIER_MS["attn_block_3d"])
+                _print_earlier(f"{name} backward", br,
+                               EARLIER_MS["attn_block_3d_bwd"])
+                # the 2-D key-mask form at the same shape, its keys those
+                # every query masks, in the same call
+                keys = mask.bool().all(dim=1)
+                fwd2 = lambda *a: ops.attn_block(*a, keys, (D // H) ** .5, H)
+                two = _device_forms(f"attn_block[{BATCH},{Lb},{D}] key mask",
+                                    dt, fwd2, (xa, gamma, beta, wd, bd), cot,
+                                    None, ATTN_BLOCK_ROUTE_KERNELS, route)
+                print(f"{name}: 3-D over 2-D key-mask device time, "
+                      f"training {dev_ms['train'] / two['train']:.3f}, "
+                      f"backward {dev_ms['bwd'] / two['bwd']:.3f}")
                 results["attn_block_3d"] = dict(
                     lean, shape=f"[{BATCH},{Lb},{D}]", train_ms=fr["ms"],
                     train_plain_ms=fr["plain_ms"],
@@ -3153,10 +3238,30 @@ ATTN_BLOCK_ROUTE_KERNELS = {
 FFN_ROUTE_KERNELS = {
     "tc": (("ffn_fwd_tc_kernel",), ("ffn_bwd_tc_kernel",)),
     "fma": (("ffn_kernel",), ("ffn_bwd_kernel",)),
-    "tc_split": (("ffn_ln_kernel", "gemm_bf16_kernel"),
-                 ("ffn_dz_kernel", "ffn_ln_bwd_tc_kernel")),
+    "wgmma_split": (("ffn_ln_kernel", "wg_gemm_kernel"),
+                    ("ffn_dz_kernel", "ffn_ln_bwd_rows_kernel")),
     "fma_split": (("ffn_ln_kernel", "gemm_kernel"),
                   ("ffn_dz_kernel", "ffn_ln_bwd_kernel"))}
+
+
+# the redesigned forms' earlier readings (events ms, profiler device ms)
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): the ffn split route at
+# C 512 before the wgmma mainloop (R = 64 x 1024, p 0.1, the TIE stream's
+# tile flags), the 3-D block-mask attn_block at the vslt shape
+# [64, 1016, 256] before the tile map
+EARLIER_MS = {"ffn_split": (1.771, 1.4121), "ffn_split_bwd": (4.242, 3.4541),
+              "attn_block_3d": (1.043, 0.899),
+              "attn_block_3d_bwd": (2.954, 2.683)}
+
+
+def _print_earlier(what, res, earlier) -> None:
+    """A redesigned form's events and device ms beside its bound and its
+    earlier reading."""
+    print(f"{what}: events {res['ms']:.3f} ms, device "
+          f"{res.get('device_ms') or float('nan'):.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}); earlier "
+          f"{earlier[0]:.3f} / {earlier[1]:.4f} (events / device)",
+          flush=True)
 
 
 def _width_key(C: int, H: int = 0) -> str:
@@ -3399,8 +3504,21 @@ def compare_width_kernels() -> dict:
                     raise AssertionError("ffn split route: masks differ "
                                          "from dropout_masks'")
                 del y, hd, k1, k2
+                if dt == bf16:
+                    _bwd_repeats(fwd, (xf, g1, be1, w1, b1, w2, b2), cot)
+                    _print_earlier("ffn split C 512 (wgmma) training "
+                                   "forward", fr, EARLIER_MS["ffn_split"])
+                    _print_earlier("ffn split C 512 (wgmma) backward", br,
+                                   EARLIER_MS["ffn_split_bwd"])
+                    _split_kernels(fwd, (xf, g1, be1, w1, b1, w2, b2), cot,
+                                   flags)
             if dt == bf16:
                 shape = f"[{BATCH * L},{C}]"
+                if C == 512:
+                    # the split route on the wgmma mainloop
+                    src = ("medical_tri_modal_pilot_tpu_torch/csrc/"
+                           "ffn_split.cu + csrc/wgmma.cuh")
+                    fr, br = dict(fr, source=src), dict(br, source=src)
                 _add_width(results, "ffn", wk, fr, shape)
                 _add_width(results, "ffn_bwd", wk, br, shape)
             del xf, cot
@@ -3498,13 +3616,38 @@ def compare_width_kernels() -> dict:
 WIDTH_BATCHES = [0.5, 0.75]
 
 
+def _split_kernels(fwd, inputs, cot, flags) -> None:
+    """The ffn split route kernel by kernel: the profiler's device ms of
+    each kernel one training forward (dropout 0.1, and 0) and one backward
+    launch, so that the Philox draws of fc1's epilogue show as the
+    difference of its two forward readings."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    y = fwd(*leaves)
+    calls = (("forward p 0.1", lambda _: fwd(*inputs)),
+             ("forward p 0", lambda _: ops.ffn(*inputs, flags, p=0.0,
+                                               training=True,
+                                               seed=DROPOUT_SEED)),
+             ("backward", lambda _: torch.autograd.grad(
+                 y, leaves, cot, retain_graph=True)))
+    for what, call in calls:
+        items, busy, _ = _step_split(call, None)
+        names = [key.split("(")[0].replace("void ", "").replace("mtp::", "")
+                 for _, _, key in items]
+        print(f"ffn split C 512 (wgmma) {what}: {busy:.4f} device ms; "
+              + ", ".join(f"{k[:64]} x{n} {t / 1e3:.4f}"
+                          for k, (t, n, _) in zip(names, items)))
+    del y, leaves
+
+
 def run_widths(power: str) -> dict:
     """Phase 17: tri_mbt_vsltcls on config 4's flags at each of
     WIDTH_CASES. Eval: the launch counts of config 4 (every attn_block,
     ffn and umse call on its kernel: a call on the plain path would miss
     its count), the probabilities against the plain path in bf16 and, on
     the same weights, in fp32 (phase 4's bounds), ms/step in turns. Train:
-    the launch counts, peak device memory, ms/step in turns, and one step
+    the launch counts, peak device memory, ms/step in turns (at C 512 a
+    profiled step: device time by kernel, the idle share), and one step
     from the same weights on both paths in fp32 and bf16 at dropout 0.1
     (phase 7's gates). Returns the train launch counts per width."""
     from medical_tri_modal_pilot_tpu_torch import ops
@@ -3590,6 +3733,9 @@ def run_widths(power: str) -> dict:
               f"{np.mean(ms[False]):.2f} ms/step, plain "
               f"{np.mean(ms[True]):.2f} ms/step; rounds {ms[False]} / "
               f"{ms[True]}")
+        if C == 512:
+            # where the step's device time goes at the ffn's split width
+            _profile_step(name, tr, batches[0], power, train=True)
         counts[name] = got
         del tr, model
         gc_collect()
@@ -3652,6 +3798,146 @@ def gradprobe(power: str) -> None:
                   f"{_error_spike(moved, plain, worst):.3f})", flush=True)
             del kern, plain, moved
             gc_collect()
+
+
+# ``keyprobe``: the fp32 step at C 512 / 4 heads (d_head 128), dropout 0,
+# on phase 17's first batch, with one kernel at a time swapped for its
+# plain version; then the attention block and the FFN alone at that width
+# against a float64 evaluation of the same function, kernel and plain
+# path each, so that a kernel whose rounding is worse than the plain
+# path's shows apart from the function's own sensitivity
+KEYPROBE_SWAPS = ("attn_block", "ffn", "umse")
+
+
+def _f64_stdln(x, gamma, beta):
+    xd = x.double()
+    mu = xd.mean(-1, keepdim=True)
+    var = ((xd - mu) ** 2).sum(-1, keepdim=True) / (xd.shape[-1] - 1)
+    return (xd - mu) / (var.clamp_min(1e-24).sqrt() + 1e-6) \
+        * gamma.double() + beta.double()
+
+
+def _f64_attn_block(x, gamma, beta, w, b, mask, H):
+    """x + MHA(StdLN(x)) in float64 (the plain version's math, no
+    roundings): the yardstick of the fp32 paths' rounding."""
+    ln = _f64_stdln(x, gamma, beta)
+    B, L, C = x.shape
+    q, k, v = (ln @ w.double() + b.double()).split(C, dim=-1)
+    q, k, v = (t.reshape(B, L, H, C // H) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(C // H)
+    s = s.masked_fill(mask[:, None, None, :], -65504.0)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+    return x.double() + o.reshape(B, L, C)
+
+
+def _f64_ffn(x, gamma, beta, w1, b1, w2, b2):
+    h = torch.relu(_f64_stdln(x, gamma, beta) @ w1.double() + b1.double())
+    return x.double() + h @ w2.double() + b2.double()
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def keyprobe(power: str) -> None:
+    """The fp32 ``key_proj`` reading at C 512 / 4 heads, dropout 0: the
+    step kernel against plain with each of KEYPROBE_SWAPS on its plain
+    version; then one attention block and one FFN at [64, 1024, 512]
+    (seeded inputs, the TIE key mask) against float64, each gradient of
+    the kernel and of the plain path by Frobenius ratio."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    C, H = 512, 4
+    cfg = parse_config(CONFIG4 + ["--transformer-dim", str(C),
+                                  "--transformer-num-head", str(H)])
+    batch = synthetic_batch(cfg, BATCH, seed=40,
+                            present_frac=WIDTH_BATCHES[0])
+    state = get_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    c = cfg.replace(precision="fp32", dropout=0.0)
+    _, plain, _ = _train_run(c, state, batch, True)
+    _, kern, _ = _train_run(c, state, batch, False)
+    e_k = _step_errors(kern, plain)
+    keys = sorted((n for n in e_k if "key_proj.linear.weight" in n),
+                  key=e_k.get, reverse=True)
+    print(f"keyprobe d{C} h{H} fp32 dropout 0 ({power}): kernel vs plain "
+          f"{_summary(e_k)}; key_proj weights "
+          + ", ".join(f"{n} {e_k[n]:.3e}" for n in keys[:3]), flush=True)
+    # the worst one's error as a matrix: the share of its squared norm in
+    # the first singular value (1 for a change to one row's cotangent,
+    # an outer product), its top-3 element share, and the tensor's norm
+    # beside its layer's query_proj weight gradient's
+    worst = keys[0]
+    diff = (kern[worst][0] - plain[worst][0]).double()
+    sv = torch.linalg.svdvals(diff)
+    q = worst.replace("key_proj", "query_proj")
+    print(f"keyprobe {worst}: first singular value carries "
+          f"{float(sv[0] ** 2 / (sv ** 2).sum()):.4f} of the error's "
+          f"squared norm, top-3 elements {_error_spike(kern, plain, worst):.4f}"
+          f"; |grad| {float(plain[worst][0].norm()):.3e} against "
+          f"query_proj's {float(plain[q][0].norm()):.3e}", flush=True)
+    for swap in KEYPROBE_SWAPS:
+        _, part, _ = _train_run(c, state, batch, (swap,))
+        e_s = _step_errors(part, plain)
+        print(f"keyprobe {swap} on its plain version: vs plain "
+              f"{_summary(e_s)}; " + ", ".join(
+                  f"{n} {e_s[n]:.3e}" for n in keys[:3]), flush=True)
+        del part
+        gc_collect()
+    del kern, plain
+    gc_collect()
+    g = np.random.default_rng(7)
+    dev = torch.device("cuda")
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(g.standard_normal(shape).astype(
+            np.float32) * scale).to(dev)
+    lens = torch.from_numpy(g.integers(5, TIE_LEN + 1, BATCH)).to(dev) + 5
+    mask = torch.arange(TIE_LEN + 24, device=dev)[None, :] >= lens[:, None]
+    L = TIE_LEN + 24
+    x = t(BATCH, L, C)
+    gam, bet = 1.0 + 0.1 * t(C), 0.1 * t(C)
+    w, b = t(C, 3 * C, scale=C ** -0.5), 0.1 * t(3 * C)
+    dy = t(BATCH, L, C) * (~mask)[..., None]
+    leaves = [x, gam, bet, w, b]
+    xs = [a.double().requires_grad_() for a in leaves]
+    out = _f64_attn_block(*xs, mask, H)
+    ref = torch.autograd.grad(out, xs, dy.double())
+    for label, ctx in (("kernel", contextlib.nullcontext()),
+                       ("plain", ops.reference_path())):
+        xs = [a.clone().requires_grad_() for a in leaves]
+        with ctx:
+            out = ops.attn_block(xs[0], *xs[1:], mask, math.sqrt(C // H), H)
+        got = torch.autograd.grad(out, xs, dy)
+        dw = got[3]
+        print(f"keyprobe attn_block [64,{L},{C}] h{H} fp32 {label} vs "
+              f"float64: dx {_rel(got[0], ref[0]):.3e}, dw q|k|v "
+              + " | ".join(f"{_rel(dw[:, i:i + C], ref[3][:, i:i + C]):.3e}"
+                           for i in range(0, 3 * C, C))
+              + f", dgamma {_rel(got[1], ref[1]):.3e}, out "
+              f"{_rel(out, _f64_attn_block(*leaves, mask, H)):.3e}",
+              flush=True)
+    del out, ref, got
+    gc_collect()
+    F = 4 * C
+    xf = t(BATCH * L, C)
+    fl = [xf, 1.0 + 0.1 * t(C), 0.1 * t(C), t(C, F, scale=C ** -0.5),
+          0.1 * t(F), t(F, C, scale=F ** -0.5), 0.1 * t(C)]
+    dyf = t(BATCH * L, C)
+    xs = [a.double().requires_grad_() for a in fl]
+    ref = torch.autograd.grad(_f64_ffn(*xs), xs, dyf.double())
+    for label, ctx in (("kernel", contextlib.nullcontext()),
+                       ("plain", ops.reference_path())):
+        xs = [a.clone().requires_grad_() for a in fl]
+        with ctx:
+            out = ops.ffn(*xs)
+        got = torch.autograd.grad(out, xs, dyf)
+        print(f"keyprobe ffn [{BATCH * L},{C}] fp32 {label} vs float64: "
+              + ", ".join(f"{n} {_rel(a, r):.3e}" for n, a, r in zip(
+                  ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"),
+                  got, ref)), flush=True)
 
 
 # phase 14 under --mp-size 2 --dp-size 1: the drivers' bodies in two ranks
@@ -3931,9 +4217,11 @@ def ab(root: str, power: str) -> None:
     backwards at [64, 1024, 256] (TIE key mask); the dropout masks and the
     umse forward and backward as a config-4 train step calls them
     (_ab_umse_masks); then one config-4 train step's device busy time, host
-    wall, and the device ms of each of AB_KERNELS in it, and the host-clock
-    ms/step of config 4 and of the cross transformer over AB_STEPS
-    unprofiled train steps. Only the
+    wall, and the device ms of each of AB_KERNELS in it; the device busy
+    time, host wall and tile-map launches of one tri_mbt_vmulti step and
+    one config-4 step at d_model 512 / 4 heads; and the host-clock ms/step
+    of config 4, the cross transformer, tri_mbt_vmulti and config 4 at
+    512 / 4 over AB_STEPS unprofiled train steps. Only the
     wrappers both trees have are called. One process per tree, in turns
     (parent, change, change, parent), each building its kernels into
     <root>/build:
@@ -4036,16 +4324,34 @@ def ab(root: str, power: str) -> None:
           f"({kernels / 1e3:.2f} ms in kernels, copies left out) of "
           f"{wall:.2f} ms host wall; " + ", ".join(
               f"{k} x{n} {t:.3f} ms" for k, (t, n) in sums.items()))
-    for name, argv in (("config4", CONFIG4), ("cross", CROSS)):
+    d512 = CONFIG4 + ["--transformer-dim", "512", "--transformer-num-head",
+                      "4"]
+    for name, argv, frac in (
+            ("config4", CONFIG4, None),
+            ("cross", CROSS, TRAIN_BATCHES["cross"][0]),
+            ("vmulti", MULTI_ARGV["vmulti"], TRAIN_BATCHES["vmulti"][0]),
+            ("config4_d512", d512, WIDTH_BATCHES[0])):
         if name != "config4":
             del trainer, model
-            torch.cuda.empty_cache()
+            gc_collect()
             cfg = parse_config(argv)
             model = get_model(cfg, torch.Generator().manual_seed(0))
             trainer = Trainer(cfg, model, dev, eval_only=False, seed=0)
-            batch = synthetic_batch(cfg, BATCH, seed=10,
-                                    present_frac=TRAIN_BATCHES[name][0])
+            batch = synthetic_batch(cfg, BATCH, seed=10, present_frac=frac)
             trainer.train_step(batch)
+        if name in ("vmulti", "config4_d512"):
+            items, busy, wall = _step_split(trainer.train_step, batch)
+            maps = _by_kernel(items, ("block_tile_map_kernel",)).get(
+                "block_tile_map_kernel", [0.0, 0])
+            out[f"{name}_step"] = {"busy_ms": busy, "wall_ms": wall,
+                                   "tile_maps": maps[1],
+                                   "tile_map_ms": maps[0]}
+            print(f"ab {root}: {name} bf16 train step: device busy "
+                  f"{busy:.2f} ms of {wall:.2f} ms host wall, idle share "
+                  f"{max(0.0, 1 - busy / wall):.3f}; block_tile_map_kernel "
+                  f"x{maps[1]} {maps[0]:.4f} ms; top: " + ", ".join(
+                      f"{key[:40]} x{n} {t / 1e3:.3f}"
+                      for t, n, key in items[:8]))
         ms = _timed_train_ms(trainer, [batch] * AB_STEPS, reference=False)
         out[f"{name}_step_ms"] = ms
         print(f"ab {root}: {name} bf16 train step {ms:.2f} ms (host clock, "
@@ -4086,6 +4392,11 @@ def main() -> None:
         power = check_device()
         build_kernels()
         gradprobe(power)
+        return
+    if len(sys.argv) == 2 and sys.argv[1] == "keyprobe":
+        power = check_device()
+        build_kernels()
+        keyprobe(power)
         return
     if len(sys.argv) == 2 and sys.argv[1] == "tpdrivers":
         power = check_device()

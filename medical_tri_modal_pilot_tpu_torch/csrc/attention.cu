@@ -598,7 +598,7 @@ __global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashFwdBloc
   const int H = gridDim.y, C = H * DH;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const Mask mk = Mask::at(mask, b, Lq, Lk);
+  const Mask mk = Mask::at(mask, nullptr, b, Lq, Lk);
   const int ke = mk.key_end(lane), rows = min(kTile, Lq - q0);
   const size_t col = (size_t)h * DH;
   bf16* ob = out + ((size_t)b * Lq + q0) * C + col;
@@ -618,7 +618,7 @@ __global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashFwdBloc
   const bf16* kb = k + (size_t)b * Lk * C + col;
   const bf16* vb = v + (size_t)b * Lk * C + col;
   if (q0 + 16 * warp >= Lq) {  // the warp's rows all lie past Lq
-    flash_fwd_idle<DH>(fwd_smem, qb, C, kb, vb, C, q0, Lq, Lk, ke);
+    flash_fwd_idle<DH>(fwd_smem, qb, C, kb, vb, C, q0, Lq, Lk, ke, mk);
     return;
   }
   float o[ND][4], m[2], l[2];
@@ -675,7 +675,7 @@ __global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashDkvBloc
   const int H = gridDim.y, C = H * DH;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const Mask mk = Mask::at(mask, b, Lq, Lk);
+  const Mask mk = Mask::at(mask, nullptr, b, Lq, Lk);
   const int ke = mk.key_end(lane), nk = min(kTile, Lk - k0);
   const size_t col = (size_t)h * DH;
   bf16* dkb = dk + ((size_t)b * Lk + k0) * C + col;
@@ -730,7 +730,7 @@ __global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashDqBlock
   const int H = gridDim.y, C = H * DH;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const Mask mk = Mask::at(mask, b, Lq, Lk);
+  const Mask mk = Mask::at(mask, nullptr, b, Lq, Lk);
   const int ke = mk.key_end(lane), nq = min(kTile, Lq - q0);
   const size_t col = (size_t)h * DH;
   bf16* dqb = dq + ((size_t)b * Lq + q0) * C + col;

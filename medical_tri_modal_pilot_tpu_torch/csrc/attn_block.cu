@@ -306,14 +306,16 @@ __global__ void __launch_bounds__(kProjThreads, MINB) block_qkv_tc_kernel(
 // attn [B, L, C] (the pre-residual output) and stats [B, H, L, 2] (the row
 // max m of the scaled scores and l of exp(s - m), floored at 1e-30) of the
 // tile's rows. Dead q tiles copy the residual. Mask: KeyMask over a
-// [B, L] mask or BlockMask over a [B, L, L] one (flash_tc.cuh). grid
-// (ceil(L/64), H, B), kTcThreads threads.
+// [B, L] mask or BlockMask over a [B, L, L] one with its tile map tmap
+// (flash_tc.cuh; NULL: every tile mixed). grid (ceil(L/64), H, B),
+// kTcThreads threads.
 template <int DH, bool TRAIN, class Mask>
 __global__ void __launch_bounds__(kTcThreads) block_attn_tc_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ qkv,
-    const int8_t* __restrict__ mask, const int* __restrict__ kend,
-    bf16* __restrict__ out, bf16* __restrict__ attn,
-    float* __restrict__ stats, int L, int C, float mult) {
+    const int8_t* __restrict__ mask, const int8_t* __restrict__ tmap,
+    const int* __restrict__ kend, bf16* __restrict__ out,
+    bf16* __restrict__ attn, float* __restrict__ stats, int L, int C,
+    float mult) {
   constexpr int ND = DH / 8;
   extern __shared__ __align__(16) unsigned char attn_smem[];
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
@@ -334,7 +336,7 @@ __global__ void __launch_bounds__(kTcThreads) block_attn_tc_kernel(
   const bf16* qb = qkv + (size_t)b * L * N + col0;
   float o[ND][4], m[2], l[2];
   flash_fwd_tile<DH>(attn_smem, qb, N, qb + C, qb + 2 * C, N, q0, L, L, ke,
-                     Mask::at(mask, b, L, L), mult, o, m, l);
+                     Mask::at(mask, tmap, b, L, L), mult, o, m, l);
   const int H = gridDim.y;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -395,9 +397,9 @@ template <int DH, bool TRAIN, class Mask>
 static cudaError_t launch_tc(const void* x, const float* gamma,
                              const float* beta, const void* w,
                              const void* bias, const int8_t* mask,
-                             const int* kend, void* qkv, void* out,
-                             void* attn, float* stats, int B, int L, int C,
-                             float mult, cudaStream_t stream) {
+                             const int8_t* tmap, const int* kend, void* qkv,
+                             void* out, void* attn, float* stats, int B,
+                             int L, int C, float mult, cudaStream_t stream) {
   cudaError_t err = launch_qkv_tc(x, gamma, beta, w, bias, kend, qkv, B, L,
                                   C, stream);
   if (err != cudaSuccess) return err;
@@ -408,16 +410,114 @@ static cudaError_t launch_tc(const void* x, const float* gamma,
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kTile - 1) / kTile, C / DH, B);
   block_attn_tc_kernel<DH, TRAIN, Mask><<<grid, kTcThreads, smem, stream>>>(
-      (const bf16*)x, (const bf16*)qkv, mask, kend, (bf16*)out, (bf16*)attn,
-      stats, L, C, mult);
+      (const bf16*)x, (const bf16*)qkv, mask, tmap, kend, (bf16*)out,
+      (bf16*)attn, stats, L, C, mult);
   return cudaGetLastError();
+}
+
+// The tile map of a block mask (flash_tc.cuh's tile classes), per sample:
+// map [B][ceil(Lq/64)][ceil(Lk/64)], tile (qt, kt) kTileDead when every
+// (query, key) pair of query tile qt and key tile kt inside the array is
+// masked, kTileFull when none is, else kTileMixed; a query tile holding a
+// row whose every key is masked (that row attends uniformly over all
+// keys) has no dead tile. kernels/attn_block.py::block_tile_map is the
+// same function in plain torch. It replaces no TPU kernel (that one skips
+// no tile); bound: bytes, the mask read once (64 x 1016 x 1016 at the vslt
+// stream: 0.020 ms). grid (ceil(Lq/64), B), kThreads threads: a warp a row
+// at a time, four keys a lane (one 32-bit load where Lk % 4 == 0), the
+// loads of kMapChunk x 128 keys issued before any is read (a warp that
+// waited on each load in turn ran 4x its bound), two key tiles a ballot.
+constexpr int kMapMaxTiles = 64;  // key tiles: Lk up to 4096
+constexpr int kMapChunk = 8;      // 32-lane words of a row loaded at once
+__global__ void __launch_bounds__(kThreads) block_tile_map_kernel(
+    const int8_t* __restrict__ mask, int8_t* __restrict__ map, int Lq,
+    int Lk) {
+  constexpr int kWarps = kThreads / 32;
+  // per warp and key tile: bit 0 a live pair seen, bit 1 a masked one
+  __shared__ uint8_t seen[kWarps][kMapMaxTiles];
+  __shared__ int dead_row;
+  const int qt = blockIdx.x, b = blockIdx.y, q0 = qt * kTile;
+  const int nk = (Lk + kTile - 1) / kTile, nw = (Lk + 3) / 4;
+  const bool words = (Lk & 3) == 0 && ((uintptr_t)mask & 3) == 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int i = tid; i < kWarps * kMapMaxTiles; i += kThreads)
+    seen[i / kMapMaxTiles][i % kMapMaxTiles] = 0;
+  if (tid == 0) dead_row = 0;
+  __syncthreads();
+  const int rows = min(kTile, Lq - q0);
+  for (int r = warp; r < rows; r += kWarps) {
+    const int8_t* row = mask + ((size_t)b * Lq + q0 + r) * Lk;
+    bool row_live = false;
+    for (int c0 = 0; c0 < nw; c0 += 32 * kMapChunk) {
+      // keys 4w .. 4w + 3 of the row: their bytes, and which are inside
+      uint32_t v[kMapChunk], inside[kMapChunk];
+#pragma unroll
+      for (int i = 0; i < kMapChunk; ++i) {
+        const int w = c0 + 32 * i + lane;
+        v[i] = 0u;
+        inside[i] = 0u;
+        if (w < nw) {
+          const int n = min(4, Lk - 4 * w);
+          if (words) {
+            v[i] = __ldg(reinterpret_cast<const uint32_t*>(row) + w);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (j < n) v[i] |= (uint32_t)(uint8_t)row[4 * w + j] << (8 * j);
+          }
+          inside[i] = n == 4 ? 0xffffffffu : (1u << (8 * n)) - 1;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMapChunk; ++i) {
+        const uint32_t zero = __vcmpeq4(v[i], 0u) & inside[i];  // live keys
+        const uint32_t live = __ballot_sync(0xffffffffu, zero != 0);
+        const uint32_t masked =
+            __ballot_sync(0xffffffffu, (~zero & inside[i]) != 0);
+        row_live |= live != 0;
+        // lanes 0-15 read one key tile, lanes 16-31 the next
+        const int kt = (c0 + 32 * i) / 16 + lane;
+        if (lane < 2 && kt < nk) {
+          const uint32_t half = lane ? 0xffff0000u : 0x0000ffffu;
+          seen[warp][kt] |=
+              ((live & half) != 0) | ((masked & half) != 0) << 1;
+        }
+      }
+    }
+    if (!row_live && lane == 0) dead_row = 1;
+  }
+  __syncthreads();
+  for (int kt = tid; kt < nk; kt += kThreads) {
+    int any = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) any |= seen[w][kt];
+    int8_t cls = !(any & 1) ? kTileDead : !(any & 2) ? kTileFull : kTileMixed;
+    if (cls == kTileDead && dead_row) cls = kTileMixed;
+    map[((size_t)b * gridDim.x + qt) * nk + kt] = cls;
+  }
 }
 
 }  // namespace mtp
 
+// The tile map of a block mask [B, Lq, Lk] int8 (nonzero = masked) into
+// map int8 [B, ceil(Lq/64), ceil(Lk/64)] (block_tile_map_kernel). Lk <=
+// 4096. Returns cudaGetLastError().
+extern "C" int attn_block_tile_map(const void* mask, void* map, int B,
+                                   int Lq, int Lk, void* stream) {
+  using namespace mtp;
+  if (B <= 0 || Lq <= 0 || Lk <= 0 || Lk > kMapMaxTiles * kTile)
+    return (int)cudaErrorInvalidValue;
+  block_tile_map_kernel<<<dim3((Lq + kTile - 1) / kTile, B), kThreads, 0,
+                          (cudaStream_t)stream>>>((const int8_t*)mask,
+                                                  (int8_t*)map, Lq, Lk);
+  return (int)cudaGetLastError();
+}
+
 // dtype: 0 = fp32 (the FMA kernels), 1 = bf16 (the tensor cores). x, w,
 // bias, qkv, out and attn are in that type; gamma and beta fp32; mask int8
-// (1 = masked), [B, L] or, when block != 0, [B, L, L]; kend int32 [B] (L
+// (1 = masked), [B, L] or, when block != 0, [B, L, L]; tmap: a block
+// mask's tile map (attn_block_tile_map), read by the tensor cores' loops
+// to skip dead tiles, or NULL (every tile read); kend int32 [B] (L
 // for every sample under a block mask); qkv a scratch of [B, L, 3C]
 // (q|k|v). attn [B, L, C] and stats fp32 [B, H, L, 2] are written when
 // attn is not NULL (the training form). C in {64, 128, 256, 512} and
@@ -425,7 +525,8 @@ static cudaError_t launch_tc(const void* x, const float* gamma,
 extern "C" int attn_block_fwd(const void* x, const void* gamma,
                               const void* beta, const void* w,
                               const void* bias, const void* mask,
-                              const void* kend, void* qkv, void* out,
+                              const void* tmap, const void* kend, void* qkv,
+                              void* out,
                               void* attn, void* stats, int B, int L, int C,
                               int H, int block, float mult, int dtype,
                               void* stream) {
@@ -443,7 +544,7 @@ extern "C" int attn_block_fwd(const void* x, const void* gamma,
 #define MTP_ATTN(DH, TR, BL) \
   return (int)launch<float, DH, TR, BL>(x, g, be, w, bias, mk, ke, qkv, out, attn, st, B, L, C, mult, s)
 #define MTP_ATTN_TC(DH, TR, MK) \
-  return (int)launch_tc<DH, TR, MK>(x, g, be, w, bias, mk, ke, qkv, out, attn, st, B, L, C, mult, s)
+  return (int)launch_tc<DH, TR, MK>(x, g, be, w, bias, mk, (const int8_t*)tmap, ke, qkv, out, attn, st, B, L, C, mult, s)
 #define MTP_FORMS(DH)                                                    \
   if (dtype == 0 && dh == DH) {                                          \
     if (block) { if (train) MTP_ATTN(DH, true, true); MTP_ATTN(DH, false, true); } \

@@ -539,8 +539,9 @@ __global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashDkvBloc
     block_dkv_tc_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ dy,
     const float* __restrict__ stats, const float* __restrict__ delta,
-    const int8_t* __restrict__ mask, const int* __restrict__ kend,
-    bf16* __restrict__ dqkv, int L, int C, float mult) {
+    const int8_t* __restrict__ mask, const int8_t* __restrict__ tmap,
+    const int* __restrict__ kend, bf16* __restrict__ dqkv, int L, int C,
+    float mult) {
   constexpr int ND = DH / 8;
   extern __shared__ __align__(16) unsigned char dkv_smem[];
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kTile;
@@ -565,7 +566,7 @@ __global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashDkvBloc
   flash_dkv_tile<DH, kSplitDs<Mask>>(
       dkv_smem, qb, N, qb + C, qb + 2 * C, N, dy + (size_t)b * L * C + col0,
       C, stats + bh * L * 2, delta + bh * L, k0, L, L, ke,
-      Mask::at(mask, b, L, L), mult, dk, dv);
+      Mask::at(mask, tmap, b, L, L), mult, dk, dv);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int key = k0 + 16 * warp + g + 8 * hh;
@@ -591,8 +592,9 @@ __global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashDqBlock
     block_dq_tc_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ dy,
     const float* __restrict__ stats, const float* __restrict__ delta,
-    const int8_t* __restrict__ mask, const int* __restrict__ kend,
-    bf16* __restrict__ dqkv, int L, int C, float mult) {
+    const int8_t* __restrict__ mask, const int8_t* __restrict__ tmap,
+    const int* __restrict__ kend, bf16* __restrict__ dqkv, int L, int C,
+    float mult) {
   constexpr int ND = DH / 8;
   extern __shared__ __align__(16) unsigned char dq_smem[];
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
@@ -616,7 +618,7 @@ __global__ void __launch_bounds__(kTcThreads, flash_min_blocks(DH, kFlashDqBlock
   flash_dq_tile<DH, kSplitDs<Mask>>(
       dq_smem, qb, N, qb + C, qb + 2 * C, N, dy + (size_t)b * L * C + col0,
       C, stats + bh * L * 2, delta + bh * L, q0, L, L, ke,
-      Mask::at(mask, b, L, L), mult, dq);
+      Mask::at(mask, tmap, b, L, L), mult, dq);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int q = q0 + 16 * warp + g + 8 * hh;
@@ -669,8 +671,9 @@ template <int DH, class Mask>
 static cudaError_t launch_attn_tc(const void* qkv, const void* dy,
                                   const void* attn, const float* stats,
                                   float* delta, const int8_t* mask,
-                                  const int* kend, void* dqkv, int B, int L,
-                                  int C, float mult, cudaStream_t stream) {
+                                  const int8_t* tmap, const int* kend,
+                                  void* dqkv, int B, int L, int C, float mult,
+                                  cudaStream_t stream) {
   const int tiles = (L + kTile - 1) / kTile;
   block_delta_kernel<DH><<<dim3(tiles, B), kThreads, 0, stream>>>(
       (const bf16*)dy, (const bf16*)attn, kend, delta, L, C, C / DH);
@@ -683,7 +686,7 @@ static cudaError_t launch_attn_tc(const void* qkv, const void* dy,
                              smem_kv);
   if (err != cudaSuccess) return err;
   block_dkv_tc_kernel<DH, Mask><<<grid, kTcThreads, smem_kv, stream>>>(
-      (const bf16*)qkv, (const bf16*)dy, stats, delta, mask, kend,
+      (const bf16*)qkv, (const bf16*)dy, stats, delta, mask, tmap, kend,
       (bf16*)dqkv, L, C, mult);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -692,7 +695,7 @@ static cudaError_t launch_attn_tc(const void* qkv, const void* dy,
                              smem_q);
   if (err != cudaSuccess) return err;
   block_dq_tc_kernel<DH, Mask><<<grid, kTcThreads, smem_q, stream>>>(
-      (const bf16*)qkv, (const bf16*)dy, stats, delta, mask, kend,
+      (const bf16*)qkv, (const bf16*)dy, stats, delta, mask, tmap, kend,
       (bf16*)dqkv, L, C, mult);
   return cudaGetLastError();
 }
@@ -718,7 +721,8 @@ static cudaError_t launch_ln_tc(const void* x, const float* gamma,
 
 static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
                                  const float* beta, const void* w,
-                                 const int8_t* mask, const int* kend,
+                                 const int8_t* mask, const int8_t* tmap,
+                                 const int* kend,
                                  const void* attn, const float* stats,
                                  const void* dy, const void* qkv,
                                  float* delta, void* dqkv, void* ln_o,
@@ -728,7 +732,7 @@ static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
   const int dh = C / H;
   cudaError_t err = cudaErrorInvalidValue;
 #define MTP_DQKV_TC(DH, MK) \
-  err = launch_attn_tc<DH, MK>(qkv, dy, attn, stats, delta, mask, kend, dqkv, B, L, C, mult, stream)
+  err = launch_attn_tc<DH, MK>(qkv, dy, attn, stats, delta, mask, tmap, kend, dqkv, B, L, C, mult, stream)
   if (dh == 128 && block) MTP_DQKV_TC(128, BlockMask);
   else if (dh == 128) MTP_DQKV_TC(128, KeyMask);
   else if (dh == 64 && block) MTP_DQKV_TC(64, BlockMask);
@@ -750,14 +754,17 @@ static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
 // dtype: 0 = fp32 (the FMA kernels), 1 = bf16 (the tensor cores) for x,
 // w [C, 3C], attn, dy, qkv, dqkv, ln_o and dx ([B, L, C] or [B, L, 3C]);
 // gamma, beta and stats ([B, H, L, 2]) fp32; mask int8, [B, L] or, when
-// block != 0, [B, L, L]; kend int32 [B] (L for every sample under a block
-// mask); qkv from attn_block_qkv; delta: fp32 scratch [B, H, L] for bf16
+// block != 0, [B, L, L]; tmap: a block mask's tile map
+// (attn_block_tile_map) for the tensor cores' loops, or NULL; kend int32
+// [B] (L for every sample under a block mask); qkv from attn_block_qkv;
+// delta: fp32 scratch [B, H, L] for bf16
 // (unused for fp32, may be NULL). Writes dqkv, ln_o, dx and gpart fp32
 // [B * ceil(L/64), 2C]. C in {64, 128, 256, 512}, C / H in {32, 64, 128}.
 // Returns cudaGetLastError().
 extern "C" int attn_block_bwd(const void* x, const void* gamma,
                               const void* beta, const void* w,
-                              const void* mask, const void* kend,
+                              const void* mask, const void* tmap,
+                              const void* kend,
                               const void* attn, const void* stats,
                               const void* dy, const void* qkv, void* delta,
                               void* dqkv, void* ln_o, void* dx, void* gpart,
@@ -776,6 +783,6 @@ extern "C" int attn_block_bwd(const void* x, const void* gamma,
   if (dtype == 0)
     return (int)launch_bwd<float>(x, g, be, w, mk, ke, attn, st, dy, qkv, dqkv, ln_o, dx, gp, B, L, C, H, block != 0, mult, s);
   if (dtype == 1 && delta != nullptr)
-    return (int)launch_bwd_tc(x, g, be, w, mk, ke, attn, st, dy, qkv, (float*)delta, dqkv, ln_o, dx, gp, B, L, C, H, block != 0, mult, s);
+    return (int)launch_bwd_tc(x, g, be, w, mk, (const int8_t*)tmap, ke, attn, st, dy, qkv, (float*)delta, dqkv, ln_o, dx, gp, B, L, C, H, block != 0, mult, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -123,6 +123,42 @@ static __device__ __forceinline__ bool dropout_keep(uint2 key, uint32_t thr,
   return u < thr;
 }
 
+// dropout_keep of columns 4 c4 .. 4 c4 + 3 of `row` from one draw: bit i
+// for column 4 c4 + i
+static __device__ __forceinline__ uint32_t dropout_keep4(uint2 key,
+                                                         uint32_t thr, int m,
+                                                         int row, int c4) {
+  const uint4 r = philox4x32_10(
+      make_uint4((uint32_t)c4, (uint32_t)row, (uint32_t)m, 0u), key);
+  return (uint32_t)(r.x < thr) | (uint32_t)(r.y < thr) << 1 |
+         (uint32_t)(r.z < thr) << 2 | (uint32_t)(r.w < thr) << 3;
+}
+
+// dropout_keep of a lane's C fragment: rows row and row + 8 at columns col
+// and col + 1 (col even), bits 0-3 in that order. The lanes l and l ^ 1 of
+// an mma or wgmma fragment hold the two halves of one four-column group
+// in the same rows, so each draws one of the two rows' words and they
+// trade the halves by a shuffle: a draw per four elements. Called by all
+// 32 lanes of the warp together.
+static __device__ __forceinline__ uint32_t dropout_keep_frag(uint2 key,
+                                                             uint32_t thr,
+                                                             int m, int row,
+                                                             int col) {
+  const bool hi = (col >> 1) & 1;  // this lane's columns: words 2 and 3
+  const uint4 r = philox4x32_10(
+      make_uint4((uint32_t)col >> 2, (uint32_t)(row + (hi ? 8 : 0)),
+                 (uint32_t)m, 0u),
+      key);
+  // the low lane drew `row` and sends its words 2, 3; the high lane drew
+  // row + 8 and sends its words 0, 1
+  const uint32_t o0 = __shfl_xor_sync(0xffffffffu, hi ? r.x : r.z, 1);
+  const uint32_t o1 = __shfl_xor_sync(0xffffffffu, hi ? r.y : r.w, 1);
+  const uint32_t w0 = hi ? o0 : r.x, w1 = hi ? o1 : r.y;  // row
+  const uint32_t w2 = hi ? r.z : o0, w3 = hi ? r.w : o1;  // row + 8
+  return (uint32_t)(w0 < thr) | (uint32_t)(w1 < thr) << 1 |
+         (uint32_t)(w2 < thr) << 2 | (uint32_t)(w3 < thr) << 3;
+}
+
 // Rows [row0, row0 + kTile) of a row-major [nrows, C] matrix through the
 // reference's StdLayerNorm (Bessel std, eps added to the std, variance
 // floor), rounded to T, into dst[kTile][lda] fp32. Rows past nrows are

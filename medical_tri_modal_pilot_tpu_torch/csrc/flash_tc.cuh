@@ -161,15 +161,22 @@ static __device__ __forceinline__ void pad_words(int live, int t,
 //     against key c0 + g + 8 h.
 // Pairs past the arrays read as unmasked. Called by a whole warp (the
 // ballots). key_end(lane): the key loop's bound (scan_key_end for a key
-// mask, else Lk). at(mask, b, Lq, Lk): the provider of sample b from a
-// [B, Lk] or [B, Lq, Lk] int8 mask.
+// mask, else Lk). tile(qt, kt): the class of the 64 x 64 tile of query
+// tile qt and key tile kt (kTileDead: every pair masked, the loops skip
+// it; kTileFull: none, rows() and cols() are not called; kTileMixed: the
+// masked bits are read). at(mask, tmap, b, Lq, Lk): the provider of sample
+// b from a [B, Lk] or [B, Lq, Lk] int8 mask and, for a block mask, its
+// tile map (or NULL: every tile mixed).
+constexpr int8_t kTileDead = 0, kTileFull = 1, kTileMixed = 2;
+
 struct NoMask {
   int Lk;
-  static __device__ __forceinline__ NoMask at(const int8_t*, int, int,
-                                              int Lk) {
+  static __device__ __forceinline__ NoMask at(const int8_t*, const int8_t*,
+                                              int, int, int Lk) {
     return NoMask{Lk};
   }
   __device__ __forceinline__ int key_end(int) const { return Lk; }
+  __device__ __forceinline__ int tile(int, int) const { return kTileFull; }
   __device__ __forceinline__ void rows(int, int, int, uint32_t (&lo)[2],
                                        uint32_t (&hi)[2]) const {
     lo[0] = lo[1] = hi[0] = hi[1] = 0u;
@@ -182,13 +189,15 @@ struct NoMask {
 struct KeyMask {
   const int8_t* __restrict__ mb;
   int Lk;
-  static __device__ __forceinline__ KeyMask at(const int8_t* mask, int b,
-                                               int, int Lk) {
+  static __device__ __forceinline__ KeyMask at(const int8_t* mask,
+                                               const int8_t*, int b, int,
+                                               int Lk) {
     return KeyMask{mask + (size_t)b * Lk, Lk};
   }
   __device__ __forceinline__ int key_end(int lane) const {
     return scan_key_end(mb, Lk, lane);
   }
+  __device__ __forceinline__ int tile(int, int) const { return kTileMixed; }
   __device__ __forceinline__ void rows(int, int k0, int lane,
                                        uint32_t (&lo)[2],
                                        uint32_t (&hi)[2]) const {
@@ -209,15 +218,24 @@ struct KeyMask {
 
 // a block mask: mb one sample's int8 [Lq][Lk], nonzero = masked; a 64-bit
 // span per (query row, 64 keys) or (key, 64 query rows) by ballot over the
-// lanes, each lane keeping the two it needs
+// lanes, each lane keeping the two it needs. tm: the sample's tile map
+// [ceil(Lq/64)][nk] (block_tile_map_kernel, attn_block.cu), or NULL
 struct BlockMask {
   const int8_t* __restrict__ mb;
-  int Lq, Lk;
-  static __device__ __forceinline__ BlockMask at(const int8_t* mask, int b,
+  const int8_t* __restrict__ tm;
+  int Lq, Lk, nk;
+  static __device__ __forceinline__ BlockMask at(const int8_t* mask,
+                                                 const int8_t* tmap, int b,
                                                  int Lq, int Lk) {
-    return BlockMask{mask + (size_t)b * Lq * Lk, Lq, Lk};
+    const int nq = (Lq + kTile - 1) / kTile, nk = (Lk + kTile - 1) / kTile;
+    return BlockMask{mask + (size_t)b * Lq * Lk,
+                     tmap ? tmap + (size_t)b * nq * nk : nullptr, Lq, Lk,
+                     nk};
   }
   __device__ __forceinline__ int key_end(int) const { return Lk; }
+  __device__ __forceinline__ int tile(int qt, int kt) const {
+    return tm ? tm[qt * nk + kt] : kTileMixed;
+  }
   __device__ __forceinline__ void rows(int r0, int k0, int lane,
                                        uint32_t (&lo)[2],
                                        uint32_t (&hi)[2]) const {
@@ -252,15 +270,31 @@ struct BlockMask {
   }
 };
 
-// key tile kt (keys kt * 64 ..) of k and v into its stage of a two-stage
+// the first key tile at or after kt, below nkt, that is not dead for q
+// tile qt (nkt if none); the first q tile at or after qt, below nqt, in
+// which key tile kt is not dead
+template <class Mask>
+static __device__ __forceinline__ int next_key(const Mask& mask, int qt,
+                                               int kt, int nkt) {
+  while (kt < nkt && mask.tile(qt, kt) == kTileDead) ++kt;
+  return kt;
+}
+template <class Mask>
+static __device__ __forceinline__ int next_query(const Mask& mask, int qt,
+                                                 int kt, int nqt) {
+  while (qt < nqt && mask.tile(qt, kt) == kTileDead) ++qt;
+  return qt;
+}
+
+// key tile kt (keys kt * 64 ..) of k and v into stage st of a two-stage
 // [2][k, v][64][pitch] ring, by the whole block
 template <int DH>
 static __device__ __forceinline__ void stage_kv(bf16* ring,
                                                 const bf16* __restrict__ k,
                                                 const bf16* __restrict__ v,
-                                                int kt, int Lk, int ldkv,
-                                                int tid) {
-  bf16* dst = ring + (kt & 1) * 2 * kTile * pitch(DH);
+                                                int kt, int st, int Lk,
+                                                int ldkv, int tid) {
+  bf16* dst = ring + st * 2 * kTile * pitch(DH);
   stage_head<DH>(dst, k, kt * kTile, Lk, ldkv, tid);
   stage_head<DH>(dst + kTile * pitch(DH), v, kt * kTile, Lk, ldkv, tid);
 }
@@ -268,9 +302,13 @@ static __device__ __forceinline__ void stage_kv(bf16* ring,
 // The forward of q rows [q0, q0 + 64) of one (sample, head) against keys
 // [0, ke): o = sum over keys of P v (P = exp(s - m) rounded to bf16, not
 // yet divided by l), the row max m and l = sum of the fp32 exp(s - m), for
-// the lane's rows 16 w + g (index 0) and + 8 (index 1). smem: attn_tc_smem
-// bytes. Every warp of the block calls it, or flash_fwd_idle with the same
-// arguments (a warp whose rows all lie past Lq may: its share of the
+// the lane's rows 16 w + g (index 0) and + 8 (index 1). Key tiles dead for
+// this q tile are skipped (their pairs would add exp(-65504 - m) = 0, or,
+// ahead of a live tile, be scaled away by exp(-65504 - m) = 0; a q tile
+// holding a row with every key masked has no dead tile, block_tile_map);
+// full tiles read no mask bits. smem: attn_tc_smem bytes. Every warp of
+// the block calls it, or flash_fwd_idle with the same arguments and mask
+// (a warp whose rows all lie past Lq may: its share of the
 // staging and the barriers, no products; a branch inside the products'
 // loop cost the attention block's forward 5 %).
 template <int DH, class Mask>
@@ -284,9 +322,10 @@ static __device__ __forceinline__ void flash_fwd_tile(
   bf16* kvs = qs + TILE;                      // [2][k, v][64][LD]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
-  const int nkt = (ke + kTile - 1) / kTile;
+  const int qt = q0 / kTile, nkt = (ke + kTile - 1) / kTile;
+  int kt = next_key(mask, qt, 0, nkt);
   stage_head<DH>(qs, q, q0, Lq, ldq, tid);
-  stage_kv<DH>(kvs, k, v, 0, Lk, ldkv, tid);
+  if (kt < nkt) stage_kv<DH>(kvs, k, v, kt, 0, Lk, ldkv, tid);
   cp_async_commit();
 #pragma unroll
   for (int j = 0; j < ND; ++j)
@@ -295,22 +334,25 @@ static __device__ __forceinline__ void flash_fwd_tile(
   m[0] = m[1] = -INFINITY;
   l[0] = l[1] = 0.0f;
   uint32_t qf[DH / 16][4];
-  for (int kt = 0; kt < nkt; ++kt) {
+  for (int it = 0; kt < nkt; ++it) {
     cp_async_wait<0>();
-    // tile kt has landed; every warp is done with tile kt - 1
+    // tile kt has landed; every warp is done with the previous one
     __syncthreads();
-    if (kt + 1 < nkt) stage_kv<DH>(kvs, k, v, kt + 1, Lk, ldkv, tid);
+    const int nxt = next_key(mask, qt, kt + 1, nkt);
+    if (nxt < nkt)
+      stage_kv<DH>(kvs, k, v, nxt, (it + 1) & 1, Lk, ldkv, tid);
     cp_async_commit();
-    if (kt == 0) {
+    if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk)
         ldsm_x4(qf[kk], frag_a(qs, LD, 16 * warp, 16 * kk, lane));
     }
-    const bf16* ks = kvs + (kt & 1) * 2 * TILE;
+    const bf16* ks = kvs + (it & 1) * 2 * TILE;
     const bf16* vs = ks + TILE;
     // the lane's masked pairs, and its keys past Lk (the last tile's)
-    uint32_t mlo[2], mhi[2], plo, phi;
-    mask.rows(q0 + 16 * warp, kt * kTile, lane, mlo, mhi);
+    uint32_t mlo[2] = {0u, 0u}, mhi[2] = {0u, 0u}, plo, phi;
+    if (mask.tile(qt, kt) == kTileMixed)
+      mask.rows(q0 + 16 * warp, kt * kTile, lane, mlo, mhi);
     pad_words(Lk - kt * kTile, t, plo, phi);
     float s[8][4];
 #pragma unroll
@@ -380,35 +422,42 @@ static __device__ __forceinline__ void flash_fwd_tile(
         mma16816(o[2 * dp + 1], a, bv[2], bv[3]);
       }
     }
+    kt = nxt;
   }
   cp_async_wait<0>();
 }
 
 // flash_fwd_tile's staging and barriers without its products, for a warp
 // whose 16 q rows all lie past Lq
-template <int DH>
+template <int DH, class Mask>
 static __device__ __forceinline__ void flash_fwd_idle(
     unsigned char* smem, const bf16* __restrict__ q, int ldq,
     const bf16* __restrict__ k, const bf16* __restrict__ v, int ldkv, int q0,
-    int Lq, int Lk, int ke) {
+    int Lq, int Lk, int ke, const Mask& mask) {
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* kvs = qs + kTile * pitch(DH);
-  const int tid = threadIdx.x, nkt = (ke + kTile - 1) / kTile;
+  const int tid = threadIdx.x, qt = q0 / kTile;
+  const int nkt = (ke + kTile - 1) / kTile;
+  int kt = next_key(mask, qt, 0, nkt);
   stage_head<DH>(qs, q, q0, Lq, ldq, tid);
-  stage_kv<DH>(kvs, k, v, 0, Lk, ldkv, tid);
+  if (kt < nkt) stage_kv<DH>(kvs, k, v, kt, 0, Lk, ldkv, tid);
   cp_async_commit();
-  for (int kt = 0; kt < nkt; ++kt) {
+  for (int it = 0; kt < nkt; ++it) {
     cp_async_wait<0>();
     __syncthreads();
-    if (kt + 1 < nkt) stage_kv<DH>(kvs, k, v, kt + 1, Lk, ldkv, tid);
+    kt = next_key(mask, qt, kt + 1, nkt);
+    if (kt < nkt)
+      stage_kv<DH>(kvs, k, v, kt, (it + 1) & 1, Lk, ldkv, tid);
     cp_async_commit();
   }
   cp_async_wait<0>();
 }
 
 // dK and dV of keys [k0, k0 + 64) of one (sample, head), summed over the q
-// tiles that start before qe (rows past Lq add nothing), for the lane's
-// keys 16 w + g (index 0) and + 8 (index 1). S^T = K Q^T and dP^T = V dO^T
+// tiles that start before qe (rows past Lq add nothing) and in which the
+// key tile is not dead (there every p is 0 and every dS masked; full
+// tiles read no mask bits), for the lane's keys 16 w + g (index 0) and
+// + 8 (index 1). S^T = K Q^T and dP^T = V dO^T
 // per warp (16 keys x 64 q rows), P^T and dS^T on the fragments, rounded
 // to bf16 into the A fragments of dV += P^T dO and dK += dS^T Q (dS^T in
 // two bf16 parts with SPLIT). smem: dkv_tc_smem bytes.
@@ -427,12 +476,15 @@ static __device__ __forceinline__ void flash_dkv_tile(
   float* rowv = reinterpret_cast<float*>(ring + 4 * TILE);  // [2][3][64]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
-  const int nqt = (qe + kTile - 1) / kTile;
+  const int kt = k0 / kTile, nqt = (qe + kTile - 1) / kTile;
   const bool active = k0 + 16 * warp < Lk;
+  int qt = next_query(mask, 0, kt, nqt);
   stage_head<DH>(ks, k, k0, Lk, ldkv, tid);
   stage_head<DH>(vs, v, k0, Lk, ldkv, tid);
-  stage_head<DH>(ring, q, 0, Lq, ldq, tid);
-  stage_head<DH>(ring + TILE, dout, 0, Lq, ldo, tid);
+  if (qt < nqt) {
+    stage_head<DH>(ring, q, qt * kTile, Lq, ldq, tid);
+    stage_head<DH>(ring + TILE, dout, qt * kTile, Lq, ldo, tid);
+  }
   cp_async_commit();
   // the rows' m, 1 / l and delta of q tile qt (rows past Lq: p is 0)
   float rm = 0.0f, ril = 1.0f, rdl = 0.0f;
@@ -454,28 +506,31 @@ static __device__ __forceinline__ void flash_dkv_tile(
       rowv[st * 3 * kTile + 2 * kTile + tid] = rdl;
     }
   };
-  row_scalars(0);
-  put_scalars(0);
+  if (qt < nqt) {
+    row_scalars(qt);
+    put_scalars(0);
+  }
   uint32_t vf[DH / 16][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.0f;
-  for (int qt = 0; qt < nqt; ++qt) {
-    const int st = qt & 1;
+  for (int it = 0; qt < nqt; ++it) {
+    const int st = it & 1;
     cp_async_wait<0>();
-    // q tile qt has landed with its scalars; every warp is done with tile
-    // qt - 1, whose stage is refilled next
+    // q tile qt has landed with its scalars; every warp is done with the
+    // previous one, whose stage is refilled next
     __syncthreads();
-    if (qt + 1 < nqt) {
+    const int nq = next_query(mask, qt + 1, kt, nqt);
+    if (nq < nqt) {
       bf16* nxt = ring + (st ^ 1) * 2 * TILE;
-      stage_head<DH>(nxt, q, (qt + 1) * kTile, Lq, ldq, tid);
-      stage_head<DH>(nxt + TILE, dout, (qt + 1) * kTile, Lq, ldo, tid);
-      row_scalars(qt + 1);
+      stage_head<DH>(nxt, q, nq * kTile, Lq, ldq, tid);
+      stage_head<DH>(nxt + TILE, dout, nq * kTile, Lq, ldo, tid);
+      row_scalars(nq);
     }
     cp_async_commit();
     if (active) {
-      if (qt == 0) {
+      if (it == 0) {
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk)
           ldsm_x4(vf[kk], frag_a(vs, LD, 16 * warp, 16 * kk, lane));
@@ -508,7 +563,9 @@ static __device__ __forceinline__ void flash_dkv_tile(
       // test: their k, v, q and dO rows are zero-filled and such q rows
       // take m = 0, 1 / l = 1, delta = 0, so they add nothing to a live
       // key, and a padded key's own rows are never stored.
-      const uint32_t mbits = mask.cols(q0, k0 + 16 * warp, lane);
+      const uint32_t mbits = mask.tile(qt, kt) == kTileMixed
+                                 ? mask.cols(q0, k0 + 16 * warp, lane)
+                                 : 0u;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -568,13 +625,16 @@ static __device__ __forceinline__ void flash_dkv_tile(
         }
       }
     }
-    if (qt + 1 < nqt) put_scalars(st ^ 1);
+    if (nq < nqt) put_scalars(st ^ 1);
+    qt = nq;
   }
   cp_async_wait<0>();
 }
 
 // dQ of q rows [q0, q0 + 64) of one (sample, head), summed over keys
-// [0, ke), for the lane's rows 16 w + g (index 0) and + 8 (index 1): per
+// [0, ke) in the key tiles not dead for this q tile (a masked pair has no
+// score gradient; full tiles read no mask bits), for the lane's rows
+// 16 w + g (index 0) and + 8 (index 1): per
 // block of 16 keys S = Q K^T and dP = dO V^T, dS on the fragments, then
 // dQ += dS K with dS rounded to bf16 (two parts with SPLIT; K through
 // ldmatrix.trans). smem: dq_tc_smem bytes.
@@ -591,11 +651,12 @@ static __device__ __forceinline__ void flash_dq_tile(
   bf16* ring = dos + TILE;  // [2][k, v][64][LD]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int nkt = (ke + kTile - 1) / kTile;
+  const int qt = q0 / kTile, nkt = (ke + kTile - 1) / kTile;
   const bool active = q0 + 16 * warp < Lq;
+  int kt = next_key(mask, qt, 0, nkt);
   stage_head<DH>(qs, q, q0, Lq, ldq, tid);
   stage_head<DH>(dos, dout, q0, Lq, ldo, tid);
-  stage_kv<DH>(ring, k, v, 0, Lk, ldkv, tid);
+  if (kt < nkt) stage_kv<DH>(ring, k, v, kt, 0, Lk, ldkv, tid);
   cp_async_commit();
   // m, 1 / l and delta of the lane's rows 16 w + g and + 8 (rows past Lq:
   // 0, 1, 0)
@@ -617,20 +678,23 @@ static __device__ __forceinline__ void flash_dq_tile(
   for (int j = 0; j < ND; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[j][e] = 0.0f;
-  for (int kt = 0; kt < nkt; ++kt) {
+  for (int it = 0; kt < nkt; ++it) {
     cp_async_wait<0>();
     __syncthreads();
-    if (kt + 1 < nkt) stage_kv<DH>(ring, k, v, kt + 1, Lk, ldkv, tid);
+    const int cur = kt;
+    kt = next_key(mask, qt, kt + 1, nkt);
+    if (kt < nkt)
+      stage_kv<DH>(ring, k, v, kt, (it + 1) & 1, Lk, ldkv, tid);
     cp_async_commit();
     if (!active) continue;
-    if (kt == 0) {
+    if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
         ldsm_x4(qf[kk], frag_a(qs, LD, 16 * warp, 16 * kk, lane));
         ldsm_x4(of[kk], frag_a(dos, LD, 16 * warp, 16 * kk, lane));
       }
     }
-    const bf16* ks = ring + (kt & 1) * 2 * TILE;
+    const bf16* ks = ring + (it & 1) * 2 * TILE;
     const bf16* vs = ks + TILE;
     // the lane's pairs with a score gradient: the key unmasked and within
     // Lk (a padded key's p may overflow where m = -65504, and 0 * inf
@@ -638,9 +702,10 @@ static __device__ __forceinline__ void flash_dq_tile(
     // are zero-filled with m = 0, 1 / l = 1, delta = 0, so dS is 0 there.
     uint32_t dead;
     {
-      uint32_t mlo[2], mhi[2], plo, phi;
-      mask.rows(q0 + 16 * warp, kt * kTile, lane, mlo, mhi);
-      pad_words(Lk - kt * kTile, t, plo, phi);
+      uint32_t mlo[2] = {0u, 0u}, mhi[2] = {0u, 0u}, plo, phi;
+      if (mask.tile(qt, cur) == kTileMixed)
+        mask.rows(q0 + 16 * warp, cur * kTile, lane, mlo, mhi);
+      pad_words(Lk - cur * kTile, t, plo, phi);
       const uint32_t pz = frag_bits(plo, phi);
       dead = (frag_bits(mlo[0], mhi[0]) | pz) |
              (frag_bits(mlo[1], mhi[1]) | pz) << 16;

@@ -306,14 +306,11 @@ static __device__ __forceinline__ void proj_fwd_tile(
 //                 + dy), dy from dyt) and the tile's column sums of
 //                 dA * xhat | dA into gp[0, 2C).
 // xt, dyt, dxt, lnt: the tile's first row (row stride C); rows past
-// `rows` are zero-filled and not stored. N % 32 == 0. With RES, when
-// (N / 32) % kLnBwdStages == 0 the last chunk runs in the ring's last
-// stage and dy is staged into the first two during it; otherwise (the
-// FFN's split route: N = 4C) the epilogue reads dy from device memory.
-// RND_LN false adds dy to the unrounded dx_ln (ffn.cu's rounding, once)
-// in place of round(round(dx_ln) + dy). Every thread of the block
-// (kThreads) calls it.
-template <int NJC, bool LN, bool RES, bool RND_LN = true, typename Cot>
+// `rows` are zero-filled and not stored. N % 32 == 0; with RES, (N / 32)
+// % kLnBwdStages == 0 (the attention block's N = 3C): the last chunk runs
+// in the ring's last stage and dy is staged into the first two during
+// it. Every thread of the block (kThreads) calls it.
+template <int NJC, bool LN, bool RES, typename Cot>
 static __device__ __forceinline__ void proj_bwd_tile(
     unsigned char* smem, const bf16* __restrict__ xt, int rows,
     const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -333,7 +330,6 @@ static __device__ __forceinline__ void proj_bwd_tile(
   float* stats = reinterpret_cast<float*>(ring + kLnBwdStages * STAGE);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nch = N / KC;
-  const bool stage_dy = RES && nch % kLnBwdStages == 0;
   auto load = [&](int it) {
     bf16* a = ring + (it % kLnBwdStages) * STAGE;
     stage_rows<KC, kThreads>(a, LDK, cot.at(0, it * KC), cot.stride(),
@@ -369,7 +365,7 @@ static __device__ __forceinline__ void proj_bwd_tile(
     __syncthreads();
     if (it + 2 < nch)
       load(it + 2);
-    else if (stage_dy && it == nch - 1)
+    else if (RES && it == nch - 1)
       stage_rows<C, kThreads>(ring, LDC, dyt, C, kTile, rows, tid);
     cp_async_commit();
     const bf16* as = ring + (it % kLnBwdStages) * STAGE;
@@ -475,12 +471,8 @@ static __device__ __forceinline__ void proj_bwd_tile(
         const float xhat = (bf(xs[r * LDC + col + e]) - mu) * c;
         const float dxhat = dln[j][2 * h + e] * gamma[col + e];
         const float d0 = c * (dxhat - mean) - k2 * (xhat / c);
-        const float d = RND_LN ? rnd<bf16>(d0) : d0;
-        float dyv = 0.0f;
-        if (RES)
-          dyv = stage_dy ? bf(dys[r * LDC + col + e])
-                         : bf(dyt[(size_t)r * C + col + e]);
-        o[e] = RES ? dyv + d : d;
+        const float d = rnd<bf16>(d0);
+        o[e] = RES ? bf(dys[r * LDC + col + e]) + d : d;
       }
       *reinterpret_cast<uint32_t*>(dxt + (size_t)r * C + col) =
           pack_bf16(o[0], o[1]);

@@ -34,14 +34,16 @@ _U32 = ctypes.c_uint32
 # cudaGetLastError(), the *_smem entries a byte count, the *_min_blocks
 # entries the blocks an SM a kernel's launch bounds ask for
 _SIGNATURES = {
-    # x, gamma, beta, w, bias, mask, kend, qkv, out, attn, stats, B, L, C,
-    # H, block, mult, dtype, stream
-    "attn_block_fwd": [_P] * 11 + [_I] * 5 + [_F, _I, _P],
+    # x, gamma, beta, w, bias, mask, tmap, kend, qkv, out, attn, stats, B,
+    # L, C, H, block, mult, dtype, stream
+    "attn_block_fwd": [_P] * 12 + [_I] * 5 + [_F, _I, _P],
+    # mask, map, B, Lq, Lk, stream
+    "attn_block_tile_map": [_P] * 2 + [_I] * 3 + [_P],
     # x, gamma, beta, w, bias, kend, qkv, B, L, C, dtype, stream
     "attn_block_qkv": [_P] * 7 + [_I] * 4 + [_P],
-    # x, gamma, beta, w, mask, kend, attn, stats, dy, qkv, delta, dqkv,
-    # ln_o, dx, gpart, B, L, C, H, block, mult, dtype, stream
-    "attn_block_bwd": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
+    # x, gamma, beta, w, mask, tmap, kend, attn, stats, dy, qkv, delta,
+    # dqkv, ln_o, dx, gpart, B, L, C, H, block, mult, dtype, stream
+    "attn_block_bwd": [_P] * 16 + [_I] * 5 + [_F, _I, _P],
     # kernel, C, dh -> shared-memory bytes of a tensor-core kernel
     "attn_block_tc_smem": [_I] * 3,
     "attn_block_tc_min_blocks": [_I] * 3,
@@ -57,8 +59,10 @@ _SIGNATURES = {
     # x, gamma, beta, w1, b1, w2, b2, valid, ln, hidden, y, R, C, F, seed,
     # thr, q_t, drop, dtype, stream
     "ffn_split_fwd": [_P] * 11 + [_I] * 3 + [_U64, _U32, _F, _I, _I, _P],
-    # as ffn_bwd
-    "ffn_split_bwd": [_P] * 14 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
+    # as ffn_bwd, with the fp32 dln scratch before gpart
+    "ffn_split_bwd": [_P] * 15 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
+    # a, b, R, Ka, Nb, valid, part, colpart, rows_per_slice, S, stream
+    "ffn_split_wsum": [_P] * 2 + [_I] * 3 + [_P] * 3 + [_I] * 2 + [_P],
     # kernel -> shared-memory bytes of the split route's LN backward
     "ffn_split_smem": [_I],
     "ffn_split_min_blocks": [_I],

@@ -15,8 +15,12 @@ apart (``attn_block_3d``, ``attn_block_3d_bwd``). A bool, int8 or uint8
 mask on x's device is read as it is, one byte per entry (an int8 view, no
 copy), which matters for the block form: the vslt stream's mask is
 64 x 1016 x 1016 bytes, read by every layer. A block mask takes no
-per-sample skipping: every q tile and every key is live, as in the TPU
-kernel (attn_block.py:219-227, :558-566).
+per-sample skipping of rows: every q tile and every key is live, as in the
+TPU kernel (attn_block.py:219-227, :558-566). The bf16 route instead
+skips the 64 x 64 (query, key) tiles whose every pair is masked and reads
+no mask bytes in tiles with none masked, by a tile map built on the card
+in each call (``block_tile_map``; the autograd Function keeps it for the
+backward); the results are those of reading every tile.
 """
 from __future__ import annotations
 
@@ -34,6 +38,9 @@ from .wgrad import col_sum, wgrad
 
 # the model widths the kernels are built for, forward and backward
 WIDTHS = (64, 128, 256, 512)
+# a block mask's tile classes (csrc/flash_tc.cuh kTileDead, kTileFull,
+# kTileMixed): every pair of the 64 x 64 tile masked, none, some
+TILE_DEAD, TILE_FULL, TILE_MIXED = 0, 1, 2
 # the C entry points' kernel numbers of the tensor-core route
 # (attn_block_tc_smem)
 TC_KERNELS = ("block_qkv_tc_kernel", "block_attn_tc_kernel",
@@ -110,6 +117,47 @@ def torch_attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
     return x + ctx.reshape(B, L, C)
 
 
+def block_tile_map(mask: torch.Tensor) -> torch.Tensor:
+    """int8 [B, ceil(Lq/64), ceil(Lk/64)]: the class of each 64 x 64
+    (query, key) tile of a block mask [B, Lq, Lk] (nonzero = masked) over
+    the pairs inside the array: TILE_DEAD when every pair is masked,
+    TILE_FULL when none is, else TILE_MIXED; a query tile holding a row
+    whose every key is masked (that row attends uniformly over all keys)
+    has no dead tile. The plain version of csrc/attn_block.cu::
+    block_tile_map_kernel."""
+    B, Lq, Lk = mask.shape
+    nq, nk = -(-Lq // 64), -(-Lk // 64)
+    m = mask != 0
+    masked = torch.zeros(B, nq * 64, nk * 64, dtype=torch.bool,
+                         device=mask.device)
+    live = torch.zeros_like(masked)
+    masked[:, :Lq, :Lk] = m
+    live[:, :Lq, :Lk] = ~m
+    any_live = live.reshape(B, nq, 64, nk, 64).any(dim=4).any(dim=2)
+    any_masked = masked.reshape(B, nq, 64, nk, 64).any(dim=4).any(dim=2)
+    cls = torch.where(~any_live, TILE_DEAD,
+                      torch.where(~any_masked, TILE_FULL, TILE_MIXED))
+    dead_rows = torch.zeros(B, nq * 64, dtype=torch.bool, device=mask.device)
+    dead_rows[:, :Lq] = m.all(dim=2)
+    has_dead_row = dead_rows.reshape(B, nq, 64).any(dim=2)
+    cls = torch.where(has_dead_row[:, :, None] & (cls == TILE_DEAD),
+                      TILE_MIXED, cls)
+    return cls.to(torch.int8)
+
+
+def cuda_block_tile_map(mask: torch.Tensor) -> torch.Tensor:
+    """block_tile_map on the card, one launch (csrc/attn_block.cu::
+    block_tile_map_kernel), from the int8 mask the kernels read."""
+    B, Lq, Lk = mask.shape
+    tmap = torch.empty(B, -(-Lq // 64), -(-Lk // 64), dtype=torch.int8,
+                       device=mask.device)
+    rc = _build.library().attn_block_tile_map(mask.data_ptr(),
+                                               tmap.data_ptr(), B, Lq, Lk,
+                                               stream(mask))
+    _build.check(rc, "attn_block_tile_map")
+    return tmap
+
+
 def key_ends(mask: torch.Tensor) -> torch.Tensor:
     """int32 [B]: one past each sample's last unmasked key, or L when every
     key is masked (such a sample attends uniformly over all L keys).
@@ -167,11 +215,22 @@ def _operands(x, gamma, beta, w, b):
     return gamma, beta, w, b
 
 
-def _launch_fwd(x, gamma, beta, w, b, mask, kend, block, scale, num_heads,
-                train):
+def _tile_map(x, mask, block, num_heads):
+    """The tile map the tensor-core route reads under a block mask, built
+    on the card (``mask`` as the kernels read it): None for a key mask,
+    for the FMA route (which reads every pair) and for a mask of one key
+    tile (nothing to skip)."""
+    if (not block or mask.shape[-1] <= 64
+            or attn_block_route(x.dtype, x.shape[-1], num_heads) != "tc"):
+        return None
+    return cuda_block_tile_map(mask)
+
+
+def _launch_fwd(x, gamma, beta, w, b, mask, tmap, kend, block, scale,
+                num_heads, train):
     """The two launches; ``train`` adds the pre-residual attention output
     and the (m, l) stats [B, H, L, 2] of the live rows. The scratch holds
-    q|k|v."""
+    q|k|v. ``tmap``: the block mask's tile map, or None."""
     B, L, C = x.shape
     H = num_heads
     gamma, beta, w, b = _operands(x, gamma, beta, w, b)
@@ -183,7 +242,9 @@ def _launch_fwd(x, gamma, beta, w, b, mask, kend, block, scale, num_heads,
         stats = torch.empty(B, H, L, 2, dtype=torch.float32, device=x.device)
     rc = _build.library().attn_block_fwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
-        b.data_ptr(), mask.data_ptr(), kend.data_ptr(), qkv.data_ptr(),
+        b.data_ptr(), mask.data_ptr(),
+        None if tmap is None else tmap.data_ptr(), kend.data_ptr(),
+        qkv.data_ptr(),
         out.data_ptr(), None if attn is None else attn.data_ptr(),
         None if stats is None else stats.data_ptr(), B, L, C, H, int(block),
         1.0 / scale, dtype_code(x.dtype), stream(x))
@@ -193,15 +254,18 @@ def _launch_fwd(x, gamma, beta, w, b, mask, kend, block, scale, num_heads,
 
 
 def cuda_attn_block_bwd(x, gamma, beta, w, b, mask, attn, stats,
-                        scale: float, num_heads: int, dy):
+                        scale: float, num_heads: int, dy, tmap=None):
     """The backward kernels: (dx, dgamma, dbeta, dw, db), dw and db in the
     dtype of the ``w`` and ``b`` given (as the TPU kernel returns them),
     dgamma and dbeta in theirs; parameter gradients summed in fp32. Under a
     key mask, q tiles that start past a sample's last valid key give
     dx = dy and add nothing (their rows carry no cotangent in the model);
     where whole tiles tile each sample (L % 64 == 0) the weight sums skip
-    their rows. Under a block mask every row is live."""
+    their rows. Under a block mask every row is live; ``tmap``, its tile
+    map (built here when None), lets the tensor cores skip dead tiles."""
     mask, kend, block = _check(x, w, b, mask, num_heads)
+    if tmap is None:
+        tmap = _tile_map(x, mask, block, num_heads)
     B, L, C = x.shape
     H = num_heads
     dt = x.dtype
@@ -224,7 +288,8 @@ def cuda_attn_block_bwd(x, gamma, beta, w, b, mask, attn, stats,
                         device=x.device)
     rc = lib.attn_block_bwd(
         x.data_ptr(), gamma_.data_ptr(), beta_.data_ptr(), w_.data_ptr(),
-        mask.data_ptr(), kend.data_ptr(), attn.data_ptr(), stats.data_ptr(),
+        mask.data_ptr(), None if tmap is None else tmap.data_ptr(),
+        kend.data_ptr(), attn.data_ptr(), stats.data_ptr(),
         dy.data_ptr(), qkv.data_ptr(),
         None if delta is None else delta.data_ptr(), dqkv.data_ptr(),
         ln.data_ptr(), dx.data_ptr(), gpart.data_ptr(), B, L, C, H,
@@ -244,22 +309,24 @@ def cuda_attn_block_bwd(x, gamma, beta, w, b, mask, attn, stats,
 
 class _AttnBlock(torch.autograd.Function):
     """The training forward; the backward kernels as its gradient. Saves
-    x, the pre-residual attention output and the row stats."""
+    x, the pre-residual attention output, the row stats and a block
+    mask's tile map."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w, b, mask, kend, block, scale,
+    def forward(ctx, x, gamma, beta, w, b, mask, tmap, kend, block, scale,
                 num_heads):
-        out, attn, stats = _launch_fwd(x, gamma, beta, w, b, mask, kend,
-                                       block, scale, num_heads, train=True)
+        out, attn, stats = _launch_fwd(x, gamma, beta, w, b, mask, tmap,
+                                       kend, block, scale, num_heads,
+                                       train=True)
         ctx.save_for_backward(x, gamma, beta, w, b, mask, attn, stats)
-        ctx.scale, ctx.num_heads = scale, num_heads
+        ctx.tmap, ctx.scale, ctx.num_heads = tmap, scale, num_heads
         return out
 
     @staticmethod
     def backward(ctx, dy):
         grads = cuda_attn_block_bwd(*ctx.saved_tensors, ctx.scale,
-                                    ctx.num_heads, dy)
-        return (*grads, None, None, None, None, None)
+                                    ctx.num_heads, dy, ctx.tmap)
+        return (*grads, None, None, None, None, None, None)
 
 
 def cuda_attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
@@ -269,8 +336,9 @@ def cuda_attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
     key mask, rows past a sample's last valid key, in q tiles that start
     past it, hold the pure residual."""
     mask, kend, block = _check(x, w, b, key_mask, num_heads)
+    tmap = _tile_map(x, mask, block, num_heads)
     if needs_grad(x, gamma, beta, w, b):
-        return _AttnBlock.apply(x, gamma, beta, w, b, mask, kend, block,
-                                scale, num_heads)
-    return _launch_fwd(x, gamma, beta, w, b, mask, kend, block, scale,
+        return _AttnBlock.apply(x, gamma, beta, w, b, mask, tmap, kend,
+                                block, scale, num_heads)
+    return _launch_fwd(x, gamma, beta, w, b, mask, tmap, kend, block, scale,
                        num_heads, train=False)[0]

@@ -8,7 +8,9 @@ tile loop of ``csrc/mlp_tc.cuh``), fp32 (the checking dtype) on FMA
 loops. At C = 512, past what the fused tiles hold, each dtype takes its
 split route (``csrc/ffn_split.cu``: StdLN, fc1, fc2 as separate launches
 through [R, C] and [R, F] scratches; the backward's tile pass likewise),
-with the same Philox masks and roundings.
+with the same Philox masks and roundings; in bf16 every product of it,
+the weight sums included, runs on the Hopper mainloop of
+``csrc/wgmma.cuh`` (TMA loads, ``wgmma``).
 
 Counterpart of medical_tri_modal_pilot_tpu/kernels/ffn.py (``xla_ffn``,
 ``pallas_ffn`` and ``dropout_masks``). Weights are in the JAX layout: w1
@@ -38,9 +40,10 @@ BLOCK_R = 64
 # split routes (csrc/ffn_split.cu) at SPLIT_WIDTH
 WIDTHS = (64, 128, 256, 512)
 SPLIT_WIDTH = 512
-# the kernels of the split route's LN backward in the order of the C
-# entry ffn_split_smem
-SPLIT_KERNELS = ("ffn_ln_bwd_tc_kernel", "ffn_ln_bwd_kernel")
+# the split route's kernels with more than the static 48 KB of shared
+# memory, in the order of the C entry ffn_split_smem: the bf16 products'
+# (csrc/wgmma.cuh) and the fp32 LN backward
+SPLIT_KERNELS = ("wg_gemm_kernel", "ffn_ln_bwd_kernel")
 # rows per tile of the tensor-core forward (csrc/mlp_tc.cuh kMlpRows)
 TC_ROWS = 128
 
@@ -116,13 +119,15 @@ def ffn_route(dtype: torch.dtype, C: int) -> str:
     """The kernel route for x of this dtype and width: bf16 takes the
     tensor cores ("tc"); fp32, the checking dtype, keeps the FMA kernels
     ("fma"), whose products stay in full fp32; at SPLIT_WIDTH the dtype's
-    split route ("tc_split", "fma_split"). Raises for a width no kernel is
-    built for."""
+    split route: bf16 on the wgmma mainloop ("wgmma_split"), fp32
+    "fma_split". Raises for a width no kernel is built for."""
     if C not in WIDTHS:
         raise ValueError(f"the CUDA ffn kernels take C in {WIDTHS}, got "
                          f"C={C}")
-    route = "tc" if dtype == torch.bfloat16 else "fma"
-    return route + "_split" if C == SPLIT_WIDTH else route
+    bf16 = dtype == torch.bfloat16
+    if C == SPLIT_WIDTH:
+        return "wgmma_split" if bf16 else "fma_split"
+    return "tc" if bf16 else "fma"
 
 
 def _tile(rows, width):
@@ -149,27 +154,24 @@ def bwd_tc_smem_bytes(C: int) -> int:
 
 
 def split_smem_bytes() -> dict:
-    """Shared memory of the split route's LN backward at SPLIT_WIDTH, the
-    route's only kernels with more than the static 48 KB: the tensor
-    cores' (csrc/proj_tc.cuh proj_bwd_tile: x [64][C], a three-stage ring
-    of a dh chunk [64][32] and a W1 chunk [C][32], fp32 stats [4][64]) and
-    the FMAs' (fp32: the StdLN rows [64][C + 1], a dh slice [64][33], a W1
-    slice [32][C], the stats)."""
+    """Shared memory of the split route's fp32 LN backward at SPLIT_WIDTH
+    (the StdLN rows [64][C + 1], a dh slice [64][33], a W1 slice [32][C],
+    the stats, fp32). The bf16 products' kernel (csrc/wgmma.cuh) has its
+    bytes from the C entry ffn_split_smem alone, which the card tests
+    read."""
     C = SPLIT_WIDTH
-    tc = _tile(64, C) + 3 * (_tile(64, 32) + _tile(C, 32)) + 4 * 4 * 64
-    fma = 4 * (64 * (C + 1) + 64 * 33 + 32 * C + 4 * 64)
-    return dict(zip(SPLIT_KERNELS, (tc, fma)))
+    return {SPLIT_KERNELS[1]: 4 * (64 * (C + 1) + 64 * 33 + 32 * C + 4 * 64)}
 
 
 def tc_min_blocks(C: int) -> dict:
     """Blocks an SM that the bf16 kernels' launch bounds ask for at width
     C: the fused forward two up to C = 96 (csrc/ffn.cu: C <= 96 ? 2 : 1),
-    the fused tile pass one; the split route's LN backward one (csrc/
-    proj_tc.cuh proj_bwd_min_blocks at 512), its GEMMs none (1). The card
-    tests hold this to the C entries ffn_tc_min_blocks and
+    the fused tile pass one; at SPLIT_WIDTH the wgmma mainloop one (a
+    persistent block an SM) and the LN backward's row pass none (1). The
+    card tests hold this to the C entries ffn_tc_min_blocks and
     ffn_split_min_blocks."""
     if C == SPLIT_WIDTH:
-        return {"gemm_bf16_kernel": 1, "ffn_ln_bwd_tc_kernel": 1}
+        return {"wg_gemm_kernel": 1, "ffn_ln_bwd_rows_kernel": 1}
     return {"ffn_fwd_tc_kernel": 2 if C <= 96 else 1,
             "ffn_bwd_tc_kernel": 1}
 
@@ -290,21 +292,64 @@ def ffn_bwd_tiles(x, gamma, beta, w1, b1, w2, block_valid, p, seed, dy):
     gpart = torch.empty(-(-R // BLOCK_R), 2 * C, dtype=torch.float32,
                         device=dev)
     lib = _build.library()
-    entry = lib.ffn_split_bwd if C == SPLIT_WIDTH else lib.ffn_bwd
-    rc = entry(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(),
-        None if valid is None else valid.data_ptr(), dy.data_ptr(),
-        dx.data_ptr(), ln.data_ptr(), dz.data_ptr(), hd.data_ptr(),
-        dh.data_ptr(), gpart.data_ptr(), R, C, F, s, thr, q_t, q_f, on,
-        dtype_code(dt), stream(x))
+    ptrs = [x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(),
+            None if valid is None else valid.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), ln.data_ptr(), dz.data_ptr(), hd.data_ptr(),
+            dh.data_ptr()]
+    if C == SPLIT_WIDTH:
+        # the wgmma route's dh . W1^T in fp32, the LN backward's operand
+        dln = (torch.empty(R, C, dtype=torch.float32, device=dev)
+               if ffn_route(dt, C) == "wgmma_split" else None)
+        rc = lib.ffn_split_bwd(
+            *ptrs, None if dln is None else dln.data_ptr(),
+            gpart.data_ptr(), R, C, F, s, thr, q_t, q_f, on, dtype_code(dt),
+            stream(x))
+    else:
+        rc = lib.ffn_bwd(*ptrs, gpart.data_ptr(), R, C, F, s, thr, q_t, q_f,
+                         on, dtype_code(dt), stream(x))
     _build.check(rc, "ffn_bwd")
     return dx, ln, dz, hd, dh, gpart, valid
 
 
+def wsum_slicing(R: int, Ka: int, Nb: int, sms: int) -> Tuple[int, int]:
+    """(rows per slice, slices) of the wgmma weight sums: at most two units
+    (a 128 x 256 output tile over one slice of rows) for each of the
+    ``sms`` persistent blocks, so that no third round runs on a few SMs
+    while the rest idle (at C 512 on 132 SMs: 32 tiles, 8 slices, 256
+    units), each slice whole 64-row tiles."""
+    tiles = (Ka // 128) * (Nb // 256)
+    slices = max(1, min(2 * sms // tiles, -(-R // 256)))
+    per = -(-R // slices)
+    rows = -(-per // BLOCK_R) * BLOCK_R
+    return rows, -(-R // rows)
+
+
+def wgmma_wsum(a, b, valid):
+    """(a^T b fp32 [Ka, Nb], b.sum(0) fp32 [Nb]) over the rows of live
+    BLOCK_R-row tiles, bf16 a [R, Ka] and b [R, Nb] on the wgmma mainloop
+    (csrc/ffn_split.cu::ffn_split_wsum): slices of rows summed apart, then
+    in order."""
+    R, Ka = a.shape
+    Nb = b.shape[1]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    rows, S = wsum_slicing(R, Ka, Nb, sms)
+    part = torch.empty(S, Ka * Nb, dtype=torch.float32, device=a.device)
+    colpart = torch.empty(S, Nb, dtype=torch.float32, device=a.device)
+    rc = _build.library().ffn_split_wsum(
+        a.data_ptr(), b.data_ptr(), R, Ka, Nb,
+        None if valid is None else valid.data_ptr(), part.data_ptr(),
+        colpart.data_ptr(), rows, S, stream(a))
+    _build.check(rc, "ffn_split_wsum")
+    return col_sum(part).reshape(Ka, Nb), col_sum(colpart)
+
+
 def ffn_weight_sums(ln, dz, hd, dh, valid):
     """(dw1, db1, dw2, db2) in fp32 from the tile pass's operands, over the
-    rows of live tiles (the tile flags cover BLOCK_R rows each)."""
+    rows of live tiles (the tile flags cover BLOCK_R rows each): on the
+    wgmma mainloop for the bf16 split route, else csrc/wgrad.cu's."""
+    if ffn_route(ln.dtype, ln.shape[1]) == "wgmma_split":
+        return (*wgmma_wsum(ln, dh, valid), *wgmma_wsum(hd, dz, valid))
     dw1, db1 = wgrad(ln, dh, valid, BLOCK_R)
     dw2, db2 = wgrad(hd, dz, valid, BLOCK_R)
     return dw1, db1, dw2, db2

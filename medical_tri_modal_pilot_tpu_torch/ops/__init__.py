@@ -39,7 +39,9 @@ __all__ = ["KERNELS", "launches", "reset_launches", "reference_path",
            "umse", "attn_block", "ffn", "dropout_masks", "swin_attention",
            "swin_mlp", "attention", "rowskip_ln_affine", "rowskip_affine"]
 
-_reference = False
+# the wrappers that route CUDA tensors to their plain versions: every one
+# (True) or those named
+_reference = frozenset()
 
 
 def reset_launches() -> None:
@@ -48,27 +50,33 @@ def reset_launches() -> None:
 
 
 @contextlib.contextmanager
-def reference_path() -> Iterator[None]:
-    """Route CUDA tensors through the plain PyTorch versions."""
+def reference_path(*names: str) -> Iterator[None]:
+    """Route CUDA tensors through the plain PyTorch versions: those of
+    every wrapper, or of the wrappers named (``ops`` function names, as
+    ``"attn_block"``), the others still launching their kernels."""
     global _reference
-    prev, _reference = _reference, True
+    unknown = set(names) - set(__all__)
+    if unknown:
+        raise ValueError(f"no ops wrapper named {sorted(unknown)}")
+    prev = _reference
+    _reference = True if not names else frozenset(names)
     try:
         yield
     finally:
         _reference = prev
 
 
-def _launches_kernel(device: torch.device) -> bool:
+def _launches_kernel(device: torch.device, name: str) -> bool:
     if device.type == "cpu":
         return False
     if device.type != "cuda":
         raise ValueError(f"no kernel or plain version for device {device}")
-    return not _reference
+    return not (_reference is True or name in _reference)
 
 
 def umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table, dtype):
     """TIE-token embedding, [B, L, 3] -> [B, L, D] in ``dtype``."""
-    if not _launches_kernel(x.device):
+    if not _launches_kernel(x.device, "umse"):
         return _umse.torch_umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table,
                                 dtype)
     return _umse.cuda_umse(x, wv, bv, sv, bbv, wt, bt, st, bbt, table,
@@ -79,7 +87,7 @@ def attn_block(x, gamma, beta, w, b, key_mask: Optional[torch.Tensor],
                scale: float, num_heads: int):
     """x + MHA(StdLN(x)) with q|k|v weights [C, 3C] / [3C]; the mask None,
     [B, L] or [B, L, L], True = masked."""
-    if not _launches_kernel(x.device):
+    if not _launches_kernel(x.device, "attn_block"):
         return _attn_block.torch_attn_block(x, gamma, beta, w, b, key_mask,
                                             scale, num_heads)
     return _attn_block.cuda_attn_block(x, gamma, beta, w, b, key_mask, scale,
@@ -90,7 +98,7 @@ def attention(q, k, v, key_mask: Optional[torch.Tensor], scale: float,
               is_self: bool = False):
     """softmax(mask(q k^T / scale)) v over [B, L, H, Dh] operands; the mask
     None, [B, Lk] or [B, Lq, Lk]. ``is_self``: q and k are one stream."""
-    if not _launches_kernel(q.device):
+    if not _launches_kernel(q.device, "attention"):
         return _attention.torch_masked_attention(q, k, v, key_mask, scale,
                                                  is_self)
     return _attention.cuda_masked_attention(q, k, v, key_mask, scale,
@@ -103,7 +111,7 @@ def dropout_masks(R: int, F: int, C: int, seed: int, p: float, device,
     hidden one holding columns ``col0`` .. col0 + F of the whole mask; one
     launch on the card, both masks written as bool."""
     device = torch.device(device)
-    if not _launches_kernel(device):
+    if not _launches_kernel(device, "dropout_masks"):
         return _ffn.plain_dropout_masks(R, F, C, seed, p, device, col0)
     return _ffn.cuda_dropout_masks(R, F, C, seed, p, device, col0)
 
@@ -114,7 +122,7 @@ def ffn(x, gamma, beta, w1, b1, w2, b2,
     """x + drop(W2 drop(relu(W1 StdLN(x) + b1)) + b2); dropout at rate
     ``p`` when ``training``, its masks drawn for ``seed``."""
     p = p if training else 0.0
-    if not _launches_kernel(x.device):
+    if not _launches_kernel(x.device, "ffn"):
         keep = None
         if p > 0.0:
             C, F = x.shape[-1], w1.shape[-1]
@@ -129,7 +137,7 @@ def ffn(x, gamma, beta, w1, b1, w2, b2,
 def swin_attention(xw, wqkv, bqkv, wproj, bproj, bias,
                    smask: Optional[torch.Tensor], num_heads: int):
     """Swin window attention over [I, 49, C] windows, output [I, 49, C]."""
-    if not _launches_kernel(xw.device):
+    if not _launches_kernel(xw.device, "swin_attention"):
         return _swin_attention.torch_window_attention(
             xw, wqkv, bqkv, wproj, bproj, bias, smask, num_heads)
     return _swin_attention.cuda_window_attention(
@@ -138,7 +146,7 @@ def swin_attention(xw, wqkv, bqkv, wproj, bproj, bias,
 
 def swin_mlp(x, scale, bias, w1, b1, w2, b2):
     """x + fc2(gelu(fc1(LN(x)))) over [R, C] rows."""
-    if not _launches_kernel(x.device):
+    if not _launches_kernel(x.device, "swin_mlp"):
         return _swin_mlp.torch_swin_mlp(x, scale, bias, w1, b1, w2, b2)
     return _swin_mlp.cuda_swin_mlp(x, scale, bias, w1, b1, w2, b2)
 
@@ -147,7 +155,7 @@ def rowskip_ln_affine(x, gamma, beta, w, b,
                       block_valid: Optional[torch.Tensor] = None):
     """(q, k, v) = thirds of StdLN(x) @ w + b, skipping the 256-row blocks
     whose flag is 0 (zeros there on the kernel path)."""
-    if not _launches_kernel(x.device):
+    if not _launches_kernel(x.device, "rowskip_ln_affine"):
         return _rowmm.torch_rowskip_ln_affine(x, gamma, beta, w, b,
                                               block_valid)
     return _rowmm.cuda_rowskip_ln_affine(x, gamma, beta, w, b, block_valid)
@@ -155,6 +163,6 @@ def rowskip_ln_affine(x, gamma, beta, w, b,
 
 def rowskip_affine(x, w, b, block_valid: Optional[torch.Tensor] = None):
     """x @ w + b, skipping the 256-row blocks whose flag is 0."""
-    if not _launches_kernel(x.device):
+    if not _launches_kernel(x.device, "rowskip_affine"):
         return _rowmm.torch_rowskip_affine(x, w, b, block_valid)
     return _rowmm.cuda_rowskip_affine(x, w, b, block_valid)

@@ -16,6 +16,8 @@ also runs where the port runs:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -25,8 +27,10 @@ from medical_tri_modal_pilot_tpu_torch.config import parse_config
 from medical_tri_modal_pilot_tpu_torch.kernels.attention import \
     cuda_masked_attention
 from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
-    cuda_attn_block, key_ends)
-from medical_tri_modal_pilot_tpu_torch.kernels.ffn import plain_dropout_masks
+    TILE_DEAD, TILE_FULL, block_tile_map, cuda_attn_block,
+    cuda_block_tile_map, key_ends)
+from medical_tri_modal_pilot_tpu_torch.kernels.ffn import (
+    cuda_dropout_masks, plain_dropout_masks)
 from medical_tri_modal_pilot_tpu_torch.kernels.wgrad import wgrad
 from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import (
     cuda_swin_mlp, torch_swin_mlp)
@@ -345,7 +349,7 @@ FFN_TC_CASES = [(65, 64, [0, 1]), (65, 256, [0, 1]),
                 (300, 512, [1, 0, 1, 1, 0])]
 # the kernels each FFN forward route launches
 FFN_ROUTE_KERNELS = {"tc": ("ffn_fwd_tc_kernel",), "fma": ("ffn_kernel",),
-                     "tc_split": ("ffn_ln_kernel", "gemm_bf16_kernel"),
+                     "wgmma_split": ("ffn_ln_kernel", "wg_gemm_kernel"),
                      "fma_split": ("ffn_ln_kernel", "gemm_kernel")}
 
 
@@ -376,6 +380,8 @@ def test_ffn_tc_forward(dev, R, C, flags, p):
     torch.testing.assert_close(out[live], ref[live], **TOL["bf16"])
     if p > 0:
         _, keep = plain_dropout_masks(R, F, C, seed, p, dev)
+        assert torch.equal(keep, cuda_dropout_masks(R, F, C, seed, p,
+                                                    dev)[1])
         dropped = ~keep & live[:, None]
         assert int(dropped.sum()) > 0
         assert torch.equal(out[dropped], x.float()[dropped])
@@ -404,13 +410,17 @@ def test_ffn_and_swin_mlp_smem_tables_match_the_kernels(dev):
             assert blocks["ffn_fwd_tc_kernel"] * (
                 ffn.tc_smem_bytes(C) + 1024) <= _sm_smem(dev), C
         else:
-            for i, name in enumerate(("gemm_bf16_kernel",
-                                      "ffn_ln_bwd_tc_kernel")):
+            for i, name in enumerate(("wg_gemm_kernel",
+                                      "ffn_ln_bwd_rows_kernel")):
                 assert lib.ffn_split_min_blocks(i) == blocks[name], name
     assert lib.ffn_tc_smem(96) == lib.ffn_tc_smem(ffn.SPLIT_WIDTH) == 0
     assert lib.ffn_tc_min_blocks(0, 96) == 0
-    for i, (name, smem) in enumerate(ffn.split_smem_bytes().items()):
-        assert lib.ffn_split_smem(i) == smem <= limit, name
+    # the wgmma mainloop's bytes come from its C entry alone; the fp32 LN
+    # backward's are mirrored
+    assert 0 < lib.ffn_split_smem(0) <= limit
+    for name, smem in ffn.split_smem_bytes().items():
+        assert lib.ffn_split_smem(ffn.SPLIT_KERNELS.index(name)) == smem \
+            <= limit, name
     for C in range(32, 1600, 32):
         assert lib.swin_mlp_tc_smem(C) == swin_mlp.tc_smem_bytes(C) <= \
             limit, C
@@ -668,7 +678,8 @@ def test_kernels_refuse_block_masks_and_grads(dev):
 # rows, C, heads); stream 0 is vslt (4 cls), 1 img (2 cls), 2 txt (2 cls)
 BLOCK_MASK_CASES = [(0, 60, 64, 2), (1, 49, 64, 2), (2, 40, 256, 4),
                     (2, 128, 256, 4), (2, 128, 512, 4), (0, 60, 128, 4),
-                    (2, 40, 256, 2)]
+                    (2, 40, 256, 2), (0, 300, 64, 2), (2, 250, 256, 4),
+                    (0, 300, 512, 4)]
 
 
 @pytest.mark.parametrize("stream,n_rows,C,H", BLOCK_MASK_CASES)
@@ -688,10 +699,20 @@ def test_attn_block_block_mask(dev, stream, n_rows, C, H, vslt_main, prec):
     L = cls + n_rows
     lengths = torch.randint(1, n_rows + 1, (B,), generator=g)
     lengths[1] = 0 if stream == 2 else lengths[1]
+    if n_rows > 128:
+        # several key tiles: a sample whose keys end inside the first tile
+        # and one at full length
+        lengths[0], lengths[-1] = 1, n_rows
     vlen = (lengths + cls).to(dev)
     mask = block_key_mask(vlen, L, 4, stream, vslt_main)
     if stream == 2 and not vslt_main:
         assert mask[1, 14:16].all()
+    # the tile map the bf16 loops skip by, on the card and in plain torch
+    tmap = block_tile_map(mask)
+    assert torch.equal(cuda_block_tile_map(mask.view(torch.int8)), tmap)
+    if n_rows > 128:
+        assert bool((tmap == TILE_DEAD).any())
+        assert bool((tmap == TILE_FULL).any())
     Lb = L + 12
     x = _rand(g, dev, B, Lb, C).to(dt)
     gamma, beta = _rand(g, dev, C, std=.1, mean=1.), _rand(g, dev, C, std=.1)
@@ -701,6 +722,12 @@ def test_attn_block_block_mask(dev, stream, n_rows, C, H, vslt_main, prec):
     fwd = lambda *a: ops.attn_block(*a, mask, (C // H) ** .5, H)
     out, ref = _both(lambda: fwd(x, gamma, beta, w, b))
     torch.testing.assert_close(out, ref, **TOL[prec])
+    # a mask made under inference mode, as an eval step makes it: the
+    # same output
+    with torch.inference_mode():
+        again = ops.attn_block(x, gamma, beta, w, b, mask.clone(),
+                               (C // H) ** .5, H)
+    assert torch.equal(again.float(), out)
     ops.reset_launches()
     (out, grads), (ref, ref_grads) = _grads(fwd, (x, gamma, beta, w, b), cot)
     assert ops.launches["attn_block_3d"] == 1
@@ -919,16 +946,23 @@ def _launched(fn):
     return names
 
 
+def _names_kernel(name, kernel) -> bool:
+    """Whether the device event ``name`` is a launch of ``kernel`` (the
+    whole identifier: gemm_kernel is not wg_gemm_kernel)."""
+    return re.search(r"(?<![A-Za-z0-9_])" + kernel + r"[<(]", name) \
+        is not None
+
+
 def _route_kernels(names, table, route):
     """Every kernel of ``route`` in ``names``, and none of another route's
     that is not also the route's."""
     for kernel in table[route]:
-        assert any(kernel + "<" in n or kernel + "(" in n for n in names), \
+        assert any(_names_kernel(n, kernel) for n in names), \
             (route, kernel, names)
     others = {k for r, ks in table.items() if r != route for k in ks}
     for kernel in others - set(table[route]):
-        assert not any(kernel + "<" in n or kernel + "(" in n
-                       for n in names), (route, kernel, names)
+        assert not any(_names_kernel(n, kernel) for n in names), \
+            (route, kernel, names)
 
 
 # the kernels of each swin_mlp route (kernels/swin_mlp.py ROUTES)
@@ -1252,13 +1286,35 @@ def test_ffn_backward_tile_flags(dev, case, p, prec):
                         ["dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"])
     from medical_tri_modal_pilot_tpu_torch.kernels.ffn import (
         ffn_bwd_tiles, ffn_weight_sums)
-    *_, ln, dz, hd, dh, _, flags8 = ffn_bwd_tiles(
+    dx, ln, dz, hd, dh, gpart, flags8 = ffn_bwd_tiles(
         x, *ws[:5], valid, p, 99, cot)
+    # the tile pass and the weight sums repeat bit for bit
+    rows = live.reshape(R)
+    again = ffn_bwd_tiles(x, *ws[:5], valid, p, 99, cot)
+    assert torch.equal(dx, again[0]) and torch.equal(gpart, again[5])
+    for a, b in zip((ln, dz, hd, dh), again[1:5]):
+        assert torch.equal(a[rows], b[rows])
+    if p > 0 and bool(rows.any()):
+        # the masks the kernels drew are dropout_masks' bit for bit: on
+        # live rows dz is nonzero exactly where the output mask keeps
+        # (the cotangent has no zeros there), and the hidden layer is
+        # nonzero only where the hidden mask keeps, and wherever it keeps
+        # a pre-activation clear of 0
+        keep_h, keep_o = cuda_dropout_masks(R, F, C, 99, p, dev)
+        assert torch.equal((dz[rows] != 0), keep_o[rows])
+        assert not bool((hd[rows] != 0)[~keep_h[rows]].any())
+        pre = (ln[rows].float() @ ws[2].to(dt).float()
+               + ws[3].to(dt).float())
+        clear = keep_h[rows] & (pre > 5e-2)
+        assert int(clear.sum()) > 0
+        assert bool((hd[rows] != 0)[clear].all())
     if flags8 is not None:
-        dead = ~live.reshape(R)
+        dead = ~rows
         for t in (ln, dz, hd, dh):
             t[dead] = float("nan")
     sums = ffn_weight_sums(ln, dz, hd, dh, flags8)
+    for a, b in zip(sums, ffn_weight_sums(ln, dz, hd, dh, flags8)):
+        assert torch.equal(a, b)
     _assert_grads_close(sums, ref_grads[3:], prec,
                         ["dw1", "db1", "dw2", "db2"])
 
@@ -1329,8 +1385,12 @@ def test_tensor_core_kernels_compile_to_mma(dev):
                    "attention_dkv_tc_kernel", "attention_dq_tc_kernel",
                    "ffn_fwd_tc_kernel", "swin_mlp_tc_kernel",
                    "swin_fc1_tc_kernel", "rowmm_tc_kernel",
-                   "rowmm_bwd_tc_kernel", "ffn_ln_bwd_tc_kernel"):
+                   "rowmm_bwd_tc_kernel", "wg_gemm_kernel"):
         found = {n: c for n, c in code.items() if kernel in n}
         assert found, f"{kernel} not in the library"
         for name, text in found.items():
             assert "HMMA" in text or "HGMMA" in text, name
+    # the Hopper mainloop (csrc/wgmma.cuh): wgmma fed by TMA
+    for name, text in code.items():
+        if "wg_gemm_kernel" in name:
+            assert "HGMMA" in text and "UTMALDG" in text, name

@@ -194,10 +194,13 @@ def test_attention_tc_smem_within_the_card(d_head):
 @pytest.mark.parametrize("C", [64, 256, 128, 512])
 def test_ffn_route_by_dtype_and_width(C):
     """The FFN: fp32 keeps the FMA kernels, bf16 takes the tensor cores,
-    at the four model widths; at 512 each dtype's split route."""
-    split = "_split" if C == ffn.SPLIT_WIDTH else ""
-    assert ffn.ffn_route(torch.float32, C) == "fma" + split
-    assert ffn.ffn_route(torch.bfloat16, C) == "tc" + split
+    at the four model widths; at 512 each dtype's split route, bf16's on
+    the wgmma mainloop."""
+    split = C == ffn.SPLIT_WIDTH
+    assert ffn.ffn_route(torch.float32, C) == \
+        ("fma_split" if split else "fma")
+    assert ffn.ffn_route(torch.bfloat16, C) == \
+        ("wgmma_split" if split else "tc")
 
 
 @pytest.mark.parametrize("C", [0, 32, 96, 192, 384, 768])
@@ -230,21 +233,18 @@ def test_ffn_tc_smem_within_the_card(C, want):
 def test_ffn_split_smem_within_the_card():
     """At C = 512 the fused tiles would outgrow a block (the forward's
     410 KB, the tile pass's 433 KB), so the width takes the split route,
-    whose LN backward (201 KB on the tensor cores, 202 KB on the FMAs)
-    fits one block an SM, as its launch bounds ask; its GEMM tiles keep to
-    the static 48 KB."""
+    whose fp32 LN backward (202 KB on the FMAs) fits one block an SM; the
+    bf16 products run on the wgmma mainloop, one persistent block an SM,
+    its bytes read from the C entry on the card."""
     C = ffn.SPLIT_WIDTH
     assert ffn.tc_smem_bytes(C) > BLOCK_SMEM
     assert ffn.bwd_tc_smem_bytes(C) > BLOCK_SMEM
     table = ffn.split_smem_bytes()
-    assert tuple(table) == ffn.SPLIT_KERNELS
-    assert table == {"ffn_ln_bwd_tc_kernel": 205824,
-                     "ffn_ln_bwd_kernel": 206336}
-    assert table["ffn_ln_bwd_tc_kernel"] == \
-        attn_block.tc_smem_bytes(C, 128)["block_ln_bwd_tc_kernel"]
-    blocks = ffn.tc_min_blocks(C)
-    assert blocks["ffn_ln_bwd_tc_kernel"] * (
-        table["ffn_ln_bwd_tc_kernel"] + 1024) <= SM_SMEM
+    assert ffn.SPLIT_KERNELS == ("wg_gemm_kernel", "ffn_ln_bwd_kernel")
+    assert table == {"ffn_ln_bwd_kernel": 206336}
+    assert table["ffn_ln_bwd_kernel"] + 1024 <= SM_SMEM
+    assert ffn.tc_min_blocks(C) == {"wg_gemm_kernel": 1,
+                                    "ffn_ln_bwd_rows_kernel": 1}
     assert max(table.values()) <= BLOCK_SMEM
 
 
