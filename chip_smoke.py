@@ -110,7 +110,8 @@ Phases, each raising on failure (nothing is caught):
      attention at the tensor-parallel self shapes of the three streams
      ([64, L, 2, 64], L = 1024 with the TIE key mask, 133, 54) beside
      scaled_dot_product_attention.
-  13. tensor parallelism: config 4 under --mp-size 2 --dp-size 1 in two
+  13. tensor parallelism: config 4 under --mp-size 2 --dp-size 1, at
+     TP_LAYERS (2) of its 6 layers, in two
      ranks (parallel.launch) that share the one card over gloo, weights
      seeded as the single-process run: eval probabilities against the
      single-process kernel path (bf16 and fp32), one fp32 train step at
@@ -207,7 +208,8 @@ Phases, each raising on failure (nothing is caught):
   14b. the drivers under --mp-size 2 --dp-size 1: two ranks
      (parallel.launch) sharing the one card over gloo, each through the
      drivers' set-up (drivers/common.py::setup_distributed: the group,
-     cuda:0, the mesh), config 4 at full width: the train driver's fold
+     cuda:0, the mesh), config 4 at full width (TP_LAYERS layers): the
+     train driver's fold
      (1 epoch of 2 train, 1 val and 1 test wire-format batches, the epoch
      save), the fold again under --resume last, the test driver's walk.
      Checks the launch counts per rank, the run record rank 0 wrote and
@@ -224,12 +226,37 @@ Phases, each raising on failure (nothing is caught):
      memory, ms/step in turns (at C 512 a profiled step: device time by
      kernel and the idle share), one step on both paths in fp32 and bf16
      at dropout 0.1 (phase 7's gates).
+  18. the rest of the paper's MBT registry on config 4's flags (full
+     width, bf16; the bimodal names on their own --input-types): first
+     attn_block and the ffn at the concat fusion's joint shape [64, 1179,
+     256] (cls, 1000 TIE rows, image cls and 49 rows, 128 note rows; no
+     row tile skipped) under its key mask, training forward and backward
+     against the plain version as phase 6 holds them (fp32 and bf16, event
+     and plain ms, the profiler's device ms and launched kernels, the
+     bound); then tri_mbt_vsltcls_noshareumse,
+     tri_mbt_vflexible / 2 / 3, tri_mbt_vnoshavgtr / vnoshnoavgtr,
+     tri_mt_v1, mt_v1, biimg_mt_v1 and bitxt_mt_v1: eval against the plain
+     path in bf16 and fp32, one train step on both paths in fp32 and bf16
+     at dropout 0 and 0.1 (phase 7's gates), launch counts per step
+     (LAUNCHES_PER_STEP / TRAIN_LAUNCHES_PER_STEP), the vflexible
+     models' learned weights set off zero (FLEX_WEIGHTS); tri_mbt_vflexible and
+     tri_mt_v1 also timed in turns, profiled (device busy, idle share),
+     their peak memory and 20 steps on one batch; biimg_mbt_vflexible1
+     and bitxt_mbt_vflexible1 refused by name. Then --model-types
+     classification (tri_mbt_vsltcls, config 4's flags): each of the five
+     --loss-types (softmax, bces and bceandsoftmax at 12 outputs, rmse and
+     bce at 1) eval against the plain path and one train step on both
+     paths (fp32 and bf16, dropout 0.1), and bceandsoftmax through the
+     train driver's fold over wire batches (1 epoch of 2 train, 1 val, 1
+     test; launch counts) and the test driver's walk to its final test
+     metrics. Prints the phase's seconds.
 The kernel phases (3, 5b, 6, 9, 12, 3w) run first, then 4-5, 7-8, 10-11,
-13, 14, 14b, 15, 16 and 17.
+13, 14, 14b, 15, 16, 17 and 18.
 Then one JSON line per the kernels (each with the path that launches it
 and its launches over that path's steps, under ``other_paths`` its
-launches on phases 15 and 16's other train paths, and under ``widths``
-its bf16 results at the other widths of phase 3w) and, last, {"ok": true,
+launches on phases 15, 16 and 18's other train paths, under ``widths``
+its bf16 results at the other widths of phase 3w, and under ``mt_joint``
+its bf16 results at phase 18's joint shape) and, last, {"ok": true,
 "device": ...}.
 
     python3 chip_smoke.py baseline
@@ -239,6 +266,10 @@ runs the build and phase 15 alone;
     python3 chip_smoke.py multitoken
 
 the build and phase 16;
+
+    python3 chip_smoke.py registry
+
+the build and phase 18;
 
     python3 chip_smoke.py widths
 
@@ -1074,6 +1105,21 @@ def _ffn_bwd_parts(x, ws, flags, cot, n_live) -> dict:
     return res
 
 
+def _attn_block_work(L: int, D: int, H: int, es: int, n) -> tuple:
+    """(bytes, operations) of the attention block's training forward and
+    of its backward on [BATCH, L, D] with H heads, ``es`` bytes an
+    element, ``n`` [BATCH] the rows up to each sample's last valid key.
+    Forward: the lean form's work plus O and the (m, l) stats; backward:
+    s, dp, dv, dk and dq over the live pairs (10 n^2 C) and the q|k|v
+    recompute, dln and dW products (18 n C^2)."""
+    stream_bytes = BATCH * L * D * es
+    return ((3 * stream_bytes + 8 * BATCH * H * L + (3 * D * D + 3 * D) * es,
+             float((6 * n * D * D + 4 * n * n * D).sum())),
+            (4 * stream_bytes + 8 * BATCH * H * L
+             + (3 * D * D + 3 * D) * (es + 4),
+             float((10 * n * n * D + 18 * n * D * D).sum())))
+
+
 def compare_training_kernels() -> dict:
     """The training kernels against autograd of their plain versions at each
     fusion stream's length. Returns the bf16 results at the main-path
@@ -1107,16 +1153,7 @@ def compare_training_kernels() -> dict:
             es = 2 if dt == bf16 else 4
             xa = rnd(BATCH, L, D).to(dt)
             cot = rnd(BATCH, L, D).to(dt) * live[:, :, None]
-            stream_bytes = BATCH * L * D * es
-            # forward: the lean form's work plus O and the (m, l) stats;
-            # backward: s, dp, dv, dk and dq over the live pairs (10 n^2 C)
-            # and the q|k|v recompute, dln and dW products (18 n C^2)
-            work_f = (3 * stream_bytes + 8 * BATCH * H * L
-                      + (3 * D * D + 3 * D) * es,
-                      float((6 * n * D * D + 4 * n * n * D).sum()))
-            work_b = (4 * stream_bytes + 8 * BATCH * H * L
-                      + (3 * D * D + 3 * D) * (es + 4),
-                      float((10 * n * n * D + 18 * n * D * D).sum()))
+            work_f, work_b = _attn_block_work(L, D, H, es, n)
             fr, br = _compare_train(
                 f"attn_block[64,{L},256]", dt,
                 lambda *a: ops.attn_block(*a, mask, (D // H) ** .5, H),
@@ -1793,7 +1830,9 @@ def run_config(name: str, argv, power: str, timed: bool) -> dict:
     overflow = _overflow_batch(cfg, model, batches, fracs)
     if overflow:
         _check_trunk_rows(name, cfg, rows)
-    if probs.shape != (BATCH * n,) or not np.all(np.isfinite(probs)):
+    if probs.shape[0] != BATCH * n or probs.ndim != (
+            1 if cfg.output_dim == 1 else 2) or not np.all(
+                np.isfinite(probs)):
         raise AssertionError(f"bad probabilities {probs.shape}")
     with ops.reference_path():
         ref_probs, ref_losses, _ = _eval_steps(trainer, batches)
@@ -1805,14 +1844,16 @@ def run_config(name: str, argv, power: str, timed: bool) -> dict:
         raise AssertionError(f"{name}: bf16 path disagrees with the plain "
                              "path")
 
-    ev = Evaluator()
-    for i, batch in enumerate(batches):
-        ev.add_batch(batch["target"], probs[i * BATCH:(i + 1) * BATCH])
-    metrics = ev.performance_metric()
-    print(f"{name} evaluator (random weights): " + ", ".join(
-        f"{k}={v:.4f}" for k, v in metrics.items()))
-    if not all(np.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"non-finite metrics {metrics}")
+    # the Evaluator of a classification run: phase 18's drivers
+    if cfg.model_types == "detection":
+        ev = Evaluator()
+        for i, batch in enumerate(batches):
+            ev.add_batch(batch["target"], probs[i * BATCH:(i + 1) * BATCH])
+        metrics = ev.performance_metric()
+        print(f"{name} evaluator (random weights): " + ", ".join(
+            f"{k}={v:.4f}" for k, v in metrics.items()))
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"non-finite metrics {metrics}")
 
     if timed:
         # timing in turns: plain, kernel, kernel, plain
@@ -1901,12 +1942,14 @@ def _train_run(cfg, state, batch, plain):
 # the biases the head's BatchNorm cancels (fc_list.0 and the LayerNorm
 # before it add the same vector to every sample: layer_norms_after_concat
 # in tri_mbt_vsltcls and the bimodal v1 models, final_ln in the cross
-# transformer, layer_norm_final in unimodal_transformer). A LayerNorm
+# transformer, layer_norm_final in unimodal_transformer; each head
+# fc_list_{m} of tri_mbt_vnosh*, and the LayerNorm before them). A LayerNorm
 # head (ClsHeadLN, tri_mbt_v1's, with no running statistics) normalises
 # each sample over its features, which cancels neither
 ZERO_GRAD = ("key_proj.linear.bias", "fc_list.0.bias",
              "layer_norms_after_concat.bias", "final_ln.bias",
-             "layer_norm_final.bias")
+             "layer_norm_final.bias", "fc_list_0.0.bias", "fc_list_1.0.bias",
+             "fc_list_2.0.bias")
 
 
 def _step_errors(a, b, zero=ZERO_GRAD):
@@ -1928,7 +1971,7 @@ def _check_step_parity(name, cfg, state, batch, precs) -> None:
     """One step from the same weights on the kernel and the plain path,
     for each (precision, dropout) in ``precs``; every bf16 entry needs an
     fp32 one at its dropout, the step its gradients are held against."""
-    batchnorm_head = "fc_list.1.running_mean" in state
+    batchnorm_head = any(k.endswith("1.running_mean") for k in state)
     zero = ZERO_GRAD if batchnorm_head else ZERO_GRAD[:1]
     runs, failures = {}, []
     for prec, p in precs:
@@ -2105,19 +2148,26 @@ def run_train(name: str, argv, power: str, timed: bool,
 
 
 # tensor parallelism: config 4 under --mp-size 2 in two ranks on the one
-# card; the batches (images for 32, 16 and 48 of 64 samples: the packed
-# trunk and its overflow) and, per step and rank, the launches: the
-# forward's as config 4's with attn_block and ffn off, the vslt stream's
-# attention through rowmm_ln (6 layers), every stream's through attention
-# (18); the backward as config 4's (the last layer's img and txt streams
-# get none); one dropout_masks per FFN (18) and per stream's input
-# dropout (3)
-TP_ARGV = CONFIG4 + ["--mp-size", "2", "--dp-size", "1"]
+# card, at TP_LAYERS of its 6 layers (two ranks sharing one card over
+# gloo time no TP speed, and every phase shares the script's time
+# limit); the batches (images for 32, 16 and 48 of 64 samples: the
+# packed trunk and its overflow) and, per step and rank, the launches:
+# the forward's as config 4's with attn_block and ffn off, the vslt
+# stream's attention through rowmm_ln (one a layer), every stream's
+# through attention (3 a layer); the backward as config 4's (the last
+# layer's img and txt streams get none); one dropout_masks per FFN (3 a
+# layer) and per stream's input dropout (3)
+TP_LAYERS = 2
+TP_ARGV = CONFIG4 + ["--mp-size", "2", "--dp-size", "1",
+                     "--transformer-num-layers", str(TP_LAYERS)]
 TP_BATCHES = [0.5, 0.25, 0.75]
-TP_EVAL_LAUNCHES = {"umse": 1, "attention": 18, "rowmm_ln": 6,
-                    "swin_attention": 12, "swin_mlp": 12}
-TP_TRAIN_LAUNCHES = dict(TP_EVAL_LAUNCHES, umse_bwd=1, attention_bwd=16,
-                         rowmm_ln_bwd=6, dropout_masks=21)
+TP_EVAL_LAUNCHES = {"umse": 1, "attention": 3 * TP_LAYERS,
+                    "rowmm_ln": TP_LAYERS, "swin_attention": 12,
+                    "swin_mlp": 12}
+TP_TRAIN_LAUNCHES = dict(TP_EVAL_LAUNCHES, umse_bwd=1,
+                         attention_bwd=3 * TP_LAYERS - 2,
+                         rowmm_ln_bwd=TP_LAYERS,
+                         dropout_masks=3 * TP_LAYERS + 3)
 TP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                       "tp_smoke")
 TP_LABEL = "2 ranks share one H100 over gloo: not a TP speed figure"
@@ -3092,6 +3142,288 @@ def run_multitoken(power: str):
     return results, counts
 
 
+# phase 18, the rest of the paper's MBT registry on config 4's
+# flags, the model swapped (the bimodal names on their own --input-types):
+# tri_mbt_vsltcls_noshareumse (stems per stream; umse still once, on the
+# vslt stem), tri_mbt_vflexible / 2 / 3 (learned missing-aware weights of
+# per-stream logits), tri_mbt_vnoshavgtr / vnoshnoavgtr (a BatchNorm head
+# per stream) and the concat fusion *_mt_v1 (the trunk over all 64 rows,
+# the joint stream [64, 1 + 1000 + 50 + 128, 256] unpadded, its FFN over
+# every row). Per eval step the MBT ablations launch as config 4; the
+# concat fusion umse 1, one attn_block and one ffn per joint layer (6),
+# swin 12 / 12 with images. Per train step the heads that read every
+# stream's cls token (vflexible, vnosh) give the last layer's img and txt
+# streams their backward (18 / 18; noshareumse 16 / 16, as config 4); the
+# concat fusion's 6 joint layers get theirs; one input-dropout mask per
+# stream
+REGISTRY = {"noshare": ("tri_mbt_vsltcls_noshareumse", "vslt_img_txt"),
+            "vflex": ("tri_mbt_vflexible", "vslt_img_txt"),
+            "vflex2": ("tri_mbt_vflexible2", "vslt_img_txt"),
+            "vflex3": ("tri_mbt_vflexible3", "vslt_img_txt"),
+            "vnoshavg": ("tri_mbt_vnoshavgtr", "vslt_img_txt"),
+            "vnoshnoavg": ("tri_mbt_vnoshnoavgtr", "vslt_img_txt"),
+            "tri_mt": ("tri_mt_v1", "vslt_img_txt"),
+            "mt_v1": ("mt_v1", "vslt_img_txt"),
+            "biimg_mt": ("biimg_mt_v1", "vslt_img"),
+            "bitxt_mt": ("bitxt_mt_v1", "vslt_txt")}
+REGISTRY_ARGV = {
+    name: [{"tri_mbt_vsltcls": model, "vslt_img_txt": inputs}.get(a, a)
+           for a in CONFIG4]
+    for name, (model, inputs) in REGISTRY.items()}
+# timed and profiled as phase 15 times config 1
+REGISTRY_TIMED = ("vflex", "tri_mt")
+# the JAX model of these raises on two streams; the port refuses them
+REGISTRY_REFUSED = {"biimg_mbt_vflexible1": "vslt_img",
+                    "bitxt_mbt_vflexible1": "vslt_txt"}
+for _name, (_model, _inputs) in REGISTRY.items():
+    _timed = _name in REGISTRY_TIMED
+    BATCHES[_name] = [0.5, 0.25, 0.75] if _timed else [0.5, 0.75]
+    TRAIN_BATCHES[_name] = [0.5, 0.25, 0.75] if _timed else [0.5]
+    if "mt_v1" not in _model:
+        LAUNCHES_PER_STEP[_name] = LAUNCHES_PER_STEP["config4"]
+        TRAIN_LAUNCHES_PER_STEP[_name] = TRAIN_LAUNCHES_PER_STEP[
+            "config4" if _name == "noshare" else "tri_v1"]
+        continue
+    _swin = ({"swin_attention": 12, "swin_mlp": 12} if "img" in _inputs
+             else {})
+    LAUNCHES_PER_STEP[_name] = dict(umse=1, attn_block=6, ffn=6, **_swin)
+    TRAIN_LAUNCHES_PER_STEP[_name] = dict(
+        LAUNCHES_PER_STEP[_name], umse_bwd=1, attn_block_bwd=6, ffn_bwd=6,
+        dropout_masks=len(_inputs.split("_")))
+REGISTRY_PATHS = {name: f"{model} train"
+                  for name, (model, _) in REGISTRY.items()}
+# --model-types classification: tri_mbt_vsltcls on config 4's flags, each
+# --loss-types at the output width the JAX package's test runs it at (12
+# hour buckets; a time to the event), launching as config 4
+CLS_LOSSES = {"softmax": 12, "bces": 12, "bceandsoftmax": 12, "rmse": 1,
+              "bce": 1}
+CLS_ARGV = {loss: CONFIG4 + ["--model-types", "classification",
+                             "--loss-types", loss, "--output-dim", str(dim)]
+            for loss, dim in CLS_LOSSES.items()}
+for _loss in CLS_LOSSES:
+    LAUNCHES_PER_STEP["cls_" + _loss] = LAUNCHES_PER_STEP["config4"]
+    BATCHES["cls_" + _loss] = [0.5, 0.75]
+CLS_DRIVER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "classification_driver_smoke")
+CLS_DRIVER_BATCHES = {"train": [0.5, 0.75], "val": [0.5], "test": [0.25]}
+
+
+# the concat fusion's joint stream at config 4's shapes: the final cls
+# token, 1000 TIE rows, the image cls token and 49 image rows, 128 note
+# rows: not a multiple of 64, so the FFN skips no row tile
+MT_JOINT = 1 + TIE_LEN + 50 + 128
+
+
+def compare_joint_kernels() -> dict:
+    """attn_block (training forward and backward) and the ffn (dropout
+    0.1, training and backward) at the concat fusion's joint shape
+    [64, 1179, 256] under its key mask (the cls and image rows never
+    masked, the vslt and note rows past their sample's lengths, one
+    sample's note masked whole), fp32 and bf16, against autograd of the
+    plain versions with the profiler's device ms per form and the
+    launched kernels (_train_forms: TOL on live rows, GRAD_TOL, the
+    dtype's route), event and plain ms, the bound. Returns the bf16
+    results by kernel name."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
+        attn_block_route, key_ends)
+    from medical_tri_modal_pilot_tpu_torch.kernels.ffn import ffn_route
+    from medical_tri_modal_pilot_tpu_torch.models.modules import \
+        length_key_mask
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(18)
+    D, H, F, P, L = 256, 4, 1024, 0.1, MT_JOINT
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).to(dev)
+
+    vslt = torch.randint(5, TIE_LEN + 1, (BATCH,), generator=g)
+    txt = torch.randint(1, 129, (BATCH,), generator=g) + 1
+    txt[3] = 2                                   # vlen 2 -> 0: masked whole
+    txt = torch.where(txt == 2, 0, txt)
+    mask = torch.cat([torch.zeros(BATCH, 1, dtype=torch.bool),
+                      length_key_mask(vslt, TIE_LEN),
+                      torch.zeros(BATCH, 50, dtype=torch.bool),
+                      length_key_mask(txt, 128)], 1).to(dev)
+    ends = key_ends(mask).long()
+    live = torch.arange(L, device=dev)[None, :] < ends[:, None]
+    n = ends.double()
+    rows = BATCH * L
+    gamma, beta = rnd(D, std=.1, mean=1.), rnd(D, std=.1)
+    w, b = rnd(D, 3 * D, std=D ** -.5), rnd(3 * D, std=.1)
+    g1, be1 = rnd(D, std=.1, mean=1.), rnd(D, std=.1)
+    w1, b1 = rnd(D, F, std=D ** -.5), rnd(F, std=.1)
+    w2, b2 = rnd(F, D, std=F ** -.5), rnd(D, std=.1)
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        es = 2 if dt == torch.bfloat16 else 4
+        x = rnd(BATCH, L, D).to(dt)
+        _, fr, br = _train_forms(
+            f"attn_block[64,{L},256] mt joint", dt,
+            lambda *a: ops.attn_block(*a, mask, (D // H) ** .5, H),
+            (x, gamma, beta, w.to(dt), b.to(dt)),
+            rnd(BATCH, L, D).to(dt) * live[:, :, None], live,
+            *_attn_block_work(L, D, H, es, n),
+            ATTN_BLOCK_ROUTE_KERNELS, attn_block_route(dt, D, H), lean=False)
+        wbytes = (2 * D * F + F + D) * 4
+        _, fr2, br2 = _train_forms(
+            f"ffn[{rows},256] mt joint dropout {P}", dt,
+            lambda *a: ops.ffn(*a, None, p=P, training=True,
+                               seed=DROPOUT_SEED),
+            (x, g1, be1, w1, b1, w2, b2), rnd(BATCH, L, D).to(dt), None,
+            (2 * rows * D * es + wbytes, 4.0 * rows * D * F),
+            (3 * rows * D * es + 2 * wbytes, 10.0 * rows * D * F),
+            FFN_ROUTE_KERNELS, ffn_route(dt, D), lean=False)
+        if dt == torch.bfloat16:
+            # keyed by the kernels line's names; the forwards' training
+            # forms
+            shape = f"[64,{L},256]"
+            results = {"attn_block": dict(fr, shape=shape, form="training"),
+                       "attn_block_bwd": dict(br, shape=shape),
+                       "ffn": dict(fr2, shape=f"[{rows},256]",
+                                   form="training"),
+                       "ffn_bwd": dict(br2, shape=f"[{rows},256]")}
+    return results
+
+
+def _classification_run(power: str) -> None:
+    """--model-types classification: each --loss-types' eval against the
+    plain path (bf16 and fp32 probabilities, launch counts) and one train
+    step on both paths (fp32 and bf16, dropout 0.1, phase 7's gates); then
+    bceandsoftmax through the train driver's fold over wire batches (1
+    epoch of 2 train, 1 val, 1 test) with its launch counts, and the test
+    driver's walk to its final test metrics."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import (
+        BatchList, synthetic_batch)
+    from medical_tri_modal_pilot_tpu_torch.drivers import test as test_drv
+    from medical_tri_modal_pilot_tpu_torch.drivers import train as train_drv
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train import checkpoints as ckpt
+    from medical_tri_modal_pilot_tpu_torch.train.logger import \
+        make_setting_file
+
+    for loss, argv in CLS_ARGV.items():
+        name = "cls_" + loss
+        run_config(name, argv, power, timed=False)
+        cfg = parse_config(argv)
+        state = get_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+        batch = synthetic_batch(cfg, BATCH, seed=10, present_frac=0.5)
+        _check_step_parity(name, cfg, state, batch,
+                           [("fp32", 0.1), ("bf16", 0.1)])
+        gc_collect()
+
+    shutil.rmtree(CLS_DRIVER_DIR, ignore_errors=True)
+    cfg = parse_config(CLS_ARGV["bceandsoftmax"] + [
+        "--epochs", "1", "--log-iter", "1", "--img-pack-frac", "0.55",
+        "--dir-result", CLS_DRIVER_DIR, "--project-name", "classification"])
+    wire, _, table = _driver_loaders(cfg, CLS_DRIVER_BATCHES)
+    loaders = {k: BatchList(v) for k, v in wire.items()}
+    make_setting_file(cfg)
+    gc_collect()
+    ops.reset_launches()
+    val, test = train_drv.run_fold(cfg, 0, loaders["train"], loaders["val"],
+                                   loaders["test"], txt_table=table)
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    n_train = len(CLS_DRIVER_BATCHES["train"])
+    n_eval = len(CLS_DRIVER_BATCHES["val"]) + len(CLS_DRIVER_BATCHES["test"])
+    print(f"classification bceandsoftmax drivers: launches over {n_train} "
+          f"train and {n_eval} eval steps: {counts}; val {val}; test {test}")
+    for kernel in ops.KERNELS:
+        want = (n_train * TRAIN_LAUNCHES_PER_STEP["config4"].get(kernel, 0)
+                + n_eval * LAUNCHES_PER_STEP["config4"].get(kernel, 0))
+        if counts[kernel] != want:
+            raise AssertionError(f"classification drivers {kernel}: "
+                                 f"{counts[kernel]} launches, expected "
+                                 f"{want}")
+    if test is None or not all(np.isfinite(test[k])
+                               for k in ("auc", "apr", "f1")):
+        raise AssertionError(f"classification drivers: test metrics {test}")
+    best = ckpt.ckpt_path(CLS_DRIVER_DIR, cfg.project_name, "best", 0,
+                          cfg.seed)
+    walked = dict(test_drv.run_checkpoints(cfg, test_drv.checkpoints_of(cfg),
+                                           loaders["test"], txt_table=table))
+    print(f"classification test driver: {walked.get(best)}")
+    if walked.get(best) != test:
+        raise AssertionError(f"classification: test driver "
+                             f"{walked.get(best)} vs the train driver's "
+                             f"final test {test}")
+    gc_collect()
+
+
+# tri_mbt_vflexible*'s learned weights start at zero, where every
+# temperature gives the same uniform softmax; phase 18 sets them to these,
+# so that each name's temperature shapes its weights
+FLEX_WEIGHTS = ((0.5,), (-0.3,), (0.8,))
+
+
+@contextlib.contextmanager
+def _flex_weights():
+    """get_model, while this runs, builds tri_mbt_vflexible* with
+    ``flexibleavg`` = FLEX_WEIGHTS (every model run_config, run_train and
+    _train_run build for them)."""
+    from medical_tri_modal_pilot_tpu_torch import models
+    build = models.get_model
+
+    def get_model(cfg, generator=None):
+        model = build(cfg, generator)
+        if hasattr(model, "flexibleavg"):
+            with torch.no_grad():
+                model.flexibleavg.copy_(torch.tensor(FLEX_WEIGHTS))
+        return model
+
+    models.get_model = get_model
+    try:
+        yield
+    finally:
+        models.get_model = build
+
+
+def run_registry(power: str) -> dict:
+    """Phase 18: the rest of the paper's MBT registry at full width, bf16,
+    on config 4's flags: each name's eval against the plain path (bf16 and
+    fp32), one train step on both paths in fp32 and bf16 at dropout 0 and
+    0.1, launch counts (tri_mbt_vflexible*'s learned weights set to
+    FLEX_WEIGHTS); tri_mbt_vflexible and tri_mt_v1 also timed in
+    turns, profiled (device busy and idle share), their peak memory and 20
+    steps on one batch; the bimodal *_mbt_vflexible1 names refused; then
+    --model-types classification (_classification_run). First the
+    kernels at the concat fusion's joint shape (compare_joint_kernels).
+    Returns (those kernel results, each train path's launches)."""
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    t_phase = time.perf_counter()
+    results = compare_joint_kernels()
+    counts = {}
+    for name, argv in REGISTRY_ARGV.items():
+        timed = name in REGISTRY_TIMED
+        with _flex_weights():
+            run_config(name, argv, power, timed=timed)
+            counts[name] = run_train(name, argv, power, timed=timed,
+                                     all_parity=True)
+        gc_collect()
+    for model, inputs in REGISTRY_REFUSED.items():
+        argv = [{"tri_mbt_vsltcls": model, "vslt_img_txt": inputs}.get(a, a)
+                for a in CONFIG4]
+        try:
+            get_model(parse_config(argv))
+        except ValueError as e:
+            print(f"{model}: refused, {e}")
+        else:
+            raise AssertionError(f"{model} on {inputs}: not refused")
+    _classification_run(power)
+    if "config4" in TRAIN_STEP_MS:
+        print("registry train step (" + power + "): " + ", ".join(
+            f"{REGISTRY[n][0]} {TRAIN_STEP_MS[n]:.2f} ms/step"
+            for n in REGISTRY_TIMED) + f"; config 4 (phase 7, this call) "
+            f"{TRAIN_STEP_MS['config4']:.2f} ms/step")
+    print(f"registry phase ({power}): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return results, counts
+
+
 # the batch seeds of the stepgate mode; run_train's first batch is seed 10
 STEPGATE_SEEDS = (10, 11, 12, 13, 14, 15)
 
@@ -3941,15 +4273,16 @@ def keyprobe(power: str) -> None:
 
 
 # phase 14 under --mp-size 2 --dp-size 1: the drivers' bodies in two ranks
-# on the one card over gloo, config 4 at full width, 1 epoch of 2 train, 1
-# val and 1 test wire-format batches, an epoch save, a resume and the test
-# driver
+# on the one card over gloo, config 4 at full width and TP_LAYERS layers,
+# 1 epoch of 2 train, 1 val and 1 test wire-format batches, an epoch
+# save, a resume and the test driver
 TP_DRIVER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build", "tp_driver_smoke")
 TP_DRIVER_ARGV = CONFIG4 + ["--img-pack-frac", "0.55", "--epochs", "1",
                             "--log-iter", "1", "--dir-result",
                             TP_DRIVER_DIR, "--project-name", "tp_drivers",
-                            "--mp-size", "2", "--dp-size", "1"]
+                            "--mp-size", "2", "--dp-size", "1",
+                            "--transformer-num-layers", str(TP_LAYERS)]
 TP_DRIVER_BATCHES = {"train": [0.5, 0.75], "val": [0.5], "test": [0.25]}
 
 
@@ -4098,8 +4431,8 @@ PATH_STEPS = dict({k: len(v) for k, v in TRAIN_BATCHES.items()},
                   tp=len(TP_BATCHES))
 # the train paths whose launches the kernels line gives under other_paths
 OTHER_PATHS = dict(BASE_PATHS, vmulti2=MULTI_PATHS["vmulti2"],
-                   vmultivslt=MULTI_PATHS["vmultivslt"])
-PATH_NAMES.update(BASE_PATHS, **MULTI_PATHS)
+                   vmultivslt=MULTI_PATHS["vmultivslt"], **REGISTRY_PATHS)
+PATH_NAMES.update(BASE_PATHS, **MULTI_PATHS, **REGISTRY_PATHS)
 
 
 # the kernels the A/B reading sums in a step and in an attn_block call:
@@ -4382,6 +4715,11 @@ def main() -> None:
         build_kernels()
         run_multitoken(power)
         return
+    if len(sys.argv) == 2 and sys.argv[1] == "registry":
+        power = check_device()
+        build_kernels()
+        run_registry(power)
+        return
     if len(sys.argv) == 2 and sys.argv[1] == "widths":
         power = check_device()
         build_kernels()
@@ -4427,11 +4765,13 @@ def main() -> None:
     results.update(mt_results)
     counts.update(mt_counts)
     run_widths(power)
+    joint, reg_counts = run_registry(power)
+    counts.update(reg_counts)
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         path = KERNEL_PATHS[name]
-        # the launches of phases 15 and 16's other train paths, each over
-        # its steps
+        # the launches of phases 15, 16 and 18's other train paths, each
+        # over its steps
         also = {PATH_NAMES[p]: {"launches": counts[p][name],
                                 "steps": PATH_STEPS[p]}
                 for p in OTHER_PATHS if counts[p][name]}
@@ -4440,7 +4780,8 @@ def main() -> None:
                         "launches": counts[path][name] if path else 0,
                         "steps": PATH_STEPS[path] if path else 0,
                         "other_paths": also, **results[name],
-                        "widths": widths.get(name, {})})
+                        "widths": widths.get(name, {}),
+                        "mt_joint": joint.get(name, {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

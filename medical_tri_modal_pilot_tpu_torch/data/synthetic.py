@@ -80,6 +80,28 @@ def _token_ids(cfg: Config, rng, missing: np.ndarray):
     return txt, txt_length
 
 
+# the hour buckets of --model-types classification (data/dataset.py:
+# 291-309)
+N_BUCKETS = 12
+
+
+def classification_targets(cfg: Config, rng, B: int):
+    """(target, target_aux) of ``--model-types classification`` as
+    data/dataset.py:291-309 builds them from an hour bucket t in [0, 12):
+    ``bces`` the one-hot [B, 12] (aux 0); ``bceandsoftmax`` t, the one-hot
+    in aux; ``rmse`` the hours to the event (aux 0); else t."""
+    t = rng.integers(0, N_BUCKETS, B)
+    onehot = np.eye(N_BUCKETS, dtype=np.float32)[t]
+    zeros = np.zeros(B, np.float32)
+    if cfg.loss_types == "bces":
+        return onehot, zeros
+    if cfg.loss_types == "bceandsoftmax":
+        return t.astype(np.float32), onehot
+    if cfg.loss_types == "rmse":
+        return rng.uniform(0, 24, B).astype(np.float32), zeros
+    return t.astype(np.float32), zeros
+
+
 def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
                     present_frac: float = 0.5) -> Dict[str, np.ndarray]:
     """Vital signs as TIE streams (``--vslt-type TIE`` or QIE) or
@@ -88,7 +110,8 @@ def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
     missing note as zeros of length 0, random targets and, when
     ``--input-types`` has img, images for round(present_frac * batch_size)
     samples at random positions (so a caller can force the packed trunk or
-    its overflow)."""
+    its overflow). Under ``--model-types classification`` the targets are
+    drawn by ``classification_targets``."""
     rng = np.random.default_rng(seed)
     B = batch_size
     if cfg.vslt_type == "carryforward":
@@ -125,6 +148,9 @@ def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
         present[rng.permutation(B)[:int(round(present_frac * B))]] = True
         missing[:, 1] = ~present
         batch["img"], batch["img_time"] = _images(cfg, rng, present)
+    if cfg.model_types == "classification":
+        batch["target"], batch["target_aux"] = classification_targets(
+            cfg, rng, B)
     return batch
 
 

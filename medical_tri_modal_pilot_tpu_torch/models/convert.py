@@ -8,8 +8,14 @@ maps a port state_dict back onto the flax tree and raises on any key it
 does not use. Covered: ``tri_mbt_vsltcls`` (and its bimodal aliases),
 ``bi_vslttxt_mbt_v1``, ``bi_vsltimg_mbt_v1``, ``tri_mbt_v1``,
 ``unimodal_transformer`` under every UMSE branch, the multitoken family
-(``tri_mbt_vmulti``, ``tri_mbt_vmulti2``, ``tri_mbt_vmultivslt``) and the
-cross transformer. The JAX package's bridge does not reach the multitoken
+(``tri_mbt_vmulti``, ``tri_mbt_vmulti2``, ``tri_mbt_vmultivslt``), the
+MBT ablations (``tri_mbt_vsltcls_noshareumse``, ``tri_mbt_vflexible*``,
+``tri_mbt_vnosh*avgtr``), the concat-fusion ``*_mt_v1`` and the cross
+transformer; a leaf of the JAX tree left unused raises. The reference's
+bridge does not reach the ablations' and ``*_mt_v1``'s own parts either:
+they are named after the flax tree (``umse_img``, ``umse_txt``,
+``flexibleavg``, ``fc_list_{m}``, ``MTFusion``'s names), with
+``layer_norms_after_concat`` and ``fc_list`` as in the other models. The JAX package's bridge does not reach the multitoken
 trees; their port names follow the reference's other MBT fusions
 (``cls_token_per_modality``, ``bottlenecks``, ``layer_norms_in``,
 ``layer_stacks``), with ``cls_token`` for the VSLTMAIN fusion's single
@@ -34,6 +40,36 @@ import numpy as np
 import torch
 
 from ..config import Config
+
+
+class _Tracked(Mapping):
+    """A read-only view of a JAX tree that records the leaves read
+    through it (``used``: their key paths)."""
+
+    def __init__(self, tree: Mapping, path=(), used=None):
+        self._tree, self._path = tree, path
+        self.used = set() if used is None else used
+
+    def __getitem__(self, key):
+        value = self._tree[key]
+        if isinstance(value, Mapping):
+            return _Tracked(value, self._path + (key,), self.used)
+        self.used.add(self._path + (key,))
+        return value
+
+    def __iter__(self):
+        return iter(self._tree)
+
+    def __len__(self) -> int:
+        return len(self._tree)
+
+
+def _leaf_paths(tree: Mapping, path=()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaf_paths(value, path + (key,))
+        else:
+            yield path + (key,)
 
 
 def _t(a) -> torch.Tensor:
@@ -189,9 +225,7 @@ def _multitoken(params: Mapping) -> Dict[str, torch.Tensor]:
     heads ``fc_lists_{i}`` (JAX models.py:564-667)."""
     sd: Dict[str, torch.Tensor] = {}
     _umse(sd, params["umse"])
-    img = params["img_enc"]
-    sd.update(swin_state_dict(img["img_encoder"], "img_encoder."))
-    _lin(sd, "linear", img["linear"])
+    _img(sd, params["img_enc"])
     _multitoken_fusion(sd, "fusion_transformer", params["fusion_transformer"])
     _ln(sd, "layer_norms_after_concat", params["after_concat_ln"])
     for i in range(4):
@@ -199,21 +233,60 @@ def _multitoken(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _cls_head(sd, params: Mapping, stats: Mapping) -> None:
-    """ClsHead ``fc_list`` (fc1, bn, fc2) -> Linear, BatchNorm1d, Linear;
+def _cls_head(sd, params: Mapping, stats: Mapping,
+              key: str = "fc_list") -> None:
+    """ClsHead ``key`` (fc1, bn, fc2) -> Linear, BatchNorm1d, Linear;
     ClsHeadLN (fc1, ln, fc2) -> Linear, LayerNorm, Linear."""
-    head = params["fc_list"]
+    head = params[key]
     if "ln" in head:
-        _ln_head(sd, "fc_list", head)
+        _ln_head(sd, key, head)
         return
-    _lin(sd, "fc_list.0", head["fc1"])
-    sd["fc_list.1.weight"] = _t(head["bn"]["scale"])
-    sd["fc_list.1.bias"] = _t(head["bn"]["bias"])
-    bn = stats["fc_list"]["bn"]
-    sd["fc_list.1.running_mean"] = _t(bn["mean"])
-    sd["fc_list.1.running_var"] = _t(bn["var"])
-    sd["fc_list.1.num_batches_tracked"] = torch.tensor(0)
-    _lin(sd, "fc_list.3", head["fc2"])
+    _lin(sd, f"{key}.0", head["fc1"])
+    sd[f"{key}.1.weight"] = _t(head["bn"]["scale"])
+    sd[f"{key}.1.bias"] = _t(head["bn"]["bias"])
+    bn = stats[key]["bn"]
+    sd[f"{key}.1.running_mean"] = _t(bn["mean"])
+    sd[f"{key}.1.running_var"] = _t(bn["var"])
+    sd[f"{key}.1.num_batches_tracked"] = torch.tensor(0)
+    _lin(sd, f"{key}.3", head["fc2"])
+
+
+def _img(sd, p: Mapping) -> None:
+    """The image encoder's tree (``img_enc``): the trunk and its
+    projection ``linear``."""
+    sd.update(swin_state_dict(p["img_encoder"], "img_encoder."))
+    _lin(sd, "linear", p["linear"])
+
+
+def _mt_fusion(sd, pre: str, p: Mapping) -> None:
+    """MTFusion tree -> the same names under ``pre``: the encoder layers
+    (``specific_{m}_{layer}``, ``fusion_{layer}``), the StdLNs
+    ``layer_norm_in_{m}`` and the two cls tokens."""
+    for key, sub in p.items():
+        if key.startswith(("specific_", "fusion_")):
+            _encoder_layer(sd, f"{pre}.{key}", sub)
+        elif key.startswith("layer_norm_in_"):
+            sd[f"{pre}.{key}.gamma"] = _t(sub["gamma"])
+            sd[f"{pre}.{key}.beta"] = _t(sub["beta"])
+        else:
+            sd[f"{pre}.{key}"] = _t(sub)
+
+
+_MT_MODELS = ("tri_mt_v1", "biimg_mt_v1", "bitxt_mt_v1", "mt_v1")
+
+
+def _mt(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """MT_FUSION_MODEL (JAX models.py:480-527): the stems, the trunk, the
+    ``MTFusion`` tree under its own names, ``after_concat_ln`` at
+    ``layer_norms_after_concat`` and the head."""
+    sd: Dict[str, torch.Tensor] = {}
+    _umse(sd, params["umse"])
+    if "img_enc" in params:
+        _img(sd, params["img_enc"])
+    _mt_fusion(sd, "fusion_transformer", params["fusion_transformer"])
+    _ln(sd, "layer_norms_after_concat", params["after_concat_ln"])
+    _cls_head(sd, params, stats)
+    return sd
 
 
 _CROSS_TRANSFORMERS = ("cross_transformer_txt_vslt",
@@ -240,20 +313,24 @@ def _cross_transformer(params: Mapping, stats: Mapping
 
 
 _MBT_MODELS = ("tri_mbt_vsltcls", "biimg_mbt_vsltcls", "bitxt_mbt_vsltcls",
-               "bi_vslttxt_mbt_v1", "bi_vsltimg_mbt_v1", "tri_mbt_v1")
+               "bi_vslttxt_mbt_v1", "bi_vsltimg_mbt_v1", "tri_mbt_v1",
+               "tri_mbt_vsltcls_noshareumse", "tri_mbt_vflexible",
+               "tri_mbt_vflexible2", "tri_mbt_vflexible3",
+               "biimg_mbt_vflexible1", "bitxt_mbt_vflexible1",
+               "tri_mbt_vnoshavgtr", "tri_mbt_vnoshnoavgtr")
 
 
-def _umse(sd, p: Mapping) -> None:
+def _umse(sd, p: Mapping, pre: str = "") -> None:
     """The UMSE stems the JAX model holds (its tree has the ones its
     inputs use): the MLPStems, the feature-id table and the note
-    embedding."""
+    embedding, keys prefixed with ``pre``."""
     for name in ("vslt_enc", "ie_vslt", "ie_time", "ie_demo"):
         if name in p:
-            _stem(sd, name, p[name])
+            _stem(sd, pre + name, p[name])
     if "ie_feat" in p:
-        sd["ie_feat.weight"] = _t(p["ie_feat"]["embedding"])
+        sd[f"{pre}ie_feat.weight"] = _t(p["ie_feat"]["embedding"])
     if "txt_embedding" in p:
-        _txt_embedding(sd, "txt_embedding", p["txt_embedding"])
+        _txt_embedding(sd, f"{pre}txt_embedding", p["txt_embedding"])
 
 
 def _encoder(sd, pre: str, p: Mapping) -> None:
@@ -282,30 +359,54 @@ def _unimodal(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
 def from_jax_variables(cfg: Config, variables: Mapping
                        ) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` of ``cfg.model`` -> port
-    state_dict (fp32 tensors)."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
+    state_dict (fp32 tensors). Raises on a leaf of either tree it does
+    not carry across."""
+    trees = (variables["params"], variables.get("batch_stats", {}))
+    params, stats = (_Tracked(t) for t in trees)
     if cfg.model in _CROSS_TRANSFORMERS:
-        return _cross_transformer(params, stats)
-    if cfg.model == "unimodal_transformer":
-        return _unimodal(params, stats)
-    if cfg.model in _MULTITOKEN_MODELS:
-        return _multitoken(params)
-    if cfg.model not in _MBT_MODELS:
+        sd = _cross_transformer(params, stats)
+    elif cfg.model == "unimodal_transformer":
+        sd = _unimodal(params, stats)
+    elif cfg.model in _MULTITOKEN_MODELS:
+        sd = _multitoken(params)
+    elif cfg.model in _MT_MODELS:
+        sd = _mt(params, stats)
+    elif cfg.model in _MBT_MODELS:
+        sd = _mbt(cfg, params, stats)
+    else:
         raise NotImplementedError(
             f"no weight bridge for model '{cfg.model}' yet")
-    sd: Dict[str, torch.Tensor] = {}
-    _umse(sd, params["backbone"]["umse"])
-    if "img" in cfg.input_types.split("_"):
-        img = params["backbone"]["img_enc"]
-        sd.update(swin_state_dict(img["img_encoder"], "img_encoder."))
-        _lin(sd, "linear", img["linear"])
+    for tree, view in zip(trees, (params, stats)):
+        unused = sorted(set(_leaf_paths(tree)) - view.used)
+        if unused:
+            raise ValueError(f"--model {cfg.model}: JAX leaves not carried "
+                             f"across: {['/'.join(p) for p in unused[:8]]}"
+                             f" (+{max(0, len(unused) - 8)} more)")
+    return sd
 
-    _fusion(sd, "fusion_transformer",
-            params["backbone"]["fusion_transformer"],
+
+def _mbt(cfg: Config, params: Mapping, stats: Mapping
+         ) -> Dict[str, torch.Tensor]:
+    """The MBT models: the shared stems (and ``umse_img`` / ``umse_txt``
+    of noshareumse), the trunk, the fusion, ``after_concat_ln``, the
+    heads (``fc_list``, or ``fc_list_{m}`` per stream), ``flexibleavg``
+    and ``rmse_layer`` where the model has them."""
+    sd: Dict[str, torch.Tensor] = {}
+    backbone = params["backbone"]
+    _umse(sd, backbone["umse"])
+    for m in ("img", "txt"):
+        if f"umse_{m}" in backbone:
+            _umse(sd, backbone[f"umse_{m}"], f"umse_{m}.")
+    if "img_enc" in backbone:
+        _img(sd, backbone["img_enc"])
+    _fusion(sd, "fusion_transformer", backbone["fusion_transformer"],
             len(cfg.input_types.split("_")))
     _ln(sd, "layer_norms_after_concat", params["after_concat_ln"])
-    _cls_head(sd, params, stats)
+    for key in params:
+        if key == "fc_list" or key.startswith("fc_list_"):
+            _cls_head(sd, params, stats, key)
+    if "flexibleavg" in params:
+        sd["flexibleavg"] = _t(params["flexibleavg"])
     if "rmse_layer" in params:
         _lin(sd, "rmse_layer", params["rmse_layer"])
     return sd
@@ -315,11 +416,13 @@ def params_from_jax(cfg: Config, tree: Mapping) -> Dict[str, torch.Tensor]:
     """A tree shaped like the JAX model's params (the params, or an
     optimizer's moments of them) -> the port's parameter names, with the
     same layout rules (buffers left out)."""
-    stub = {"fc_list": {"bn": {"mean": np.zeros(1), "var": np.zeros(1)}}}
+    stub = {k: {"bn": {"mean": np.zeros(1), "var": np.zeros(1)}}
+            for k, head in tree.items()
+            if isinstance(head, Mapping) and "bn" in head}
     sd = from_jax_variables(cfg, {"params": tree, "batch_stats": stub})
     return {k: v for k, v in sd.items()
-            if not (k.startswith("fc_list.1.running")
-                    or k.endswith("num_batches_tracked"))}
+            if not k.endswith(("running_mean", "running_var",
+                               "num_batches_tracked"))}
 
 
 def _fill_masked(tree, params):

@@ -1,11 +1,15 @@
 """The MBT models (counterpart of medical_tri_modal_pilot_tpu/models/
-models.py:49-387, :530-561): UMSE stems + modality encoders + MBT fusion,
+models.py:49-561): UMSE stems + modality encoders + MBT fusion,
 and the heads of ``tri_mbt_vsltcls`` (the vslt cls token plus
 demographics), ``bi_*_mbt_v1`` (a missing-aware mix of the two cls
 vectors) and ``tri_mbt_v1`` (a missing-aware mix of per-modality logits);
-the multitoken family ``tri_mbt_vmulti``, ``tri_mbt_vmulti2`` and
-``tri_mbt_vmultivslt`` (four cls heads, one per missing case); and
-``unimodal_transformer``, the UMSE stems under one encoder.
+the paper's ablations ``tri_mbt_vsltcls_noshareumse`` (stems per
+stream), ``tri_mbt_vflexible*`` (learned missing-aware weights of
+per-stream logits) and ``tri_mbt_vnosh*avgtr`` (a head per stream); the
+concat-fusion baseline ``*_mt_v1``; the multitoken family
+``tri_mbt_vmulti``, ``tri_mbt_vmulti2`` and ``tri_mbt_vmultivslt`` (four
+cls heads, one per missing case); and ``unimodal_transformer``, the UMSE
+stems under one encoder.
 
 The classes extend each other (UMSE <- ImageEncoder <- MBTBackbone <-
 TRI_MBT_VSLTCLS) so every parameter sits where the reference's single
@@ -22,7 +26,7 @@ from torch import nn
 
 from ..config import Config
 from ..constants import IMG_FEATURE_ID, TXT_FEATURE_ID
-from .encoder import TransformerEncoder
+from .encoder import MTFusion, TransformerEncoder
 from .heads import ClsHead, ClsHeadLN
 from .mbt import (MBTFusion, MultitokenMBTFusion,
                   MultitokenMBTVSLTMAINFusion, missing_candidate_weights)
@@ -62,6 +66,22 @@ def class_input(norm: nn.Module, cls_vec: torch.Tensor, demo: torch.Tensor,
     return h
 
 
+def stack_cls(model: nn.Module, outputs: List[torch.Tensor],
+              demo: torch.Tensor) -> torch.Tensor:
+    """Each stream's cls token stacked [M, B, D] through
+    ``layer_norms_after_concat``, the demographics concatenated but under
+    QIE: the input of the per-stream heads (JAX models.py:415-418)."""
+    return class_input(model.layer_norms_after_concat,
+                       torch.stack([o[:, 0, :] for o in outputs]), demo,
+                       model.cfg)
+
+
+def _require_three_streams(cfg: Config) -> None:
+    if cfg.input_types != "vslt_img_txt":
+        raise ValueError(f"--model {cfg.model} fuses vslt_img_txt, not "
+                         f"--input-types {cfg.input_types}")
+
+
 class ImageEncoder(UMSE):
     """UMSE plus, when ``--input-types`` has img, the Swin-T trunk
     (``img_encoder``) and its 768 -> d projection (``linear``)
@@ -72,15 +92,29 @@ class ImageEncoder(UMSE):
     under ``torch.no_grad()`` (JAX: stop_gradient, models.py:125-141, and
     the optimizer mask). Only ``linear`` trains on the image side. The
     weights are seeded or carried across, since loading
-    ``--img-pretrain-path`` is not ported yet."""
+    ``--img-pretrain-path`` is not ported yet. ``share_umse=False``
+    gives the img and txt streams stems of their own; ``timestamps=False``
+    leaves out the img/txt timestamp stems (a model that never enriches
+    its tokens, ``*_mt_v1``)."""
 
-    def __init__(self, cfg: Config, img_frozen: Optional[bool] = None):
+    def __init__(self, cfg: Config, img_frozen: Optional[bool] = None,
+                 share_umse: bool = True, timestamps: bool = True):
         dt = model_dtype(cfg)
         mods = cfg.input_types.split("_")
+        stamps = timestamps and cfg.imgtxt_time == 1 and len(mods) > 1
         super().__init__(cfg.transformer_dim, cfg.vslt_type, cfg.berttype,
-                         dt, cfg.vslt_len, txt="txt" in mods,
-                         timestamps=cfg.imgtxt_time == 1 and len(mods) > 1)
+                         dt, cfg.vslt_len, txt="txt" in mods and share_umse,
+                         timestamps=stamps and share_umse)
         self.cfg = cfg
+        self.share_umse = share_umse
+        if not share_umse:
+            # the img and txt streams' own stems, where the JAX model calls
+            # them (models.py:183-212): the timestamp enrichment, the notes
+            for m in ("img", "txt"):
+                if m in mods and (m == "txt" or stamps):
+                    setattr(self, f"umse_{m}", UMSE(
+                        cfg.transformer_dim, cfg.vslt_type, cfg.berttype, dt,
+                        txt=m == "txt", timestamps=stamps, vslt=False))
         if "img" not in mods:
             return
         if cfg.img_model_type != "swin":
@@ -103,6 +137,12 @@ class ImageEncoder(UMSE):
             or (cfg.img_pack == -1 and "missing" in cfg.modality_inclusion))
         # rows the trunk ran on in the last call (cap + 1 when packed)
         self.trunk_rows = 0
+
+    def stems(self, stream: str) -> UMSE:
+        """The stems of the img or txt stream: the shared ones, or under
+        ``share_umse=False`` the stream's own (``umse_img``,
+        ``umse_txt``)."""
+        return self if self.share_umse else getattr(self, f"umse_{stream}")
 
     def train(self, mode: bool = True):
         """Training mode for everything but a frozen trunk, which stays in
@@ -161,13 +201,17 @@ class MBTBackbone(ImageEncoder):
     ``ImageEncoder``), ``allow_multiimages`` (False: one
     image per sample, ``--multiimages 1`` refused), ``allow_resbottle``
     (False: ``--residual-bottlenecks`` ignored) and ``img_use_pe`` (the
-    image stream gets the positional encoding, bi_vsltimg_mbt_v1.py:130).
+    image stream gets the positional encoding, bi_vsltimg_mbt_v1.py:130);
+    ``share_umse`` (False: ``tri_mbt_vsltcls_noshareumse``'s stems per
+    stream, JAX models.py:173-236; the vslt tokens and the demographics
+    still come from the shared ones, so ``ops.umse`` runs once).
     """
 
     def __init__(self, cfg: Config, img_frozen: Optional[bool] = None,
                  allow_multiimages: bool = True,
-                 allow_resbottle: bool = True, img_use_pe: bool = False):
-        super().__init__(cfg, img_frozen)
+                 allow_resbottle: bool = True, img_use_pe: bool = False,
+                 share_umse: bool = True):
+        super().__init__(cfg, img_frozen, share_umse)
         mods = cfg.input_types.split("_")
         if cfg.multiimages == 1 and "img" in mods and not allow_multiimages:
             raise ValueError(f"--multiimages 1: --model {cfg.model} takes "
@@ -212,7 +256,7 @@ class MBTBackbone(ImageEncoder):
         tokens = self.encode_images(batch["img"], present)
         per_image = tokens.shape[1]
         if cfg.imgtxt_time == 1:
-            tokens = self.add_time_feature(
+            tokens = self.stems("img").add_time_feature(
                 tokens, batch["img_time"].reshape(-1), IMG_FEATURE_ID, demo)
         if not multi:
             return tokens, torch.full((B,), per_image, dtype=torch.long,
@@ -236,11 +280,12 @@ class MBTBackbone(ImageEncoder):
             enc_inputs.append(img_tokens)
             varying.append(img_len.long())
         if "txt" in mods:
-            txt_tokens = self.embed_txt(batch["txt"])
+            stems = self.stems("txt")
+            txt_tokens = stems.embed_txt(batch["txt"])
             if txt_tokens.dim() == 2:
                 txt_tokens = txt_tokens[:, None, :]
             if cfg.imgtxt_time == 1:
-                txt_tokens = self.add_time_feature(
+                txt_tokens = stems.add_time_feature(
                     txt_tokens, batch["txt_time"], TXT_FEATURE_ID, demo)
             enc_inputs.append(txt_tokens)
             varying.append(batch["txt_length"].long() + 2)
@@ -252,7 +297,9 @@ class MBTBackbone(ImageEncoder):
 class TRI_MBT_VSLTCLS(MBTBackbone):
     """Flagship: classify from the vslt cls token + demographics
     (tri_mbt_vsltcls.py:248-255). Also the bimodal ``biimg_mbt_vsltcls``
-    and ``bitxt_mbt_vsltcls``, as in the JAX registry."""
+    and ``bitxt_mbt_vsltcls``, as in the JAX registry, and
+    ``tri_mbt_vsltcls_noshareumse`` (``share_umse=False``: the img and txt
+    streams' own stems, JAX models.py:287)."""
 
     def __init__(self, cfg: Config, **wiring):
         super().__init__(cfg, **wiring)
@@ -332,9 +379,7 @@ class TRI_MBT_V1(MBTBackbone):
             raise NotImplementedError(
                 "--model tri_mbt_v3 runs the patch-embed image stem: ROADMAP "
                 "Queue 1 item 7")
-        if cfg.input_types != "vslt_img_txt":
-            raise ValueError(f"--model {cfg.model} fuses vslt_img_txt, not "
-                             f"--input-types {cfg.input_types}")
+        _require_three_streams(cfg)
         super().__init__(cfg, img_frozen=True)
         D = cfg.transformer_dim
         dt = model_dtype(cfg)
@@ -349,13 +394,175 @@ class TRI_MBT_V1(MBTBackbone):
                 missing_num: torch.Tensor,
                 seeds: Optional[DropoutSeeds] = None) -> ModelOutput:
         outputs, demo = self.backbone(batch, missing_num, seeds)
-        stack = torch.stack([o[:, 0, :] for o in outputs])      # [M, B, D]
-        stack = class_input(self.layer_norms_after_concat, stack, demo,
-                            self.cfg)
-        logits = self.fc_list(stack)                            # [M, B, 1]
+        logits = self.fc_list(stack_cls(self, outputs, demo))   # [M, B, 1]
         onehot = F.one_hot(missing_num.long(), 4).float()
         mix = (onehot @ self.logit_mix).to(logits.dtype)        # [B, M]
         return torch.einsum("bm,mbo->bo", mix, logits)[..., 0], None, None
+
+
+class TRI_MBT_VFLEXIBLE(MBTBackbone):
+    """``tri_mbt_vflexible`` (JAX models.py:390-437; tri_mbt_vflexible.py:
+    148, 269-289): per-stream logits from one LayerNorm head over the
+    stacked cls tokens [3, B], weighted by a learned (3, 1) parameter
+    ``flexibleavg`` (zeros at init) masked by the sample's available
+    streams and softmaxed over them, then the missing case's candidate sum
+    (tri, v+i, v+t, v). The weights are filled with -1e9 where a stream is
+    missing, then scaled by ``flex_temp`` (10 in ``tri_mbt_vflexible2``,
+    3.334 in ``vflexible3``), and softmaxed in fp32, in that order. No
+    rmse output.
+
+    The bimodal ``biimg_mbt_vflexible1`` / ``bitxt_mbt_vflexible1`` map to
+    this class in the JAX registry, whose module stacks two streams but
+    broadcasts the demographics and the weights to three and raises
+    (models.py:411, :425); the port refuses them here (ROADMAP Queue 3)."""
+
+    # rows: missing case (tri, v+i, v+t, v); True = stream left out
+    AVAILABLE = ((False, False, False), (False, False, True),
+                 (False, True, False), (False, True, True))
+
+    def __init__(self, cfg: Config, flex_temp: float = 1.0):
+        if cfg.input_types != "vslt_img_txt":
+            raise ValueError(
+                f"--model {cfg.model} on --input-types {cfg.input_types}: "
+                "the JAX model weights three streams and raises on two "
+                "(its models.py:411, :425); ROADMAP Queue 3")
+        super().__init__(cfg)
+        D = cfg.transformer_dim
+        dt = model_dtype(cfg)
+        self.flex_temp = flex_temp
+        self.layer_norms_after_concat = LayerNorm(D, dt)
+        self.fc_list = ClsHeadLN(head_width(cfg), D, cfg.output_dim,
+                                 cfg.activation, dt)
+        self.flexibleavg = nn.Parameter(torch.zeros(3, 1))
+        self.register_buffer("left_out", torch.tensor(self.AVAILABLE),
+                             persistent=False)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                missing_num: torch.Tensor,
+                seeds: Optional[DropoutSeeds] = None) -> ModelOutput:
+        outputs, demo = self.backbone(batch, missing_num, seeds)
+        logits = self.fc_list(stack_cls(self, outputs, demo))[..., 0]
+        B = logits.shape[1]
+        w = self.flexibleavg.float().expand(3, B)
+        w = torch.where(self.left_out[missing_num.long()].T, -1e9, w)
+        w = torch.softmax(w * self.flex_temp, dim=0).to(logits.dtype)
+        weighted = logits * w                                    # [3, B]
+        cands = torch.stack([weighted.sum(0), weighted[0] + weighted[1],
+                             weighted[0] + weighted[2], weighted[0]])
+        onehot = F.one_hot(missing_num.long(), 4).to(cands.dtype)
+        return torch.einsum("bk,kb->b", onehot, cands), None, None
+
+
+class TRI_MBT_VNOSH(MBTBackbone):
+    """``tri_mbt_vnoshnoavgtr`` and ``tri_mbt_vnoshavgtr`` (JAX models.py:
+    440-477; tri_mbt_vnoshnoavgtr.py:259-281): the stacked cls tokens
+    through one LayerNorm (+demo), then a BatchNorm head per stream
+    (``fc_list_0``, ``fc_list_1``, ``fc_list_2``), logits [3, B] and, with
+    ``--auxiliary-loss-type rmse``, ``rmse_layer`` over the stack [3, B].
+    ``avg_in_model`` (vnoshavgtr) returns the missing case's mean of the
+    available streams' logits [B]; otherwise the Trainer weights each
+    head's loss and selects the output (train/trainer.py)."""
+
+    def __init__(self, cfg: Config, avg_in_model: bool = False):
+        _require_three_streams(cfg)
+        super().__init__(cfg)
+        D = cfg.transformer_dim
+        dt = model_dtype(cfg)
+        self.avg_in_model = avg_in_model
+        self.layer_norms_after_concat = LayerNorm(D, dt)
+        if "rmse" in cfg.auxiliary_loss_type:
+            self.rmse_layer = nn.Linear(head_width(cfg), 1)
+        for m in range(3):
+            setattr(self, f"fc_list_{m}", ClsHead(
+                head_width(cfg), D, cfg.output_dim, cfg.activation, dt))
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                missing_num: torch.Tensor,
+                seeds: Optional[DropoutSeeds] = None) -> ModelOutput:
+        outputs, demo = self.backbone(batch, missing_num, seeds)
+        stack = stack_cls(self, outputs, demo)
+        rmse = None
+        if "rmse" in self.cfg.auxiliary_loss_type:
+            lin = self.rmse_layer
+            rmse = F.linear(stack, lin.weight.to(stack.dtype),
+                            lin.bias.to(stack.dtype))[..., 0]
+        out = torch.stack([getattr(self, f"fc_list_{m}")(stack[m])[..., 0]
+                           for m in range(3)])                   # [3, B]
+        if self.avg_in_model:
+            out = select_case_mean(out, missing_num)
+        return out, rmse, None
+
+
+def select_case_mean(out: torch.Tensor, missing_num: torch.Tensor
+                     ) -> torch.Tensor:
+    """Per sample, the mean of the available streams' outputs [3, B] ->
+    [B]: all three, v+i, v+t or v by the missing case (JAX models.py:
+    468-475, trainer.py:218-225)."""
+    cands = torch.stack([out.mean(0), (out[0] + out[1]) / 2,
+                         (out[0] + out[2]) / 2, out[0]])
+    onehot = F.one_hot(missing_num.long(), 4).to(cands.dtype)
+    return torch.einsum("bk,kb->b", onehot, cands)
+
+
+class MT_FUSION_MODEL(ImageEncoder):
+    """The concat-fusion baseline ``tri_mt_v1`` / ``biimg_mt_v1`` /
+    ``bitxt_mt_v1`` / ``mt_v1`` (JAX models.py:480-527): the UMSE stems
+    (no timestamp enrichment), the frozen trunk over every image row (no
+    presence packing: the JAX model calls its image encoder without
+    one), the notes at ``txt_length + 1`` valid rows, ``models/encoder.py::
+    MTFusion`` over the streams, and the BatchNorm head on the joint cls
+    token (``layer_norms_after_concat``, +demo). No rmse output. One image
+    per sample."""
+
+    def __init__(self, cfg: Config):
+        mods = cfg.input_types.split("_")
+        if cfg.multiimages == 1 and "img" in mods:
+            raise ValueError(f"--multiimages 1: --model {cfg.model} takes "
+                             "one image per sample")
+        super().__init__(cfg, timestamps=False)
+        self.img_pack = False
+        D = cfg.transformer_dim
+        dt = model_dtype(cfg)
+        mask = [True] + [False] * ("img" in mods) + [True] * ("txt" in mods)
+        self.fusion_transformer = MTFusion(
+            n_modality=len(mods), fusion_startidx=cfg.mbt_fusion_startidx,
+            n_layers=cfg.transformer_num_layers,
+            n_head=cfg.transformer_num_head, d_model=D, d_ff=4 * D,
+            dropout=cfg.dropout,
+            txt_idx=mods.index("txt") if "txt" in mods else -1,
+            mask=tuple(mask), dtype=dt, remat=cfg.remat == 1)
+        self.layer_norms_after_concat = LayerNorm(D, dt)
+        self.fc_list = ClsHead(head_width(cfg), D, cfg.output_dim,
+                               cfg.activation, dt)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                missing_num: torch.Tensor,
+                seeds: Optional[DropoutSeeds] = None) -> ModelOutput:
+        """``missing_num`` is unused: the joint stream's key mask carries
+        the missing notes."""
+        cfg = self.cfg
+        mods = cfg.input_types.split("_")
+        vslt_tokens, demo = self.embed_vslt(
+            batch["vslt"], batch["static"][:, 1], batch["static"][:, 0])
+        enc_inputs = [vslt_tokens]
+        varying = [batch["input_length"].long()]
+        if "img" in mods:
+            tokens = self.encode_images(batch["img"],
+                                        batch["missing"][:, 1] == 0.0)
+            enc_inputs.append(tokens)
+            varying.append(torch.full((tokens.shape[0],), tokens.shape[1],
+                                      dtype=torch.long,
+                                      device=tokens.device))
+        if "txt" in mods:
+            txt_tokens = self.embed_txt(batch["txt"])
+            if txt_tokens.dim() == 2:
+                txt_tokens = txt_tokens[:, None, :]
+            enc_inputs.append(txt_tokens)
+            varying.append(batch["txt_length"].long() + 1)
+        joint = self.fusion_transformer(enc_inputs, varying, seeds)
+        logits = self.fc_list(class_input(self.layer_norms_after_concat,
+                                          joint[:, 0, :], demo, cfg))
+        return (logits[..., 0] if cfg.output_dim == 1 else logits), None, None
 
 
 class MultitokenBase(ImageEncoder):
@@ -376,9 +583,7 @@ class MultitokenBase(ImageEncoder):
     MULTI_HEAD = True
 
     def __init__(self, cfg: Config, vslt_main: bool = False):
-        if cfg.input_types != "vslt_img_txt":
-            raise ValueError(f"--model {cfg.model} fuses vslt_img_txt, not "
-                             f"--input-types {cfg.input_types}")
+        _require_three_streams(cfg)
         if cfg.multiimages == 1:
             raise ValueError(f"--multiimages 1: --model {cfg.model} takes "
                              "one image per sample")

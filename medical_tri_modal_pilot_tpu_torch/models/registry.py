@@ -26,6 +26,22 @@ _REGISTRY: Dict[str, Callable] = {
     "tri_mbt_v3": lambda cfg: M.TRI_MBT_V1(cfg, variant=3),
     "bi_vslttxt_mbt_v1": M.BI_MBT_V1,
     "bi_vsltimg_mbt_v1": M.BI_MBT_V1,
+    "tri_mbt_vsltcls_noshareumse":
+        lambda cfg: M.TRI_MBT_VSLTCLS(cfg, share_umse=False),
+    # the softmax temperature of the masked weights (JAX registry.py:30-31)
+    "tri_mbt_vflexible": M.TRI_MBT_VFLEXIBLE,
+    "tri_mbt_vflexible2": lambda cfg: M.TRI_MBT_VFLEXIBLE(cfg, flex_temp=10.0),
+    "tri_mbt_vflexible3":
+        lambda cfg: M.TRI_MBT_VFLEXIBLE(cfg, flex_temp=3.334),
+    # raise on their bimodal --input-types, as the JAX model does
+    "biimg_mbt_vflexible1": M.TRI_MBT_VFLEXIBLE,
+    "bitxt_mbt_vflexible1": M.TRI_MBT_VFLEXIBLE,
+    "tri_mbt_vnoshavgtr": lambda cfg: M.TRI_MBT_VNOSH(cfg, avg_in_model=True),
+    "tri_mbt_vnoshnoavgtr": M.TRI_MBT_VNOSH,
+    "tri_mt_v1": M.MT_FUSION_MODEL,
+    "biimg_mt_v1": M.MT_FUSION_MODEL,
+    "bitxt_mt_v1": M.MT_FUSION_MODEL,
+    "mt_v1": M.MT_FUSION_MODEL,
     "tri_mbt_vmulti": M.TRI_MBT_VMULTI,
     "tri_mbt_vmulti2": lambda cfg: M.TRI_MBT_VMULTI(cfg, vslt_main=True),
     "tri_mbt_vmultivslt": M.TRI_MBT_VMULTIVSLT,
@@ -34,6 +50,11 @@ _REGISTRY: Dict[str, Callable] = {
     "bi_cross_transformer_txt_vslt": LG.CROSS_TRANSFORMER,
 }
 
+# parameters the JAX package initialises to zeros (its nn.initializers.
+# zeros): the learned head weights and the joint stream's cls token
+ZERO_INIT = ("flexibleavg", "final_cls_tokens")
+
+
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Initialise every parameter from ``generator`` with the JAX package's
@@ -41,8 +62,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     other dense and convolution weights (the Swin trunk's included), zero
     biases, truncated normals of std 0.02 for the Swin relative-position
     bias tables (flax's ``truncated_normal(0.02)``), unit normals for the
-    embedding tables, cls tokens and bottlenecks, identity norms (the
-    LayerNorm of ``ClsHeadLN`` included)."""
+    embedding tables, cls tokens and bottlenecks but ``ZERO_INIT``'s,
+    identity norms (the LayerNorm of ``ClsHeadLN`` included)."""
     def fill(p, values):
         p.copy_(values.to(p.dtype))
 
@@ -80,8 +101,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             mod.gamma.fill_(1.0)
             mod.beta.zero_()
         else:
-            for p in mod.parameters(recurse=False):
-                fill(p, randn(p))
+            for name, p in mod.named_parameters(recurse=False):
+                if name in ZERO_INIT:
+                    p.zero_()
+                else:
+                    fill(p, randn(p))
 
 
 def get_model(cfg: Config, generator: Optional[torch.Generator] = None):

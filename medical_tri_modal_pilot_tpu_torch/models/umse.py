@@ -16,7 +16,9 @@ as in the reference, so the backbone and model classes extend this one
 and the state_dict keys match the reference's. A model holds the stems
 its inputs use, as the JAX model's parameter tree does: ``ie_time`` and
 ``ie_feat`` with TIE/QIE tokens or timestamp enrichment,
-``txt_embedding`` with notes.
+``txt_embedding`` with notes. ``tri_mbt_vsltcls_noshareumse`` gives the
+img and txt streams stems of their own (``umse_img``, ``umse_txt``: a
+``UMSE`` without the vslt and demographics stems, ``vslt=False``).
 """
 from __future__ import annotations
 
@@ -40,24 +42,30 @@ class UMSE(nn.Module):
     """The shared input stems (tri_mbt_vsltcls.py:59-76, :183-224).
     ``vslt_len``: the carryforward grid's channels; ``txt``: whether the
     model embeds notes; ``timestamps``: whether img/txt tokens get the
-    timestamp enrichment."""
+    timestamp enrichment; ``vslt``: whether it holds the vslt and
+    demographics stems (False: a stream's own stems, JAX models.py:183-212
+    at ``share_umse=False``)."""
 
     def __init__(self, d_model: int = 256, vslt_type: str = "TIE",
                  berttype: str = "biobert",
                  dtype: torch.dtype = torch.float32, vslt_len: int = 16,
-                 txt: bool = True, timestamps: bool = False):
+                 txt: bool = True, timestamps: bool = False,
+                 vslt: bool = True):
         super().__init__()
         self.compute_dtype = dtype
         self.vslt_type = vslt_type
         self.berttype = berttype
-        if vslt_type == "carryforward":
-            self.vslt_enc = MLPStem(vslt_len, d_model, dtype)
-        else:
-            self.ie_vslt = MLPStem(1, d_model, dtype)
-        if vslt_type != "carryforward" or timestamps:
+        tokens = vslt and vslt_type != "carryforward"
+        if vslt:
+            if tokens:
+                self.ie_vslt = MLPStem(1, d_model, dtype)
+            else:
+                self.vslt_enc = MLPStem(vslt_len, d_model, dtype)
+        if tokens or timestamps:
             self.ie_time = MLPStem(1, d_model, dtype)
             self.ie_feat = nn.Embedding(N_FEATURE_IDS, d_model)
-        self.ie_demo = MLPStem(2, d_model, dtype)
+        if vslt:
+            self.ie_demo = MLPStem(2, d_model, dtype)
         if txt:
             self.txt_embedding = (nn.Embedding(BERT_VOCAB, d_model)
                                   if berttype == "bert"

@@ -1,8 +1,9 @@
 """Train and eval steps of the port (counterpart of
 medical_tri_modal_pilot_tpu/train/trainer.py): missing-modality codes, the
-detection loss, eval output selection, the LR schedules and optimizers,
-and a ``Trainer`` whose ``train_step`` returns the loss and whose
-``eval_step`` returns ``(probs, loss, rmse)`` like the JAX one.
+detection and classification losses, eval output selection, the LR
+schedules and optimizers, and a ``Trainer`` whose ``train_step`` returns
+the loss and whose ``eval_step`` returns ``(probs, loss, rmse)`` like the
+JAX one.
 
 ``device_batch`` takes the loader's batches as they come: dense or in the
 H2D wire format (``txt_id`` rows into a ``TxtTable`` the Trainer holds on
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
+from ..models.models import select_case_mean
 from ..models.modules import DropoutSeeds
 from ..parallel.mesh import (Mesh, gather_state_dict, shard_model,
                              shard_state_dict)
@@ -83,30 +85,53 @@ def bce(logits, targets):
                                               reduction="none")
 
 
+def classification_loss(cfg: Config, logits, targets, targets_aux):
+    """``--model-types classification`` by ``--loss-types`` (JAX
+    trainer.py:175-187): softmax cross-entropy on the integer hour bucket
+    (``softmax``); BCE on the multi-hot [B, 12] target (``bces``); the
+    two together, the multi-hot in ``targets_aux`` (``bceandsoftmax``);
+    the root mean square error of a time to the event (``rmse``); else
+    the mean BCE."""
+    kind = cfg.loss_types
+    if kind in ("softmax", "bceandsoftmax"):
+        loss = F.cross_entropy(logits, targets.long())
+        if kind == "bceandsoftmax":
+            loss = loss + bce(logits, targets_aux).mean()
+        return loss
+    if kind == "rmse":
+        return torch.sqrt(((logits - targets) ** 2).mean() + 1e-12)
+    return bce(logits, targets).mean()
+
+
+def _heads_loss(logits, targets, w):
+    """The BCE of each head's logits [K, B] against the target, weighted
+    by w [K, B] and averaged over the weight."""
+    losses = bce(logits, targets[None].expand_as(logits))
+    return (losses * w).sum() / w.sum().clamp_min(1.0)
+
+
 def compute_loss(cfg: Config, logits, rmse, targets, targets_aux,
                  missing=None, missing_num=None, multi_head: bool = False):
-    """The detection loss (JAX trainer.py:172-209): for a model with one
-    head per missing case (``multi_head``, logits [4, B]) the BCE of each
-    head against the target, averaged over the heads whose candidate
-    subset the sample's missing case (``missing_num``) holds; else the
-    mean BCE, plus the aux-rmse term on positive samples when configured.
-    ``missing`` [B, 3] serves the vnoshnoavgtr loss, which is not
-    ported."""
-    if cfg.model_types != "detection":
-        raise NotImplementedError(
-            f"--model-types {cfg.model_types}: only detection is ported")
+    """The loss (JAX trainer.py:172-209): under ``--model-types
+    classification`` ``classification_loss``. Detection: for a model with
+    one head per missing case (``multi_head``, logits [4, B]) the BCE of
+    each head against the target, averaged over the heads whose candidate
+    subset the sample's missing case (``missing_num``) holds; for
+    ``*mbt_vnoshnoavgtr`` (logits [3, B], one per stream) the BCE of each
+    head weighted by its stream's presence (``missing`` [B, 3]); else the
+    mean BCE, plus the aux-rmse term on positive samples when
+    configured."""
+    if cfg.model_types == "classification":
+        return classification_loss(cfg, logits, targets, targets_aux)
     if multi_head:
         if missing_num is None:
             raise ValueError(f"--model {cfg.model}: the loss needs "
                              "missing_num")
         table = torch.as_tensor(_MULTITOKEN_MISSING, device=logits.device)
-        w = 1.0 - table[missing_num.long()].T                  # [4, B]
-        losses = bce(logits, targets[None].expand_as(logits))
-        return (losses * w).sum() / w.sum().clamp_min(1.0)
+        return _heads_loss(logits, targets,
+                           1.0 - table[missing_num.long()].T)   # [4, B]
     if "mbt_vnoshnoavgtr" in cfg.model:
-        raise NotImplementedError(
-            f"--model {cfg.model}: the vnoshnoavgtr loss is ROADMAP Queue "
-            "1 item 6")
+        return _heads_loss(logits, targets, 1.0 - missing.T)     # [3, B]
     loss = bce(logits, targets).mean()
     if rmse is not None and "rmse" in cfg.auxiliary_loss_type:
         err = (rmse - targets_aux) ** 2
@@ -121,14 +146,13 @@ def select_eval_output(cfg: Config, logits, missing_num,
                        multi_head: bool = False):
     """Eval-time output selection (JAX trainer.py:212-225): a model with
     one head per missing case (``multi_head``) gives, per sample, the head
-    of its case from [4, B]; single-output models return their logits as
-    they are."""
+    of its case from [4, B]; ``*mbt_vnoshnoavgtr`` the mean of its
+    available streams' heads from [3, B]; single-output models return
+    their logits as they are."""
     if multi_head:
         return logits.gather(0, missing_num.long()[None])[0]
     if "mbt_vnoshnoavgtr" in cfg.model:
-        raise NotImplementedError(
-            f"--model {cfg.model}: the vnoshnoavgtr output selection is "
-            "ROADMAP Queue 1 item 6")
+        return select_case_mean(logits, missing_num)
     return logits
 
 
@@ -294,9 +318,6 @@ class Trainer:
         go to the device once, in the model's compute dtype (its first use
         of the notes casts them to it, so bf16 rows give the dense batch's
         result bit for bit)."""
-        if cfg.model_types != "detection":
-            raise NotImplementedError(
-                f"--model-types {cfg.model_types}: only detection is ported")
         mp = 1 if mesh is None else mesh.mp
         if max(cfg.mp_size, 1) != mp:
             raise ValueError(f"--mp-size {cfg.mp_size} against a mesh of "
@@ -496,11 +517,16 @@ class Trainer:
             logits = logits.float()
             out = select_eval_output(cfg, logits, missing_num,
                                      self.multi_head)
-            # detection eval loss: BCE on the selected output, no aux term
-            loss = bce(out, b["target"].float()).mean()
+            if cfg.model_types == "classification":
+                loss = compute_loss(cfg, logits, rmse, b["target"].float(),
+                                    b["target_aux"].float())
+            else:
+                # detection: BCE on the selected output, no aux term
+                loss = bce(out, b["target"].float()).mean()
             probs = torch.sigmoid(out)
             eval_rmse = None
-            if rmse is not None and "rmse" in cfg.auxiliary_loss_type:
+            if (rmse is not None and "rmse" in cfg.auxiliary_loss_type
+                    and cfg.model_types == "detection"):
                 err = (rmse.float() - b["target_aux"]) ** 2
                 pos = b["target"] == 1
                 eval_rmse = torch.nan_to_num(torch.sqrt(

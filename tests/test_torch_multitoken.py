@@ -295,8 +295,9 @@ def test_trainer_multi_branches_match_jax():
 
 def test_multitoken_refusals():
     """The family fuses three streams of one image each; the hand masks
-    are built for 4 bottlenecks; mbt_vnoshnoavgtr's selection and loss
-    stay unported and raise naming their ROADMAP item."""
+    are built for 4 bottlenecks. (mbt_vnoshnoavgtr's selection and loss,
+    once refused here, are held to the JAX trainer's in
+    tests/test_torch_variants_vnosh.py.)"""
     with pytest.raises(ValueError, match="vslt_img_txt"):
         get_model(parse_config(SMALL + ["--model", "tri_mbt_vmulti",
                                         "--input-types", "vslt_txt"]))
@@ -306,11 +307,3 @@ def test_multitoken_refusals():
     with pytest.raises(AssertionError, match="bottlenecks_n=4"):
         get_model(parse_config(_argv("tri_mbt_vmultivslt")
                                + ["--mbt-bottlenecks-n", "2"]))
-    cfg = parse_config(_argv("tri_mbt_vmulti")).replace(
-        model="tri_mbt_vnoshnoavgtr")
-    logits = torch.zeros(3, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        trainer.select_eval_output(cfg, logits, torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        trainer.compute_loss(cfg, logits, None, torch.zeros(2),
-                             torch.zeros(2))

@@ -319,7 +319,8 @@ def compare_train_state(cfg, jt, tr, lr_sum, bias_walk=0.0,
     parameter bound below (2.01 lr_sum); the running mean, a weighted mean
     of batch means that include the bias, inherits that difference. A
     model whose heads hold no BatchNorm (the LayerNorm heads of the
-    multitoken family) has no statistics to compare. ``sq_rtol``: the
+    multitoken family) has no statistics to compare; one with a head per
+    stream (tri_mbt_vnosh*) has each head's. ``sq_rtol``: the
     second moments' bound, which holds squared gradients (a gradient's
     relative error doubles in its square)."""
     jparams = jax.device_get(jt.state.params)
@@ -343,16 +344,18 @@ def compare_train_state(cfg, jt, tr, lr_sum, bias_walk=0.0,
         assert np.all(err <= bound), (name, err.max(), err[clear].max(
             initial=0.0))
     stats = jax.device_get(jt.state.batch_stats)
-    if "fc_list" not in stats:
-        assert not stats and not any(
-            isinstance(m, torch.nn.BatchNorm1d) for m in tr.model.modules())
+    if not stats:
+        assert not any(isinstance(m, torch.nn.BatchNorm1d)
+                       for m in tr.model.modules())
         return
-    bn = stats["fc_list"]["bn"]
-    head = tr.model.fc_list[1]
-    _close_to_tensor_max(head.running_mean.numpy(), bn["mean"], 1e-4,
-                         1e-6 + bias_walk, "running mean")
-    _close_to_tensor_max(head.running_var.numpy(), bn["var"], 1e-4, 1e-6,
-                         "running var")
+    # one BatchNorm head (fc_list) or one per stream (fc_list_{m})
+    for key, head_stats in stats.items():
+        bn = head_stats["bn"]
+        head = getattr(tr.model, key)[1]
+        _close_to_tensor_max(head.running_mean.numpy(), bn["mean"], 1e-4,
+                             1e-6 + bias_walk, f"{key} running mean")
+        _close_to_tensor_max(head.running_var.numpy(), bn["var"], 1e-4,
+                             1e-6, f"{key} running var")
 
 
 def test_config2_train_steps_match_jax():
