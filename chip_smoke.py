@@ -250,13 +250,39 @@ Phases, each raising on failure (nothing is caught):
      train driver's fold over wire batches (1 epoch of 2 train, 1 val, 1
      test; launch counts) and the test driver's walk to its final test
      metrics. Prints the phase's seconds.
+  19. the paper's baselines and the trainable Swin trunk (full width,
+     bf16): first the trunk's two ops at each Swin-T stage at batch 64
+     through their autograd Functions (the kernel's training forward, the
+     plain version recomputed as the backward) against the plain path,
+     with the profiler's device ms of the eval forward, the training
+     forward (the port's kernels) and the backward (none of them), per
+     step weighted by the launches; stochastic depth's row masks on the
+     card bit for bit the plain version's, the keep rate of 1M rows;
+     attn_block and the ffn at feature_temporal_v1's unmasked instance
+     shape [1536, 19, 256] (fp32 and bf16, as phase 18's joint shape);
+     the trunk alone (eval forward, training forward, backward, peak
+     memory). Then gru_d, lstm and feature_temporal_v1 (carryforward),
+     fusiontrainer (Medfuse, MMTM, DAFT; vslt_img_txt carryforward),
+     tri_mbt_v2, tri_mbt_v3 and tri_mbt_vsltcls --img-pretrain No
+     (config 4's flags): eval against the plain path in bf16 and fp32,
+     one train step on both paths in fp32 and bf16 at dropout 0.1 (phase
+     7's gates, every trunk gradient by Frobenius ratio), launch and
+     Swin recompute counts per step (BASELINES' tables); fusiontrainer
+     Medfuse and tri_mbt_v2 timed in turns and profiled (device busy,
+     idle share) with their peak memory; one step under --fusion-type
+     uni_ehr (no recompute); a fusiontrainer fold through the drivers and
+     gru_d's with no --model (1 epoch of 2 train, 1 val, 1 test) with the
+     test driver's walk. Prints the phase's seconds.
 The kernel phases (3, 5b, 6, 9, 12, 3w) run first, then 4-5, 7-8, 10-11,
-13, 14, 14b, 15, 16, 17 and 18.
+13, 14, 14b, 15, 16, 17, 18 and 19.
 Then one JSON line per the kernels (each with the path that launches it
 and its launches over that path's steps, under ``other_paths`` its
-launches on phases 15, 16 and 18's other train paths, under ``widths``
-its bf16 results at the other widths of phase 3w, and under ``mt_joint``
-its bf16 results at phase 18's joint shape) and, last, {"ok": true,
+launches on phases 15, 16, 18 and 19's other train paths, under
+``widths`` its bf16 results at the other widths of phase 3w, under
+``mt_joint`` its bf16 results at phase 18's joint shape, and under
+``baselines`` phase 19's: the Swin ops' training forward and their
+plain-recompute backward at stage 1 with the step totals, attn_block and
+the ffn at feature_temporal_v1's shape) and, last, {"ok": true,
 "device": ...}.
 
     python3 chip_smoke.py baseline
@@ -270,6 +296,10 @@ the build and phase 16;
     python3 chip_smoke.py registry
 
 the build and phase 18;
+
+    python3 chip_smoke.py baselines
+
+the build and phase 19;
 
     python3 chip_smoke.py widths
 
@@ -292,6 +322,14 @@ key_proj weight gradient against the plain path with one kernel at a
 time on its plain version (KEYPROBE_SWAPS), that error's share in its
 first singular value, and the attention block and the FFN alone at that
 width against float64, kernel and plain path each.
+
+    python3 chip_smoke.py trunkprobe
+
+the build and phase 19's bf16 step gate of --img-pretrain No: the kernel
+path, the plain path and the kernel path with one group of wrappers at a
+time on its plain version (TRUNKPROBE_SWAPS), each against the fp32
+plain step, over every tensor, the trunk's and the rest; then both paths
+from the weights nudged by half a bf16 rounding, twice.
 
     python3 chip_smoke.py ab ROOT
 
@@ -443,6 +481,9 @@ TRAIN_LAUNCHES_PER_STEP.update(
     tri_v1={"umse": 1, "umse_bwd": 1, "attn_block": 18,
             "attn_block_bwd": 18, "ffn": 18, "ffn_bwd": 18,
             "dropout_masks": 3, "swin_attention": 12, "swin_mlp": 12})
+# the trainable trunk's backward passes a train step runs (ops.recomputes:
+# the plain version recomputed under autograd), by path; none elsewhere
+TRAIN_RECOMPUTES_PER_STEP = {}
 TRAIN_BATCHES = {"vslt_txt": [0.5, 0.5], "config4": [0.5, 0.25, 0.75],
                  "cross": [0.5] * 3, "config1": [0.5] * 3,
                  "base2": [0.5] * 2, "base3": [1.0] * 2,
@@ -675,7 +716,7 @@ def _is_kernel(name: str, kernel: str) -> bool:
     return f"mtp::{kernel}<" in name or f"mtp::{kernel}(" in name
 
 
-def _device_ms(fn, reps: int = 10, sessions: int = 10, expect=()):
+def _device_ms(fn, reps: int = 10, sessions: int = 20, expect=()):
     """torch.profiler over ``reps`` calls of ``fn`` after a warm-up: the
     device time of what they launched (kernels, copies) per call, and the
     names of the kernels. Beside the CUDA-event time around a call, it
@@ -1943,13 +1984,14 @@ def _train_run(cfg, state, batch, plain):
 # before it add the same vector to every sample: layer_norms_after_concat
 # in tri_mbt_vsltcls and the bimodal v1 models, final_ln in the cross
 # transformer, layer_norm_final in unimodal_transformer; each head
-# fc_list_{m} of tri_mbt_vnosh*, and the LayerNorm before them). A LayerNorm
+# fc_list_{m} of tri_mbt_vnosh*, and the LayerNorm before them; gru_d's
+# fc1, before its BatchNorm bn). A LayerNorm
 # head (ClsHeadLN, tri_mbt_v1's, with no running statistics) normalises
 # each sample over its features, which cancels neither
 ZERO_GRAD = ("key_proj.linear.bias", "fc_list.0.bias",
              "layer_norms_after_concat.bias", "final_ln.bias",
              "layer_norm_final.bias", "fc_list_0.0.bias", "fc_list_1.0.bias",
-             "fc_list_2.0.bias")
+             "fc_list_2.0.bias", "fc1.bias")
 
 
 def _step_errors(a, b, zero=ZERO_GRAD):
@@ -1971,7 +2013,8 @@ def _check_step_parity(name, cfg, state, batch, precs) -> None:
     """One step from the same weights on the kernel and the plain path,
     for each (precision, dropout) in ``precs``; every bf16 entry needs an
     fp32 one at its dropout, the step its gradients are held against."""
-    batchnorm_head = any(k.endswith("1.running_mean") for k in state)
+    batchnorm_head = any(k.endswith(("1.running_mean", "bn.running_mean"))
+                         for k in state)
     zero = ZERO_GRAD if batchnorm_head else ZERO_GRAD[:1]
     runs, failures = {}, []
     for prec, p in precs:
@@ -2036,12 +2079,13 @@ TRAIN_STEP_MS = {}
 
 
 def run_train(name: str, argv, power: str, timed: bool,
-              all_parity: bool = False) -> dict:
+              all_parity: bool = False, fit: bool = True) -> dict:
     """Drive one BASELINE configuration's train step at full width: the
     launch counts of its run (reset just before, read just after), peak
     memory, kernel vs plain path on one step (at dropout 0.1, and 0 too
-    when ``timed`` or ``all_parity``), and (``timed``) 20 steps on one
-    batch, ms/step on both paths in turns and a profiler split."""
+    when ``timed`` or ``all_parity``), and (``timed``) ms/step on both
+    paths in turns, a profiler split and (``fit``) 20 steps on one
+    batch."""
     from medical_tri_modal_pilot_tpu_torch import ops
     from medical_tri_modal_pilot_tpu_torch.config import parse_config
     from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
@@ -2084,10 +2128,19 @@ def run_train(name: str, argv, power: str, timed: bool,
     finally:
         ops.dropout_masks = dispatch
     counts = dict(ops.launches)
+    recomputes = dict(ops.recomputes)
     peak = torch.cuda.max_memory_allocated()
     n = len(batches)
     print(f"{name}: launches over {n} train steps: {counts}; trunk rows per "
           f"step {rows}; losses {losses}")
+    # the trainable trunk's backward passes (plain recomputes, no kernel)
+    want = {k: TRAIN_RECOMPUTES_PER_STEP.get(name, {}).get(k, 0) * n
+            for k in ops.RECOMPUTES}
+    print(f"{name}: Swin backward recomputes over {n} train steps: "
+          f"{recomputes}")
+    if recomputes != want:
+        raise AssertionError(f"{name} train: Swin backward recomputes "
+                             f"{recomputes}, expected {want}")
     print(f"{name} train peak device memory: {peak / 2 ** 30:.3f} GiB "
           f"(parameters, optimizer state and batch before the steps "
           f"{base / 2 ** 30:.3f} GiB)")
@@ -2125,24 +2178,26 @@ def run_train(name: str, argv, power: str, timed: bool,
         if name in MULTI_PATHS:
             _check_step_maps(name, items)
 
+    if timed and fit:
         # 20 steps on one batch from the starting weights: the loss falls
         model.load_state_dict(state)
-        fit = Trainer(cfg, model, dev, eval_only=False, seed=0)
-        curve = [fit.train_step(batches[0]) for _ in range(20)]
+        fitter = Trainer(cfg, model, dev, eval_only=False, seed=0)
+        curve = [fitter.train_step(batches[0]) for _ in range(20)]
         print(f"{name} 20 steps on one batch: losses "
               f"{[round(x, 5) for x in curve]}")
         if not all(np.isfinite(curve)) or not (
                 np.mean(curve[-5:]) < np.mean(curve[:5])):
             raise AssertionError(f"{name}: the loss does not fall on one "
                                  f"batch: {curve}")
-        del fit
+        del fitter
     del trainer, model
     torch.cuda.empty_cache()
 
     # one step from the same weights on both paths; the plain path draws
     # the same Philox masks
     parity = ([("fp32", 0.0), ("bf16", 0.0), ("fp32", 0.1), ("bf16", 0.1)]
-              if timed or all_parity else [("fp32", 0.1), ("bf16", 0.1)])
+              if (timed and fit) or all_parity
+              else [("fp32", 0.1), ("bf16", 0.1)])
     _check_step_parity(name, cfg, state, batches[0], parity)
     return counts
 
@@ -3220,10 +3275,10 @@ def compare_joint_kernels() -> dict:
     [64, 1179, 256] under its key mask (the cls and image rows never
     masked, the vslt and note rows past their sample's lengths, one
     sample's note masked whole), fp32 and bf16, against autograd of the
-    plain versions with the profiler's device ms per form and the
+    plain versions, in bf16 with the profiler's device ms per form and the
     launched kernels (_train_forms: TOL on live rows, GRAD_TOL, the
-    dtype's route), event and plain ms, the bound. Returns the bf16
-    results by kernel name."""
+    dtype's route; fp32 against the plain versions only), event and
+    plain ms, the bound. Returns the bf16 results by kernel name."""
     from medical_tri_modal_pilot_tpu_torch import ops
     from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
         attn_block_route, key_ends)
@@ -3258,23 +3313,35 @@ def compare_joint_kernels() -> dict:
     for dt in (torch.float32, torch.bfloat16):
         es = 2 if dt == torch.bfloat16 else 4
         x = rnd(BATCH, L, D).to(dt)
-        _, fr, br = _train_forms(
-            f"attn_block[64,{L},256] mt joint", dt,
-            lambda *a: ops.attn_block(*a, mask, (D // H) ** .5, H),
-            (x, gamma, beta, w.to(dt), b.to(dt)),
-            rnd(BATCH, L, D).to(dt) * live[:, :, None], live,
-            *_attn_block_work(L, D, H, es, n),
-            ATTN_BLOCK_ROUTE_KERNELS, attn_block_route(dt, D, H), lean=False)
         wbytes = (2 * D * F + F + D) * 4
-        _, fr2, br2 = _train_forms(
-            f"ffn[{rows},256] mt joint dropout {P}", dt,
-            lambda *a: ops.ffn(*a, None, p=P, training=True,
-                               seed=DROPOUT_SEED),
-            (x, g1, be1, w1, b1, w2, b2), rnd(BATCH, L, D).to(dt), None,
-            (2 * rows * D * es + wbytes, 4.0 * rows * D * F),
-            (3 * rows * D * es + 2 * wbytes, 10.0 * rows * D * F),
-            FFN_ROUTE_KERNELS, ffn_route(dt, D), lean=False)
+        cases = [
+            (f"attn_block[64,{L},256] mt joint",
+             lambda *a: ops.attn_block(*a, mask, (D // H) ** .5, H),
+             (x, gamma, beta, w.to(dt), b.to(dt)),
+             rnd(BATCH, L, D).to(dt) * live[:, :, None], live,
+             *_attn_block_work(L, D, H, es, n),
+             ATTN_BLOCK_ROUTE_KERNELS, attn_block_route(dt, D, H)),
+            (f"ffn[{rows},256] mt joint dropout {P}",
+             lambda *a: ops.ffn(*a, None, p=P, training=True,
+                                seed=DROPOUT_SEED),
+             (x, g1, be1, w1, b1, w2, b2), rnd(BATCH, L, D).to(dt), None,
+             (2 * rows * D * es + wbytes, 4.0 * rows * D * F),
+             (3 * rows * D * es + 2 * wbytes, 10.0 * rows * D * F),
+             FFN_ROUTE_KERNELS, ffn_route(dt, D))]
+        res = []
+        for tag, fwd, inputs, cot, lv, work_f, work_b, routes, route in cases:
+            if dt == torch.bfloat16:
+                res.append(_train_forms(tag, dt, fwd, inputs, cot, lv,
+                                        work_f, work_b, routes, route,
+                                        lean=False))
+                continue
+            # fp32, the checking dtype: against the plain version only (its
+            # FMA kernels' device ms are no main-path figure, and the
+            # profiler drops the records of the fp32 ffn here, 20
+            # sessions in a row)
+            _compare_train(tag, dt, fwd, inputs, cot, lv, work_f, work_b)
         if dt == torch.bfloat16:
+            (_, fr, br), (_, fr2, br2) = res
             # keyed by the kernels line's names; the forwards' training
             # forms
             shape = f"[64,{L},256]"
@@ -3421,6 +3488,390 @@ def run_registry(power: str) -> dict:
             f"{TRAIN_STEP_MS['config4']:.2f} ms/step")
     print(f"registry phase ({power}): "
           f"{time.perf_counter() - t_phase:.1f} s")
+    return results, counts
+
+
+# phase 19, the paper's baselines and the trainable trunk at full width,
+# bf16: gru_d, lstm and feature_temporal_v1 on the carryforward grid (T
+# 24, 16 channels, the demographics), fusiontrainer (MedFuse, MMTM, DAFT:
+# the two-layer EHR LSTM at d 256, the Swin-T trunk over all 64 images,
+# trainable, the BioBERT notes' mean vector) on vslt_img_txt, tri_mbt_v2
+# (the trunk trains) and tri_mbt_v3 (the patch stem, 196 image tokens) on
+# config 4's flags, and the flagship at --img-pretrain No. Per eval step:
+# no kernel for gru_d and lstm (plain recurrences, no TPU kernel either);
+# feature_temporal_v1 an attn_block and an ffn per layer (2 instance
+# layers unmasked on [64 x 24, 19, 256], 6 temporal ones on [64, 25,
+# 256]); the trunk's 12 / 12 swin launches. Per train step: the input
+# dropout's masks (one per stream, two for feature_temporal_v1), the
+# fixed 0.3 dropout's of the LSTM features (lstm, MedFuse's EHR encoder,
+# DAFT's head: one each; MMTM reads the sequence only), stochastic depth's
+# two masks in each of the trunk's 11 dropping blocks (22), swin_mlp on
+# block 0 only (the dropping blocks run the MLP branch unfused), and a
+# backward per layer the loss reaches (every one where the head reads each
+# stream's cls token); the trunk's backward recomputes its plain version
+# (12 window attentions, 1 MLP: ops.recomputes). --fusion-type uni_ehr
+# stops the trunk's gradient: no recompute, the same masks
+BL_FLAGS = ["--output-type", "intubation",
+            "--modality-inclusion", "train-missing_test-missing",
+            "--batch-size", str(BATCH)]
+BL_CF = ["--input-types", "vslt", "--vslt-type", "carryforward"] + BL_FLAGS
+BL_FT = (["--model", "fusiontrainer", "--input-types", "vslt_img_txt",
+          "--vslt-type", "carryforward"] + BL_FLAGS)
+BASELINES = {
+    "gru_d": ["--model", "gru_d"] + BL_CF,
+    "lstm": ["--model", "lstm"] + BL_CF,
+    "ftv1": ["--model", "feature_temporal_v1"] + BL_CF,
+    "ft_medfuse": BL_FT + ["--fuse-baseline", "Medfuse"],
+    "ft_mmtm": BL_FT + ["--fuse-baseline", "MMTM"],
+    "ft_daft": BL_FT + ["--fuse-baseline", "DAFT"],
+    "v2": [a if a != "tri_mbt_vsltcls" else "tri_mbt_v2" for a in CONFIG4],
+    "v3": [a if a != "tri_mbt_vsltcls" else "tri_mbt_v3" for a in CONFIG4],
+    "pretrain_no": CONFIG4 + ["--img-pretrain", "No"]}
+# train only (its eval is ft_medfuse's)
+BL_UNI_EHR = BASELINES["ft_medfuse"] + ["--fusion-type", "uni_ehr"]
+BL_TIMED = ("ft_medfuse", "v2")
+BL_SWIN_EVAL = {"swin_attention": 12, "swin_mlp": 12}
+BL_SWIN_TRAIN = {"swin_attention": 12, "swin_mlp": 1}
+BL_SD_MASKS = 22
+BL_V3_EVAL = {"umse": 1, "attn_block": 18, "ffn": 18}
+LAUNCHES_PER_STEP.update(
+    gru_d={}, lstm={}, gru_d_default={}, ftv1={"attn_block": 8, "ffn": 8},
+    ft_medfuse=BL_SWIN_EVAL, ft_mmtm=BL_SWIN_EVAL, ft_daft=BL_SWIN_EVAL,
+    v2=LAUNCHES_PER_STEP["config4"], v3=BL_V3_EVAL,
+    pretrain_no=LAUNCHES_PER_STEP["config4"])
+TRAIN_LAUNCHES_PER_STEP.update(
+    gru_d={}, gru_d_default={}, lstm={"dropout_masks": 1},
+    ftv1={"attn_block": 8, "attn_block_bwd": 8, "ffn": 8, "ffn_bwd": 8,
+          "dropout_masks": 2},
+    ft_medfuse=dict(BL_SWIN_TRAIN, dropout_masks=BL_SD_MASKS + 1),
+    ft_mmtm=dict(BL_SWIN_TRAIN, dropout_masks=BL_SD_MASKS),
+    ft_daft=dict(BL_SWIN_TRAIN, dropout_masks=BL_SD_MASKS + 1),
+    ft_uni=dict(BL_SWIN_TRAIN, dropout_masks=BL_SD_MASKS + 1),
+    v2=dict(TRAIN_LAUNCHES_PER_STEP["tri_v1"], swin_mlp=1,
+            dropout_masks=3 + BL_SD_MASKS),
+    v3=dict(BL_V3_EVAL, umse_bwd=1, attn_block_bwd=18, ffn_bwd=18,
+            dropout_masks=3),
+    pretrain_no=dict(TRAIN_LAUNCHES_PER_STEP["config4"], swin_mlp=1,
+                     dropout_masks=3 + BL_SD_MASKS))
+BL_RECOMPUTE = {"swin_attention_bwd": 12, "swin_mlp_bwd": 1}
+TRAIN_RECOMPUTES_PER_STEP.update(ft_medfuse=BL_RECOMPUTE,
+                                 ft_mmtm=BL_RECOMPUTE, ft_daft=BL_RECOMPUTE,
+                                 v2=BL_RECOMPUTE, pretrain_no=BL_RECOMPUTE)
+for _name in list(BASELINES) + ["ft_uni", "gru_d_default"]:
+    _timed = _name in BL_TIMED
+    BATCHES[_name] = [0.5, 0.25, 0.75] if _timed else [0.5, 0.75]
+    TRAIN_BATCHES[_name] = [0.5, 0.25, 0.75] if _timed else [0.5]
+BL_PATHS = {"ftv1": "feature_temporal_v1 train",
+            "ft_medfuse": "fusiontrainer Medfuse train",
+            "ft_mmtm": "fusiontrainer MMTM train",
+            "ft_daft": "fusiontrainer DAFT train",
+            "ft_uni": "fusiontrainer Medfuse --fusion-type uni_ehr train",
+            "v2": "tri_mbt_v2 train", "v3": "tri_mbt_v3 train",
+            "pretrain_no": "tri_mbt_vsltcls --img-pretrain No train",
+            "lstm": "lstm train"}
+BL_DRIVER_BATCHES = {"train": 2, "val": 1, "test": 1}
+# feature_temporal_v1's instance stream: cls + 16 channels + age + gender
+FTV1_ROWS, FTV1_L = BATCH * 24, 19
+
+
+def _swin_work(I: int, C: int, es: int) -> tuple:
+    """(bytes, operations) of a window attention's training forward and of
+    its backward over I windows of 49 tokens at width C: the forward's
+    four products (q|k|v, scores, p v, the projection); the backward's
+    eight (each product's two cotangents), reading x, the cotangent and
+    the weights, writing dx and the fp32 weight and bias gradients."""
+    N, nh = 49, C // 32
+    tokens = I * N * C * es
+    wts = (4 * C * C + 4 * C)
+    ops_f = float(I * N * (8 * C * C + 4 * N * C))
+    return ((2 * tokens + wts * es + nh * N * N * 4, ops_f),
+            (3 * tokens + wts * (es + 4) + 2 * nh * N * N * 4, 2 * ops_f))
+
+
+def _mlp_work(R: int, C: int, es: int) -> tuple:
+    """(bytes, operations) of swin_mlp's training forward (two products
+    of R x C x 4C) and backward (four), x read and y written once, the
+    weights read (and their fp32 gradients written)."""
+    F = 4 * C
+    wts = 2 * C * F + F + 3 * C
+    return ((2 * R * C * es + wts * es, 4.0 * R * C * F),
+            (3 * R * C * es + wts * (es + 4), 8.0 * R * C * F))
+
+
+def compare_swin_training() -> dict:
+    """The trainable trunk's two ops at each Swin-T stage at batch 64
+    (bf16, and fp32 at stage 1): the autograd Function (the kernel's
+    training forward, the plain version recomputed as its backward)
+    against autograd of the plain version (_compare_train: TOL, GRAD_TOL),
+    event ms, the profiler's device ms of the training forward (beside the
+    lean forward's, the eval trunk's call) and of the backward, which
+    must launch none of the port's kernels, and the bound; per step
+    weighted by its launches (swin_attention 2/2/6/2, the backward as
+    often; swin_mlp's Function on block 0 only). Then the stochastic-depth
+    masks: ops.dropout_masks over the 64 image rows for each block's
+    probability, the kernel's bit for bit the plain version's, and the
+    keep rate of 1M rows at 0.2 within 5 sd. Returns the bf16 results of
+    stage 1 by kernel name, the backward's under ``backward``, each with
+    its step totals under ``step``."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels.ffn import \
+        plain_dropout_masks
+    from medical_tri_modal_pilot_tpu_torch.models.swin import (
+        STOCHASTIC_DEPTH, _shift_attn_mask)
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(19)
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).to(dev)
+
+    results, step = {}, {}
+    for si, (side, C, nW, shifted) in enumerate(SWIN_STAGES):
+        nh, I, R = C // 32, BATCH * nW, BATCH * side * side
+        smask = (torch.from_numpy(_shift_attn_mask(side, side, 7, 3)).to(dev)
+                 if shifted else None)
+        wts = (rnd(C, 3 * C, std=C ** -.5), rnd(3 * C, std=.1),
+               rnd(C, C, std=C ** -.5), rnd(C, std=.1),
+               rnd(nh, 49, 49, std=.5))
+        mlp = (rnd(C, std=.1, mean=1.), rnd(C, std=.1),
+               rnd(C, 4 * C, std=C ** -.5), rnd(4 * C, std=.1),
+               rnd(4 * C, C, std=(4 * C) ** -.5), rnd(C, std=.1))
+        for dt in ((torch.float32, bf16) if si == 0 else (bf16,)):
+            es = 2 if dt == bf16 else 4
+            tag = "bf16" if dt == bf16 else "fp32"
+            cases = (
+                ("swin_attention", f"[{I},49,{C}]",
+                 lambda *a: ops.swin_attention(*a, smask, nh),
+                 (rnd(I, 49, C).to(dt),) + wts, rnd(I, 49, C).to(dt),
+                 _swin_work(I, C, es),
+                 SWIN_STAGE_LAUNCHES[si].get("mask", 0)
+                 + SWIN_STAGE_LAUNCHES[si].get("none", 0),
+                 SWIN_STAGE_LAUNCHES[si].get("mask", 0)
+                 + SWIN_STAGE_LAUNCHES[si].get("none", 0)),
+                ("swin_mlp", f"[{R},{C}]", ops.swin_mlp,
+                 (rnd(R, C).to(dt),) + mlp, rnd(R, C).to(dt),
+                 _mlp_work(R, C, es), SWIN_MLP_LAUNCHES[si],
+                 1 if si == 0 else 0))
+            for name, shape, fwd, inputs, cot, work, n_fwd, n_bwd in cases:
+                fr, br = _compare_train(
+                    f"{name}{shape} stage {si + 1} trainable", dt, fwd,
+                    inputs, cot, None, *work)
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in inputs]
+                with torch.inference_mode():
+                    lean, _ = _device_ms(lambda: fwd(*inputs))
+                train, names = _device_ms(lambda: fwd(*leaves))
+                out = fwd(*leaves)
+                bwd, bnames = _device_ms(lambda: torch.autograd.grad(
+                    out, leaves, cot, retain_graph=True))
+                mine = [n for n in bnames if "mtp::" in n]
+                kernels = sorted({n.split("<")[0].split("(")[0]
+                                  for n in names if "mtp::" in n})
+                print(f"device {name}{shape} stage {si + 1} {tag}: eval "
+                      f"forward {lean:.4f} ms, training forward "
+                      f"{train:.4f} ({' '.join(kernels)}), backward (plain "
+                      f"recompute) {bwd:.4f} (profiler; {len(bnames)} "
+                      "device kernels)")
+                if mine or not any("mtp::" in n for n in names):
+                    raise AssertionError(f"{name} stage {si + 1}: the "
+                                         f"training forward launched "
+                                         f"{names}, the backward {mine}")
+                if dt != bf16:
+                    continue
+                fr.update(device_ms=train, eval_device_ms=lean)
+                br.update(device_ms=bwd, form="plain recompute")
+                for key, res, n in ((name, fr, n_fwd),
+                                    (name + "_bwd", br, n_bwd)):
+                    tot = step.setdefault(key, {"device_ms": 0.0,
+                                                "bound_ms": 0.0,
+                                                "launches": 0})
+                    tot["device_ms"] += n * res["device_ms"]
+                    tot["bound_ms"] += n * res["bound_ms"]
+                    tot["launches"] += n
+                if si == 0:
+                    results[name] = dict(fr, shape=shape, form="training",
+                                         backward=dict(br, shape=shape))
+                del out, leaves
+        gc_collect()
+    for key, tot in step.items():
+        print(f"swin trainable step totals, bf16, batch 64: {key} "
+              f"x{tot['launches']} {tot['device_ms']:.4f} ms device "
+              f"(bound {tot['bound_ms']:.4f} ms)")
+        name = key.replace("_bwd", "")
+        sub = results[name] if key == name else results[name]["backward"]
+        sub["step"] = tot
+    # stochastic depth's masks: the kernel's bits are the plain version's
+    seeds = [DROPOUT_SEED + k for k in range(12)]
+    # the probabilities of Swin-T's blocks 1-11 (block 0 never drops)
+    sd_probs = [STOCHASTIC_DEPTH * k / 11 for k in range(1, 12)]
+    for p, seed in zip(sd_probs, seeds):
+        got = ops.dropout_masks(BATCH, 0, 1, seed, p, dev)[1]
+        want = plain_dropout_masks(BATCH, 0, 1, seed, p, dev)[1]
+        if not torch.equal(got, want):
+            raise AssertionError(f"stochastic depth p {p}: the kernel's "
+                                 "mask differs from the plain version's")
+    n = 1 << 20
+    keep = ops.dropout_masks(n, 0, 1, DROPOUT_SEED, 0.2, dev)[1]
+    rate = float(keep.float().mean())
+    sd = (0.16 / n) ** .5
+    print(f"stochastic depth: the masks of 11 probabilities over 64 rows "
+          f"bit for bit the plain version's; keep rate over {n} rows at 0.2 "
+          f"{rate:.5f} (0.8 +- {5 * sd:.5f})")
+    if abs(rate - 0.8) > 5 * sd:
+        raise AssertionError(f"stochastic depth keep rate {rate}")
+    return results
+
+
+def compare_ftv1_kernels() -> dict:
+    """attn_block (lean, training, backward) and the ffn (dropout 0.1,
+    training and backward) at feature_temporal_v1's instance shape
+    [1536, 19, 256] with no key mask (every row live, 19 rows: one partial
+    q tile a sample, no row tile skipped), fp32 and bf16, against the
+    plain versions (TOL, GRAD_TOL; in bf16 also the profiler's device ms
+    per form and the route's kernels, _train_forms), event and plain ms,
+    the bound. Returns the bf16 results by kernel name."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import \
+        attn_block_route
+    from medical_tri_modal_pilot_tpu_torch.kernels.ffn import ffn_route
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(20)
+    D, H, F, P, B, L = 256, 4, 1024, 0.1, FTV1_ROWS, FTV1_L
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).to(dev)
+
+    rows = B * L
+    n = torch.full((B,), float(L), dtype=torch.float64)
+    gamma, beta = rnd(D, std=.1, mean=1.), rnd(D, std=.1)
+    w, b = rnd(D, 3 * D, std=D ** -.5), rnd(3 * D, std=.1)
+    g1, be1 = rnd(D, std=.1, mean=1.), rnd(D, std=.1)
+    w1, b1 = rnd(D, F, std=D ** -.5), rnd(F, std=.1)
+    w2, b2 = rnd(F, D, std=F ** -.5), rnd(D, std=.1)
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        es = 2 if dt == torch.bfloat16 else 4
+        x = rnd(B, L, D).to(dt)
+        # _attn_block_work counts BATCH samples: scale to B
+        wf, wb = _attn_block_work(L, D, H, es, n[:BATCH])
+        scale = B / BATCH
+        wf, wb = ((wf[0] * scale, wf[1] * scale),
+                  (wb[0] * scale, wb[1] * scale))
+        wbytes = (2 * D * F + F + D) * 4
+        cases = (
+            (f"attn_block[{B},{L},256] ftv1 no mask",
+             lambda *a: ops.attn_block(*a, None, (D // H) ** .5, H),
+             (x, gamma, beta, w.to(dt), b.to(dt)), wf, wb,
+             ATTN_BLOCK_ROUTE_KERNELS, attn_block_route(dt, D, H), True),
+            (f"ffn[{rows},256] ftv1 dropout {P}",
+             lambda *a: ops.ffn(*a, None, p=P, training=True,
+                                seed=DROPOUT_SEED),
+             (x, g1, be1, w1, b1, w2, b2),
+             (2 * rows * D * es + wbytes, 4.0 * rows * D * F),
+             (3 * rows * D * es + 2 * wbytes, 10.0 * rows * D * F),
+             FFN_ROUTE_KERNELS, ffn_route(dt, D), False))
+        res = []
+        for tag, fwd, inputs, work_f, work_b, routes, route, lean in cases:
+            cot = rnd(B, L, D).to(dt)
+            if dt == torch.bfloat16:
+                res.append(_train_forms(tag, dt, fwd, inputs, cot, None,
+                                        work_f, work_b, routes, route,
+                                        lean=lean))
+                continue
+            # fp32, the checking dtype: against the plain version only (its
+            # FMA kernels' device ms are no main-path figure)
+            if lean:
+                with torch.inference_mode():
+                    _compare(tag, dt, lambda: fwd(*inputs), work_f)
+            _compare_train(tag, dt, fwd, inputs, cot, None, work_f, work_b)
+        if dt == torch.bfloat16:
+            (lr, fr, br), (_, fr2, br2) = res
+            shape = f"[{B},{L},256]"
+            results = {"attn_block": dict(fr, shape=shape, form="training",
+                                          lean=lr),
+                       "attn_block_bwd": dict(br, shape=shape),
+                       "ffn": dict(fr2, shape=f"[{rows},256]",
+                                   form="training"),
+                       "ffn_bwd": dict(br2, shape=f"[{rows},256]")}
+    return results
+
+
+def _trunk_step_ms(power: str) -> None:
+    """The Swin-T trunk alone at batch 64, bf16, seeded: the profiler's
+    device ms of its eval forward (inference), its training forward
+    (stochastic depth, the ops' Functions) and that forward's backward
+    (the recomputes and the rest of autograd), with the peak memory of a
+    training forward and backward."""
+    from medical_tri_modal_pilot_tpu_torch.models.modules import DropoutSeeds
+    from medical_tri_modal_pilot_tpu_torch.models.registry import \
+        init_parameters
+    from medical_tri_modal_pilot_tpu_torch.models.swin import SwinTransformer
+    dev = torch.device("cuda")
+    trunk = SwinTransformer(in_channels=1, dtype=torch.bfloat16)
+    init_parameters(trunk, torch.Generator().manual_seed(0))
+    trunk = trunk.to(dev)
+    img = torch.rand(BATCH, 1, 224, 224, generator=torch.Generator()
+                     .manual_seed(1)).to(dev)
+    cot = torch.randn(BATCH, 7, 7, 768, generator=torch.Generator()
+                      .manual_seed(2)).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        eval_ms, _ = _device_ms(lambda: trunk.eval()(img), reps=5)
+    trunk.train()
+    fwd_ms, _ = _device_ms(lambda: trunk(img, DropoutSeeds(0, 0)), reps=5)
+    params = list(trunk.parameters())
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = trunk(img, DropoutSeeds(0, 0))
+    bwd_ms, _ = _device_ms(lambda: torch.autograd.grad(
+        out, params, cot, retain_graph=True), reps=5)
+    peak = torch.cuda.max_memory_allocated()
+    trunk.eval()
+    print(f"swin-t trunk batch 64 bf16 ({power}): eval forward {eval_ms:.3f} "
+          f"ms device, training forward {fwd_ms:.3f}, backward "
+          f"{bwd_ms:.3f} (profiler); peak memory of a training forward "
+          f"and backward {(peak - base) / 2 ** 30:.3f} GiB above the "
+          f"weights")
+    del out, trunk
+    gc_collect()
+
+
+def run_baselines(power: str) -> tuple:
+    """Phase 19: the paper's baselines and the trainable trunk at full
+    width, bf16 (BASELINES): first the trainable trunk's ops at each
+    Swin-T stage and stochastic depth's masks (compare_swin_training),
+    attn_block and the ffn at feature_temporal_v1's unmasked instance shape
+    (compare_ftv1_kernels) and the trunk alone (_trunk_step_ms); then per
+    name the eval against the plain path in bf16 and fp32 and one train
+    step on both paths in fp32 and bf16 at dropout 0.1 (phase 7's gates,
+    every trunk gradient by Frobenius ratio in float64), launch and
+    recompute counts; fusiontrainer Medfuse and tri_mbt_v2 also timed in
+    turns, profiled (device busy, idle share) and their peak memory; a
+    train step under --fusion-type uni_ehr; a
+    fusiontrainer fold through the drivers and gru_d's, the CLI's default
+    model (no --model), under --vslt-type carryforward. Returns (the
+    kernels' results at this phase's shapes, each train path's
+    launches)."""
+    t_phase = time.perf_counter()
+    results = compare_swin_training()
+    results.update(compare_ftv1_kernels())
+    _trunk_step_ms(power)
+    counts = {}
+    for name, argv in BASELINES.items():
+        timed = name in BL_TIMED
+        run_config(name, argv, power, timed=timed)
+        counts[name] = run_train(name, argv, power, timed=timed, fit=False)
+        gc_collect()
+    counts["ft_uni"] = run_train("ft_uni", BL_UNI_EHR, power, timed=False)
+    gc_collect()
+    _driver_run("ft_medfuse", BASELINES["ft_medfuse"], BL_DRIVER_BATCHES,
+                power)
+    default = [a for a in BASELINES["gru_d"] if a not in ("--model",
+                                                           "gru_d")]
+    _driver_run("gru_d_default", default, BL_DRIVER_BATCHES, power)
+    print("baselines train step (" + power + "): " + ", ".join(
+        f"{BL_PATHS[n]} {TRAIN_STEP_MS[n]:.2f} ms/step" for n in BL_TIMED))
+    print(f"baselines phase ({power}): {time.perf_counter() - t_phase:.1f} s")
     return results, counts
 
 
@@ -4272,6 +4723,67 @@ def keyprobe(power: str) -> None:
                   got, ref)), flush=True)
 
 
+# the wrappers put on their plain versions, a group at a time, by trunkprobe
+TRUNKPROBE_SWAPS = (("swin_attention",), ("swin_mlp",),
+                    ("swin_attention", "swin_mlp"), ("dropout_masks",),
+                    ("umse", "attn_block", "ffn"))
+
+
+def trunkprobe(power: str) -> None:
+    """The bf16 step gate of --img-pretrain No (phase 19's pretrain_no
+    step at dropout 0.1, its weights and first batch): the kernel path,
+    the plain path and the kernel path with each of TRUNKPROBE_SWAPS on
+    its plain version, each against the fp32 plain step, as
+    _check_step_parity reads them: median and largest over every
+    tensor, over the trunk's (img_encoder.) and over the rest. Then
+    both paths from the weights nudged by half a bf16 rounding (every
+    float entry times 1 +- 2**-9, seeded signs; the fp32 plain step from
+    the same nudged weights), twice: each path's own spread."""
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    name = "pretrain_no"
+    cfg = parse_config(BASELINES[name])
+    batch = synthetic_batch(cfg, BATCH, seed=10,
+                            present_frac=TRAIN_BATCHES[name][0])
+    state = get_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    c32 = cfg.replace(precision="fp32", dropout=0.1)
+    c = cfg.replace(precision="bf16", dropout=0.1)
+
+    def read(label, weights, plain, fp32):
+        got = _train_run(c, weights, batch, plain)[1]
+        errs = _step_errors(got, fp32)
+        trunk = [e for n, e in errs.items() if n.startswith("img_encoder.")]
+        rest = [e for n, e in errs.items()
+                if not n.startswith("img_encoder.")]
+        print(f"trunkprobe {name} bf16 dropout 0.1 ({power}): {label} vs "
+              f"the fp32 plain step: {_summary(errs)}; trunk "
+              f"({len(trunk)}) median {statistics.median(trunk):.3e} max "
+              f"{max(trunk):.3e}; the rest ({len(rest)}) median "
+              f"{statistics.median(rest):.3e} max {max(rest):.3e}",
+              flush=True)
+        del got
+        gc_collect()
+
+    fp32 = _train_run(c32, state, batch, True)[1]
+    for label, plain in [("kernel path", False), ("plain path", True)] + [
+            (" + ".join(s) + " plain", s) for s in TRUNKPROBE_SWAPS]:
+        read(label, state, plain, fp32)
+    for seed in (1, 2):
+        g = torch.Generator().manual_seed(seed)
+        nudged = {k: (v * (1 + 2.0 ** -9 * (2 * torch.randint(
+                      0, 2, v.shape, generator=g) - 1))).to(v.dtype)
+                  if v.is_floating_point() else v
+                  for k, v in state.items()}
+        ref = _train_run(c32, nudged, batch, True)[1]
+        for label, plain in (("kernel path", False), ("plain path", True)):
+            read(f"{label}, weights nudged (seed {seed})", nudged, plain,
+                 ref)
+        del ref
+        gc_collect()
+
+
 # phase 14 under --mp-size 2 --dp-size 1: the drivers' bodies in two ranks
 # on the one card over gloo, config 4 at full width and TP_LAYERS layers,
 # 1 epoch of 2 train, 1 val and 1 test wire-format batches, an epoch
@@ -4431,8 +4943,9 @@ PATH_STEPS = dict({k: len(v) for k, v in TRAIN_BATCHES.items()},
                   tp=len(TP_BATCHES))
 # the train paths whose launches the kernels line gives under other_paths
 OTHER_PATHS = dict(BASE_PATHS, vmulti2=MULTI_PATHS["vmulti2"],
-                   vmultivslt=MULTI_PATHS["vmultivslt"], **REGISTRY_PATHS)
-PATH_NAMES.update(BASE_PATHS, **MULTI_PATHS, **REGISTRY_PATHS)
+                   vmultivslt=MULTI_PATHS["vmultivslt"], **REGISTRY_PATHS,
+                   **BL_PATHS)
+PATH_NAMES.update(BASE_PATHS, **MULTI_PATHS, **REGISTRY_PATHS, **BL_PATHS)
 
 
 # the kernels the A/B reading sums in a step and in an attn_block call:
@@ -4720,6 +5233,11 @@ def main() -> None:
         build_kernels()
         run_registry(power)
         return
+    if len(sys.argv) == 2 and sys.argv[1] == "baselines":
+        power = check_device()
+        build_kernels()
+        run_baselines(power)
+        return
     if len(sys.argv) == 2 and sys.argv[1] == "widths":
         power = check_device()
         build_kernels()
@@ -4735,6 +5253,11 @@ def main() -> None:
         power = check_device()
         build_kernels()
         keyprobe(power)
+        return
+    if len(sys.argv) == 2 and sys.argv[1] == "trunkprobe":
+        power = check_device()
+        build_kernels()
+        trunkprobe(power)
         return
     if len(sys.argv) == 2 and sys.argv[1] == "tpdrivers":
         power = check_device()
@@ -4767,6 +5290,8 @@ def main() -> None:
     run_widths(power)
     joint, reg_counts = run_registry(power)
     counts.update(reg_counts)
+    bl_results, bl_counts = run_baselines(power)
+    counts.update(bl_counts)
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         path = KERNEL_PATHS[name]
@@ -4781,7 +5306,8 @@ def main() -> None:
                         "steps": PATH_STEPS[path] if path else 0,
                         "other_paths": also, **results[name],
                         "widths": widths.get(name, {}),
-                        "mt_joint": joint.get(name, {})})
+                        "mt_joint": joint.get(name, {}),
+                        "baselines": bl_results.get(name, {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,12 @@ card; each wrapper adds one where it launches and nowhere else (a wrapper
 may run several CUDA launches for one call, as the two-pass attention
 forward does). The attention block counts its 3-D block-mask form apart
 (``attn_block_3d``, ``attn_block_3d_bwd``). ``ops`` re-exports the dict.
+
+``recomputes`` counts, per Swin kernel, the backward passes that recompute
+its plain version under autograd (the trainable trunk's gradients: the
+JAX package takes them by ``jax.vjp`` of its XLA oracle, no kernel of its
+own); they launch no hand-written kernel, so ``launches`` leaves them
+out.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ KERNELS = ("umse", "umse_bwd", "attn_block", "attn_block_bwd",
            "dropout_masks", "swin_attention", "swin_mlp", "attention",
            "attention_bwd", "rowmm_ln", "rowmm_ln_bwd", "rowmm", "rowmm_bwd")
 launches = {name: 0 for name in KERNELS}
+RECOMPUTES = ("swin_attention_bwd", "swin_mlp_bwd")
+recomputes = {name: 0 for name in RECOMPUTES}
 
 
 def count(name: str) -> None:
@@ -27,13 +35,17 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def forward_only(name: str, *tensors: torch.Tensor) -> None:
-    """For kernels with no backward (the frozen Swin trunk's): refuse inputs
-    that autograd would need to differentiate through."""
-    if needs_grad(*tensors):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel is forward only; run it under "
-            "torch.inference_mode() or torch.no_grad()")
+def recompute_grads(plain, saved, needs, args, dout):
+    """The backward of a kernel whose gradients are autograd of its plain
+    version: ``plain(*inputs, *args)`` recomputed from the ``saved``
+    inputs, differentiated for those that ``needs`` marks; None for the
+    rest."""
+    inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+    with torch.enable_grad():
+        out = plain(*inputs, *args)
+    want = [t for t, n in zip(inputs, needs) if n]
+    got = iter(torch.autograd.grad(out, want, dout) if want else ())
+    return [next(got) if n else None for n in needs]
 
 
 def dtype_code(dt: torch.dtype) -> int:

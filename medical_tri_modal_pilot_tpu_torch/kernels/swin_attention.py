@@ -2,7 +2,6 @@
 per-head scores + relative-position bias + shifted-window mask, softmax,
 @v, output projection. The plain PyTorch version and the CUDA kernels
 (``csrc/swin_attention.cu``), in three routes (``swin_attention_route``).
-Forward only: the trunk is frozen.
 
 Counterpart of medical_tri_modal_pilot_tpu/kernels/swin_attention.py
 (``xla_window_attention`` and ``pallas_window_attention``), with its
@@ -10,6 +9,14 @@ public layout: xw [I, N, C] pre-windowed tokens (image-major, so window i
 of an image with M windows uses shift mask i % M), wqkv [C, 3C],
 bqkv [3C], wproj [C, C], bproj [C], bias [nh, N, N] fp32, smask [M, N, N]
 bool (True = masked) or None.
+
+Training (the trainable trunk, ``--img-pretrain No``): a call that needs
+a gradient goes through ``_SwinAttention``, whose forward is the kernel
+and whose backward recomputes the plain version under autograd from the
+saved inputs, as the JAX package's custom VJP takes ``jax.vjp`` of
+``xla_window_attention`` (its ``_fused_bwd``; no ``pallas_call``). The
+``bias`` cotangent flows back to the relative-position table through the
+caller's gather.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import torch
 
 from ..constants import MASK_FILL_VALUE
 from . import _build
-from ._util import count, forward_only
+from ._util import count, needs_grad, recompute_grads, recomputes
 
 # the kernel's geometry: 7x7 windows, 32-wide heads
 WINDOW_TOKENS = 49
@@ -82,8 +89,39 @@ def cuda_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
                           route: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors (fp32 or bf16 xw), by ``route``
     (default ``swin_attention_route``; "fma" takes fp32, "fused" and
-    "split" bf16, "fused" at FUSED_WIDTH only)."""
-    forward_only("swin_attention", xw, wqkv, bqkv, wproj, bproj, bias)
+    "split" bf16, "fused" at FUSED_WIDTH only), through ``_SwinAttention``
+    when a gradient is needed."""
+    args = (xw, wqkv, bqkv, wproj, bproj, bias)
+    if needs_grad(*args):
+        return _SwinAttention.apply(*args, smask, num_heads, route)
+    return _launch_fwd(*args, smask, num_heads, route)
+
+
+class _SwinAttention(torch.autograd.Function):
+    """The forward kernel; the backward recomputes torch_window_attention
+    under autograd (counted in ``recomputes``, not ``launches``)."""
+
+    @staticmethod
+    def forward(ctx, xw, wqkv, bqkv, wproj, bproj, bias, smask, num_heads,
+                route):
+        ctx.save_for_backward(xw, wqkv, bqkv, wproj, bproj, bias)
+        ctx.smask, ctx.num_heads = smask, num_heads
+        return _launch_fwd(xw, wqkv, bqkv, wproj, bproj, bias, smask,
+                           num_heads, route)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = recompute_grads(torch_window_attention, ctx.saved_tensors,
+                                ctx.needs_input_grad[:6],
+                                (ctx.smask, ctx.num_heads), dout)
+        recomputes["swin_attention_bwd"] += 1
+        return (*grads, None, None, None)
+
+
+def _launch_fwd(xw, wqkv, bqkv, wproj, bproj, bias,
+                smask: Optional[torch.Tensor], num_heads: int,
+                route: Optional[str] = None) -> torch.Tensor:
+    """The checks and the kernel's launch."""
     if xw.device.type != "cuda":
         raise ValueError(f"cuda_window_attention needs CUDA tensors, got "
                          f"{xw.device}")

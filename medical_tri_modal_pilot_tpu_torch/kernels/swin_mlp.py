@@ -1,11 +1,18 @@
 """Fused LayerNorm -> MLP -> residual of the Swin blocks,
 ``x + fc2(gelu(fc1(LN(x))))``: the plain PyTorch version and the CUDA
 kernels (``csrc/swin_mlp.cu``), in four routes (``swin_mlp_route``).
-Forward only: the trunk is frozen.
 
 Counterpart of medical_tri_modal_pilot_tpu/kernels/swin_mlp.py
 (``xla_swin_mlp`` and ``pallas_swin_mlp``). Weights are in the JAX layout:
 w1 [C, 4C], w2 [4C, C]; x is [R, C].
+
+Training (the trainable trunk): a call that needs a gradient goes
+through ``_SwinMlp``, whose forward is the kernel and whose backward
+recomputes the plain version under autograd, as the JAX package's custom
+VJP takes ``jax.vjp`` of ``xla_swin_mlp`` (its ``_fused_bwd``).
+``torch_mlp_branch`` is the branch without the residual, which the
+blocks under stochastic depth run instead of the fused op (JAX
+``mlp_branch``, plain XLA there too).
 """
 from __future__ import annotations
 
@@ -13,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._util import count, forward_only
+from ._util import count, needs_grad, recompute_grads, recomputes
 
 LN_EPS = 1e-5
 # the C entry point's routes: bf16 on the tensor cores, fused in one launch
@@ -68,6 +75,16 @@ def swin_mlp_route(dtype: torch.dtype, C: int, split: bool = False) -> str:
             else "fma_split")
 
 
+def _branch(x, scale, bias, w1, b1, w2, b2) -> torch.Tensor:
+    """fc2(gelu(fc1(LN(x)))) in fp32, no residual (JAX ``_branch``)."""
+    dt = x.dtype
+    h = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(),
+                     LN_EPS).to(dt)
+    h = h.float() @ w1.to(dt).float() + b1.float()
+    h = F.gelu(h).to(dt)
+    return h.float() @ w2.to(dt).float() + b2.float()
+
+
 def torch_swin_mlp(x, scale, bias, w1, b1, w2, b2) -> torch.Tensor:
     """Rounds where xla_swin_mlp rounds: LN (fp32 statistics) to the
     compute dtype; fc1 accumulated in fp32 plus b1 in fp32; exact GELU in
@@ -76,22 +93,47 @@ def torch_swin_mlp(x, scale, bias, w1, b1, w2, b2) -> torch.Tensor:
     the compute-dtype operands, which is fp32 accumulation of the same
     terms. JAX's kernel uses a polynomial erf (error < 1.5e-7); this is the
     real one."""
-    dt = x.dtype
-    xf = x.float()
-    h = F.layer_norm(xf, (x.shape[-1],), scale.float(), bias.float(),
-                     LN_EPS).to(dt)
-    h = h.float() @ w1.to(dt).float() + b1.float()
-    h = F.gelu(h).to(dt)
-    o = h.float() @ w2.to(dt).float() + b2.float()
-    return (xf + o).to(dt)
+    return (x.float() + _branch(x, scale, bias, w1, b1, w2, b2)).to(x.dtype)
+
+
+def torch_mlp_branch(x, scale, bias, w1, b1, w2, b2) -> torch.Tensor:
+    """The branch alone, cast to x's dtype (JAX ``mlp_branch``): the
+    stochastic-depth blocks scale it before they add it back."""
+    return _branch(x, scale, bias, w1, b1, w2, b2).to(x.dtype)
 
 
 def cuda_swin_mlp(x, scale, bias, w1, b1, w2, b2,
                   split: bool = False) -> torch.Tensor:
     """Launch the kernels of ``swin_mlp_route`` on a CUDA x [R, C] (fp32
-    or bf16); ``split=True`` takes the dtype's split route at any width
-    (the scratches it needs are allocated here)."""
-    forward_only("swin_mlp", x, scale, bias, w1, b1, w2, b2)
+    or bf16), through ``_SwinMlp`` when a gradient is needed;
+    ``split=True`` takes the dtype's split route at any width."""
+    args = (x, scale, bias, w1, b1, w2, b2)
+    if needs_grad(*args):
+        return _SwinMlp.apply(*args, split)
+    return _launch_fwd(*args, split)
+
+
+class _SwinMlp(torch.autograd.Function):
+    """The forward kernels; the backward recomputes torch_swin_mlp under
+    autograd (counted in ``recomputes``, not ``launches``)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, split):
+        ctx.save_for_backward(x, scale, bias, w1, b1, w2, b2)
+        return _launch_fwd(x, scale, bias, w1, b1, w2, b2, split)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = recompute_grads(torch_swin_mlp, ctx.saved_tensors,
+                                ctx.needs_input_grad[:7], (), dout)
+        recomputes["swin_mlp_bwd"] += 1
+        return (*grads, None)
+
+
+def _launch_fwd(x, scale, bias, w1, b1, w2, b2,
+                split: bool = False) -> torch.Tensor:
+    """The checks and the kernels' launches (the scratches the split
+    routes need are allocated here)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"swin_mlp takes fp32 or bf16, got {x.dtype}")
     if x.dim() != 2:

@@ -22,7 +22,13 @@ trees; their port names follow the reference's other MBT fusions
 cls parameter (its flax name), ``layer_norms_after_concat`` and
 ``fc_lists.{i}``. The legacy cross transformer has no reference state_dict
 names in the JAX package's bridge; its port modules are named after the
-flax tree instead (``models/legacy.py``).
+flax tree instead (``models/legacy.py``), as are the baselines
+(``gru_d``, ``lstm``, ``fusiontrainer``: ``models/baselines.py``; the
+recurrent cells' denses one ``nn.Linear`` each under the flax names
+``ir`` .. ``hn`` and ``ii`` .. ``ho``, which the port concatenates at run
+time; the Swin-T ``cxr_model`` under torchvision's names, as every trunk),
+``feature_temporal_v1`` (``models/extras.py``), and the patch stem of
+``tri_mbt_v3`` (``patch_embedding.proj``, ``.pos_embed``).
 
 Layout rules (the inverse of convert_ref's): flax kernel [in, out] ->
 torch Linear weight [out, in]; FFN kernels -> Conv1d weights [out, in, 1];
@@ -77,8 +83,10 @@ def _t(a) -> torch.Tensor:
 
 
 def _lin(sd, key: str, p: Mapping) -> None:
+    """A flax Dense (kernel [in, out], bias if it has one) -> Linear."""
     sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
-    sd[f"{key}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
 
 
 def _ln(sd, key: str, p: Mapping) -> None:
@@ -251,9 +259,20 @@ def _cls_head(sd, params: Mapping, stats: Mapping,
     _lin(sd, f"{key}.3", head["fc2"])
 
 
+def _conv(sd, key: str, p: Mapping) -> None:
+    """A flax Conv (kernel [kh, kw, in, out]) -> Conv2d [out, in, kh, kw]."""
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
 def _img(sd, p: Mapping) -> None:
     """The image encoder's tree (``img_enc``): the trunk and its
-    projection ``linear``."""
+    projection ``linear``, or the patch stem ``patch_embedding``."""
+    if "patch_embedding" in p:
+        _conv(sd, "patch_embedding.proj", p["patch_embedding"]["proj"])
+        sd["patch_embedding.pos_embed"] = _t(
+            p["patch_embedding"]["pos_embed"])
+        return
     sd.update(swin_state_dict(p["img_encoder"], "img_encoder."))
     _lin(sd, "linear", p["linear"])
 
@@ -314,6 +333,7 @@ def _cross_transformer(params: Mapping, stats: Mapping
 
 _MBT_MODELS = ("tri_mbt_vsltcls", "biimg_mbt_vsltcls", "bitxt_mbt_vsltcls",
                "bi_vslttxt_mbt_v1", "bi_vsltimg_mbt_v1", "tri_mbt_v1",
+               "tri_mbt_v2", "tri_mbt_v3",
                "tri_mbt_vsltcls_noshareumse", "tri_mbt_vflexible",
                "tri_mbt_vflexible2", "tri_mbt_vflexible3",
                "biimg_mbt_vflexible1", "bitxt_mbt_vflexible1",
@@ -356,6 +376,87 @@ def _unimodal(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _cells(sd, pre: str, p: Mapping, names: str) -> None:
+    """A flax recurrent cell's denses (``names``) -> one Linear each."""
+    for name in names.split():
+        _lin(sd, f"{pre}.{name}", p[name])
+
+
+def _lstm_encoder(sd, pre: str, p: Mapping) -> None:
+    """LSTMEncoder: ``layer{l}`` -> ``{pre}.layer{l}.cell.{ii .. ho}``."""
+    for key, layer in p.items():
+        _cells(sd, f"{pre}.{key}.cell", layer["cell"],
+               "ii if ig io hi hf hg ho")
+
+
+def _bn(sd, key: str, p: Mapping, stats: Mapping) -> None:
+    """A flax BatchNorm -> BatchNorm1d (its running statistics from
+    ``stats``)."""
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+    sd[f"{key}.running_mean"] = _t(stats["mean"])
+    sd[f"{key}.running_var"] = _t(stats["var"])
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _gru_d(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """GRU_D (JAX baselines.py:46-100): the input decay, the scanned cell
+    ``gru`` (``hidden_decay``, the GRU denses), fc1, bn, fc2."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("input_decay_w", "input_decay_b"):
+        sd[name] = _t(params[name])
+    _lin(sd, "gru.hidden_decay", params["gru"]["hidden_decay"])
+    _cells(sd, "gru.cell", params["gru"]["cell"], "ir iz in hr hz hn")
+    _lin(sd, "fc1", params["fc1"])
+    _bn(sd, "bn", params["bn"], stats["bn"])
+    _lin(sd, "fc2", params["fc2"])
+    return sd
+
+
+# the LSTM encoders and the Dense layers of lstm and fusiontrainer (beside
+# the trunk, the note LayerNorm and embedding)
+_LSTMS = ("ehr_model", "lstm_fusion_layer", "daft_head")
+_DENSES = ("dense_layer", "projection", "lstm_fused_cls", "fc_squeeze",
+           "fc_txt", "fc_visual", "fc_skeleton", "projection_txt",
+           "joint_cls", "aux_base", "aux_out")
+
+
+def _baseline(params: Mapping) -> Dict[str, torch.Tensor]:
+    """LSTM_MODEL and FUSIONTRAINER (JAX baselines.py:168-260): the LSTM
+    encoders, the trunk ``cxr_model``, ``txtnorm``, ``txt_embedding`` and
+    the denses, each under its flax name."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key in params:
+        if key in _LSTMS:
+            _lstm_encoder(sd, key, params[key])
+        elif key == "cxr_model":
+            sd.update(swin_state_dict(params[key], "cxr_model."))
+        elif key == "txtnorm":
+            _ln(sd, key, params[key])
+        elif key == "txt_embedding":
+            _txt_embedding(sd, key, params[key])
+        elif key in _DENSES:
+            _lin(sd, key, params[key])
+    return sd
+
+
+def _feature_temporal(params: Mapping, stats: Mapping
+                      ) -> Dict[str, torch.Tensor]:
+    """FEATURE_TEMPORAL_V1 (JAX extras.py:186-236): the stems, the two
+    encoders, ``final_ln`` and the head."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("feat_stems", "feat_bias"):
+        sd[name] = _t(params[name])
+    _ln(sd, "stem_ln", params["stem_ln"])
+    for name in ("age_encoder", "gender_encoder"):
+        _lin(sd, name, params[name])
+    for name in ("instance_graph_transformer", "temporal_transformer"):
+        _encoder(sd, name, params[name])
+    _ln(sd, "final_ln", params["final_ln"])
+    _cls_head(sd, params, stats)
+    return sd
+
+
 def from_jax_variables(cfg: Config, variables: Mapping
                        ) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` of ``cfg.model`` -> port
@@ -373,6 +474,12 @@ def from_jax_variables(cfg: Config, variables: Mapping
         sd = _mt(params, stats)
     elif cfg.model in _MBT_MODELS:
         sd = _mbt(cfg, params, stats)
+    elif cfg.model == "gru_d":
+        sd = _gru_d(params, stats)
+    elif cfg.model in ("lstm", "fusiontrainer"):
+        sd = _baseline(params)
+    elif cfg.model == "feature_temporal_v1":
+        sd = _feature_temporal(params, stats)
     else:
         raise NotImplementedError(
             f"no weight bridge for model '{cfg.model}' yet")
@@ -416,9 +523,12 @@ def params_from_jax(cfg: Config, tree: Mapping) -> Dict[str, torch.Tensor]:
     """A tree shaped like the JAX model's params (the params, or an
     optimizer's moments of them) -> the port's parameter names, with the
     same layout rules (buffers left out)."""
-    stub = {k: {"bn": {"mean": np.zeros(1), "var": np.zeros(1)}}
-            for k, head in tree.items()
+    zero = {"mean": np.zeros(1), "var": np.zeros(1)}
+    stub = {k: {"bn": zero} for k, head in tree.items()
             if isinstance(head, Mapping) and "bn" in head}
+    if "bn" in tree:
+        # a BatchNorm at the model's root (gru_d's)
+        stub["bn"] = zero
     sd = from_jax_variables(cfg, {"params": tree, "batch_stats": stub})
     return {k: v for k, v in sd.items()
             if not k.endswith(("running_mean", "running_var",

@@ -1,11 +1,14 @@
 """The transformer encoder with a cls token (counterpart of
 medical_tri_modal_pilot_tpu/models/encoder.py:23-67, ``TransformerEncoder``
-at ``classification=True``, ``mask=True``, ``d_input == d_model``;
-reference encoder.py:36-118): the cls token, ``layer_norm_in``, an optional
+at ``classification=True``, ``d_input == d_model``; reference
+encoder.py:36-118): the cls token, ``layer_norm_in``, an optional
 sinusoidal positional encoding, input dropout and a stack of pre-norm
-encoder layers. ``unimodal_transformer`` runs it. The reference's other
-forms (no cls token, an unmasked stream, the ``linear_in`` projection) wait
-for the text baselines of ROADMAP Queue 1 item 6, their first callers.
+encoder layers. ``unimodal_transformer`` runs it masked; with
+``mask=False`` (``feature_temporal_v1``'s instance transformer, JAX
+extras.py:219-223) no key mask is built and no row is padded, so every
+row is a live query and key. The reference's other forms (no cls token,
+the ``linear_in`` projection) wait for their first callers (the legacy
+families of ROADMAP Queue 1 item 7).
 
 Parameters keep the reference's state_dict names (``cls_tokens``,
 ``layer_norm_in``, ``layer_stack.{i}``). A stream longer than 512 rows
@@ -40,8 +43,9 @@ class TransformerEncoder(nn.Module):
     def __init__(self, n_layers: int, n_head: int, d_model: int, d_ff: int,
                  dropout: float = 0.1, pe_maxlen: int = 5000,
                  use_pe: bool = True, dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, mask: bool = True):
         super().__init__()
+        self.mask = mask
         self.d_model = d_model
         self.dropout = dropout
         self.use_pe = use_pe
@@ -57,18 +61,21 @@ class TransformerEncoder(nn.Module):
                                                            d_model),
                                  persistent=False)
 
-    def forward(self, x, input_lengths: torch.Tensor,
+    def forward(self, x, input_lengths: Optional[torch.Tensor],
                 seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
         """x: [B, L, D]; input_lengths: [B] valid rows, the cls token
-        included. Returns [B, L + 1 (padded past 512), D]."""
+        included (None, or ignored, without a mask). Returns [B, L + 1
+        (masked: padded past 512), D]."""
         dt = self.compute_dtype
         B = x.shape[0]
         x = torch.cat([self.cls_tokens.expand(B, 1, self.d_model).to(dt),
                        x.to(dt)], dim=1)
-        if x.shape[1] > 512:
-            tgt = -(-x.shape[1] // 256) * 256
-            x = F.pad(x, (0, 0, 0, tgt - x.shape[1]))
-        key_mask = length_key_mask(input_lengths.long(), x.shape[1])
+        key_mask = None
+        if self.mask and input_lengths is not None:
+            if x.shape[1] > 512:
+                tgt = -(-x.shape[1] // 256) * 256
+                x = F.pad(x, (0, 0, 0, tgt - x.shape[1]))
+            key_mask = length_key_mask(input_lengths.long(), x.shape[1])
         h = self.layer_norm_in(x)
         if self.use_pe:
             h = h + self.pe[:, :h.shape[1]].to(dt)

@@ -10,14 +10,38 @@ from torch import nn
 from .modules import LayerNorm
 
 
+def flax_batch_norm(h: torch.Tensor, bn: nn.BatchNorm1d, training: bool,
+                    momentum: float) -> torch.Tensor:
+    """flax ``nn.BatchNorm`` over the last axis of h [..., D] (statistics
+    over every leading axis), in fp32, with ``bn``'s parameters and running
+    statistics. Eval: the running statistics. Training: the batch's, as
+    flax computes them (normalization.py _compute_stats / _normalize: var
+    = E[h^2] - E[h]^2, floored at 0), and the running statistics updated
+    with ``momentum`` and the biased batch variance (torch's BatchNorm1d
+    would use 1 - momentum and the unbiased one; the JAX package is the
+    contract)."""
+    h = h.float()
+    if not training:
+        D = h.shape[-1]
+        return F.batch_norm(h.reshape(-1, D), bn.running_mean,
+                            bn.running_var, bn.weight, bn.bias,
+                            training=False, eps=bn.eps).reshape(h.shape)
+    axes = tuple(range(h.dim() - 1))
+    mean = h.mean(dim=axes)
+    var = ((h * h).mean(dim=axes) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
+        bn.running_var.mul_(momentum).add_((1.0 - momentum) * var)
+        bn.num_batches_tracked.add_(1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (h - mean) * mul + bn.bias
+
+
 class ClsHead(nn.Sequential):
-    """``fc_list``: Linear -> BatchNorm1d -> act -> Linear. Computes in
-    ``dtype`` with the statistics in fp32, as flax's BatchNorm does. In eval
-    mode the BatchNorm uses its running statistics (eps 1e-5); in training
-    mode the batch's, as flax computes them (var = E[h^2] - E[h]^2, floored
-    at 0), and it updates the running statistics as flax does: momentum
-    0.9 and the biased batch variance (torch's BatchNorm1d would use 0.1
-    and the unbiased one; the JAX package is the contract)."""
+    """``fc_list``: Linear -> BatchNorm1d -> act -> Linear over [..., d_in]
+    (``tri_mbt_v2`` runs it over the stacked [M, B, d_in] cls vectors).
+    Computes in ``dtype`` with the statistics in fp32, as flax's BatchNorm
+    does (``flax_batch_norm`` at the head's momentum 0.9, eps 1e-5)."""
 
     MOMENTUM = 0.9
 
@@ -34,27 +58,8 @@ class ClsHead(nn.Sequential):
         fc1, bn, act, fc2 = self
         dt = self.compute_dtype
         h = F.linear(x.to(dt), fc1.weight.to(dt), fc1.bias.to(dt))
-        if self.training:
-            h = self._batch_norm_train(h.float(), bn).to(dt)
-        else:
-            h = F.batch_norm(h.float(), bn.running_mean, bn.running_var,
-                             bn.weight, bn.bias, training=False,
-                             eps=bn.eps).to(dt)
+        h = flax_batch_norm(h, bn, self.training, self.MOMENTUM).to(dt)
         return F.linear(act(h), fc2.weight.to(dt), fc2.bias.to(dt))
-
-    def _batch_norm_train(self, h, bn):
-        """flax nn.BatchNorm(use_running_average=False) over the leading
-        axes (normalization.py _compute_stats / _normalize)."""
-        axes = tuple(range(h.dim() - 1))
-        mean = h.mean(dim=axes)
-        var = ((h * h).mean(dim=axes) - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            m = self.MOMENTUM
-            bn.running_mean.mul_(m).add_((1.0 - m) * mean)
-            bn.running_var.mul_(m).add_((1.0 - m) * var)
-            bn.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + bn.eps) * bn.weight
-        return (h - mean) * mul + bn.bias
 
 
 class ClsHeadLN(nn.Sequential):

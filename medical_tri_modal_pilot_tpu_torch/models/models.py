@@ -18,6 +18,8 @@ image trunk under ``img_encoder.``, its projection at ``linear``).
 """
 from __future__ import annotations
 
+import contextlib
+
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -31,7 +33,7 @@ from .heads import ClsHead, ClsHeadLN
 from .mbt import (MBTFusion, MultitokenMBTFusion,
                   MultitokenMBTVSLTMAINFusion, missing_candidate_weights)
 from .modules import DropoutSeeds, LayerNorm
-from .swin import SwinTransformer
+from .swin import PatchStem, SwinTransformer
 from .umse import UMSE
 
 ModelOutput = Tuple[torch.Tensor, Optional[torch.Tensor], None]
@@ -83,22 +85,31 @@ def _require_three_streams(cfg: Config) -> None:
 
 
 class ImageEncoder(UMSE):
-    """UMSE plus, when ``--input-types`` has img, the Swin-T trunk
-    (``img_encoder``) and its 768 -> d projection (``linear``)
-    (tri_mbt_vsltcls.py:83-118, :202-214). The trunk is frozen where
+    """UMSE plus, when ``--input-types`` has img, the image stem: the
+    Swin-T trunk (``img_encoder``) and its 768 -> d projection (``linear``)
+    (tri_mbt_vsltcls.py:83-118, :202-214), or the patch stem
+    (``patch_embedding``, ``models/swin.py::PatchStem``) where ``stem`` is
+    "patch" (``tri_mbt_v3``) or ``--img-model-type`` is neither swin nor
+    vit, as the JAX ImageEncoder falls through to it (models.py:146); vit
+    raises (ROADMAP Queue 1 item 7). The trunk is frozen where
     ``img_frozen`` says, or at ``--img-pretrain Yes`` when it is None (JAX
-    models.py:125; the v1 family passes True, tri_mbt_v1.py:228): its
-    parameters take no gradient, it stays in eval mode under ``model.train()`` and runs
-    under ``torch.no_grad()`` (JAX: stop_gradient, models.py:125-141, and
-    the optimizer mask). Only ``linear`` trains on the image side. The
-    weights are seeded or carried across, since loading
-    ``--img-pretrain-path`` is not ported yet. ``share_umse=False``
+    models.py:125; the v1 family passes True, tri_mbt_v1.py:228, and
+    tri_mbt_v2 False): its parameters take no gradient, it stays in eval
+    mode under ``model.train()`` and runs under ``torch.no_grad()`` (JAX:
+    stop_gradient, models.py:125-141, and the optimizer mask), and only
+    ``linear`` trains on the image side. A trunk that is not frozen trains:
+    training mode under ``model.train()``, gradients through its ops'
+    autograd Functions, stochastic depth from the step's seeds; it runs
+    over every row (the packed trunk is a frozen-only path, as in JAX
+    models.py:127-141). The weights are seeded or carried across, since
+    loading ``--img-pretrain-path`` is not ported yet. ``share_umse=False``
     gives the img and txt streams stems of their own; ``timestamps=False``
     leaves out the img/txt timestamp stems (a model that never enriches
     its tokens, ``*_mt_v1``)."""
 
     def __init__(self, cfg: Config, img_frozen: Optional[bool] = None,
-                 share_umse: bool = True, timestamps: bool = True):
+                 share_umse: bool = True, timestamps: bool = True,
+                 stem: Optional[str] = None):
         dt = model_dtype(cfg)
         mods = cfg.input_types.split("_")
         stamps = timestamps and cfg.imgtxt_time == 1 and len(mods) > 1
@@ -115,13 +126,20 @@ class ImageEncoder(UMSE):
                     setattr(self, f"umse_{m}", UMSE(
                         cfg.transformer_dim, cfg.vslt_type, cfg.berttype, dt,
                         txt=m == "txt", timestamps=stamps, vslt=False))
+        self.frozen, self.img_pack = True, False
+        # rows the trunk ran on in the last call (cap + 1 when packed)
+        self.trunk_rows = 0
         if "img" not in mods:
             return
-        if cfg.img_model_type != "swin":
+        if stem != "patch" and cfg.img_model_type == "vit":
             raise NotImplementedError(
-                f"--img-model-type {cfg.img_model_type}: only the Swin-T "
-                "trunk is ported; ViT, ResNet, MaxViT and the patch stem are "
-                "ROADMAP Queue 1 item 7")
+                "--img-model-type vit: the ViT encoder is ROADMAP Queue 1 "
+                "item 7 (swin runs the Swin-T trunk, every other type the "
+                "patch stem)")
+        if stem == "patch" or cfg.img_model_type != "swin":
+            self.patch_embedding = PatchStem(cfg.image_size, 16,
+                                             cfg.transformer_dim, 1, dt)
+            return
         if cfg.img_pretrain_path:
             raise NotImplementedError(
                 "--img-pretrain-path: loading torchvision weights into the "
@@ -135,8 +153,6 @@ class ImageEncoder(UMSE):
         self.img_pack = self.frozen and (
             cfg.img_pack == 1
             or (cfg.img_pack == -1 and "missing" in cfg.modality_inclusion))
-        # rows the trunk ran on in the last call (cap + 1 when packed)
-        self.trunk_rows = 0
 
     def stems(self, stream: str) -> UMSE:
         """The stems of the img or txt stream: the shared ones, or under
@@ -146,32 +162,27 @@ class ImageEncoder(UMSE):
 
     def train(self, mode: bool = True):
         """Training mode for everything but a frozen trunk, which stays in
-        eval mode. A trainable trunk is not ported and raises."""
+        eval mode."""
         super().train(mode)
         trunk = getattr(self, "img_encoder", None)
-        if trunk is not None:
-            if mode and not self.frozen:
-                raise NotImplementedError(
-                    f"--img-pretrain {self.cfg.img_pretrain} with --model "
-                    f"{self.cfg.model}: training the Swin trunk (its "
-                    "backward and stochastic depth) is ROADMAP Queue 1 "
-                    "item 11")
+        if trunk is not None and self.frozen:
             trunk.eval()
         return self
 
-    def _trunk(self, img, present: torch.Tensor) -> torch.Tensor:
-        """The frozen trunk over [rows, 1, H, W] images (models.py:65-107).
-        Packed: every row without an image equals swin(0), so the trunk
-        runs on the first ``cap`` present rows plus one shared zero row and
-        the features are gathered back per row. A batch with more present
-        images than ``cap`` runs the full batch instead. In eager PyTorch
-        the branch is a host decision on the present count, which costs
-        one device sync per step."""
+    def _trunk(self, img, present: torch.Tensor,
+               seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+        """The trunk over [rows, 1, H, W] images (models.py:65-107).
+        Packed (a frozen trunk only): every row without an image equals
+        swin(0), so the trunk runs on the first ``cap`` present rows plus
+        one shared zero row and the features are gathered back per row. A
+        batch with more present images than ``cap`` runs the full batch
+        instead. In eager PyTorch the branch is a host decision on the
+        present count, which costs one device sync per step."""
         rows = img.shape[0]
         cap = pack_capacity(self.cfg, rows)
         if not self.img_pack or int(present.sum()) > cap:
             self.trunk_rows = rows
-            return self.img_encoder(img)
+            return self.img_encoder(img, seeds)
         order = torch.argsort((~present).to(torch.int8), stable=True)
         inv = torch.argsort(order)
         packed = torch.cat([img[order[:cap]], torch.zeros_like(img[:1])])
@@ -180,14 +191,18 @@ class ImageEncoder(UMSE):
         src = torch.where(present & (inv < cap), inv, cap)
         return feats[src]
 
-    def encode_images(self, img, present: torch.Tensor) -> torch.Tensor:
+    def encode_images(self, img, present: torch.Tensor,
+                      seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
         """img [B, 1, H, W], or [B, 3, 1, H, W] with ``--multiimages 1``;
-        present: bool per image row. Returns tokens [rows, 49, d] in the
-        compute dtype."""
+        present: bool per image row. Returns tokens [rows, 49, d] (the
+        patch stem's [B, N, d]) in the compute dtype. ``seeds``: the step's
+        dropout seeds, which a training trunk's stochastic depth draws."""
         cfg = self.cfg
         img = img.reshape(-1, 1, cfg.image_size, cfg.image_size)
-        with torch.no_grad():
-            feats = self._trunk(img, present.reshape(-1))
+        if hasattr(self, "patch_embedding"):
+            return self.patch_embedding(img)
+        with torch.no_grad() if self.frozen else contextlib.nullcontext():
+            feats = self._trunk(img, present.reshape(-1), seeds)
         feats = feats.reshape(feats.shape[0], -1, feats.shape[-1])
         dt = self.compute_dtype
         return F.linear(feats.to(dt), self.linear.weight.to(dt),
@@ -204,16 +219,18 @@ class MBTBackbone(ImageEncoder):
     image stream gets the positional encoding, bi_vsltimg_mbt_v1.py:130);
     ``share_umse`` (False: ``tri_mbt_vsltcls_noshareumse``'s stems per
     stream, JAX models.py:173-236; the vslt tokens and the demographics
-    still come from the shared ones, so ``ops.umse`` runs once).
+    still come from the shared ones, so ``ops.umse`` runs once); ``stem``
+    ("patch": ``tri_mbt_v3``'s patch stem, see ``ImageEncoder``).
     """
 
     def __init__(self, cfg: Config, img_frozen: Optional[bool] = None,
                  allow_multiimages: bool = True,
                  allow_resbottle: bool = True, img_use_pe: bool = False,
-                 share_umse: bool = True):
-        super().__init__(cfg, img_frozen, share_umse)
+                 share_umse: bool = True, stem: Optional[str] = None):
+        super().__init__(cfg, img_frozen, share_umse, stem=stem)
         mods = cfg.input_types.split("_")
-        if cfg.multiimages == 1 and "img" in mods and not allow_multiimages:
+        if cfg.multiimages == 1 and "img" in mods and (
+                not allow_multiimages or hasattr(self, "patch_embedding")):
             raise ValueError(f"--multiimages 1: --model {cfg.model} takes "
                              "one image per sample")
         use_pe = [cfg.vslt_type == "carryforward"]
@@ -241,10 +258,11 @@ class MBTBackbone(ImageEncoder):
             use_pe=tuple(use_pe), mask=tuple(mask),
             dtype=model_dtype(cfg), remat=cfg.remat == 1)
 
-    def _img_stream(self, batch: Dict[str, torch.Tensor], demo
+    def _img_stream(self, batch: Dict[str, torch.Tensor], demo,
+                    seeds: Optional[DropoutSeeds] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Image tokens [B, 49 (x3), d] and their valid lengths
-        (models.py:183-217)."""
+        """Image tokens [B, 49 (x3) or the patch stem's N, d] and their
+        valid lengths (models.py:183-217)."""
         cfg = self.cfg
         B = batch["vslt"].shape[0]
         multi = cfg.multiimages == 1
@@ -253,7 +271,7 @@ class MBTBackbone(ImageEncoder):
             present = batch["img_time"].reshape(-1) != 10.0
         else:
             present = batch["missing"][:, 1] == 0.0
-        tokens = self.encode_images(batch["img"], present)
+        tokens = self.encode_images(batch["img"], present, seeds)
         per_image = tokens.shape[1]
         if cfg.imgtxt_time == 1:
             tokens = self.stems("img").add_time_feature(
@@ -276,7 +294,7 @@ class MBTBackbone(ImageEncoder):
         enc_inputs = [vslt_tokens]
         varying = [batch["input_length"].long()]
         if "img" in mods:
-            img_tokens, img_len = self._img_stream(batch, demo)
+            img_tokens, img_len = self._img_stream(batch, demo, seeds)
             enc_inputs.append(img_tokens)
             varying.append(img_len.long())
         if "txt" in mods:
@@ -367,25 +385,30 @@ class TRI_MBT_V1(MBTBackbone):
     and the per-modality logits mixed by a one-hot of ``missing_num``
     times the constant (4, 3) missing-aware weights. No rmse output (the
     reference returns None). The trunk is always frozen. Variant 2
-    (``tri_mbt_v2``) trains the image trunk and variant 3
-    (``tri_mbt_v3``) runs the patch stem: not ported."""
+    (``tri_mbt_v2``, tri_mbt_v2.py): the trunk trains, the BatchNorm head
+    ``ClsHead`` with ``--output-dim`` outputs, one image per sample, no
+    residual bottlenecks, and with ``--auxiliary-loss-type rmse`` the
+    per-stream ``rmse_layer`` [3, B] mixed the same way (tri_mbt_v2.py:
+    240-247). Variant 3 (``tri_mbt_v3``, tri_mbt_v3.py:86-96, 187):
+    variant 2 with the patch stem in place of the trunk."""
 
     def __init__(self, cfg: Config, variant: int = 1):
-        if variant == 2:
-            raise NotImplementedError(
-                "--model tri_mbt_v2 trains the Swin trunk: ROADMAP Queue 1 "
-                "item 11")
-        if variant == 3:
-            raise NotImplementedError(
-                "--model tri_mbt_v3 runs the patch-embed image stem: ROADMAP "
-                "Queue 1 item 7")
         _require_three_streams(cfg)
-        super().__init__(cfg, img_frozen=True)
+        v1 = variant == 1
+        super().__init__(cfg, img_frozen=v1, allow_multiimages=v1,
+                         allow_resbottle=v1,
+                         stem="patch" if variant == 3 else None)
+        self.variant = variant
         D = cfg.transformer_dim
         dt = model_dtype(cfg)
         self.layer_norms_after_concat = LayerNorm(D, dt)
-        # the reference forces one output (tri_mbt_v1.py:26)
-        self.fc_list = ClsHeadLN(head_width(cfg), D, 1, cfg.activation, dt)
+        # the reference forces one output in v1 (tri_mbt_v1.py:26)
+        self.out_dim = 1 if v1 else cfg.output_dim
+        head = ClsHeadLN if v1 else ClsHead
+        self.fc_list = head(head_width(cfg), D, self.out_dim, cfg.activation,
+                            dt)
+        if not v1 and "rmse" in cfg.auxiliary_loss_type:
+            self.rmse_layer = nn.Linear(head_width(cfg), 1)
         self.register_buffer(
             "logit_mix", torch.from_numpy(missing_candidate_weights(3)),
             persistent=False)
@@ -394,10 +417,18 @@ class TRI_MBT_V1(MBTBackbone):
                 missing_num: torch.Tensor,
                 seeds: Optional[DropoutSeeds] = None) -> ModelOutput:
         outputs, demo = self.backbone(batch, missing_num, seeds)
-        logits = self.fc_list(stack_cls(self, outputs, demo))   # [M, B, 1]
+        stack = stack_cls(self, outputs, demo)                  # [M, B, W]
+        logits = self.fc_list(stack)                            # [M, B, O]
         onehot = F.one_hot(missing_num.long(), 4).float()
         mix = (onehot @ self.logit_mix).to(logits.dtype)        # [B, M]
-        return torch.einsum("bm,mbo->bo", mix, logits)[..., 0], None, None
+        out = torch.einsum("bm,mbo->bo", mix, logits)
+        rmse = None
+        if hasattr(self, "rmse_layer"):
+            lin = self.rmse_layer
+            r = F.linear(stack, lin.weight.to(stack.dtype),
+                         lin.bias.to(stack.dtype))[..., 0]      # [M, B]
+            rmse = torch.einsum("bm,mb->b", mix.to(r.dtype), r)
+        return (out[..., 0] if self.out_dim == 1 else out), rmse, None
 
 
 class TRI_MBT_VFLEXIBLE(MBTBackbone):
@@ -548,7 +579,7 @@ class MT_FUSION_MODEL(ImageEncoder):
         varying = [batch["input_length"].long()]
         if "img" in mods:
             tokens = self.encode_images(batch["img"],
-                                        batch["missing"][:, 1] == 0.0)
+                                        batch["missing"][:, 1] == 0.0, seeds)
             enc_inputs.append(tokens)
             varying.append(torch.full((tokens.shape[0],), tokens.shape[1],
                                       dtype=torch.long,
@@ -617,7 +648,7 @@ class MultitokenBase(ImageEncoder):
         vslt_tokens, demo = self.embed_vslt(
             batch["vslt"], batch["static"][:, 1], batch["static"][:, 0])
         img_tokens = self.encode_images(batch["img"],
-                                        batch["missing"][:, 1] == 0.0)
+                                        batch["missing"][:, 1] == 0.0, seeds)
         txt_tokens = self.embed_txt(batch["txt"])
         if txt_tokens.dim() == 2:
             txt_tokens = txt_tokens[:, None, :]

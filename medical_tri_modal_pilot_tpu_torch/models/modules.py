@@ -49,15 +49,6 @@ from ..parallel.mesh import (copy_to_model, gather_from_model,
                              reduce_from_model)
 
 
-def check_eval(module: nn.Module) -> None:
-    """The Swin trunk runs frozen, in eval mode; a trainable trunk
-    (``--img-pretrain No``) is not ported."""
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: the Swin trunk runs frozen in eval "
-            "mode; a trainable trunk is ROADMAP Queue 1 item 11")
-
-
 _MASK64 = 2 ** 64 - 1
 
 

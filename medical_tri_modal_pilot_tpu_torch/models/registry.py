@@ -10,10 +10,12 @@ from torch import nn
 
 from ..config import Config
 
+from . import baselines as BL
+from . import extras as X
 from . import legacy as LG
 from . import models as M
 from .modules import ProjLinear, StdLayerNorm
-from .swin import WindowAttention
+from .swin import PatchEmbed, PatchStem, WindowAttention
 
 _REGISTRY: Dict[str, Callable] = {
     "tri_mbt_vsltcls": M.TRI_MBT_VSLTCLS,
@@ -48,11 +50,25 @@ _REGISTRY: Dict[str, Callable] = {
     "unimodal_transformer": M.UNIMODAL_TRANSFORMER,
     "cross_transformer_txt_vslt": LG.CROSS_TRANSFORMER,
     "bi_cross_transformer_txt_vslt": LG.CROSS_TRANSFORMER,
+    # the paper's baselines (JAX registry.py:61-64)
+    "gru_d": BL.GRU_D,
+    "lstm": BL.LSTM_MODEL,
+    "fusiontrainer": BL.FUSIONTRAINER,
+    "feature_temporal_v1": X.FEATURE_TEMPORAL_V1,
 }
 
 # parameters the JAX package initialises to zeros (its nn.initializers.
-# zeros): the learned head weights and the joint stream's cls token
-ZERO_INIT = ("flexibleavg", "final_cls_tokens")
+# zeros): the learned head weights, the joint stream's cls token, GRU-D's
+# input-decay bias and feature_temporal_v1's stem biases
+ZERO_INIT = ("flexibleavg", "final_cls_tokens", "input_decay_b",
+             "feat_bias")
+
+
+def _trunc_normal(shape, generator, std: float) -> torch.Tensor:
+    """flax ``truncated_normal(std)``: a [-2, 2]-truncated unit normal
+    scaled by ``std`` over that truncation's own std (0.8796)."""
+    return nn.init.trunc_normal_(torch.empty(shape), generator=generator) \
+        * (std / 0.87962566103423978)
 
 
 @torch.no_grad()
@@ -63,16 +79,40 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     biases, truncated normals of std 0.02 for the Swin relative-position
     bias tables (flax's ``truncated_normal(0.02)``), unit normals for the
     embedding tables, cls tokens and bottlenecks but ``ZERO_INIT``'s,
-    identity norms (the LayerNorm of ``ClsHeadLN`` included)."""
+    identity norms (the LayerNorm of ``ClsHeadLN`` included); for the
+    baselines, orthogonal hidden kernels in the recurrent cells (flax's
+    ``recurrent_kernel_init``), a normal of std 0.02 for GRU-D's
+    ``input_decay_w``, fan-in normals for ``feat_stems`` (flax's
+    lecun-normal over [F, 1, D]: fan-in F) and a truncated normal of std
+    0.02 for the patch stem's ``pos_embed``. One deviation, on trunks
+    that train only: their Swin stem's convolution bias (``features.0.0``)
+    is drawn as torch's Conv2d draws it (uniform within 1/sqrt(fan-in)),
+    as the reference's torchvision trunk has it, not zero: at zero a
+    missing CXR (a zero image) stays exactly zero through every block,
+    each LayerNorm at variance 0 multiplies its cotangent by
+    1/sqrt(eps), and the trunk's gradient overflows fp32 (the JAX
+    package's own init does; ROADMAP Queue 3). A frozen trunk's stays
+    zero, as in JAX."""
     def fill(p, values):
         p.copy_(values.to(p.dtype))
 
     def randn(p):
         return torch.randn(p.shape, generator=generator)
 
-    projections = set()
+    claimed = set()
     for mod in model.modules():
-        if isinstance(mod, ProjLinear):
+        if isinstance(mod, (BL.GRUCell, BL.LSTMCell)):
+            for name, lin in mod.named_children():
+                w = lin.weight
+                if name.startswith("h"):
+                    fill(w, nn.init.orthogonal_(torch.empty(w.shape),
+                                                generator=generator))
+                else:
+                    fill(w, randn(w) / math.sqrt(w.shape[1]))
+                if lin.bias is not None:
+                    lin.bias.zero_()
+                claimed.add(lin)
+        elif isinstance(mod, ProjLinear):
             lin = mod.linear
             fan_out, fan_in = lin.weight.shape
             bound = math.sqrt(6.0 / (fan_in + fan_out))
@@ -80,9 +120,20 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                                              generator=generator) - 1)
                  * bound)
             lin.bias.zero_()
-            projections.add(lin)
+            claimed.add(lin)
+        elif isinstance(mod, PatchEmbed):
+            conv = mod[0]
+            fan_in = conv.weight[0].numel()
+            fill(conv.weight, randn(conv.weight) / math.sqrt(fan_in))
+            if conv.bias.requires_grad:
+                fill(conv.bias, (2 * torch.rand(conv.bias.shape,
+                                                generator=generator) - 1)
+                     / math.sqrt(fan_in))
+            else:
+                conv.bias.zero_()
+            claimed.add(conv)
         elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
-            if mod in projections:
+            if mod in claimed:
                 continue
             fan_in = mod.weight[0].numel()
             fill(mod.weight, randn(mod.weight) / math.sqrt(fan_in))
@@ -92,9 +143,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             # flax scales its [-2, 2]-truncated unit normal by the std of
             # that truncation (0.8796), so the draws have std 0.02
             table = mod.relative_position_bias_table
-            fill(table, nn.init.trunc_normal_(
-                torch.empty(table.shape), generator=generator)
-                * (0.02 / 0.87962566103423978))
+            fill(table, _trunc_normal(table.shape, generator, 0.02))
+        elif isinstance(mod, PatchStem):
+            fill(mod.pos_embed, _trunc_normal(mod.pos_embed.shape,
+                                              generator, 0.02))
         elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
             mod.reset_parameters()
         elif isinstance(mod, StdLayerNorm):
@@ -104,6 +156,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             for name, p in mod.named_parameters(recurse=False):
                 if name in ZERO_INIT:
                     p.zero_()
+                elif name == "input_decay_w":
+                    fill(p, 0.02 * randn(p))
+                elif name == "feat_stems":
+                    fill(p, randn(p) / math.sqrt(p.shape[0]))
                 else:
                     fill(p, randn(p))
 

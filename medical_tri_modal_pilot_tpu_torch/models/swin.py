@@ -1,13 +1,28 @@
-"""Swin-T image encoder, eval only (counterpart of
+"""Swin-T image encoder (counterpart of
 medical_tri_modal_pilot_tpu/models/swin.py): swin_t geometry (patch 4,
 window 7, depths [2, 2, 6, 2], heads [3, 6, 12, 24], embed 96) returning
-the pre-pool feature map [B, H/32, W/32, 8 * embed].
+the pre-pool feature map [B, H/32, W/32, 8 * embed], and the patch stem
+``PatchStem`` (JAX ``PatchEmbed``, the image stem of ``tri_mbt_v3`` and of
+every ``--img-model-type`` but swin and vit).
 
 Channels-last (NHWC) inside, as in the JAX package and torchvision. The
 window attention and the LN -> MLP -> residual half of every block go
 through ``ops.swin_attention`` and ``ops.swin_mlp`` (the CUDA kernels on the
 card); roll, window partition, patch merging and the patch embedding stay
 plain PyTorch, as they stay outside the Pallas kernels in JAX.
+
+The trunk trains where the model says (``--img-pretrain No``,
+``tri_mbt_v2``, ``fusiontrainer``): both ops are then autograd Functions
+(their backward the plain version's, recomputed), the relative-position
+bias is gathered from its table under autograd, and in training mode
+block k of n drops its residual branches with probability 0.2 k / (n - 1)
+(torchvision's row-mode stochastic depth, JAX swin.py:152-194): one keep
+draw per image row, kept rows scaled by 1 / keep, the draws Philox from
+the step's ``DropoutSeeds`` (``ops.dropout_masks``, two a block: the
+attention's, then the MLP's). A block under stochastic depth runs the
+MLP branch as plain PyTorch (``torch_mlp_branch``) and adds the dropped
+branch, as the JAX block does; block 0 (probability 0) and every eval call
+keep the fused ``ops.swin_mlp``.
 
 Parameter names are torchvision's ``swin_t`` ``state_dict`` keys
 (``features.0.0`` conv, ``features.0.2`` its LN, ``features.{1,3,5,7}.{b}``
@@ -26,7 +41,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
-from .modules import LayerNorm, check_eval
+from ..kernels.swin_mlp import torch_mlp_branch
+from .modules import DropoutSeeds, LayerNorm, draw_seed
+
+# the last block's stochastic-depth probability (torchvision's swin_t)
+STOCHASTIC_DEPTH = 0.2
 
 
 def _rel_position_index(window: int) -> np.ndarray:
@@ -71,36 +90,54 @@ class WindowAttention(nn.Module):
             "relative_position_index",
             torch.from_numpy(_rel_position_index(window).reshape(-1)),
             persistent=False)
-        self._table_key: Optional[tuple] = None
-        self._derived: Dict[Tuple[int, int], tuple] = {}
+        self._geometry: Dict[tuple, Tuple[Optional[torch.Tensor], int]] = {}
+        self._bias_key: Optional[tuple] = None
+        self._bias: Optional[torch.Tensor] = None
 
-    def derived(self, H: int, W: int
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
-        """(bias [nh, N, N] fp32, shift mask [nW, N, N] bool or None, shift)
-        for an H x W map, computed once per module and map size, and again
-        only when the bias table changes (a load, an in-place update or a
-        move to another device). The shift is clamped to 0 when the window
-        covers the map, as torchvision does (swin_t's last stage)."""
-        table = self.relative_position_bias_table
-        key = (table.device, table.data_ptr(), table._version)
-        if key != self._table_key:
-            self._table_key = key
-            self._derived.clear()
-        if (H, W) not in self._derived:
-            win, nh = self.window, self.num_heads
-            N = win * win
-            bias = (table.detach()[self.relative_position_index]
-                    .reshape(N, N, nh).permute(2, 0, 1).float().contiguous())
+    def geometry(self, H: int, W: int, device: torch.device
+                 ) -> Tuple[Optional[torch.Tensor], int]:
+        """(shift mask [nW, N, N] bool or None, shift) for an H x W map,
+        computed once per module, map size and device. The shift is
+        clamped to 0 when the window covers the map, as torchvision does
+        (swin_t's last stage)."""
+        key = (H, W, device)
+        if key not in self._geometry:
+            win = self.window
             shift = 0 if win >= min(H, W) else self.shift
             smask = (torch.from_numpy(_shift_attn_mask(H, W, win, shift))
-                     .to(table.device) if shift > 0 else None)
-            self._derived[(H, W)] = (bias, smask, shift)
-        return self._derived[(H, W)]
+                     .to(device) if shift > 0 else None)
+            self._geometry[key] = (smask, shift)
+        return self._geometry[key]
+
+    def live_bias(self) -> torch.Tensor:
+        """The bias [nh, N, N] fp32 gathered from the table under autograd
+        (the trainable trunk: its cotangent reaches the table)."""
+        N = self.window * self.window
+        return (self.relative_position_bias_table[
+            self.relative_position_index].reshape(N, N, self.num_heads)
+            .permute(2, 0, 1).float().contiguous())
+
+    def frozen_bias(self) -> torch.Tensor:
+        """The bias without autograd, gathered again only when the table
+        changes (a load, an in-place update or a move to another
+        device)."""
+        table = self.relative_position_bias_table
+        key = (table.device, table.data_ptr(), table._version)
+        if key != self._bias_key:
+            with torch.no_grad():
+                self._bias = self.live_bias()
+            self._bias_key = key
+        return self._bias
 
     def forward(self, x):  # x: [B, H, W, C]
         B, H, W, C = x.shape
         win = self.window
-        bias, smask, shift = self.derived(H, W)
+        smask, shift = self.geometry(H, W, x.device)
+        if (torch.is_grad_enabled()
+                and self.relative_position_bias_table.requires_grad):
+            bias = self.live_bias()
+        else:
+            bias = self.frozen_bias()
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
         nH, nW = H // win, W // win
@@ -119,13 +156,17 @@ class WindowAttention(nn.Module):
 
 class SwinBlock(nn.Module):
     """x + attn(norm1(x)), then x + mlp(norm2(x)) through ``ops.swin_mlp``
-    (norm2 and mlp hold the parameters; the fused op applies them)."""
+    (norm2 and mlp hold the parameters; the fused op applies them). In
+    training mode with ``sd_prob`` > 0 each branch is dropped per image
+    row (stochastic depth) and the MLP branch runs unfused."""
 
     def __init__(self, dim: int, num_heads: int, window: int, shift: int,
-                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
+                 sd_prob: float = 0.0):
         super().__init__()
         hidden = int(dim * mlp_ratio)
         self.compute_dtype = dtype
+        self.sd_prob = sd_prob
         self.norm1 = LayerNorm(dim, dtype)
         self.attn = WindowAttention(dim, num_heads, window, shift, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -134,15 +175,32 @@ class SwinBlock(nn.Module):
                                  nn.Dropout(0.0), nn.Linear(hidden, dim),
                                  nn.Dropout(0.0))
 
-    def forward(self, x):
-        check_eval(self)
-        x = x + self.attn(self.norm1(x))
+    def drop_path(self, h: torch.Tensor,
+                  seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+        """Row-mode stochastic depth (JAX ``_stochastic_depth``): the rows
+        of h [B, ...] kept with probability 1 - sd_prob, by the Philox
+        mask of the step's next seed (``ops.dropout_masks`` over B rows of
+        one column), and divided by it."""
+        p = self.sd_prob
+        _, keep = ops.dropout_masks(h.shape[0], 0, 1, draw_seed(seeds), p,
+                                    h.device)
+        q = torch.tensor(1.0 - p, dtype=h.dtype, device=h.device)
+        keep = keep.reshape((h.shape[0],) + (1,) * (h.dim() - 1))
+        return torch.where(keep, h / q, 0.0)
+
+    def forward(self, x, seeds: Optional[DropoutSeeds] = None):
+        sd_on = self.training and self.sd_prob > 0.0
+        h = self.attn(self.norm1(x))
+        x = x + (self.drop_path(h, seeds) if sd_on else h)
         B, H, W, C = x.shape
         fc1, fc2 = self.mlp[0], self.mlp[3]
-        y = ops.swin_mlp(x.reshape(-1, C).to(self.compute_dtype),
-                         self.norm2.weight, self.norm2.bias, fc1.weight.t(),
-                         fc1.bias, fc2.weight.t(), fc2.bias)
-        return y.reshape(B, H, W, C)
+        args = (x.reshape(-1, C).to(self.compute_dtype), self.norm2.weight,
+                self.norm2.bias, fc1.weight.t(), fc1.bias, fc2.weight.t(),
+                fc2.bias)
+        if sd_on:
+            o = torch_mlp_branch(*args).reshape(B, H, W, C)
+            return x + self.drop_path(o, seeds)
+        return ops.swin_mlp(*args).reshape(B, H, W, C)
 
 
 class PatchMerging(nn.Module):
@@ -187,7 +245,8 @@ class PatchEmbed(nn.Sequential):
 
 
 class SwinTransformer(nn.Module):
-    """swin_t geometry; returns the pre-pool [B, H/32, W/32, 768] map."""
+    """swin_t geometry; returns the pre-pool [B, H/32, W/32, 768] map.
+    Block k of n drops with probability STOCHASTIC_DEPTH k / (n - 1)."""
 
     def __init__(self, in_channels: int = 1, embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2),
@@ -196,11 +255,17 @@ class SwinTransformer(nn.Module):
         super().__init__()
         layers = [PatchEmbed(in_channels, embed_dim, patch_size, dtype)]
         dim = embed_dim
+        total, block = sum(depths), 0
         for si, depth in enumerate(depths):
-            layers.append(nn.Sequential(*[
-                SwinBlock(dim, num_heads[si], window,
-                          0 if bi % 2 == 0 else window // 2, dtype=dtype)
-                for bi in range(depth)]))
+            blocks = []
+            for bi in range(depth):
+                blocks.append(SwinBlock(
+                    dim, num_heads[si], window,
+                    0 if bi % 2 == 0 else window // 2, dtype=dtype,
+                    sd_prob=STOCHASTIC_DEPTH * block
+                    / max(total - 1, 1)))
+                block += 1
+            layers.append(nn.Sequential(*blocks))
             if si < len(depths) - 1:
                 layers.append(PatchMerging(dim, dtype))
                 dim *= 2
@@ -208,8 +273,46 @@ class SwinTransformer(nn.Module):
         self.norm = LayerNorm(dim, dtype)
         self.num_features = dim
 
-    def forward(self, x):
-        """x: [B, C, H, W] (the pipeline's layout) or [B, H, W, C]."""
+    def forward(self, x, seeds: Optional[DropoutSeeds] = None):
+        """x: [B, C, H, W] (the pipeline's layout) or [B, H, W, C];
+        ``seeds``: the step's dropout seeds, needed in training mode."""
         if not (x.shape[1] in (1, 3) and x.shape[-1] not in (1, 3)):
             x = x.permute(0, 3, 1, 2)
-        return self.norm(self.features(x))
+        for layer in self.features:
+            if isinstance(layer, nn.Sequential) and isinstance(layer[0],
+                                                               SwinBlock):
+                for blk in layer:
+                    x = blk(x, seeds)
+            else:
+                x = layer(x)
+        return self.norm(x)
+
+
+class PatchStem(nn.Module):
+    """The patch stem (JAX ``PatchEmbed``, swin.py:253-273; the MONAI
+    PatchEmbeddingBlock of tri_mbt_v3.py:107-116): a ``patch`` x ``patch``
+    stride-``patch`` convolution to ``hidden`` channels, run as its product
+    over non-overlapping patches in ``dtype``, plus the learned positions
+    ``pos_embed`` [1, N, hidden]. [B, C, H, W] -> tokens [B, N, hidden]."""
+
+    def __init__(self, img_size: int = 224, patch: int = 16,
+                 hidden: int = 256, in_channels: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.patch = patch
+        self.compute_dtype = dtype
+        self.proj = nn.Conv2d(in_channels, hidden, patch, stride=patch)
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, (img_size // patch) ** 2, hidden))
+
+    def forward(self, x):
+        if not (x.shape[1] in (1, 3) and x.shape[-1] not in (1, 3)):
+            x = x.permute(0, 3, 1, 2)
+        B, Cin, H, W = x.shape
+        p, dt = self.patch, self.compute_dtype
+        conv = self.proj
+        x = x.reshape(B, Cin, H // p, p, W // p, p).permute(0, 2, 4, 1, 3, 5)
+        x = x.reshape(B, (H // p) * (W // p), Cin * p * p)
+        x = F.linear(x.to(dt), conv.weight.reshape(conv.out_channels, -1)
+                     .to(dt), conv.bias.to(dt))
+        return x + self.pos_embed.to(dt)

@@ -11,13 +11,17 @@ the tests and ``chip_smoke.py`` build their oracle on the card. On the
 plain path the gradients are autograd of the plain versions; on the kernel
 path ``umse``, ``attn_block``, ``ffn``, ``attention`` and the two
 ``rowskip`` projections are autograd Functions whose backward launches the
-backward kernels.
+backward kernels; ``swin_attention`` and ``swin_mlp`` (the trainable
+trunk) are autograd Functions whose backward recomputes the plain version
+under autograd, as the JAX package's custom VJPs do.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it
 (kernels/_util.py); the backward kernels count as ``umse_bwd``,
 ``attn_block_bwd``, ``ffn_bwd``, ``attention_bwd``, ``rowmm_ln_bwd`` and
 ``rowmm_bwd``, the attention block under a 3-D block mask as
-``attn_block_3d`` and ``attn_block_3d_bwd``.
+``attn_block_3d`` and ``attn_block_3d_bwd``. ``recomputes`` counts the
+Swin backward passes (``swin_attention_bwd``, ``swin_mlp_bwd``), which
+launch no kernel of their own.
 """
 from __future__ import annotations
 
@@ -33,9 +37,10 @@ from ..kernels import rowmm as _rowmm
 from ..kernels import swin_attention as _swin_attention
 from ..kernels import swin_mlp as _swin_mlp
 from ..kernels import umse as _umse
-from ..kernels._util import KERNELS, launches
+from ..kernels._util import KERNELS, RECOMPUTES, launches, recomputes
 
-__all__ = ["KERNELS", "launches", "reset_launches", "reference_path",
+__all__ = ["KERNELS", "RECOMPUTES", "launches", "recomputes",
+           "reset_launches", "reference_path",
            "umse", "attn_block", "ffn", "dropout_masks", "swin_attention",
            "swin_mlp", "attention", "rowskip_ln_affine", "rowskip_affine"]
 
@@ -47,6 +52,8 @@ _reference = frozenset()
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+    for name in RECOMPUTES:
+        recomputes[name] = 0
 
 
 @contextlib.contextmanager

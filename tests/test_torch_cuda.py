@@ -16,6 +16,7 @@ also runs where the port runs:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import contextlib
 import re
 
 import numpy as np
@@ -921,6 +922,62 @@ def test_swin_attention_kernel(dev, C, hw, images, shifted, prec):
              if shifted else None)
     out, ref = _both(lambda: ops.swin_attention(xw, *ws, bias, smask, nh))
     torch.testing.assert_close(out, ref, **TOL[prec])
+
+
+@pytest.mark.parametrize("C,hw,shifted", [(96, 14, True), (768, 7, False)])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_swin_ops_train_through_their_functions(dev, C, hw, shifted, prec):
+    """The trainable trunk's ops on the card: inputs that need a gradient
+    take the autograd Function, whose forward is the kernel (one launch
+    counted) and whose backward recomputes the plain version (one
+    recompute counted): the output within TOL of the plain path, every
+    gradient the plain path's (the same autograd graph on the same saved
+    inputs: bit for bit)."""
+    g = torch.Generator().manual_seed(7)
+    dt = PRECS[prec]
+    nh = C // 32
+    smask = (torch.from_numpy(_shift_attn_mask(hw, hw, 7, 3)).to(dev)
+             if shifted else None)
+    I = 2 * (hw // 7) ** 2
+    wa = [_rand(g, dev, I, 49, C).to(dt), _rand(g, dev, C, 3 * C,
+          std=C ** -.5), _rand(g, dev, 3 * C, std=.1),
+          _rand(g, dev, C, C, std=C ** -.5), _rand(g, dev, C, std=.1),
+          _rand(g, dev, nh, 49, 49, std=.5)]
+    mlp = [_rand(g, dev, 70, C).to(dt), _rand(g, dev, C, std=.1, mean=1.),
+           _rand(g, dev, C, std=.1), _rand(g, dev, C, 4 * C, std=C ** -.5),
+           _rand(g, dev, 4 * C, std=.1),
+           _rand(g, dev, 4 * C, C, std=(4 * C) ** -.5),
+           _rand(g, dev, C, std=.1)]
+    for name, fn, args in (
+            ("swin_attention", lambda *a: ops.swin_attention(*a, smask, nh),
+             wa), ("swin_mlp", ops.swin_mlp, mlp)):
+        runs = []
+        for plain in (False, True):
+            ops.reset_launches()
+            leaves = [a.detach().clone().requires_grad_(True) for a in args]
+            with ops.reference_path() if plain else contextlib.nullcontext():
+                out = fn(*leaves)
+                cot = torch.ones_like(out)
+                grads = torch.autograd.grad(out, leaves, cot)
+            torch.cuda.synchronize()
+            runs.append((out.float(), grads, ops.launches[name],
+                         ops.recomputes[name + "_bwd"]))
+        (out, grads, n, r), (ref, ref_grads, n_ref, r_ref) = runs
+        assert (n, r, n_ref, r_ref) == (1, 1, 0, 0), name
+        torch.testing.assert_close(out, ref, **TOL[prec])
+        for a, b in zip(grads, ref_grads):
+            torch.testing.assert_close(a.float(), b.float(), rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_stochastic_depth_masks_on_the_card(dev):
+    """The trunk's row masks (ops.dropout_masks over the image rows, one
+    column) bit for bit the plain version's at each block's probability."""
+    for k in range(1, 12):
+        p = 0.2 * k / 11
+        got = cuda_dropout_masks(64, 0, 1, 1234 + k, p, dev)[1]
+        want = plain_dropout_masks(64, 0, 1, 1234 + k, p, dev)[1]
+        assert torch.equal(got, want), p
 
 
 def _launched(fn):

@@ -263,9 +263,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_kernel_wrappers_are_forward_only():
-    """Only the frozen trunk's kernels are forward only now: the fusion
-    wrappers take inputs that need a gradient (through their autograd
-    Functions) and still refuse CPU tensors; swin_mlp refuses them."""
+    """No kernel is forward only now: the wrappers take inputs that need a
+    gradient (through their autograd Functions; the Swin kernels' for the
+    trainable trunk) and still refuse CPU tensors."""
     x, gamma, beta, w, b, mask, _ = map(torch.as_tensor, _attn_args(2, 20, 64))
     x.requires_grad_(True)
     with pytest.raises(ValueError, match="CUDA"):
@@ -276,7 +276,7 @@ def test_kernel_wrappers_are_forward_only():
         cuda_ffn(*fargs)
     from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import \
         cuda_swin_mlp
-    with pytest.raises(RuntimeError, match="forward only"):
+    with pytest.raises(ValueError, match="CUDA"):
         cuda_swin_mlp(x.reshape(-1, 64), gamma, beta, w[:, :256], b[:256],
                       w[:, :256].t(), gamma)
 

@@ -101,14 +101,13 @@ def test_v1_trunk_frozen_without_pretrain(model, inputs):
     """The v1 family's trunk is frozen at --img-pretrain No too (JAX
     models.py:314, :368, their img_freeze_override): a train step runs
     (no item-11 refusal), leaves the trunk as it was and keeps it out of
-    the optimizer; the flagship at --img-pretrain No stays trainable, so
-    it raises there."""
+    the optimizer; the flagship at --img-pretrain No stays trainable: its
+    trunk trains with the model."""
     cfg = parse_config(SMALL + ["--model", model, "--input-types", inputs,
                                 "--img-pretrain", "No", "--dropout", "0"])
     flagship = TRI_MBT_VSLTCLS(cfg.replace(model="tri_mbt_vsltcls"))
     assert not flagship.frozen
-    with pytest.raises(NotImplementedError, match="item 11"):
-        flagship.train()
+    assert flagship.train().img_encoder.training
     model = get_model(cfg)
     assert model.frozen
     tr = Trainer(cfg, model, "cpu", eval_only=False)
@@ -125,14 +124,18 @@ def test_v1_trunk_frozen_without_pretrain(model, inputs):
 
 
 def test_unported_v1_variants_raise():
-    """tri_mbt_v2 trains the trunk (ROADMAP Queue 1 item 11), tri_mbt_v3
-    runs the patch stem (item 7); the bimodal v1 models take one image
-    per sample."""
+    """tri_mbt_v2 (the trunk trains) and tri_mbt_v3 (the patch stem) build
+    (tests/test_torch_mbt_v23.py holds them to JAX); the v1 family's
+    variants take three streams, v2 and v3 one image per sample, the
+    bimodal v1 models one image per sample too."""
     tri = ["--input-types", "vslt_img_txt"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_model(parse_config(SMALL + ["--model", "tri_mbt_v2"] + tri))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        get_model(parse_config(SMALL + ["--model", "tri_mbt_v3"] + tri))
+    v2 = get_model(parse_config(SMALL + ["--model", "tri_mbt_v2"] + tri))
+    assert not v2.frozen and v2.variant == 2
+    v3 = get_model(parse_config(SMALL + ["--model", "tri_mbt_v3"] + tri))
+    assert hasattr(v3, "patch_embedding") and not hasattr(v3, "img_encoder")
+    with pytest.raises(ValueError, match="one image per sample"):
+        get_model(parse_config(SMALL + ["--model", "tri_mbt_v2",
+                                        "--multiimages", "1"] + tri))
     with pytest.raises(ValueError, match="one image per sample"):
         get_model(parse_config(BI_IMG + ["--multiimages", "1"]))
     with pytest.raises(ValueError, match="vslt_img_txt"):

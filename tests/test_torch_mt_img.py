@@ -24,9 +24,9 @@ def test_mt_image_models_match_jax(name):
 def test_wiring_of_the_new_names():
     """The MBT ablations pack the frozen trunk as the flagship does, the
     concat fusion runs it over every row; each freezes its trunk at
-    --img-pretrain Yes only (JAX registry.py:98-118): at No a train step
-    raises naming ROADMAP Queue 1 item 11. The heads per stream and the
-    flexible weights take three streams."""
+    --img-pretrain Yes only (JAX registry.py:98-118): at No the trunk
+    trains (training mode under model.train(), unpacked). The heads per
+    stream and the flexible weights take three streams."""
     for name, inputs in NAMES.items():
         if inputs == "vslt_txt" or name.endswith("vflexible1"):
             continue
@@ -35,9 +35,8 @@ def test_wiring_of_the_new_names():
         assert model.frozen and model.img_pack == ("mt_v1" not in name)
         cfg = parse_config(argv_for(name, "--img-pretrain", "No"))
         model = get_model(cfg)
-        assert not model.frozen
-        with pytest.raises(NotImplementedError, match="item 11"):
-            model.train()
+        assert not model.frozen and not model.img_pack
+        assert model.train().img_encoder.training
     for name in ("tri_mbt_vnoshavgtr", "tri_mbt_vflexible2"):
         with pytest.raises(ValueError, match="vslt_img_txt|Queue 3"):
             get_model(parse_config(SMALL + ["--model", name,

@@ -156,23 +156,19 @@ def test_missing_num_and_losses_match_jax():
 
 def test_unported_paths_raise():
     """What the port does not run yet raises, naming its ROADMAP item:
-    other models, other image encoders, loading pretrained trunk weights,
-    training a trainable trunk (--img-pretrain No), and several optimizer
-    steps a dispatch (--train-multi-k > 1). The txt_id / uint8 /
-    packed-image wire format runs (tests/test_torch_drivers.py); a txt_id
-    batch without the note table is refused by name."""
-    with pytest.raises(KeyError, match="tri_mbt_vsltcls"):
-        get_model(_cfg("--model", "gru_d"))
+    the legacy families (binary_t_transformer; the registry's KeyError
+    lists the names it holds, gru_d among them), the ViT encoder, loading
+    pretrained trunk weights, and several optimizer steps a dispatch
+    (--train-multi-k > 1). The txt_id / uint8 / packed-image wire format
+    runs (tests/test_torch_drivers.py); a txt_id batch without the note
+    table is refused by name."""
+    with pytest.raises(KeyError, match="gru_d.*tri_mbt_vsltcls"):
+        get_model(_cfg("--model", "binary_t_transformer"))
     tri = ("--input-types", "vslt_img_txt")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         get_model(_cfg(*tri, "--img-model-type", "vit"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         get_model(_cfg(*tri, "--img-pretrain-path", "swin_t.pth"))
-    trainable = _cfg(*tri, "--img-pretrain", "No")
-    tr = trainer.Trainer(trainable, get_model(trainable), "cpu",
-                         eval_only=False)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tr.train_step(synthetic_batch(trainable, B))
     cfg = _cfg()
     model = get_model(cfg)
     batch = _batch(cfg)

@@ -122,12 +122,13 @@ def small_trunk():
     where the shift clamps to 0), every leaf perturbed, and its port."""
     img = np.random.default_rng(4).random((2, 1, 56, 56)).astype(np.float32)
     model = jswin.SwinTransformer(in_channels=1, **SMALL)
-    params = model.init(jax.random.PRNGKey(0), jnp.asarray(img))["params"]
+    params = jax.jit(model.init)(jax.random.PRNGKey(0),
+                                 jnp.asarray(img))["params"]
     rng = np.random.default_rng(5)
     params = jax.tree.map(
         lambda a: (np.asarray(a) + 0.1 * rng.standard_normal(a.shape))
         .astype(np.float32), params)
-    want = model.apply({"params": params}, jnp.asarray(img))
+    want = jax.jit(model.apply)({"params": params}, jnp.asarray(img))
     port = swin.SwinTransformer(in_channels=1, **SMALL)
     port.load_state_dict(swin_state_dict(params), strict=True)
     return port.eval(), img, want, params
@@ -148,18 +149,24 @@ def test_small_swin_nhwc_input_and_shift_clamp(small_trunk):
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=1e-5)
     blocks = [b for stage in (port.features[1], port.features[3])
               for b in stage]
-    shifts = [b.attn.derived(m, m)[2] for b, m in zip(blocks, (14, 14, 7, 7))]
+    cpu = torch.device("cpu")
+    shifts = [b.attn.geometry(m, m, cpu)[1]
+              for b, m in zip(blocks, (14, 14, 7, 7))]
     assert shifts == [0, 3, 0, 0]
-    bias, smask, _ = blocks[1].attn.derived(14, 14)
+    attn = blocks[1].attn
+    smask, _ = attn.geometry(14, 14, cpu)
+    bias = attn.frozen_bias()
     assert tuple(bias.shape) == (1, 49, 49) and tuple(smask.shape) == (4, 49,
                                                                        49)
-    # derived once per map size, rebuilt after the table changes
-    assert blocks[1].attn.derived(14, 14)[0] is bias
-    table = blocks[1].attn.relative_position_bias_table
+    # the mask once per map size and device, whatever the table does; the
+    # bias once, gathered again after the table changes
+    assert attn.frozen_bias() is bias
+    table = attn.relative_position_bias_table
     saved = table.detach().clone()
     with torch.no_grad():
         table.add_(1.0)
-    assert torch.allclose(blocks[1].attn.derived(14, 14)[0], bias + 1.0)
+    assert torch.allclose(attn.frozen_bias(), bias + 1.0)
+    assert attn.geometry(14, 14, cpu)[0] is smask
     with torch.no_grad():
         table.copy_(saved)
 
@@ -199,6 +206,11 @@ def test_swin_wrappers_refuse_cpu_tensors_and_grads():
     mlp = [torch.from_numpy(a) for a in _mlp_args(9, 32)]
     with pytest.raises(ValueError, match="CUDA"):
         cuda_swin_mlp(*mlp)
+    # inputs that need a gradient take the autograd Function, whose
+    # forward is the same launch and refuses them as well
     mlp[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward only"):
+    with pytest.raises(ValueError, match="CUDA"):
         cuda_swin_mlp(*mlp)
+    wa[0].requires_grad_(True)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_window_attention(*wa, None, 2)

@@ -348,10 +348,13 @@ def compare_train_state(cfg, jt, tr, lr_sum, bias_walk=0.0,
         assert not any(isinstance(m, torch.nn.BatchNorm1d)
                        for m in tr.model.modules())
         return
-    # one BatchNorm head (fc_list) or one per stream (fc_list_{m})
+    # one BatchNorm head (fc_list), one per stream (fc_list_{m}), or a
+    # BatchNorm at the model's root (gru_d's bn)
     for key, head_stats in stats.items():
-        bn = head_stats["bn"]
-        head = getattr(tr.model, key)[1]
+        if "bn" in head_stats:
+            bn, head = head_stats["bn"], getattr(tr.model, key)[1]
+        else:
+            bn, head = head_stats, getattr(tr.model, key)
         _close_to_tensor_max(head.running_mean.numpy(), bn["mean"], 1e-4,
                              1e-6 + bias_walk, f"{key} running mean")
         _close_to_tensor_max(head.running_var.numpy(), bn["var"], 1e-4,

@@ -60,6 +60,27 @@ def perturb(tree, seed=1):
         .astype(np.float32), tree)
 
 
+def draw_like(shapes, seed=1):
+    """Seeded values for a flax tree of shapes (``jax.eval_shape`` of an
+    init, a trace: the init itself costs seconds of XLA compile or
+    dispatch on the CPU): kernels a normal of std 1/sqrt(fan-in), norm
+    scales 1 + 0.1 n, every other leaf 0.1 n, so each weight is
+    exercised."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        n = rng.standard_normal(s.shape)
+        name = path[-1].key
+        if name == "kernel":
+            n = n / np.sqrt(np.prod(s.shape[:-1]))
+        elif name == "scale":
+            n = 1.0 + 0.1 * n
+        else:
+            n = 0.1 * n
+        return n.astype(np.float32)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 # ------------------------------------------------------------- UMSE
 
 @pytest.mark.parametrize("berttype", ["biobert", "bert"])

@@ -68,10 +68,11 @@ def argv_for(model, *extra):
 
 
 def _random_stats(stats, seed=1):
-    """Random running statistics in every BatchNorm head."""
+    """Random running statistics in every BatchNorm head (and in a
+    BatchNorm at the model's root, gru_d's ``bn``)."""
     rng = np.random.default_rng(seed)
     for head in stats.values():
-        bn = head["bn"]
+        bn = head.get("bn", head)
         bn["mean"] = rng.normal(0, .3, bn["mean"].shape).astype(np.float32)
         bn["var"] = rng.uniform(.5, 2, bn["var"].shape).astype(np.float32)
     return stats

@@ -2,7 +2,9 @@
 per stream) against the JAX package: tests/test_torch_variants.py's
 ``check_model`` with the raw outputs too (the [3, B] heads of
 vnoshnoavgtr, the [B] in-model mean of vnoshavgtr, and the [3, B] rmse
-heads with --auxiliary-loss-type rmse) within 1e-5; the Trainer's
+heads with --auxiliary-loss-type rmse) within 1e-5, both packages'
+trunks at the narrow geometry of tests/test_torch_swin_train.py
+(NARROW: a full Swin-T JAX compile costs 30-43 s here); the Trainer's
 vnoshnoavgtr loss (each head's BCE weighted by its stream's presence)
 and eval selection (the mean of the available streams' heads) against
 the JAX trainer's on seeded logits, and its substring test: a name
@@ -15,9 +17,11 @@ from medical_tri_modal_pilot_tpu.train import trainer as jax_trainer
 from medical_tri_modal_pilot_tpu_torch.config import parse_config
 from medical_tri_modal_pilot_tpu_torch.train import trainer
 from test_torch_mbt_v1 import batch_for
+from test_torch_mbt_v23 import narrow_trunks  # noqa: F401 (a fixture)
 from test_torch_variants import argv_for, check_model
 
 
+@pytest.mark.usefixtures("narrow_trunks")
 @pytest.mark.parametrize("name,aux", [("tri_mbt_vnoshavgtr", "rmse"),
                                       ("tri_mbt_vnoshnoavgtr", "None")])
 def test_vnosh_matches_jax(name, aux):
