@@ -273,17 +273,39 @@ Phases, each raising on failure (nothing is caught):
      uni_ehr (no recompute); a fusiontrainer fold through the drivers and
      gru_d's with no --model (1 epoch of 2 train, 1 val, 1 test) with the
      test driver's walk. Prints the phase's seconds.
+  20. the legacy families of register_legacy (full width, bf16,
+     LEGACY_RUNS: the carryforward grid, the 36-row pretrain windows of
+     --auxiliary-loss-input for auxcpc_*, BioBERT notes, CXRs through the
+     trainable Swin-T, the image archetypes also on ResNet-18, the GRU-D
+     mid fusion on ResNet-50, the image classifiers on ResNet-18, ViT-B/16,
+     MaxViT, Swin-T and the patch stem, the MBT aliases on config 4's
+     flags; a name that builds another's model from the same flags,
+     tests/test_torch_legacy_models.py::TWINS, runs as that name): first
+     the masked attention at the image cross transformer's shapes (49
+     image keys, all valid, and back) beside scaled_dot_product_attention,
+     attn_block at the early fusion's [64, 202, 256] joint stream and the
+     time transformer's [64, 25, 256] (fp32 and bf16, the profiler's
+     device ms per form); then per run an eval step against the plain
+     path in bf16 and fp32, a train step at --dropout 0.1 (launches
+     against LEGACY_EVAL / LEGACY_TRAIN, the trunk's recomputes, peak
+     memory), one step on both paths in fp32 and bf16 at dropout 0 (phase
+     15's step gates, with LG_ALLOW's allowances for the runs it names);
+     one run per archetype (LEGACY_TIMED) timed in turns and profiled; a
+     TIE stream refused. Prints the phase's seconds.
 The kernel phases (3, 5b, 6, 9, 12, 3w) run first, then 4-5, 7-8, 10-11,
-13, 14, 14b, 15, 16, 17, 18 and 19.
+13, 14, 14b, 15, 16, 17, 18, 19 and 20, with the run's clock after each
+group.
 Then one JSON line per the kernels (each with the path that launches it
 and its launches over that path's steps, under ``other_paths`` its
-launches on phases 15, 16, 18 and 19's other train paths, under
+launches on phases 15, 16, 18, 19 and 20's other train paths, under
 ``widths`` its bf16 results at the other widths of phase 3w, under
 ``mt_joint`` its bf16 results at phase 18's joint shape, and under
 ``baselines`` phase 19's: the Swin ops' training forward and their
 plain-recompute backward at stage 1 with the step totals, attn_block and
-the ffn at feature_temporal_v1's shape) and, last, {"ok": true,
-"device": ...}.
+the ffn at feature_temporal_v1's shape, under ``legacy`` phase 20's:
+the attention at 49 image keys, attn_block at the joint stream, with the
+other shapes under ``other_shapes``) and, last, {"ok": true, "device":
+...}.
 
     python3 chip_smoke.py baseline
 
@@ -300,6 +322,17 @@ the build and phase 18;
     python3 chip_smoke.py baselines
 
 the build and phase 19;
+
+    python3 chip_smoke.py legacy [RUN ...]
+
+the build and phase 20 (the runs of LEGACY_RUNS named, or all);
+
+    python3 chip_smoke.py legacyprobe
+
+the build and the image cross transformer's bf16 step at dropout 0: each
+masked attention call's dq, dk, dv by the kernel and by the plain path in
+bf16, against the plain path in fp32 on the same recorded inputs, over
+the samples with a CXR and those without;
 
     python3 chip_smoke.py widths
 
@@ -365,6 +398,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -1433,7 +1467,9 @@ def _attention_case(g, dev, B, H, Lq, Lk, D, kind):
         "vslt": torch.randint(1, Lk + 1, (B,), generator=g),
         "tie": torch.randint(5, TIE_LEN + 1, (B,), generator=g) + 5,
         "self": torch.tensor([10, 150, Lk]),
-        "all_masked": torch.linspace(0, Lk, B).long()}.get(kind)
+        "all_masked": torch.linspace(0, Lk, B).long(),
+        # the image tokens of the legacy cross transformer: all valid
+        "img": torch.full((B,), Lk)}.get(kind)
     if kind == "txt_self":
         # 4 bottleneck keys, then cls and the notes; samples 0 and 3
         # without notes: the bottleneck keys alone
@@ -1911,9 +1947,10 @@ def run_config(name: str, argv, power: str, timed: bool) -> dict:
 
     # the same weights in fp32: a tight check of the kernel path (on a
     # packed and on the overflowing batch where the path has both)
+    state = model.state_dict()
     del trainer, model
     cfg32 = cfg.replace(precision="fp32")
-    model32 = get_model(cfg32, torch.Generator().manual_seed(0))
+    model32 = get_model(cfg32, state=state)
     trainer32 = Trainer(cfg32, model32, device=dev, eval_only=True)
     checked = [batches[0]] + overflow
     p32, _, _ = _eval_steps(trainer32, checked)
@@ -1960,8 +1997,7 @@ def _train_run(cfg, state, batch, plain):
     from medical_tri_modal_pilot_tpu_torch import ops
     from medical_tri_modal_pilot_tpu_torch.models import get_model
     from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
-    model = get_model(cfg, torch.Generator().manual_seed(0))
-    model.load_state_dict(state)
+    model = get_model(cfg, state=state)
     tr = Trainer(cfg, model, torch.device("cuda"), eval_only=False, seed=0)
     lr = tr.current_lr()
     names = () if plain is True else tuple(plain or ())
@@ -2009,13 +2045,42 @@ def _summary(errs) -> str:
             + (f"; not finite: {bad}" if bad else ""))
 
 
-def _check_step_parity(name, cfg, state, batch, precs) -> None:
+class StepAllowance(NamedTuple):
+    """What phase 20 allows one named run (LG_ALLOW) beside phase 15's
+    step gates, each printed where it acts; the default allows nothing.
+    ``loss_relative``: the loss gate's tolerance relative past a loss of
+    1 (fp32 resolves AUXCPC's l2 / cpc losses of up to 1.75e5 at the
+    reference's init only to 2^-6). ``ulp_params``: tensors whose update
+    bound adds two of their fp32 units in the last place at their largest
+    entry (``ct_weight``, up to 22.6, rounds a step of lr to 2^-19).
+    ``noise_floor``: an fp32 gradient past STEP_FP32_TOL passes within
+    STEP_NOISE_RATIO of the plain path's own distance from itself under
+    input noise (_noise_floor), which no kernel enters. ``bf16_held``:
+    (tensor suffix, reference suffix) pairs; the tensor's bf16 gradient
+    leaves the ratio statistics and its kernel-path distance from the fp32
+    plain step, |kernel - fp32|_F, must stay within STEP_BF16_RATIO of the
+    plain path's bf16 distance on the reference tensor."""
+    loss_relative: bool = False
+    ulp_params: tuple = ()
+    noise_floor: bool = False
+    bf16_held: tuple = ()
+
+
+# the noise floor's relative input noise and draws, and the ratio to it
+STEP_NOISE, STEP_NOISE_DRAWS, STEP_NOISE_RATIO = 1e-6, 3, 2.0
+
+
+def _check_step_parity(name, cfg, state, batch, precs, zero_grad=(),
+                       allow: Optional[StepAllowance] = None) -> None:
     """One step from the same weights on the kernel and the plain path,
     for each (precision, dropout) in ``precs``; every bf16 entry needs an
-    fp32 one at its dropout, the step its gradients are held against."""
+    fp32 one at its dropout, the step its gradients are held against.
+    ``zero_grad``: more tensors whose true gradient is 0; ``allow``: a
+    named run's StepAllowance (None: the gates above alone)."""
+    allow = allow or StepAllowance()
     batchnorm_head = any(k.endswith(("1.running_mean", "bn.running_mean"))
                          for k in state)
-    zero = ZERO_GRAD if batchnorm_head else ZERO_GRAD[:1]
+    zero = (ZERO_GRAD if batchnorm_head else ZERO_GRAD[:1]) + zero_grad
     runs, failures = {}, []
     for prec, p in precs:
         c = cfg.replace(precision=prec, dropout=p)
@@ -2028,27 +2093,45 @@ def _check_step_parity(name, cfg, state, batch, precs) -> None:
         errs = _step_errors(got, want, zero)
         # each side's Adam step is at most lr per element, plus the
         # parameter's fp32 rounding
-        p_err = max(float((got[n][1] - want[n][1]).abs().max())
-                    for n in want)
+        bound = {n: 2.01 * lr + (
+            max(1e-7, 2.0 ** -22 * float(state[n].abs().max()))
+            if allow.ulp_params and n.endswith(allow.ulp_params) else 1e-7)
+            for n in want}
+        diff = {n: float((got[n][1] - want[n][1]).abs().max()) for n in want}
+        p_err = max(diff.values())
+        over = [n for n in want if diff[n] > bound[n]]
         moved = max(float((got[n][1] - state[n].float().cuda()).abs().max())
                     for n in want)
+        ulp = [(n, f"{bound[n]:.3e}") for n in want
+               if allow.ulp_params and n.endswith(allow.ulp_params)]
         print(f"{name} train step {prec} dropout {p}: loss {loss:.6f} vs "
               f"plain {ref_loss:.6f}; grads |kernel - plain|_F/|plain|_F "
               f"over {len(errs)} tensors: {_summary(errs)}; updated params "
               f"max |diff| {p_err:.3e} (bound {2.01 * lr + 1e-7:.3e} = "
-              f"2.01 lr + 1e-7; "
-              f"moved up to {moved:.3e})")
-        if not np.isfinite(loss) or abs(loss - ref_loss) > STEP_LOSS_TOL[prec]:
+              f"2.01 lr + 1e-7" + (f"; with 2 ulp {ulp}" if ulp else "")
+              + f"; past it: {over}; moved up to {moved:.3e})")
+        loss_tol = STEP_LOSS_TOL[prec] * (
+            max(1.0, abs(ref_loss)) if allow.loss_relative else 1.0)
+        if not np.isfinite(loss) or abs(loss - ref_loss) > loss_tol:
             failures.append(f"{prec} {p}: loss")
-        if p_err > 2.01 * lr + 1e-7 or moved == 0.0:
+        if over or moved == 0.0:
             failures.append(f"{prec} {p}: updated parameters")
         if prec == "fp32":
-            if max(errs.values()) > STEP_FP32_TOL:
+            if max(errs.values()) > STEP_FP32_TOL and not (
+                    allow.noise_floor and _within_noise_floor(
+                        name, cfg.replace(precision=prec, dropout=p), state,
+                        batch, errs, want, zero)):
                 failures.append(f"fp32 {p}: gradients")
             continue
         fp32 = runs["fp32", p, True][1]
         k_err = _step_errors(got, fp32, zero)
         p_err32 = _step_errors(want, fp32, zero)
+        held = {n: n[:-len(t)] + r for n in k_err for t, r in allow.bf16_held
+                if n.endswith(t)}
+        if held:
+            failures += _check_held(name, p, held, got, want, fp32)
+            k_err = {n: e for n, e in k_err.items() if n not in held}
+            p_err32 = {n: e for n, e in p_err32.items() if n not in held}
         print(f"{name} train step dropout {p}, bf16 against the fp32 plain "
               f"step: kernel path {_summary(k_err)}; plain path "
               f"{_summary(p_err32)}")
@@ -2060,6 +2143,70 @@ def _check_step_parity(name, cfg, state, batch, precs) -> None:
                 failures.append(f"bf16 {p}: {stat.__name__} against fp32")
     if failures:
         raise AssertionError(f"{name} train step parity: {failures}")
+
+
+def _check_held(name, p, held, got, want, fp32) -> list:
+    """StepAllowance.bf16_held: each tensor's kernel-path bf16 gradient
+    distance from the fp32 plain step, |kernel - fp32|_F, against
+    STEP_BF16_RATIO times the plain path's bf16 distance on its reference
+    tensor; the failures."""
+    def dist(a, n):
+        return float((a[n][0].float() - fp32[n][0].float()).norm())
+    rows = [(n, dist(got, n), dist(want, n), float(fp32[n][0].norm()), r,
+             dist(want, r)) for n, r in held.items()]
+    print(f"{name} train step dropout {p}, bf16 held tensors (|kernel - "
+          f"fp32|_F, |plain - fp32|_F, |fp32|_F; bound {STEP_BF16_RATIO} x "
+          f"the plain path's |plain - fp32|_F on the reference): "
+          + "; ".join(f"{n} {k:.3e} {pl:.3e} {f:.3e} (bound "
+                      f"{STEP_BF16_RATIO * rp:.3e} from {r})"
+                      for n, k, pl, f, r, rp in rows))
+    bad = [n for n, k, _, _, _, rp in rows
+           if not np.isfinite(k) or k > STEP_BF16_RATIO * rp]
+    return [f"bf16 {p}: held tensors {bad}"] if bad else []
+
+
+def _noisy(batch, seed: int) -> dict:
+    """``batch`` with relative noise of STEP_NOISE on its measured inputs:
+    the vital-sign values (the carryforward grid's data plane), the note
+    embeddings, the images."""
+    rng = np.random.default_rng(seed)
+    out = dict(batch)
+
+    def jitter(a):
+        return (a * (1 + STEP_NOISE * rng.standard_normal(a.shape))
+                ).astype(a.dtype)
+    v = batch["vslt"]
+    if v.ndim == 4:                               # [B, 3, T, F]: data plane
+        out["vslt"] = v.copy()
+        out["vslt"][:, 0] = jitter(v[:, 0])
+    for k in ("txt", "img"):
+        if k in batch and np.issubdtype(batch[k].dtype, np.floating):
+            out[k] = jitter(batch[k])
+    return out
+
+
+def _within_noise_floor(name, cfg, state, batch, errs, want, zero) -> bool:
+    """Whether each tensor's kernel-path fp32 gradient distance in
+    ``errs`` from the plain step ``want`` past STEP_FP32_TOL lies within
+    STEP_NOISE_RATIO of the noise floor there: the largest over
+    STEP_NOISE_DRAWS draws of the plain path's distance from ``want`` when
+    the batch carries STEP_NOISE of relative input noise (_noisy). No
+    kernel runs in the floor."""
+    floor = {}
+    for seed in range(STEP_NOISE_DRAWS):
+        e = _step_errors(_train_run(cfg, state, _noisy(batch, seed),
+                                    True)[1], want, zero)
+        floor = {n: max(v, floor.get(n, 0.0)) for n, v in e.items()}
+    past = {n: (e, floor[n]) for n, e in errs.items()
+            if e > STEP_FP32_TOL}
+    ok = all(e <= STEP_NOISE_RATIO * f for e, f in past.values())
+    shown = [(n, round(e, 4), round(f, 4)) for n, (e, f) in past.items()]
+    print(f"{name} fp32 step past {STEP_FP32_TOL} in {len(past)} tensors "
+          f"(kernel path, the plain path under {STEP_NOISE} relative input "
+          f"noise, the largest of {STEP_NOISE_DRAWS} draws): {shown[:6]}; "
+          f"the noise floor {_summary(floor)}; within {STEP_NOISE_RATIO}x: "
+          f"{ok}")
+    return ok
 
 
 def _timed_train_ms(trainer, batches, reference: bool) -> float:
@@ -3434,8 +3581,8 @@ def _flex_weights():
     from medical_tri_modal_pilot_tpu_torch import models
     build = models.get_model
 
-    def get_model(cfg, generator=None):
-        model = build(cfg, generator)
+    def get_model(cfg, generator=None, state=None):
+        model = build(cfg, generator, state)
         if hasattr(model, "flexibleavg"):
             with torch.no_grad():
                 model.flexibleavg.copy_(torch.tensor(FLEX_WEIGHTS))
@@ -4929,6 +5076,508 @@ def run_tp_drivers(power: str) -> None:
           "s")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the legacy families of register_legacy at full width,
+# bf16: the carryforward grid (window 24, 16 channels, the demographics;
+# under --auxiliary-loss-input the 36-row pretrain windows and their
+# f_indices), d 256, 4 heads, 6 layers, BioBERT notes 128 x 768, CXRs at
+# 224 through the default Swin-T (trainable: stochastic depth in training
+# mode), each image archetype once more on ResNet-18 and the GRU-D mid
+# fusion on ResNet-50 (no uni-image name builds it), the image classifiers
+# on their own backbones (ResNet-18, ViT-B/16, MaxViT, Swin-T, the patch
+# stem), the MBT aliases on config 4's flags
+LG_FLAGS = ["--vslt-type", "carryforward", "--output-type", "intubation",
+            "--modality-inclusion", "train-missing_test-missing",
+            "--batch-size", str(BATCH)]
+LG_PRETRAIN = ["--auxiliary-loss-input", "directInput"]
+
+
+def _lg(model, inputs, *extra):
+    return ["--model", model, "--input-types", inputs] + LG_FLAGS + list(
+        extra)
+
+
+def _on_config4(model):
+    return [a if a != "tri_mbt_vsltcls" else model for a in CONFIG4]
+
+
+# run -> (argv, --auxiliary-loss-type: the auxcpc family's loss, which
+# the command line does not take, else None). Every wiring meets each
+# loss: predict (early cpc, early2 cosine, grudtxt l2, mbt cpc + Wbrl),
+# direct (early l2, grudtxt cpc, mbt cosine), ct (early cosine, grudtxt
+# l2, mbt cpc, which no ct file computes: 0)
+LEGACY_RUNS = {
+    **{n: (_lg(n, "vslt"), None) for n in (
+        "binary_t_transformer", "binary_f_transformer",
+        "multi_ft_transformer", "binary_gru_d", "binary_lstm",
+        "binary_gru_d_t_transformer")},
+    **{n: (_lg(n, "vslt_img"), None) for n in (
+        "resnet", "swin_transformer", "vit", "vit_monai", "maxvit",
+        "earlyfusion_img_vslt",
+        "latefusion_img_trans_vslt_grud", "latefusion_img_trans_vslt_ttrans",
+        "midfusion_img_trans_vslt_grud", "midfusion_img_trans_vslt_ttrans",
+        "cross_transformer_img_vslt_sssccc")},
+    **{f"{n}/resnet18": (_lg(n, "vslt_img", "--img-model-type", "resnet18"),
+                         None) for n in (
+        "earlyfusion_img_vslt", "latefusion_img_trans_vslt_ttrans",
+        "midfusion_img_trans_vslt_ttrans",
+        "cross_transformer_img_vslt_sssccc")},
+    "midfusion_img_trans_vslt_grud/resnet50": (
+        _lg("midfusion_img_trans_vslt_grud", "vslt_img", "--img-model-type",
+            "resnet50"), None),
+    **{n: (_lg(n, "vslt_txt"), None) for n in (
+        "earlyfusion_vslt_txt_transformer", "latefusion_vslt_txt_transformer",
+        "latefusion_vslt_grud_txt_transformer",
+        "midfusion_vslt_txt_transformer", "bi_cross_transformer_txt_vslt")},
+    "earlyfusion_img_txt_vslt": (_lg("earlyfusion_img_txt_vslt",
+                                     "vslt_img_txt"), None),
+    **{n: (_on_config4(n), None) for n in ("mbt_v1", "mbt_v2")},
+    **{n: (_lg(n, "vslt_txt", *LG_PRETRAIN), loss) for n, loss in (
+        ("auxcpc_early", "cpc"), ("auxcpc_early2", "cosine"),
+        ("auxcpc_grudtxt", "l2"), ("auxcpc_mbt", "cpcWbrl"),
+        ("auxcpc_early_direct", "l2"), ("auxcpc_grudtxt_dir", "cpc"),
+        ("auxcpc_mbt_direct", "cosine"), ("auxcpc_early_ct", "cosine"),
+        ("auxcpc_grudtxt_ct", "l2"), ("auxcpc_mbt_ct", "cpc"))},
+}
+# one representative per archetype, timed in turns with the plain path and
+# profiled
+LEGACY_TIMED = ("binary_t_transformer", "binary_f_transformer",
+                "multi_ft_transformer", "binary_gru_d_t_transformer",
+                "earlyfusion_img_txt_vslt", "midfusion_img_trans_vslt_ttrans",
+                "latefusion_img_trans_vslt_grud",
+                "cross_transformer_img_vslt_sssccc", "auxcpc_early",
+                "auxcpc_mbt", "midfusion_img_trans_vslt_grud/resnet50",
+                "vit", "maxvit")
+
+
+def _lg_counts(enc=0, cross=0, masks=0, swin=False, bwd=None):
+    """(eval, train, recomputes) of a legacy run's step: ``enc`` encoder
+    layers (an attn_block and an ffn each), ``cross`` cross layers (an
+    attention and an ffn each), the train step's input-dropout masks
+    (``masks``), the trainable Swin-T (``swin``: 12 / 12 launches in eval;
+    in train 12 window attentions, the MLP of block 0 alone and 22
+    stochastic-depth masks, the backward recomputing 12 + 1); a backward
+    for each layer the loss reaches (``bwd`` of the encoder layers where
+    it reaches fewer)."""
+    ev = {"attn_block": enc, "ffn": enc + cross, "attention": cross}
+    if swin:
+        ev.update(swin_attention=12, swin_mlp=12)
+    tr = dict(ev, attn_block_bwd=enc if bwd is None else bwd,
+              ffn_bwd=(enc if bwd is None else bwd) + cross,
+              attention_bwd=cross, dropout_masks=masks + 22 * swin)
+    if swin:
+        tr.update(swin_mlp=1)
+    return ({k: v for k, v in ev.items() if v},
+            {k: v for k, v in tr.items() if v},
+            {"swin_attention_bwd": 12, "swin_mlp_bwd": 1} if swin else {})
+
+
+# the launches per step of each run (derived on the CPU by counting the
+# ops calls and the backwards autograd runs through their outputs, batch
+# 2, the same flags): the time and feature encoders 6 layers each with
+# an input dropout, GRU-D / LSTM / ResNet / ViT / MaxViT / the patch stem
+# no kernel (the LSTM features' fixed dropout one mask), the early fusion
+# one joint encoder, the cross transformer 3 self layers per stream and 3
+# cross layers per direction (no input dropout), AUXCPC's early fusion 6
+# layers (no input dropout; the ct mirror 6 more), its MBT fusion 2
+# streams x 6 (an input dropout per stream; under ct a mirror pass as
+# many, whose layers the cpc loss, 0, does not reach)
+_LG_ARCH = {
+    "binary_t_transformer": _lg_counts(6, masks=1),
+    "binary_f_transformer": _lg_counts(6, masks=1),
+    "multi_ft_transformer": _lg_counts(12, masks=2),
+    "binary_gru_d": _lg_counts(), "binary_lstm": _lg_counts(masks=1),
+    "binary_gru_d_t_transformer": _lg_counts(6, masks=1),
+    "resnet": _lg_counts(), "swin_transformer": _lg_counts(swin=True),
+    "earlyfusion_img_vslt": _lg_counts(6, masks=1, swin=True),
+    "latefusion_img_trans_vslt_grud": _lg_counts(swin=True),
+    "latefusion_img_trans_vslt_ttrans": _lg_counts(6, masks=1, swin=True),
+    "cross_transformer_img_vslt_sssccc": _lg_counts(6, 6, swin=True),
+    "earlyfusion_img_vslt/resnet18": _lg_counts(6, masks=1),
+    "cross_transformer_img_vslt_sssccc/resnet18": _lg_counts(6, 6),
+    "auxcpc_early": _lg_counts(6), "auxcpc_mbt": _lg_counts(12, masks=2),
+    "auxcpc_early_ct": _lg_counts(12),
+    "auxcpc_mbt_ct": _lg_counts(24, masks=4, bwd=12),
+}
+for _run, _like in {
+        "vit": "resnet", "vit_monai": "resnet",
+        "maxvit": "resnet", "midfusion_img_trans_vslt_grud/resnet50": "resnet",
+        "latefusion_vslt_grud_txt_transformer": "resnet",
+        "earlyfusion_img_txt_vslt": "earlyfusion_img_vslt",
+        "midfusion_img_trans_vslt_grud": "latefusion_img_trans_vslt_grud",
+        "midfusion_img_trans_vslt_ttrans":
+            "latefusion_img_trans_vslt_ttrans",
+        "latefusion_img_trans_vslt_ttrans/resnet18":
+            "earlyfusion_img_vslt/resnet18",
+        "midfusion_img_trans_vslt_ttrans/resnet18":
+            "earlyfusion_img_vslt/resnet18",
+        "earlyfusion_vslt_txt_transformer": "earlyfusion_img_vslt/resnet18",
+        "latefusion_vslt_txt_transformer": "earlyfusion_img_vslt/resnet18",
+        "midfusion_vslt_txt_transformer": "earlyfusion_img_vslt/resnet18",
+        "bi_cross_transformer_txt_vslt":
+            "cross_transformer_img_vslt_sssccc/resnet18",
+        "auxcpc_early2": "auxcpc_early", "auxcpc_grudtxt": "auxcpc_early",
+        "auxcpc_early_direct": "auxcpc_early",
+        "auxcpc_grudtxt_dir": "auxcpc_early",
+        "auxcpc_mbt_direct": "auxcpc_mbt",
+        "auxcpc_grudtxt_ct": "auxcpc_early_ct"}.items():
+    _LG_ARCH[_run] = _LG_ARCH[_like]
+# the MBT aliases: config 4's and tri_mbt_v1's launches (phases 4b, 7, 15)
+for _run, _train in (("mbt_v1", "tri_v1"), ("mbt_v2", "config4")):
+    _LG_ARCH[_run] = (LAUNCHES_PER_STEP["config4"],
+                      {k: v for k, v in TRAIN_LAUNCHES_PER_STEP[_train]
+                       .items() if v}, {})
+LEGACY_EVAL = {r: c[0] for r, c in _LG_ARCH.items()}
+LEGACY_TRAIN = {r: c[1] for r, c in _LG_ARCH.items()}
+LEGACY_RECOMPUTE = {r: c[2] for r, c in _LG_ARCH.items()}
+if set(_LG_ARCH) != set(LEGACY_RUNS):
+    raise AssertionError("phase 20's launch tables miss a run")
+# the names of the train paths whose launches the kernels line lists
+LG_PATHS = {f"lg:{r}": f"{r} train" for r in LEGACY_RUNS}
+# the runs' tensors with a zero true gradient beside ZERO_GRAD's: the late
+# fusion's LayerNorm biases and its heads' first biases (each head's
+# BatchNorm cancels them), the key biases of the ViT's and MaxViT's
+# attention (softmax is shift invariant per query)
+LG_ZERO_GRAD = ("v_ln.bias", "o_ln.bias", "fc_vslt.0.bias",
+                "fc_other.0.bias", ".key.bias")
+# the image cross transformers' tensors whose gradient reaches the loss
+# only through the scores of an attention over the 49 image tokens (the
+# image stream's self layers self_o_i and the vslt stream's cross layers
+# cross_v_i: the q and k projections, a cross layer's query pre-norm).
+# Those tokens are the same within a sample without a CXR and nearly so
+# with one, so the scores carry little gradient (dq 1e-3 of dv with a CXR,
+# 1e-7 without; legacyprobe). They stay in the fp32 gate. In bf16 the
+# kernels take delta from the bf16 output, as the TPU kernels do (JAX
+# kernels/attention.py:358), which leaves dq many times its true norm
+# there (ROADMAP Queue 2 item 2): each such tensor is held, in absolute
+# terms, to the bf16 rounding the plain path makes on the same layer's
+# value projection (StepAllowance.bf16_held), the weight against its
+# weight, a vector against its bias
+_V = "self_attention.value_proj.linear."
+_QK = (("self_attention.query_proj.linear.weight", _V + "weight"),
+       ("self_attention.query_proj.linear.bias", _V + "bias"),
+       ("self_attention.key_proj.linear.weight", _V + "weight"))
+LG_CROSS_IMG_HELD = tuple(
+    [(f"self_o_{i}.{t}", f"self_o_{i}.{r}") for i in range(3)
+     for t, r in _QK]
+    + [(f"cross_v_{i}.{t}", f"cross_v_{i}.{r}") for i in range(3)
+       for t, r in _QK + (("attention_prenorm_q.gamma", _V + "bias"),
+                          ("attention_prenorm_q.beta", _V + "bias"))])
+# phase 20's step allowances by run (StepAllowance); every other run, and
+# every earlier phase, meets phase 15's step gates alone. The auxcpc runs:
+# losses to 1.75e5 and ct_weight to +-22.6 at the reference's init. The
+# ttrans mid fusion on Swin-T: a ReLU pre-activation 9.3e-6 from 0
+# feeds its BatchNorm head (relu(merge)), and its flip moves every fp32
+# tensor by 2-3e-2 on either path. auxcpc_early: its last FFN bias
+# reaches the loss through the head's BatchNorm, which cancels it, and a
+# cpc softmax at saturation, so its fp32 gradient is rounding
+LG_ALLOW = {
+    **{r: StepAllowance(loss_relative=True, ulp_params=("ct_weight",))
+       for r in LEGACY_RUNS if r.startswith("auxcpc_")},
+    "auxcpc_early": StepAllowance(loss_relative=True,
+                                  ulp_params=("ct_weight",),
+                                  noise_floor=True),
+    "midfusion_img_trans_vslt_ttrans": StepAllowance(noise_floor=True),
+    **{r: StepAllowance(bf16_held=LG_CROSS_IMG_HELD) for r in LEGACY_RUNS
+       if r.startswith("cross_transformer_img")},
+}
+
+
+def _lg_cfg(run: str):
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    argv, loss = LEGACY_RUNS[run]
+    cfg = parse_config(argv)
+    return cfg.replace(auxiliary_loss_type=loss) if loss else cfg
+
+
+def compare_legacy_kernels() -> dict:
+    """The kernels at the shapes only the legacy families give them, fp32
+    and bf16, against the plain versions (TOL, GRAD_TOL; in bf16 the
+    profiler's device ms per form and the route's kernels): the masked
+    attention of the image cross transformer's cross layers, vslt queries
+    [64, 24, 4, 64] against the Swin-T's 49 image keys (every key valid:
+    a key mask with none masked) and back, beside
+    scaled_dot_product_attention; attn_block at the early fusion's joint
+    stream at tri on Swin-T, [64, 202, 256] (cls, 24 vslt rows, 49 image
+    rows always valid, 128 note rows, the vslt and note tails masked), and
+    at the time transformer's [64, 25, 256] under its key mask. Returns
+    the bf16 results by kernel name (attention: the vslt queries'
+    direction; attn_block: the joint stream) and the rest by shape."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels.attention import \
+        attention_route
+    from medical_tri_modal_pilot_tpu_torch.kernels.attn_block import (
+        attn_block_route, key_ends)
+    from medical_tri_modal_pilot_tpu_torch.models.modules import \
+        length_key_mask
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(19)
+    D, H, Dh = 256, 4, 64
+    results, extra = {}, {}
+    for name, Lq, Lk, kind in (("cross_img_v", 24, 49, "img"),
+                               ("cross_img_o", 49, 24, "vslt")):
+        q, k, v, mask, is_self, live = _attention_case(g, dev, BATCH, H, Lq,
+                                                       Lk, Dh, kind)
+        shape = f"q[{BATCH},{Lq},{H},{Dh}] kv[{BATCH},{Lk},{H},{Dh}]"
+        tag = f"attention {name} {shape}"
+        for dt in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (t.to(dt) for t in (q, k, v))
+            cot = torch.randn(BATCH, Lq, H, Dh, generator=g).to(dev).to(dt)
+            fwd = (lambda *a, m=mask: ops.attention(*a, m, Dh ** .5, False))
+            work_f = _attention_work(qd, kd, mask, False)
+            work_b = _attention_work(qd, kd, mask, False, backward=True)
+            if dt == torch.float32:
+                with torch.inference_mode():
+                    _compare(tag, dt, lambda: fwd(qd, kd, vd), work_f, live)
+                _compare_train(tag, dt, fwd, (qd, kd, vd), cot, live, work_f,
+                               work_b)
+                continue
+            lr, fr, br = _train_forms(
+                tag, dt, fwd, (qd, kd, vd), cot, live, work_f, work_b,
+                ATTN_ROUTE_KERNELS, attention_route(dt, Dh),
+                library=_sdpa_library(qd, kd, vd, mask, cot))
+            res = {"attention": dict(lr, shape=shape, train=fr),
+                   "attention_bwd": dict(br, shape=shape)}
+            if name == "cross_img_v":
+                results.update(res)
+            else:
+                extra[name] = res
+    vslt = torch.randint(1, 25, (BATCH,), generator=g)
+    txt = (torch.randint(0, 129, (BATCH,), generator=g) + 2).clamp(1, 128)
+    txt[:2] = torch.tensor([2, 128])
+    joint = torch.cat([torch.zeros(BATCH, 1, dtype=torch.bool),
+                       length_key_mask(vslt, 24),
+                       torch.zeros(BATCH, 49, dtype=torch.bool),
+                       length_key_mask(txt, 128)], 1).to(dev)
+    time_mask = length_key_mask(vslt + 1, 25).to(dev)
+    gamma, beta = (1 + .1 * torch.randn(D, generator=g)).to(dev), \
+        (.1 * torch.randn(D, generator=g)).to(dev)
+    w = (torch.randn(D, 3 * D, generator=g) * D ** -.5).to(dev)
+    b = (.1 * torch.randn(3 * D, generator=g)).to(dev)
+    for name, mask in (("early_tri", joint), ("t_transformer", time_mask)):
+        L = mask.shape[1]
+        ends = key_ends(mask).long()
+        live = torch.arange(L, device=dev)[None, :] < ends[:, None]
+        shape = f"[{BATCH},{L},{D}]"
+        tag = f"attn_block{shape} {name}"
+        for dt in (torch.float32, torch.bfloat16):
+            es = 2 if dt == torch.bfloat16 else 4
+            x = torch.randn(BATCH, L, D, generator=g).to(dev).to(dt)
+            cot = torch.randn(BATCH, L, D, generator=g).to(dev).to(dt) \
+                * live[:, :, None]
+            work_f, work_b = _attn_block_work(L, D, H, es, ends.double().cpu())
+            fwd = (lambda *a, m=mask: ops.attn_block(*a, m, (D // H) ** .5, H))
+            inputs = (x, gamma, beta, w.to(dt), b.to(dt))
+            if dt == torch.float32:
+                with torch.inference_mode():
+                    _compare(tag, dt, lambda: fwd(*inputs), work_f, live)
+                _compare_train(tag, dt, fwd, inputs, cot, live, work_f,
+                               work_b)
+                continue
+            lr, fr, br = _train_forms(tag, dt, fwd, inputs, cot, live,
+                                      work_f, work_b,
+                                      ATTN_BLOCK_ROUTE_KERNELS,
+                                      attn_block_route(dt, D, H))
+            res = {"attn_block": dict(lr, shape=shape, train=fr),
+                   "attn_block_bwd": dict(br, shape=shape)}
+            if name == "early_tri":
+                results.update(res)
+            else:
+                extra[name] = res
+    for kernel, res in results.items():
+        res["other_shapes"] = {n: r[kernel] for n, r in extra.items()
+                               if kernel in r}
+    return results
+
+
+def _legacy_run(run: str, power: str, timed: bool) -> dict:
+    """One legacy run at full width, bf16: an eval step (its launches
+    against LEGACY_EVAL, reset just before and read just after), its
+    probabilities against the plain path's in bf16 and, on the same
+    weights, in fp32 (PROB_TOL); a train step at --dropout 0.1 (launches
+    against LEGACY_TRAIN, the trunk's recomputes against LEGACY_RECOMPUTE,
+    a finite loss, peak memory); with ``timed`` eval and train ms/step on
+    both paths in turns and a profiled train step (device busy, idle
+    share); then one step from the same weights on both paths in fp32 and
+    bf16 at dropout 0 (phase 15's step gates, LG_ALLOW's allowances).
+    Returns the train step's launches."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    dev = torch.device("cuda")
+    cfg = _lg_cfg(run)
+    widths = (cfg.transformer_dim, cfg.transformer_num_layers,
+              cfg.transformer_num_head, cfg.precision, cfg.dropout,
+              cfg.image_size)
+    if widths != (256, 6, 4, "bf16", 0.1, 224):
+        raise AssertionError(f"{run} defaults changed: {widths}")
+    batch = synthetic_batch(cfg, BATCH, seed=20, present_frac=0.5)
+    model = get_model(cfg, torch.Generator().manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(cfg, model, dev, eval_only=True)
+    ops.reset_launches()
+    probs, _, _ = _eval_steps(trainer, [batch])
+    torch.cuda.synchronize()
+    ev = {k: v for k, v in ops.launches.items() if v}
+    if ev != LEGACY_EVAL[run]:
+        raise AssertionError(f"{run} eval launches {ev}, expected "
+                             f"{LEGACY_EVAL[run]}")
+    if probs.shape != (BATCH,) or not np.all(np.isfinite(probs)):
+        raise AssertionError(f"{run}: bad probabilities {probs.shape}")
+    with ops.reference_path():
+        ref, _, _ = _eval_steps(trainer, [batch])
+    d16 = float(np.max(np.abs(probs - ref)))
+    eval_ms = None
+    if timed:
+        ms = {True: [], False: []}
+        for reference in (True, False, False, True):
+            ms[reference].append(_timed_ms(trainer, [batch] * 2, reference))
+        eval_ms = (np.mean(ms[False]), np.mean(ms[True]))
+    del trainer, model
+    tr32 = Trainer(cfg.replace(precision="fp32"),
+                   get_model(cfg.replace(precision="fp32"), state=state),
+                   dev, eval_only=True)
+    p32, _, _ = _eval_steps(tr32, [batch])
+    with ops.reference_path():
+        r32, _, _ = _eval_steps(tr32, [batch])
+    d32 = float(np.max(np.abs(p32 - r32)))
+    del tr32
+    print(f"{run}: eval launches {ev}; max |prob - plain prob| bf16 "
+          f"{d16:.3e} (tol {PROB_TOL['bf16']}), fp32 {d32:.3e} (tol "
+          f"{PROB_TOL['fp32']})")
+    if d16 > PROB_TOL["bf16"] or d32 > PROB_TOL["fp32"]:
+        raise AssertionError(f"{run}: the kernel path's eval disagrees "
+                             "with the plain path")
+
+    model = get_model(cfg, state=state)
+    tr = Trainer(cfg, model, dev, eval_only=False, seed=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    loss = tr.train_step(batch)
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    recomputes = {k: v for k, v in ops.recomputes.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: v for k, v in counts.items() if v}
+    print(f"{run}: train launches {got}, recomputes {recomputes}; loss "
+          f"{loss:.5f}; peak device memory {peak / 2 ** 30:.3f} GiB "
+          f"(before the step {base / 2 ** 30:.3f} GiB)")
+    if got != LEGACY_TRAIN[run]:
+        raise AssertionError(f"{run} train launches {got}, expected "
+                             f"{LEGACY_TRAIN[run]}")
+    if recomputes != LEGACY_RECOMPUTE.get(run, {}):
+        raise AssertionError(f"{run} train recomputes {recomputes}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"{run}: non-finite train loss")
+    if timed:
+        ms = {True: [], False: []}
+        for reference in (True, False, False, True):
+            ms[reference].append(_timed_train_ms(tr, [batch] * 2,
+                                                 reference))
+        kernel_ms, plain_ms = np.mean(ms[False]), np.mean(ms[True])
+        TRAIN_STEP_MS[run] = kernel_ms
+        print(f"{run} ({power}): eval kernels {eval_ms[0]:.2f} ms/step, "
+              f"plain {eval_ms[1]:.2f}; train kernels {kernel_ms:.2f} "
+              f"ms/step ({BATCH * 1e3 / kernel_ms:.1f} samples/s), plain "
+              f"{plain_ms:.2f}; rounds {ms[False]} / {ms[True]}; launches "
+              f"per train step {sum(got.values())}")
+        _profile_step(run, tr, batch, power, train=True)
+    del tr, model
+    torch.cuda.empty_cache()
+    _check_step_parity(run, cfg, state, batch,
+                       [("fp32", 0.0), ("bf16", 0.0)], LG_ZERO_GRAD,
+                       LG_ALLOW.get(run))
+    return counts
+
+
+def legacyprobe(power: str) -> None:
+    """The bf16 step of the image cross transformer at dropout 0: each
+    masked attention call of one kernel-path step, its inputs and its
+    output's cotangent recorded, then its dq, dk, dv by the kernel, by the
+    plain path in bf16 and by the plain path in fp32 on the same inputs;
+    each bf16 path's |err|_F / |fp32|_F per call and operand, over the
+    samples with a CXR and those without."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    cfg = _lg_cfg("cross_transformer_img_vslt_sssccc").replace(dropout=0.0)
+    batch = synthetic_batch(cfg, BATCH, seed=20, present_frac=0.5)
+    model = get_model(cfg, torch.Generator().manual_seed(0))
+    tr = Trainer(cfg, model, torch.device("cuda"), eval_only=False, seed=0)
+    calls, real = [], ops.attention
+
+    def record(q, k, v, mask, scale, is_self=False):
+        out = real(q, k, v, mask, scale, is_self)
+        rec = [t.detach().clone() for t in (q, k, v)] + [mask, scale,
+                                                          is_self]
+        calls.append(rec)
+        out.register_hook(lambda g: rec.append(g.detach().clone()))
+        return out
+    ops.attention = record
+    try:
+        tr.train_step(batch)
+    finally:
+        ops.attention = real
+    present = torch.from_numpy(batch["missing"][:, 1] == 0).cuda()
+    for i, (q, k, v, mask, scale, is_self, cot) in enumerate(calls):
+        grads = {}
+        for path in ("kernel", "plain", "fp32"):
+            dt = torch.float32 if path == "fp32" else q.dtype
+            leaves = [t.to(dt).requires_grad_(True) for t in (q, k, v)]
+            with (ops.reference_path() if path != "kernel"
+                  else contextlib.nullcontext()):
+                out = ops.attention(*leaves, mask, scale, is_self)
+            grads[path] = torch.autograd.grad(out, leaves, cot.to(dt))
+        parts = []
+        for name, j in (("dq", 0), ("dk", 1), ("dv", 2)):
+            ref = grads["fp32"][j].float()
+            for group, rows in (("cxr", present), ("none", ~present)):
+                r = ref[rows]
+                errs = [float((grads[p][j].float()[rows] - r).norm()
+                              / r.norm().clamp_min(1e-30))
+                        for p in ("kernel", "plain")]
+                parts.append(f"{name} {group} |fp32| {float(r.norm()):.3e} "
+                             f"kernel {errs[0]:.3e} plain {errs[1]:.3e}")
+        print(f"legacyprobe ({power}) attention call {i} q{list(q.shape)} "
+              f"kv{list(k.shape)}: " + "; ".join(parts))
+
+
+def run_legacy(power: str, runs=()) -> tuple:
+    """Phase 20: the legacy families at full width (LEGACY_RUNS, or the
+    ``runs`` named): the kernels at the shapes only they give
+    (compare_legacy_kernels), then every run (_legacy_run); the refusals
+    that stay. Returns (those kernel results, each run's train launches
+    keyed as LG_PATHS)."""
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    t_phase = time.perf_counter()
+    results = compare_legacy_kernels()
+    counts = {}
+    for run in runs or LEGACY_RUNS:
+        t_run = time.perf_counter()
+        counts[f"lg:{run}"] = _legacy_run(run, power, run in LEGACY_TIMED)
+        gc_collect()
+        print(f"{run}: {time.perf_counter() - t_run:.1f} s")
+    try:
+        get_model(parse_config(_lg("earlyfusion_img_vslt", "vslt_img",
+                                   "--vslt-type", "TIE")))
+    except NotImplementedError as e:
+        print(f"earlyfusion_img_vslt --vslt-type TIE: refused, {e}")
+    else:
+        raise AssertionError("a legacy model took the TIE stream")
+    print("legacy train step (" + power + "): " + ", ".join(
+        f"{r} {TRAIN_STEP_MS[r]:.2f} ms/step" for r in LEGACY_TIMED
+        if r in TRAIN_STEP_MS))
+    print(f"legacy phase ({power}): {time.perf_counter() - t_phase:.1f} s")
+    return results, counts
+
+
 def gc_collect() -> None:
     import gc
     gc.collect()
@@ -4944,8 +5593,10 @@ PATH_STEPS = dict({k: len(v) for k, v in TRAIN_BATCHES.items()},
 # the train paths whose launches the kernels line gives under other_paths
 OTHER_PATHS = dict(BASE_PATHS, vmulti2=MULTI_PATHS["vmulti2"],
                    vmultivslt=MULTI_PATHS["vmultivslt"], **REGISTRY_PATHS,
-                   **BL_PATHS)
-PATH_NAMES.update(BASE_PATHS, **MULTI_PATHS, **REGISTRY_PATHS, **BL_PATHS)
+                   **BL_PATHS, **LG_PATHS)
+PATH_NAMES.update(BASE_PATHS, **MULTI_PATHS, **REGISTRY_PATHS, **BL_PATHS,
+                  **LG_PATHS)
+PATH_STEPS.update({p: 1 for p in LG_PATHS})
 
 
 # the kernels the A/B reading sums in a step and in an attn_block call:
@@ -5259,11 +5910,25 @@ def main() -> None:
         build_kernels()
         trunkprobe(power)
         return
+    if len(sys.argv) == 2 and sys.argv[1] == "legacyprobe":
+        power = check_device()
+        build_kernels()
+        legacyprobe(power)
+        return
+    if len(sys.argv) >= 2 and sys.argv[1] == "legacy":
+        power = check_device()
+        build_kernels()
+        run_legacy(power, sys.argv[2:])
+        return
     if len(sys.argv) == 2 and sys.argv[1] == "tpdrivers":
         power = check_device()
         build_kernels()
         run_tp_drivers(power)
         return
+    t_start = time.perf_counter()
+
+    def clock(what):
+        print(f"clock: {what} done at {time.perf_counter() - t_start:.1f} s")
     power = check_device()
     build_kernels()
     results = compare_kernels()
@@ -5273,6 +5938,7 @@ def main() -> None:
     results.update(compare_attention_kernels())
     results.update(compare_rowmm_kernels())
     widths = compare_width_kernels()
+    clock("build and kernels (1-3, 5b, 6, 9, 12, 3w)")
     run_config("vslt_txt", VSLT_TXT, power, timed=True)
     run_config("config4", CONFIG4, power, timed=True)
     run_config("config5", CONFIG5, power, timed=False)
@@ -5280,18 +5946,28 @@ def main() -> None:
     run_train("vslt_txt", VSLT_TXT, power, timed=False)
     run_config("cross", CROSS, power, timed=True)
     counts["cross"] = run_train("cross", CROSS, power, timed=True)
+    clock("configs and the cross transformer (4-8, 10-11)")
     counts["tp"] = run_tp(power)
     run_drivers(power)
     run_tp_drivers(power)
+    clock("TP and the drivers (13, 14, 14b)")
     counts.update(run_baseline(power))
+    clock("phase 15")
     mt_results, mt_counts = run_multitoken(power)
     results.update(mt_results)
     counts.update(mt_counts)
+    clock("phase 16")
     run_widths(power)
+    clock("phase 17")
     joint, reg_counts = run_registry(power)
     counts.update(reg_counts)
+    clock("phase 18")
     bl_results, bl_counts = run_baselines(power)
     counts.update(bl_counts)
+    clock("phase 19")
+    lg_results, lg_counts = run_legacy(power)
+    counts.update(lg_counts)
+    clock("phase 20")
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         path = KERNEL_PATHS[name]
@@ -5307,7 +5983,8 @@ def main() -> None:
                         "other_paths": also, **results[name],
                         "widths": widths.get(name, {}),
                         "mt_joint": joint.get(name, {}),
-                        "baselines": bl_results.get(name, {})})
+                        "baselines": bl_results.get(name, {}),
+                        "legacy": lg_results.get(name, {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

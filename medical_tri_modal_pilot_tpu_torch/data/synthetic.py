@@ -14,6 +14,7 @@ import numpy as np
 
 from ..config import Config
 from ..constants import N_FEATURES
+from . import window as W
 from .txt_table import TxtTable
 
 
@@ -63,6 +64,42 @@ def _carryforward(cfg: Config, rng, B: int):
     return vslt, lengths
 
 
+# the future hours of a pretrain window and its length
+# (data/window.py::sequence_generator_pretrain)
+FUTURE_HOURS = 12
+PRETRAIN_ROWS = 36
+
+
+def _pretrain_windows(cfg: Config, rng, B: int):
+    """The 36-row carryforward windows and ``f_indices`` [B, 36] of
+    ``--auxiliary-loss-input``, cut from a random stay of 18 raw channels
+    by ``data/window.py::sequence_generator_pretrain`` as data/dataset.py
+    cuts them: the input_length rows ending at the key (input_length in
+    [1, window], zeros after them up to the window), then the next 6 to 12
+    hours of the stay; f_indices 1 at a row with more than 4 channels
+    observed (a quarter of them are, on average). The grid keeps the
+    ``vslt_mask`` channels."""
+    T = cfg.window_size
+    keep = ~np.array(cfg.vslt_mask)
+    vslt = np.zeros((B, 3, PRETRAIN_ROWS, cfg.vslt_len), np.float32)
+    f_indices = np.zeros((B, PRETRAIN_ROWS), np.float32)
+    lengths = np.zeros(B, np.int32)
+    for i in range(B):
+        n = int(rng.integers(1, T + 1))
+        key = int(rng.integers(n - 1, n + 24))
+        hours = key + 1 + int(rng.integers(6, FUTURE_HOURS + 1))
+        stay = (rng.normal(0, 1, (hours, W.N_RAW_FEATURES)),
+                (rng.uniform(0, 1, (hours, W.N_RAW_FEATURES)) < 0.25)
+                .astype(np.float64),
+                rng.uniform(0, 24, (hours, W.N_RAW_FEATURES)))
+        d, m, dl, lengths[i], f = W.sequence_generator_pretrain(
+            *stay, key, n, T)
+        for c, grid in enumerate((d, m, dl)):
+            vslt[i, c] = grid[:, keep]
+        f_indices[i] = f
+    return vslt, lengths, f_indices
+
+
 def _token_ids(cfg: Config, rng, missing: np.ndarray):
     """Notes as ``--berttype bert`` token ids [B, token_max_length] (fp32,
     as the loader ships them, data/text.py:129-139): BOS (2), then
@@ -105,7 +142,8 @@ def classification_targets(cfg: Config, rng, B: int):
 def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
                     present_frac: float = 0.5) -> Dict[str, np.ndarray]:
     """Vital signs as TIE streams (``--vslt-type TIE`` or QIE) or
-    carryforward grids (``carryforward``), BioBERT note embeddings
+    carryforward grids (``carryforward``; under ``--auxiliary-loss-input``
+    the 36-row pretrain windows and their ``f_indices``), BioBERT note embeddings
     [txt_token_size, 768] (or ``--berttype bert`` token ids) with a
     missing note as zeros of length 0, random targets and, when
     ``--input-types`` has img, images for round(present_frac * batch_size)
@@ -114,7 +152,10 @@ def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
     drawn by ``classification_targets``."""
     rng = np.random.default_rng(seed)
     B = batch_size
-    if cfg.vslt_type == "carryforward":
+    f_indices = None
+    if cfg.vslt_type == "carryforward" and cfg.auxiliary_loss_input:
+        vslt, lengths, f_indices = _pretrain_windows(cfg, rng, B)
+    elif cfg.vslt_type == "carryforward":
         vslt, lengths = _carryforward(cfg, rng, B)
     else:
         vslt, lengths = _tie(cfg, rng, B)
@@ -151,6 +192,8 @@ def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
     if cfg.model_types == "classification":
         batch["target"], batch["target_aux"] = classification_targets(
             cfg, rng, B)
+    if f_indices is not None:
+        batch["f_indices"] = f_indices
     return batch
 
 

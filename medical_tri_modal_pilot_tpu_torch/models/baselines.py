@@ -48,7 +48,7 @@ from torch import nn
 from ..config import Config
 from .heads import flax_batch_norm
 from .models import ModelOutput, model_dtype
-from .modules import DropoutSeeds, LayerNorm, dropout
+from .modules import DropoutSeeds, LayerNorm, dense, dropout
 from .swin import SwinTransformer
 from .umse import BERT_VOCAB
 
@@ -74,12 +74,6 @@ def _with_demo(x: torch.Tensor, batch: Dict[str, torch.Tensor]
     age = static[:, 1][:, None, None].expand(B, T, 1)
     gen = static[:, 0][:, None, None].expand(B, T, 1)
     return torch.cat([x, age, gen], dim=-1)
-
-
-def dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=dt)``: x, the weight and the bias in dt."""
-    bias = None if lin.bias is None else lin.bias.to(dt)
-    return F.linear(x.to(dt), lin.weight.to(dt), bias)
 
 
 def _side_by_side(mods: List[nn.Linear], dt: torch.dtype
@@ -245,6 +239,31 @@ class GRUDCell(nn.Module):
         self.cell = GRUCell(2 * n_features, hidden)
 
 
+def grud_states(gru: GRUDCell, w: torch.Tensor, b: torch.Tensor,
+                x_mean: torch.Tensor, x: torch.Tensor, m: torch.Tensor,
+                d: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """GRU-D over the grid x, m, d [B, T, F] (in dt): the input decay
+    exp(-relu(w d + b)) imputing toward ``x_mean`` (in fp32, as the JAX
+    model promotes there), the hidden decay, the GRU cell over [x_t | m_t].
+    Returns every step's fp32 state [B, T, H]."""
+    x_d = torch.exp(-torch.relu(d.float() * w + b))
+    mf = m.float()
+    x = (mf * x.float() + (1 - mf) * x_d * x.float()
+         + (1 - mf) * (1 - x_d) * x_mean.to(dt).float())
+    cell = gru.cell
+    h_decay = torch.exp(-torch.relu(
+        dense(gru.hidden_decay, d, dt).float()))          # [B, T, H]
+    xi = cell.input_proj(torch.cat([x.to(dt), m], dim=-1), dt)
+    wh = cell.hidden_weights(dt)
+    B, T, _ = x.shape
+    h = torch.zeros(B, cell.hidden, dtype=torch.float32, device=x.device)
+    hs = []
+    for t in range(T):
+        h = cell.step(h_decay[:, t] * h, xi[:, t], wh)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
 class GRU_D(nn.Module):
     """``gru_d`` (JAX baselines.py:46-83; binary_gru_d.py:8-73): the
     per-feature input decay exp(-relu(w delta + b)) imputing toward the
@@ -279,23 +298,10 @@ class GRU_D(nn.Module):
         dt = self.compute_dtype
         x, m, d = (t.to(dt) for t in _unpack_carryforward(batch))
         B, T, _ = x.shape
-        x_d = torch.exp(-torch.relu(d.float() * self.input_decay_w
-                                    + self.input_decay_b))
-        mf = m.float()
-        x = (mf * x.float() + (1 - mf) * x_d * x.float()
-             + (1 - mf) * (1 - x_d) * self.x_mean.to(dt).float())
-        cell = self.gru.cell
-        h_decay = torch.exp(-torch.relu(
-            dense(self.gru.hidden_decay, d, dt).float()))      # [B, T, H]
-        xi = cell.input_proj(torch.cat([x.to(dt), m], dim=-1), dt)
-        wh = cell.hidden_weights(dt)
-        h = torch.zeros(B, cell.hidden, dtype=torch.float32, device=x.device)
-        hs = []
-        for t in range(T):
-            h = cell.step(h_decay[:, t] * h, xi[:, t], wh)
-            hs.append(h)
+        hs = grud_states(self.gru, self.input_decay_w, self.input_decay_b,
+                         self.x_mean, x, m, d, dt)
         idx = batch["input_length"].long().clamp(0, T - 1)
-        last = torch.stack(hs, dim=1)[torch.arange(B, device=x.device), idx]
+        last = hs[torch.arange(B, device=x.device), idx]
         h = dense(self.fc1, last, dt)
         h = flax_batch_norm(h, self.bn, self.training,
                             self.BN_MOMENTUM).to(dt)

@@ -10,8 +10,8 @@ does not use. Covered: ``tri_mbt_vsltcls`` (and its bimodal aliases),
 ``unimodal_transformer`` under every UMSE branch, the multitoken family
 (``tri_mbt_vmulti``, ``tri_mbt_vmulti2``, ``tri_mbt_vmultivslt``), the
 MBT ablations (``tri_mbt_vsltcls_noshareumse``, ``tri_mbt_vflexible*``,
-``tri_mbt_vnosh*avgtr``), the concat-fusion ``*_mt_v1`` and the cross
-transformer; a leaf of the JAX tree left unused raises. The reference's
+``tri_mbt_vnosh*avgtr``), the concat-fusion ``*_mt_v1``, the baselines
+and every legacy family; a leaf of the JAX tree left unused raises. The reference's
 bridge does not reach the ablations' and ``*_mt_v1``'s own parts either:
 they are named after the flax tree (``umse_img``, ``umse_txt``,
 ``flexibleavg``, ``fc_list_{m}``, ``MTFusion``'s names), with
@@ -20,9 +20,11 @@ trees; their port names follow the reference's other MBT fusions
 (``cls_token_per_modality``, ``bottlenecks``, ``layer_norms_in``,
 ``layer_stacks``), with ``cls_token`` for the VSLTMAIN fusion's single
 cls parameter (its flax name), ``layer_norms_after_concat`` and
-``fc_lists.{i}``. The legacy cross transformer has no reference state_dict
-names in the JAX package's bridge; its port modules are named after the
-flax tree instead (``models/legacy.py``), as are the baselines
+``fc_lists.{i}``. The legacy families have no reference state_dict
+names in the JAX package's bridge; their port modules, and those of
+their ResNet, ViT and MaxViT backbones, are named after the flax tree
+instead (``models/legacy.py``), so one walk (``_flax_named``) maps them
+leaf for leaf; as are the baselines
 (``gru_d``, ``lstm``, ``fusiontrainer``: ``models/baselines.py``; the
 recurrent cells' denses one ``nn.Linear`` each under the flax names
 ``ir`` .. ``hn`` and ``ii`` .. ``ho``, which the port concatenates at run
@@ -36,7 +38,10 @@ LayerNorm scale/bias -> weight/bias; BatchNorm running stats from
 batch_stats. The Swin trunk goes under torchvision's ``swin_t`` names
 (the inverse of the JAX package's ``models/convert.py::convert_swin_t``):
 conv kernels [kh, kw, in, out] -> [out, in, kh, kw], and the patch
-merges' 4C axis back from the JAX group order to torchvision's.
+merges' 4C axis back from the JAX group order to torchvision's; flax
+attention's DenseGeneral kernels ([C, H, Dh], ``out`` [H, Dh, C]) ->
+Linear weights over the flattened heads. The names of ``legacy.ALIASES``
+take the bridge of the model they alias.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from .legacy import ALIASES, LEGACY
 
 
 class _Tracked(Mapping):
@@ -260,20 +266,26 @@ def _cls_head(sd, params: Mapping, stats: Mapping,
 
 
 def _conv(sd, key: str, p: Mapping) -> None:
-    """A flax Conv (kernel [kh, kw, in, out]) -> Conv2d [out, in, kh, kw]."""
+    """A flax Conv (kernel [kh, kw, in / groups, out]) -> Conv2d [out,
+    in / groups, kh, kw], its bias if it has one."""
     sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-    sd[f"{key}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
 
 
 def _img(sd, p: Mapping) -> None:
-    """The image encoder's tree (``img_enc``): the trunk and its
-    projection ``linear``, or the patch stem ``patch_embedding``."""
+    """The image encoder's tree (``img_enc``): the trunk (Swin-T, or the
+    ViT under its flax names) and its projection ``linear``, or the patch
+    stem ``patch_embedding``."""
     if "patch_embedding" in p:
         _conv(sd, "patch_embedding.proj", p["patch_embedding"]["proj"])
         sd["patch_embedding.pos_embed"] = _t(
             p["patch_embedding"]["pos_embed"])
         return
-    sd.update(swin_state_dict(p["img_encoder"], "img_encoder."))
+    if "patch_embed" in p["img_encoder"]:
+        sd.update(swin_state_dict(p["img_encoder"], "img_encoder."))
+    else:
+        _flax_named(sd, "img_encoder.", p["img_encoder"], {})
     _lin(sd, "linear", p["linear"])
 
 
@@ -308,27 +320,58 @@ def _mt(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-_CROSS_TRANSFORMERS = ("cross_transformer_txt_vslt",
-                       "bi_cross_transformer_txt_vslt")
+def _attention_dense(sd, key: str, p: Mapping, out: bool) -> None:
+    """A flax MultiHeadDotProductAttention DenseGeneral -> Linear over
+    the flattened heads: q, k, v kernels [C, H, Dh] -> [H Dh, C], the
+    ``out`` kernel [H, Dh, C] -> [C, H Dh]; biases flattened."""
+    kern = np.asarray(p["kernel"])
+    kern = kern.reshape(-1, kern.shape[-1]) if out \
+        else kern.reshape(kern.shape[0], -1)
+    sd[f"{key}.weight"] = _t(kern.T)
+    sd[f"{key}.bias"] = _t(np.asarray(p["bias"]).reshape(-1))
 
 
-def _cross_transformer(params: Mapping, stats: Mapping
-                       ) -> Dict[str, torch.Tensor]:
-    """The legacy CROSS_TRANSFORMER tree: the port's names are the flax
-    module names."""
-    sd: Dict[str, torch.Tensor] = {}
-    _lin(sd, "vslt_tokens.init_fc", params["vslt_tokens"]["init_fc"])
-    _txt_embedding(sd, "txt_tokens.txt_embedding",
-                   params["txt_tokens"]["txt_embedding"])
-    for key, layer in params.items():
-        if key.startswith("self_"):
-            _encoder_layer(sd, key, layer)
-        elif key.startswith("cross_"):
-            _cross_layer(sd, key, layer)
-    _lin(sd, "merge", params["merge"])
-    _ln(sd, "final_ln", params["final_ln"])
-    _cls_head(sd, params, stats)
-    return sd
+def _flax_named(sd, pre: str, p: Mapping, stats: Mapping) -> None:
+    """A subtree whose port modules carry the flax names (the legacy
+    families, ``models/legacy.py``, and their backbones): a Dense ->
+    Linear, a Conv -> Conv2d, an attention DenseGeneral -> Linear, an
+    Embed -> Embedding, a norm -> LayerNorm, or BatchNorm where ``stats``
+    holds its running statistics, a bare leaf -> the parameter of its
+    name; an encoder layer, a ``TransformerEncoder``, an ``MBTFusion``,
+    the Swin trunk and a ``ClsHead`` as their own bridges map them."""
+    for key in p:
+        sub, name = p[key], pre + key
+        st = stats[key] if key in stats else {}
+        if not isinstance(sub, Mapping):
+            sd[name] = _t(sub)
+        elif "feed_forward" in sub:
+            (_cross_layer if "attention_prenorm_q" in sub
+             else _encoder_layer)(sd, name, sub)
+        elif "layer_norm_in" in sub:
+            _encoder(sd, name, sub)
+        elif "bottlenecks" in sub:
+            _fusion(sd, name, sub, 2)
+        elif "patch_embed" in sub:
+            sd.update(swin_state_dict(sub, name + "."))
+        elif "fc1" in sub and "bn" in sub:
+            _cls_head(sd, {name: sub}, {name: st}, name)
+        elif "kernel" in sub:
+            ndim = np.ndim(sub["kernel"])
+            if ndim == 4:
+                _conv(sd, name, sub)
+            elif ndim == 3:
+                _attention_dense(sd, name, sub, key == "out")
+            else:
+                _lin(sd, name, sub)
+        elif "embedding" in sub:
+            sd[f"{name}.weight"] = _t(sub["embedding"])
+        elif "scale" in sub:
+            if "mean" in st:
+                _bn(sd, name, sub, st)
+            else:
+                _ln(sd, name, sub)
+        else:
+            _flax_named(sd, name + ".", sub, st)
 
 
 _MBT_MODELS = ("tri_mbt_vsltcls", "biimg_mbt_vsltcls", "bitxt_mbt_vsltcls",
@@ -464,21 +507,23 @@ def from_jax_variables(cfg: Config, variables: Mapping
     not carry across."""
     trees = (variables["params"], variables.get("batch_stats", {}))
     params, stats = (_Tracked(t) for t in trees)
-    if cfg.model in _CROSS_TRANSFORMERS:
-        sd = _cross_transformer(params, stats)
-    elif cfg.model == "unimodal_transformer":
+    model = ALIASES.get(cfg.model, cfg.model)
+    if model in LEGACY:
+        sd = {}
+        _flax_named(sd, "", params, stats)
+    elif model == "unimodal_transformer":
         sd = _unimodal(params, stats)
-    elif cfg.model in _MULTITOKEN_MODELS:
+    elif model in _MULTITOKEN_MODELS:
         sd = _multitoken(params)
-    elif cfg.model in _MT_MODELS:
+    elif model in _MT_MODELS:
         sd = _mt(params, stats)
-    elif cfg.model in _MBT_MODELS:
+    elif model in _MBT_MODELS:
         sd = _mbt(cfg, params, stats)
-    elif cfg.model == "gru_d":
+    elif model == "gru_d":
         sd = _gru_d(params, stats)
-    elif cfg.model in ("lstm", "fusiontrainer"):
+    elif model in ("lstm", "fusiontrainer"):
         sd = _baseline(params)
-    elif cfg.model == "feature_temporal_v1":
+    elif model == "feature_temporal_v1":
         sd = _feature_temporal(params, stats)
     else:
         raise NotImplementedError(

@@ -6,9 +6,9 @@ sinusoidal positional encoding, input dropout and a stack of pre-norm
 encoder layers. ``unimodal_transformer`` runs it masked; with
 ``mask=False`` (``feature_temporal_v1``'s instance transformer, JAX
 extras.py:219-223) no key mask is built and no row is padded, so every
-row is a live query and key. The reference's other forms (no cls token,
-the ``linear_in`` projection) wait for their first callers (the legacy
-families of ROADMAP Queue 1 item 7).
+row is a live query and key; the legacy families run both forms
+(``models/legacy.py``). The reference's other forms (no cls token, the
+``linear_in`` projection) have no caller in the JAX package's registry.
 
 Parameters keep the reference's state_dict names (``cls_tokens``,
 ``layer_norm_in``, ``layer_stack.{i}``). A stream longer than 512 rows

@@ -28,13 +28,17 @@ from torch import nn
 
 from ..config import Config
 from ..constants import IMG_FEATURE_ID, TXT_FEATURE_ID
+from . import resnet, swin
 from .encoder import MTFusion, TransformerEncoder
 from .heads import ClsHead, ClsHeadLN
 from .mbt import (MBTFusion, MultitokenMBTFusion,
                   MultitokenMBTVSLTMAINFusion, missing_candidate_weights)
+from .maxvit import MaxViT
 from .modules import DropoutSeeds, LayerNorm
+from .resnet import ResNet
 from .swin import PatchStem, SwinTransformer
 from .umse import UMSE
+from .vit import VisionTransformer
 
 ModelOutput = Tuple[torch.Tensor, Optional[torch.Tensor], None]
 
@@ -84,6 +88,39 @@ def _require_three_streams(cfg: Config) -> None:
                          f"--input-types {cfg.input_types}")
 
 
+def image_trunk(cfg: Config, kind: str, dtype: torch.dtype) -> nn.Module:
+    """The CXR trunk of ``kind`` (JAX legacy.py:90-128, models.py:
+    116-146): ``resnet18`` / ``resnet50`` (``models/resnet.py``),
+    ``maxvit``, ``vit`` (ViT-B/16), ``swin`` (the Swin-T), anything else
+    the 16 x 16 patch stem to d_model (a PatchStem)."""
+    if kind.startswith("resnet"):
+        return ResNet(int(kind[len("resnet"):]), dtype)
+    if kind == "maxvit":
+        return MaxViT(dtype=dtype)
+    if kind == "vit":
+        return VisionTransformer(in_channels=1, image_size=cfg.image_size,
+                                 dtype=dtype)
+    if kind == "swin":
+        return SwinTransformer(in_channels=1, dtype=dtype)
+    return PatchStem(cfg.image_size, 16, cfg.transformer_dim, 1, dtype)
+
+
+def trunk_tokens(trunk: nn.Module, img: torch.Tensor,
+                 seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+    """[B, 1, H, W] through an ``image_trunk`` -> its tokens [B, N, C],
+    contiguous (the kernels take them as a stream where no projection
+    sits between); the Swin-T draws its stochastic depth from ``seeds``.
+    The classes are their modules' (this module's names may be patched
+    with narrower factories)."""
+    if isinstance(trunk, swin.SwinTransformer):
+        toks = trunk(img, seeds)
+    elif isinstance(trunk, resnet.ResNet):
+        toks = trunk(img).permute(0, 2, 3, 1)                    # NHWC
+    else:
+        toks = trunk(img)
+    return toks.reshape(toks.shape[0], -1, toks.shape[-1]).contiguous()
+
+
 class ImageEncoder(UMSE):
     """UMSE plus, when ``--input-types`` has img, the image stem: the
     Swin-T trunk (``img_encoder``) and its 768 -> d projection (``linear``)
@@ -91,7 +128,8 @@ class ImageEncoder(UMSE):
     (``patch_embedding``, ``models/swin.py::PatchStem``) where ``stem`` is
     "patch" (``tri_mbt_v3``) or ``--img-model-type`` is neither swin nor
     vit, as the JAX ImageEncoder falls through to it (models.py:146); vit
-    raises (ROADMAP Queue 1 item 7). The trunk is frozen where
+    runs the ViT-B/16 (``models/vit.py``; its 197 tokens through
+    ``linear``), which always trains. The Swin trunk is frozen where
     ``img_frozen`` says, or at ``--img-pretrain Yes`` when it is None (JAX
     models.py:125; the v1 family passes True, tri_mbt_v1.py:228, and
     tri_mbt_v2 False): its parameters take no gradient, it stays in eval
@@ -131,24 +169,22 @@ class ImageEncoder(UMSE):
         self.trunk_rows = 0
         if "img" not in mods:
             return
-        if stem != "patch" and cfg.img_model_type == "vit":
-            raise NotImplementedError(
-                "--img-model-type vit: the ViT encoder is ROADMAP Queue 1 "
-                "item 7 (swin runs the Swin-T trunk, every other type the "
-                "patch stem)")
-        if stem == "patch" or cfg.img_model_type != "swin":
-            self.patch_embedding = PatchStem(cfg.image_size, 16,
-                                             cfg.transformer_dim, 1, dt)
-            return
-        if cfg.img_pretrain_path:
+        kind = (cfg.img_model_type if stem != "patch"
+                and cfg.img_model_type in ("swin", "vit") else "patch")
+        if kind == "swin" and cfg.img_pretrain_path:
             raise NotImplementedError(
                 "--img-pretrain-path: loading torchvision weights into the "
                 "trunk is ROADMAP Queue 1 item 10")
-        self.img_encoder = SwinTransformer(in_channels=1, dtype=dt)
-        self.linear = nn.Linear(self.img_encoder.num_features,
-                                cfg.transformer_dim)
-        self.frozen = (cfg.img_pretrain == "Yes" if img_frozen is None
-                       else img_frozen)
+        trunk = image_trunk(cfg, kind, dt)
+        if isinstance(trunk, PatchStem):
+            self.patch_embedding = trunk
+            return
+        self.img_encoder = trunk
+        self.linear = nn.Linear(trunk.feature_dim, cfg.transformer_dim)
+        # the ViT trains whatever --img-pretrain says (JAX models.py:
+        # 116-121)
+        self.frozen = kind == "swin" and (
+            cfg.img_pretrain == "Yes" if img_frozen is None else img_frozen)
         self.img_encoder.requires_grad_(not self.frozen)
         self.img_pack = self.frozen and (
             cfg.img_pack == 1
@@ -182,7 +218,7 @@ class ImageEncoder(UMSE):
         cap = pack_capacity(self.cfg, rows)
         if not self.img_pack or int(present.sum()) > cap:
             self.trunk_rows = rows
-            return self.img_encoder(img, seeds)
+            return trunk_tokens(self.img_encoder, img, seeds)
         order = torch.argsort((~present).to(torch.int8), stable=True)
         inv = torch.argsort(order)
         packed = torch.cat([img[order[:cap]], torch.zeros_like(img[:1])])

@@ -102,16 +102,24 @@ def dropout(x: torch.Tensor, p: float, training: bool,
 
 
 class LayerNorm(nn.LayerNorm):
-    """torch's LayerNorm (eps 1e-5), statistics in fp32, output in
+    """torch's LayerNorm (eps 1e-5; flax's own default, 1e-6, where a
+    module uses ``nn.LayerNorm`` itself), statistics in fp32, output in
     ``dtype`` (flax ``nn.LayerNorm(dtype=...)`` numerics)."""
 
-    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
-        super().__init__(dim, eps=1e-5)
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-5):
+        super().__init__(dim, eps=eps)
         self.compute_dtype = dtype
 
     def forward(self, x):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,
                             self.bias, self.eps).to(self.compute_dtype)
+
+
+def dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dt)``: x, the weight and the bias in dt."""
+    bias = None if lin.bias is None else lin.bias.to(dt)
+    return F.linear(x.to(dt), lin.weight.to(dt), bias)
 
 
 class StdLayerNorm(nn.Module):

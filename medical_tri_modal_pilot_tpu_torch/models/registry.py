@@ -48,20 +48,21 @@ _REGISTRY: Dict[str, Callable] = {
     "tri_mbt_vmulti2": lambda cfg: M.TRI_MBT_VMULTI(cfg, vslt_main=True),
     "tri_mbt_vmultivslt": M.TRI_MBT_VMULTIVSLT,
     "unimodal_transformer": M.UNIMODAL_TRANSFORMER,
-    "cross_transformer_txt_vslt": LG.CROSS_TRANSFORMER,
-    "bi_cross_transformer_txt_vslt": LG.CROSS_TRANSFORMER,
     # the paper's baselines (JAX registry.py:61-64)
     "gru_d": BL.GRU_D,
     "lstm": BL.LSTM_MODEL,
     "fusiontrainer": BL.FUSIONTRAINER,
     "feature_temporal_v1": X.FEATURE_TEMPORAL_V1,
+    # the legacy families (JAX registry.py:67, legacy.py:685-759)
+    **LG.LEGACY,
 }
 
 # parameters the JAX package initialises to zeros (its nn.initializers.
 # zeros): the learned head weights, the joint stream's cls token, GRU-D's
-# input-decay bias and feature_temporal_v1's stem biases
+# input-decay bias, feature_temporal_v1's stem biases and the ViT's class
+# token
 ZERO_INIT = ("flexibleavg", "final_cls_tokens", "input_decay_b",
-             "feat_bias")
+             "feat_bias", "class_token")
 
 
 def _trunc_normal(shape, generator, std: float) -> torch.Tensor:
@@ -84,7 +85,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     ``recurrent_kernel_init``), a normal of std 0.02 for GRU-D's
     ``input_decay_w``, fan-in normals for ``feat_stems`` (flax's
     lecun-normal over [F, 1, D]: fan-in F) and a truncated normal of std
-    0.02 for the patch stem's ``pos_embed``. One deviation, on trunks
+    0.02 for the patch stem's ``pos_embed``; for the legacy families, a
+    normal of std 0.02 for the ViT's ``pos_embedding``, AUXCPC's
+    ``ct_weight`` [T, ct_dim, F] uniform within +-sqrt(ct_dim) and identity
+    BatchNorms in the ResNet and MaxViT backbones. One deviation, on trunks
     that train only: their Swin stem's convolution bias (``features.0.0``)
     is drawn as torch's Conv2d draws it (uniform within 1/sqrt(fan-in)),
     as the reference's torchvision trunk has it, not zero: at zero a
@@ -147,7 +151,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, PatchStem):
             fill(mod.pos_embed, _trunc_normal(mod.pos_embed.shape,
                                               generator, 0.02))
-        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d,
+                              nn.BatchNorm2d)):
             mod.reset_parameters()
         elif isinstance(mod, StdLayerNorm):
             mod.gamma.fill_(1.0)
@@ -156,22 +161,31 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             for name, p in mod.named_parameters(recurse=False):
                 if name in ZERO_INIT:
                     p.zero_()
-                elif name == "input_decay_w":
+                elif name in ("input_decay_w", "pos_embedding"):
                     fill(p, 0.02 * randn(p))
+                elif name == "ct_weight":
+                    lim = math.sqrt(p.shape[1])
+                    fill(p, (2 * torch.rand(p.shape, generator=generator)
+                             - 1) * lim)
                 elif name == "feat_stems":
                     fill(p, randn(p) / math.sqrt(p.shape[0]))
                 else:
                     fill(p, randn(p))
 
 
-def get_model(cfg: Config, generator: Optional[torch.Generator] = None):
+def get_model(cfg: Config, generator: Optional[torch.Generator] = None,
+              state: Optional[Dict[str, torch.Tensor]] = None):
     """Build the model for ``cfg.model`` on the CPU in eval mode, weights
-    drawn from ``generator`` (default: seeded with ``cfg.seed``)."""
+    drawn from ``generator`` (default: seeded with ``cfg.seed``), or, given
+    ``state``, loaded from it (strictly) without drawing any."""
     name = cfg.model
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown model '{name}'; available: {sorted(_REGISTRY)}")
     model = _REGISTRY[name](cfg)
+    if state is not None:
+        model.load_state_dict(state)
+        return model.eval()
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_parameters(model, generator)

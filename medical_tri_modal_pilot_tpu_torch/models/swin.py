@@ -271,7 +271,7 @@ class SwinTransformer(nn.Module):
                 dim *= 2
         self.features = nn.Sequential(*layers)
         self.norm = LayerNorm(dim, dtype)
-        self.num_features = dim
+        self.feature_dim = dim
 
     def forward(self, x, seeds: Optional[DropoutSeeds] = None):
         """x: [B, C, H, W] (the pipeline's layout) or [B, H, W, C];

@@ -38,7 +38,8 @@ from .schedule import cosine_annealing_warmup_restarts, cosine_warmup_single
 # the batch keys the train and eval steps read, and the wire format's
 # (resolved on the device into "txt" and "img")
 BATCH_KEYS = ("vslt", "static", "input_length", "img", "img_time", "txt",
-              "txt_length", "txt_time", "missing", "target", "target_aux")
+              "txt_length", "txt_time", "missing", "target", "target_aux",
+              "f_indices")
 WIRE_KEYS = ("txt_id", "img_pack", "img_rows")
 # k -> k / 255 in fp32, as the loader's to_tensor computes it
 # (data/images.py): uint8 pixels resolve by lookup, bit for bit

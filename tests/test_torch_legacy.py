@@ -180,7 +180,7 @@ def test_registry_and_parameters():
             NAMES[0], "--transformer-num-layers", layers)))
         assert (m.n_self, m.n_cross) == (n_self, n_cross)
     with pytest.raises(KeyError, match="cross_transformer_txt_vslt"):
-        get_model(parse_config(_argv("cross_transformer_img_vslt_sssccc")))
+        get_model(parse_config(_argv("cross_transformer_img_vslt_ssscc")))
 
 
 def test_carryforward_batches():
@@ -195,17 +195,21 @@ def test_carryforward_batches():
 
 
 def test_unported_inputs_raise():
-    """Images (the legacy image backbones, ROADMAP Queue 1 item 7) raise,
-    naming their item; note token ids reach a BioBERT projection only by
-    mistake, and raise naming --berttype bert (whose token table is
+    """What still raises: a TIE or QIE --vslt-type on a legacy model (the
+    legacy families read the carryforward grid; images and vital signs
+    with notes run, tests/test_torch_legacy_fusion.py), one stream alone
+    in the cross transformer, and note token ids that reach a BioBERT
+    projection by mistake, naming --berttype bert (whose token table is
     ported: test_cross_transformer_bert_eval_matches_jax)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        get_model(parse_config(_argv(NAMES[0], "--input-types",
-                                     "vslt_img_txt")))
+    for vslt_type in ("TIE", "QIE"):
+        for name in (NAMES[0], "earlyfusion_img_txt_vslt", "auxcpc_mbt"):
+            with pytest.raises(NotImplementedError, match="carryforward"):
+                get_model(parse_config(_argv(name, "--vslt-type",
+                                             vslt_type)))
+    with pytest.raises(ValueError, match="vslt with img or txt"):
+        get_model(parse_config(_argv(NAMES[0], "--input-types", "vslt")))
     cfg = parse_config(_argv())
     batch = _batch(cfg)
     batch["txt"] = np.zeros((B, 128), np.int32)
     with pytest.raises(ValueError, match="--berttype bert"):
         port_trainer.Trainer(cfg, get_model(cfg), "cpu").eval_step(batch)
-    with pytest.raises(NotImplementedError, match="carryforward"):
-        get_model(parse_config(_argv(NAMES[0], "--vslt-type", "TIE")))

@@ -72,8 +72,9 @@ def test_tri_mbt_v2_matches_jax(narrow_trunks):
 
 def test_patch_stem_fall_through_and_bridges(narrow_trunks):
     """--img-model-type resnet18 (or maxvit) takes the patch stem on both
-    sides; vit raises; tri_mbt_v2's and tri_mbt_v3's trees cross leaf for
-    leaf; v2 and v3 take one image per sample and three streams."""
+    sides; vit the ViT, trainable (tests/test_torch_legacy_models.py);
+    tri_mbt_v2's and tri_mbt_v3's trees cross leaf for leaf; v2 and v3
+    take one image per sample and three streams."""
     for argv in (argv_for("tri_mbt_vsltcls", "--img-model-type", "resnet18"),
                  argv_for("tri_mbt_v2"), argv_for("tri_mbt_v3")):
         cfg = check_bridge(argv, batch_for(parse_config(argv)))
@@ -81,9 +82,10 @@ def test_patch_stem_fall_through_and_bridges(narrow_trunks):
                                             "--img-model-type", "maxvit")))
     assert hasattr(model, "patch_embedding") and not hasattr(model,
                                                              "img_encoder")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        get_model(parse_config(argv_for("tri_mbt_vsltcls",
-                                        "--img-model-type", "vit")))
+    vit = get_model(parse_config(argv_for("tri_mbt_vsltcls",
+                                          "--img-model-type", "vit")))
+    assert not hasattr(vit, "patch_embedding") and not vit.frozen
+    assert isinstance(vit.img_encoder, models.VisionTransformer)
     for name in ("tri_mbt_v2", "tri_mbt_v3"):
         with pytest.raises(ValueError, match="one image per sample"):
             get_model(parse_config(argv_for(name, "--multiimages", "1")))

@@ -156,17 +156,16 @@ def test_missing_num_and_losses_match_jax():
 
 def test_unported_paths_raise():
     """What the port does not run yet raises, naming its ROADMAP item:
-    the legacy families (binary_t_transformer; the registry's KeyError
-    lists the names it holds, gru_d among them), the ViT encoder, loading
-    pretrained trunk weights, and several optimizer steps a dispatch
-    (--train-multi-k > 1). The txt_id / uint8 / packed-image wire format
-    runs (tests/test_torch_drivers.py); a txt_id batch without the note
-    table is refused by name."""
-    with pytest.raises(KeyError, match="gru_d.*tri_mbt_vsltcls"):
-        get_model(_cfg("--model", "binary_t_transformer"))
+    loading pretrained trunk weights, and several optimizer steps a
+    dispatch (--train-multi-k > 1); a name outside the registry raises
+    a KeyError listing the names it holds (gru_d and the legacy
+    binary_t_transformer among them). The txt_id / uint8 / packed-image
+    wire format runs (tests/test_torch_drivers.py); a txt_id batch
+    without the note table is refused by name."""
+    with pytest.raises(KeyError,
+                       match="available: .*'binary_t_transformer'.*'gru_d'"):
+        get_model(_cfg("--model", "binary_t_transformer_v9"))
     tri = ("--input-types", "vslt_img_txt")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        get_model(_cfg(*tri, "--img-model-type", "vit"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         get_model(_cfg(*tri, "--img-pretrain-path", "swin_t.pth"))
     cfg = _cfg()
