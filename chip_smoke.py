@@ -292,9 +292,34 @@ Phases, each raising on failure (nothing is caught):
      15's step gates, with LG_ALLOW's allowances for the runs it names);
      one run per archetype (LEGACY_TIMED) timed in turns and profiled; a
      TIE stream refused. Prints the phase's seconds.
+  21. data parallelism: (c) first, the kernels that draw dropout masks at a
+     data rank's row offset (row0 = 32 x 1024, the second rank's half of
+     the vslt rows; ROW0_SHAPES, bf16 and fp32): dropout_masks bit for bit
+     against the plain version at row0 and against those rows of the
+     whole batch's masks; the ffn forward (p 0.1, the TIE stream's tile
+     flags) bit for bit against the whole batch's call on those rows,
+     within TOL of its plain version, every element its plain output mask
+     drops exactly x; its backward's dx bit for bit against the whole
+     batch's, its gradients within GRAD_TOL of autograd of the plain
+     version; the split route at C 512; each form's event and device ms
+     beside row0 = 0. Then (a) config 4 at full width through the train
+     driver's fold (4 train batches, 1 val, 1 test; --dropout 0.1, adamw)
+     and the test driver's walk, bf16 and fp32, in two gloo ranks of
+     dp_rank (parallel.launch, --dp-size 2, both on cuda:0) and in this
+     process on the same global batches from the same seeded weights
+     (DP_RUNS); (b) the same at --dp-size 2 --mp-size 2 in four ranks at
+     TP_LAYERS layers (2 train batches); the ranks of (a) and (b) run at
+     once, after the single process's folds. Gates (_dp_check): every
+     step's loss, each rank's launches per step (and the single process's
+     under (a)), the walk's probabilities (fp32 DP_PROB_FP32, bf16
+     PROB_TOL or the single process's noise floor), the state after the
+     steps by phase 7's Frobenius rules (the first Adam moments in the
+     gradients' place, and the parameters' updates; fp32 DP_STATE_FP32);
+     prints each rank's ms/step (events clock) beside the single
+     process's, its peak memory, the phase's seconds.
 The kernel phases (3, 5b, 6, 9, 12, 3w) run first, then 4-5, 7-8, 10-11,
-13, 14, 14b, 15, 16, 17, 18, 19 and 20, with the run's clock after each
-group.
+13, 14, 14b, 15, 16, 17, 18, 19, 20 and 21, with the run's clock after
+each group.
 Then one JSON line per the kernels (each with the path that launches it
 and its launches over that path's steps, under ``other_paths`` its
 launches on phases 15, 16, 18, 19 and 20's other train paths, under
@@ -304,8 +329,13 @@ launches on phases 15, 16, 18, 19 and 20's other train paths, under
 plain-recompute backward at stage 1 with the step totals, attn_block and
 the ffn at feature_temporal_v1's shape, under ``legacy`` phase 20's:
 the attention at 49 image keys, attn_block at the joint stream, with the
-other shapes under ``other_shapes``) and, last, {"ok": true, "device":
+other shapes under ``other_shapes``; under ``row0`` phase 21's row-offset
+forms of dropout_masks and the ffn) and, last, {"ok": true, "device":
 ...}.
+
+    python3 chip_smoke.py dp
+
+runs the build and phase 21 alone;
 
     python3 chip_smoke.py baseline
 
@@ -2260,9 +2290,9 @@ def run_train(name: str, argv, power: str, timed: bool,
     # shapes of its dropout masks are recorded
     masks, dispatch = [], ops.dropout_masks
 
-    def record(R, F, C, *args, col0=0):
+    def record(R, F, C, *args, col0=0, row0=0):
         masks.append((R, F, C, col0))
-        return dispatch(R, F, C, *args, col0=col0)
+        return dispatch(R, F, C, *args, col0=col0, row0=row0)
 
     ops.dropout_masks = record
     ops.reset_launches()
@@ -5578,6 +5608,541 @@ def run_legacy(power: str, runs=()) -> tuple:
     return results, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 21: data parallelism. First the kernels that draw dropout masks at
+# a data rank's row offset (row0); then config 4 at full width (bf16 and
+# fp32, --dropout 0.1, adamw) through the drivers in two gloo ranks that
+# share the card at --dp-size 2 (each computes on its half of every
+# global batch), and in four at --dp-size 2 --mp-size 2 (TP_LAYERS
+# layers), each against the single process on the same global batches
+DP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "dp_smoke")
+DP_LABEL = ("ranks share one H100 over gloo, beside the other run's ranks: "
+            "not a data-parallel speed figure")
+# run -> (argv, ranks, batches' present-image fractions by split, eval and
+# train launches per step and rank)
+DP_RUNS = {
+    "dp": (CONFIG4 + ["--dp-size", "2"], 2,
+           {"train": [0.5, 0.25, 0.75, 0.5], "val": [0.5], "test": [0.75]},
+           LAUNCHES_PER_STEP["config4"], TRAIN_LAUNCHES_PER_STEP["config4"]),
+    "dp_mp": (CONFIG4 + ["--dp-size", "2", "--mp-size", "2",
+                         "--transformer-num-layers", str(TP_LAYERS)], 4,
+              {"train": [0.5, 0.75], "val": [0.5], "test": [0.25]},
+              TP_EVAL_LAUNCHES, TP_TRAIN_LAUNCHES),
+}
+DP_PRECS = ("bf16", "fp32")
+# fp32 gates of a dp run against the single process after its Adam steps
+# (the two differ by the order of the gradient sums, which Adam turns into
+# steps of up to lr on elements whose gradient is near 0): the test
+# driver's largest probability difference, and the median and the largest
+# over the tensors of |dp - single|_F / |single|_F of each first Adam
+# moment and each parameter update; each set between the sound readings
+# and those of two planted faults, a rank drawing the first rank's masks
+# and BatchNorm on local statistics (PERF.md, section 6): sound
+# probabilities 2.7e-4, faults 8.9e-2 and up; sound medians 7.1e-4 and
+# below, faults 0.47 and up; sound largest 0.137 (an update whose
+# gradient is near 0), faults 0.73 and up
+DP_PROB_FP32 = 2e-3
+DP_STATE_FP32 = {"median": 3e-2, "max": 0.3}
+# the row-offset kernel forms: a data rank's half of the main path's
+# [64 x 1024] vslt rows at C 256 (F 1024, and F 0: the input dropout's
+# masks alone) and at the split route's C 512 (F 2048)
+ROW0_SHAPES = ((256, 1024), (256, 0), (512, 2048))
+
+
+def _dp_argv(run: str, prec: str, who: str):
+    return DP_RUNS[run][0] + [
+        "--precision", prec, "--dropout", "0.1", "--epochs", "1",
+        "--log-iter", "1", "--img-pack-frac", "0.55",
+        "--dir-result", os.path.join(DP_DIR, who),
+        "--project-name", f"{run}_{prec}"]
+
+
+@contextlib.contextmanager
+def _recorded_probs():
+    """Every probability an Evaluator is given meanwhile, in order."""
+    from medical_tri_modal_pilot_tpu_torch.train.metrics import Evaluator
+    seen, add = [], Evaluator.add_batch
+
+    def recorded(self, y_true, y_prob, *args, **kwargs):
+        seen.append(np.asarray(y_prob, dtype=np.float64).reshape(-1))
+        return add(self, y_true, y_prob, *args, **kwargs)
+    Evaluator.add_batch = recorded
+    try:
+        yield seen
+    finally:
+        Evaluator.add_batch = add
+
+
+def _dp_fold(cfg, splits, dev, mesh) -> dict:
+    """The train driver's fold from seeded weights over the run's wire
+    batches, then the test driver's walk over its checkpoints: the
+    launches of the fold, its seconds and peak memory, the walk's
+    probabilities and the last checkpoint's path."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import BatchList
+    from medical_tri_modal_pilot_tpu_torch.drivers import common
+    from medical_tri_modal_pilot_tpu_torch.drivers import test as test_drv
+    from medical_tri_modal_pilot_tpu_torch.drivers import train as train_drv
+    from medical_tri_modal_pilot_tpu_torch.train import checkpoints as ckpt
+    from medical_tri_modal_pilot_tpu_torch.train.logger import \
+        make_setting_file
+    wire, _, table = _driver_loaders(cfg, splits)
+    loaders = lambda: [BatchList(wire[k]) for k in ("train", "val", "test")]
+    make_setting_file(cfg)
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    common.set_seeds(cfg.seed)       # the model's seeded weights
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    train_drv.run_fold(cfg, 0, *loaders(), txt_table=table, device=dev,
+                       mesh=mesh)
+    torch.cuda.synchronize()
+    res = {"run_s": time.perf_counter() - t0, "counts": dict(ops.launches),
+           "peak": torch.cuda.max_memory_allocated()}
+    with _recorded_probs() as probs:
+        test_drv.run_checkpoints(cfg, test_drv.checkpoints_of(cfg),
+                                 loaders()[2], table, dev, mesh)
+    res["probs"] = np.concatenate(probs)
+    res["last"] = ckpt.ckpt_path(cfg.dir_result, cfg.project_name, "last", 0,
+                                 cfg.seed)
+    return res
+
+
+def dp_rank(out_dir: str, run: str) -> None:
+    """One rank of phase 21's ``run`` (started by parallel.launch): the
+    drivers' set-up (common.setup_distributed: gloo, every rank on cuda:0,
+    the mesh), then _dp_fold at each of DP_PRECS; each rank writes its
+    results to ``out_dir``/rank{r}.pt."""
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.drivers import common
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    for prec in DP_PRECS:
+        cfg = parse_config(_dp_argv(run, prec, "ranks"))
+        dev, mesh = common.setup_distributed(cfg)
+        if dev.type != "cuda":
+            raise AssertionError(f"dp rank on {dev}")
+        res[prec] = _dp_fold(cfg, DP_RUNS[run][2], dev, mesh)
+        res[prec]["mesh"] = (mesh.dp, mesh.mp, mesh.rank)
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def _dp_noise_floor(run: str, prec: str, want: np.ndarray) -> float:
+    """The single process's own distance from its test driver
+    probabilities ``want`` when its seeded weights carry STEP_NOISE of
+    relative noise: the largest over STEP_NOISE_DRAWS draws of the walk's
+    max |prob diff| (the folds in this process, no other change). After
+    a few Adam steps a bf16 run amplifies a rounding-size difference in
+    its state into probability differences of this order."""
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.drivers import train as train_drv
+    build = train_drv.get_model
+    floor = 0.0
+    for draw in range(STEP_NOISE_DRAWS):
+        g = torch.Generator().manual_seed(draw)
+
+        def nudged(cfg, *args, **kwargs):
+            model = build(cfg, *args, **kwargs)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + STEP_NOISE * torch.randn(
+                        p.shape, generator=g, dtype=p.dtype))
+            return model
+        cfg = parse_config(_dp_argv(run, prec, f"noise{draw}")).replace(
+            dp_size=0, mp_size=0)
+        train_drv.get_model = nudged
+        try:
+            res = _dp_fold(cfg, DP_RUNS[run][2], torch.device("cuda"), None)
+        finally:
+            train_drv.get_model = build
+        floor = max(floor, float(np.max(np.abs(res["probs"] - want))))
+    return floor
+
+
+def _dp_state(names, path) -> dict:
+    """A checkpoint's trainable tensors by name (``names``, the
+    optimizer's order): (first Adam moment, parameter), in fp32 on the
+    card."""
+    from medical_tri_modal_pilot_tpu_torch.train import checkpoints as ckpt
+    pay = ckpt.load_checkpoint(path)
+    dev = torch.device("cuda")
+    return {n: (pay["optimizer"]["state"][i]["exp_avg"].float().to(dev),
+                pay["model"][n].float().to(dev)) for i, n in enumerate(names)}
+
+
+def _dp_events(cfg) -> list:
+    root = os.path.join(cfg.dir_result, cfg.project_name)
+    return [e for e in _events(os.path.join(root, "logs_0", "events.jsonl"))
+            if e["tag"] == "train/loss"]
+
+
+def _dp_errors(a: dict, b: dict, i: int, init=None) -> dict:
+    """_step_errors of the checkpoints' entry ``i`` (0 the first Adam
+    moment, 1 the parameter); with ``init``, of the parameters' updates
+    from it: |a - b|_F / |b - init|_F per tensor."""
+    if init is None:
+        return _step_errors({n: (v[i], None) for n, v in a.items()},
+                            {n: (v[i], None) for n, v in b.items()})
+    return _step_errors({n: (v[i] - init[n], None) for n, v in a.items()},
+                        {n: (v[i] - init[n], None) for n, v in b.items()})
+
+
+def _dp_check(run: str, power: str, single: dict, ranks: list,
+              scored: dict, floor: float) -> list:
+    """Phase 21's gates for ``run``: per precision the loss of every step
+    (STEP_LOSS_TOL), each rank's launches equal to the single process's
+    and to the per-step tables, the test driver's probabilities against
+    the single process's run (fp32 within DP_PROB_FP32; bf16 within
+    PROB_TOL["bf16"], or past it within STEP_NOISE_RATIO of ``floor``, the
+    single process's own distance under STEP_NOISE of weight noise,
+    _dp_noise_floor) and against the single process scoring the ranks'
+    own checkpoints (``scored``) within PROB_TOL of the precision (the
+    eval path alone); the state after the steps by phase 7's Frobenius
+    rules, the first Adam moments (the steps' gradients) and the
+    parameters' updates from the seeded weights per tensor: fp32 |dp -
+    single|_F / |single|_F at the median and the largest within
+    DP_STATE_FP32, bf16 against the fp32
+    single process within STEP_BF16_RATIO of the single process's bf16
+    distance (+ 1e-2) at the median and the largest. Returns the
+    failures."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.drivers.common import set_seeds
+    _, nproc, splits, eval_pp, train_pp = DP_RUNS[run]
+    n_train = len(splits["train"])
+    n_eval = len(splits["val"]) + len(splits["test"])
+    # the seeded initial weights (the same at both precisions) and the
+    # trainable parameters' names in the optimizer's order
+    cfg = parse_config(_dp_argv(run, DP_PRECS[0], "single")).replace(
+        dp_size=0, mp_size=0)
+    set_seeds(cfg.seed)
+    init = {n: p.detach().float().cuda()
+            for n, p in get_model(cfg).named_parameters() if p.requires_grad}
+    names = list(init)
+    failures, states = [], {}
+    for prec in DP_PRECS:
+        cfg = parse_config(_dp_argv(run, prec, "single")).replace(
+            dp_size=0, mp_size=0)
+        rcfg = parse_config(_dp_argv(run, prec, "ranks"))
+        s, r0 = single[prec], ranks[0][prec]
+        losses = [e["value"] for e in _dp_events(cfg)]
+        got = [e["value"] for e in _dp_events(rcfg)]
+        d_loss = max(abs(a - b) for a, b in zip(got, losses))
+        want = {k: n_train * train_pp.get(k, 0) + n_eval * eval_pp.get(k, 0)
+                for k in ops.KERNELS}
+        bad = [(r, k) for r, res in enumerate(ranks) for k in ops.KERNELS
+               if res[prec]["counts"][k] != want[k]]
+        if run == "dp":
+            bad += [("single", k) for k in ops.KERNELS
+                    if s["counts"][k] != want[k]]
+        d_prob = float(np.max(np.abs(r0["probs"] - s["probs"])))
+        d_own = float(np.max(np.abs(r0["probs"] - scored[prec])))
+        states[prec] = (_dp_state(names, s["last"]),
+                        _dp_state(names, r0["last"]))
+        one = states[prec][0]
+        moved = max(float((one[n][1] - init[n]).abs().max()) for n in one)
+        if prec == "fp32":
+            prob_tol = DP_PROB_FP32
+            prob_ok = d_prob <= prob_tol
+        else:
+            prob_tol = PROB_TOL["bf16"]
+            prob_ok = d_prob <= prob_tol or d_prob <= STEP_NOISE_RATIO * floor
+        print(f"dp {run} {prec}: losses {[round(x, 6) for x in got]} vs "
+              f"single {[round(x, 6) for x in losses]} (max |diff| "
+              f"{d_loss:.3e}, tol {STEP_LOSS_TOL[prec]}); test driver "
+              f"probabilities max |diff| {d_prob:.3e} (tol {prob_tol}"
+              + ("" if prec == "fp32" else
+                 f", or {STEP_NOISE_RATIO}x the single process's "
+                 f"{floor:.3e} under {STEP_NOISE} relative weight noise, "
+                 f"the largest of {STEP_NOISE_DRAWS} draws")
+              + f"; {prob_ok}) over {len(s['probs'])}, against the single "
+              f"process scoring the ranks' checkpoints {d_own:.3e} (tol "
+              f"{PROB_TOL[prec]}); launches per rank {r0['counts']} "
+              f"(expected {want}; off: {bad}); parameters moved up to "
+              f"{moved:.3e}")
+        if len(got) != n_train or len(losses) != n_train or \
+                not np.all(np.isfinite(got)) or d_loss > STEP_LOSS_TOL[prec]:
+            failures.append(f"{run} {prec}: losses")
+        if bad:
+            failures.append(f"{run} {prec}: launches {bad[:4]}")
+        if not np.all(np.isfinite(r0["probs"])) or not prob_ok or \
+                d_own > PROB_TOL[prec] or \
+                len(r0["probs"]) != len(s["probs"]) or not len(s["probs"]):
+            failures.append(f"{run} {prec}: test probabilities")
+        if moved == 0.0:
+            failures.append(f"{run} {prec}: parameters did not move")
+        for r, res in enumerate(ranks):
+            print(f"dp {run} {prec} rank {r} ({power}; {DP_LABEL}): the "
+                  f"fold {res[prec]['run_s']:.1f} s, peak device memory "
+                  f"{res[prec]['peak'] / 2 ** 30:.3f} GiB; single process "
+                  f"{s['run_s']:.1f} s, {s['peak'] / 2 ** 30:.3f} GiB")
+        t1 = [e["t"] for e in _dp_events(rcfg)]
+        t0 = [e["t"] for e in _dp_events(cfg)]
+        ms = lambda t: [round(1e3 * (t[i] - t[i - 1]), 1)
+                        for i in range(1, len(t))]
+        print(f"dp {run} {prec} train ms/step (events clock; {power}; "
+              f"{DP_LABEL}): rank 0 {ms(t1)}, single process alone {ms(t0)}")
+    (one32, dp32), (one16, dp16) = states["fp32"], states["bf16"]
+    for what, ref in (("first Adam moments", None),
+                      ("parameter updates", init)):
+        i = 0 if ref is None else 1
+        e32 = _dp_errors(dp32, one32, i, ref)
+        print(f"dp {run} fp32 {what} |dp - single|_F/|single|_F over "
+              f"{len(e32)} tensors: {_summary(e32)} (tol {DP_STATE_FP32})")
+        for stat in (statistics.median, max):
+            if not stat(e32.values()) <= DP_STATE_FP32[stat.__name__]:
+                failures.append(f"{run} fp32: {stat.__name__} {what}")
+        k_err, p_err = (_dp_errors(dp16, one32, i, ref),
+                        _dp_errors(one16, one32, i, ref))
+        print(f"dp {run} bf16 {what} against the fp32 single process: dp "
+              f"{_summary(k_err)}; single {_summary(p_err)} (within "
+              f"{STEP_BF16_RATIO}x + 1e-2)")
+        for stat in (statistics.median, max):
+            if not stat(k_err.values()) <= STEP_BF16_RATIO * stat(
+                    p_err.values()) + 1e-2:
+                failures.append(f"{run} bf16: {stat.__name__} {what} "
+                                "against fp32")
+    return failures
+
+
+def _dp_launch(run: str) -> list:
+    """The ranks of dp_rank for ``run`` through parallel.launch; their
+    results in rank order."""
+    from medical_tri_modal_pilot_tpu_torch.parallel.launch import launch
+    nproc = DP_RUNS[run][1]
+    out = os.path.join(DP_DIR, f"{run}_ranks")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    launch("chip_smoke:dp_rank", nproc, f"file://{out}/rendezvous",
+           [out, run], timeout=900)
+    print(f"dp {run}: {nproc} ranks done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(nproc)]
+
+
+def run_dp(power: str) -> None:
+    """Phase 21 (a) and (b): the single process's folds on the card for
+    every run of DP_RUNS, alone; then the ranks of every run at once
+    (_dp_launch, one thread each) while this process finds each run's bf16
+    noise floor (_dp_noise_floor); then per run the ranks' checkpoints
+    scored in this process and _dp_check; raises with every failure."""
+    from concurrent.futures import ThreadPoolExecutor
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import BatchList
+    from medical_tri_modal_pilot_tpu_torch.drivers import test as test_drv
+    t_phase = time.perf_counter()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    dev = torch.device("cuda")
+    single = {}
+    for run, (_, _, splits, _, _) in DP_RUNS.items():
+        single[run] = {}
+        for prec in DP_PRECS:
+            cfg = parse_config(_dp_argv(run, prec, "single")).replace(
+                dp_size=0, mp_size=0)
+            single[run][prec] = _dp_fold(cfg, splits, dev, None)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(DP_RUNS)) as pool:
+        jobs = {run: pool.submit(_dp_launch, run) for run in DP_RUNS}
+        floors = {run: _dp_noise_floor(run, "bf16",
+                                       single[run]["bf16"]["probs"])
+                  for run in DP_RUNS}
+        ranks = {run: job.result() for run, job in jobs.items()}
+    print(f"dp: every run's ranks and the noise floors done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    failures = []
+    for run, (_, _, splits, _, _) in DP_RUNS.items():
+        # the ranks' checkpoints scored by the test driver in one process
+        scored = {}
+        for prec in DP_PRECS:
+            cfg = parse_config(_dp_argv(run, prec, "single")).replace(
+                dp_size=0, mp_size=0)
+            paths = test_drv.checkpoints_of(
+                parse_config(_dp_argv(run, prec, "ranks")))
+            wire, _, table = _driver_loaders(cfg, splits)
+            with _recorded_probs() as probs:
+                test_drv.run_checkpoints(cfg, paths, BatchList(wire["test"]),
+                                         table, dev)
+            scored[prec] = np.concatenate(probs)
+        failures += _dp_check(run, power, single[run], ranks[run], scored,
+                              floors[run])
+        gc_collect()
+    print(f"dp phase ({power}): {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"data parallelism: {failures}")
+
+
+def compare_row0_kernels() -> dict:
+    """Phase 21 (c): the kernels that draw dropout masks at a data rank's
+    row offset (row0 = the first rank's rows, the second rank's half of
+    the main path's vslt rows), bf16 and fp32, at ROW0_SHAPES. dropout_masks
+    bit for bit against plain_dropout_masks at row0 and against those
+    rows of the whole batch's masks; the ffn forward at p 0.1 bit for bit
+    against the whole batch's call on those rows, within TOL of its plain
+    version, every output element its plain output mask drops exactly x;
+    its backward's dx bit for bit against the whole batch's, every
+    gradient within GRAD_TOL of autograd of the plain version. Each form's
+    CUDA-event ms and the profiler's device ms at row0 beside row0 = 0.
+    Returns {kernel: results} for the kernels line."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels.ffn import \
+        plain_dropout_masks
+    from medical_tri_modal_pilot_tpu_torch.models.modules import (
+        ffn_row_blocks, length_key_mask)
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(21)
+    P, L, half = 0.1, 1024, BATCH // 2
+    R, row0 = half * L, half * L
+    out = {"dropout_masks": {}, "ffn": {}, "ffn_bwd": {}}
+    failures = []
+
+    def timed(call):
+        ms = _median_ms(call)
+        dev_ms, _ = _device_ms(call)
+        return ms, dev_ms
+
+    for C, F in ROW0_SHAPES:
+        key = f"[{R},{F}]+[{R},{C}] row0 {row0}"
+        call = lambda r0: ops.dropout_masks(R, F, C, DROPOUT_SEED, P, dev,
+                                            row0=r0)
+        got = call(row0)
+        plain = plain_dropout_masks(R, F, C, DROPOUT_SEED, P, dev, row0=row0)
+        whole = ops.dropout_masks(2 * R, F, C, DROPOUT_SEED, P, dev)
+        same = all(torch.equal(a, b) and torch.equal(a, w[row0:])
+                   for a, b, w in zip(got, plain, whole))
+        ms0, dms0 = timed(lambda: call(0))
+        ms1, dms1 = timed(lambda: call(row0))
+        with ops.reference_path():
+            plain_ms = _median_ms(lambda: call(row0), reps=3)
+        bound = _bound(R * (F + C), PHILOX_OPS_PER_BYTE * R * (F + C),
+                       torch.int32)
+        del got, plain, whole
+        print(f"kernel dropout_masks {key}: bit-identical to the plain "
+              f"version and to the whole batch's rows {same}; ms {ms1:.4f} "
+              f"(row0 0: {ms0:.4f}), device ms {dms1:.4f} (row0 0: "
+              f"{dms0:.4f}), plain_ms {plain_ms:.3f}, bound_ms "
+              f"{bound['bound_ms']:.4f} ({bound['bound_by']})")
+        out["dropout_masks"][key] = {"bit_identical": same, "ms": ms1,
+                                     "device_ms": dms1, "ms_row0_0": ms0,
+                                     "device_ms_row0_0": dms0,
+                                     "plain_ms": plain_ms, **bound,
+                                     "library_ms": None}
+        if not same:
+            failures.append(f"dropout_masks {key}")
+        if F == 0:
+            continue
+        lengths = torch.randint(1, L + 1, (BATCH,), generator=g)
+        lengths[BATCH - 3] = 0
+        mask = length_key_mask(lengths.to(dev), L)
+        for dt in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dt == torch.bfloat16 else "fp32"
+            rnd = lambda *s, std=1.0, mean=0.0: (
+                mean + std * torch.randn(*s, generator=g)).to(dev)
+            ws = (rnd(C, std=.1, mean=1.), rnd(C, std=.1),
+                  rnd(C, F, std=C ** -.5), rnd(F, std=.1),
+                  rnd(F, C, std=F ** -.5), rnd(C, std=.1))
+            x = rnd(BATCH, L, C).to(dt)
+            flags = ffn_row_blocks(x, mask)
+            rows_all = flags.repeat_interleave(L // flags.shape[1], dim=1)
+            rows = rows_all[half:]
+            xs, fs = x[half:].contiguous(), flags[half:].contiguous()
+            fwd = lambda xx, ff, r0, *w: ops.ffn(
+                xx, *w, ff, p=P, training=True, seed=DROPOUT_SEED, row0=r0)
+            with torch.no_grad():
+                y_whole = fwd(x, flags, 0, *ws)
+                y = fwd(xs, fs, row0, *ws)
+                with ops.reference_path():
+                    y_plain = fwd(xs, fs, row0, *ws)
+            live = rows.bool()
+            same_f = torch.equal(y, y_whole[half:])
+            err = (y.float() - y_plain.float()).abs()[live]
+            atol, rtol = TOL[dt]
+            bad = int((err > atol + rtol * y_plain.float().abs()[live]).sum())
+            keep_z = plain_dropout_masks(R, F, C, DROPOUT_SEED, P, dev,
+                                         row0=row0)[1].reshape(y.shape)
+            dropped = live[:, :, None] & ~keep_z
+            kept_x = bool(torch.equal(y[dropped], xs[dropped]))
+            ms0, dms0 = timed(lambda: fwd(xs, fs, 0, *ws))
+            ms1, dms1 = timed(lambda: fwd(xs, fs, row0, *ws))
+            with ops.reference_path():
+                pf_ms = _median_ms(lambda: fwd(xs, fs, row0, *ws), reps=3)
+            es, n_live = xs.element_size(), float(rows.sum())
+            wbytes = (2 * C * F + F + C) * 4
+            bf = _bound(2 * R * C * es + wbytes, 4.0 * n_live * C * F, dt)
+            bb = _bound(3 * R * C * es + 2 * wbytes, 10.0 * n_live * C * F,
+                        dt)
+            # backward: the half's dx against the whole batch's rows, the
+            # gradients against autograd of the plain version
+            # zero on the rows of dead tiles, which the kernels skip and
+            # the plain version computes
+            cot = rnd(BATCH, L, C).to(dt) * rows_all[:, :, None].to(dt)
+            grads = {}
+            for name, xx, ff, r0, cc, plain in (
+                    ("whole", x, flags, 0, cot, False),
+                    ("half", xs, fs, row0, cot[half:].contiguous(), False),
+                    ("plain", xs, fs, row0, cot[half:].contiguous(), True)):
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in (xx,) + ws]
+                ctx = ops.reference_path() if plain else \
+                    contextlib.nullcontext()
+                with ctx:
+                    yy = fwd(leaves[0], ff, r0, *leaves[1:])
+                    grads[name] = torch.autograd.grad(yy, leaves, cc)
+                if name == "half":
+                    half_leaves, half_y = leaves, yy
+            same_b = torch.equal(grads["half"][0], grads["whole"][0][half:])
+            g_err = _grad_errors([t.float() for t in grads["half"]],
+                                 [t.float() for t in grads["plain"]])
+            bms = {}
+            bc = cot[half:].contiguous()
+            for r0 in (0, row0):
+                yy = fwd(half_leaves[0], fs, r0, *half_leaves[1:])
+                bms[r0] = timed(lambda: torch.autograd.grad(
+                    yy, half_leaves, bc, retain_graph=True))
+            with ops.reference_path():
+                yy = fwd(half_leaves[0], fs, row0, *half_leaves[1:])
+                pb_ms = _median_ms(lambda: torch.autograd.grad(
+                    yy, half_leaves, bc, retain_graph=True), reps=3)
+            del grads, half_leaves, half_y, yy
+            print(f"kernel ffn [{R},{C}] F {F} {tag} p {P} row0 {row0}: "
+                  f"forward bit-identical to the whole batch's rows "
+                  f"{same_f}, {bad} outside TOL of the plain version (max "
+                  f"{float(err.max()):.3e}), dropped outputs exactly x "
+                  f"{kept_x}; ms {ms1:.4f} (row0 0: {ms0:.4f}), device ms "
+                  f"{dms1:.4f} (row0 0: {dms0:.4f}), plain_ms {pf_ms:.3f}, "
+                  f"bound_ms {bf['bound_ms']:.4f} ({bf['bound_by']}); "
+                  f"backward dx bit-identical to the whole batch's rows "
+                  f"{same_b}, grad |err|_F/|plain|_F "
+                  f"{' '.join(f'{e:.2e}' for e in g_err)} (tol "
+                  f"{GRAD_TOL[dt]:g}); ms {bms[row0][0]:.4f} (row0 0: "
+                  f"{bms[0][0]:.4f}), device ms {bms[row0][1]:.4f} (row0 0: "
+                  f"{bms[0][1]:.4f}), plain_ms {pb_ms:.3f}, bound_ms "
+                  f"{bb['bound_ms']:.4f} ({bb['bound_by']})")
+            key = f"[{R},{C}] F {F} {tag} row0 {row0}"
+            out["ffn"][key] = {
+                "bit_identical_to_whole": same_f, "outside_tol": bad,
+                "dropped_are_x": kept_x, "ms": ms1, "device_ms": dms1,
+                "ms_row0_0": ms0, "device_ms_row0_0": dms0,
+                "plain_ms": pf_ms, **bf, "library_ms": None}
+            out["ffn_bwd"][key] = {
+                "dx_bit_identical_to_whole": same_b, "grad_err_f": max(g_err),
+                "ms": bms[row0][0], "device_ms": bms[row0][1],
+                "ms_row0_0": bms[0][0], "device_ms_row0_0": bms[0][1],
+                "plain_ms": pb_ms, **bb, "library_ms": None}
+            if not (same_f and kept_x and bad == 0 and same_b) or not all(
+                    np.isfinite(e) and e <= GRAD_TOL[dt] for e in g_err):
+                failures.append(f"ffn {key}")
+            del x, xs, y, y_whole, y_plain, cot
+            gc_collect()
+    if failures:
+        raise AssertionError(f"row-offset kernels: {failures}")
+    return out
+
+
 def gc_collect() -> None:
     import gc
     gc.collect()
@@ -5640,9 +6205,9 @@ def _ab_umse_masks(root: str, trainer, batch) -> dict:
     seen = {"masks": set()}
     masks_fn, umse_fn = ops.dropout_masks, ops.umse
 
-    def record_masks(R, F, C, *args, col0=0):
+    def record_masks(R, F, C, *args, col0=0, row0=0):
         seen["masks"].add((R, F, C, col0))
-        return masks_fn(R, F, C, *args, col0=col0)
+        return masks_fn(R, F, C, *args, col0=col0, row0=row0)
 
     def record_umse(*args):
         seen["umse"] = args
@@ -5920,6 +6485,12 @@ def main() -> None:
         build_kernels()
         run_legacy(power, sys.argv[2:])
         return
+    if len(sys.argv) == 2 and sys.argv[1] == "dp":
+        power = check_device()
+        build_kernels()
+        compare_row0_kernels()
+        run_dp(power)
+        return
     if len(sys.argv) == 2 and sys.argv[1] == "tpdrivers":
         power = check_device()
         build_kernels()
@@ -5968,6 +6539,9 @@ def main() -> None:
     lg_results, lg_counts = run_legacy(power)
     counts.update(lg_counts)
     clock("phase 20")
+    row0 = compare_row0_kernels()
+    run_dp(power)
+    clock("phase 21")
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         path = KERNEL_PATHS[name]
@@ -5984,7 +6558,8 @@ def main() -> None:
                         "widths": widths.get(name, {}),
                         "mt_joint": joint.get(name, {}),
                         "baselines": bl_results.get(name, {}),
-                        "legacy": lg_results.get(name, {})})
+                        "legacy": lg_results.get(name, {}),
+                        "row0": row0.get(name, {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 // The FFN kernels' dropout keep masks drawn alone, straight into bool
 // tensors (one byte, 0 or 1, per element): k1 [R, F], hidden columns
 // col0 .. col0 + F of the whole [R, *] mask (one rank's share of d_ff under
-// tensor parallelism), and k2 [R, C], the output mask. The MBT input
-// dropout draws k2 alone (F = 0).
+// tensor parallelism), and k2 [R, C], the output mask, both rows
+// row0 .. row0 + R of the whole [*, *] masks (one rank's share of the batch
+// under data parallelism). The MBT input dropout draws k2 alone (F = 0).
 //
 // Replaces medical_tri_modal_pilot_tpu/kernels/ffn.py::dropout_masks (body
 // _masks_kernel). Element (r, c) of mask m is word c % 4 of Philox4x32-10
@@ -56,10 +57,11 @@ static __device__ __forceinline__ uint32_t keep_word(uint4 d, uint32_t thr) {
 // grid (ceil(R / kMaskRows)), block (kMaskThreadsX, kMaskRows)
 __global__ void __launch_bounds__(kMaskThreadsX * kMaskRows)
     dropout_masks_kernel(uint8_t* __restrict__ k1, uint8_t* __restrict__ k2,
-                         int R, int F, int C, int col0, uint2 key,
-                         uint32_t thr) {
+                         int R, int F, int C, int col0, uint32_t row0,
+                         uint2 key, uint32_t thr) {
   const int r = blockIdx.x * kMaskRows + threadIdx.y;
   if (r >= R) return;
+  const uint32_t rg = row0 + (uint32_t)r;  // the row's counter word
   uint2 ks[10];
   ks[0] = key;
 #pragma unroll
@@ -81,7 +83,7 @@ __global__ void __launch_bounds__(kMaskThreadsX * kMaskRows)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       w[i] = g + i < gl
-          ? keep_word(philox_keyed(make_uint4((uint32_t)(g + i), (uint32_t)r,
+          ? keep_word(philox_keyed(make_uint4((uint32_t)(g + i), rg,
                                               hid ? 0u : 1u, 0u), ks), thr)
           : 0u;
     uint8_t* dst = row + l0;
@@ -108,19 +110,20 @@ __global__ void __launch_bounds__(kMaskThreadsX * kMaskRows)
 
 // The keep masks the FFN kernels draw for (seed, thr), as bool tensors
 // (bytes 0 or 1): k1 [R, F], hidden columns col0 .. col0 + F of the whole
-// mask (col0 = 0: the kernels' own), and k2 [R, C]. One launch. Returns
-// cudaGetLastError().
+// mask (col0 = 0: the kernels' own), and k2 [R, C], both rows row0 ..
+// row0 + R of the whole masks. One launch. Returns cudaGetLastError().
 extern "C" int dropout_masks(void* k1, void* k2, int R, int F, int C,
-                             int col0, unsigned long long seed,
+                             int col0, int row0, unsigned long long seed,
                              unsigned int thr, void* stream) {
   using namespace mtp;
-  if (R < 0 || F < 0 || C < 0 || col0 < 0) return (int)cudaErrorInvalidValue;
+  if (R < 0 || F < 0 || C < 0 || col0 < 0 || row0 < 0)
+    return (int)cudaErrorInvalidValue;
   if (R == 0 || F + C == 0) return 0;
   const uint2 key = make_uint2((uint32_t)(seed & 0xffffffffull),
                                (uint32_t)(seed >> 32));
   const dim3 block(kMaskThreadsX, kMaskRows);
   dropout_masks_kernel<<<(R + kMaskRows - 1) / kMaskRows, block, 0,
                          (cudaStream_t)stream>>>(
-      (uint8_t*)k1, (uint8_t*)k2, R, F, C, col0, key, thr);
+      (uint8_t*)k1, (uint8_t*)k2, R, F, C, col0, (uint32_t)row0, key, thr);
   return (int)cudaGetLastError();
 }

@@ -109,7 +109,8 @@ __global__ void __launch_bounds__(kThreads) ffn_kernel(
         float h = fmaxf(
             rnd<T>(rnd<T>(hacc[i][j]) + Num<T>::load(b1[f0 + col])), 0.0f);
         if (drop.on)
-          h = dropout_keep(drop.key, drop.thr, 0, r0 + row, f0 + col)
+          h = dropout_keep(drop.key, drop.thr, 0, drop.row0 + r0 + row,
+                           f0 + col)
                   ? rnd<T>(h / drop.q_t) : 0.0f;
         hs[row * LDH + col] = h;
       }
@@ -128,7 +129,7 @@ __global__ void __launch_bounds__(kThreads) ffn_kernel(
       const size_t off = (size_t)(r0 + row) * C + col;
       float z = rnd<T>(rnd<T>(acc[i][j]) + Num<T>::load(b2[col]));
       if (drop.on)
-        z = dropout_keep(drop.key, drop.thr, 1, r0 + row, col)
+        z = dropout_keep(drop.key, drop.thr, 1, drop.row0 + r0 + row, col)
                 ? rnd<T>(z / drop.q_t) : 0.0f;
       y[off] = Num<T>::store(Num<T>::load(x[off]) + z);
     }
@@ -174,8 +175,8 @@ __global__ void __launch_bounds__(kThreads) ffn_bwd_kernel(
       const size_t off = (size_t)(r0 + r) * C + c;
       dz = Num<T>::load(dy[off]);
       if (drop.on)
-        dz = dropout_keep(drop.key, drop.thr, 1, r0 + r, c) ? dz / drop.q_f
-                                                            : 0.0f;
+        dz = dropout_keep(drop.key, drop.thr, 1, drop.row0 + r0 + r, c)
+                 ? dz / drop.q_f : 0.0f;
       dz = rnd<T>(dz);
       dz_o[off] = Num<T>::store(dz);
       ln_o[off] = Num<T>::store(lns[r * LDA + c]);
@@ -202,7 +203,8 @@ __global__ void __launch_bounds__(kThreads) ffn_bwd_kernel(
         float hd = fmaxf(hpre, 0.0f);
         float dh = dacc[i][j];
         if (drop.on) {
-          const bool keep = dropout_keep(drop.key, drop.thr, 0, r0 + row, f);
+          const bool keep =
+              dropout_keep(drop.key, drop.thr, 0, drop.row0 + r0 + row, f);
           hd = keep ? rnd<T>(hd / drop.q_t) : 0.0f;
           dh = keep ? dh / drop.q_f : 0.0f;
         }
@@ -353,7 +355,8 @@ __global__ void __launch_bounds__(kThreads, kFfnBwdTcBlocks) ffn_bwd_tc_kernel(
     for (int k = 0; k < 4; ++k) d[k] = bf(dys[r * L::LDC + c + k]);
     if (drop.on) {
       const uint4 w = philox4x32_10(
-          make_uint4((uint32_t)c >> 2, (uint32_t)(r0 + r), 1u, 0u), drop.key);
+          make_uint4((uint32_t)c >> 2, (uint32_t)(drop.row0 + r0 + r), 1u, 0u),
+          drop.key);
       const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
       for (int k = 0; k < 4; ++k)
@@ -697,20 +700,22 @@ static cudaError_t launch_bwd_tc(const void* x, const float* gamma,
 // b2 and y; gamma and beta fp32; valid: int8 [ceil(R/64)] flags of 64-row
 // tiles or NULL (every tile live). C in {64, 128, 256} (512: ffn_split.cu),
 // F % 64 == 0. Dropout when drop != 0: keep below thr, kept values divided
-// by q_t. Returns cudaGetLastError().
+// by q_t; the masks' rows counted from row0 (a data rank's first row of
+// the whole batch). Returns cudaGetLastError().
 extern "C" int ffn_fwd(const void* x, const void* gamma, const void* beta,
                        const void* w1, const void* b1, const void* w2,
                        const void* b2, const void* valid, void* y, int R,
                        int C, int F, unsigned long long seed,
-                       unsigned int thr, float q_t, int drop, int dtype,
-                       void* stream) {
+                       unsigned int thr, float q_t, int drop, int row0,
+                       int dtype, void* stream) {
   using namespace mtp;
   const cudaStream_t s = (cudaStream_t)stream;
   const float* g = (const float*)gamma;
   const float* be = (const float*)beta;
   const int8_t* v = (const int8_t*)valid;
-  const Dropout d = make_dropout(seed, thr, q_t, 1.0f, drop);
-  if (R < 0 || F <= 0 || F % kTile != 0) return (int)cudaErrorInvalidValue;
+  const Dropout d = make_dropout(seed, thr, q_t, 1.0f, drop, row0);
+  if (R < 0 || F <= 0 || F % kTile != 0 || row0 < 0)
+    return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
 #define MTP_FWD(CC) \
   if (dtype == 0 && C == CC) \
@@ -756,15 +761,16 @@ extern "C" int ffn_bwd(const void* x, const void* gamma, const void* beta,
                        void* ln_o, void* dz_o, void* hd_o, void* dh_o,
                        void* gpart, int R, int C, int F,
                        unsigned long long seed, unsigned int thr, float q_t,
-                       float q_f, int drop, int dtype, void* stream) {
+                       float q_f, int drop, int row0, int dtype,
+                       void* stream) {
   using namespace mtp;
   const cudaStream_t s = (cudaStream_t)stream;
   const float* g = (const float*)gamma;
   const float* be = (const float*)beta;
   const int8_t* v = (const int8_t*)valid;
   float* gp = (float*)gpart;
-  const Dropout d = make_dropout(seed, thr, q_t, q_f, drop);
-  if (F <= 0 || F % kTile != 0) return (int)cudaErrorInvalidValue;
+  const Dropout d = make_dropout(seed, thr, q_t, q_f, drop, row0);
+  if (F <= 0 || F % kTile != 0 || row0 < 0) return (int)cudaErrorInvalidValue;
 #define MTP_BWD(CC) \
   if (dtype == 0 && C == CC) \
     return (int)launch_bwd<float, CC / 16>(x, g, be, w1, b1, w2, v, dy, dx, ln_o, dz_o, hd_o, dh_o, gp, R, F, d, s); \

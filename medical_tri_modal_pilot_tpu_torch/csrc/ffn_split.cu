@@ -144,7 +144,7 @@ struct Fc1Epi {
                                              float acc) const {
     float v = fmaxf(rnd<T>(rnd<T>(acc) + Num<T>::load(b1[col])), 0.0f);
     if (drop.on)
-      v = dropout_keep(drop.key, drop.thr, 0, row, col)
+      v = dropout_keep(drop.key, drop.thr, 0, drop.row0 + row, col)
               ? rnd<T>(drop_div<T>(v, drop.q_t, iq)) : 0.0f;
     h[(size_t)row * F + col] = Num<T>::store(v);
   }
@@ -159,7 +159,8 @@ struct Fc1Epi {
   __device__ const T* operand() const { return nullptr; }
   __device__ int operand_ld() const { return 0; }
   __device__ __forceinline__ uint32_t keep(int row, int col) const {
-    return drop.on ? dropout_keep_frag(drop.key, drop.thr, 0, row, col)
+    return drop.on ? dropout_keep_frag(drop.key, drop.thr, 0, drop.row0 + row,
+                                       col)
                    : 0xFu;
   }
   __device__ __forceinline__ void apply(int col, float (&v)[4],
@@ -191,7 +192,7 @@ struct Fc2Out {
                                              float acc) const {
     float z = rnd<T>(rnd<T>(acc) + Num<T>::load(b2[col]));
     if (drop.on)
-      z = dropout_keep(drop.key, drop.thr, 1, row, col)
+      z = dropout_keep(drop.key, drop.thr, 1, drop.row0 + row, col)
               ? rnd<T>(drop_div<T>(z, drop.q_t, iq)) : 0.0f;
     const size_t off = (size_t)row * C + col;
     y[off] = Num<T>::store(Num<T>::load(x[off]) + z);
@@ -207,7 +208,8 @@ struct Fc2Out {
   __device__ const T* operand() const { return x; }  // the residual
   __device__ int operand_ld() const { return C; }
   __device__ __forceinline__ uint32_t keep(int row, int col) const {
-    return drop.on ? dropout_keep_frag(drop.key, drop.thr, 1, row, col)
+    return drop.on ? dropout_keep_frag(drop.key, drop.thr, 1, drop.row0 + row,
+                                       col)
                    : 0xFu;
   }
   __device__ __forceinline__ void apply(int col, float (&v)[4],
@@ -325,7 +327,8 @@ __global__ void __launch_bounds__(kThreads) ffn_dz_kernel(
     const int r = (int)(4 * e / C), c = (int)(4 * e - (size_t)r * C);
     if (!tile_live(valid, r)) continue;
     const uint32_t keep =
-        drop.on ? dropout_keep4(drop.key, drop.thr, 1, r, c >> 2) : 0xFu;
+        drop.on ? dropout_keep4(drop.key, drop.thr, 1, drop.row0 + r, c >> 2)
+                : 0xFu;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float d = Num<T>::load(dy[4 * e + i]);
@@ -577,11 +580,12 @@ extern "C" int ffn_split_fwd(const void* x, const void* gamma,
                              const void* valid, void* ln, void* hidden,
                              void* y, int R, int C, int F,
                              unsigned long long seed, unsigned int thr,
-                             float q_t, int drop, int dtype, void* stream) {
+                             float q_t, int drop, int row0, int dtype,
+                             void* stream) {
   using namespace mtp;
   const cudaStream_t s = (cudaStream_t)stream;
-  const Dropout d = make_dropout(seed, thr, q_t, 1.0f, drop);
-  if (R < 0 || C != kSplitWidth || F <= 0 || F % kTile != 0)
+  const Dropout d = make_dropout(seed, thr, q_t, 1.0f, drop, row0);
+  if (R < 0 || C != kSplitWidth || F <= 0 || F % kTile != 0 || row0 < 0)
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   const float* g = (const float*)gamma;
@@ -609,11 +613,11 @@ extern "C" int ffn_split_bwd(const void* x, const void* gamma,
                              void* gpart, int R, int C, int F,
                              unsigned long long seed,
                              unsigned int thr, float q_t, float q_f, int drop,
-                             int dtype, void* stream) {
+                             int row0, int dtype, void* stream) {
   using namespace mtp;
   const cudaStream_t s = (cudaStream_t)stream;
-  const Dropout d = make_dropout(seed, thr, q_t, q_f, drop);
-  if (R <= 0 || C != kSplitWidth || F <= 0 || F % kTile != 0)
+  const Dropout d = make_dropout(seed, thr, q_t, q_f, drop, row0);
+  if (R <= 0 || C != kSplitWidth || F <= 0 || F % kTile != 0 || row0 < 0)
     return (int)cudaErrorInvalidValue;
   const float* g = (const float*)gamma;
   const float* be = (const float*)beta;

@@ -61,11 +61,13 @@ struct Dropout {
   float q_t;      // q rounded to T (the forward's divisor)
   float q_f;      // q in fp32 (the backward's divisor)
   int on;
+  int row0;       // the first row's place in the whole masks (data ranks)
 };
 
-// the Dropout of the C entry points' arguments (seed: the Philox key)
+// the Dropout of the C entry points' arguments (seed: the Philox key;
+// row0: the rows' offset in the masks, a data rank's first row)
 static inline Dropout make_dropout(unsigned long long seed, unsigned int thr,
-                                   float q_t, float q_f, int on) {
+                                   float q_t, float q_f, int on, int row0) {
   Dropout d;
   d.key = make_uint2((uint32_t)(seed & 0xffffffffull),
                      (uint32_t)(seed >> 32));
@@ -73,6 +75,7 @@ static inline Dropout make_dropout(unsigned long long seed, unsigned int thr,
   d.q_t = q_t;
   d.q_f = q_f;
   d.on = on;
+  d.row0 = row0;
   return d;
 }
 
@@ -87,10 +90,10 @@ static __device__ __forceinline__ float div_q(float x, float q, float iq) {
 // Keep bits of mask m (0: hidden, 1: output) for a lane's two columns of
 // the n8 tile whose columns start at col8 (a multiple of 8): bits0 at row
 // `row`, bits1 at row + 8, bit e for column col8 + 2t + e. Element (r, c)
-// keeps word c % 4 of Philox at counter (c / 4, r, m), as dropout_keep
-// (common.cuh). Lanes t and t ^ 1 share a counter: each draws for one of
-// the two rows and they trade the other row's bits, one draw per four
-// elements. Every lane of the warp must call it.
+// keeps word c % 4 of Philox at counter (c / 4, d.row0 + r, m), as
+// dropout_keep (common.cuh). Lanes t and t ^ 1 share a counter: each draws
+// for one of the two rows and they trade the other row's bits, one draw
+// per four elements. Every lane of the warp must call it.
 static __device__ __forceinline__ void keep_bits(const Dropout& d, int m,
                                                  int col8, int row, int t,
                                                  uint32_t& bits0,
@@ -98,7 +101,7 @@ static __device__ __forceinline__ void keep_bits(const Dropout& d, int m,
   const bool odd = (t & 1) != 0;
   const uint4 w = philox4x32_10(
       make_uint4((uint32_t)col8 / 4 + (t >> 1),
-                 (uint32_t)(row + (odd ? 8 : 0)), (uint32_t)m, 0u),
+                 (uint32_t)(d.row0 + row + (odd ? 8 : 0)), (uint32_t)m, 0u),
       d.key);
   const uint32_t lo = (uint32_t)(w.x < d.thr) | ((uint32_t)(w.y < d.thr) << 1);
   const uint32_t hi = (uint32_t)(w.z < d.thr) | ((uint32_t)(w.w < d.thr) << 1);

@@ -36,10 +36,6 @@ def check_flags(cfg: Config, train: bool = True) -> None:
         raise NotImplementedError(
             "--ckpt-backend orbax: the port reads and writes single-file "
             ".pth checkpoints only")
-    if cfg.dp_size > 1:
-        raise NotImplementedError(
-            f"--dp-size {cfg.dp_size}: data parallelism is ROADMAP Queue 1 "
-            "item 8b; the drivers run --mp-size N with --dp-size 1")
     if train and cfg.train_multi_k > 1:
         raise NotImplementedError(
             f"--train-multi-k {cfg.train_multi_k}: several optimizer steps "
@@ -57,8 +53,10 @@ def setup_distributed(cfg: Config, device=None
                       ) -> Tuple[torch.device, Optional[Mesh]]:
     """Join the process group when one is configured (``--dist-*`` or the
     launcher's GRAFT_* environment: 2_train.py:80-83) and build the mesh
-    (``make_mesh(cfg.dp_size, cfg.batch_size, cfg.mp_size)``). Returns
-    this process's device and the mesh, None for a single process. The
+    (``make_mesh(cfg.dp_size, cfg.batch_size, cfg.mp_size)``; --dp-size 0
+    takes the most data ranks that divide the batch, JAX's
+    ``auto_dp_size``). Returns this process's device and the mesh, None
+    for a single process. The
     backend follows from the hardware: nccl when this host shows a card
     per rank (rank r on ``cuda:r``), gloo when the ranks share one card
     (all on ``cuda:0``, the collectives staged through the host) or run
@@ -66,10 +64,13 @@ def setup_distributed(cfg: Config, device=None
     mesh."""
     coord = cfg.dist_coordinator or os.environ.get("GRAFT_COORDINATOR", "")
     if not coord:
-        if cfg.mp_size > 1:
+        flags = [f"--{name}-size {n}" for name, n in
+                 (("mp", cfg.mp_size), ("dp", cfg.dp_size)) if n > 1]
+        if flags:
+            need = max(cfg.mp_size, 1) * max(cfg.dp_size, 1)
             raise ValueError(
-                f"--mp-size {cfg.mp_size} needs {cfg.mp_size} processes: "
-                "start them with parallel.launch or --dist-coordinator, "
+                f"{' '.join(flags)} needs {need} processes: start them with "
+                "parallel.launch or --dist-coordinator, "
                 "--dist-num-processes and --dist-process-id")
         return resolve_device(device), None
     on_cpu = resolve_device(device).type == "cpu"

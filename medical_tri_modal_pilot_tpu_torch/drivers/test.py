@@ -9,9 +9,10 @@ eval-only ``Trainer`` and scored on the test split, whose batches are
 assembled once and replayed (unless ``--*-observed-prop`` < 100 redraws
 them); then the aggregate over the checkpoints. ``run_checkpoints`` walks
 over a test loader and note table its caller gives (``main`` builds them
-from the data paths). Under ``--mp-size N --dp-size 1`` it runs in N
+from the data paths). Under ``--dp-size D --mp-size M`` it runs in D x M
 processes as the train driver does (process 0 draws the batches and
-builds the index cache first); they agree on the number of checkpoints
+builds the index cache first, the probabilities are gathered in sample
+order from the data ranks); they agree on the number of checkpoints
 and on each one's step before they score it (3_test.py:65, 102), and
 only process 0 prints and writes.
 """
@@ -59,11 +60,11 @@ def checkpoints_of(cfg: Config):
 def run_checkpoints(cfg: Config, paths, test_loader, txt_table=None,
                     device=None, mesh=None):
     """Score each checkpoint of ``paths`` on ``test_loader`` with one
-    eval-only Trainer (sharded over ``mesh`` under ``--mp-size``). Returns
-    [(path, test metrics)]."""
+    eval-only Trainer (over ``mesh`` under ``--dp-size`` / ``--mp-size``).
+    Returns [(path, test metrics)]."""
     dev = resolve_device(device)
     check_flags(cfg, train=False)
-    if mesh is not None:
+    if mesh is not None and mesh.dp * mesh.mp > 1:
         test_loader = BroadcastLoader(test_loader)
     test_loader = maybe_replay(test_loader, cfg)
     out = []

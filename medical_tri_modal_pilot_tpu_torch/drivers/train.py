@@ -11,13 +11,15 @@ over seeds. ``run_fold`` is one seed's body, over loaders and a note
 table its caller gives (``main`` builds them from the data paths).
 
 It runs on the GPU and raises when there is none, unless the caller passes
-``device="cpu"`` to ``main`` or ``run_fold``. Under ``--mp-size N
---dp-size 1`` it runs in N processes (started by ``parallel.launch`` or
-given ``--dist-coordinator``, ``--dist-num-processes`` and
-``--dist-process-id``): each joins the group, builds the mesh and a
-sharded ``Trainer``, computes on the batches process 0 draws (each one
-broadcast to the others) and takes part in every save (the state is
-gathered from the model group); process 0 builds the index caches before
+``device="cpu"`` to ``main`` or ``run_fold``. Under ``--dp-size D
+--mp-size M`` it runs in D x M processes (started by ``parallel.launch``
+or given ``--dist-coordinator``, ``--dist-num-processes`` and
+``--dist-process-id``): each joins the group, builds the mesh and its
+``Trainer`` (a tensor-parallel shard of the model under M > 1), receives
+the batches process 0 draws (each one broadcast to the others), computes
+on its data index's rows of each and takes part in every save (the state
+is gathered from the model group, the data ranks checked to hold the
+same); process 0 builds the index caches before
 the others read them, the processes agree on the checkpoint they resume
 from, on each best-checkpoint decision and on the one they test, and only
 process 0 prints and writes files. ``--profile-dir`` writes a
@@ -134,14 +136,15 @@ def run_fold(cfg: Config, k_indx: int, train_loader, val_loader,
              profiler: Optional[StepProfiler] = None, mesh=None):
     """One seed's run (2_train.py:100-349) over the given loaders (``len``
     and iteration of numpy batches; val and test need no ``dataset``) and
-    the note table their batches' ``txt_id`` rows index; under ``--mp-size``
-    on this process's device and ``mesh`` (``common.setup_distributed``),
-    where every process computes on the batches process 0 draws.
+    the note table their batches' ``txt_id`` rows index; under
+    ``--dp-size`` / ``--mp-size`` on this process's device and ``mesh``
+    (``common.setup_distributed``), where every process receives the
+    batches process 0 draws.
     Returns the last validation metrics and the test metrics of the best
     checkpoint (None where there was nothing to run)."""
     dev = resolve_device(device)
     check_flags(cfg)
-    if mesh is not None:
+    if mesh is not None and mesh.dp * mesh.mp > 1:
         train_loader, val_loader, test_loader = (
             BroadcastLoader(ld) for ld in (train_loader, val_loader,
                                            test_loader))

@@ -48,26 +48,28 @@ _SIGNATURES = {
     "attn_block_tc_smem": [_I] * 3,
     "attn_block_tc_min_blocks": [_I] * 3,
     # x, gamma, beta, w1, b1, w2, b2, valid, y, R, C, F, seed, thr, q_t,
-    # drop, dtype, stream
-    "ffn_fwd": [_P] * 9 + [_I] * 3 + [_U64, _U32, _F, _I, _I, _P],
+    # drop, row0, dtype, stream
+    "ffn_fwd": [_P] * 9 + [_I] * 3 + [_U64, _U32, _F, _I, _I, _I, _P],
     # C -> shared-memory bytes of the tensor-core forward
     "ffn_tc_smem": [_I],
     "ffn_tc_min_blocks": [_I] * 2,
     # x, gamma, beta, w1, b1, w2, valid, dy, dx, ln_o, dz_o, hd_o, dh_o,
-    # gpart, R, C, F, seed, thr, q_t, q_f, drop, dtype, stream
-    "ffn_bwd": [_P] * 14 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
+    # gpart, R, C, F, seed, thr, q_t, q_f, drop, row0, dtype, stream
+    "ffn_bwd": [_P] * 14 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _I, _P],
     # x, gamma, beta, w1, b1, w2, b2, valid, ln, hidden, y, R, C, F, seed,
-    # thr, q_t, drop, dtype, stream
-    "ffn_split_fwd": [_P] * 11 + [_I] * 3 + [_U64, _U32, _F, _I, _I, _P],
+    # thr, q_t, drop, row0, dtype, stream
+    "ffn_split_fwd": [_P] * 11 + [_I] * 3 + [_U64, _U32, _F, _I, _I, _I,
+                                            _P],
     # as ffn_bwd, with the fp32 dln scratch before gpart
-    "ffn_split_bwd": [_P] * 15 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _P],
+    "ffn_split_bwd": [_P] * 15 + [_I] * 3 + [_U64, _U32, _F, _F, _I, _I, _I,
+                                            _P],
     # a, b, R, Ka, Nb, valid, part, colpart, rows_per_slice, S, stream
     "ffn_split_wsum": [_P] * 2 + [_I] * 3 + [_P] * 3 + [_I] * 2 + [_P],
     # kernel -> shared-memory bytes of the split route's LN backward
     "ffn_split_smem": [_I],
     "ffn_split_min_blocks": [_I],
-    # k1, k2, R, F, C, col0, seed, thr, stream
-    "dropout_masks": [_P] * 2 + [_I] * 4 + [_U64, _U32, _P],
+    # k1, k2, R, F, C, col0, row0, seed, thr, stream
+    "dropout_masks": [_P] * 2 + [_I] * 5 + [_U64, _U32, _P],
     # x, wv, bv, sv, bbv, wt, bt, st, bbt, table, out, R, D, n_ids, dtype,
     # stream
     "umse_fwd": [_P] * 11 + [_I] * 4 + [_P],

@@ -18,8 +18,10 @@ Counterpart of medical_tri_modal_pilot_tpu/kernels/ffn.py (``xla_ffn``,
 
 Dropout keeps an element with the Philox4x32-10 draw keyed by the seed and
 the element's (row, column) in the flattened [R, F] hidden and [R, C]
-output (``plain_dropout_masks``, the kernels' ``dropout_keep``). The TPU
-kernel's masks come from the TPU's own generator and cannot be matched.
+output (``plain_dropout_masks``, the kernels' ``dropout_keep``). A data
+rank's rows sit at ``row0`` onwards in the whole batch's masks, so its
+masks are those rows of the single process's. The TPU kernel's masks come
+from the TPU's own generator and cannot be matched.
 """
 from __future__ import annotations
 
@@ -92,10 +94,11 @@ def philox4x32_10(c0, c1, c2, seed: int):
 
 
 def _keep(R: int, N: int, m: int, seed: int, thr: int, device,
-          col0: int = 0):
+          col0: int = 0, row0: int = 0):
     lo, hi = col0 // 4, -(-(col0 + N) // 4)
     c0 = torch.arange(lo, hi, dtype=torch.int64, device=device)[None, :]
-    c1 = torch.arange(R, dtype=torch.int64, device=device)[:, None]
+    c1 = torch.arange(row0, row0 + R, dtype=torch.int64,
+                      device=device)[:, None]
     c0, c1 = torch.broadcast_tensors(c0, c1)
     words = philox4x32_10(c0, c1, torch.full_like(c0, m), seed)
     bits = torch.stack(words, dim=-1).reshape(R, 4 * (hi - lo))
@@ -103,16 +106,18 @@ def _keep(R: int, N: int, m: int, seed: int, thr: int, device,
 
 
 def plain_dropout_masks(R: int, F: int, C: int, seed: int, p: float,
-                        device=None, col0: int = 0
+                        device=None, col0: int = 0, row0: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The keep masks (bool [R, F] hidden, [R, C] output) that the kernels
     draw for ``seed``: element (r, c) of mask m is word c % 4 of Philox at
     counter (c // 4, r, m, 0), kept below ``keep_threshold(p)``. ``col0``:
     the hidden mask holds columns col0 .. col0 + F of the whole one (a
-    rank's share of d_ff under tensor parallelism; 0 for the kernels')."""
+    rank's share of d_ff under tensor parallelism; 0 for the kernels').
+    ``row0``: both masks hold rows row0 .. row0 + R of the whole ones (a
+    data rank's share of the batch's rows)."""
     thr = keep_threshold(p)
-    return (_keep(R, F, 0, seed, thr, device, col0),
-            _keep(R, C, 1, seed, thr, device))
+    return (_keep(R, F, 0, seed, thr, device, col0, row0),
+            _keep(R, C, 1, seed, thr, device, 0, row0))
 
 
 def ffn_route(dtype: torch.dtype, C: int) -> str:
@@ -251,7 +256,8 @@ def _dropout_args(p: float, seed: Optional[int], dt):
     return int(seed) & (2 ** 64 - 1), keep_threshold(p), q_t, q_f, 1
 
 
-def _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed):
+def _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed,
+                row0=0):
     R, C, F, valid = _check(x, w1, w2, block_valid)
     gamma, beta, (w1, b1, w2, b2) = _operands(x, gamma, beta, w1, b1, w2, b2)
     s, thr, q_t, _, on = _dropout_args(p, seed, x.dtype)
@@ -259,7 +265,8 @@ def _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed):
     args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             None if valid is None else valid.data_ptr())
-    tail = (R, C, F, s, thr, q_t, on, dtype_code(x.dtype), stream(x))
+    tail = (R, C, F, s, thr, q_t, on, int(row0), dtype_code(x.dtype),
+            stream(x))
     if C == SPLIT_WIDTH:
         # the split route's scratches: the StdLN rows and the hidden layer
         ln = torch.empty(R, C, dtype=x.dtype, device=x.device)
@@ -273,7 +280,8 @@ def _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed):
     return y
 
 
-def ffn_bwd_tiles(x, gamma, beta, w1, b1, w2, block_valid, p, seed, dy):
+def ffn_bwd_tiles(x, gamma, beta, w1, b1, w2, block_valid, p, seed, dy,
+                  row0=0):
     """The backward's tile pass (fp32 FMAs, or the tensor cores for bf16;
     at SPLIT_WIDTH the split route's launches): (dx, ln, dz, hd, dh,
     gpart, valid). ln, dz [R, C] and hd, dh [R, F] are
@@ -303,11 +311,11 @@ def ffn_bwd_tiles(x, gamma, beta, w1, b1, w2, block_valid, p, seed, dy):
                if ffn_route(dt, C) == "wgmma_split" else None)
         rc = lib.ffn_split_bwd(
             *ptrs, None if dln is None else dln.data_ptr(),
-            gpart.data_ptr(), R, C, F, s, thr, q_t, q_f, on, dtype_code(dt),
-            stream(x))
+            gpart.data_ptr(), R, C, F, s, thr, q_t, q_f, on, int(row0),
+            dtype_code(dt), stream(x))
     else:
         rc = lib.ffn_bwd(*ptrs, gpart.data_ptr(), R, C, F, s, thr, q_t, q_f,
-                         on, dtype_code(dt), stream(x))
+                         on, int(row0), dtype_code(dt), stream(x))
     _build.check(rc, "ffn_bwd")
     return dx, ln, dz, hd, dh, gpart, valid
 
@@ -355,14 +363,15 @@ def ffn_weight_sums(ln, dz, hd, dh, valid):
     return dw1, db1, dw2, db2
 
 
-def cuda_ffn_bwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed, dy):
+def cuda_ffn_bwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed, dy,
+                 row0=0):
     """The backward kernel: (dx, dgamma, dbeta, dw1, db1, dw2, db2), each
     parameter gradient in its parameter's dtype, summed in fp32 over the
     rows of live tiles. Recomputes StdLN and the hidden layer and
-    regenerates the masks; a skipped tile gives dx = dy and adds
-    nothing."""
+    regenerates the masks (rows from ``row0``); a skipped tile gives dx =
+    dy and adds nothing."""
     dx, ln, dz, hd, dh, gpart, valid = ffn_bwd_tiles(
-        x, gamma, beta, w1, b1, w2, block_valid, p, seed, dy)
+        x, gamma, beta, w1, b1, w2, block_valid, p, seed, dy, row0)
     dw1, db1, dw2, db2 = ffn_weight_sums(ln, dz, hd, dh, valid)
     C = x.shape[-1]
     g = col_sum(gpart)
@@ -377,43 +386,50 @@ class _FFN(torch.autograd.Function):
     seed, not the hidden layer."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed):
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed,
+                row0):
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
-        ctx.block_valid, ctx.p, ctx.seed = block_valid, p, seed
+        ctx.block_valid, ctx.p = block_valid, p
+        ctx.seed, ctx.row0 = seed, row0
         return _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p,
-                           seed)
+                           seed, row0)
 
     @staticmethod
     def backward(ctx, dy):
         grads = cuda_ffn_bwd(*ctx.saved_tensors, ctx.block_valid, ctx.p,
-                             ctx.seed, dy)
-        return (*grads, None, None, None)
+                             ctx.seed, dy, ctx.row0)
+        return (*grads, None, None, None, None)
 
 
 def cuda_ffn(x, gamma, beta, w1, b1, w2, b2,
              block_valid: Optional[torch.Tensor] = None, p: float = 0.0,
-             seed: Optional[int] = None) -> torch.Tensor:
+             seed: Optional[int] = None, row0: int = 0) -> torch.Tensor:
     """Launch the kernel on CUDA tensors, through the autograd Function
     when a gradient is needed. ``block_valid``: optional flags, one per
     BLOCK_R consecutive rows of x flattened to [R, C] (any leading shape,
     row order); a 0 tile passes x through unchanged. ``p`` > 0: dropout on
-    both masks drawn for ``seed``."""
+    both masks drawn for ``seed``, x's rows at rows ``row0`` onwards of
+    them."""
+    if row0 < 0:
+        raise ValueError(f"ffn takes a row offset >= 0, got row0={row0}")
     if needs_grad(x, gamma, beta, w1, b1, w2, b2):
         return _FFN.apply(x, gamma, beta, w1, b1, w2, b2, block_valid, p,
-                          seed)
-    return _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed)
+                          seed, row0)
+    return _launch_fwd(x, gamma, beta, w1, b1, w2, b2, block_valid, p, seed,
+                       row0)
 
 
 def cuda_dropout_masks(R: int, F: int, C: int, seed: int, p: float,
-                       device, col0: int = 0
+                       device, col0: int = 0, row0: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernels' keep masks for ``seed``, drawn on the card in one launch
     straight into bool [R, F] and [R, C] (``csrc/dropout.cu``); the hidden
-    one from column ``col0`` on, as plain_dropout_masks."""
+    one from column ``col0`` on, both from row ``row0`` on, as
+    plain_dropout_masks."""
     device = torch.device(device)
-    if min(R, F, C, col0) < 0:
-        raise ValueError(f"dropout_masks takes sizes and an offset >= 0, "
-                         f"got R={R} F={F} C={C} col0={col0}")
+    if min(R, F, C, col0, row0) < 0:
+        raise ValueError(f"dropout_masks takes sizes and offsets >= 0, got "
+                         f"R={R} F={F} C={C} col0={col0} row0={row0}")
     if device.type != "cuda":
         raise ValueError(f"cuda_dropout_masks needs a CUDA device, got "
                          f"{device}")
@@ -422,7 +438,7 @@ def cuda_dropout_masks(R: int, F: int, C: int, seed: int, p: float,
     if R * (F + C) == 0:
         return k1, k2
     rc = _build.library().dropout_masks(
-        k1.data_ptr(), k2.data_ptr(), R, F, C, int(col0),
+        k1.data_ptr(), k2.data_ptr(), R, F, C, int(col0), int(row0),
         int(seed) & (2 ** 64 - 1), keep_threshold(p), stream(k1))
     _build.check(rc, "dropout_masks")
     count("dropout_masks")

@@ -3,11 +3,30 @@ heads.py ``ClsHead`` and ``ClsHeadLN``; reference tri_mbt_vsltcls.py:147-158,
 tri_mbt_v1.py:153-157)."""
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import data_parallel, data_sum
 from .modules import LayerNorm
+
+
+def batch_moments(bn: nn.Module, h: torch.Tensor, axes: Tuple[int, ...]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(E[h], E[h^2]) of fp32 h over ``axes``, the channels left. Under
+    data parallelism (the mesh in ``bn.dp``, ``parallel.mesh.
+    mark_data_parallel``) over the global batch: [sum h, sum h^2] summed
+    over the data group and divided by the global count, the sums'
+    gradients summed back (SyncBatchNorm's statistics, in flax's form)."""
+    mesh = getattr(bn, "dp", None)
+    if not data_parallel(mesh):
+        return h.mean(dim=axes), (h * h).mean(dim=axes)
+    sums = data_sum(mesh, torch.stack([h.sum(dim=axes),
+                                       (h * h).sum(dim=axes)]))
+    n = h.numel() // sums.shape[1] * mesh.dp      # equal shards
+    return sums[0] / n, sums[1] / n
 
 
 def flax_batch_norm(h: torch.Tensor, bn: nn.BatchNorm1d, training: bool,
@@ -19,16 +38,17 @@ def flax_batch_norm(h: torch.Tensor, bn: nn.BatchNorm1d, training: bool,
     = E[h^2] - E[h]^2, floored at 0), and the running statistics updated
     with ``momentum`` and the biased batch variance (torch's BatchNorm1d
     would use 1 - momentum and the unbiased one; the JAX package is the
-    contract)."""
+    contract). Under data parallelism the batch is the global one
+    (``batch_moments``), as the JAX package's global arrays make it, and
+    every rank moves its running statistics alike."""
     h = h.float()
     if not training:
         D = h.shape[-1]
         return F.batch_norm(h.reshape(-1, D), bn.running_mean,
                             bn.running_var, bn.weight, bn.bias,
                             training=False, eps=bn.eps).reshape(h.shape)
-    axes = tuple(range(h.dim() - 1))
-    mean = h.mean(dim=axes)
-    var = ((h * h).mean(dim=axes) - mean * mean).clamp_min(0.0)
+    mean, msq = batch_moments(bn, h, tuple(range(h.dim() - 1)))
+    var = (msq - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         bn.running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
         bn.running_var.mul_(momentum).add_((1.0 - momentum) * var)

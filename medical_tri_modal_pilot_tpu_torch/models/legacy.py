@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
+from ..parallel.mesh import data_parallel, data_sum, gather_from_data
 from . import baselines as BL
 from . import models as M
 from .baselines import (GRUDCell, _unpack_carryforward, _with_demo,
@@ -621,7 +622,10 @@ class AUXCPC(nn.Module):
     ``ct``: minus the cosine of the flattened batches, or the mean l2;
     ``cpc`` gives 0. The auxiliary parameters exist where the windows have
     future rows, under ``--auxiliary-loss-input``, as the JAX model
-    creates them on such windows."""
+    creates them on such windows. Under data parallelism (the mesh in
+    ``dp``) the loss is the global batch's: the cpc keys and their
+    validity gathered over the data group, so each rank's rows score
+    against every sample, and every sum and count summed over it."""
 
     def __init__(self, cfg: Config, vslt_kind: str = "ttrans",
                  fusion: str = "early", wiring: str = "predict",
@@ -661,6 +665,8 @@ class AUXCPC(nn.Module):
             self.register_buffer("pe", positional_encoding(PE_MAXLEN, D),
                                  persistent=False)
         self.fc_list = ClsHead(ct_dim, D, cfg.output_dim, cfg.activation, dt)
+        # the mesh under data parallelism (parallel.mesh.mark_data_parallel)
+        self.dp = None
         self.aux_type = cfg.auxiliary_loss_type or ""
         self.pretrain = cfg.auxiliary_loss_input is not None
         if not self.pretrain:
@@ -730,6 +736,7 @@ class AUXCPC(nn.Module):
         enc_samples = z[:, T_SAMPLES:T_SAMPLES + T]
         c32 = c_t.float()
         aux_type = self.aux_type
+        mesh = self.dp
         zero = torch.zeros((), dtype=torch.float32, device=z.device)
         if self.wiring == "ct":
             B = z.shape[0]
@@ -738,10 +745,15 @@ class AUXCPC(nn.Module):
                 self.fuse(enc_samples, full, t_tokens, batch, seeds))
             m32 = mirror.float()
             if "cosine" in aux_type:
-                return -_cosine_rows(c32.reshape(1, -1),
-                                     m32.reshape(1, -1))[0]
+                # the cosine of the flattened (global) batches
+                c, m = c32.reshape(-1), m32.reshape(-1)
+                s = data_sum(mesh, torch.stack([(c * m).sum(), (c * c).sum(),
+                                                (m * m).sum()]))
+                return -s[0] / torch.clamp(s[1].sqrt() * s[2].sqrt(),
+                                           min=1e-7)
             if "l2" in aux_type:
-                return ((c32 - m32) ** 2).mean()
+                n = c32.numel() * (mesh.dp if data_parallel(mesh) else 1)
+                return data_sum(mesh, ((c32 - m32) ** 2).sum()) / n
             return zero
         tgt = (x_raw[:, T_SAMPLES:T_SAMPLES + T] if self.wiring == "direct"
                else enc_samples).float()                     # [B, T, F]
@@ -754,21 +766,29 @@ class AUXCPC(nn.Module):
                     else F.selu(pred))
             pred = F.linear(pred, self.brl_fc.weight, self.brl_fc.bias)
         pf, tf_, fv = pred.reshape(-1, Fd), tgt.reshape(-1, Fd), f.reshape(-1)
-        count = fv.sum().clamp_min(1.0)
+        count = data_sum(mesh, fv.sum()).clamp_min(1.0)
         if "cpc" in aux_type:
-            total = pf @ tf_.t()                              # [BT, BT]
+            # this rank's rows against the global batch's keys
+            keys, valid = gather_from_data(mesh, tf_), gather_from_data(mesh,
+                                                                        fv)
+            total = pf @ keys.t()                       # [BT, global BT]
             fill = torch.tensor(-65504.0, device=z.device)
-            total = torch.where(fv[None, :] != 1, fill, total)
-            idx = torch.arange(pf.shape[0], device=z.device)
-            offdiag = ((idx[:, None] // T) == (idx[None, :] // T)) \
-                & (idx[:, None] != idx[None, :])
+            total = torch.where(valid[None, :] != 1, fill, total)
+            n = pf.shape[0]
+            off = mesh.data_index * n if data_parallel(mesh) else 0
+            rows = torch.arange(off, off + n, device=z.device)
+            cols = torch.arange(keys.shape[0], device=z.device)
+            offdiag = ((rows[:, None] // T) == (cols[None, :] // T)) \
+                & (rows[:, None] != cols[None, :])
             total = torch.where(offdiag, fill, total)
-            diag_p = torch.softmax(total, dim=1).diagonal()
-            return (torch.log(diag_p * fv + 1e-7) * fv).sum() / -count
+            diag_p = torch.softmax(total, dim=1)[:, off:off + n].diagonal()
+            return data_sum(mesh, (torch.log(diag_p * fv + 1e-7)
+                                   * fv).sum()) / -count
         if "cosine" in aux_type:
-            return -(_cosine_rows(pf, tf_) * fv).sum() / count
+            return -data_sum(mesh, (_cosine_rows(pf, tf_) * fv).sum()) / count
         if "l2" in aux_type:
-            return (((pf - tf_) ** 2).mean(dim=1) * fv).sum() / count
+            return data_sum(mesh, (((pf - tf_) ** 2).mean(dim=1)
+                                   * fv).sum()) / count
         return zero
 
 

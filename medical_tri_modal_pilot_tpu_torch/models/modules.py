@@ -20,7 +20,11 @@ Dropout (training mode, p > 0) draws one seed per call from the
 forward: the n-th dropout call of step k draws a seed mixed from (run
 seed, k, n), so a resumed run draws the masks it would have drawn.
 Every mask is Philox keyed by that seed (kernels/ffn.py), so the CPU and
-the card draw the same ones.
+the card draw the same ones. Under data parallelism the seeds carry the
+process's data index, and each draw over a batch-major tensor takes the
+rows of the whole batch's masks that the process's samples hold
+(``DropoutSeeds.row0``): the masks of one process running the whole
+batch.
 
 Tensor parallelism (``--mp-size``): ``parallel.mesh.shard_model`` cuts the
 q|k|v and FFN weights to a rank's columns and sets ``tp`` on the
@@ -61,12 +65,20 @@ def _splitmix64(z: int) -> int:
 
 class DropoutSeeds:
     """The dropout seeds of one step: call n draws a 63-bit seed mixed
-    from (run seed, step, n)."""
+    from (run seed, step, n). ``shard``: the process's data index under
+    data parallelism, whose batch is shard ``shard`` of equal shards of
+    the whole batch."""
 
-    def __init__(self, run_seed: int, step: int):
+    def __init__(self, run_seed: int, step: int, shard: int = 0):
         self.run_seed = int(run_seed)
         self.step = int(step)
+        self.shard = int(shard)
         self.calls = 0
+
+    def row0(self, rows: int) -> int:
+        """The first row, in the whole batch's masks, of a batch-major
+        tensor of which this process holds ``rows`` rows."""
+        return self.shard * rows
 
     def next(self) -> int:
         h = 0
@@ -95,8 +107,10 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     if not training or p == 0.0:
         return x
     C = x.shape[-1]
-    _, keep = ops.dropout_masks(x.numel() // C, 0, C, draw_seed(seeds), p,
-                                x.device)
+    R = x.numel() // C
+    seed = draw_seed(seeds)
+    _, keep = ops.dropout_masks(R, 0, C, seed, p, x.device,
+                                row0=seeds.row0(R))
     q = torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
     return torch.where(keep.reshape(x.shape), x / q, 0.0)
 
@@ -342,11 +356,15 @@ def ffn_row_blocks(x, key_mask, block: int = FFN_BLOCK_R
 class _DrawnSeeds:
     """Seeds drawn in advance, handed out in order: a checkpointed layer's
     forward and its recompute each get a fresh one over the same list, so
-    both draw the same dropout masks."""
+    both draw the same dropout masks (at the rows of the step's data
+    ``shard``)."""
 
-    def __init__(self, seeds: List[int]):
+    def __init__(self, seeds: List[int], shard: int = 0):
         self.seeds = seeds
+        self.shard = shard
         self.calls = 0
+
+    row0 = DropoutSeeds.row0
 
     def next(self) -> int:
         seed = self.seeds[self.calls]
@@ -385,9 +403,10 @@ class TransformerEncoderLayer(nn.Module):
             return self._forward(x, key_mask, seeds)
         drawn = ([draw_seed(seeds)] if self.feed_forward.dropout_p > 0.0
                  else [])
+        shard = getattr(seeds, "shard", 0)
         return torch.utils.checkpoint.checkpoint(
-            lambda h: self._forward(h, key_mask, _DrawnSeeds(drawn)), x,
-            use_reentrant=False)
+            lambda h: self._forward(h, key_mask, _DrawnSeeds(drawn, shard)),
+            x, use_reentrant=False)
 
     def _forward(self, x, key_mask, seeds):
         x = self.self_attention(x, x, x, key_mask,
@@ -408,10 +427,12 @@ def ffn_block(layer: nn.Module, x, key_mask=None,
     training = layer.training and ff.dropout_p > 0.0
     if ff.tp is not None:
         return _tp_ffn(ff, x, gamma, beta, training, seeds)
+    seed = draw_seed(seeds) if training else None
     return ops.ffn(x, gamma, beta, w1, b1, w2, b2,
                    block_valid=ffn_row_blocks(x, key_mask), p=ff.dropout_p,
-                   training=training,
-                   seed=draw_seed(seeds) if training else None)
+                   training=training, seed=seed,
+                   row0=seeds.row0(x.numel() // x.shape[-1]) if training
+                   else 0)
 
 
 def _tp_ffn(ff: FeedForward, x, gamma, beta, training: bool,
@@ -424,7 +445,7 @@ def _tp_ffn(ff: FeedForward, x, gamma, beta, training: bool,
     rounding is the single device's. Dropout draws the step's next seed on
     every rank alike: the hidden mask is this rank's columns of the whole
     one (``col0``), the output mask the whole one, so the masks are the
-    single-device FFN's."""
+    single-device FFN's (both at the data shard's rows, ``row0``)."""
     mesh = ff.tp
     w1, b1, w2, b2 = ff.weights()
     dt = ff.compute_dtype
@@ -433,9 +454,11 @@ def _tp_ffn(ff: FeedForward, x, gamma, beta, training: bool,
     if training:
         p = ff.dropout_p
         F_loc, C = h.shape[-1], x.shape[-1]
+        R = h.numel() // F_loc
+        seed = draw_seed(seeds)
         keep_h, keep_z = ops.dropout_masks(
-            h.numel() // F_loc, F_loc, C, draw_seed(seeds), p, x.device,
-            col0=mesh.model_index * F_loc)
+            R, F_loc, C, seed, p, x.device, col0=mesh.model_index * F_loc,
+            row0=seeds.row0(R))
         q = torch.tensor(1.0 - p, dtype=dt, device=x.device)
         h = torch.where(keep_h.reshape(h.shape), h / q, 0.0)
     z = reduce_from_model(mesh, h.float() @ w2.to(dt).float())

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .heads import batch_moments
+
 _LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
 _INPLANES = (32, 64, 128, 256)
 # flax nn.BatchNorm's default
@@ -63,7 +65,8 @@ class Conv(nn.Conv2d):
 class BatchNorm(nn.BatchNorm2d):
     """flax ``nn.BatchNorm`` over the channels of NCHW x (see the module
     docstring): eval normalises with the running statistics; training
-    with the batch's (var = E[x^2] - E[x]^2, floored at 0) and moves the
+    with the batch's (var = E[x^2] - E[x]^2, floored at 0; the global
+    batch's under data parallelism, ``heads.batch_moments``) and moves the
     running ones by ``momentum`` toward them. Output in x's dtype."""
 
     def __init__(self, channels: int, momentum: float = BN_MOMENTUM):
@@ -76,8 +79,8 @@ class BatchNorm(nn.BatchNorm2d):
             return F.batch_norm(h, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(x.dtype)
-        mean = h.mean(dim=(0, 2, 3))
-        var = ((h * h).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        mean, msq = batch_moments(self, h, (0, 2, 3))
+        var = (msq - mean * mean).clamp_min(0.0)
         m = self.flax_momentum
         with torch.no_grad():
             self.running_mean.mul_(m).add_((1.0 - m) * mean)

@@ -180,10 +180,11 @@ class SwinBlock(nn.Module):
         """Row-mode stochastic depth (JAX ``_stochastic_depth``): the rows
         of h [B, ...] kept with probability 1 - sd_prob, by the Philox
         mask of the step's next seed (``ops.dropout_masks`` over B rows of
-        one column), and divided by it."""
+        one column, at the data shard's rows), and divided by it."""
         p = self.sd_prob
-        _, keep = ops.dropout_masks(h.shape[0], 0, 1, draw_seed(seeds), p,
-                                    h.device)
+        seed = draw_seed(seeds)
+        _, keep = ops.dropout_masks(h.shape[0], 0, 1, seed, p, h.device,
+                                    row0=seeds.row0(h.shape[0]))
         q = torch.tensor(1.0 - p, dtype=h.dtype, device=h.device)
         keep = keep.reshape((h.shape[0],) + (1,) * (h.dim() - 1))
         return torch.where(keep, h / q, 0.0)

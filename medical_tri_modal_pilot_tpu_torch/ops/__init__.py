@@ -113,32 +113,34 @@ def attention(q, k, v, key_mask: Optional[torch.Tensor], scale: float,
 
 
 def dropout_masks(R: int, F: int, C: int, seed: int, p: float, device,
-                  col0: int = 0):
+                  col0: int = 0, row0: int = 0):
     """The FFN kernels' keep masks for ``seed`` (bool [R, F], [R, C]), the
-    hidden one holding columns ``col0`` .. col0 + F of the whole mask; one
-    launch on the card, both masks written as bool."""
+    hidden one holding columns ``col0`` .. col0 + F of the whole mask, both
+    rows ``row0`` .. row0 + R; one launch on the card, both masks written
+    as bool."""
     device = torch.device(device)
     if not _launches_kernel(device, "dropout_masks"):
-        return _ffn.plain_dropout_masks(R, F, C, seed, p, device, col0)
-    return _ffn.cuda_dropout_masks(R, F, C, seed, p, device, col0)
+        return _ffn.plain_dropout_masks(R, F, C, seed, p, device, col0, row0)
+    return _ffn.cuda_dropout_masks(R, F, C, seed, p, device, col0, row0)
 
 
 def ffn(x, gamma, beta, w1, b1, w2, b2,
         block_valid: Optional[torch.Tensor] = None, p: float = 0.0,
-        training: bool = False, seed: Optional[int] = None):
+        training: bool = False, seed: Optional[int] = None, row0: int = 0):
     """x + drop(W2 drop(relu(W1 StdLN(x) + b1)) + b2); dropout at rate
-    ``p`` when ``training``, its masks drawn for ``seed``."""
+    ``p`` when ``training``, its masks drawn for ``seed``, x's rows at rows
+    ``row0`` onwards of them."""
     p = p if training else 0.0
     if not _launches_kernel(x.device, "ffn"):
         keep = None
         if p > 0.0:
             C, F = x.shape[-1], w1.shape[-1]
             keep = _ffn.plain_dropout_masks(x.numel() // C, F, C, seed, p,
-                                            x.device)
+                                            x.device, row0=row0)
         return _ffn.torch_ffn(x, gamma, beta, w1, b1, w2, b2, block_valid,
                               keep, p)
     return _ffn.cuda_ffn(x, gamma, beta, w1, b1, w2, b2, block_valid, p,
-                         seed)
+                         seed, row0)
 
 
 def swin_attention(xw, wqkv, bqkv, wproj, bproj, bias,

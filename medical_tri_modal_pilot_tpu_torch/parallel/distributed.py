@@ -14,13 +14,17 @@ The backend is the caller's explicit choice. ``nccl`` needs one visible
 card per rank on this host and raises otherwise; ``gloo`` serves the CPU
 and ranks that share one card (its collectives stage CUDA tensors through
 the host). Process 0 draws the batches and the others receive them
-(``BroadcastLoader``), so every process holds the same batch; process 0
-writes files.
+(``BroadcastLoader``), so every process holds the same global batch (a
+data rank then computes on its shard of it); process 0 writes files.
+``gather_global`` and ``sum_gradients`` are the data group's collectives
+of the Trainer: the eval outputs back in sample order, the gradients
+summed. Each is an all-gather or all-reduce, which gloo also takes on
+CUDA tensors.
 """
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional, Tuple, TypeVar
+from typing import Callable, Optional, Sequence, Tuple, TypeVar
 
 import torch
 import torch.distributed as dist
@@ -81,25 +85,71 @@ def is_primary() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def assert_agreement(tag: str, value) -> None:
+def assert_agreement(tag: str, value, group=None) -> None:
     """Raise when a small scalar decision differs between the processes
     (JAX parallel/distributed.py:105-123): each process finds and reads
     checkpoints in its own file system, and ranks that restored different
     states would go on silently apart inside the collectives. An
-    all-gather of one float64; a no-op in one process."""
-    if not dist.is_initialized() or dist.get_world_size() == 1:
+    all-gather of one float64 over ``group`` (None: every process); a
+    no-op in one process."""
+    if not dist.is_initialized():
+        return
+    size = dist.get_world_size(group)
+    if size == 1:
         return
     t = torch.tensor([float(value)], dtype=torch.float64)
     if dist.get_backend() == "nccl":
         t = t.cuda()
-    vals = [torch.zeros_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(vals, t)
+    vals = [torch.zeros_like(t) for _ in range(size)]
+    dist.all_gather(vals, t, group=group)
     vals = [float(v.item()) for v in vals]
     if any(v != vals[0] for v in vals):
         raise RuntimeError(
             f"the processes disagree on {tag}: per-process values {vals}; "
             "the checkpoint and results directory must be shared (or "
             "populated alike) by every process")
+
+
+def gather_global(x: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's rows of a data-sharded output gathered over the data
+    ``group`` in data order: the global batch's rows in sample order on
+    every rank (JAX parallel/distributed.py:126-140). ``x`` itself when
+    there is no group."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=0)
+
+
+# fp32 elements per all-reduce of the gradients (64 MiB)
+GRAD_BUCKET = 1 << 24
+
+
+def sum_gradients(params: Sequence[torch.Tensor], group) -> None:
+    """Sum the parameters' gradients over the data ``group`` in place, in
+    flat buckets of one dtype and at most GRAD_BUCKET elements (a larger
+    gradient takes a bucket of its own), one all-reduce a bucket. Every
+    parameter must hold a gradient and every rank must pass the same
+    parameters in the same order."""
+    if any(p.grad is None for p in params):
+        raise ValueError("sum_gradients: a parameter without a gradient "
+                         "(zero-fill it first)")
+    chunks, cur, n = [], [], 0
+    for g in (p.grad for p in params):
+        if cur and (n + g.numel() > GRAD_BUCKET or g.dtype != cur[0].dtype):
+            chunks.append(cur)
+            cur, n = [], 0
+        cur.append(g)
+        n += g.numel()
+    if cur:
+        chunks.append(cur)
+    for chunk in chunks:
+        flat = torch.cat([g.reshape(-1) for g in chunk])
+        dist.all_reduce(flat, group=group)
+        for g, part in zip(chunk, flat.split([g.numel() for g in chunk])):
+            g.copy_(part.view_as(g))
 
 
 def barrier() -> None:

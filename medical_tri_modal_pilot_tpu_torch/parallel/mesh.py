@@ -3,8 +3,11 @@
 
 Rank r sits at data index r // mp and model index r % mp, as the JAX
 package reshapes its devices to (dp, mp): a model group is mp consecutive
-ranks. This port covers dp = 1 (every rank one model shard, the batch
-replicated over 'model'); dp > 1 raises.
+ranks, a data group the dp ranks of one model index (r % mp equal). A
+model group holds one shard of the batch (rows d B / dp .. (d + 1) B / dp
+of data index d) and computes on it as one tensor-parallel model; the
+data groups sum what the JAX package's global arrays sum: the losses and
+their counts, the BatchNorm statistics and the gradients.
 
 Tensor-parallel layout (Megatron's column- then row-parallel pairs, the
 JAX package's ``_tp_spec`` under the port's parameter names):
@@ -22,13 +25,25 @@ The layers meet through three autograd collectives over the model group:
 ``reduce_from_model`` (all-reduce forward, identity backward) and
 ``gather_from_model`` (all-gather of the last dimension forward, this
 rank's slice of the gradient backward).
+
+Data parallelism has two over the data group. Each rank back-propagates
+its own share of the global loss (the global loss over dp, every rank
+computing the same global loss), so the sum of the ranks' gradients is
+the gradient of the global loss: ``data_sum`` (all-reduce forward and
+backward: every rank's share reads the sum) and ``gather_from_data``
+(all-gather of the first dimension forward, the all-reduced gradient's
+slice of this rank backward). A module that needs them holds the mesh in
+its ``dp`` attribute (``mark_data_parallel``): the BatchNorms and the
+AUXCPC models' auxiliary loss.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from .distributed import gather_global
 
 # name suffix, dimensions, split dimension
 _SPLITS = [("feed_forward.w_1.weight", 3, 0), ("feed_forward.w_1.bias", 1, 0),
@@ -50,7 +65,7 @@ def mesh_shape(dp_size: int, batch_size: Optional[int], mp_size: int,
                world: int) -> Tuple[int, int]:
     """(dp, mp) for ``world`` processes (JAX make_mesh's rule: dp_size 0
     means the largest batch-divisible count). Every process must hold a
-    shard; dp > 1 is not ported."""
+    shard, and dp must divide the batch."""
     mp = max(mp_size, 1)
     if world % mp:
         raise ValueError(f"--mp-size {mp} does not divide the {world} "
@@ -66,38 +81,64 @@ def mesh_shape(dp_size: int, batch_size: Optional[int], mp_size: int,
         raise ValueError(f"a ({dp}, {mp}) mesh leaves some of the {world} "
                          "processes without a shard: adjust --batch-size, "
                          "--dp-size or --mp-size")
-    if dp > 1:
-        raise NotImplementedError(
-            f"--dp-size {dp}: data parallelism (DDP, and the batch "
-            "statistics a data-sharded BatchNorm needs) is ROADMAP Queue 1 "
-            "item 8; the port runs dp = 1")
+    if batch_size is not None and batch_size % dp:
+        raise ValueError(f"--dp-size {dp} does not divide --batch-size "
+                         f"{batch_size}")
     return dp, mp
 
 
 class Mesh:
-    """This process's place in the (dp, mp) mesh and its model group."""
+    """This process's place in the (dp, mp) mesh, its model group (the
+    ranks of its data index) and its data group (the ranks of its model
+    index)."""
 
-    def __init__(self, dp: int, mp: int, rank: int, model_group=None):
+    def __init__(self, dp: int, mp: int, rank: int, model_group=None,
+                 data_group=None):
         self.dp, self.mp, self.rank = dp, mp, rank
         self.data_index, self.model_index = divmod(rank, mp)
         self.model_group = model_group
+        self.data_group = data_group
+
+    def shard_rows(self, n: int) -> slice:
+        """The rows of an n-row global batch that this rank's model group
+        computes on (equal shards in data order)."""
+        if n % self.dp:
+            raise ValueError(f"a batch of {n} rows does not split into "
+                             f"{self.dp} equal data shards")
+        per = n // self.dp
+        return slice(self.data_index * per, (self.data_index + 1) * per)
+
+
+def group_ranks(dp: int, mp: int) -> Tuple[List[List[int]], List[List[int]]]:
+    """(model groups, data groups) of a (dp, mp) mesh: the rows and the
+    columns of the ranks laid out as a [dp, mp] array."""
+    model = [list(range(d * mp, (d + 1) * mp)) for d in range(dp)]
+    data = [list(range(m, dp * mp, mp)) for m in range(mp)]
+    return model, data
+
+
+def _groups(rank: int, sets) -> Optional[object]:
+    """A new group per rank set (every rank takes part in every
+    new_group, in one order); the one that holds ``rank``."""
+    mine = None
+    for ranks in sets:
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine = g
+    return mine
 
 
 def make_mesh(dp_size: int = 0, batch_size: Optional[int] = None,
               mp_size: int = 0) -> Mesh:
-    """The mesh over the processes of the group (one process: (1, 1))."""
+    """The mesh over the processes of the group (one process: (1, 1)):
+    the model groups under mp > 1, the data groups under dp > 1."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     dp, mp = mesh_shape(dp_size, batch_size, mp_size, world)
-    if mp == 1:
-        return Mesh(dp, mp, rank)
-    group = None
-    for d in range(dp):
-        ranks = list(range(d * mp, (d + 1) * mp))
-        g = dist.new_group(ranks)   # every rank takes part in every new_group
-        if rank in ranks:
-            group = g
-    return Mesh(dp, mp, rank, group)
+    model_sets, data_sets = group_ranks(dp, mp)
+    model = _groups(rank, model_sets) if mp > 1 else None
+    data = _groups(rank, data_sets) if dp > 1 else None
+    return Mesh(dp, mp, rank, model, data)
 
 
 def _rule(name: str, ndim: int) -> Optional[int]:
@@ -230,3 +271,61 @@ def gather_from_model(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     forward; this rank's slice of the gradient backward: the exit of
     head-parallel attention."""
     return _GatherFromModel.apply(mesh, x)
+
+
+def data_parallel(mesh: Optional[Mesh]) -> bool:
+    """True when ``mesh`` has more than one data rank."""
+    return mesh is not None and mesh.dp > 1
+
+
+def mark_data_parallel(model: torch.nn.Module, mesh: Mesh) -> None:
+    """Hand the mesh to the modules that reduce over the data group: every
+    BatchNorm (global batch statistics) and every module with a ``dp``
+    attribute (the AUXCPC models' auxiliary loss)."""
+    for mod in model.modules():
+        if (isinstance(mod, torch.nn.modules.batchnorm._BatchNorm)
+                or hasattr(mod, "dp")):
+            mod.dp = mesh
+
+
+class _DataSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x):
+        ctx.mesh = mesh
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=mesh.data_group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.mesh.data_group)
+        return None, g
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x):
+        ctx.mesh = mesh
+        return gather_global(x, mesh.data_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=mesh.data_group)
+        return None, g.chunk(mesh.dp, 0)[mesh.data_index].contiguous()
+
+
+def data_sum(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the data group forward; the sum of the ranks'
+    gradients backward (each rank's share of a global quantity reads the
+    whole sum). ``x`` itself without data parallelism."""
+    return _DataSum.apply(mesh, x) if data_parallel(mesh) else x
+
+
+def gather_from_data(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """The data group's ``x`` concatenated on the first dimension in data
+    order (the global batch's rows) forward; this rank's rows of the
+    summed gradient backward. ``x`` itself without data parallelism."""
+    return _GatherFromData.apply(mesh, x) if data_parallel(mesh) else x

@@ -24,7 +24,10 @@ thread waits on an event before it unpacks and writes.
 Under tensor parallelism every rank takes part in the save (the state is
 gathered from the model group) and rank 0 writes the same whole-model file
 a single process writes, Adam moments included; a restore cuts it to each
-rank's shard. So a run resumes across the two.
+rank's shard. So a run resumes across the two. Under data parallelism the
+data ranks hold the same state, which each save and restore checks
+(``Trainer.check_replicas``) before process 0 writes or after every rank
+has read.
 """
 from __future__ import annotations
 
@@ -77,6 +80,7 @@ def save_checkpoint(path: str, trainer, score: float, epoch: int,
     """Write the trainer's model, optimizer and step atomically: on process
     0 only, after every process has given its shards; every process
     returns once the file is in place."""
+    trainer.check_replicas(f"the save of {os.path.basename(path)}")
     model_sd, opt_sd = trainer.state_dicts()
     if not is_primary():
         barrier()
@@ -232,6 +236,7 @@ def restore(trainer, payload: Dict[str, Any],
         model_sd, opt_sd = payload["model"], payload.get("optimizer")
     trainer.load_state_dicts(model_sd, opt_sd if with_optimizer else None)
     trainer.step = int(payload.get("step", 0))
+    trainer.check_replicas(f"the restore of step {trainer.step}")
 
 
 # ---------------------------------------------------------- async saver
@@ -333,6 +338,7 @@ class AsyncCheckpointer:
         improvement, 'best' from the same state)."""
         self.wait()
         step = int(trainer.step)
+        trainer.check_replicas(f"the save of step {step}")
         if trainer.split:
             state = trainer.state_dicts()
             get = lambda: state

@@ -14,9 +14,22 @@ batch (``resolve_wire``).
 
 Tensor parallelism: ``Trainer(..., mesh=make_mesh(...))`` with mp > 1
 shards the model (``parallel.mesh.shard_model``) and builds the optimizer
-over this rank's shards; every rank runs the same batch and returns the
-same loss and probabilities. ``state_dicts`` and ``load_state_dicts`` move
-whole, reference-layout state in and out.
+over this rank's shards; every rank of a model group runs the same batch.
+``state_dicts`` and ``load_state_dicts`` move whole, reference-layout
+state in and out.
+
+Data parallelism (dp > 1): every rank receives the global batch and
+computes on its data index's rows (``device_batch``). What the JAX
+package computes on global arrays is summed over the data group: each
+loss is the global batch's (a mean a local sum over the global count, a
+ratio or a root of summed numerators and denominators), the BatchNorm
+statistics are the global batch's (``models/heads.py::batch_moments``),
+each rank back-propagates the global loss over dp and the gradients are
+summed (``parallel.distributed.sum_gradients``), so every rank takes the
+single process's step; ``eval_step`` gathers the probabilities in sample
+order. The dropout masks are the single process's rows
+(``DropoutSeeds.row0``). Every rank returns the same loss and
+probabilities.
 """
 from __future__ import annotations
 
@@ -31,8 +44,11 @@ import torch.nn.functional as F
 from ..config import Config
 from ..models.models import select_case_mean
 from ..models.modules import DropoutSeeds
-from ..parallel.mesh import (Mesh, gather_state_dict, shard_model,
-                             shard_state_dict)
+from ..parallel.distributed import (assert_agreement, gather_global,
+                                    sum_gradients)
+from ..parallel.mesh import (Mesh, data_parallel, data_sum,
+                             gather_state_dict, mark_data_parallel,
+                             shard_model, shard_state_dict)
 from .schedule import cosine_annealing_warmup_restarts, cosine_warmup_single
 
 # the batch keys the train and eval steps read, and the wire format's
@@ -86,33 +102,67 @@ def bce(logits, targets):
                                               reduction="none")
 
 
-def classification_loss(cfg: Config, logits, targets, targets_aux):
+def global_mean(v: torch.Tensor, mesh: Optional[Mesh] = None):
+    """The mean of v over the global batch: under data parallelism the
+    local sum summed over the data group, over the global count (equal
+    shards)."""
+    if not data_parallel(mesh):
+        return v.mean()
+    return data_sum(mesh, v.sum()) / (v.numel() * mesh.dp)
+
+
+def global_ratio(num: torch.Tensor, den: torch.Tensor,
+                 mesh: Optional[Mesh] = None):
+    """(num, den), each summed over the data group under data
+    parallelism: the global batch's numerator and denominator."""
+    if not data_parallel(mesh):
+        return num, den
+    s = data_sum(mesh, torch.stack([num, den.to(num.dtype)]))
+    return s[0], s[1]
+
+
+def classification_loss(cfg: Config, logits, targets, targets_aux,
+                        mesh: Optional[Mesh] = None):
     """``--model-types classification`` by ``--loss-types`` (JAX
     trainer.py:175-187): softmax cross-entropy on the integer hour bucket
     (``softmax``); BCE on the multi-hot [B, 12] target (``bces``); the
     two together, the multi-hot in ``targets_aux`` (``bceandsoftmax``);
     the root mean square error of a time to the event (``rmse``); else
-    the mean BCE."""
+    the mean BCE. Over the global batch of ``mesh``."""
     kind = cfg.loss_types
     if kind in ("softmax", "bceandsoftmax"):
-        loss = F.cross_entropy(logits, targets.long())
+        loss = global_mean(F.cross_entropy(logits, targets.long(),
+                                           reduction="none"), mesh)
         if kind == "bceandsoftmax":
-            loss = loss + bce(logits, targets_aux).mean()
+            loss = loss + global_mean(bce(logits, targets_aux), mesh)
         return loss
     if kind == "rmse":
-        return torch.sqrt(((logits - targets) ** 2).mean() + 1e-12)
-    return bce(logits, targets).mean()
+        return torch.sqrt(global_mean((logits - targets) ** 2, mesh)
+                          + 1e-12)
+    return global_mean(bce(logits, targets), mesh)
 
 
-def _heads_loss(logits, targets, w):
+def _heads_loss(logits, targets, w, mesh: Optional[Mesh] = None):
     """The BCE of each head's logits [K, B] against the target, weighted
-    by w [K, B] and averaged over the weight."""
+    by w [K, B] and averaged over the (global) weight."""
     losses = bce(logits, targets[None].expand_as(logits))
-    return (losses * w).sum() / w.sum().clamp_min(1.0)
+    num, den = global_ratio((losses * w).sum(), w.sum(), mesh)
+    return num / den.clamp_min(1.0)
+
+
+def aux_rmse(rmse, targets, targets_aux, mesh: Optional[Mesh] = None):
+    """The root mean square error of the aux-rmse head on the (global)
+    batch's positive samples, 0 where there is none."""
+    err = (rmse - targets_aux) ** 2
+    pos = targets == 1
+    num, den = global_ratio(torch.where(pos, err, 0.0).sum(), pos.sum(),
+                            mesh)
+    return torch.nan_to_num(torch.sqrt(num / den.clamp_min(1)))
 
 
 def compute_loss(cfg: Config, logits, rmse, targets, targets_aux,
-                 missing=None, missing_num=None, multi_head: bool = False):
+                 missing=None, missing_num=None, multi_head: bool = False,
+                 mesh: Optional[Mesh] = None):
     """The loss (JAX trainer.py:172-209): under ``--model-types
     classification`` ``classification_loss``. Detection: for a model with
     one head per missing case (``multi_head``, logits [4, B]) the BCE of
@@ -121,25 +171,22 @@ def compute_loss(cfg: Config, logits, rmse, targets, targets_aux,
     ``*mbt_vnoshnoavgtr`` (logits [3, B], one per stream) the BCE of each
     head weighted by its stream's presence (``missing`` [B, 3]); else the
     mean BCE, plus the aux-rmse term on positive samples when
-    configured."""
+    configured. Under data parallelism (``mesh``) the global batch's loss,
+    the same on every rank."""
     if cfg.model_types == "classification":
-        return classification_loss(cfg, logits, targets, targets_aux)
+        return classification_loss(cfg, logits, targets, targets_aux, mesh)
     if multi_head:
         if missing_num is None:
             raise ValueError(f"--model {cfg.model}: the loss needs "
                              "missing_num")
         table = torch.as_tensor(_MULTITOKEN_MISSING, device=logits.device)
         return _heads_loss(logits, targets,
-                           1.0 - table[missing_num.long()].T)   # [4, B]
+                           1.0 - table[missing_num.long()].T, mesh)  # [4, B]
     if "mbt_vnoshnoavgtr" in cfg.model:
-        return _heads_loss(logits, targets, 1.0 - missing.T)     # [3, B]
-    loss = bce(logits, targets).mean()
+        return _heads_loss(logits, targets, 1.0 - missing.T, mesh)  # [3, B]
+    loss = global_mean(bce(logits, targets), mesh)
     if rmse is not None and "rmse" in cfg.auxiliary_loss_type:
-        err = (rmse - targets_aux) ** 2
-        pos = targets == 1
-        rmse_loss = torch.sqrt(torch.where(pos, err, 0.0).sum()
-                               / pos.sum().clamp_min(1))
-        loss = loss + torch.nan_to_num(rmse_loss)
+        loss = loss + aux_rmse(rmse, targets, targets_aux, mesh)
     return loss
 
 
@@ -221,13 +268,18 @@ class Optimizer:
             ratio = torch.where((pn == 0) | (gn == 0), 1.0, pn / gn)
             p.grad.mul_(ratio)
 
-    def step(self, lr: float) -> None:
-        # a parameter the loss does not reach (the last layer's non-vslt
-        # streams) has a zero gradient in optax, which still decays it and
-        # moves its moments; torch.optim would skip a None gradient
+    def fill_grads(self) -> None:
+        """A zero gradient for every parameter the loss did not reach
+        (the last layer's non-vslt streams; under data parallelism also
+        what this shard's batch did not reach, an image encoder without an
+        image): optax's zero gradient still decays it and moves its
+        moments, where torch.optim would skip a None gradient."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+
+    def step(self, lr: float) -> None:
+        self.fill_grads()
         if self.lars:
             self._trust_ratio()
         for group in self.opt.param_groups:
@@ -320,9 +372,11 @@ class Trainer:
         of the notes casts them to it, so bf16 rows give the dense batch's
         result bit for bit)."""
         mp = 1 if mesh is None else mesh.mp
-        if max(cfg.mp_size, 1) != mp:
-            raise ValueError(f"--mp-size {cfg.mp_size} against a mesh of "
-                             f"{mp} model ranks: build the mesh with "
+        dp = 1 if mesh is None else mesh.dp
+        if max(cfg.mp_size, 1) != mp or cfg.dp_size not in (0, dp):
+            raise ValueError(f"--mp-size {cfg.mp_size} --dp-size "
+                             f"{cfg.dp_size} against a mesh of {mp} model "
+                             f"and {dp} data ranks: build the mesh with "
                              "parallel.mesh.make_mesh after "
                              "parallel.distributed.maybe_init_distributed")
         if mp > 1 and cfg.model != "tri_mbt_vsltcls":
@@ -334,6 +388,8 @@ class Trainer:
         self.device = torch.device(device)
         self.mesh = mesh
         self.split = {} if mesh is None else shard_model(model, mesh)
+        if data_parallel(mesh):
+            mark_data_parallel(model, mesh)
         self.model = model.to(self.device).eval()
         # one output per missing case, [4, B] (models.py::MultitokenBase)
         self.multi_head = getattr(model, "MULTI_HEAD", False)
@@ -460,11 +516,22 @@ class Trainer:
             b["img"] = self._u8[b["img"].long()]
         return b
 
+    def shard(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Under data parallelism this rank's rows of the global batch
+        (``Mesh.shard_rows``: every batch key is sample-major); the batch
+        itself otherwise."""
+        if not data_parallel(self.mesh):
+            return batch
+        rows = self.mesh.shard_rows(len(batch["missing"]))
+        return {k: v[rows] if k in BATCH_KEYS + WIRE_KEYS else v
+                for k, v in batch.items()}
+
     def device_batch(self, batch: Dict[str, np.ndarray]
                      ) -> Dict[str, torch.Tensor]:
-        """A host batch on the device: its TIE stream cut to its bucket and
-        its images packed on the host, copied, and the wire resolved."""
-        batch = self.wire_pack(bucket_batch(self.buckets, batch))
+        """A host batch on the device: its TIE stream cut to the global
+        batch's bucket, this rank's shard of it (data parallelism) and its
+        images packed on the host, copied, and the wire resolved."""
+        batch = self.wire_pack(self.shard(bucket_batch(self.buckets, batch)))
         with warnings.catch_warnings():
             # replayed eval batches are read-only (data.pipeline.
             # ReplayLoader); the steps never write into a batch
@@ -482,21 +549,32 @@ class Trainer:
             raise RuntimeError("construct the Trainer with eval_only=False "
                                "to train")
         cfg = self.cfg
+        mesh = self.mesh
         self.model.train()
         b = self.device_batch(batch)
         missing_num = compute_missing_num(cfg, b["missing"])
-        logits, rmse, aux = self.model(b, missing_num,
-                                       DropoutSeeds(self.seed, self.step))
+        shard = mesh.data_index if data_parallel(mesh) else 0
+        logits, rmse, aux = self.model(
+            b, missing_num, DropoutSeeds(self.seed, self.step, shard))
         loss = compute_loss(cfg, logits.float(),
                             None if rmse is None else rmse.float(),
                             multitoken_targets(cfg, b["target"].float()),
                             b["target_aux"].float(), b["missing"],
-                            missing_num, self.multi_head)
+                            missing_num, self.multi_head, mesh)
         if aux is not None:
-            # a model-computed auxiliary loss (JAX trainer.py:463-468)
+            # a model-computed auxiliary loss (JAX trainer.py:463-468), the
+            # global batch's under data parallelism
             loss = loss + cfg.auxiliary_loss_weight * aux.float()
         self.optimizer.zero_grad()
-        loss.backward()
+        if data_parallel(mesh):
+            # each rank's share of the global loss; the summed gradients
+            # are the global loss's (every rank enters the same all-reduces
+            # with every trainable parameter's gradient)
+            (loss / mesh.dp).backward()
+            self.optimizer.fill_grads()
+            sum_gradients(self.optimizer.params, mesh.data_group)
+        else:
+            loss.backward()
         self.optimizer.step(self.current_lr())
         self.step += 1
         self.model.eval()
@@ -509,8 +587,11 @@ class Trainer:
     def eval_step(self, batch: Dict[str, np.ndarray]
                   ) -> Tuple[np.ndarray, float, Optional[float]]:
         """Returns ``(probs, loss, rmse)``; rmse is None unless the run has
-        an aux-rmse head (``--auxiliary-loss-type rmse``)."""
+        an aux-rmse head (``--auxiliary-loss-type rmse``). Under data
+        parallelism the global batch's: its probabilities in sample order,
+        its loss and rmse."""
         cfg = self.cfg
+        mesh = self.mesh
         with torch.inference_mode():
             b = self.device_batch(batch)
             missing_num = compute_missing_num(cfg, b["missing"])
@@ -520,18 +601,35 @@ class Trainer:
                                      self.multi_head)
             if cfg.model_types == "classification":
                 loss = compute_loss(cfg, logits, rmse, b["target"].float(),
-                                    b["target_aux"].float())
+                                    b["target_aux"].float(), mesh=mesh)
             else:
                 # detection: BCE on the selected output, no aux term
-                loss = bce(out, b["target"].float()).mean()
+                loss = global_mean(bce(out, b["target"].float()), mesh)
             probs = torch.sigmoid(out)
+            if data_parallel(mesh):
+                probs = gather_global(probs, mesh.data_group)
             eval_rmse = None
             if (rmse is not None and "rmse" in cfg.auxiliary_loss_type
                     and cfg.model_types == "detection"):
-                err = (rmse.float() - b["target_aux"]) ** 2
-                pos = b["target"] == 1
-                eval_rmse = torch.nan_to_num(torch.sqrt(
-                    torch.where(pos, err, 0.0).sum()
-                    / pos.sum().clamp_min(1)))
+                eval_rmse = aux_rmse(rmse.float(), b["target"],
+                                     b["target_aux"], mesh)
             return (probs.cpu().numpy(), float(loss),
                     None if eval_rmse is None else float(eval_rmse))
+
+    def check_replicas(self, tag: str) -> None:
+        """Raise unless every rank of this rank's data group holds the
+        same model state (parameters and statistics), by a position-
+        weighted float64 checksum (``assert_agreement``): the data ranks
+        take identical steps, and one that drifted would go on apart
+        silently. A no-op without data parallelism."""
+        if not data_parallel(self.mesh):
+            return
+        with torch.no_grad():
+            sums = torch.stack([t.detach().double().sum()
+                                for t in self.model.state_dict().values()
+                                if t.is_floating_point()])
+            weights = torch.arange(1, len(sums) + 1, dtype=torch.float64,
+                                   device=sums.device)
+            checksum = float((sums * weights).sum())
+        assert_agreement(f"the model state at {tag}", checksum,
+                         group=self.mesh.data_group)

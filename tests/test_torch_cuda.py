@@ -459,6 +459,53 @@ def test_dropout_masks_kernel_takes_the_column_offset(dev, col0, F, C):
     assert torch.equal(part[1], whole[1])
 
 
+@pytest.mark.parametrize("row0,R,F,C", [(300, 300, 256, 64),
+                                         (4 * 997, 997, 0, 256),
+                                         (65, 65, 1024, 256),
+                                         (33, 33, 70, 18)])
+def test_dropout_masks_kernel_takes_the_row_offset(dev, row0, R, F, C):
+    """A data rank's masks (R rows from row0) are bit for bit the plain
+    version's and those rows of the kernel's masks over the whole batch,
+    with a column offset too."""
+    p, seed = 0.1, 2 ** 40 + 5
+    part = ops.dropout_masks(R, F, C, seed, p, dev, row0=row0)
+    whole = ops.dropout_masks(row0 + R, F + 3, C, seed, p, dev)
+    want = plain_dropout_masks(R, F, C, seed, p, dev, row0=row0)
+    assert torch.equal(part[0], want[0]) and torch.equal(part[1], want[1])
+    assert torch.equal(part[0], whole[0][row0:, :F])
+    assert torch.equal(part[1], whole[1][row0:])
+    both = ops.dropout_masks(R, F, C, seed, p, dev, col0=3, row0=row0)
+    assert torch.equal(both[0], whole[0][row0:, 3:3 + F])
+
+
+@pytest.mark.parametrize("C", [64, 256, 512])
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
+def test_ffn_row_offset_is_the_whole_batch_rows(dev, C, prec):
+    """The ffn at a data rank's row offset (the second half of a batch of
+    256 rows with a dead tile, p 0.25; the split route at C 512): its
+    output and its backward's dx bit for bit those rows of the kernel's
+    whole-batch call."""
+    g = torch.Generator().manual_seed(23)
+    dt = torch.float32 if prec == "fp32" else torch.bfloat16
+    R, F, seed, p = 256, 4 * C, 77, 0.25
+    x = _rand(g, dev, R, C).to(dt)
+    ws = [_rand(g, dev, C, std=.1, mean=1.), _rand(g, dev, C, std=.1),
+          _rand(g, dev, C, F, std=C ** -.5), _rand(g, dev, F, std=.1),
+          _rand(g, dev, F, C, std=F ** -.5), _rand(g, dev, C, std=.1)]
+    valid = torch.tensor([1, 1, 1, 0], dtype=torch.bool, device=dev)
+    cot = _rand(g, dev, R, C).to(dt)
+    cot[192:] = 0
+    outs = []
+    for rows, r0 in ((slice(0, R), 0), (slice(R // 2, R), R // 2)):
+        xi = x[rows].clone().requires_grad_(True)
+        y = ops.ffn(xi, *ws, valid[rows.start // 64:], p=p, training=True,
+                    seed=seed, row0=r0)
+        dx, = torch.autograd.grad(y, xi, cot[rows])
+        outs.append((y.detach(), dx))
+    (y, dx), (yh, dxh) = outs
+    assert torch.equal(yh, y[R // 2:]) and torch.equal(dxh, dx[R // 2:])
+
+
 # rowmm: (B, L, Cin, Cout, lengths): small widths with a dead 256-row block
 # and a ragged row count, the tensor-parallel rank's widths (Cin 256, one
 # rank's q|k|v of 384) with an all-masked sample, and the single-device

@@ -311,17 +311,20 @@ def test_jax_reader_knows_every_optim_form():
 
 # --------------------------------------------------------------- flags
 
+# flags, the exception, its message: --dp-size 2 runs in two processes
+# (tests/test_torch_dp.py) and one process refuses it by name
 REFUSED = {
-    "orbax": (["--ckpt-backend", "orbax"], "orbax"),
-    "dp": (["--dp-size", "2"], "--dp-size"),
-    "multi_k": (["--train-multi-k", "2"], "--train-multi-k 2"),
+    "orbax": (["--ckpt-backend", "orbax"], NotImplementedError, "orbax"),
+    "dp": (["--dp-size", "2"], ValueError, "--dp-size 2 needs 2 processes"),
+    "multi_k": (["--train-multi-k", "2"], NotImplementedError,
+                "--train-multi-k 2"),
 }
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
 @pytest.mark.parametrize("driver", ["train", "test"])
 def test_refused_flags_raise_by_name(tmp_path, name, driver):
-    flags, match = REFUSED[name]
+    flags, error, match = REFUSED[name]
     argv = CONFIG2 + ["--dir-result", str(tmp_path)] + flags
     main = (train_driver if driver == "train" else test_driver).main
     if driver == "test" and name == "multi_k":
@@ -329,7 +332,7 @@ def test_refused_flags_raise_by_name(tmp_path, name, driver):
         with pytest.raises(SystemExit):
             main(argv, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         main(argv, device="cpu")
 
 

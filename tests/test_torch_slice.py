@@ -182,7 +182,8 @@ def test_port_imports_no_jax():
     """No module of the port (parallel/ and its launcher, the data path,
     the logger, the saver and the drivers included), nor
     chip_smoke.py, nor the rank bodies the launcher starts in the tests
-    (tests/tp_worker.py, tests/tp_drivers_worker.py), imports jax, flax or
+    (tests/tp_worker.py, tests/tp_drivers_worker.py, tests/dp_worker.py),
+    imports jax, flax or
     the JAX package (the port keeps its own copies of config, constants
     and metrics)."""
     pattern = re.compile(
@@ -190,7 +191,8 @@ def test_port_imports_no_jax():
         r"(?!_torch)", re.M)
     files = sorted(PORT.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "tp_worker.py",
-        REPO / "tests" / "tp_drivers_worker.py"]
+        REPO / "tests" / "tp_drivers_worker.py",
+        REPO / "tests" / "dp_worker.py"]
     assert PORT / "parallel" / "launch.py" in files
     for sub in ("data/pipeline.py", "data/dataset.py", "data/images.py",
                 "train/logger.py", "train/checkpoints.py",

@@ -377,15 +377,15 @@ def test_dropout_masks_offset_slice_is_the_whole_masks_columns(col0, F):
 # --------------------------------------------------------- refusals
 
 def test_what_tensor_parallelism_refuses():
-    """dp > 1 (DDP) and other models under --mp-size raise naming ROADMAP
-    Queue 1 item 8; a mesh that leaves ranks out, --mp-size without a
-    mesh, and nccl without a card per rank raise too."""
+    """Other models under --mp-size raise naming ROADMAP Queue 1 item 8; a
+    mesh that leaves ranks out, --mp-size without a mesh, and nccl without
+    a card per rank raise too. Four processes at --mp-size 2 make a
+    (2, 2) mesh: data parallelism over two model groups
+    (tests/test_torch_dp.py)."""
     assert mesh_shape(1, B, 2, 2) == (1, 2)
     assert mesh_shape(0, B, 2, 2) == (1, 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mesh_shape(0, B, 2, 4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mesh_shape(2, B, 2, 4)
+    assert mesh_shape(0, B, 2, 4) == (2, 2)
+    assert mesh_shape(2, B, 2, 4) == (2, 2)
     with pytest.raises(ValueError, match="divide"):
         mesh_shape(1, B, 3, 4)
     with pytest.raises(ValueError, match="without a shard"):

@@ -221,11 +221,14 @@ def test_ranks_must_agree_on_the_checkpoints(tmp_path, fixtures):
 
 def test_one_process_needs_no_group():
     """In one process assert_agreement passes any value, and --mp-size 2
-    without a process group is refused by name before a model is built;
-    --dp-size 2 stays refused (ROADMAP Queue 1 item 8b)."""
+    or --dp-size 2 without a process group is refused by name before a
+    model is built (the flags pass check_flags: the drivers run them in
+    their processes)."""
     distributed.assert_agreement("anything", 3.5)
     with pytest.raises(ValueError, match="--mp-size 2 needs 2 processes"):
         common.setup_distributed(parse_config(CONFIG2 + TP_FLAGS), "cpu")
-    with pytest.raises(NotImplementedError, match="--dp-size 2"):
-        common.check_flags(parse_config(CONFIG2 + ["--dp-size", "2"]))
+    dp = parse_config(CONFIG2 + ["--dp-size", "2"])
+    common.check_flags(dp)
+    with pytest.raises(ValueError, match="--dp-size 2 needs 2 processes"):
+        common.setup_distributed(dp, "cpu")
     assert not os.environ.get("GRAFT_COORDINATOR")
