@@ -108,7 +108,10 @@ Phases, each raising on failure (nothing is caught):
      torch.addmm and its backward), and the kernels the calls launched,
      which must be the dtype's route's. Phase 9 also runs the
      attention at the tensor-parallel self shapes of the three streams
-     ([64, L, 2, 64], L = 1024 with the TIE key mask, 133, 54) beside
+     ([64, L, 2, 64], L = 1024 with the TIE key mask, 133, 54) and at
+     phase 22's rank shapes (the cross layers' q [64, 24, 2, 64] against
+     kv [64, 128, 2, 64] and back; tri_mbt_vmulti's vslt stream [64,
+     1016, 2, 64] under its 3-D block mask) beside
      scaled_dot_product_attention.
   13. tensor parallelism: config 4 under --mp-size 2 --dp-size 1, at
      TP_LAYERS (2) of its 6 layers, in two
@@ -317,9 +320,26 @@ Phases, each raising on failure (nothing is caught):
      gradients' place, and the parameters' updates; fp32 DP_STATE_FP32);
      prints each rank's ms/step (events clock) beside the single
      process's, its peak memory, the phase's seconds.
+  22. tensor parallelism for every family (TPALL_RUNS, --mp-size 2, full
+     width, batch 64, --dropout 0.1, adamw, seeded weights): config 4 at
+     all 6 layers at C 256, and at C 128 and 512 at TPALL_WIDE_LAYERS (2)
+     of them (4 heads: d_head 64, 32, 128; the row-skipping projection at
+     Cin 256, 128, 512), the cross transformer
+     (the cross layers on a rank's heads), tri_mbt_vmulti (the 3-D block
+     mask on a rank's heads), tri_mt_v1, tri_mbt_v2 --img-pretrain No,
+     unimodal_transformer --remat 1 and auxcpc_mbt (cpcWbrl), in two gloo
+     ranks of tpall_rank sharing the card, two launches at once (the runs
+     of TPALL_GROUPS, each group's in turn), while this process runs each
+     on one process from the same weights on the same batch. Gates (_tpall_check): each rank's launches per eval and train
+     step against the run's tables; fp32 eval probabilities, the train
+     step's loss and every gathered gradient as phase 13's; bf16
+     probabilities within PROB_TOL or phase 21's noise-floor rule, the
+     loss; the ranks' replicated state equal bit for bit. Prints rank 0's
+     train ms/step per run (TP_LABEL) and the phase's seconds.
 The kernel phases (3, 5b, 6, 9, 12, 3w) run first, then 4-5, 7-8, 10-11,
-13, 14, 14b, 15, 16, 17, 18, 19, 20 and 21, with the run's clock after
-each group.
+13, 14, 14b, 15, 16, 17, 18, 19, 20, 21 and 22 (phase 22's ranks start
+with phase 21's (a) and run beside it), with the run's clock after each
+group.
 Then one JSON line per the kernels (each with the path that launches it
 and its launches over that path's steps, under ``other_paths`` its
 launches on phases 15, 16, 18, 19 and 20's other train paths, under
@@ -330,8 +350,13 @@ plain-recompute backward at stage 1 with the step totals, attn_block and
 the ffn at feature_temporal_v1's shape, under ``legacy`` phase 20's:
 the attention at 49 image keys, attn_block at the joint stream, with the
 other shapes under ``other_shapes``; under ``row0`` phase 21's row-offset
-forms of dropout_masks and the ffn) and, last, {"ok": true, "device":
-...}.
+forms of dropout_masks and the ffn; under ``tpall`` phase 22's launches
+per train step and rank by run; under ``tp_shapes`` phase 9's results at
+phase 22's rank shapes) and, last, {"ok": true, "device": ...}.
+
+    python3 chip_smoke.py tpall
+
+runs the build and phase 22 alone;
 
     python3 chip_smoke.py dp
 
@@ -1473,6 +1498,13 @@ CROSS_SHAPES = (("cross_v", 24, 128, "txt"), ("cross_o", 128, 24, "vslt"))
 # mask)
 TP_SELF = (("tp_self", 1024, "tie"), ("tp_txt", 133, "txt_self"),
            ("tp_img", 54, "img_self"))
+# phase 22's forms at one rank's 2 of 4 heads: the cross transformer's
+# cross layers under --mp-size 2 (both directions, as CROSS_SHAPES), and
+# tri_mbt_vmulti's vslt stream under its 3-D block mask (4 cls + 1000 TIE
+# rows + 12 bottlenecks; models/mbt.py::block_key_mask over seeded
+# lengths, every row compared)
+TP_CROSS = (("tp_cross_v", 24, 128, "txt"), ("tp_cross_o", 128, 24, "vslt"))
+TP_BLOCK = (("tp_block", 4 + TIE_LEN + 12, "block_vslt"),)
 # small shapes: (B, H, Lq, Lk, d_head, mask form), the tile loop's edges
 # (Lq < 16, Lk < 16) last
 ATTN_SMALL = ((3, 2, 54, 54, 32, "none"), (3, 2, 130, 130, 32, "noncontig"),
@@ -1500,6 +1532,10 @@ def _attention_case(g, dev, B, H, Lq, Lk, D, kind):
         "all_masked": torch.linspace(0, Lk, B).long(),
         # the image tokens of the legacy cross transformer: all valid
         "img": torch.full((B,), Lk)}.get(kind)
+    if kind == "block_vslt":
+        # the rows of the multitoken vslt stream: cls + TIE rows + 12
+        return (q, k, v, _stream_block_mask(g, dev, 0, Lk - 16, False), True,
+                torch.ones(B, Lq, dtype=torch.bool, device=dev))
     if kind == "txt_self":
         # 4 bottleneck keys, then cls and the notes; samples 0 and 3
         # without notes: the bottleneck keys alone
@@ -1538,6 +1574,11 @@ def _attention_work(q, k, mask, is_self, backward=False):
         if is_self:
             nq = nk
     pairs = float((nq * nk).sum())
+    if mask is not None and mask.dim() == 3:
+        # a block mask: each query's unmasked keys (every key where all are
+        # masked: the row attends uniformly)
+        n = (~mask).sum(-1)
+        pairs = float(torch.where(n == 0, Lk, n).double().sum())
     stats = B * H * Lq * 8
     if backward:
         nbytes = 4 * _nbytes(q) + 4 * _nbytes(k) + stats + _nbytes(mask)
@@ -1590,9 +1631,11 @@ def compare_attention_kernels() -> dict:
     training form and the backward, fp32 and bf16, at the cross-modal
     layers' shapes and at the tensor-parallel self shapes of the three
     streams (with scaled_dot_product_attention on the same inputs as the
-    library column) and at the small shapes of every mask form. Returns the
-    bf16 results at cross_v's shape and (``attention_tp*``) at the TIE
-    stream's TP shape."""
+    library column), at phase 22's rank shapes (TP_CROSS, TP_BLOCK, with
+    the library column) and at the small shapes of every mask form.
+    Returns the bf16 results at cross_v's shape, at the TIE stream's TP
+    shape (``attention_tp*``) and at tp_cross_v's and tp_block's
+    (``attention_tp_cross*``, ``attention_tp_block*``)."""
     import torch.nn.functional as F
     from medical_tri_modal_pilot_tpu_torch import ops
     from medical_tri_modal_pilot_tpu_torch.kernels.attention import \
@@ -1602,6 +1645,9 @@ def compare_attention_kernels() -> dict:
     cases = [(name, BATCH, 4, Lq, Lk, 64, kind)
              for name, Lq, Lk, kind in CROSS_SHAPES]
     cases += [(name, BATCH, 2, L, L, 64, kind) for name, L, kind in TP_SELF]
+    cases += [(name, BATCH, 2, Lq, Lk, 64, kind)
+              for name, Lq, Lk, kind in TP_CROSS]
+    cases += [(name, BATCH, 2, L, L, 64, kind) for name, L, kind in TP_BLOCK]
     cases += [(c[5], *c) for c in ATTN_SMALL]
     results = {}
     for name, B, H, Lq, Lk, D, kind in cases:
@@ -1617,7 +1663,8 @@ def compare_attention_kernels() -> dict:
                 # [B, H, L, Dh] copies made before the timing; True = attend
                 qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                               for t in (qd, kd, vd))
-                keep = None if mask is None else ~mask[:, None, None, :]
+                keep = (None if mask is None else ~mask[:, None, None, :]
+                        if mask.dim() == 2 else ~mask[:, None])
 
                 def sdpa():
                     return F.scaled_dot_product_attention(qt, kt, vt,
@@ -1648,8 +1695,9 @@ def compare_attention_kernels() -> dict:
                 res["device_ms"] = dres[form]
                 res["library_device_ms"] = dres["library"][i]
             shape = f"q[{B},{Lq},{H},{D}] kv[{B},{Lk},{H},{D}]"
-            key = {"cross_v": "attention", "tp_self": "attention_tp"}.get(
-                name)
+            key = {"cross_v": "attention", "tp_self": "attention_tp",
+                   "tp_cross_v": "attention_tp_cross",
+                   "tp_block": "attention_tp_block"}.get(name)
             if key and dt == torch.bfloat16:
                 results[key] = dict(r, shape=shape)
                 results[f"{key}_train"] = dict(fr, shape=shape)
@@ -6143,6 +6191,377 @@ def compare_row0_kernels() -> dict:
     return out
 
 
+# phase 22: tensor parallelism for every family of the registry. Two gloo
+# ranks of tpall_rank per group of TPALL_GROUPS share the card (both
+# groups' launches at once) and run each run of the group in turn at
+# --mp-size 2, full width, batch 64, seeded weights
+# (the single process's), --dropout 0.1, adamw; meanwhile this process
+# runs each on one process. The tables: each rank's launches per eval and
+# per train step (derived on the CPU by counting the ops calls and the
+# backwards autograd runs through their outputs, two gloo ranks, batch 2,
+# the same flags). Config 4 at 6 layers: a TIE-stream attention through
+# rowmm_ln and every stream's attention on the rank's 2 heads (3 a layer),
+# the last layer's img and txt attentions without a backward, an FFN's
+# masks a layer and stream and the input dropout's 3; the cross
+# transformer: 3 self layers a stream and 3 cross layers a direction, each
+# an attention (carryforward rows, no rowmm) and an FFN's masks;
+# tri_mbt_vmulti: every stream's attention under its block mask (no row
+# blocks, so StdLN and products), every layer's backward; tri_mt_v1: the
+# joint stream's 6 (1179 rows, no row blocks), an input dropout per stream;
+# tri_mbt_v2 --img-pretrain No: config 4's with every backward (the v1
+# heads) and the trunk's stochastic depth (22 masks, the MLP of block 0
+# fused); unimodal_transformer --remat 1: each layer's rowmm_ln,
+# attention and FFN masks again in the recompute; auxcpc_mbt: 2 streams x 6
+# layers over the carryforward grid, 2 input masks
+def _tp_c4(layers: int, bwd: int) -> tuple:
+    ev = {"umse": 1, "attention": 3 * layers, "rowmm_ln": layers,
+          "swin_attention": 12, "swin_mlp": 12}
+    return ev, dict(ev, umse_bwd=1, attention_bwd=bwd, rowmm_ln_bwd=layers,
+                    dropout_masks=3 * layers + 3)
+
+
+_MP = ["--mp-size", "2", "--dp-size", "1"]
+_C4 = _tp_c4(6, 16)
+_V2 = _tp_c4(6, 18)
+# C 128 and 512 at 2 of the 6 layers, for the script's 1200 s limit
+# (with them at 6 the whole script took 1129.1 s on an NVIDIA H100 80GB
+# HBM3 at 700 W); every kernel form of the width still launches (rowmm_ln
+# and its backward at Cin 128 and 512, the attention at d_head 32 and 128)
+TPALL_WIDE_LAYERS = 2
+_WIDE = _tp_c4(TPALL_WIDE_LAYERS, 3 * TPALL_WIDE_LAYERS - 2)
+_WIDE_ARGV = _MP + ["--transformer-num-layers", str(TPALL_WIDE_LAYERS)]
+# run -> (argv, --auxiliary-loss-type or None, eval and train launches
+# per step and rank)
+TPALL_RUNS = {
+    "c256": (CONFIG4 + _MP, None, *_C4),
+    "c128": (CONFIG4 + _WIDE_ARGV + ["--transformer-dim", "128"], None,
+             *_WIDE),
+    "c512": (CONFIG4 + _WIDE_ARGV + ["--transformer-dim", "512"], None,
+             *_WIDE),
+    "cross": (CROSS + _MP, None, {"attention": 12},
+              {"attention": 12, "attention_bwd": 12, "dropout_masks": 12}),
+    "vmulti": (MULTI_ARGV["vmulti"] + _MP, None,
+               {"umse": 1, "attention": 18, "swin_attention": 12,
+                "swin_mlp": 12},
+               {"umse": 1, "umse_bwd": 1, "attention": 18,
+                "attention_bwd": 18, "dropout_masks": 21,
+                "swin_attention": 12, "swin_mlp": 12}),
+    "tri_mt": (REGISTRY_ARGV["tri_mt"] + _MP, None,
+               {"umse": 1, "attention": 6, "swin_attention": 12,
+                "swin_mlp": 12},
+               {"umse": 1, "umse_bwd": 1, "attention": 6, "attention_bwd": 6,
+                "dropout_masks": 9, "swin_attention": 12, "swin_mlp": 12}),
+    "v2_no": (BASELINES["v2"] + ["--img-pretrain", "No"] + _MP, None,
+              _V2[0], dict(_V2[1], swin_mlp=1,
+                           dropout_masks=_V2[1]["dropout_masks"]
+                           + BL_SD_MASKS)),
+    "remat": (CONFIG1 + ["--remat", "1"] + _MP, None,
+              {"umse": 1, "attention": 6, "rowmm_ln": 6},
+              {"umse": 1, "umse_bwd": 1, "attention": 12, "attention_bwd": 6,
+               "rowmm_ln": 12, "rowmm_ln_bwd": 6, "dropout_masks": 13}),
+    "auxcpc": (LEGACY_RUNS["auxcpc_mbt"][0] + _MP,
+               LEGACY_RUNS["auxcpc_mbt"][1], {"attention": 12},
+               {"attention": 12, "attention_bwd": 12, "dropout_masks": 14}),
+}
+# the runs in two launches at once (as phase 21's): each launch's runs in
+# turn, the two about equal in time
+TPALL_GROUPS = (("c256", "c128", "tri_mt", "auxcpc"),
+                ("c512", "cross", "vmulti", "v2_no", "remat"))
+TPALL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "tpall_smoke")
+TPALL_SEED = 40
+# train steps rank 0 times after the counted one (host clock to a
+# synchronize; TP_LABEL)
+TPALL_TIMED = 1
+
+
+def _tpall_cfg(run: str, prec: str = "bf16", single: bool = False):
+    from medical_tri_modal_pilot_tpu_torch.config import parse_config
+    argv, loss = TPALL_RUNS[run][:2]
+    cfg = parse_config(argv).replace(precision=prec)
+    if loss:
+        cfg = cfg.replace(auxiliary_loss_type=loss)
+    return cfg.replace(mp_size=0, dp_size=0) if single else cfg
+
+
+def _tpall_inputs(run: str):
+    """The run's seeded weights (the model's own init from seed 0, the
+    same in every process) and its batch."""
+    from medical_tri_modal_pilot_tpu_torch.data.synthetic import \
+        synthetic_batch
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    cfg = _tpall_cfg(run, single=True)
+    state = get_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    return state, synthetic_batch(cfg, BATCH, seed=TPALL_SEED,
+                                  present_frac=0.5)
+
+
+def _replicated_digest(tr) -> str:
+    """sha256 over the bytes of every tensor the ranks hold whole (the
+    parameters and statistics tp_spec does not split), in state order."""
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in tr.model.state_dict().items():
+        if k not in tr.split:
+            h.update(v.detach().cpu().contiguous().reshape(-1)
+                     .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tpall_steps(tr, batch, counted: bool):
+    """An eval step, then a train step, on ``batch``: (probabilities, loss,
+    the launches of each step when ``counted``)."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    ops.reset_launches()
+    probs = tr.eval_step(batch)[0]
+    torch.cuda.synchronize()
+    ev = dict(ops.launches)
+    ops.reset_launches()
+    loss = tr.train_step(batch)
+    torch.cuda.synchronize()
+    return probs, loss, ((ev, dict(ops.launches)) if counted else None)
+
+
+def tpall_rank(out_dir: str, group: str) -> None:
+    """One rank of phase 22 (started by parallel.launch): every run of
+    TPALL_GROUPS[group] in turn from its seeded weights on its batch, at
+    bf16 (the launches of an eval and a train step, then TPALL_TIMED train
+    steps timed) and at fp32 (an eval and a train step, the gradients
+    gathered into whole tensors); the digests of the replicated state
+    after each. Writes ``out_dir``/rank{r}.pt; rank 0 also the fp32
+    gradients."""
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.parallel.distributed import \
+        maybe_init_distributed
+    from medical_tri_modal_pilot_tpu_torch.parallel.mesh import (
+        gather_state_dict, make_mesh)
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    rank, _ = maybe_init_distributed(None, "gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    res = {}
+    for run in TPALL_GROUPS[int(group)]:
+        t0 = time.perf_counter()
+        state, batch = _tpall_inputs(run)
+        cfg = _tpall_cfg(run)
+        mesh = make_mesh(cfg.dp_size, cfg.batch_size, cfg.mp_size)
+
+        def trainer(c):
+            return Trainer(c, get_model(c, state=state), dev,
+                           eval_only=False, seed=0, mesh=mesh)
+        tr = trainer(cfg)
+        probs16, loss16, counts = _tpall_steps(tr, batch, True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(TPALL_TIMED):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        train_ms = (time.perf_counter() - t1) * 1e3 / TPALL_TIMED
+        r = {"probs16": probs16, "loss16": loss16, "eval_counts": counts[0],
+             "train_counts": counts[1], "train_ms": train_ms,
+             "rep16": _replicated_digest(tr), "split": len(tr.split)}
+        tr.check_replicas(f"phase 22 {run}")
+        del tr
+        tr = trainer(cfg.replace(precision="fp32"))
+        r["probs32"], r["loss32"], _ = _tpall_steps(tr, batch, False)
+        names = {id(p): n for n, p in tr.model.named_parameters()}
+        grads = gather_state_dict({names[id(p)]: p.grad.detach().float()
+                                   for p in tr.optimizer.params}, tr.split,
+                                  mesh)
+        r["rep32"] = _replicated_digest(tr)
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in grads.items()},
+                       os.path.join(out_dir, f"{run}_grads.pt"))
+        del tr, grads
+        gc_collect()
+        r["s"] = time.perf_counter() - t0
+        res[run] = r
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _tpall_single(run: str, dev) -> dict:
+    """The run in this process on the kernel path, from the same weights
+    on the same batch: bf16 and fp32 eval probabilities and train-step
+    losses, the fp32 step's gradients."""
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    state, batch = _tpall_inputs(run)
+    out = {"state": state, "batch": batch}
+    for prec in ("bf16", "fp32"):
+        c = _tpall_cfg(run, prec, single=True)
+        tr = Trainer(c, get_model(c, state=state), dev, eval_only=False,
+                     seed=0)
+        out[f"probs{prec[-2:]}"], out[f"loss{prec[-2:]}"], _ = _tpall_steps(
+            tr, batch, False)
+        if prec == "fp32":
+            names = {id(p): n for n, p in tr.model.named_parameters()}
+            out["grads"] = {names[id(p)]: (p.grad.detach().float(), None)
+                            for p in tr.optimizer.params}
+        del tr
+        gc_collect()
+    return out
+
+
+def _tpall_floor(run: str, single: dict) -> float:
+    """The single process's own bf16 eval distance under STEP_NOISE of
+    relative weight noise: the largest over STEP_NOISE_DRAWS draws of max
+    |prob diff| (phase 21's rule)."""
+    from medical_tri_modal_pilot_tpu_torch.models import get_model
+    from medical_tri_modal_pilot_tpu_torch.train.trainer import Trainer
+    c = _tpall_cfg(run, single=True)
+    floor = 0.0
+    for draw in range(STEP_NOISE_DRAWS):
+        g = torch.Generator().manual_seed(draw)
+        model = get_model(c, state=single["state"])
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + STEP_NOISE * torch.randn(p.shape, generator=g,
+                                                    dtype=p.dtype))
+        tr = Trainer(c, model, torch.device("cuda"), eval_only=True)
+        probs = tr.eval_step(single["batch"])[0]
+        floor = max(floor, float(np.max(np.abs(probs - single["probs16"]))))
+        del tr, model
+    return floor
+
+
+def _tpall_check(run: str, power: str, single: dict, ranks: list) -> list:
+    """Phase 22's gates for ``run``: each rank's launches per eval and
+    train step against the run's tables; fp32 eval probabilities within
+    PROB_TOL, the step's loss within STEP_LOSS_TOL (relative past 1 for
+    AUXCPC's losses, phase 20's rule) and every gathered gradient within
+    STEP_FP32_TOL (Frobenius) of the single process's (phase 13); bf16
+    probabilities within PROB_TOL or STEP_NOISE_RATIO of the single
+    process's own distance under weight noise (phase 21's rule), the loss
+    within STEP_LOSS_TOL; the ranks' replicated state equal bit for bit
+    (sha256) after the bf16 steps and after the fp32 step. Returns the
+    failures."""
+    from medical_tri_modal_pilot_tpu_torch import ops
+    _, _, eval_pp, train_pp = TPALL_RUNS[run][:4]
+    r0 = ranks[0][run]
+    failures = []
+    bad = [(r, kind, k) for r, res in enumerate(ranks)
+           for kind, pp in (("eval", eval_pp), ("train", train_pp))
+           for k in ops.KERNELS
+           if res[run][f"{kind}_counts"][k] != pp.get(k, 0)]
+    shown = {k: v for k, v in r0["train_counts"].items() if v}
+    group = next(g for g, runs in enumerate(TPALL_GROUPS) if run in runs)
+    grads = torch.load(os.path.join(TPALL_DIR, f"group{group}",
+                                    f"{run}_grads.pt"))
+    dev = torch.device("cuda")
+    tp = {k: (v.to(dev), None) for k, v in grads.items()}
+    head_bn = any(k.endswith(("1.running_mean", "bn.running_mean"))
+                  for k in single["state"])
+    errs = _step_errors(tp, single["grads"],
+                        ZERO_GRAD if head_bn else ZERO_GRAD[:1])
+    rel = run == "auxcpc"
+    d32 = float(np.max(np.abs(r0["probs32"] - single["probs32"])))
+    d16 = float(np.max(np.abs(r0["probs16"] - single["probs16"])))
+    floor = _tpall_floor(run, single) if d16 > PROB_TOL["bf16"] else None
+    ok16 = d16 <= PROB_TOL["bf16"] or d16 <= STEP_NOISE_RATIO * floor
+    tol = {p: STEP_LOSS_TOL[p] * (max(1.0, abs(single[f"loss{p[-2:]}"]))
+                                  if rel else 1.0) for p in ("fp32", "bf16")}
+    l32 = abs(r0["loss32"] - single["loss32"])
+    l16 = abs(r0["loss16"] - single["loss16"])
+    same = all(res[run][k] == r0[k] for res in ranks for k in ("rep16",
+                                                                "rep32"))
+    c = _tpall_cfg(run)
+    print(f"tpall {run} (d_model {c.transformer_dim}, {c.transformer_num_head}"
+          f" heads, {c.transformer_num_layers} layers): launches per rank, "
+          f"train step {shown} (eval "
+          f"{ {k: v for k, v in r0['eval_counts'].items() if v} }; off "
+          f"{bad}); fp32 probabilities max |diff| {d32:.3e} (tol "
+          f"{PROB_TOL['fp32']}), loss {r0['loss32']:.6f} vs single "
+          f"{single['loss32']:.6f} (|diff| {l32:.2e}, tol "
+          f"{tol['fp32']:.3g}), grads "
+          f"|tp - single|_F/|single|_F over {len(errs)} tensors: "
+          f"{_summary(errs)} (tol {STEP_FP32_TOL}); bf16 probabilities "
+          f"{d16:.3e} (tol {PROB_TOL['bf16']}"
+          + ("" if floor is None else
+             f", or {STEP_NOISE_RATIO}x the single process's {floor:.3e} "
+             f"under {STEP_NOISE} relative weight noise, the largest of "
+             f"{STEP_NOISE_DRAWS} draws") + f"; {ok16}), loss "
+          f"{r0['loss16']:.6f} vs {single['loss16']:.6f} (|diff| "
+          f"{l16:.2e}, tol {tol['bf16']:.3g}); replicated state equal on "
+          f"the ranks: "
+          f"{same}; {r0['split']} split tensors")
+    print(f"tpall {run} rank 0 ({power}; {TP_LABEL}): train "
+          f"{r0['train_ms']:.1f} ms/step; the run {r0['s']:.1f} s")
+    if bad:
+        failures.append(f"{run}: launches {bad[:4]}")
+    if not np.all(np.isfinite(r0["probs32"])) or d32 > PROB_TOL["fp32"]:
+        failures.append(f"{run}: fp32 probabilities")
+    if not np.isfinite(r0["loss32"]) or l32 > tol["fp32"] or \
+            max(errs.values()) > STEP_FP32_TOL:
+        failures.append(f"{run}: fp32 train step")
+    if not np.all(np.isfinite(r0["probs16"])) or not ok16 or \
+            not np.isfinite(r0["loss16"]) or l16 > tol["bf16"]:
+        failures.append(f"{run}: bf16")
+    if not same:
+        failures.append(f"{run}: replicated state differs between ranks")
+    return failures
+
+
+def _tpall_launch(group: int) -> list:
+    """The two ranks of tpall_rank over TPALL_GROUPS[group]; their results
+    in rank order."""
+    from medical_tri_modal_pilot_tpu_torch.parallel.launch import launch
+    out = os.path.join(TPALL_DIR, f"group{group}")
+    os.makedirs(out)
+    launch("chip_smoke:tpall_rank", 2, f"file://{out}/rendezvous",
+           [out, str(group)], timeout=900)
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in (0, 1)]
+
+
+def start_tpall() -> tuple:
+    """Phase 22's ranks: a launch of two ranks of tpall_rank per group of
+    TPALL_GROUPS, both at once, each in a thread of its own. Returns (the
+    clock at the start, the pool, the launches' futures)."""
+    from concurrent.futures import ThreadPoolExecutor
+    if sorted(sum(TPALL_GROUPS, ())) != sorted(TPALL_RUNS):
+        raise AssertionError("TPALL_GROUPS must hold every run once")
+    shutil.rmtree(TPALL_DIR, ignore_errors=True)
+    os.makedirs(TPALL_DIR)
+    pool = ThreadPoolExecutor(len(TPALL_GROUPS))
+    return (time.perf_counter(), pool,
+            [pool.submit(_tpall_launch, g) for g in range(len(TPALL_GROUPS))])
+
+
+def run_tpall(power: str, started: Optional[tuple] = None) -> dict:
+    """Phase 22: the ranks (start_tpall, or ``started``: ranks started
+    earlier, beside another phase) while this process runs each run on one
+    process (_tpall_single); then _tpall_check per run. Returns each
+    kernel's launches per train step and rank by run."""
+    t_phase, pool, jobs = started or start_tpall()
+    t_here = time.perf_counter()
+    dev = torch.device("cuda")
+    single = {}
+    for run in TPALL_RUNS:
+        single[run] = _tpall_single(run, dev)
+    t_single = time.perf_counter() - t_here
+    groups = [job.result() for job in jobs]
+    pool.shutdown()
+    print(f"tpall: single process {t_single:.1f} s, the ranks done at "
+          f"{time.perf_counter() - t_phase:.1f} s from their start")
+    ranks = [{run: res for g in groups for run, res in g[r].items()}
+             for r in (0, 1)]
+    failures, counts = [], {}
+    for run in TPALL_RUNS:
+        failures += _tpall_check(run, power, single.pop(run), ranks)
+        for k, n in ranks[0][run]["train_counts"].items():
+            if n:
+                counts.setdefault(k, {})[run] = n
+        gc_collect()
+    print(f"tpall phase ({power}): {time.perf_counter() - t_here:.1f} s "
+          f"here, {time.perf_counter() - t_phase:.1f} s from the ranks' "
+          "start")
+    if failures:
+        raise AssertionError(f"tensor parallelism of the families: "
+                             f"{failures}")
+    return counts
+
+
 def gc_collect() -> None:
     import gc
     gc.collect()
@@ -6491,6 +6910,11 @@ def main() -> None:
         compare_row0_kernels()
         run_dp(power)
         return
+    if len(sys.argv) == 2 and sys.argv[1] == "tpall":
+        power = check_device()
+        build_kernels()
+        run_tpall(power)
+        return
     if len(sys.argv) == 2 and sys.argv[1] == "tpdrivers":
         power = check_device()
         build_kernels()
@@ -6540,8 +6964,13 @@ def main() -> None:
     counts.update(lg_counts)
     clock("phase 20")
     row0 = compare_row0_kernels()
+    # phase 22's ranks run beside phase 21 (neither gives a speed figure:
+    # every rank shares the card over gloo)
+    started = start_tpall()
     run_dp(power)
-    clock("phase 21")
+    clock("phase 21 (phase 22's ranks beside it)")
+    tpall = run_tpall(power, started)
+    clock("phase 22")
     kernels = []
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         path = KERNEL_PATHS[name]
@@ -6559,7 +6988,13 @@ def main() -> None:
                         "mt_joint": joint.get(name, {}),
                         "baselines": bl_results.get(name, {}),
                         "legacy": lg_results.get(name, {}),
-                        "row0": row0.get(name, {})})
+                        "row0": row0.get(name, {}),
+                        "tpall": tpall.get(name, {}),
+                        "tp_shapes": {
+                            k: results[f"{name}_{k}"] for k in (
+                                "tp_cross", "tp_cross_train", "tp_block",
+                                "tp_block_train")
+                            if f"{name}_{k}" in results}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

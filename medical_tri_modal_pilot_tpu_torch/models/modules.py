@@ -30,7 +30,11 @@ Tensor parallelism (``--mp-size``): ``parallel.mesh.shard_model`` cuts the
 q|k|v and FFN weights to a rank's columns and sets ``tp`` on the
 attention and FFN modules, which then compute their share between the
 mesh's collectives (the JAX package's layout under ``--mp-size > 1``,
-where its fused attention block and FFN kernels are off).
+where its fused attention block and FFN kernels are off). Every other
+module is replicated: each rank of a model group computes it whole on
+the same inputs and draws the same dropout masks, so its parameters stay
+equal on the ranks. Under ``--remat 1`` the checkpointed recompute runs
+the layer's collectives again, in the same order on every rank.
 """
 from __future__ import annotations
 
@@ -228,17 +232,21 @@ class MultiHeadAttention(nn.Module):
         to the fused ``attn_block`` (kernel on CUDA). Otherwise the
         projections are plain products and the attention goes to
         ``ops.attention`` (kernel on CUDA), ``is_self`` when query is key.
-        Under tensor parallelism (``tp`` set) a pre-norm call takes this
-        rank's heads instead (``_tp_self_attention``): the JAX package's
-        path on a mesh with --mp-size > 1, through the row-skipping
-        LN-fused projection (kernels/rowmm.py) where the stream has row
-        blocks. The pre-norm call without a residual has no caller on one
-        device; there it keeps plain projections."""
+        Under tensor parallelism (``tp`` set: q|k|v cut to this rank's
+        columns) a pre-norm call goes to ``_tp_self_attention`` (the
+        row-skipping LN-fused projection, kernels/rowmm.py, where the
+        stream has row blocks) and a call without one (the cross layers)
+        copies its streams into the model group and takes the rank's
+        products; both then attend through ``_tp_attend``: the JAX
+        package's path on a mesh with --mp-size > 1. The pre-norm call
+        without a residual has no caller on one device; there it keeps
+        plain projections."""
         H = self.num_heads
         d_head = self.dim // H
         B, Lq, _ = query.shape
         Lk = key.shape[1]
         dt = self.compute_dtype
+        is_self = query is key
         (wq, bq), (wk, bk), (wv, bv) = (self.query_proj.weights(),
                                         self.key_proj.weights(),
                                         self.value_proj.weights())
@@ -255,27 +263,55 @@ class MultiHeadAttention(nn.Module):
                 return ops.attn_block(query.to(dt), gamma, beta, wcat, bcat,
                                       key_mask, math.sqrt(d_head), H)
             query = key = value = stdln_apply(query, gamma, beta, dt)
+        elif self.tp is not None:
+            # the streams enter the model group (their gradients summed
+            # over it, a stream passed as key and value once); each rank's
+            # products give its q|k|v columns
+            if key is value:
+                query, key = copy_to_model(self.tp, query, key)
+                value = key
+            else:
+                query, key, value = copy_to_model(self.tp, query, key, value)
         q = query.to(dt) @ wq.to(dt) + bq.to(dt)
         k = key.to(dt) @ wk.to(dt) + bk.to(dt)
         v = value.to(dt) @ wv.to(dt) + bv.to(dt)
+        if self.tp is not None:
+            out = self._tp_attend(q, k, v, key_mask, is_self)
+        else:
+            out = ops.attention(
+                q.reshape(B, Lq, H, d_head), k.reshape(B, Lk, H, d_head),
+                v.reshape(B, Lk, H, d_head), key_mask, math.sqrt(d_head),
+                is_self=is_self).reshape(B, Lq, self.dim)
+        return out if residual is None else out + residual
+
+    def _tp_attend(self, q, k, v, key_mask, is_self: bool):
+        """The attention of this rank's q|k|v columns [B, L, C / M], its
+        output the whole [B, Lq, C] on every rank: ``ops.attention`` on
+        the rank's H / M heads, then the heads gathered from the model
+        group (JAX ops/__init__.py:114-129, heads on 'model'); where M
+        does not divide the heads (JAX :116-118, the attention unsharded)
+        q, k and v gathered first and every head computed on every rank."""
+        mesh = self.tp
+        B, Lq, _ = q.shape
+        Lk = k.shape[1]
+        d_head = self.dim // self.num_heads
+        whole = self.num_heads % mesh.mp != 0
+        if whole:
+            q, k, v = (gather_from_model(mesh, t) for t in (q, k, v))
+        H = q.shape[-1] // d_head
         ctx = ops.attention(
             q.reshape(B, Lq, H, d_head), k.reshape(B, Lk, H, d_head),
             v.reshape(B, Lk, H, d_head), key_mask, math.sqrt(d_head),
-            is_self=query is key)
-        out = ctx.reshape(B, Lq, self.dim)
-        return out if residual is None else out + residual
+            is_self=is_self).reshape(B, Lq, H * d_head)
+        return ctx if whole else gather_from_model(mesh, ctx)
 
     def _tp_self_attention(self, x, key_mask, gamma, beta, residual):
-        """x + MHA(StdLN(x)) over this rank's heads (JAX modules.py:
-        263-274 with the heads split over 'model'): the q|k|v of its
-        columns, through ``ops.rowskip_ln_affine`` on a stream with
-        256-row blocks (StdLN fused, dead blocks skipped) or StdLN and
-        plain products otherwise; ``ops.attention`` on its heads; the
-        heads gathered from the model group."""
+        """x + MHA(StdLN(x)) over this rank's q|k|v columns (JAX
+        modules.py:263-274 under the mesh): through
+        ``ops.rowskip_ln_affine`` on a stream with 256-row blocks (StdLN
+        fused, dead blocks skipped) or StdLN and plain products otherwise
+        (a block mask among them); then ``_tp_attend``."""
         mesh = self.tp
-        H = self.num_heads // mesh.mp
-        d_head = self.dim // self.num_heads
-        B, L, _ = x.shape
         dt = self.compute_dtype
         (wq, bq), (wk, bk), (wv, bv) = (self.query_proj.weights(),
                                         self.key_proj.weights(),
@@ -294,11 +330,7 @@ class MultiHeadAttention(nn.Module):
             q = ln @ wq.to(dt) + bq.to(dt)
             k = ln @ wk.to(dt) + bk.to(dt)
             v = ln @ wv.to(dt) + bv.to(dt)
-        ctx = ops.attention(
-            q.reshape(B, L, H, d_head), k.reshape(B, L, H, d_head),
-            v.reshape(B, L, H, d_head), key_mask, math.sqrt(d_head),
-            is_self=True)
-        out = gather_from_model(mesh, ctx.reshape(B, L, H * d_head))
+        out = self._tp_attend(q, k, v, key_mask, True)
         return out if residual is None else out + residual
 
 

@@ -2,6 +2,7 @@
 medical_tri_modal_pilot_tpu/models/registry.py), with seeded weights."""
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional
 
@@ -173,6 +174,24 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                     fill(p, randn(p))
 
 
+@contextlib.contextmanager
+def _without_torch_init():
+    """torch's modules allocate their parameters without drawing torch's
+    own default initialisation (``nn.init``): get_model then draws every
+    parameter in init_parameters or loads it from a state, so that draw,
+    a pass over every parameter on the host, was lost work."""
+    names = [n for n in dir(nn.init) if n.endswith("_")
+             and not n.startswith("_")]
+    saved = {n: getattr(nn.init, n) for n in names}
+    for n in names:
+        setattr(nn.init, n, lambda tensor, *args, **kwargs: tensor)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(nn.init, n, fn)
+
+
 def get_model(cfg: Config, generator: Optional[torch.Generator] = None,
               state: Optional[Dict[str, torch.Tensor]] = None):
     """Build the model for ``cfg.model`` on the CPU in eval mode, weights
@@ -182,7 +201,8 @@ def get_model(cfg: Config, generator: Optional[torch.Generator] = None,
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown model '{name}'; available: {sorted(_REGISTRY)}")
-    model = _REGISTRY[name](cfg)
+    with _without_torch_init():
+        model = _REGISTRY[name](cfg)
     if state is not None:
         model.load_state_dict(state)
         return model.eval()

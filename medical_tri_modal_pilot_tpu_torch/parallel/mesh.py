@@ -186,8 +186,11 @@ def shard_model(model: torch.nn.Module, mesh: Mesh) -> Dict[str, int]:
     """Cut every parameter that tp_spec splits down to this rank's shard, in
     place, and hand the mesh to each module whose split parameters make it
     tensor-parallel (the modules with a ``tp`` attribute: the attention and
-    the FFN). Returns name -> split dimension. A module whose heads the
-    model axis does not divide raises."""
+    the FFN). Returns name -> split dimension. A module whose width the
+    model axis does not divide keeps its parameters whole and runs whole
+    on every rank; an attention whose heads it does not divide splits its
+    q|k|v columns and computes every head on every rank (as the JAX
+    package does)."""
     mp, index = mesh.mp, mesh.model_index
     split = {}
     if mp == 1:
@@ -205,11 +208,10 @@ def shard_model(model: torch.nn.Module, mesh: Mesh) -> Dict[str, int]:
                if _rule(n, p.dim()) is not None]
         if not any(n in split for n in own):
             continue
-        if getattr(mod, "num_heads", mp) % mp or not all(n in split
-                                                         for n in own):
+        if not all(n in split for n in own):
             raise NotImplementedError(
-                f"{mname}: --mp-size {mp} must divide its heads and every "
-                "width it splits")
+                f"{mname}: --mp-size {mp} splits some of its widths and "
+                "not others")
         mod.tp = mesh
     return split
 

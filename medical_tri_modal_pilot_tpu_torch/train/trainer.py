@@ -15,6 +15,8 @@ batch (``resolve_wire``).
 Tensor parallelism: ``Trainer(..., mesh=make_mesh(...))`` with mp > 1
 shards the model (``parallel.mesh.shard_model``) and builds the optimizer
 over this rank's shards; every rank of a model group runs the same batch.
+Any model of the registry: what tp_spec does not split (trunks, stems,
+recurrences, heads) every rank of the group computes whole.
 ``state_dicts`` and ``load_state_dicts`` move whole, reference-layout
 state in and out.
 
@@ -379,11 +381,6 @@ class Trainer:
                              f"and {dp} data ranks: build the mesh with "
                              "parallel.mesh.make_mesh after "
                              "parallel.distributed.maybe_init_distributed")
-        if mp > 1 and cfg.model != "tri_mbt_vsltcls":
-            raise NotImplementedError(
-                f"--model {cfg.model} under --mp-size {mp}: tensor "
-                "parallelism covers tri_mbt_vsltcls; the other models are "
-                "ROADMAP Queue 1 item 8")
         self.cfg = cfg
         self.device = torch.device(device)
         self.mesh = mesh
@@ -618,18 +615,32 @@ class Trainer:
 
     def check_replicas(self, tag: str) -> None:
         """Raise unless every rank of this rank's data group holds the
-        same model state (parameters and statistics), by a position-
-        weighted float64 checksum (``assert_agreement``): the data ranks
-        take identical steps, and one that drifted would go on apart
-        silently. A no-op without data parallelism."""
-        if not data_parallel(self.mesh):
+        same model state (parameters and statistics), and every rank of its
+        model group the same replicated state (all but the tensor-parallel
+        shards), by a position-weighted float64 checksum
+        (``assert_agreement``): the data ranks take identical steps and
+        the model ranks compute the replicated modules alike, and one that
+        drifted would go on apart silently. A no-op in one process."""
+        mesh = self.mesh
+        if mesh is None or mesh.dp * mesh.mp == 1:
             return
-        with torch.no_grad():
-            sums = torch.stack([t.detach().double().sum()
-                                for t in self.model.state_dict().values()
-                                if t.is_floating_point()])
-            weights = torch.arange(1, len(sums) + 1, dtype=torch.float64,
-                                   device=sums.device)
-            checksum = float((sums * weights).sum())
-        assert_agreement(f"the model state at {tag}", checksum,
-                         group=self.mesh.data_group)
+        state = self.model.state_dict()
+        if data_parallel(mesh):
+            assert_agreement(f"the model state at {tag}",
+                             _checksum(state.values()),
+                             group=mesh.data_group)
+        if mesh.mp > 1:
+            assert_agreement(f"the replicated model state at {tag}",
+                             _checksum(v for k, v in state.items()
+                                       if k not in self.split),
+                             group=mesh.model_group)
+
+
+@torch.no_grad()
+def _checksum(tensors) -> float:
+    """sum_i i * sum(t_i) in float64 over the floating tensors, i from 1."""
+    sums = torch.stack([t.detach().double().sum() for t in tensors
+                        if t.is_floating_point()])
+    weights = torch.arange(1, len(sums) + 1, dtype=torch.float64,
+                           device=sums.device)
+    return float((sums * weights).sum())

@@ -40,11 +40,13 @@ def narrow_trunk(kwargs):
         models.SwinTransformer = orig
 
 
-def execute(run: dict, mesh=None) -> dict:
+def execute(run: dict, mesh=None, keep_trainer: bool = False) -> dict:
     """A run from its initial state: the eval step on its eval batch, a
     train step per batch, the eval step again; the losses, the eval
     outputs (``probs0`` before the steps) and the whole (gathered) state
-    after them. ``mesh`` None: one process."""
+    after them, the trainable parameters' names in the optimizer's order
+    (and the Trainer itself under ``trainer`` with
+    ``keep_trainer``). ``mesh`` None: one process."""
     cfg = run_config(run)
     with narrow_trunk(run.get("trunk")):
         model = get_model(cfg)
@@ -54,10 +56,14 @@ def execute(run: dict, mesh=None) -> dict:
     losses = [tr.train_step(b) for b in run["batches"]]
     probs, eval_loss, eval_rmse = tr.eval_step(run["eval"])
     model_sd, opt_sd = tr.state_dicts()
-    return {"losses": losses, "probs0": probs0, "probs": probs,
-            "eval_loss": eval_loss,
-            "eval_rmse": eval_rmse, "model": model_sd, "optimizer": opt_sd,
-            "lr_sum": sum(tr.schedule(k) for k in range(len(losses)))}
+    res = {"losses": losses, "probs0": probs0, "probs": probs,
+           "eval_loss": eval_loss,
+           "eval_rmse": eval_rmse, "model": model_sd, "optimizer": opt_sd,
+           "lr_sum": sum(tr.schedule(k) for k in range(len(losses))),
+           "names": tr._param_names()}
+    if keep_trainer:
+        res["trainer"] = tr
+    return res
 
 
 def runs(out: str) -> None:

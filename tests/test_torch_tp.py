@@ -58,6 +58,18 @@ CROSS = ["--model", "cross_transformer_txt_vslt", "--input-types",
          "--batch-size", str(B), "--transformer-num-layers", "2",
          "--transformer-dim", "64", "--transformer-num-head", "2",
          "--precision", "fp32"]
+# the families of tests/test_torch_tp_families.py, for the layout: the
+# block-mask multitoken model, the concat fusion, AUXCPC over the MBT
+# fusion, the legacy cross transformer on the Swin-T's tokens
+VMULTI = [{"tri_mbt_vsltcls": "tri_mbt_vmulti",
+           "vslt_txt": "vslt_img_txt"}.get(a, a) for a in TP]
+TRI_MT = [{"tri_mbt_vsltcls": "tri_mt_v1",
+           "vslt_txt": "vslt_img_txt"}.get(a, a) for a in TP]
+AUXCPC = [{"cross_transformer_txt_vslt": "auxcpc_mbt"}.get(a, a)
+          for a in CROSS] + ["--auxiliary-loss-input", "directInput"]
+CROSS_IMG = [{"cross_transformer_txt_vslt":
+              "cross_transformer_img_vslt_sssccc",
+              "vslt_txt": "vslt_img"}.get(a, a) for a in CROSS]
 # sharded against whole, fp32: the same math with the sums split over the
 # ranks (measured below 2e-6 of each tensor's largest entry)
 SPLIT_RTOL = 1e-5
@@ -98,9 +110,17 @@ def _jax_param_shapes(argv):
     return cfg, shapes["params"]
 
 
-@pytest.mark.parametrize("argv", [TP, CROSS], ids=["tri_mbt", "cross"])
+# the encoder layers of each case (tri_mt_v1: the joint stream's alone)
+LAYERS = {"tri_mbt": 4, "cross": 4, "vmulti": 6, "tri_mt": 2, "auxcpc": 4,
+          "cross_img": 4}
+
+
+@pytest.mark.parametrize("argv,case", [
+    (TP, "tri_mbt"), (CROSS, "cross"), (VMULTI, "vmulti"),
+    (TRI_MT, "tri_mt"), (AUXCPC, "auxcpc"), (CROSS_IMG, "cross_img")],
+    ids=["tri_mbt", "cross", "vmulti", "tri_mt", "auxcpc", "cross_img"])
 @pytest.mark.parametrize("mp", [2, 3])
-def test_tp_spec_matches_jax(argv, mp):
+def test_tp_spec_matches_jax(argv, case, mp):
     """Each JAX parameter becomes a marker array that counts along the
     dimension JAX's _tp_spec splits (zeros where it is replicated); through
     the weight bridge each port tensor must count along exactly the
@@ -132,7 +152,8 @@ def test_tp_spec_matches_jax(argv, mp):
     # per encoder layer: the q, k, v weights and biases, w_1's weight and
     # bias, w_2's weight
     layers = len([k for k in port if k.endswith("w_2.weight")])
-    assert split == (0 if mp == 3 else 9 * layers) and layers >= 4
+    assert split == (0 if mp == 3 else 9 * layers)
+    assert layers == LAYERS[case]
 
 
 # ------------------------------------------------------------ collectives
@@ -377,11 +398,13 @@ def test_dropout_masks_offset_slice_is_the_whole_masks_columns(col0, F):
 # --------------------------------------------------------- refusals
 
 def test_what_tensor_parallelism_refuses():
-    """Other models under --mp-size raise naming ROADMAP Queue 1 item 8; a
-    mesh that leaves ranks out, --mp-size without a mesh, and nccl without
-    a card per rank raise too. Four processes at --mp-size 2 make a
-    (2, 2) mesh: data parallelism over two model groups
-    (tests/test_torch_dp.py)."""
+    """A mesh that leaves ranks out, an --mp-size that does not divide the
+    processes, --mp-size without a mesh, and nccl without a card per rank
+    raise. Four processes at --mp-size 2 make a (2, 2) mesh: data
+    parallelism over two model groups (tests/test_torch_dp.py). Every
+    model of the registry shards: the cross transformer's Trainer at
+    --mp-size 2 cuts its q|k|v and FFN weights (its refusal until
+    tensor parallelism covered every family)."""
     assert mesh_shape(1, B, 2, 2) == (1, 2)
     assert mesh_shape(0, B, 2, 2) == (1, 2)
     assert mesh_shape(0, B, 2, 4) == (2, 2)
@@ -394,9 +417,10 @@ def test_what_tensor_parallelism_refuses():
     with pytest.raises(ValueError, match="mesh"):
         port_trainer.Trainer(cfg, get_model(cfg), "cpu")
     cross = parse_config(CROSS + ["--mp-size", "2"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_trainer.Trainer(cross, get_model(cross), "cpu",
-                             mesh=Mesh(1, 2, 0))
+    tr = port_trainer.Trainer(cross, get_model(cross), "cpu",
+                              mesh=Mesh(1, 2, 0))
+    layers = [k for k in tr.split if k.endswith("w_2.weight")]
+    assert len(layers) >= 2 and len(tr.split) == 9 * len(layers)
     dcfg = cfg.replace(dist_coordinator="localhost:29999",
                        dist_num_processes=2, dist_process_id=0)
     if not torch.cuda.is_available():
