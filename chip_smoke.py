@@ -256,10 +256,14 @@ Phases, each raising on failure (nothing is caught):
   19. the paper's baselines and the trainable Swin trunk (full width,
      bf16): first the trunk's two ops at each Swin-T stage at batch 64
      through their autograd Functions (the kernel's training forward, the
-     plain version recomputed as the backward) against the plain path,
-     with the profiler's device ms of the eval forward, the training
-     forward (the port's kernels) and the backward (none of them), per
-     step weighted by the launches; stochastic depth's row masks on the
+     backward kernels swin_attention_bwd and swin_mlp_bwd) against
+     autograd of the plain version, the backward kernels against their
+     closed forms and bit for bit over two runs, with the profiler's
+     device ms of the eval forward, the training forward, the backward
+     (its kernels), the plain recompute it replaced and, for the
+     attention, autograd of torch's multi_head_attention_forward; per
+     step weighted by the launches; the stochastic-depth blocks' unfused
+     MLP branch (plain) forward and backward; stochastic depth's row masks on the
      card bit for bit the plain version's, the keep rate of 1M rows;
      attn_block and the ffn at feature_temporal_v1's unmasked instance
      shape [1536, 19, 256] (fp32 and bf16, as phase 18's joint shape);
@@ -269,11 +273,11 @@ Phases, each raising on failure (nothing is caught):
      tri_mbt_v2, tri_mbt_v3 and tri_mbt_vsltcls --img-pretrain No
      (config 4's flags): eval against the plain path in bf16 and fp32,
      one train step on both paths in fp32 and bf16 at dropout 0.1 (phase
-     7's gates, every trunk gradient by Frobenius ratio), launch and
-     Swin recompute counts per step (BASELINES' tables); fusiontrainer
+     7's gates, every trunk gradient by Frobenius ratio), launch counts
+     per step (BASELINES' tables; no plain recompute); fusiontrainer
      Medfuse and tri_mbt_v2 timed in turns and profiled (device busy,
      idle share) with their peak memory; one step under --fusion-type
-     uni_ehr (no recompute); a fusiontrainer fold through the drivers and
+     uni_ehr (no trunk backward); a fusiontrainer fold through the drivers and
      gru_d's with no --model (1 epoch of 2 train, 1 val, 1 test) with the
      test driver's walk. Prints the phase's seconds.
   20. the legacy families of register_legacy (full width, bf16,
@@ -290,7 +294,7 @@ Phases, each raising on failure (nothing is caught):
      time transformer's [64, 25, 256] (fp32 and bf16, the profiler's
      device ms per form); then per run an eval step against the plain
      path in bf16 and fp32, a train step at --dropout 0.1 (launches
-     against LEGACY_EVAL / LEGACY_TRAIN, the trunk's recomputes, peak
+     against LEGACY_EVAL / LEGACY_TRAIN, no plain recompute, peak
      memory), one step on both paths in fp32 and bf16 at dropout 0 (phase
      15's step gates, with LG_ALLOW's allowances for the runs it names);
      one run per archetype (LEGACY_TIMED) timed in turns and profiled; a
@@ -345,8 +349,9 @@ and its launches over that path's steps, under ``other_paths`` its
 launches on phases 15, 16, 18, 19 and 20's other train paths, under
 ``widths`` its bf16 results at the other widths of phase 3w, under
 ``mt_joint`` its bf16 results at phase 18's joint shape, and under
-``baselines`` phase 19's: the Swin ops' training forward and their
-plain-recompute backward at stage 1 with the step totals, attn_block and
+``baselines`` phase 19's: the Swin ops' training forward at stage 1 with
+the step totals (their backward kernels have lines of their own, from
+the same phase, launches from tri_mbt_v2's train steps), attn_block and
 the ffn at feature_temporal_v1's shape, under ``legacy`` phase 20's:
 the attention at 49 image keys, attn_block at the joint stream, with the
 other shapes under ``other_shapes``; under ``row0`` phase 21's row-offset
@@ -570,8 +575,9 @@ TRAIN_LAUNCHES_PER_STEP.update(
     tri_v1={"umse": 1, "umse_bwd": 1, "attn_block": 18,
             "attn_block_bwd": 18, "ffn": 18, "ffn_bwd": 18,
             "dropout_masks": 3, "swin_attention": 12, "swin_mlp": 12})
-# the trainable trunk's backward passes a train step runs (ops.recomputes:
-# the plain version recomputed under autograd), by path; none elsewhere
+# the plain recomputes a train step runs (ops.recomputes: a Swin op's
+# backward as autograd of its plain version), by path: none, since the
+# trainable trunk's backward launches the backward kernels
 TRAIN_RECOMPUTES_PER_STEP = {}
 TRAIN_BATCHES = {"vslt_txt": [0.5, 0.5], "config4": [0.5, 0.25, 0.75],
                  "cross": [0.5] * 3, "config1": [0.5] * 3,
@@ -665,16 +671,27 @@ KERNEL_SOURCES = {
               "medical_tri_modal_pilot_tpu/kernels/rowmm.py:182"),
     "rowmm_bwd": ("cuda", "medical_tri_modal_pilot_tpu_torch/csrc/rowmm.cu",
                   "medical_tri_modal_pilot_tpu/kernels/rowmm.py:208"),
+    # the Swin ops' custom VJPs take jax.vjp of their XLA oracles (no
+    # pallas_call of their own); the dense products around the window core
+    # run in torch.matmul, the MLP's weight sums in csrc/wgrad.cu
+    "swin_attention_bwd": (
+        "cuda", "medical_tri_modal_pilot_tpu_torch/csrc/swin_attention_bwd.cu",
+        "medical_tri_modal_pilot_tpu/kernels/swin_attention.py:193"),
+    "swin_mlp_bwd": (
+        "cuda", "medical_tri_modal_pilot_tpu_torch/csrc/swin_mlp_bwd.cu",
+        "medical_tri_modal_pilot_tpu/kernels/swin_mlp.py:133"),
 }
 # the path whose train steps give each kernel's launches in the kernels
 # line: the masked attention runs in the cross transformer, the LN-fused
 # projection under tensor parallelism, the plain projection on no path
-# (the JAX package dispatches it nowhere), every other kernel in config 4
+# (the JAX package dispatches it nowhere), the Swin backwards where the
+# trunk trains (tri_mbt_v2), every other kernel in config 4
 KERNEL_PATHS = {name: "cross" if name.startswith("attention") else "config4"
                 for name in KERNEL_SOURCES}
 KERNEL_PATHS.update(rowmm_ln="tp", rowmm_ln_bwd="tp", rowmm=None,
                     rowmm_bwd=None, attn_block_3d="vmulti",
-                    attn_block_3d_bwd="vmulti")
+                    attn_block_3d_bwd="vmulti", swin_attention_bwd="v2",
+                    swin_mlp_bwd="v2")
 
 # the bf16 kernels on the tensor cores: each must compile to HMMA
 TENSOR_CORE_KERNELS = ("swin_fused_kernel", "window_attn_tc_kernel",
@@ -685,7 +702,8 @@ TENSOR_CORE_KERNELS = ("swin_fused_kernel", "window_attn_tc_kernel",
                        "attention_fwd_tc_kernel", "attention_dkv_tc_kernel",
                        "attention_dq_tc_kernel", "ffn_fwd_tc_kernel",
                        "swin_mlp_tc_kernel", "swin_fc1_tc_kernel",
-                       "rowmm_tc_kernel", "rowmm_bwd_tc_kernel")
+                       "rowmm_tc_kernel", "rowmm_bwd_tc_kernel",
+                       "window_attn_bwd_tc_kernel")
 # the kernels of the Hopper mainloop (csrc/wgmma.cuh; the ffn's bf16 split
 # route): each must compile to wgmma (HGMMA) fed by TMA loads (UTMALDG)
 WGMMA_KERNELS = ("wg_gemm_kernel",)
@@ -1819,27 +1837,50 @@ def compare_rowmm_kernels() -> dict:
     return results
 
 
-def _mha_library_call(xw, ws, bias, smask, nh):
-    """torch's multi_head_attention_forward on the same windows: the q|k|v
-    projection, scores + an additive mask holding the bias and -65504 at
-    shift-masked keys (``smask`` None: the bias alone), softmax, @v, the
-    output projection. A yardstick only; the port never calls it."""
-    import torch.nn.functional as F
+def _mha_library_args(xw, ws, bias, smask, nh):
+    """(windows [N, I, C], w_in, b_in, w_out, b_out, the additive mask
+    holding the bias and -65504 at shift-masked keys (``smask`` None: the
+    bias alone)) of torch's multi_head_attention_forward on the windows,
+    in xw's dtype."""
     I, N, C = xw.shape
-    wqkv, bqkv, wproj, bproj = ws
+    wqkv, bqkv, wproj, bproj = (t.to(xw.dtype) for t in ws)
     add = bias[None].expand(I, nh, N, N)
     if smask is not None:
         sm = smask.repeat(I // smask.shape[0], 1, 1)[:, None]
         add = add + torch.where(sm, -65504.0, 0.0)
     add = add.to(xw.dtype).reshape(I * nh, N, N).contiguous()
-    q = xw.transpose(0, 1).contiguous()
-    w_in, w_out = wqkv.t().contiguous(), wproj.t().contiguous()
+    return (xw.transpose(0, 1).contiguous(), wqkv.t().contiguous(), bqkv,
+            wproj.t().contiguous(), bproj, add)
 
-    def call():
-        return F.multi_head_attention_forward(
-            q, q, q, C, nh, w_in, bqkv, None, None, False, 0.0, w_out, bproj,
-            training=False, need_weights=False, attn_mask=add)[0]
-    return call
+
+def _mha_forward(q, w_in, b_in, w_out, b_out, add, nh):
+    import torch.nn.functional as F
+    return F.multi_head_attention_forward(
+        q, q, q, q.shape[-1], nh, w_in, b_in, None, None, False, 0.0, w_out,
+        b_out, training=False, need_weights=False, attn_mask=add)[0]
+
+
+def _mha_library_call(xw, ws, bias, smask, nh):
+    """torch's multi_head_attention_forward on the same windows: the q|k|v
+    projection, scores + the additive mask, softmax, @v, the output
+    projection. A yardstick only; the port never calls it."""
+    args = _mha_library_args(xw, ws, bias, smask, nh)
+    return lambda: _mha_forward(*args, nh)
+
+
+def _mha_library_grad(xw, ws, bias, smask, nh, cot):
+    """(a forward call, a backward call) of that library function under
+    autograd: the backward's gradients of the windows and the four
+    weights for ``cot`` [I, N, C] (the bias rides in the additive mask,
+    which takes none). A yardstick only."""
+    *leaves, add = (t.detach().clone()
+                    for t in _mha_library_args(xw, ws, bias, smask, nh))
+    leaves = [t.requires_grad_() for t in leaves]
+    out = _mha_forward(*leaves, add, nh)
+    cot_t = cot.transpose(0, 1)
+    return (lambda: _mha_forward(*leaves, add, nh),
+            lambda: torch.autograd.grad(out, leaves, cot_t,
+                                        retain_graph=True))
 
 
 def _eval_steps(trainer, batches):
@@ -2358,7 +2399,7 @@ def run_train(name: str, argv, power: str, timed: bool,
     n = len(batches)
     print(f"{name}: launches over {n} train steps: {counts}; trunk rows per "
           f"step {rows}; losses {losses}")
-    # the trainable trunk's backward passes (plain recomputes, no kernel)
+    # plain recomputes of a Swin op's backward: none on the kernel path
     want = {k: TRAIN_RECOMPUTES_PER_STEP.get(name, {}).get(k, 0) * n
             for k in ops.RECOMPUTES}
     print(f"{name}: Swin backward recomputes over {n} train steps: "
@@ -3733,9 +3774,9 @@ def run_registry(power: str) -> dict:
 # two masks in each of the trunk's 11 dropping blocks (22), swin_mlp on
 # block 0 only (the dropping blocks run the MLP branch unfused), and a
 # backward per layer the loss reaches (every one where the head reads each
-# stream's cls token); the trunk's backward recomputes its plain version
-# (12 window attentions, 1 MLP: ops.recomputes). --fusion-type uni_ehr
-# stops the trunk's gradient: no recompute, the same masks
+# stream's cls token); the trunk's backward launches the backward kernels
+# (12 window attentions, 1 MLP; no plain recompute). --fusion-type uni_ehr
+# stops the trunk's gradient: no backward kernel, the same masks
 BL_FLAGS = ["--output-type", "intubation",
             "--modality-inclusion", "train-missing_test-missing",
             "--batch-size", str(BATCH)]
@@ -3757,6 +3798,8 @@ BL_UNI_EHR = BASELINES["ft_medfuse"] + ["--fusion-type", "uni_ehr"]
 BL_TIMED = ("ft_medfuse", "v2")
 BL_SWIN_EVAL = {"swin_attention": 12, "swin_mlp": 12}
 BL_SWIN_TRAIN = {"swin_attention": 12, "swin_mlp": 1}
+# the trunk's backward kernels a train step launches where it trains
+BL_SWIN_BWD = {"swin_attention_bwd": 12, "swin_mlp_bwd": 1}
 BL_SD_MASKS = 22
 BL_V3_EVAL = {"umse": 1, "attn_block": 18, "ffn": 18}
 LAUNCHES_PER_STEP.update(
@@ -3768,20 +3811,18 @@ TRAIN_LAUNCHES_PER_STEP.update(
     gru_d={}, gru_d_default={}, lstm={"dropout_masks": 1},
     ftv1={"attn_block": 8, "attn_block_bwd": 8, "ffn": 8, "ffn_bwd": 8,
           "dropout_masks": 2},
-    ft_medfuse=dict(BL_SWIN_TRAIN, dropout_masks=BL_SD_MASKS + 1),
-    ft_mmtm=dict(BL_SWIN_TRAIN, dropout_masks=BL_SD_MASKS),
-    ft_daft=dict(BL_SWIN_TRAIN, dropout_masks=BL_SD_MASKS + 1),
+    ft_medfuse=dict(BL_SWIN_TRAIN, dropout_masks=BL_SD_MASKS + 1,
+                    **BL_SWIN_BWD),
+    ft_mmtm=dict(BL_SWIN_TRAIN, dropout_masks=BL_SD_MASKS, **BL_SWIN_BWD),
+    ft_daft=dict(BL_SWIN_TRAIN, dropout_masks=BL_SD_MASKS + 1,
+                 **BL_SWIN_BWD),
     ft_uni=dict(BL_SWIN_TRAIN, dropout_masks=BL_SD_MASKS + 1),
     v2=dict(TRAIN_LAUNCHES_PER_STEP["tri_v1"], swin_mlp=1,
-            dropout_masks=3 + BL_SD_MASKS),
+            dropout_masks=3 + BL_SD_MASKS, **BL_SWIN_BWD),
     v3=dict(BL_V3_EVAL, umse_bwd=1, attn_block_bwd=18, ffn_bwd=18,
             dropout_masks=3),
     pretrain_no=dict(TRAIN_LAUNCHES_PER_STEP["config4"], swin_mlp=1,
-                     dropout_masks=3 + BL_SD_MASKS))
-BL_RECOMPUTE = {"swin_attention_bwd": 12, "swin_mlp_bwd": 1}
-TRAIN_RECOMPUTES_PER_STEP.update(ft_medfuse=BL_RECOMPUTE,
-                                 ft_mmtm=BL_RECOMPUTE, ft_daft=BL_RECOMPUTE,
-                                 v2=BL_RECOMPUTE, pretrain_no=BL_RECOMPUTE)
+                     dropout_masks=3 + BL_SD_MASKS, **BL_SWIN_BWD))
 for _name in list(BASELINES) + ["ft_uni", "gru_d_default"]:
     _timed = _name in BL_TIMED
     BATCHES[_name] = [0.5, 0.25, 0.75] if _timed else [0.5, 0.75]
@@ -3826,21 +3867,34 @@ def _mlp_work(R: int, C: int, es: int) -> tuple:
 def compare_swin_training() -> dict:
     """The trainable trunk's two ops at each Swin-T stage at batch 64
     (bf16, and fp32 at stage 1): the autograd Function (the kernel's
-    training forward, the plain version recomputed as its backward)
-    against autograd of the plain version (_compare_train: TOL, GRAD_TOL),
-    event ms, the profiler's device ms of the training forward (beside the
-    lean forward's, the eval trunk's call) and of the backward, which
-    must launch none of the port's kernels, and the bound; per step
-    weighted by its launches (swin_attention 2/2/6/2, the backward as
-    often; swin_mlp's Function on block 0 only). Then the stochastic-depth
-    masks: ops.dropout_masks over the 64 image rows for each block's
-    probability, the kernel's bit for bit the plain version's, and the
-    keep rate of 1M rows at 0.2 within 5 sd. Returns the bf16 results of
-    stage 1 by kernel name, the backward's under ``backward``, each with
-    its step totals under ``step``."""
+    training forward, the backward kernel) against autograd of the plain
+    version (_compare_train: TOL, GRAD_TOL; the library column for the
+    attention is autograd of torch's multi_head_attention_forward, for the
+    MLP none), the backward kernel against its closed form and bit for
+    bit over two runs; event ms, the profiler's device ms of the training
+    forward (beside the lean forward's, the eval trunk's call), of the
+    backward, which must launch its kernel, and of the plain recompute
+    it replaced (autograd of the plain forward recomputed from the saved
+    inputs), and the bound; per step weighted by its launches
+    (swin_attention 2/2/6/2, the backward as often; swin_mlp's Function on
+    block 0 only). Also the stochastic-depth blocks' unfused MLP branch
+    (torch_mlp_branch, plain, no kernel): its forward and backward device
+    ms at each stage, weighted by those blocks (1/2/6/2: 11 a step). Then
+    the stochastic-depth masks: ops.dropout_masks over the 64 image rows
+    for each block's probability, the kernel's bit for bit the plain
+    version's, and the keep rate of 1M rows at 0.2 within 5 sd. Returns
+    the bf16 results of stage 1 by kernel name (the backward kernels'
+    under ``swin_attention_bwd`` and ``swin_mlp_bwd``), each with its step
+    totals under ``step``."""
     from medical_tri_modal_pilot_tpu_torch import ops
+    from medical_tri_modal_pilot_tpu_torch.kernels._util import \
+        recompute_grads
     from medical_tri_modal_pilot_tpu_torch.kernels.ffn import \
         plain_dropout_masks
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_attention import (
+        torch_window_attention, torch_window_attention_bwd)
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import (
+        torch_mlp_branch, torch_swin_mlp, torch_swin_mlp_bwd)
     from medical_tri_modal_pilot_tpu_torch.models.swin import (
         STOCHASTIC_DEPTH, _shift_attn_mask)
     dev = torch.device("cuda")
@@ -3861,50 +3915,90 @@ def compare_swin_training() -> dict:
         mlp = (rnd(C, std=.1, mean=1.), rnd(C, std=.1),
                rnd(C, 4 * C, std=C ** -.5), rnd(4 * C, std=.1),
                rnd(4 * C, C, std=(4 * C) ** -.5), rnd(C, std=.1))
+        n_attn = (SWIN_STAGE_LAUNCHES[si].get("mask", 0)
+                  + SWIN_STAGE_LAUNCHES[si].get("none", 0))
         for dt in ((torch.float32, bf16) if si == 0 else (bf16,)):
             es = 2 if dt == bf16 else 4
             tag = "bf16" if dt == bf16 else "fp32"
+            xw, x = rnd(I, 49, C).to(dt), rnd(R, C).to(dt)
+            cot_a, cot_m = rnd(I, 49, C).to(dt), rnd(R, C).to(dt)
             cases = (
                 ("swin_attention", f"[{I},49,{C}]",
                  lambda *a: ops.swin_attention(*a, smask, nh),
-                 (rnd(I, 49, C).to(dt),) + wts, rnd(I, 49, C).to(dt),
-                 _swin_work(I, C, es),
-                 SWIN_STAGE_LAUNCHES[si].get("mask", 0)
-                 + SWIN_STAGE_LAUNCHES[si].get("none", 0),
-                 SWIN_STAGE_LAUNCHES[si].get("mask", 0)
-                 + SWIN_STAGE_LAUNCHES[si].get("none", 0)),
-                ("swin_mlp", f"[{R},{C}]", ops.swin_mlp,
-                 (rnd(R, C).to(dt),) + mlp, rnd(R, C).to(dt),
+                 (xw,) + wts, cot_a, _swin_work(I, C, es), n_attn, n_attn,
+                 (torch_window_attention, (smask, nh)),
+                 lambda *a: torch_window_attention_bwd(*a[:-1], smask, nh,
+                                                       a[-1]),
+                 _mha_library_grad(xw, wts[:4], wts[4], smask, nh, cot_a),
+                 ("window_attn_bwd_tc_kernel" if dt == bf16
+                  else "window_attn_bwd_kernel", "col_sum_kernel")),
+                ("swin_mlp", f"[{R},{C}]", ops.swin_mlp, (x,) + mlp, cot_m,
                  _mlp_work(R, C, es), SWIN_MLP_LAUNCHES[si],
-                 1 if si == 0 else 0))
-            for name, shape, fwd, inputs, cot, work, n_fwd, n_bwd in cases:
+                 1 if si == 0 else 0, (torch_swin_mlp, ()),
+                 torch_swin_mlp_bwd, None,
+                 ("layer_norm_kernel", "swin_ln_bwd_kernel",
+                  "gemm_bf16_kernel" if dt == bf16 else "gemm_kernel",
+                  "wgrad_tc_kernel" if dt == bf16 else "wgrad_kernel",
+                  "col_sum_kernel")))
+            for (name, shape, fwd, inputs, cot, work, n_fwd, n_bwd, plain,
+                 closed, library, expect) in cases:
                 fr, br = _compare_train(
                     f"{name}{shape} stage {si + 1} trainable", dt, fwd,
-                    inputs, cot, None, *work)
+                    inputs, cot, None, *work, library)
+                _bwd_repeats(fwd, inputs, cot)
                 leaves = [t.detach().clone().requires_grad_(True)
                           for t in inputs]
                 with torch.inference_mode():
                     lean, _ = _device_ms(lambda: fwd(*inputs))
                 train, names = _device_ms(lambda: fwd(*leaves))
                 out = fwd(*leaves)
+                ops.reset_launches()
+                got = torch.autograd.grad(out, leaves, cot,
+                                          retain_graph=True)
+                if (ops.launches[name + "_bwd"] != 1
+                        or any(ops.recomputes.values())):
+                    raise AssertionError(f"{name} stage {si + 1}: the "
+                                         f"backward launched "
+                                         f"{ops.launches}, recomputed "
+                                         f"{ops.recomputes}")
+                ref = closed(*inputs, cot)
+                c_err = _grad_errors(got, ref)
                 bwd, bnames = _device_ms(lambda: torch.autograd.grad(
                     out, leaves, cot, retain_graph=True))
-                mine = [n for n in bnames if "mtp::" in n]
+                needs = (True,) * len(inputs)
+                rec, _ = _device_ms(lambda: recompute_grads(
+                    plain[0], inputs, needs, plain[1], cot))
+                lib_dev = (None if library is None
+                           else _device_ms(library[1])[0])
                 kernels = sorted({n.split("<")[0].split("(")[0]
                                   for n in names if "mtp::" in n})
+                missing = [k for k in expect
+                           if not any(k in n for n in bnames)]
                 print(f"device {name}{shape} stage {si + 1} {tag}: eval "
                       f"forward {lean:.4f} ms, training forward "
-                      f"{train:.4f} ({' '.join(kernels)}), backward (plain "
-                      f"recompute) {bwd:.4f} (profiler; {len(bnames)} "
-                      "device kernels)")
-                if mine or not any("mtp::" in n for n in names):
+                      f"{train:.4f} ({' '.join(kernels)}), backward kernel "
+                      f"{bwd:.4f}, plain recompute {rec:.4f}"
+                      + ("" if lib_dev is None
+                         else f", library backward {lib_dev:.4f}")
+                      + f" (profiler; {len(bnames)} device kernels); "
+                      f"against the closed form |err|_F/|closed|_F "
+                      f"{' '.join(f'{e:.2e}' for e in c_err)}")
+                if missing or not kernels:
                     raise AssertionError(f"{name} stage {si + 1}: the "
                                          f"training forward launched "
-                                         f"{names}, the backward {mine}")
+                                         f"{names}, the backward {bnames} "
+                                         f"(missing {missing})")
+                if not all(np.isfinite(e) and e <= GRAD_TOL[dt]
+                           for e in c_err):
+                    raise AssertionError(f"{name} stage {si + 1} {tag}: the "
+                                         f"backward kernel disagrees with "
+                                         f"its closed form")
                 if dt != bf16:
                     continue
                 fr.update(device_ms=train, eval_device_ms=lean)
-                br.update(device_ms=bwd, form="plain recompute")
+                br.update(device_ms=bwd, recompute_device_ms=rec,
+                          library_device_ms=lib_dev, closed_err_f=max(c_err),
+                          form="backward kernel")
                 for key, res, n in ((name, fr, n_fwd),
                                     (name + "_bwd", br, n_bwd)):
                     tot = step.setdefault(key, {"device_ms": 0.0,
@@ -3913,18 +4007,45 @@ def compare_swin_training() -> dict:
                     tot["device_ms"] += n * res["device_ms"]
                     tot["bound_ms"] += n * res["bound_ms"]
                     tot["launches"] += n
+                    if key.endswith("_bwd"):
+                        tot["recompute_device_ms"] = (
+                            tot.get("recompute_device_ms", 0.0) + n * rec)
                 if si == 0:
-                    results[name] = dict(fr, shape=shape, form="training",
-                                         backward=dict(br, shape=shape))
+                    results[name] = dict(fr, shape=shape, form="training")
+                    results[name + "_bwd"] = dict(br, shape=shape)
+                del out, leaves, got, ref
+            if dt == bf16:
+                # the unfused MLP branch of the stochastic-depth blocks
+                n_sd = SWIN_MLP_LAUNCHES[si] - (1 if si == 0 else 0)
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in (x,) + mlp]
+                bf, _ = _device_ms(lambda: torch_mlp_branch(*leaves))
+                out = torch_mlp_branch(*leaves)
+                bb, _ = _device_ms(lambda: torch.autograd.grad(
+                    out, leaves, cot_m, retain_graph=True))
+                print(f"device torch_mlp_branch[{R},{C}] stage {si + 1} "
+                      f"bf16 (plain, {n_sd} blocks a step): forward "
+                      f"{bf:.4f} ms, backward {bb:.4f} (profiler)")
+                tot = step.setdefault("mlp_branch", {
+                    "device_ms": 0.0, "bwd_device_ms": 0.0, "launches": 0})
+                tot["device_ms"] += n_sd * bf
+                tot["bwd_device_ms"] += n_sd * bb
+                tot["launches"] += n_sd
                 del out, leaves
         gc_collect()
     for key, tot in step.items():
+        if key == "mlp_branch":
+            print(f"swin trainable step totals, bf16, batch 64: "
+                  f"torch_mlp_branch (plain) x{tot['launches']} forward "
+                  f"{tot['device_ms']:.4f} ms, backward "
+                  f"{tot['bwd_device_ms']:.4f} ms device")
+            continue
+        extra = ("" if "recompute_device_ms" not in tot else
+                 f", the plain recompute {tot['recompute_device_ms']:.4f}")
         print(f"swin trainable step totals, bf16, batch 64: {key} "
               f"x{tot['launches']} {tot['device_ms']:.4f} ms device "
-              f"(bound {tot['bound_ms']:.4f} ms)")
-        name = key.replace("_bwd", "")
-        sub = results[name] if key == name else results[name]["backward"]
-        sub["step"] = tot
+              f"(bound {tot['bound_ms']:.4f} ms{extra})")
+        results[key]["step"] = tot
     # stochastic depth's masks: the kernel's bits are the plain version's
     seeds = [DROPOUT_SEED + k for k in range(12)]
     # the probabilities of Swin-T's blocks 1-11 (block 0 never drops)
@@ -4025,7 +4146,7 @@ def _trunk_step_ms(power: str) -> None:
     """The Swin-T trunk alone at batch 64, bf16, seeded: the profiler's
     device ms of its eval forward (inference), its training forward
     (stochastic depth, the ops' Functions) and that forward's backward
-    (the recomputes and the rest of autograd), with the peak memory of a
+    (the backward kernels and the rest of autograd), with the peak memory of a
     training forward and backward."""
     from medical_tri_modal_pilot_tpu_torch.models.modules import DropoutSeeds
     from medical_tri_modal_pilot_tpu_torch.models.registry import \
@@ -4069,8 +4190,8 @@ def run_baselines(power: str) -> tuple:
     (compare_ftv1_kernels) and the trunk alone (_trunk_step_ms); then per
     name the eval against the plain path in bf16 and fp32 and one train
     step on both paths in fp32 and bf16 at dropout 0.1 (phase 7's gates,
-    every trunk gradient by Frobenius ratio in float64), launch and
-    recompute counts; fusiontrainer Medfuse and tri_mbt_v2 also timed in
+    every trunk gradient by Frobenius ratio in float64), launch counts
+    (no plain recompute); fusiontrainer Medfuse and tri_mbt_v2 also timed in
     turns, profiled (device busy, idle share) and their peak memory; a
     train step under --fusion-type uni_ehr; a
     fusiontrainer fold through the drivers and gru_d's, the CLI's default
@@ -5234,9 +5355,9 @@ def _lg_counts(enc=0, cross=0, masks=0, swin=False, bwd=None):
     attention and an ffn each), the train step's input-dropout masks
     (``masks``), the trainable Swin-T (``swin``: 12 / 12 launches in eval;
     in train 12 window attentions, the MLP of block 0 alone and 22
-    stochastic-depth masks, the backward recomputing 12 + 1); a backward
-    for each layer the loss reaches (``bwd`` of the encoder layers where
-    it reaches fewer)."""
+    stochastic-depth masks, the backward kernels 12 + 1, no plain
+    recompute); a backward for each layer the loss reaches (``bwd`` of the
+    encoder layers where it reaches fewer)."""
     ev = {"attn_block": enc, "ffn": enc + cross, "attention": cross}
     if swin:
         ev.update(swin_attention=12, swin_mlp=12)
@@ -5244,10 +5365,9 @@ def _lg_counts(enc=0, cross=0, masks=0, swin=False, bwd=None):
               ffn_bwd=(enc if bwd is None else bwd) + cross,
               attention_bwd=cross, dropout_masks=masks + 22 * swin)
     if swin:
-        tr.update(swin_mlp=1)
+        tr.update(swin_mlp=1, **BL_SWIN_BWD)
     return ({k: v for k, v in ev.items() if v},
-            {k: v for k, v in tr.items() if v},
-            {"swin_attention_bwd": 12, "swin_mlp_bwd": 1} if swin else {})
+            {k: v for k, v in tr.items() if v}, {})
 
 
 # the launches per step of each run (derived on the CPU by counting the
@@ -5473,7 +5593,7 @@ def _legacy_run(run: str, power: str, timed: bool) -> dict:
     against LEGACY_EVAL, reset just before and read just after), its
     probabilities against the plain path's in bf16 and, on the same
     weights, in fp32 (PROB_TOL); a train step at --dropout 0.1 (launches
-    against LEGACY_TRAIN, the trunk's recomputes against LEGACY_RECOMPUTE,
+    against LEGACY_TRAIN, no plain recompute (LEGACY_RECOMPUTE),
     a finite loss, peak memory); with ``timed`` eval and train ms/step on
     both paths in turns and a profiled train step (device busy, idle
     share); then one step from the same weights on both paths in fp32 and
@@ -6210,7 +6330,7 @@ def compare_row0_kernels() -> dict:
 # joint stream's 6 (1179 rows, no row blocks), an input dropout per stream;
 # tri_mbt_v2 --img-pretrain No: config 4's with every backward (the v1
 # heads) and the trunk's stochastic depth (22 masks, the MLP of block 0
-# fused); unimodal_transformer --remat 1: each layer's rowmm_ln,
+# fused) and backward kernels (12 + 1); unimodal_transformer --remat 1: each layer's rowmm_ln,
 # attention and FFN masks again in the recompute; auxcpc_mbt: 2 streams x 6
 # layers over the carryforward grid, 2 input masks
 def _tp_c4(layers: int, bwd: int) -> tuple:
@@ -6254,7 +6374,7 @@ TPALL_RUNS = {
     "v2_no": (BASELINES["v2"] + ["--img-pretrain", "No"] + _MP, None,
               _V2[0], dict(_V2[1], swin_mlp=1,
                            dropout_masks=_V2[1]["dropout_masks"]
-                           + BL_SD_MASKS)),
+                           + BL_SD_MASKS, **BL_SWIN_BWD)),
     "remat": (CONFIG1 + ["--remat", "1"] + _MP, None,
               {"umse": 1, "attention": 6, "rowmm_ln": 6},
               {"umse": 1, "umse_bwd": 1, "attention": 12, "attention_bwd": 6,
@@ -6959,6 +7079,9 @@ def main() -> None:
     clock("phase 18")
     bl_results, bl_counts = run_baselines(power)
     counts.update(bl_counts)
+    # the trunk's backward kernels, measured in phase 19
+    for name in ("swin_attention_bwd", "swin_mlp_bwd"):
+        results[name] = bl_results.pop(name)
     clock("phase 19")
     lg_results, lg_counts = run_legacy(power)
     counts.update(lg_counts)

@@ -44,13 +44,9 @@
 // fp32 sum, then the bias added in T; scores in fp32; probabilities
 // rounded to T; @v rounded to T. (The Pallas kernel adds the qkv bias in
 // fp32 before rounding; bf16 results may differ from it by one unit.)
-#include "common.cuh"
-#include "mma.cuh"
+#include "swin_window.cuh"
 
 namespace mtp {
-
-constexpr int kWin = 49;     // tokens per 7x7 window
-constexpr int kHeadDim = 32;
 
 // heads[i, :, h*32:(h+1)*32] = softmax(q k^T / scale + bias[h], mask) v for
 // window i, head h, in fp32; qkv [I, 49, 3C]; bias [nh, 49, 49]; smask
@@ -150,33 +146,6 @@ __global__ void __launch_bounds__(kThreads) window_attn_kernel(
 #pragma unroll
     for (int j = 0; j < 2; ++j)
       ob[(size_t)r * C + tx + 16 * j] = o[i][j];
-  }
-}
-
-// The shift-mask bits of rows g and g + 8 (g = lane >> 2) of the 16 rows
-// 16 w .. 16 w + 15 of a window: bit c set when key c is masked. mw: the
-// window's mask [49, 49] int8, or NULL (no bits). The 16 rows' bytes are
-// all loaded before the first ballot, so their latencies overlap.
-static __device__ __forceinline__ void mask_bits(const int8_t* __restrict__ mw,
-                                                 int w, int lane,
-                                                 uint64_t& m0, uint64_t& m1) {
-  m0 = m1 = 0;
-  if (mw == nullptr) return;
-  const int g = lane >> 2;
-  int8_t lo[16], hi[16];
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = 16 * w + rr;
-    lo[rr] = r < kWin ? mw[r * kWin + lane] : 0;
-    hi[rr] = r < kWin && lane + 32 < kWin ? mw[r * kWin + lane + 32] : 0;
-  }
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    const uint64_t bits =
-        ((uint64_t)__ballot_sync(0xffffffffu, hi[rr] != 0) << 32) |
-        __ballot_sync(0xffffffffu, lo[rr] != 0);
-    if (rr == g) m0 = bits;
-    if (rr == g + 8) m1 = bits;
   }
 }
 

@@ -12,6 +12,9 @@
 // floats), and col_sum_kernel adds the S partials in slice order. B's
 // columns may come from up to three arrays of Bcs columns each (the q, k
 // and v cotangents of rowmm's LN form: one launch for the three).
+// Ka and Bcs are multiples of 32 (Swin-T's C 96 and 192): a tile past Ka
+// or Nb reads zeros there and leaves those rows and columns of the
+// partials unwritten; B in parts takes whole 64-column tiles.
 // Deterministic, no atomics. Two forms, picked by dtype: wgrad_kernel,
 // fp32 FMAs from shared memory (fp32, the checking dtype); and
 // wgrad_tc_kernel, bf16 on
@@ -39,7 +42,7 @@ static __device__ __forceinline__ const T* b_cols(const T* B0, const T* B1,
 // sum_{r in slice s} B[r, n] (blocks with blockIdx.x == 0); rows whose
 // flag valid[r / flag_rows] is 0 count as zeros and are not read (valid
 // NULL: every row counts). fp32 A and B = B0 | B1 | B2 (each [R, Bcs]).
-// grid (Ka/64, Nb/64, S).
+// grid (ceil(Ka/64), ceil(Nb/64), S).
 __global__ void __launch_bounds__(kThreads) wgrad_kernel(
     const float* __restrict__ A, const float* B0, const float* B1,
     const float* B2, int R, int Ka, int Nb, int Bcs, int rows_per_slice,
@@ -60,8 +63,10 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(
       const int kk = e / kTile, c = e - kk * kTile;
       const bool in = r0 + kk < re &&
                       (valid == nullptr || valid[(r0 + kk) / flag_rows]);
-      As[kk][c] = in ? A[(size_t)(r0 + kk) * Ka + k0 + c] : 0.0f;
-      Bs[kk][c] = in ? Bm[(size_t)(r0 + kk) * Bcs + c] : 0.0f;
+      As[kk][c] = in && k0 + c < Ka ? A[(size_t)(r0 + kk) * Ka + k0 + c]
+                                    : 0.0f;
+      Bs[kk][c] = in && n0 + c < Nb ? Bm[(size_t)(r0 + kk) * Bcs + c]
+                                    : 0.0f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -85,12 +90,15 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      p[(size_t)(k0 + ty + 16 * i) * Nb + n0 + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + ty + 16 * i, n = n0 + tx + 16 * j;
+      if (k < Ka && n < Nb) p[(size_t)k * Nb + n] = acc[i][j];
+    }
   if (sums)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      colpart[(size_t)s * Nb + n0 + tx + 16 * j] = csum[j];
+      if (n0 + tx + 16 * j < Nb)
+        colpart[(size_t)s * Nb + n0 + tx + 16 * j] = csum[j];
 }
 
 // The same sums in bf16 on the tensor cores: warp w computes rows
@@ -100,9 +108,24 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(
 // flag_rows are multiples of kWgRows, so a chunk lies under one flag and
 // is either read whole or skipped whole. colpart by threads 0..63 of the
 // blockIdx.x == 0 blocks, each summing one column of each chunk in row
-// order. grid (Ka/64, Nb/64, S), 128 threads.
+// order. grid (ceil(Ka/64), ceil(Nb/64), S), 128 threads.
 constexpr int kWgRows = 64;
 constexpr int kWgThreads = 128;
+
+// rows [0, kWgRows) x cols [0, 64) of a row-major bf16 matrix (leading
+// dimension lds) into a shared tile (pitch ld) by cp.async; rows from
+// `rows` and columns from `cols` (a multiple of 8) on are zero-filled and
+// not read
+static __device__ __forceinline__ void stage_chunk64(bf16* dst, int ld,
+                                                     const bf16* src, int lds,
+                                                     int rows, int cols,
+                                                     int tid) {
+  for (int e = tid; e < kWgRows * 8; e += kWgThreads) {
+    const int r = e >> 3, c = (e & 7) << 3;
+    const bool in = r < rows && c < cols;
+    cp_async16(dst + r * ld + c, in ? src + (size_t)r * lds + c : src, in);
+  }
+}
 
 __global__ void __launch_bounds__(kWgThreads) wgrad_tc_kernel(
     const bf16* __restrict__ A, const bf16* B0, const bf16* B1,
@@ -126,12 +149,11 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_tc_kernel(
         r = (r / flag_rows + 1) * flag_rows;
     return min(r, re);
   };
+  const int acols = min(kTile, Ka - k0), bcols = min(kTile, Nb - n0);
   auto load = [&](int r, int st) {
     const int n = min(kWgRows, re - r);
-    stage_rows<kTile, kWgThreads>(As[st], LD, A + (size_t)r * Ka + k0, Ka,
-                                  kWgRows, n, tid);
-    stage_rows<kTile, kWgThreads>(Bs[st], LD, Bm + (size_t)r * Bcs, Bcs,
-                                  kWgRows, n, tid);
+    stage_chunk64(As[st], LD, A + (size_t)r * Ka + k0, Ka, n, acols, tid);
+    stage_chunk64(Bs[st], LD, Bm + (size_t)r * Bcs, Bcs, n, bcols, tid);
   };
   float acc[2][4][4];
 #pragma unroll
@@ -188,10 +210,11 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_tc_kernel(
       for (int h = 0; h < 2; ++h) {
         const int row = k0 + wm + 16 * i + g + 8 * h;
         const int col = n0 + wn + 8 * j + 2 * t;
-        *reinterpret_cast<float2*>(p + (size_t)row * Nb + col) =
-            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        if (row < Ka && col < Nb)
+          *reinterpret_cast<float2*>(p + (size_t)row * Nb + col) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
       }
-  if (sums) colpart[(size_t)s * Nb + n0 + tid] = csum;
+  if (sums && n0 + tid < Nb) colpart[(size_t)s * Nb + n0 + tid] = csum;
 }
 
 // out[n] = sum_{s < S} part[s, n], in order of s. grid (ceil(N/256)).
@@ -208,7 +231,8 @@ __global__ void __launch_bounds__(kThreads) col_sum_kernel(
 
 // A [R, Ka] and B [R, Nb] row-major in the dtype (0 = fp32, 1 = bf16), B
 // as Nb / Bcs <= 3 arrays B0 | B1 | B2 of [R, Bcs] (B1, B2 NULL when
-// unused; Bcs = Nb: one array); Ka % 64 == Bcs % 64 == 0; slices of
+// unused; Bcs = Nb: one array); Ka % 32 == Bcs % 32 == 0, Bcs % 64 == 0
+// when B comes in parts; slices of
 // rows_per_slice rows (the last may be shorter), S = ceil(R /
 // rows_per_slice). valid: int8 flags, one per
 // flag_rows consecutive rows, 0 leaving those rows out of both sums (and
@@ -221,13 +245,14 @@ extern "C" int wgrad_partials(const void* A, const void* B0, const void* B1,
                               void* colpart, const void* valid, int flag_rows,
                               int dtype, void* stream) {
   using namespace mtp;
-  if (Ka % kTile != 0 || Bcs <= 0 || Bcs % kTile != 0 || Nb % Bcs != 0 ||
-      Nb / Bcs > 3 || (Nb / Bcs > 1 && B1 == nullptr) ||
+  if (Ka <= 0 || Ka % kKChunk != 0 || Bcs <= 0 || Bcs % kKChunk != 0 ||
+      Nb % Bcs != 0 || Nb / Bcs > 3 || (Nb / Bcs > 1 && Bcs % kTile != 0) ||
+      (Nb / Bcs > 1 && B1 == nullptr) ||
       (Nb / Bcs > 2 && B2 == nullptr) || rows_per_slice <= 0 || S <= 0 ||
       flag_rows <= 0)
     return (int)cudaErrorInvalidValue;
   const int8_t* v = (const int8_t*)valid;
-  const dim3 grid(Ka / kTile, Nb / kTile, S);
+  const dim3 grid((Ka + kTile - 1) / kTile, (Nb + kTile - 1) / kTile, S);
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) {
     if (rows_per_slice % kWgRows != 0 || flag_rows % kWgRows != 0)

@@ -86,10 +86,16 @@ _SIGNATURES = {
     "swin_attention_fwd": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _P],
     # () -> shared-memory bytes of the fused route
     "swin_attention_fused_smem": [],
+    # qkv, bqkv, dov, bias, smask, heads, dqkv, part, I, C, M, G, scale,
+    # dtype, stream
+    "swin_attention_bwd": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     # x, scale, bias, w1, b1, w2, b2, ln, hidden, y, R, C, F, route, stream
     "swin_mlp_fwd": [_P] * 10 + [_I] * 4 + [_P],
     # C -> shared-memory bytes of the bf16 route's LN-fused kernel
     "swin_mlp_tc_smem": [_I],
+    # x, scale, bias, w1, b1, w2, dy, ln, g, dh, dln, dx, gpart, R, C, F,
+    # rows_per_block, dtype, stream
+    "swin_mlp_bwd": [_P] * 13 + [_I] * 5 + [_P],
     # q, k, v, mask, out, stats, B, Lq, Lk, H, dh, mode, is_self, mult,
     # dtype, stream
     "attention_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],

@@ -6,11 +6,12 @@ may run several CUDA launches for one call, as the two-pass attention
 forward does). The attention block counts its 3-D block-mask form apart
 (``attn_block_3d``, ``attn_block_3d_bwd``). ``ops`` re-exports the dict.
 
-``recomputes`` counts, per Swin kernel, the backward passes that recompute
-its plain version under autograd (the trainable trunk's gradients: the
-JAX package takes them by ``jax.vjp`` of its XLA oracle, no kernel of its
-own); they launch no hand-written kernel, so ``launches`` leaves them
-out.
+The Swin kernels' backwards (the trainable trunk's gradients: the JAX
+package takes them by ``jax.vjp`` of its XLA oracles, no kernel of its
+own) count as ``swin_attention_bwd`` and ``swin_mlp_bwd`` where their
+backward kernels launch. ``recomputes`` counts, under the same names, the
+backward passes that recompute the plain version under autograd instead:
+those of CPU tensors; on the card it stays 0.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import torch
 KERNELS = ("umse", "umse_bwd", "attn_block", "attn_block_bwd",
            "attn_block_3d", "attn_block_3d_bwd", "ffn", "ffn_bwd",
            "dropout_masks", "swin_attention", "swin_mlp", "attention",
-           "attention_bwd", "rowmm_ln", "rowmm_ln_bwd", "rowmm", "rowmm_bwd")
+           "attention_bwd", "rowmm_ln", "rowmm_ln_bwd", "rowmm", "rowmm_bwd",
+           "swin_attention_bwd", "swin_mlp_bwd")
 launches = {name: 0 for name in KERNELS}
 RECOMPUTES = ("swin_attention_bwd", "swin_mlp_bwd")
 recomputes = {name: 0 for name in RECOMPUTES}

@@ -12,11 +12,15 @@ bool (True = masked) or None.
 
 Training (the trainable trunk, ``--img-pretrain No``): a call that needs
 a gradient goes through ``_SwinAttention``, whose forward is the kernel
-and whose backward recomputes the plain version under autograd from the
-saved inputs, as the JAX package's custom VJP takes ``jax.vjp`` of
-``xla_window_attention`` (its ``_fused_bwd``; no ``pallas_call``). The
-``bias`` cotangent flows back to the relative-position table through the
-caller's gather.
+and whose backward, on the card, is the backward kernel
+(``csrc/swin_attention_bwd.cu``: the window core per window and head;
+the four dense products around it by torch.matmul), from the saved
+inputs, as the JAX package's custom VJP takes ``jax.vjp`` of
+``xla_window_attention`` (its ``_fused_bwd``; no ``pallas_call``).
+``torch_window_attention_bwd`` is that backward's closed form, rounded
+where the kernel rounds; on the CPU the gradient stays autograd of the
+plain version. The ``bias`` cotangent flows back to the
+relative-position table through the caller's gather.
 """
 from __future__ import annotations
 
@@ -27,7 +31,9 @@ import torch
 
 from ..constants import MASK_FILL_VALUE
 from . import _build
-from ._util import count, needs_grad, recompute_grads, recomputes
+from ._util import (count, dtype_code, needs_grad, recompute_grads,
+                    recomputes, stream)
+from .wgrad import TARGET_BLOCKS, col_sum
 
 # the kernel's geometry: 7x7 windows, 32-wide heads
 WINDOW_TOKENS = 49
@@ -84,6 +90,78 @@ def torch_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
     return o @ wproj.to(dt) + bproj.to(dt)
 
 
+def _heads(t, num_heads: int) -> torch.Tensor:
+    """[I, N, C] -> [I, nh, N, C / nh]."""
+    I, N, C = t.shape
+    return t.reshape(I, N, num_heads, C // num_heads).transpose(1, 2)
+
+
+def _merge(t) -> torch.Tensor:
+    """[I, nh, N, dh] -> [I, N, nh * dh]."""
+    I, nh, N, dh = t.shape
+    return t.transpose(1, 2).reshape(I, N, nh * dh)
+
+
+def _dense_bwd(xw, wqkv, bqkv, wproj, bproj, dout, dqkv, o):
+    """The four dense products' gradients around the window core, from
+    the cotangent of q|k|v (dqkv [I, N, 3C]) and the heads' output o
+    [I, N, C], in the compute dtype as autograd of the plain version takes
+    them (each bias's sum over rows rounded once), then in each input's
+    dtype: (dxw, dwqkv, dbqkv, dwproj, dbproj)."""
+    dt = xw.dtype
+    rows = lambda t: t.reshape(-1, t.shape[-1])
+    dxw = dqkv @ wqkv.to(dt).t()
+    dwqkv = rows(xw).t() @ rows(dqkv)
+    dbqkv = rows(dqkv).sum(0, dtype=torch.float32).to(dt)
+    dwproj = rows(o).t() @ rows(dout)
+    dbproj = rows(dout).sum(0, dtype=torch.float32).to(dt)
+    return (dxw, dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype),
+            dwproj.to(wproj.dtype), dbproj.to(bproj.dtype))
+
+
+def torch_window_attention_bwd(xw, wqkv, bqkv, wproj, bproj, bias,
+                               smask: Optional[torch.Tensor],
+                               num_heads: int, dout) -> tuple:
+    """The gradients of torch_window_attention's output for the cotangent
+    ``dout`` [I, N, C] with respect to (xw, wqkv, bqkv, wproj, bproj,
+    bias), each in its input's dtype: the closed form the backward kernel
+    computes, rounded where it rounds (and where autograd of the plain
+    version rounds). q|k|v recomputed; do = dout wproj^T; per window and
+    head S and P = softmax(S) in fp32 as the forward, Pc = P cast to the
+    value dtype, o = Pc v; dP = do v^T in the compute dtype, then fp32;
+    dS = P (dP - rowsum(dP P)), 0 at masked keys; dbias = the sum of dS
+    over the windows; dv = Pc^T do, dq = (dS / sqrt(dh)) k and dk =
+    (dS / sqrt(dh))^T q in fp32, then cast; the projections' gradients
+    from dq|dk|dv and o (``_dense_bwd``)."""
+    I, N, C = xw.shape
+    dh = C // num_heads
+    dt = xw.dtype
+    qkv = xw @ wqkv.to(dt) + bqkv.to(dt)
+    q, k, v = (_heads(t, num_heads) for t in qkv.split(C, dim=-1))
+    s = q.float() @ k.float().transpose(-1, -2)
+    s = s / math.sqrt(dh) + bias[None].float()
+    sm = None
+    if smask is not None:
+        sm = smask.repeat(I // smask.shape[0], 1, 1)[:, None]
+        s = s.masked_fill(sm, MASK_FILL_VALUE)
+    p = torch.softmax(s, dim=-1)
+    pc = p.to(v.dtype)
+    o = _merge(pc @ v)
+    do = _heads(dout @ wproj.to(dt).t(), num_heads)
+    dp = (do @ v.transpose(-1, -2)).float()
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    if sm is not None:
+        ds = ds.masked_fill(sm, 0.0)
+    dbias = ds.sum(0)
+    ds = ds / math.sqrt(dh)
+    dq = (ds @ k.float()).to(dt)
+    dk = (ds.transpose(-1, -2) @ q.float()).to(dt)
+    dv = pc.transpose(-1, -2) @ do
+    dqkv = torch.cat([_merge(t) for t in (dq, dk, dv)], -1)
+    return (*_dense_bwd(xw, wqkv, bqkv, wproj, bproj, dout, dqkv, o),
+            dbias.to(bias.dtype))
+
+
 def cuda_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
                           smask: Optional[torch.Tensor], num_heads: int,
                           route: Optional[str] = None) -> torch.Tensor:
@@ -97,9 +175,20 @@ def cuda_window_attention(xw, wqkv, bqkv, wproj, bproj, bias,
     return _launch_fwd(*args, smask, num_heads, route)
 
 
+def cuda_window_attention_bwd(xw, wqkv, bqkv, wproj, bproj, bias,
+                              smask: Optional[torch.Tensor], num_heads: int,
+                              dout) -> tuple:
+    """The backward kernel on CUDA tensors: torch_window_attention_bwd's
+    gradients (dxw, dwqkv, dbqkv, dwproj, dbproj, dbias)."""
+    _launch_fwd_checks(xw, wqkv, bqkv, wproj, bproj, bias, smask, num_heads)
+    return _launch_bwd(xw, wqkv, bqkv, wproj, bproj, bias, smask, num_heads,
+                       dout)
+
+
 class _SwinAttention(torch.autograd.Function):
-    """The forward kernel; the backward recomputes torch_window_attention
-    under autograd (counted in ``recomputes``, not ``launches``)."""
+    """The forward kernel; the backward kernel on the card. On the CPU
+    (the tests' stand-in for the forward kernel) the backward recomputes
+    torch_window_attention under autograd, counted in ``recomputes``."""
 
     @staticmethod
     def forward(ctx, xw, wqkv, bqkv, wproj, bproj, bias, smask, num_heads,
@@ -111,20 +200,23 @@ class _SwinAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        grads = recompute_grads(torch_window_attention, ctx.saved_tensors,
-                                ctx.needs_input_grad[:6],
-                                (ctx.smask, ctx.num_heads), dout)
-        recomputes["swin_attention_bwd"] += 1
+        needs = ctx.needs_input_grad[:6]
+        if dout.device.type == "cuda":
+            grads = _launch_bwd(*ctx.saved_tensors, ctx.smask, ctx.num_heads,
+                                dout)
+            grads = [g if n else None for g, n in zip(grads, needs)]
+        else:
+            grads = recompute_grads(torch_window_attention,
+                                    ctx.saved_tensors, needs,
+                                    (ctx.smask, ctx.num_heads), dout)
+            recomputes["swin_attention_bwd"] += 1
         return (*grads, None, None, None)
 
 
-def _launch_fwd(xw, wqkv, bqkv, wproj, bproj, bias,
-                smask: Optional[torch.Tensor], num_heads: int,
-                route: Optional[str] = None) -> torch.Tensor:
-    """The checks and the kernel's launch."""
-    if xw.device.type != "cuda":
-        raise ValueError(f"cuda_window_attention needs CUDA tensors, got "
-                         f"{xw.device}")
+def _launch_fwd_checks(xw, wqkv, bqkv, wproj, bproj, bias,
+                       smask: Optional[torch.Tensor], num_heads: int) -> None:
+    """The checks both kernels make: dtype, geometry and operand shapes
+    first, on any device, then CUDA tensors."""
     if xw.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"swin_attention takes fp32 or bf16, got {xw.dtype}")
     if xw.dim() != 3 or not xw.is_contiguous():
@@ -141,14 +233,32 @@ def _launch_fwd(xw, wqkv, bqkv, wproj, bproj, bias,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {list(shape)}, got "
                              f"{list(t.shape)}")
-    M = 0
-    mask = None
     if smask is not None:
         M = smask.shape[0]
         if tuple(smask.shape) != (M, N, N) or I % M != 0:
             raise ValueError(f"smask must be [M, {N}, {N}] with M dividing "
                              f"{I}, got {list(smask.shape)}")
-        mask = smask.to(device=xw.device, dtype=torch.int8).contiguous()
+    if xw.device.type != "cuda":
+        raise ValueError(f"cuda_window_attention needs CUDA tensors, got "
+                         f"{xw.device}")
+
+
+def _mask_arg(smask: Optional[torch.Tensor], device) -> tuple:
+    """(M, the mask as the kernels read it: int8 [M, 49, 49] on
+    ``device``, or None)."""
+    if smask is None:
+        return 0, None
+    return (smask.shape[0],
+            smask.to(device=device, dtype=torch.int8).contiguous())
+
+
+def _launch_fwd(xw, wqkv, bqkv, wproj, bproj, bias,
+                smask: Optional[torch.Tensor], num_heads: int,
+                route: Optional[str] = None) -> torch.Tensor:
+    """The checks and the kernel's launch."""
+    _launch_fwd_checks(xw, wqkv, bqkv, wproj, bproj, bias, smask, num_heads)
+    I, N, C = xw.shape
+    M, mask = _mask_arg(smask, xw.device)
     dt = xw.dtype
     route = route or swin_attention_route(dt, C)
     if route not in ROUTES or (route == "fma") != (dt == torch.float32) or (
@@ -182,3 +292,46 @@ def _launch_fwd(xw, wqkv, bqkv, wproj, bproj, bias,
     _build.check(rc, "swin_attention")
     count("swin_attention")
     return out
+
+
+def _launch_bwd(xw, wqkv, bqkv, wproj, bproj, bias,
+                smask: Optional[torch.Tensor], num_heads: int,
+                dout) -> tuple:
+    """The backward on the card: x wqkv and do = dout wproj^T by
+    torch.matmul, the window core's kernel (q|k|v with their bias, o,
+    dq|dk|dv and the bias cotangent's partial sums, added in order by
+    col_sum), then the projections' gradients (``_dense_bwd``)."""
+    I, N, C = xw.shape
+    dt = xw.dtype
+    if tuple(dout.shape) != (I, N, C) or dout.device != xw.device:
+        raise ValueError(f"swin_attention cotangent must be [{I}, {N}, {C}] "
+                         f"on {xw.device}, got {list(dout.shape)} on "
+                         f"{dout.device}")
+    if I == 0:
+        return tuple(torch.zeros_like(t)
+                     for t in (xw, wqkv, bqkv, wproj, bproj, bias))
+    dout = dout.to(dt).contiguous()
+    nh = num_heads
+    M, mask = _mask_arg(smask, xw.device)
+    # x.w_qkv, its bias added by the kernel as it stages q|k|v
+    xq = (xw @ wqkv.to(dt)).contiguous()
+    bq = bqkv.to(dt).contiguous()
+    do = (dout @ wproj.to(dt).t()).contiguous()
+    bias32 = bias.to(torch.float32).contiguous()
+    heads = torch.empty_like(xw)
+    dqkv = torch.empty_like(xq)
+    # the windows split among groups of blocks, one partial each: enough
+    # blocks (groups x heads) to fill the card about TARGET_BLOCKS deep
+    groups = max(1, min(I, -(-TARGET_BLOCKS // nh)))
+    part = torch.empty(groups, nh * N * N, dtype=torch.float32,
+                       device=xw.device)
+    rc = _build.library().swin_attention_bwd(
+        xq.data_ptr(), bq.data_ptr(), do.data_ptr(), bias32.data_ptr(),
+        None if mask is None else mask.data_ptr(), heads.data_ptr(),
+        dqkv.data_ptr(), part.data_ptr(), I, C, M, groups,
+        float(math.sqrt(HEAD_DIM)), dtype_code(dt), stream(xw))
+    _build.check(rc, "swin_attention_bwd")
+    count("swin_attention_bwd")
+    dbias = col_sum(part).view(nh, N, N).to(bias.dtype)
+    return (*_dense_bwd(xw, wqkv, bqkv, wproj, bproj, dout, dqkv, heads),
+            dbias)

@@ -7,9 +7,12 @@ Counterpart of medical_tri_modal_pilot_tpu/kernels/swin_mlp.py
 w1 [C, 4C], w2 [4C, C]; x is [R, C].
 
 Training (the trainable trunk): a call that needs a gradient goes
-through ``_SwinMlp``, whose forward is the kernel and whose backward
-recomputes the plain version under autograd, as the JAX package's custom
-VJP takes ``jax.vjp`` of ``xla_swin_mlp`` (its ``_fused_bwd``).
+through ``_SwinMlp``, whose forward is the kernel and whose backward, on
+the card, is the backward kernels (``csrc/swin_mlp_bwd.cu``, the weight
+sums on ``csrc/wgrad.cu``), as the JAX package's custom VJP takes
+``jax.vjp`` of ``xla_swin_mlp`` (its ``_fused_bwd``). ``torch_swin_mlp_bwd``
+is that backward's closed form, rounded where the kernels round; on the
+CPU the gradient stays autograd of the plain version.
 ``torch_mlp_branch`` is the branch without the residual, which the
 blocks under stochastic depth run instead of the fused op (JAX
 ``mlp_branch``, plain XLA there too).
@@ -20,9 +23,14 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._util import count, needs_grad, recompute_grads, recomputes
+from ._util import (count, dtype_code, needs_grad, recompute_grads,
+                    recomputes, stream)
+from .wgrad import col_sum, wgrad
 
 LN_EPS = 1e-5
+# the backward's LayerNorm pass: blocks to aim for (about eight per SM of
+# an H100's 132), each at least 64 rows; one partial sum a block
+BWD_LN_BLOCKS, BWD_LN_MIN_ROWS = 1024, 64
 # the C entry point's routes: bf16 on the tensor cores, fused in one launch
 # (the tile loop of csrc/mlp_tc.cuh) or split in two (LN-fused fc1 + GELU
 # into a [R, 4C] scratch, then fc2 + residual); fp32 (the checking dtype)
@@ -102,6 +110,47 @@ def torch_mlp_branch(x, scale, bias, w1, b1, w2, b2) -> torch.Tensor:
     return _branch(x, scale, bias, w1, b1, w2, b2).to(x.dtype)
 
 
+def gelu_grad(h: torch.Tensor) -> torch.Tensor:
+    """GELU's derivative (exact erf form), as torch's GeluBackward:
+    Phi(h) + h phi(h)."""
+    cdf = 0.5 * (1.0 + torch.erf(h * 0.7071067811865476))
+    return cdf + h * torch.exp(-0.5 * h * h) * 0.3989422804014327
+
+
+def torch_swin_mlp_bwd(x, scale, bias, w1, b1, w2, b2, dy) -> tuple:
+    """The gradients of torch_swin_mlp's output for the cotangent ``dy``
+    [R, C] with respect to (x, scale, bias, w1, b1, w2, b2), each in its
+    input's dtype: the closed form the backward kernels compute, rounded
+    where they round (T the compute dtype, x's): ln = T(LN(x)), the
+    statistics in fp32 (biased variance); dg = T(dy w2^T); h = ln w1 + b1
+    in fp32, g = T(gelu(h)), dh = T(dg gelu'(h)); dln = T(dh w1^T); the
+    LayerNorm backward in fp32, dx = T(dy + T(dx_ln)); dscale = sum dln n,
+    dbias = sum dln; dw1 = T(ln^T dh), db1 = sum dh, dw2 = T(g^T dy), db2 =
+    sum dy, summed in fp32. Autograd of the plain version rounds at the
+    same points but keeps dh in fp32 (the kernels' weight sums read it in
+    T)."""
+    dt = x.dtype
+    f32 = lambda t: t.to(dt).float()
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    inv = torch.rsqrt(((xf - mu) ** 2).mean(-1, keepdim=True) + LN_EPS)
+    n = (xf - mu) * inv
+    ln = f32(n * scale.float() + bias.float())
+    dyf = dy.float()
+    dg = f32(dyf @ f32(w2).t())
+    h = ln @ f32(w1) + b1.float()
+    g = f32(F.gelu(h))
+    dh = f32(dg * gelu_grad(h))
+    dln = f32(dh @ f32(w1).t())
+    dn = dln * scale.float()
+    dx_ln = inv * (dn - dn.mean(-1, keepdim=True)
+                   - n * (dn * n).mean(-1, keepdim=True))
+    dx = (dyf + f32(dx_ln)).to(dt)
+    return (dx, (dln * n).sum(0).to(scale.dtype), dln.sum(0).to(bias.dtype),
+            f32(ln.t() @ dh).to(w1.dtype), dh.sum(0).to(b1.dtype),
+            f32(g.t() @ dyf).to(w2.dtype), dyf.sum(0).to(b2.dtype))
+
+
 def cuda_swin_mlp(x, scale, bias, w1, b1, w2, b2,
                   split: bool = False) -> torch.Tensor:
     """Launch the kernels of ``swin_mlp_route`` on a CUDA x [R, C] (fp32
@@ -113,9 +162,16 @@ def cuda_swin_mlp(x, scale, bias, w1, b1, w2, b2,
     return _launch_fwd(*args, split)
 
 
+def cuda_swin_mlp_bwd(x, scale, bias, w1, b1, w2, b2, dy) -> tuple:
+    """The backward kernels on CUDA tensors: torch_swin_mlp_bwd's
+    gradients (dx, dscale, dbias, dw1, db1, dw2, db2)."""
+    return _launch_bwd(x, scale, bias, w1, b1, w2, b2, dy)
+
+
 class _SwinMlp(torch.autograd.Function):
-    """The forward kernels; the backward recomputes torch_swin_mlp under
-    autograd (counted in ``recomputes``, not ``launches``)."""
+    """The forward kernels; the backward kernels on the card. On the CPU
+    (the tests' stand-in for the forward kernel) the backward recomputes
+    torch_swin_mlp under autograd, counted in ``recomputes``."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, w1, b1, w2, b2, split):
@@ -124,16 +180,20 @@ class _SwinMlp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        grads = recompute_grads(torch_swin_mlp, ctx.saved_tensors,
-                                ctx.needs_input_grad[:7], (), dout)
-        recomputes["swin_mlp_bwd"] += 1
+        needs = ctx.needs_input_grad[:7]
+        if dout.device.type == "cuda":
+            grads = _launch_bwd(*ctx.saved_tensors, dout)
+            grads = [g if n else None for g, n in zip(grads, needs)]
+        else:
+            grads = recompute_grads(torch_swin_mlp, ctx.saved_tensors, needs,
+                                    (), dout)
+            recomputes["swin_mlp_bwd"] += 1
         return (*grads, None)
 
 
-def _launch_fwd(x, scale, bias, w1, b1, w2, b2,
-                split: bool = False) -> torch.Tensor:
-    """The checks and the kernels' launches (the scratches the split
-    routes need are allocated here)."""
+def _operands(x, scale, bias, w1, b1, w2, b2, split: bool = False):
+    """(route, w1, w2 in x's dtype, scale, bias, b1, b2 in fp32), all
+    contiguous on x's card, after the checks both directions make."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"swin_mlp takes fp32 or bf16, got {x.dtype}")
     if x.dim() != 2:
@@ -159,7 +219,18 @@ def _launch_fwd(x, scale, bias, w1, b1, w2, b2,
         if t.device != x.device:
             raise ValueError(f"swin_mlp operands on {t.device}, x on "
                              f"{x.device}")
-    scale, bias, b1, b2 = vecs
+    return (route, w1, w2, *vecs)
+
+
+def _launch_fwd(x, scale, bias, w1, b1, w2, b2,
+                split: bool = False) -> torch.Tensor:
+    """The checks and the kernels' launches (the scratches the split
+    routes need are allocated here)."""
+    route, w1, w2, scale, bias, b1, b2 = _operands(x, scale, bias, w1, b1,
+                                                   w2, b2, split)
+    R, C = x.shape
+    Fh = w1.shape[-1]
+    dt = x.dtype
     y = torch.empty_like(x)
     if R == 0:
         return y
@@ -177,3 +248,42 @@ def _launch_fwd(x, scale, bias, w1, b1, w2, b2,
     _build.check(rc, "swin_mlp")
     count("swin_mlp")
     return y
+
+
+def _launch_bwd(x, scale, bias, w1, b1, w2, b2, dy) -> tuple:
+    """The backward on the card: the row passes of csrc/swin_mlp_bwd.cu
+    (ln, g, dh, dln, dx and the LN parameters' per-block sums), then the
+    weight sums on wgrad.cu and the blocks' sums added in order; each
+    gradient in its input's dtype, the weights' rounded to x's first, as
+    autograd of the plain version rounds them."""
+    params = (scale, bias, w1, b1, w2, b2)
+    _, w1c, w2c, sc, bi, b1c, _ = _operands(x, *params)
+    R, C = x.shape
+    Fh = w1c.shape[-1]
+    dt = x.dtype
+    if tuple(dy.shape) != (R, C) or dy.device != x.device:
+        raise ValueError(f"swin_mlp cotangent must be [{R}, {C}] on "
+                         f"{x.device}, got {list(dy.shape)} on {dy.device}")
+    if R == 0:
+        return (torch.zeros_like(x),
+                *(torch.zeros_like(t) for t in params))
+    dy = dy.to(dt).contiguous()
+    x = x.contiguous()
+    ln, dln, dx = (torch.empty_like(x) for _ in range(3))
+    g, dh = (torch.empty(R, Fh, dtype=dt, device=x.device) for _ in range(2))
+    ln_rows = max(BWD_LN_MIN_ROWS, -(-R // BWD_LN_BLOCKS))
+    gpart = torch.empty(-(-R // ln_rows), 2 * C, dtype=torch.float32,
+                        device=x.device)
+    rc = _build.library().swin_mlp_bwd(
+        x.data_ptr(), sc.data_ptr(), bi.data_ptr(), w1c.data_ptr(),
+        b1c.data_ptr(), w2c.data_ptr(), dy.data_ptr(), ln.data_ptr(),
+        g.data_ptr(), dh.data_ptr(), dln.data_ptr(), dx.data_ptr(),
+        gpart.data_ptr(), R, C, Fh, ln_rows, dtype_code(dt), stream(x))
+    _build.check(rc, "swin_mlp_bwd")
+    count("swin_mlp_bwd")
+    dw1, db1 = wgrad(ln, dh)
+    dw2, db2 = wgrad(g, dy)
+    ln_sums = col_sum(gpart)
+    return (dx, ln_sums[:C].to(scale.dtype), ln_sums[C:].to(bias.dtype),
+            dw1.to(dt).to(w1.dtype), db1.to(b1.dtype),
+            dw2.to(dt).to(w2.dtype), db2.to(b2.dtype))

@@ -22,7 +22,7 @@ CHUNK_ROWS = 64
 def slicing(R: int, Ka: int, Nb: int) -> Tuple[int, int]:
     """(rows per slice, slices): enough slices that the grid has about
     TARGET_BLOCKS blocks, each slice a whole number of CHUNK_ROWS rows."""
-    tiles = (Ka // 64) * (Nb // 64)
+    tiles = -(-Ka // 64) * -(-Nb // 64)
     slices = max(1, min(-(-TARGET_BLOCKS // tiles), -(-R // 256)))
     rows = -(-R // slices)
     rows = -(-rows // CHUNK_ROWS) * CHUNK_ROWS
@@ -42,8 +42,9 @@ def col_sum(part: torch.Tensor) -> torch.Tensor:
 def wgrad(a: torch.Tensor, b, valid: Optional[torch.Tensor] = None,
           flag_rows: Optional[int] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a [R, Ka], b [R, Nb], contiguous, one dtype -> (a^T b fp32 [Ka, Nb],
-    b.sum(0) fp32 [Nb]). ``b`` may also be a sequence of up to three
+    """a [R, Ka], b [R, Nb], contiguous, one dtype, Ka and Nb multiples
+    of 32 -> (a^T b fp32 [Ka, Nb], b.sum(0) fp32 [Nb]). ``b`` may also be
+    a sequence of up to three
     [R, Cs] arrays (Cs % 64 == 0) whose columns are b's, in order: one
     launch for the q, k and v cotangents. ``valid``: optional int8 flags on
     a's device, one per ``flag_rows`` consecutive rows (a multiple of
@@ -59,8 +60,11 @@ def wgrad(a: torch.Tensor, b, valid: Optional[torch.Tensor] = None,
         raise ValueError(f"wgrad operands {tuple(a.shape)} {a.dtype} and "
                          f"{[(tuple(t.shape), t.dtype) for t in bs]} do not "
                          f"match")
-    if Ka % 64 or Bcs % 64:
-        raise ValueError(f"wgrad takes widths that are multiples of 64, got "
+    if len(bs) > 1 and Bcs % 64:
+        raise ValueError(f"wgrad takes parts of b whose widths are multiples "
+                         f"of 64, got {Bcs}")
+    if Ka % 32 or Bcs % 32 or not Ka or not Bcs:
+        raise ValueError(f"wgrad takes widths that are multiples of 32, got "
                          f"{Ka} and {Bcs}")
     if a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"wgrad takes fp32 or bf16, got {a.dtype}")

@@ -13,7 +13,7 @@ plain PyTorch, as they stay outside the Pallas kernels in JAX.
 
 The trunk trains where the model says (``--img-pretrain No``,
 ``tri_mbt_v2``, ``fusiontrainer``): both ops are then autograd Functions
-(their backward the plain version's, recomputed), the relative-position
+(their backward the backward kernels on the card), the relative-position
 bias is gathered from its table under autograd, and in training mode
 block k of n drops its residual branches with probability 0.2 k / (n - 1)
 (torchvision's row-mode stochastic depth, JAX swin.py:152-194): one keep

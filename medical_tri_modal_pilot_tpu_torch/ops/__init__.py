@@ -9,19 +9,20 @@ hand-written kernel (or the launch raises; nothing falls back). Inside
 ``reference_path()`` CUDA tensors take the plain versions too, which is how
 the tests and ``chip_smoke.py`` build their oracle on the card. On the
 plain path the gradients are autograd of the plain versions; on the kernel
-path ``umse``, ``attn_block``, ``ffn``, ``attention`` and the two
-``rowskip`` projections are autograd Functions whose backward launches the
-backward kernels; ``swin_attention`` and ``swin_mlp`` (the trainable
-trunk) are autograd Functions whose backward recomputes the plain version
-under autograd, as the JAX package's custom VJPs do.
+path ``umse``, ``attn_block``, ``ffn``, ``attention``, the two
+``rowskip`` projections and ``swin_attention`` and ``swin_mlp`` (the
+trainable trunk) are autograd Functions whose backward launches the
+backward kernels.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it
 (kernels/_util.py); the backward kernels count as ``umse_bwd``,
-``attn_block_bwd``, ``ffn_bwd``, ``attention_bwd``, ``rowmm_ln_bwd`` and
-``rowmm_bwd``, the attention block under a 3-D block mask as
-``attn_block_3d`` and ``attn_block_3d_bwd``. ``recomputes`` counts the
-Swin backward passes (``swin_attention_bwd``, ``swin_mlp_bwd``), which
-launch no kernel of their own.
+``attn_block_bwd``, ``ffn_bwd``, ``attention_bwd``, ``rowmm_ln_bwd``,
+``rowmm_bwd``, ``swin_attention_bwd`` and ``swin_mlp_bwd``, the attention
+block under a 3-D block mask as ``attn_block_3d`` and
+``attn_block_3d_bwd``. ``recomputes`` counts the Swin backward passes
+that recompute the plain version under autograd instead: those of the
+Functions on CPU tensors (the tests' stand-in for the forward kernel); on
+the card it stays 0.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ the flagship's (d_head 64, C 256; Swin-T's C 96-768) and at the other
 model widths (C 128 and 512, d_head 128; the FFN's split route at 512):
 forwards, the
 backward kernels against autograd of the plain versions (the umse
-backward against its closed form, torch_umse_bwd), the dropout masks bit
+backward against its closed form, torch_umse_bwd; the Swin backwards
+against both), the dropout masks bit
 for bit; the masked attention of the cross-modal layers at
 every mask form; the attention block under the multitoken streams' 3-D
 block masks; and the small eval and train steps (vslt+txt, and
@@ -976,10 +977,9 @@ def test_swin_attention_kernel(dev, C, hw, images, shifted, prec):
 def test_swin_ops_train_through_their_functions(dev, C, hw, shifted, prec):
     """The trainable trunk's ops on the card: inputs that need a gradient
     take the autograd Function, whose forward is the kernel (one launch
-    counted) and whose backward recomputes the plain version (one
-    recompute counted): the output within TOL of the plain path, every
-    gradient the plain path's (the same autograd graph on the same saved
-    inputs: bit for bit)."""
+    counted) and whose backward is the backward kernel (one launch
+    counted, no recompute): the output within TOL of the plain path, every
+    gradient within GRAD_TOL of autograd of the plain version."""
     g = torch.Generator().manual_seed(7)
     dt = PRECS[prec]
     nh = C // 32
@@ -1008,13 +1008,124 @@ def test_swin_ops_train_through_their_functions(dev, C, hw, shifted, prec):
                 grads = torch.autograd.grad(out, leaves, cot)
             torch.cuda.synchronize()
             runs.append((out.float(), grads, ops.launches[name],
+                         ops.launches[name + "_bwd"],
                          ops.recomputes[name + "_bwd"]))
-        (out, grads, n, r), (ref, ref_grads, n_ref, r_ref) = runs
-        assert (n, r, n_ref, r_ref) == (1, 1, 0, 0), name
+        (out, grads, n, nb, r), (ref, ref_grads, n_ref, nb_ref, r_ref) = runs
+        assert (n, nb, r, n_ref, nb_ref, r_ref) == (1, 1, 0, 0, 0, 0), name
         torch.testing.assert_close(out, ref, **TOL[prec])
         for a, b in zip(grads, ref_grads):
-            torch.testing.assert_close(a.float(), b.float(), rtol=1e-5,
-                                       atol=1e-5)
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+        _assert_grads_close([a.float() for a in grads],
+                            [b.float() for b in ref_grads], prec,
+                            [f"{name}[{i}]" for i in range(len(grads))])
+
+
+# Swin-T's four stages at reduced windows and rows: (C, map side of the
+# shift mask or 0 for none, windows, MLP rows)
+SWIN_BWD_STAGES = [(96, 14, 8, 300), (192, 14, 8, 300), (384, 14, 4, 200),
+                   (768, 0, 3, 150)]
+
+
+def _swin_bwd_inputs(g, dev, C, side, I, R, dt):
+    nh = C // 32
+    smask = (torch.from_numpy(_shift_attn_mask(side, side, 7, 3)).to(dev)
+             if side else None)
+    wa = [_rand(g, dev, I, 49, C).to(dt),
+          _rand(g, dev, C, 3 * C, std=C ** -.5), _rand(g, dev, 3 * C, std=.1),
+          _rand(g, dev, C, C, std=C ** -.5), _rand(g, dev, C, std=.1),
+          _rand(g, dev, nh, 49, 49, std=.5)]
+    mlp = [_rand(g, dev, R, C).to(dt), _rand(g, dev, C, std=.1, mean=1.),
+           _rand(g, dev, C, std=.1), _rand(g, dev, C, 4 * C, std=C ** -.5),
+           _rand(g, dev, 4 * C, std=.1),
+           _rand(g, dev, 4 * C, C, std=(4 * C) ** -.5),
+           _rand(g, dev, C, std=.1)]
+    return nh, smask, wa, mlp
+
+
+# the kernel against its closed form (the same rounding points, sums in
+# another order): |kernel - closed form|_F / |closed form|_F per tensor
+SWIN_BWD_CLOSED_TOL = {"fp32": 1e-5, "bf16": 1e-2}
+
+
+@pytest.mark.parametrize("C,side,I,R", SWIN_BWD_STAGES)
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_swin_backward_kernels(dev, C, side, I, R, prec):
+    """The window attention's and the MLP's backward kernels at Swin-T's
+    stage widths (shifted where the stage shifts) against autograd of the
+    plain version (GRAD_TOL) and against their closed forms, and bit for
+    bit the same over two calls."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_attention import (
+        cuda_window_attention_bwd, torch_window_attention,
+        torch_window_attention_bwd)
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import (
+        cuda_swin_mlp_bwd, torch_swin_mlp_bwd)
+    g = torch.Generator().manual_seed(30 + C)
+    dt = PRECS[prec]
+    nh, smask, wa, mlp = _swin_bwd_inputs(g, dev, C, side, I, R, dt)
+    for name, plain, kernel, closed, args in (
+            ("swin_attention",
+             lambda *a: torch_window_attention(*a, smask, nh),
+             lambda *a: cuda_window_attention_bwd(*a[:-1], smask, nh, a[-1]),
+             lambda *a: torch_window_attention_bwd(*a[:-1], smask, nh,
+                                                   a[-1]), wa),
+            ("swin_mlp", torch_swin_mlp, cuda_swin_mlp_bwd,
+             torch_swin_mlp_bwd, mlp)):
+        cot = _rand(g, dev, *args[0].shape).to(dt)
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        want = torch.autograd.grad(plain(*leaves), leaves, cot)
+        ops.reset_launches()
+        got = kernel(*args, cot)
+        again = kernel(*args, cot)
+        ref = closed(*args, cot)
+        torch.cuda.synchronize()
+        assert ops.launches[name + "_bwd"] == 2, name
+        names = [f"{name}[{i}]" for i in range(len(got))]
+        for a, b, c in zip(got, want, again):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert torch.equal(a, c), name
+            assert torch.isfinite(a).all(), name
+        _assert_grads_close([a.float() for a in got],
+                            [b.float() for b in want], prec, names)
+        for a, b, n in zip(got, ref, names):
+            err = float((a.float() - b.float()).norm())
+            assert err <= SWIN_BWD_CLOSED_TOL[prec] * float(
+                b.float().norm()) + 1e-6, n
+
+
+def test_swin_backward_kernels_refuse_widths(dev):
+    """A width no kernel takes is refused by name before a launch."""
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_attention import \
+        cuda_window_attention_bwd
+    from medical_tri_modal_pilot_tpu_torch.kernels.swin_mlp import \
+        cuda_swin_mlp_bwd
+    g = torch.Generator().manual_seed(31)
+    _, _, wa, _ = _swin_bwd_inputs(g, dev, 64, 0, 2, 70, torch.float32)
+    with pytest.raises(ValueError, match="32-wide heads"):
+        cuda_window_attention_bwd(*wa, None, 4, torch.zeros_like(wa[0]))
+    mlp = [torch.zeros(70, 48, device=dev), torch.ones(48, device=dev),
+           torch.zeros(48, device=dev), torch.zeros(48, 192, device=dev),
+           torch.zeros(192, device=dev), torch.zeros(192, 48, device=dev),
+           torch.zeros(48, device=dev)]
+    with pytest.raises(ValueError, match="C % 32"):
+        cuda_swin_mlp_bwd(*mlp, torch.zeros(70, 48, device=dev))
+    ops.reset_launches()
+    assert ops.launches["swin_attention_bwd"] == 0
+    assert ops.launches["swin_mlp_bwd"] == 0
+
+
+@pytest.mark.parametrize("Ka,Nb", [(96, 384), (384, 96), (192, 160)])
+@pytest.mark.parametrize("prec", list(PRECS))
+def test_wgrad_at_widths_of_32(dev, Ka, Nb, prec):
+    """The weight sums over widths that are no multiple of the 64-column
+    tile (the Swin MLP's C 96 and 192)."""
+    g = torch.Generator().manual_seed(32)
+    a = _rand(g, dev, 1000, Ka).to(PRECS[prec])
+    b = _rand(g, dev, 1000, Nb).to(PRECS[prec])
+    dw, db = wgrad(a, b)
+    torch.testing.assert_close(dw, a.double().t() @ b.double(),
+                               atol=1e-3, rtol=1e-4, check_dtype=False)
+    torch.testing.assert_close(db, b.double().sum(0), atol=1e-3, rtol=1e-4,
+                               check_dtype=False)
 
 
 def test_stochastic_depth_masks_on_the_card(dev):
@@ -1489,7 +1600,8 @@ def test_tensor_core_kernels_compile_to_mma(dev):
                    "attention_dkv_tc_kernel", "attention_dq_tc_kernel",
                    "ffn_fwd_tc_kernel", "swin_mlp_tc_kernel",
                    "swin_fc1_tc_kernel", "rowmm_tc_kernel",
-                   "rowmm_bwd_tc_kernel", "wg_gemm_kernel"):
+                   "rowmm_bwd_tc_kernel", "wg_gemm_kernel",
+                   "window_attn_bwd_tc_kernel"):
         found = {n: c for n, c in code.items() if kernel in n}
         assert found, f"{kernel} not in the library"
         for name, text in found.items():
